@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels in ``umhs_torch/csrc``.
+
+Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface (no PyTorch headers) and loaded with
+``ctypes``. Libraries live in ``umhs_torch/_build/`` under a name keyed by a
+hash of the source, the shared headers and the flags, so an edited source is
+rebuilt and an unchanged one is reused. The first use of any kernel compiles
+every source, one ``nvcc`` process per source, all started together. Nothing
+is compiled or loaded when a module is imported.
+
+Each `Kernel` counts its own launches in ``launches``: its wrapper adds one
+after every launch that returned no error, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(source: str) -> Path:
+    """Build-output path of one source, keyed by its content and the flags."""
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / source] + sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every source whose library is missing, in parallel.
+
+    Returns {source: ptxas report} for the sources compiled by this call.
+    Raises with nvcc's output if any compile fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        out = library_path(src.name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs[src.name] = (proc, tmp, out)
+    reports, failures = {}, []
+    for name, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = log
+    if failures:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failures))
+    return reports
+
+
+class Kernel:
+    """One exported launcher of a compiled source, with its launch count."""
+
+    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._lib = None
+        self._fn = None
+        KERNELS[symbol] = self
+
+    def _load(self):
+        path = library_path(self.source)
+        if not path.exists():
+            build_all()
+        self._lib = ctypes.CDLL(str(path))
+        self._lib.umhs_error_string.argtypes = [ctypes.c_int]
+        self._lib.umhs_error_string.restype = ctypes.c_char_p
+        fn = getattr(self._lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+
+    def launch(self, *args) -> None:
+        """Call the launcher; raise on a non-zero cudaError_t, else count."""
+        if self._fn is None:
+            self._load()
+        err = self._fn(*args)
+        if err != 0:
+            msg = self._lib.umhs_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol} failed: cudaError {err} ({msg})")
+        self.launches += 1
+
+
+KERNELS: Dict[str, Kernel] = {}
+
