@@ -5,12 +5,14 @@ import ast
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import umhs_torch
+from umhs_torch.data.datamanager import InMemoryDataManager
 from umhs_torch.engine.trainer import Trainer, TrainerConfig
-from umhs_torch.models.model import ModelConfig
+from umhs_torch.models.model import ModelConfig, UMHSModel
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "umhs_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -43,6 +45,8 @@ def test_no_jax_or_umhs_tpu_imports(path):
 def test_the_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"umhs_torch/ops/mlp_fused.py", "umhs_torch/ops/encodings.py",
+            "umhs_torch/ops/activations.py", "umhs_torch/ops/occupancy.py",
+            "umhs_torch/data/datamanager.py", "umhs_torch/models/model.py",
             "umhs_torch/engine/trainer.py", "chip_smoke.py"} <= names
 
 
@@ -52,15 +56,21 @@ def test_cuda_is_refused_without_a_card(monkeypatch):
         umhs_torch.resolve_device("cuda")
     with pytest.raises(RuntimeError):
         Trainer(TrainerConfig(), ModelConfig(), [], num_classes=3, num_images=1)
+    with pytest.raises(RuntimeError):  # the model's own default is the card too
+        UMHSModel(ModelConfig(), [], num_classes=3, num_images=1)
+    with pytest.raises(RuntimeError):
+        InMemoryDataManager(np.zeros((1, 2, 2, 3), np.float32), None)
     assert umhs_torch.resolve_device("cpu").type == "cpu"
 
 
 def test_kernel_sources_are_in_the_package():
     from umhs_torch.ops import _native
-    from umhs_torch.ops.encodings import HASH_ENCODE_FWD
-    from umhs_torch.ops.mlp_fused import MLP_FUSED_FWD
+    from umhs_torch.ops.encodings import HASH_ENCODE_BWD, HASH_ENCODE_FWD
+    from umhs_torch.ops.mlp_fused import MLP_FUSED_BWD, MLP_FUSED_FWD
 
-    for k in (MLP_FUSED_FWD, HASH_ENCODE_FWD):
+    assert sorted(_native.KERNELS) == sorted(
+        k.symbol for k in (MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD, HASH_ENCODE_BWD))
+    for k in (MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD, HASH_ENCODE_BWD):
         assert (_native.CSRC_DIR / k.source).is_file()
         assert _native.KERNELS[k.symbol] is k
         text = (_native.CSRC_DIR / k.source).read_text()

@@ -56,7 +56,8 @@ def _np(t):
 @pytest.fixture(scope="module")
 def slice_state():
     jm = JModel(JModelConfig(**MODEL_KW), WAVELENGTHS, num_classes=6, num_images=4)
-    tm = TModel(TModelConfig(**MODEL_KW), WAVELENGTHS, num_classes=6, num_images=4)
+    tm = TModel(TModelConfig(**MODEL_KW), WAVELENGTHS, num_classes=6, num_images=4,
+                device="cpu")
     params, occ0 = jm.init(jax.random.PRNGKey(0))
     lay = params["mlp_base"]["layers"]
     params = dict(params, hash_table=params["hash_table"] * 1e4,
@@ -269,7 +270,7 @@ def test_forward_matches(slice_state, budget, shift):
 def test_forward_uncompacted_matches(slice_state):
     kw = dict(MODEL_KW, compact_samples=False)
     jm = JModel(JModelConfig(**kw), WAVELENGTHS, num_classes=6, num_images=4)
-    tm = TModel(TModelConfig(**kw), WAVELENGTHS, num_classes=6, num_images=4)
+    tm = TModel(TModelConfig(**kw), WAVELENGTHS, num_classes=6, num_images=4, device="cpu")
     rays = _rays(slice_state, n=64)
     jo = jax.jit(lambda p, o, r: jm.forward(p, o, r, rng=None, train=False,
                                             step=jnp.int32(STEP)))(
@@ -284,7 +285,7 @@ def test_forward_uncompacted_matches(slice_state):
 def test_blend_background_matches(slice_state, background):
     kw = dict(MODEL_KW, background_color=background)
     jm = JModel(JModelConfig(**kw), WAVELENGTHS, num_classes=6, num_images=4)
-    tm = TModel(TModelConfig(**kw), WAVELENGTHS, num_classes=6, num_images=4)
+    tm = TModel(TModelConfig(**kw), WAVELENGTHS, num_classes=6, num_images=4, device="cpu")
     img = np.random.default_rng(15).uniform(size=(7, 5, 4)).astype(np.float32)
     np.testing.assert_allclose(_np(tm.blend_background(torch.from_numpy(img))),
                                np.asarray(jm.blend_background(jnp.asarray(img))), atol=1e-7)

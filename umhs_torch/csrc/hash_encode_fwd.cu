@@ -6,37 +6,24 @@
 // out by hand; this kernel plays the role tiny-cuda-nn's HashGrid had in the
 // original system.
 //
-// One thread per (sample, level): s = x * scale_l + 0.5, floor and frac per
-// axis, then either the 4 tetrahedral vertices (ranks of the three fracs,
-// ties broken by axis order exactly as encodings.py:400-403) or the 8
-// trilinear corners. Corner coordinates are clipped to res_l - 1; the row is
-// the dense linear index when res_l^3 fits the hashmap, else the XOR-prime
-// hash in wrapping uint32 masked to the hashmap size; plus the level offset.
-// Each row's F features come in one vector load and sum_v w_v * row_v is
-// accumulated in f32 into out[n, l * F + f].
+// One thread per (sample, level): the vertex rows and weights come from
+// umhs::hash_vertices (hash_grid.cuh, shared with K4's backward). Each row's
+// F features come in one vector load and sum_v w_v * row_v is accumulated in
+// f32 into out[n, l * F + f].
 //
 // What bounds it on an H100: random row gathers. At L16xF2 2^19 the table is
 // 48.8 MB, which nearly fits the 50 MB L2; each vertex touches one 32-byte
 // sector for 8 useful bytes. Threads of one sample sit next to each other so
 // the position loads are shared and the output row is written contiguously.
-// The scale multiply and the +0.5 are kept as two roundings (no FMA) so the
-// cell choice is the same as in the plain version.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hash_grid.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
-
-struct Levels {
-  float scale[kMaxLevels];
-  int res[kMaxLevels];
-  int offset[kMaxLevels];
-  int dense[kMaxLevels];
-  uint32_t hash_mask;  // hashmap_size - 1 (a power of two)
-};
+using umhs::Levels;
 
 template <int F>
 struct Row;
@@ -80,18 +67,6 @@ struct Row<8> {
   }
 };
 
-__device__ __forceinline__ uint32_t row_index(int cx, int cy, int cz, int res,
-                                              bool dense, uint32_t mask) {
-  const uint32_t x = cx, y = cy, z = cz;
-  if (dense) {
-    const uint32_t r = res;
-    return x + y * r + z * r * r;
-  }
-  return (x * 1u ^ y * 2654435761u ^ z * 805459861u) & mask;
-}
-
-__device__ __forceinline__ int clip(int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
-
 template <int F, bool kTetra>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ table,
@@ -100,56 +75,16 @@ hash_encode_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ 
   if (t >= n * L) return;
   const int64_t s = t / L;
   const int l = static_cast<int>(t - s * L);
-  const float scale = lv.scale[l];
-  const int res_m1 = lv.res[l] - 1;
-  const bool dense = lv.dense[l] != 0;
-
-  int b[3];
-  float f[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float sa = __fadd_rn(__fmul_rn(__ldg(pos + 3 * s + a), scale), 0.5f);
-    const float fl = floorf(sa);
-    b[a] = static_cast<int>(fl);
-    f[a] = __fsub_rn(sa, fl);
-  }
-
+  const float p[3] = {__ldg(pos + 3 * s), __ldg(pos + 3 * s + 1), __ldg(pos + 3 * s + 2)};
+  constexpr int V = kTetra ? 4 : 8;
+  uint32_t rows[V];
+  float w[V];
+  umhs::hash_vertices<kTetra>(p, l, lv, rows, w);
   float acc[F];
 #pragma unroll
   for (int i = 0; i < F; ++i) acc[i] = 0.f;
-  const uint32_t off = static_cast<uint32_t>(lv.offset[l]);
-
-  if (kTetra) {
-    // ranks 0..2 (0 = largest frac), ties broken by axis order
-    const int rx = (f[0] < f[1]) + (f[0] < f[2]);
-    const int ry = (f[1] <= f[0]) + (f[1] < f[2]);
-    const int rz = (f[2] <= f[0]) + (f[2] <= f[1]);
-    const float fmax = fmaxf(f[0], fmaxf(f[1], f[2]));
-    const float fmin = fminf(f[0], fminf(f[1], f[2]));
-    const float fmid = __fsub_rn(__fsub_rn(__fadd_rn(__fadd_rn(f[0], f[1]), f[2]), fmax), fmin);
-    const float w[4] = {__fsub_rn(1.f, fmax), __fsub_rn(fmax, fmid), __fsub_rn(fmid, fmin), fmin};
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int cx = clip(b[0] + (rx < v), res_m1);
-      const int cy = clip(b[1] + (ry < v), res_m1);
-      const int cz = clip(b[2] + (rz < v), res_m1);
-      const uint32_t idx = row_index(cx, cy, cz, lv.res[l], dense, lv.hash_mask) + off;
-      Row<F>::add(table, idx, w[v], acc);
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int ox = c & 1, oy = (c >> 1) & 1, oz = (c >> 2) & 1;
-      const float wx = ox ? f[0] : __fsub_rn(1.f, f[0]);
-      const float wy = oy ? f[1] : __fsub_rn(1.f, f[1]);
-      const float wz = oz ? f[2] : __fsub_rn(1.f, f[2]);
-      const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
-      const uint32_t idx = row_index(clip(b[0] + ox, res_m1), clip(b[1] + oy, res_m1),
-                                     clip(b[2] + oz, res_m1), lv.res[l], dense,
-                                     lv.hash_mask) + off;
-      Row<F>::add(table, idx, w, acc);
-    }
-  }
+  for (int v = 0; v < V; ++v) Row<F>::add(table, rows[v], w[v], acc);
 
   float* o = out + t * F;  // out[s, l * F + f], since t = s * L + l
 #pragma unroll
@@ -177,17 +112,10 @@ extern "C" int umhs_hash_encode_fwd(const float* pos, const float* table, float*
                                     int64_t n, int L, int F, const float* scales,
                                     const int* res, const int* offsets, const int* dense,
                                     int log2_hashmap_size, int tetrahedral, void* stream) {
-  if (L < 1 || L > kMaxLevels || n < 0 || log2_hashmap_size < 1 || log2_hashmap_size > 31)
+  Levels lv;
+  if (n < 0 || !umhs::fill_levels(lv, L, scales, res, offsets, dense, log2_hashmap_size))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  Levels lv{};
-  for (int l = 0; l < L; ++l) {
-    lv.scale[l] = scales[l];
-    lv.res[l] = res[l];
-    lv.offset[l] = offsets[l];
-    lv.dense[l] = dense[l];
-  }
-  lv.hash_mask = (1u << log2_hashmap_size) - 1u;
   auto s = static_cast<cudaStream_t>(stream);
   const bool tetra = tetrahedral != 0;
   switch (F) {

@@ -12,6 +12,9 @@
   head over (SH(dir), geo_feat).
 
 Parameters are a plain dict with the JAX package's names and layouts.
+`clamp_endmembers` is the after-step callback that keeps the endmembers in
+[0, 1]; the hash grid's stochastic backward is set by
+`FieldConfig.hash.stochastic_grad`.
 """
 
 from __future__ import annotations
@@ -227,3 +230,13 @@ def field_outputs(
         out["spectral"] = spec
     out["abundances"] = abundances
     return out
+
+
+def clamp_endmembers(params):
+    """After each optimizer step: clamp the endmember matrix to [0, 1]
+    (umhs_tpu/models/field.py:387-393), in place so the optimizer keeps
+    its parameter tensors."""
+    if "endmembers" in params:
+        with torch.no_grad():
+            params["endmembers"].clamp_(0.0, 1.0)
+    return params

@@ -9,8 +9,11 @@ budgets are given), runs the field there, composites weights, accumulates
 spectra, abundances, depth and opacity per ray, projects the spectrum to RGB
 and segments it against the endmembers.
 
-This slice is the render path: the loss, the proposal sampler and training
-come later.
+The training side: `forward(train=True, t_jitter=...)` marches with a
+per-ray start jitter and looks up the train appearance vector; `loss` takes
+its random background as an argument; `metrics`, `post_step` (endmember
+clamp), `occ_update_due` and `update_occupancy(full=...)` mirror the JAX
+model. The proposal sampler and the DINO head come later.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..ops.compositing import (
     accumulate,
     render_accumulation,
@@ -29,16 +33,29 @@ from ..ops.compositing import (
     segment_accumulate,
 )
 from ..ops.encodings import HashEncodingConfig
-from ..ops.occupancy import OccGridConfig, init_occ_state, update_occ_state
+from ..ops.occupancy import (
+    OccGridConfig,
+    init_occ_state,
+    occ_update_due,
+    partial_cells,
+    update_occ_state,
+)
 from ..ops.ray_marching import MarchConfig, march_rays, sample_positions
 from ..ops.spec_to_rgb import ColourSystem
 from ..utils.clusterprobe import cluster_probe, label_to_rgb
-from .field import FieldConfig, density_fn, field_density, field_outputs, init_field_params
+from .field import (
+    FieldConfig,
+    clamp_endmembers,
+    density_fn,
+    field_density,
+    field_outputs,
+    init_field_params,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The render-path fields of umhs_tpu's ModelConfig, same defaults."""
+    """The occgrid fields of umhs_tpu's ModelConfig, same defaults."""
 
     method: str = "rgb"  # rgb | spectral | rgb+spectral
     grid_resolution: int = 128
@@ -56,6 +73,8 @@ class ModelConfig:
     use_gradient_scaling: bool = True
     background_color: str = "random"  # random | black | white | last_sample
     disable_scene_contraction: bool = False
+    rgb_loss_weight: float = 1.0
+    spectral_loss_weight: float = 5.0
     temperature: float = 0.2
     pred_specular: bool = False
     specular_ramp_steps: int = 1000
@@ -63,11 +82,13 @@ class ModelConfig:
     num_candidates: int = 1024
     max_samples_per_ray: int = 96
     occ_subsamples: int = 4
+    occ_warmup_full_every: int = 1
     march_pool: int = 4
     early_stop_eps: float = 1e-4
     march_early_stop_od: float = 0.0
     march_early_stop_warmup: int = 512
     compute_dtype: str = "float32"  # or "bfloat16"
+    stochastic_hash_grad: bool = True  # one-vertex gradient splatting
     compact_samples: bool = True
     compact_fraction: float = 0.5
     stage_samples: int = 16
@@ -92,10 +113,10 @@ class UMHSModel:
         num_classes: int,
         num_images: int,
         scene_scale: float = 1.0,
-        device="cpu",
+        device="cuda",
     ):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.wavelengths = list(wavelengths) if wavelengths is not None else []
         self.num_classes = num_classes
         self.num_images = num_images
@@ -116,6 +137,7 @@ class UMHSModel:
             aabb_min=aabb_min,
             aabb_max=aabb_max,
             pool=pool,
+            warmup_full_every=config.occ_warmup_full_every,
         )
         self.march_config = MarchConfig(
             num_candidates=config.num_candidates,
@@ -145,6 +167,7 @@ class UMHSModel:
                 log2_hashmap_size=config.log2_hashmap_size,
                 max_resolution=config.max_res,
                 interpolation=config.hash_interpolation,
+                stochastic_grad=config.stochastic_hash_grad,
             ),
             compute_dtype=(torch.bfloat16 if config.compute_dtype == "bfloat16"
                            else torch.float32),
@@ -160,12 +183,25 @@ class UMHSModel:
         params = init_field_params(generator, self.field_config, endmembers_init, self.device)
         return params, init_occ_state(self.occ_config, self.device)
 
-    def update_occupancy(self, occ_state, params, jitter: torch.Tensor):
-        """Full occupancy update with the given (levels * res^3, 3) jitter."""
+    def update_occupancy(self, occ_state, params, jitter: torch.Tensor, full: bool = True,
+                         cell_draws=None):
+        """Occupancy EMA update with the given jitter: full (jitter
+        (levels * res^3, 3)), or partial at the cells `partial_cells` makes
+        from `cell_draws` (jitter (M, 3))."""
+        cells = None if full else partial_cells(occ_state, self.occ_config, cell_draws)
         return update_occ_state(
             occ_state, self.occ_config, density_fn(params, self.field_config),
-            self.render_step_size, jitter,
+            self.render_step_size, jitter, cells=cells,
         )
+
+    def occ_update_due(self, step: int) -> Tuple[bool, bool]:
+        """(due, full) at `step` (nerfacc's schedule with warmup thinning)."""
+        return occ_update_due(step, self.occ_config)
+
+    @staticmethod
+    def post_step(params):
+        """After each optimizer step: clamp the endmembers to [0, 1]."""
+        return clamp_endmembers(params)
 
     def _compact_budget(self, num_rays: int, num_samples: int) -> int:
         """Compact-buffer size, 256-aligned."""
@@ -188,9 +224,16 @@ class UMHSModel:
         rays: Dict[str, torch.Tensor],
         compact_budget: Optional[Union[int, Sequence[int]]] = None,
         step: Optional[int] = None,
+        train: bool = False,
+        t_jitter: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Render rays {"origins", "directions" (R, 3), "camera_indices" (R,)}:
-        the eval forward (deterministic march, eval appearance vector).
+        """Render rays {"origins", "directions" (R, 3), "camera_indices" (R,)}.
+
+        train=False is the eval forward (deterministic march, eval
+        appearance vector); train=True marches with each ray's start shifted
+        by t_jitter (R,) in [0, 1) times the step size (the JAX package draws
+        it as uniform(k_march, (R,))) and looks up the train appearance
+        vector of each ray's camera.
 
         compact_budget: one budget (single-stage compact evaluation), or one
         per stage of active_stage_boundaries(S) (staged evaluation with an
@@ -216,6 +259,7 @@ class UMHSModel:
                       else float("inf"))
         march = march_rays(
             occ_state, self.occ_config, march_cfg, o, d,
+            t_jitter=t_jitter if train else None,
             total_budget=(sum(B) if multi else B) if compact else None,
             early_stop_od_value=od_val,
         )
@@ -260,7 +304,7 @@ class UMHSModel:
                 ray_id = src // L
                 density_c, geo_c = field_density(params, fc, pos_c)
                 heads_c = field_outputs(params, fc, pos_c, d_unit[ray_id], cam_idx[ray_id],
-                                        geo_c, train=False, step=step)
+                                        geo_c, train=train, step=step)
                 if cfg.use_gradient_scaling:
                     scaling_c = torch.clamp(tmid[:, lo:hi].reshape(-1)[src] ** 2, 0.0, 1.0)
                     density_c = _grad_scale(density_c, scaling_c)
@@ -308,7 +352,7 @@ class UMHSModel:
             flat_dirs = d_unit[:, None, :].expand(R, S, 3).reshape(-1, 3)
             flat_cam = cam_idx[:, None].expand(R, S).reshape(-1)
             heads = field_outputs(params, fc, flat_pos, flat_dirs, flat_cam, geo_feat,
-                                  train=False, step=step)
+                                  train=train, step=step)
             heads = {k: v.reshape(R, S, -1) for k, v in heads.items()}
             if cfg.use_gradient_scaling:
                 scaling = torch.clamp(((t_starts + t_ends) / 2.0) ** 2, 0.0, 1.0)
@@ -353,6 +397,77 @@ class UMHSModel:
             outputs["seg_raw"] = (labels.float() * acc_if[:, 0]).detach()
             outputs["seg_pred"] = (label_to_rgb(labels) * acc_if).detach()
         return outputs
+
+    def loss(
+        self,
+        outputs: Dict[str, torch.Tensor],
+        batch: Dict[str, torch.Tensor],
+        background: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Loss terms (umhs_tpu/models/model.py:783-840); their sum is the
+        training loss. `background` (R, 3) is the random background colour
+        (the JAX package draws it as uniform(k_bg, (R, 3))), needed when
+        background_color is "random"."""
+        cfg = self.config
+        pred_rgb, gt_rgb = self._blend_background_for_loss(
+            outputs["rgb"], outputs["accumulation"], batch["image"], background)
+        if cfg.method == "rgb":
+            return {"rgb_loss": torch.mean((pred_rgb - gt_rgb) ** 2)}
+        spectral_mse = torch.mean((outputs["spectral"] - batch["hs_image"]) ** 2)
+        if cfg.method == "spectral":
+            return {"spectral_loss": spectral_mse}
+        if cfg.method == "rgb+spectral":
+            return {
+                "spectral_loss": cfg.spectral_loss_weight * spectral_mse,
+                "rgb_loss": cfg.rgb_loss_weight * torch.mean((pred_rgb - gt_rgb) ** 2),
+            }
+        raise ValueError(f"unknown method {cfg.method}")
+
+    def _blend_background_for_loss(self, pred_rgb, accumulation, gt_image, background):
+        """pred += bg * (1 - acc); RGBA ground truth composited over the same
+        bg (black for black/last_sample, with no blending of pred)."""
+        gt_rgb = gt_image[..., :3]
+        opacity = gt_image[..., 3:4] if gt_image.shape[-1] == 4 else None
+        mode = self.config.background_color
+        if mode in ("random", "white"):
+            if mode == "random":
+                if background is None:
+                    raise ValueError("background_color 'random' needs the background colours")
+                bg = background.to(pred_rgb.dtype)
+            else:
+                bg = torch.ones_like(pred_rgb)
+            pred_rgb = pred_rgb + bg * (1.0 - accumulation)
+        else:
+            bg = torch.zeros_like(pred_rgb)
+        if opacity is not None:
+            gt_rgb = gt_rgb * opacity + bg * (1.0 - opacity)
+        return pred_rgb, gt_rgb
+
+    def metrics(
+        self, outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]
+    ) -> Dict[str, torch.Tensor]:
+        """PSNR and RMSE against the ground truth over black, sample counts,
+        the p99 of occupied candidates per ray (linear interpolation, as
+        jnp.percentile) and the spectral PSNR/RMSE (model.py:872-898)."""
+        gt_rgb = self.blend_background(batch["image"])
+        mse = torch.mean((outputs["rgb"] - gt_rgb) ** 2)
+        m = {
+            "psnr": -10.0 * torch.log10(torch.clamp_min(mse, 1e-12)),
+            "rmse": torch.sqrt(mse),
+            "num_samples_per_batch": torch.sum(outputs["num_samples_per_ray"]),
+        }
+        if "num_occupied_per_ray" in outputs:
+            m["num_occupied_p99"] = torch.quantile(
+                outputs["num_occupied_per_ray"].float(), 0.99)
+        i = 1
+        while f"num_eval_s{i}_per_ray" in outputs:
+            m[f"num_eval_s{i}_per_batch"] = torch.sum(outputs[f"num_eval_s{i}_per_ray"])
+            i += 1
+        if "spectral" in self.config.method and "hs_image" in batch:
+            mse_s = torch.mean((outputs["spectral"] - batch["hs_image"]) ** 2)
+            m["psnr_spectral"] = -10.0 * torch.log10(torch.clamp_min(mse_s, 1e-12))
+            m["rmse_spectral"] = torch.sqrt(mse_s)
+        return m
 
     def blend_background(self, image: torch.Tensor) -> torch.Tensor:
         """RGBA ground truth over black (white for a white background)."""

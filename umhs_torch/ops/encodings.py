@@ -3,10 +3,13 @@
 - `nerf_encoding`: sin/cos frequency features.
 - `sh_encoding`: real spherical harmonics up to degree 4, closed form.
 - The multi-resolution hash grid: `HashEncodingConfig`, `init_hash_table`,
-  the readable `hash_encode_reference`, and `hash_encode`, whose forward is
-  K3 (``csrc/hash_encode_fwd.cu``) on a CUDA tensor and its plain version
-  `hash_encode_plain` on a CPU tensor. The table is flat, (T * F,), feature
-  interleaved, as in the JAX package.
+  the readable `hash_encode_reference`, and `hash_encode`, an autograd
+  Function whose forward is K3 (``csrc/hash_encode_fwd.cu``) and whose
+  backward is K4 (``csrc/hash_encode_bwd.cu``) on a CUDA tensor, and their
+  plain versions `hash_encode_plain` and `hash_encode_bwd_plain` on a CPU
+  tensor. The table is flat, (T * F,), feature interleaved, as in the JAX
+  package. The forward saves only the positions (the JAX residual) and the
+  positions get no gradient, as in the JAX custom VJP.
 
 Indices are computed in int64. The XOR-prime hash wraps in uint32 on the
 TPU and in the kernel, so the plain versions mask it with 0xFFFFFFFF before
@@ -94,6 +97,9 @@ class HashEncodingConfig:
     max_resolution: int = 2048
     # "trilinear" = 8 cube corners; "tetrahedral" = 4 simplex vertices
     interpolation: str = "trilinear"
+    # backward splats each (sample, level) gradient onto one vertex, drawn
+    # with probability equal to its weight, instead of onto all V
+    stochastic_grad: bool = True
 
     @property
     def verts_per_cell(self) -> int:
@@ -281,6 +287,84 @@ def hash_encode_plain(
     return out.reshape(pos.shape[0], config.output_dim)
 
 
+_HASH_U_DOT = tuple(float(np.float32(c)) for c in (12.9898, 78.233, 37.719))
+_HASH_U_SCALE = float(np.float32(43758.5453))
+_HASH_U_LEVEL = float(np.float32(0.6180339887))
+
+
+def level_uniforms(pos: torch.Tensor, num_levels: int) -> torch.Tensor:
+    """The stochastic backward's uniform variate per (sample, level), (N, L):
+    u = frac(sin(p . c) * 43758.5453), u_l = frac(u + l * 0.6180339887)
+    (encodings.py:529-536), with the dot as ((x c0 + y c1) + z c2) in
+    separate f32 roundings so that K4 computes the same bits."""
+    c0, c1, c2 = _HASH_U_DOT
+    dot = (pos[:, 0] * c0 + pos[:, 1] * c1) + pos[:, 2] * c2
+    u = torch.remainder(torch.sin(dot) * _HASH_U_SCALE, 1.0)
+    lv = torch.arange(num_levels, dtype=torch.float32, device=pos.device) * _HASH_U_LEVEL
+    return torch.remainder(u[:, None] + lv[None, :], 1.0)
+
+
+def stochastic_vertex(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Index of the vertex each (sample, level) splats onto: the first v with
+    u < w_0 + ... + w_v (running f32 sums), else the last one, so exactly
+    one vertex is chosen. weights (N, L, V), u (N, L) -> (N, L) int64."""
+    V = weights.shape[-1]
+    sel = torch.full(u.shape, V - 1, dtype=torch.int64, device=u.device)
+    found = torch.zeros(u.shape, dtype=torch.bool, device=u.device)
+    cum = weights[..., 0]
+    for v in range(V):
+        if v > 0:
+            cum = cum + weights[..., v]
+        take = (u < cum) & ~found
+        sel = torch.where(take, v, sel)
+        found = found | take
+    return sel
+
+
+def hash_encode_bwd_plain(
+    pos: torch.Tensor, g: torch.Tensor, config: HashEncodingConfig, stochastic: bool
+) -> torch.Tensor:
+    """Plain version of K4: the gradient (T * F,) of the flat table for the
+    output gradient g (N, L * F) at positions (N, 3).
+
+    Deterministic: each vertex gets w_v * g. Stochastic: one vertex per
+    (sample, level), chosen by `stochastic_vertex`, gets g."""
+    n, L, F = pos.shape[0], config.num_levels, config.features_per_level
+    idx, weights = hash_indices_weights(pos, config)  # (N, L, V)
+    g = g.reshape(n, L, F).float()
+    feat = torch.arange(F, device=pos.device)
+    grad = torch.zeros(config.table_size * F, dtype=torch.float32, device=pos.device)
+    if stochastic:
+        v = stochastic_vertex(weights, level_uniforms(pos, L))
+        rows = torch.gather(idx, 2, v[..., None])[..., 0]  # (N, L)
+        grad.index_add_(0, (rows[..., None] * F + feat).reshape(-1), g.reshape(-1))
+    else:
+        contrib = weights[..., None] * g[:, :, None, :]  # (N, L, V, F)
+        grad.index_add_(0, (idx[..., None] * F + feat).reshape(-1), contrib.reshape(-1))
+    return grad
+
+
+def _level_args(config: HashEncodingConfig):
+    L = config.num_levels
+    return (
+        (ctypes.c_float * L)(*np.asarray(config.scales, np.float32).tolist()),
+        (ctypes.c_int * L)(*config.resolutions),
+        (ctypes.c_int * L)(*config.level_offsets),
+        (ctypes.c_int * L)(*[int(d) for d in config.dense]),
+        config.log2_hashmap_size,
+        int(config.interpolation == "tetrahedral"),
+    )
+
+
+def _check_positions(name: str, pos: torch.Tensor, config: HashEncodingConfig) -> None:
+    if pos.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {pos.device}")
+    if pos.dtype != torch.float32 or pos.dim() != 2 or pos.shape[1] != 3 or not pos.is_contiguous():
+        raise ValueError(f"{name}: positions must be a contiguous (N, 3) float32 tensor")
+    if config.features_per_level not in (1, 2, 4, 8) or config.num_levels > 32:
+        raise ValueError(f"{name}: F must be 1, 2, 4 or 8 and L <= 32")
+
+
 HASH_ENCODE_FWD = Kernel(
     "hash_encode_fwd.cu",
     "umhs_hash_encode_fwd",
@@ -288,6 +372,15 @@ HASH_ENCODE_FWD = Kernel(
      ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
      ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+)
+HASH_ENCODE_BWD = Kernel(
+    "hash_encode_bwd.cu",
+    "umhs_hash_encode_bwd",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+     ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
+     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+     ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p],
 )
 
 
@@ -297,31 +390,65 @@ def hash_encode_fwd(
     """K3 on a CUDA tensor, `hash_encode_plain` on a CPU tensor."""
     if pos.device.type == "cpu":
         return hash_encode_plain(table, pos, config)
-    if pos.device.type != "cuda":
-        raise ValueError(f"hash_encode_fwd: unsupported device {pos.device}")
+    _check_positions("hash_encode_fwd", pos, config)
     L, F = config.num_levels, config.features_per_level
-    if pos.dtype != torch.float32 or pos.dim() != 2 or pos.shape[1] != 3 or not pos.is_contiguous():
-        raise ValueError("hash_encode_fwd: positions must be a contiguous (N, 3) float32 tensor")
     if (table.dtype != torch.float32 or table.device != pos.device or not table.is_contiguous()
-            or table.numel() != config.table_size * F):
-        raise ValueError("hash_encode_fwd: table must be a contiguous float32 (T * F,) tensor "
-                         "on the positions' device")
-    if F not in (1, 2, 4, 8) or L > 32 or table.data_ptr() % (4 * F) != 0:
-        raise ValueError("hash_encode_fwd: F must be 1, 2, 4 or 8, L <= 32, table aligned")
+            or table.numel() != config.table_size * F or table.data_ptr() % (4 * F) != 0):
+        raise ValueError("hash_encode_fwd: table must be a contiguous, aligned float32 "
+                         "(T * F,) tensor on the positions' device")
     n = pos.shape[0]
     out = torch.empty((n, L * F), dtype=torch.float32, device=pos.device)
     with torch.cuda.device(pos.device):
         HASH_ENCODE_FWD.launch(
-            pos.data_ptr(), table.data_ptr(), out.data_ptr(), n, L, F,
-            (ctypes.c_float * L)(*np.asarray(config.scales, np.float32).tolist()),
-            (ctypes.c_int * L)(*config.resolutions),
-            (ctypes.c_int * L)(*config.level_offsets),
-            (ctypes.c_int * L)(*[int(d) for d in config.dense]),
-            config.log2_hashmap_size,
-            int(config.interpolation == "tetrahedral"),
+            pos.data_ptr(), table.data_ptr(), out.data_ptr(), n, L, F, *_level_args(config),
             torch.cuda.current_stream(pos.device).cuda_stream,
         )
     return out
+
+
+def hash_encode_bwd(
+    pos: torch.Tensor, g: torch.Tensor, config: HashEncodingConfig, stochastic: bool
+) -> torch.Tensor:
+    """K4 on a CUDA tensor, `hash_encode_bwd_plain` on a CPU tensor: the
+    gradient (T * F,) of the flat table. The kernel adds with float atomics,
+    so the order of the adds into a repeated row, and the sum's last bits,
+    change from run to run."""
+    if pos.device.type == "cpu":
+        return hash_encode_bwd_plain(pos, g, config, stochastic)
+    _check_positions("hash_encode_bwd", pos, config)
+    L, F = config.num_levels, config.features_per_level
+    n = pos.shape[0]
+    if (g.dtype != torch.float32 or tuple(g.shape) != (n, L * F) or g.device != pos.device
+            or not g.is_contiguous()):
+        raise ValueError("hash_encode_bwd: g must be a contiguous float32 (N, L * F) tensor "
+                         "on the positions' device")
+    grad = torch.zeros(config.table_size * F, dtype=torch.float32, device=pos.device)
+    with torch.cuda.device(pos.device):
+        HASH_ENCODE_BWD.launch(
+            pos.data_ptr(), g.data_ptr(), grad.data_ptr(), n, L, F, *_level_args(config),
+            int(stochastic), torch.cuda.current_stream(pos.device).cuda_stream,
+        )
+    return grad
+
+
+class _HashEncode(torch.autograd.Function):
+    """K3 forward and K4 backward (impl="auto"), or their plain versions
+    (impl="plain"); saves the positions only."""
+
+    @staticmethod
+    def forward(ctx, table, pos, config, impl):
+        ctx.config, ctx.impl = config, impl
+        ctx.save_for_backward(pos)
+        if impl == "auto":
+            return hash_encode_fwd(table, pos, config)
+        return hash_encode_plain(table, pos, config)
+
+    @staticmethod
+    def backward(ctx, g):
+        (pos,) = ctx.saved_tensors
+        bwd = hash_encode_bwd if ctx.impl == "auto" else hash_encode_bwd_plain
+        grad = bwd(pos, g.float().contiguous(), ctx.config, ctx.config.stochastic_grad)
+        return grad, None, None, None
 
 
 def hash_encode(
@@ -332,14 +459,13 @@ def hash_encode(
 ) -> torch.Tensor:
     """Hash-grid features of positions (..., 3) in [0, 1]^3 -> (..., L * F).
 
-    impl="auto" runs K3 on a CUDA tensor and the plain version on a CPU
-    tensor; impl="plain" runs the plain version anywhere."""
-    batch_shape = positions.shape[:-1]
-    pos = positions.reshape(-1, 3).float().contiguous()
-    if impl == "auto":
-        out = hash_encode_fwd(table, pos, config)
-    elif impl == "plain":
-        out = hash_encode_plain(table, pos, config)
-    else:
+    impl="auto" runs K3 (and K4 in the backward) on a CUDA tensor and the
+    plain versions on a CPU tensor; impl="plain" runs the plain versions
+    anywhere. The table's gradient is deterministic or stochastic as
+    config.stochastic_grad says."""
+    if impl not in ("auto", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
+    batch_shape = positions.shape[:-1]
+    pos = positions.detach().reshape(-1, 3).float().contiguous()
+    out = _HashEncode.apply(table, pos, config, impl)
     return out.reshape(*batch_shape, config.output_dim)

@@ -12,7 +12,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .mlp_fused import mlp_fused_fwd, mlp_plain
+from .mlp_fused import mlp_fused, mlp_plain
 
 
 def init_mlp(
@@ -50,14 +50,16 @@ def apply_mlp(
 ) -> torch.Tensor:
     """ReLU MLP over the last axis of x; `out_activation` on the output.
 
-    impl="auto" runs the fused kernel (K1) on a CUDA tensor and its plain
-    version on a CPU tensor; impl="plain" runs the plain version anywhere
-    (used to hold the kernel against it on the card)."""
+    impl="auto" runs the fused kernels on a CUDA tensor (K1 forward, K2
+    backward, through the autograd Function `mlp_fused`) and the plain
+    version, differentiated by autograd, on a CPU tensor; impl="plain" runs
+    the plain version anywhere (used to hold the kernels against it on the
+    card)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if impl == "auto":
-        h = mlp_fused_fwd(params, x2, compute_dtype)
-    elif impl == "plain":
+    if impl == "auto" and x2.device.type != "cpu":
+        h = mlp_fused(params, x2, compute_dtype)
+    elif impl in ("auto", "plain"):
         h = mlp_plain(params, x2, compute_dtype)
     else:
         raise ValueError(f"unknown impl {impl!r}")

@@ -8,14 +8,17 @@ occupancy as one 64-bit word, stored as [lo, hi] uint32 halves in an int64
 tensor (torch's uint32 support is thin). Level i covers the level-0 box
 scaled by 2^i; a position is looked up in the finest level containing it.
 
-This slice has the full update (every cell of every level, with the jitter
-passed in); the sampled partial update comes with training.
+`update_occ_state` is the EMA update: full (every cell of every level) or
+partial (sampled cells, as the trainer runs after warmup). Every random
+draw is an argument: the in-cell jitter, and for the partial update the
+cells' draws (`draw_partial_cells` makes them from a torch.Generator, a
+test from the JAX key splits). `occ_update_due` is nerfacc's schedule.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +32,15 @@ class OccGridConfig:
     aabb_max: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     ema_decay: float = 0.95
     occ_thre: float = 0.01
+    warmup_steps: int = 256
+    update_interval: int = 16
+    # during warmup every k-th due update is full, the others partial
+    # (1 = nerfacc's schedule: every warmup update is full)
+    warmup_full_every: int = 1
+    # partial update: cells sampled per update, as a fraction of res^3, at
+    # level 0 and at the outer levels (0 = sample_fraction)
+    sample_fraction: float = 0.25
+    outer_sample_fraction: float = 0.0625
     # max-pool factor of the march pre-pass bitfield (0 disables)
     pool: int = 0
 
@@ -186,32 +198,106 @@ def _eval_occ(
                       for i in range(0, positions.shape[0], chunk)])
 
 
+def partial_sample_counts(config: OccGridConfig) -> List[Tuple[int, int]]:
+    """(uniform, occupied) cell counts of the partial update, per level."""
+    counts = []
+    for lvl in range(config.levels):
+        frac = config.sample_fraction if lvl == 0 else (
+            config.outer_sample_fraction or config.sample_fraction)
+        m = max(int(config.cells_per_level * frac), 2)
+        counts.append((m - m // 2, m // 2))
+    return counts
+
+
+def draw_partial_cells(
+    config: OccGridConfig, generator: torch.Generator, device
+) -> List[Dict[str, torch.Tensor]]:
+    """The partial update's draws per level: "uniform" cells (int64), the
+    stratified-rank offsets "u" in [0, 1) and the "fallback" cells used when
+    a level has no occupied cell."""
+    res3 = config.cells_per_level
+    draws = []
+    for m_uni, m_occ in partial_sample_counts(config):
+        draws.append({
+            "uniform": torch.randint(0, res3, (m_uni,), generator=generator, device=device),
+            "u": torch.rand((m_occ,), generator=generator, device=device),
+            "fallback": torch.randint(0, res3, (m_occ,), generator=generator, device=device),
+        })
+    return draws
+
+
+def partial_cells(
+    state, config: OccGridConfig, draws: List[Dict[str, torch.Tensor]]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(level, cell) of the partial update from its draws
+    (umhs_tpu/ops/occupancy.py:367-407): per level, half the cells uniform
+    and half occupied ones, taken at stratified ranks (i + u_i) / m of the
+    level's occupied count and inverted through the running count with
+    searchsorted; a level with no occupied cell takes the fallback cells."""
+    res3 = config.cells_per_level
+    cum = torch.cumsum(state["binaries"].reshape(config.levels, res3).long(), dim=1)
+    levels, cells = [], []
+    for lvl, d in enumerate(draws):
+        u = d["u"].float()
+        m_occ = u.shape[0]
+        count = cum[lvl, -1]
+        strat = (torch.arange(m_occ, dtype=torch.float32, device=u.device) + u) / m_occ
+        rank = torch.floor(strat * count.float()).long()
+        occ_idx = torch.searchsorted(cum[lvl], rank, right=True)
+        occ_idx = torch.where(count > 0, torch.clamp_max(occ_idx, res3 - 1), d["fallback"].long())
+        c = torch.cat([d["uniform"].long(), occ_idx])
+        cells.append(c)
+        levels.append(torch.full_like(c, lvl))
+    return torch.cat(levels), torch.cat(cells)
+
+
 def update_occ_state(
     state,
     config: OccGridConfig,
     density_fn: Callable[[torch.Tensor], torch.Tensor],
     render_step_size: float,
     jitter: torch.Tensor,
+    cells: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
-    """One full EMA update: every cell of every level is probed at the
-    jittered point `jitter` (levels * res^3, 3) in [0, 1)^3 inside it.
+    """One EMA update. Full when `cells` is None: every cell of every level
+    is probed at the jittered point `jitter` (levels * res^3, 3) in [0, 1)^3
+    inside it. Partial otherwise: the (level, cell) pairs `cells` (M,), e.g.
+    from `partial_cells`, are probed at `jitter` (M, 3).
 
     occs <- max(occs * decay, density * step); the lower envelope drops to a
     lower probe at once and rises at most x2 per update (seeded at occ_thre);
-    binaries = occs > min(mean(occs), occ_thre), then pooled and packed."""
+    binaries = occs > min(mean(occs), occ_thre), then pooled and packed.
+
+    Cells are drawn with replacement, so a partial update can probe one cell
+    twice. The rule here, deterministic on every device: the largest probe
+    wins in `occs` and the smallest in `occs_low` (the JAX package's
+    scatter-set leaves the winner unspecified; the two agree on cells probed
+    once)."""
     res3 = config.cells_per_level
     L = config.levels
     dev = jitter.device
-    cell_flat = torch.arange(res3, device=dev).repeat(L)
-    level = torch.arange(L, device=dev).repeat_interleave(res3)
+    if cells is None:
+        cell_flat = torch.arange(res3, device=dev).repeat(L)
+        level = torch.arange(L, device=dev).repeat_interleave(res3)
+    else:
+        level, cell_flat = (c.long() for c in cells)
     positions = _level_world_positions(config, level, cell_flat, jitter)
     occ = _eval_occ(density_fn, positions) * render_step_size
     # a NaN would persist through the EMA max and silently empty the grid
     occ = torch.nan_to_num(occ)
 
-    occs = torch.maximum(state["occs"] * config.ema_decay, occ)
-    rise = torch.clamp_min(state["occs_low"] * 2.0, config.occ_thre)
-    occs_low = torch.minimum(occ, rise)
+    if cells is None:
+        occs = torch.maximum(state["occs"] * config.ema_decay, occ)
+        rise = torch.clamp_min(state["occs_low"] * 2.0, config.occ_thre)
+        occs_low = torch.minimum(occ, rise)
+    else:
+        flat_idx = level * res3 + cell_flat
+        new = torch.maximum(state["occs"][flat_idx] * config.ema_decay, occ)
+        rise = torch.clamp_min(state["occs_low"][flat_idx] * 2.0, config.occ_thre)
+        new_low = torch.minimum(occ, rise)
+        occs = state["occs"].scatter_reduce(0, flat_idx, new, "amax", include_self=False)
+        occs_low = state["occs_low"].scatter_reduce(0, flat_idx, new_low, "amin",
+                                                    include_self=False)
     thre = torch.clamp_max(torch.mean(occs), config.occ_thre)
     binaries = occs > thre
     out = {"occs": occs, "occs_low": occs_low, "binaries": binaries}
@@ -220,6 +306,16 @@ def update_occ_state(
     if config.resolution % 4 == 0:
         out["packed_words"] = _pack_supercell_words(binaries, config)
     return out
+
+
+def occ_update_due(step: int, config: OccGridConfig) -> Tuple[bool, bool]:
+    """(due, full) at `step`: due every update_interval steps (nerfacc's
+    update_every_n_steps); full during warmup, where only every
+    warmup_full_every-th due update is full (umhs_tpu/models/model.py:284-294)."""
+    due = step % config.update_interval == 0
+    full = step < config.warmup_steps and (
+        step % (config.update_interval * max(config.warmup_full_every, 1)) == 0)
+    return due, full
 
 
 def mark_all_occupied(state):
