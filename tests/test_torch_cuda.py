@@ -20,7 +20,7 @@ from umhs_torch.data.cameras import generate_camera_rays
 from umhs_torch.data.synthetic import SyntheticSceneConfig, render_views, scene_cameras
 from umhs_torch.engine.trainer import Trainer, TrainerConfig
 from umhs_torch.models.model import ModelConfig
-from umhs_torch.data.datamanager import InMemoryDataManager
+from umhs_torch.data.datamanager import DataManagerConfig, InMemoryDataManager
 from umhs_torch.engine.trainer import named_leaves
 from umhs_torch.ops._native import KERNELS
 from umhs_torch.ops.encodings import (
@@ -30,8 +30,12 @@ from umhs_torch.ops.mlp import init_mlp
 from umhs_torch.ops.mlp_fused import (
     MLP_FUSED_BWD, MLP_FUSED_FWD, mlp_fused, mlp_fused_bwd, mlp_fused_fwd, mlp_plain,
     mlp_plain_bwd)
+from umhs_torch.ops.row_gather import ROW_GATHER, row_gather, row_gather_plain
 
 pytestmark = pytest.mark.cuda
+# the kernels a training step launches (P1, the row gather, is on no path)
+TRAIN_KERNELS = sorted(k.symbol for k in (MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD,
+                                          HASH_ENCODE_BWD))
 
 
 @pytest.fixture
@@ -219,13 +223,15 @@ def test_render_kernels_match_plain_path(cuda):
               grid_resolution=32, grid_levels=2, max_samples_per_ray=32,
               hash_num_levels=8, log2_hashmap_size=14, hash_interpolation="tetrahedral")
     scene = SyntheticSceneConfig(image_size=32, num_bands=16)
-    poses, _, _ = render_views(scene, 1, 0.13)
-    rays = generate_camera_rays(scene_cameras(scene, poses).to_device_dict(cuda), 0, 32, 32)
+    poses, _, rgba = render_views(scene, 1, 0.13)
+    cameras = scene_cameras(scene, poses)
+    rays = generate_camera_rays(cameras.to_device_dict(cuda), 0, 32, 32)
+    dm = InMemoryDataManager(rgba, cameras, wavelengths=scene.wavelengths, device=cuda)
     outs, state = {}, None
     for impl in ("auto", "plain"):
         t = Trainer(TrainerConfig(seed=3, mixed_precision=False),
                     dataclasses.replace(ModelConfig(**kw), impl=impl),
-                    scene.wavelengths, num_classes=4, num_images=1, device=cuda)
+                    num_classes=4, device=cuda, datamanager=dm)
         if state is None:  # one grid for both, from the kernel path
             t.setup().update_occupancy()
             state = t.state
@@ -247,12 +253,14 @@ def test_train_step_kernels_match_plain_path(cuda):
               stochastic_hash_grad=False)
     scene = SyntheticSceneConfig(num_views_train=3, image_size=32, num_bands=16)
     poses, cubes, rgba = render_views(scene, 3, 0.0)
-    dm = InMemoryDataManager(rgba, scene_cameras(scene, poses), hs_images=cubes, device=cuda)
-    cfg = TrainerConfig(seed=5, mixed_precision=False, train_num_rays_per_batch=512)
+    dm = InMemoryDataManager(rgba, scene_cameras(scene, poses), hs_images=cubes,
+                             config=DataManagerConfig(train_num_rays_per_batch=512),
+                             wavelengths=scene.wavelengths, device=cuda)
+    cfg = TrainerConfig(seed=5, mixed_precision=False)
     results, state, draws = {}, None, None
     for impl in ("auto", "plain"):
-        t = Trainer(cfg, dataclasses.replace(ModelConfig(**kw), impl=impl), scene.wavelengths,
-                    num_classes=4, num_images=3, device=cuda, datamanager=dm).setup()
+        t = Trainer(cfg, dataclasses.replace(ModelConfig(**kw), impl=impl), num_classes=4,
+                    device=cuda, datamanager=dm).setup()
         if state is None:
             t.update_occupancy()
             state, draws = t.state, t.draw_step()
@@ -261,10 +269,78 @@ def test_train_step_kernels_match_plain_path(cuda):
         total = t.loss_and_grads(draws)[0]
         torch.cuda.synchronize()
         ran = sorted(k.symbol for k in KERNELS.values() if k.launches > before[k.symbol])
-        assert ran == (sorted(before) if impl == "auto" else [])
+        assert ran == (TRAIN_KERNELS if impl == "auto" else [])
         results[impl] = (float(total), {n: p.grad.clone() for n, p in named_leaves(state["params"])})
     (la, ga), (lp, gp) = results["auto"], results["plain"]
     assert np.isfinite(la) and la == pytest.approx(lp, rel=1e-5)
     for name, g in ga.items():
         torch.testing.assert_close(g, gp[name], rtol=1e-3, atol=1e-4 * float(gp[name].abs().max()),
                                    msg=name)
+
+
+# ------------------------------------------------------------------- P1
+@pytest.mark.parametrize("n", [0, 1, 2047, 2049])
+def test_p1_matches_plain_bit_for_bit(cuda, n):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    table = torch.randn((5000, 2), generator=gen, device=cuda)
+    idx = torch.randint(0, 5000, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    before = ROW_GATHER.launches
+    out = row_gather(table, idx)
+    torch.cuda.synchronize()
+    assert out.shape == (n, 2) and out.dtype == torch.float32
+    assert torch.equal(out, row_gather_plain(table, idx))
+    assert ROW_GATHER.launches == before + (1 if n else 0)
+    assert torch.equal(row_gather(table, idx, impl="plain"), out)
+    assert ROW_GATHER.launches == before + (1 if n else 0)
+
+
+def test_p1_first_and_last_rows(cuda):
+    table = torch.randn((1 << 20, 2), device=cuda)
+    t = table.shape[0]
+    idx = torch.tensor([0, t - 1, t - 1, 0, t // 2], dtype=torch.int32, device=cuda)
+    out = row_gather(table, idx)
+    assert torch.equal(out, table[idx.long()])
+    assert torch.equal(out[1], table[t - 1]) and torch.equal(out[0], table[0])
+
+
+def test_p1_refuses_bad_inputs(cuda):
+    table = torch.randn((10, 2), device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    for bad_table, bad_idx in ((table.double(), idx), (torch.randn((10, 3), device=cuda), idx),
+                               (table, idx.long()), (table, idx.cpu()), (table.t(), idx)):
+        with pytest.raises(ValueError):
+            row_gather(bad_table, bad_idx)
+
+
+# ------------------------------------------------ a dataset on disk, adapted
+def test_disk_dataset_training_through_one_adapt(cuda, tmp_path, monkeypatch):
+    """A small dataset written to disk, parsed and staged on the card,
+    trained through one scheduled adapt (decided at 16, applied at 32):
+    the applied shapes reach the step, with three stage budgets, and the
+    loss stays finite."""
+    from umhs_torch.data.dataparser import DataParserConfig
+    from umhs_torch.data.synthetic import write_dataset
+
+    monkeypatch.chdir(tmp_path)
+    root = write_dataset(tmp_path / "scene", SyntheticSceneConfig(
+        num_views_train=4, num_views_eval=2, image_size=32, num_bands=16))
+    model = ModelConfig(method="rgb+spectral", grid_resolution=32, grid_levels=2,
+                        max_samples_per_ray=32, hash_num_levels=8, log2_hashmap_size=14,
+                        stage_boundaries=(8, 16), load_vca=True)
+    cfg = TrainerConfig(seed=1, max_num_iterations=48, adapt_steps=(16,), adapt_every=0,
+                        adapt_prefetch_steps=16, target_num_samples=1 << 14,
+                        steps_per_log=16, save_final=False, output_dir=tmp_path / "out")
+    dm = DataManagerConfig(dataparser=DataParserConfig(data=root, num_classes=3),
+                           train_num_rays_per_batch=1024, eval_num_rays_per_batch=256,
+                           hs_dtype="bfloat16")
+    t = Trainer(cfg, model, dm, num_classes=3, device=cuda).setup()
+    assert t.datamanager.data["hs_image"].dtype == torch.bfloat16
+    assert t.datamanager.data["image"].device.type == "cuda"
+    m = t.train()
+    (log,) = t.adapt_log
+    assert (log["decided"], log["applied"]) == (16, 32)
+    assert len(t.dyn.budgets) == 3 and all(b % 256 == 0 for b in t.dyn.budgets)
+    last = t.history[-1]["metrics"]
+    assert np.isfinite(m["loss/total"]) and "num_eval_s3_per_batch" in last
+    assert m["rays_per_batch"] == t.dyn.rays != 1024
+    assert np.isfinite(t.eval_batch()["psnr"])

@@ -21,6 +21,8 @@ from umhs_tpu.models import field as j_field
 from umhs_tpu.ops import activations as j_act
 from umhs_tpu.ops import encodings as j_enc
 from umhs_tpu.ops.pallas.mlp_fused import mlp_apply_fused
+from umhs_torch.data.datamanager import InMemoryDataManager
+from umhs_torch.data.synthetic import SyntheticSceneConfig, render_views, scene_cameras
 from umhs_torch.engine import trainer as t_trainer
 from umhs_torch.engine.trainer import Trainer, TrainerConfig, named_leaves
 from umhs_torch.models import field as t_field
@@ -233,9 +235,12 @@ def test_trainer_adam_update_matches_optax():
                       grid_levels=1, march_pool=0, hash_num_levels=2, log2_hashmap_size=8,
                       max_res=32)
     opt_cfg = t_trainer.OptimizerConfig(max_steps=10)
+    scene = SyntheticSceneConfig(image_size=4, num_bands=4)
+    poses, _, rgba = render_views(scene, 2, 0.0)
+    dm = InMemoryDataManager(rgba, scene_cameras(scene, poses),
+                             wavelengths=list(450.0 + 10.0 * np.arange(4)), device="cpu")
     trainer = Trainer(TrainerConfig(seed=3, mixed_precision=False, optimizer=opt_cfg), cfg,
-                      list(450.0 + 10.0 * np.arange(4)), num_classes=3, num_images=2,
-                      device="cpu").setup()
+                      num_classes=3, device="cpu", datamanager=dm).setup()
     params = trainer.state["params"]
     names = [n for n, _ in named_leaves(params)]
     # copies: jnp.asarray may alias a numpy view of memory that torch updates in place

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import umhs_torch
-from umhs_torch.data.datamanager import InMemoryDataManager
+from umhs_torch.data.datamanager import DataManagerConfig, InMemoryDataManager
 from umhs_torch.engine.trainer import Trainer, TrainerConfig
 from umhs_torch.models.model import ModelConfig, UMHSModel
 
@@ -55,7 +55,7 @@ def test_cuda_is_refused_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         umhs_torch.resolve_device("cuda")
     with pytest.raises(RuntimeError):
-        Trainer(TrainerConfig(), ModelConfig(), [], num_classes=3, num_images=1)
+        Trainer(TrainerConfig(), ModelConfig(), DataManagerConfig(), num_classes=3)
     with pytest.raises(RuntimeError):  # the model's own default is the card too
         UMHSModel(ModelConfig(), [], num_classes=3, num_images=1)
     with pytest.raises(RuntimeError):
@@ -67,10 +67,11 @@ def test_kernel_sources_are_in_the_package():
     from umhs_torch.ops import _native
     from umhs_torch.ops.encodings import HASH_ENCODE_BWD, HASH_ENCODE_FWD
     from umhs_torch.ops.mlp_fused import MLP_FUSED_BWD, MLP_FUSED_FWD
+    from umhs_torch.ops.row_gather import ROW_GATHER
 
-    assert sorted(_native.KERNELS) == sorted(
-        k.symbol for k in (MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD, HASH_ENCODE_BWD))
-    for k in (MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD, HASH_ENCODE_BWD):
+    kernels = (MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD, HASH_ENCODE_BWD, ROW_GATHER)
+    assert sorted(_native.KERNELS) == sorted(k.symbol for k in kernels)
+    for k in kernels:
         assert (_native.CSRC_DIR / k.source).is_file()
         assert _native.KERNELS[k.symbol] is k
         text = (_native.CSRC_DIR / k.source).read_text()

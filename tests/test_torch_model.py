@@ -28,6 +28,7 @@ from umhs_tpu.ops import ray_marching as j_march
 from umhs_tpu.parallel.mesh import make_eval_forward
 from umhs_torch import convert
 from umhs_torch.data.cameras import generate_camera_rays
+from umhs_torch.data.datamanager import InMemoryDataManager
 from umhs_torch.data.synthetic import SyntheticSceneConfig, render_views, scene_cameras
 from umhs_torch.engine.trainer import Trainer, TrainerConfig
 from umhs_torch.models import field as t_field
@@ -51,6 +52,15 @@ FORWARD_KEYS = ("rgb", "spectral", "spectral2", "specular", "abundances", "accum
 
 def _np(t):
     return t.detach().cpu().numpy()
+
+
+def _datamanager(num_images=4):
+    """A train split of `num_images` tiny views with WAVELENGTHS: what the
+    trainer's model takes from its datamanager."""
+    scene = SyntheticSceneConfig(image_size=4, num_bands=len(WAVELENGTHS))
+    poses, _, rgba = render_views(scene, num_images, 0.0)
+    return InMemoryDataManager(rgba, scene_cameras(scene, poses), wavelengths=WAVELENGTHS,
+                               device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -296,7 +306,7 @@ def test_render_camera_matches(slice_state):
     jm = slice_state["jm"]
     rays = generate_camera_rays(slice_state["cam"], 1, 20, 20)
     trainer = Trainer(TrainerConfig(mixed_precision=False), TModelConfig(**MODEL_KW),
-                      WAVELENGTHS, num_classes=6, num_images=4, device="cpu")
+                      num_classes=6, device="cpu", datamanager=_datamanager())
     trainer.state = {"params": slice_state["tparams"], "occ": slice_state["tocc"], "step": STEP}
     out = trainer.render_camera(rays, (20, 20), chunk=256)
 
@@ -323,8 +333,9 @@ def test_render_camera_matches(slice_state):
 
 def test_trainer_setup_and_occupancy_update_on_cpu():
     cfg = dataclasses.replace(TModelConfig(**MODEL_KW), grid_resolution=16)
-    trainer = Trainer(TrainerConfig(seed=1), cfg, WAVELENGTHS, num_classes=6, num_images=4,
-                      device="cpu").setup(endmembers_init=np.full((6, 16), 0.5, np.float32))
+    trainer = Trainer(TrainerConfig(seed=1), cfg, num_classes=6, device="cpu",
+                      datamanager=_datamanager())
+    trainer.setup(endmembers_init=np.full((6, 16), 0.5, np.float32))
     assert trainer.model.field_config.compute_dtype == torch.bfloat16  # mixed precision
     assert float(trainer.state["params"]["endmembers"].min()) == 0.5
     trainer.update_occupancy()

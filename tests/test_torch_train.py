@@ -12,6 +12,8 @@ density output layer by 6 (as in test_torch_model.py), so densities spread
 and no occupancy cell sits within rounding of the threshold.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +42,7 @@ KW = dict(
 WAVELENGTHS = list(450.0 + 20.0 * np.arange(8))
 STEP = 500  # inside the specular ramp
 R = 64
+NO_SAVE = dict(save_final=False)  # train() calls that end at their target write nothing
 
 
 def _np(t):
@@ -172,12 +175,17 @@ def test_sample_pixel_batch_matches_jax_draws(setup, mode):
 
 
 # ------------------------------------------------------ loss and gradient
-@pytest.mark.parametrize("budget", [None, (1024, 1024, 2048)], ids=["single", "three-stage"])
-def test_loss_and_every_gradient_match_jax(setup, budget):
+@pytest.mark.parametrize("budget,samples", [(None, None), ((1024, 1024, 2048), None),
+                                            ((256, 512, 768), 24)],
+                         ids=["single", "three-stage", "three-stage-adapted"])
+def test_loss_and_every_gradient_match_jax(setup, budget, samples):
     """The loss within rtol 1e-5, each loss term and metric within 1e-5
     (sample counts exactly), and every parameter's gradient within rtol
     1e-3 and atol 1e-4 * max|g| of that tensor: scans and segment sums add
-    in another order.
+    in another order. The adapted case marches S = 24 through the
+    march_config override, as dynamic batching does, with stage budgets
+    below the demand, so each stage drops its overflow (make_grad_fn holds
+    each budget at 256 or more).
 
     The draw's key is one whose samples sit clear of every discrete decision
     (ReLU signs, the alpha and transmittance filters, the stage cut-offs):
@@ -188,7 +196,11 @@ def test_loss_and_every_gradient_match_jax(setup, budget):
     rng = jax.random.PRNGKey(12)
     _, k_sample, k_march, k_bg = jax.random.split(rng, 4)
     jrays, jbatch = j_dm.sample_pixel_batch(setup["jdata"], setup["jcam"], k_sample, R)
-    grad_fn = jax.jit(make_grad_fn(jm, None, compact_budget=budget))
+    jmarch = tmarch = None
+    if samples is not None:
+        jmarch = dataclasses.replace(jm.march_config, num_samples=samples)
+        tmarch = dataclasses.replace(tm.march_config, num_samples=samples)
+    grad_fn = jax.jit(make_grad_fn(jm, None, march_cfg=jmarch, compact_budget=budget))
     jtotal, jloss, jmetrics, jgrads = grad_fn(params, occ, jrays, jbatch, k_march, k_bg,
                                               jnp.int32(STEP))
     jitter = torch.from_numpy(np.array(jax.random.uniform(k_march, (R,))))
@@ -201,7 +213,7 @@ def test_loss_and_every_gradient_match_jax(setup, budget):
     for _, t in named_leaves(tparams):
         t.requires_grad_(True)
     out = tm.forward(tparams, convert.occ_state_to_torch(occ), trays, compact_budget=budget,
-                     step=STEP, train=True, t_jitter=jitter)
+                     step=STEP, train=True, t_jitter=jitter, march_config=tmarch)
     tloss = tm.loss(out, tbatch, background)
     total = sum(tloss.values())
     total.backward()
@@ -218,6 +230,9 @@ def test_loss_and_every_gradient_match_jax(setup, budget):
     assert int(tmetrics["num_samples_per_batch"]) > R  # the rays hit the scene
     if budget is not None:
         assert int(tmetrics["num_eval_s3_per_batch"]) > 0
+    if samples is not None:
+        assert int(out["num_samples_per_ray"].max()) <= samples
+        assert int(tmetrics["num_eval_s1_per_batch"]) == budget[0]  # stage 1 overflowed
 
     jflat = dict(named_leaves(jgrads))
     for name, t in named_leaves(tparams):
@@ -232,15 +247,16 @@ def test_cpu_training_run_falls(setup):
     """Trainer(device="cpu") for 32 steps on a tiny config: occupancy
     updates at step 0 (full) and 16 (partial, warmup thinning 2), finite
     losses, and the mean loss of the last 4 steps below that of the first 4."""
-    scene = setup["scene"]
     dm = t_dm.InMemoryDataManager(setup["rgba"], setup["cams"], hs_images=setup["cubes"],
-                                  device="cpu")
+                                  config=t_dm.DataManagerConfig(train_num_rays_per_batch=128),
+                                  wavelengths=WAVELENGTHS, device="cpu")
     cfg = TModelConfig(**dict(KW, max_samples_per_ray=16, num_candidates=256,
                               stochastic_hash_grad=True, occ_warmup_full_every=2))
-    trainer = Trainer(TrainerConfig(seed=0, mixed_precision=False, train_num_rays_per_batch=128),
-                      cfg, WAVELENGTHS, num_classes=4, num_images=scene.num_views_train,
-                      device="cpu", datamanager=dm).setup()
-    history = trainer.train(32)
+    trainer = Trainer(TrainerConfig(seed=0, mixed_precision=False, **NO_SAVE), cfg,
+                      num_classes=4, device="cpu", datamanager=dm).setup()
+    assert trainer.model.num_images == setup["scene"].num_views_train
+    trainer.train(32)
+    history = trainer.history
     assert [(r["step"], r["occ_update"]) for r in history if r["occ_update"]] == [
         (0, "full"), (16, "partial")]
     losses = [r["metrics"]["loss/total"] for r in history]
@@ -255,13 +271,13 @@ def test_trainer_draws_are_reproducible(setup):
     """Same seed, same draws and the same first step; the step stream and
     the occupancy stream are separate generators."""
     dm = t_dm.InMemoryDataManager(setup["rgba"], setup["cams"], hs_images=setup["cubes"],
-                                  device="cpu")
+                                  config=t_dm.DataManagerConfig(train_num_rays_per_batch=32),
+                                  wavelengths=WAVELENGTHS, device="cpu")
     runs = []
     for _ in range(2):
-        t = Trainer(TrainerConfig(seed=4, mixed_precision=False, train_num_rays_per_batch=32),
+        t = Trainer(TrainerConfig(seed=4, mixed_precision=False),
                     TModelConfig(**dict(KW, max_samples_per_ray=16, num_candidates=256)),
-                    WAVELENGTHS, num_classes=4, num_images=4, device="cpu",
-                    datamanager=dm).setup()
+                    num_classes=4, device="cpu", datamanager=dm).setup()
         t.update_occupancy()
         runs.append((t.draw_step(), t.train_step()))
     (d0, m0), (d1, m1) = runs

@@ -29,6 +29,16 @@ class Cameras:
     distortion_params: Optional[np.ndarray] = None  # (N, 6) k1 k2 k3 k4 p1 p2
     camera_type: str = "PERSPECTIVE"
 
+    def rescale_output_resolution(self, scaling_factor: float) -> "Cameras":
+        """The same cameras at a resolution scaled by `scaling_factor`."""
+        return dataclasses.replace(
+            self,
+            fx=self.fx * scaling_factor, fy=self.fy * scaling_factor,
+            cx=self.cx * scaling_factor, cy=self.cy * scaling_factor,
+            width=(self.width * scaling_factor).astype(self.width.dtype),
+            height=(self.height * scaling_factor).astype(self.height.dtype),
+        )
+
     def to_device_dict(self, device="cpu") -> Dict[str, torch.Tensor]:
         def f32(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)

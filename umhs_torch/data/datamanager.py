@@ -1,23 +1,37 @@
-"""Pixel sampling and the in-memory train split
+"""Pixel sampling and the device-resident splits
 (port of umhs_tpu/data/datamanager.py).
 
 `sample_pixel_batch` gathers every batch key at given pixels and generates
 their rays; the pixels are an argument (`draw`), so a test can hand it the
 indices the JAX package drew. `draw_pixels` makes that draw from a
-torch.Generator. `InMemoryDataManager` holds the train split's images,
-hyperspectral cubes and cameras on the device; reading a dataset from disk
-(the dataparser and dataset) comes later.
+torch.Generator. `InMemoryDataManager` holds a train split's images,
+hyperspectral cubes and cameras on the device; `UMHSDataManager` parses a
+dataset on disk (both splits), stages the train split the same way and keeps
+the eval split for the eval loops.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from .cameras import Cameras, generate_rays
+from .cameras import Cameras, generate_camera_rays, generate_rays
+from .dataparser import DataParserConfig, UMHSDataParser
+from .dataset import HyperspectralDataset
+
+
+@dataclasses.dataclass(frozen=True)
+class DataManagerConfig:
+    dataparser: DataParserConfig = dataclasses.field(default_factory=DataParserConfig)
+    train_num_rays_per_batch: int = 9216 * 4
+    eval_num_rays_per_batch: int = 4096
+    patch_size: int = 1
+    hs_dtype: str = "float32"  # "bfloat16" halves the cubes' device memory
+
 
 Draw = Tuple[torch.Tensor, ...]
 
@@ -86,9 +100,29 @@ def sample_pixel_batch(
     return rays, batch
 
 
+def stage_arrays(arrays: Dict[str, np.ndarray], valid_indices: Optional[np.ndarray],
+                 hs_dtype: str, device) -> Dict[str, torch.Tensor]:
+    """A split's arrays on the device: cubes in hs_dtype, segmentation int32,
+    the rest float32, and the valid pixel ids (int64) when there are masks."""
+    staged = {}
+    for k, v in arrays.items():
+        if k == "hs_image":
+            dt = torch.bfloat16 if hs_dtype == "bfloat16" else torch.float32
+        elif k == "seg_image":
+            dt = torch.int32
+        else:
+            dt = torch.float32
+        staged[k] = torch.as_tensor(np.asarray(v), device=device).to(dt)
+    if valid_indices is not None:
+        staged["valid_indices"] = torch.as_tensor(np.asarray(valid_indices, np.int64),
+                                                  device=device)
+    return staged
+
+
 class InMemoryDataManager:
-    """The train split on the device: images (N, H, W, 3 or 4), optional
-    hyperspectral cubes (N, H, W, B), cameras, optional valid pixel ids."""
+    """A train split on the device: images (N, H, W, 3 or 4), optional
+    hyperspectral cubes (N, H, W, B), cameras, optional valid pixel ids; the
+    ray batch sizes and patch size come from `config`."""
 
     def __init__(
         self,
@@ -96,23 +130,28 @@ class InMemoryDataManager:
         cameras: Cameras,
         hs_images: Optional[np.ndarray] = None,
         valid_indices: Optional[Sequence[int]] = None,
-        patch_size: int = 1,
+        config: Optional[DataManagerConfig] = None,
+        wavelengths: Optional[Sequence[float]] = None,
+        scene_scale: float = 1.0,
         device="cuda",
     ):
         self.device = resolve_device(device)
-        self.data = {"image": torch.as_tensor(np.asarray(images, np.float32), device=self.device)}
+        self.config = config or DataManagerConfig()
+        arrays = {"image": images}
         if hs_images is not None:
-            self.data["hs_image"] = torch.as_tensor(np.asarray(hs_images, np.float32),
-                                                    device=self.device)
-        if valid_indices is not None:
-            self.data["valid_indices"] = torch.as_tensor(
-                np.asarray(valid_indices, np.int64), device=self.device)
+            arrays["hs_image"] = hs_images
+        self.data = stage_arrays(arrays, valid_indices, self.config.hs_dtype, self.device)
         self.cam = cameras.to_device_dict(self.device)
         self.camera_type = cameras.camera_type
-        self.patch_size = patch_size
+        self.wavelengths = list(wavelengths) if wavelengths is not None else None
+        self.scene_scale = scene_scale
 
     @property
-    def num_images(self) -> int:
+    def patch_size(self) -> int:
+        return self.config.patch_size
+
+    @property
+    def num_train_images(self) -> int:
         return self.data["image"].shape[0]
 
     def draw(self, generator: torch.Generator, batch_size: int) -> Draw:
@@ -123,3 +162,57 @@ class InMemoryDataManager:
         """(rays, batch) at the drawn pixels."""
         return sample_pixel_batch(self.data, self.cam, batch_size, draw,
                                   patch_size=self.patch_size, camera_type=self.camera_type)
+
+
+class UMHSDataManager(InMemoryDataManager):
+    """A dataset on disk: both splits parsed and loaded (the train split's
+    loading writes vca.npy when it is absent), the train split staged on the
+    device; the eval split is staged on first use by the eval loops."""
+
+    def __init__(self, config: DataManagerConfig, num_classes: Optional[int] = None,
+                 device="cuda"):
+        device = resolve_device(device)
+        dp_cfg = config.dataparser
+        if num_classes is not None:
+            dp_cfg = dataclasses.replace(dp_cfg, num_classes=num_classes)
+        parser = UMHSDataParser(dp_cfg)
+        self.train_outputs = parser.parse("train")
+        self.eval_outputs = parser.parse("val")
+        self.train_dataset = HyperspectralDataset(self.train_outputs, vca_cache=dp_cfg.vca_cache)
+        self.eval_dataset = HyperspectralDataset(self.eval_outputs, vca_cache=dp_cfg.vca_cache,
+                                                 compute_vca=False)
+        arrays = self.train_dataset.arrays()
+        super().__init__(
+            arrays.pop("image"), self.train_outputs.cameras, hs_images=arrays.pop("hs_image", None),
+            valid_indices=self.train_dataset.valid_indices(), config=config,
+            wavelengths=self.train_outputs.metadata.get("wavelengths"),
+            scene_scale=self.train_outputs.scene_scale, device=device)
+        # the split's other arrays (masks, segmentation, features)
+        self.data.update(stage_arrays(arrays, None, config.hs_dtype, self.device))
+        self._eval_data: Optional[Dict[str, torch.Tensor]] = None
+
+    @property
+    def metadata(self) -> Dict:
+        return self.train_outputs.metadata
+
+    def eval_device_data(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """The eval split's arrays and cameras on the device (staged once;
+        cubes stay float32 whatever hs_dtype, as umhs_tpu's eval loops keep
+        them)."""
+        if self._eval_data is None:
+            self._eval_data = stage_arrays(self.eval_dataset.arrays(),
+                                           self.eval_dataset.valid_indices(),
+                                           "float32", self.device)
+            self._eval_cam = self.eval_outputs.cameras.to_device_dict(self.device)
+        return self._eval_data, self._eval_cam
+
+    def eval_image(self, idx: int):
+        """(the camera's H * W rays, its full-image ground truth on the
+        device, (H, W)) of eval view `idx`."""
+        data, cam = self.eval_device_data()
+        h = int(self.eval_outputs.cameras.height[idx])
+        w = int(self.eval_outputs.cameras.width[idx])
+        rays = generate_camera_rays(cam, idx, h, w,
+                                    camera_type=self.eval_outputs.cameras.camera_type)
+        batch = {k: v[idx] for k, v in data.items() if k != "valid_indices"}
+        return rays, batch, (h, w)

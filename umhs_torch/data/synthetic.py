@@ -8,11 +8,15 @@ the GPU smoke run; everything is numpy and seeded.
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..ops.spec_to_rgb import build_spec_to_rgb_matrix, srgb_gamma_np
 from .cameras import Cameras
+from .png import write_png
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +136,40 @@ def scene_cameras(cfg: SyntheticSceneConfig, poses: np.ndarray) -> Cameras:
         cx=full(cfg.image_size / 2.0), cy=full(cfg.image_size / 2.0),
         width=size, height=size,
     )
+
+
+def write_dataset(root: Path, cfg: Optional[SyntheticSceneConfig] = None) -> Path:
+    """Write the scene as a dataset directory (umhs_tpu/data/synthetic.py:151-191):
+    train/ and eval/ RGBA PNGs and .npy cubes, and transforms.json with the
+    intrinsics, an OPENCV camera model, the wavelengths and one frame per
+    view. Returns the root path."""
+    cfg = cfg or SyntheticSceneConfig()
+    root = Path(root)
+    frames: List[Dict] = []
+    for split, n, phase in (("train", cfg.num_views_train, 0.0),
+                            ("eval", cfg.num_views_eval, 0.13)):
+        (root / split).mkdir(parents=True, exist_ok=True)
+        poses, cubes, rgbas = render_views(cfg, n, phase)
+        for i in range(n):
+            img_rel, hs_rel = f"{split}/r_{i}.png", f"{split}/r_{i}.npy"
+            write_png(root / img_rel, (rgbas[i] * 255).astype(np.uint8))
+            np.save(root / hs_rel, cubes[i])
+            frames.append({"file_path": img_rel, "hyperspectral_file_path": hs_rel,
+                           "transform_matrix": poses[i].tolist()})
+    meta = {
+        "fl_x": cfg.focal_scale * cfg.image_size,
+        "fl_y": cfg.focal_scale * cfg.image_size,
+        "cx": cfg.image_size / 2.0,
+        "cy": cfg.image_size / 2.0,
+        "w": cfg.image_size,
+        "h": cfg.image_size,
+        "camera_model": "OPENCV",
+        "wavelengths": [float(w) for w in cfg.wavelengths],
+        "frames": frames,
+    }
+    with open(root / "transforms.json", "w") as f:
+        json.dump(meta, f, indent=2)
+    return root
 
 
 # The scene bench.py trains the flagship model on (bench.py:190-198).

@@ -78,6 +78,7 @@ class ModelConfig:
     temperature: float = 0.2
     pred_specular: bool = False
     specular_ramp_steps: int = 1000
+    load_vca: bool = False  # setup() reads the dataset's vca.npy endmembers
     eval_num_rays_per_chunk: int = 4096
     num_candidates: int = 1024
     max_samples_per_ray: int = 96
@@ -226,6 +227,7 @@ class UMHSModel:
         step: Optional[int] = None,
         train: bool = False,
         t_jitter: Optional[torch.Tensor] = None,
+        march_config: Optional[MarchConfig] = None,
     ) -> Dict[str, torch.Tensor]:
         """Render rays {"origins", "directions" (R, 3), "camera_indices" (R,)}.
 
@@ -239,9 +241,11 @@ class UMHSModel:
         per stage of active_stage_boundaries(S) (staged evaluation with an
         exact transmittance check after each stage). Default: one budget of
         compact_fraction * R * S. step gates the specular warmup ramp.
+        march_config overrides the model's march (the trainer's adapted
+        samples per ray S).
         """
         cfg = self.config
-        march_cfg = self.march_config
+        march_cfg = march_config or self.march_config
         # nerfacc semantics: alpha threshold min(alpha_thre, mean occupancy)
         alpha_thre = torch.clamp_max(torch.mean(occ_state["occs"]), cfg.alpha_thre)
         o, d = rays["origins"], rays["directions"]
