@@ -15,22 +15,29 @@ each of 100 single steps past it, and prints the largest readings.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device and build: the card's name and power limit, then every kernel in
-   umhs_torch/csrc is compiled by nvcc into umhs_torch/_build/ (timed).
+   umhs_torch/csrc is compiled by nvcc into umhs_torch/_build/ (timed), with
+   ptxas's registers and spill bytes per kernel; any spill fails the run.
 2. Each kernel against its plain PyTorch version on the card, at the
    flagship shapes, with its median time, the plain version's, one PyTorch
    yardstick's and the bound from bytes or operations:
-   - K1 mlp_fused_fwd: the four field MLP chains, f32 (rtol/atol 1e-5) and
-     bf16 (2e-2), at N = 2^20 and at an N that is not a multiple of the
-     tile, plus a single-layer chain;
+   - K1 mlp_fused_fwd: the four field MLP chains, f32 (rtol/atol 1e-5, the
+     FMA kernel) and bf16 (2e-2, the tensor-core kernel), at N = 2^20 and at
+     an N that is not a multiple of the tile, plus a single-layer chain;
    - K3 hash_encode_fwd: tetrahedral and trilinear at L16xF2 2^19 on 2^20
      positions including exact 0 and 1 (atol 1e-6; table values ~1e-4);
    - K2 mlp_fused_bwd: the four chains at the training buffer's N = 262,144
      rows, f32 (rtol 1e-4, atol 1e-4 * max) and bf16 (2e-2), dx, dW and db
      against autograd of mlp_plain;
-   - K4 hash_encode_bwd: tetrahedral L16xF2 2^19 at 262,144 positions,
+   - K4 hash_encode_bwd: tetrahedral L16xF2 2^19 at 262,144 random
+     positions and at 4,096 rays x 64 evenly spaced samples in ray-major
+     order (the compact buffer's layout, where neighbours share rows),
      deterministic (rtol/atol 1e-5: float atomics add in a run-dependent
      order) and stochastic (the share of (sample, level) pairs whose vertex
-     differs from the plain version's, at most 1e-4).
+     differs from the plain version's, at most 1e-4; with unit gradients
+     the table sums to exactly N x L x F); each timed beside zeros +
+     index_add_ on the same precomputed rows. With every position equal
+     (each warp's lanes on one row per level) the stochastic table holds
+     exactly N at each level's chosen row.
    - P1 row_gather: the probe twin's check (umhs_torch.probes.gather), bit
      for bit against table[idx] on the probe's 12,000,000 x 2 f32 table and
      the flagship's 6,098,108 x 2 table at 16,318,464 rows, and at N = 2049
@@ -81,7 +88,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the end of the first slice at adapted (three-stage) shapes and at the
    end of the steady window, at its last adapted shapes. The launches of
    those two steps and of the round trip are left out of the schedule's
-   counts. One steady step runs under torch.profiler at the end.
+   counts. One steady step runs under torch.profiler at the end, with the
+   device ms of K1-K4 in it beside their launches.
 
 The last lines are the card (nvidia-smi), one JSON object of kernel numbers
 and, last, {"ok": true, "device": {...}}.
@@ -94,6 +102,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -127,7 +136,8 @@ def check(cond: bool, msg: str) -> None:
 
 
 def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() over `iters` calls, by CUDA events."""
+    """Median time of fn() over `iters` calls, by CUDA events around each
+    call: the device's time, or the host's where its enqueue takes longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -141,6 +151,23 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time per call of fn(): the summed durations of every kernel and
+    memset it launched, under torch.profiler over `iters` calls (gaps left
+    by the host's enqueue are not counted)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if "CUDA" in str(e.device_type))
+    return busy_us / iters / 1e3
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -192,15 +219,16 @@ def phase_k1(dev):
         b_ms, b_by = bound(nbytes, 2.0 * n_full * macs, H100_BF16_FLOPS)
         chains[name] = {
             "dims": dims,
-            "ms": median_ms(lambda: mlp_fused_fwd(params, x, torch.bfloat16)),
-            "plain_ms": median_ms(lambda: mlp_plain(params, x, torch.bfloat16), iters=10),
-            "library_ms": median_ms(library),
+            "ms": device_ms(lambda: mlp_fused_fwd(params, x, torch.bfloat16)),
+            "call_ms": median_ms(lambda: mlp_fused_fwd(params, x, torch.bfloat16)),
+            "plain_ms": device_ms(lambda: mlp_plain(params, x, torch.bfloat16), iters=5),
+            "library_ms": device_ms(library),
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
         print(f"K1 {name} N=2^20 bf16: " + json.dumps(chains[name]))
     total = {k: sum(c[k] for c in chains.values())
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
     by_bytes = sum(c["bound_by"] == "bytes" for c in chains.values()) >= len(chains) / 2
     return {
         "name": "mlp_fused_fwd",
@@ -254,9 +282,10 @@ def phase_k3(dev):
         nbytes = n * 3 * 4 + n * cfg.output_dim * 4 + sectors * 32
         b_ms, b_by = bound(nbytes, 2.0 * n * cfg.num_levels * V * 2, H100_F32_FLOPS)
         entries[interp] = {
-            "ms": median_ms(lambda: hash_encode_fwd(table, pos, cfg)),
-            "plain_ms": median_ms(lambda: hash_encode_plain(table, pos, cfg), iters=5),
-            "library_ms": median_ms(library, iters=10),
+            "ms": device_ms(lambda: hash_encode_fwd(table, pos, cfg)),
+            "call_ms": median_ms(lambda: hash_encode_fwd(table, pos, cfg)),
+            "plain_ms": device_ms(lambda: hash_encode_plain(table, pos, cfg), iters=5),
+            "library_ms": device_ms(library),
             "bound_ms": b_ms,
             "bound_by": b_by,
             # the stricter count: one 32-byte sector read per vertex row
@@ -273,7 +302,8 @@ def phase_k3(dev):
         "source": "umhs_torch/csrc/hash_encode_fwd.cu",
         "replaces": "umhs_tpu/ops/encodings.py:439",
         "max_abs_err": max_err,
-        **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
         "shape": "tetrahedral, L16xF2 2^19, 2^20 positions",
         "trilinear": entries["trilinear"],
         "sector_bound_ms": main["sector_bound_ms"],
@@ -338,16 +368,17 @@ def phase_k2(dev):
         b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
         chains[name] = {
             "dims": dims, "dx": need_dx,
-            "ms": median_ms(lambda: mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx)),
-            "plain_ms": median_ms(lambda: mlp_plain_bwd(params, x, g, torch.bfloat16, need_dx),
-                                  iters=10),
-            "library_ms": median_ms(library),
+            "ms": device_ms(lambda: mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx)),
+            "call_ms": median_ms(lambda: mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx)),
+            "plain_ms": device_ms(lambda: mlp_plain_bwd(params, x, g, torch.bfloat16, need_dx),
+                                  iters=5),
+            "library_ms": device_ms(library),
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
         print(f"K2 {name} N={n} bf16: " + json.dumps(chains[name]))
     total = {k: sum(c[k] for c in chains.values())
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
     by_bytes = sum(c["bound_by"] == "bytes" for c in chains.values()) >= len(chains) / 2
     return {
         "name": "mlp_fused_bwd",
@@ -365,40 +396,36 @@ def phase_k2(dev):
     }
 
 
-def phase_k4(dev):
+def k4_case(label, pos, g, cfg, dev):
+    """K4 against its plain version on one position set, then timed in both
+    modes beside zeros + index_add_ on the same precomputed rows."""
     from umhs_torch.ops.encodings import (
-        HashEncodingConfig, hash_encode_bwd, hash_encode_bwd_plain, hash_indices_weights,
-        level_uniforms, stochastic_vertex)
+        hash_encode_bwd, hash_encode_bwd_plain, hash_indices_weights, level_uniforms,
+        stochastic_vertex)
 
-    gen = torch.Generator().manual_seed(4)
-    n = K2_ROWS
-    cfg = HashEncodingConfig(num_levels=16, features_per_level=2, log2_hashmap_size=19,
-                             interpolation="tetrahedral")
-    L, F = cfg.num_levels, cfg.features_per_level
-    pos = torch.rand((n, 3), generator=gen)
-    pos[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 0.5, 1.0], [1.0, 0.0, 0.25]])
-    pos = pos.to(dev)
-    g = torch.randn((n, L * F), generator=gen).to(dev)
-
+    n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
     det = hash_encode_bwd(pos, g, cfg, False)
     ref = hash_encode_bwd_plain(pos, g, cfg, False)
     torch.cuda.synchronize()
     err = float((det - ref).abs().max())
     check(torch.allclose(det, ref, rtol=1e-5, atol=1e-5),
-          f"K4 deterministic disagrees with its plain version (max abs err {err})")
+          f"K4 {label} deterministic disagrees with its plain version (max abs err {err})")
     # stochastic: with unit gradients each (sample, level, feature) adds 1 to
     # one row, so |kernel - plain| / 2 counts the differing selections
     ones = torch.ones_like(g)
     sto = hash_encode_bwd(pos, ones, cfg, True)
     sto_ref = hash_encode_bwd_plain(pos, ones, cfg, True)
     torch.cuda.synchronize()
-    check(float(sto.sum()) == n * L * F, "K4 stochastic did not add each gradient exactly once")
+    check(float(sto.sum()) == n * L * F,
+          f"K4 {label} stochastic did not add each gradient exactly once")
     differ = float((sto - sto_ref).abs().sum()) / 2 / F / (n * L)
-    print(f"K4 deterministic N={n} L16xF2 2^19: max_abs_err {err:.3e} (rtol/atol 1e-5) ok; "
-          f"stochastic: share of differing vertex selections {differ:.3e} (limit 1e-4)")
-    check(differ <= 1e-4, f"K4 stochastic selections differ from the plain version's: {differ}")
+    print(f"K4 {label} deterministic N={n} L{L}xF{F}: max_abs_err {err:.3e} (rtol/atol 1e-5) "
+          f"ok; stochastic: share of differing vertex selections {differ:.3e} (limit 1e-4)")
+    check(differ <= 1e-4, f"K4 {label} stochastic selections differ from the plain version's: "
+                          f"{differ}")
     sto_g = hash_encode_bwd(pos, g, cfg, True)
-    check(bool(torch.isfinite(sto_g).all()), "K4 stochastic: non-finite gradient")
+    check(bool(torch.isfinite(sto_g).all()), f"K4 {label} stochastic: non-finite gradient")
+    del det, ref, sto, sto_ref, sto_g
 
     idx, w = hash_indices_weights(pos, cfg)
     feat = torch.arange(F, device=dev)
@@ -418,31 +445,72 @@ def phase_k4(dev):
     # bytes: positions and g read once, the gradient table zeroed and written
     nbytes = n * 3 * 4 + n * L * F * 4 + size * 4
     flops_det = n * L * cfg.verts_per_cell * F * 2.0
-    entries = {}
+    entries = {"max_abs_err": err, "stochastic_selection_differ_share": differ}
     for mode, stochastic, lib, flops in (("stochastic", True, library_sto, n * L * F),
                                          ("deterministic", False, library_det, flops_det)):
         b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS)
         entries[mode] = {
-            "ms": median_ms(lambda: hash_encode_bwd(pos, g, cfg, stochastic)),
-            "plain_ms": median_ms(lambda: hash_encode_bwd_plain(pos, g, cfg, stochastic), iters=5),
-            "library_ms": median_ms(lib, iters=10),
+            "ms": device_ms(lambda: hash_encode_bwd(pos, g, cfg, stochastic)),
+            "call_ms": median_ms(lambda: hash_encode_bwd(pos, g, cfg, stochastic)),
+            "plain_ms": device_ms(lambda: hash_encode_bwd_plain(pos, g, cfg, stochastic), iters=5),
+            "library_ms": device_ms(lib),
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
-        print(f"K4 {mode}: " + json.dumps(entries[mode]))
-    main = entries["stochastic"]
+        print(f"K4 {label} {mode}: " + json.dumps(entries[mode]))
+    return entries
+
+
+def phase_k4(dev):
+    from umhs_torch.data.synthetic import ray_samples
+    from umhs_torch.ops.encodings import (
+        HashEncodingConfig, hash_encode_bwd, hash_encode_bwd_plain)
+
+    gen = torch.Generator().manual_seed(4)
+    n = K2_ROWS
+    cfg = HashEncodingConfig(num_levels=16, features_per_level=2, log2_hashmap_size=19,
+                             interpolation="tetrahedral")
+    L, F = cfg.num_levels, cfg.features_per_level
+    pos = torch.rand((n, 3), generator=gen)
+    pos[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 0.5, 1.0], [1.0, 0.0, 0.25]])
+    g = torch.randn((n, L * F), generator=gen).to(dev)
+    cases = {"random": pos.to(dev), "rays": torch.from_numpy(ray_samples(4096, 64, seed=4)).to(dev)}
+    entries = {label: k4_case(label, p, g, cfg, dev) for label, p in cases.items()}
+
+    # every lane of every warp on one row per level: with unit gradients the
+    # stochastic table holds exactly n at each level's chosen row, per feature
+    same = torch.tensor([[0.3141, 0.5926, 0.5358]], device=dev).expand(n, 3).contiguous()
+    ones = torch.ones_like(g)
+    sto = hash_encode_bwd(same, ones, cfg, True).reshape(-1, F)
+    ref = hash_encode_bwd_plain(same, ones, cfg, True).reshape(-1, F)
+    hit = sto[:, 0] != 0
+    exact = int(hit.sum()) == L and bool((sto[hit] == n).all()) and torch.equal(sto, ref)
+    print(f"K4 all positions equal N={n}: {int(hit.sum())} rows hit, each holding "
+          f"{sorted(set(sto[hit].reshape(-1).tolist()))} {'ok' if exact else 'MISMATCH'}")
+    check(exact, "K4 with every position equal: the stochastic table does not hold exactly n "
+                 "at each level's chosen row")
+    del same, ones, sto, ref
+
+    main, rays = entries["random"]["stochastic"], entries["rays"]["stochastic"]
     return {
         "name": "hash_encode_bwd",
         "route": "cuda",
         "source": "umhs_torch/csrc/hash_encode_bwd.cu",
         "replaces": "umhs_tpu/ops/encodings.py:501",
-        "max_abs_err": err,
-        **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-        "shape": "tetrahedral, L16xF2 2^19, 262,144 positions, stochastic (the main path's "
-                 "mode), the 48.8 MB table zeroed in the call; library = zeros + index_add_ "
-                 "on precomputed rows",
-        "stochastic_selection_differ_share": differ,
-        "deterministic": entries["deterministic"],
+        "max_abs_err": max(e["max_abs_err"] for e in entries.values()),
+        **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
+        "shape": "tetrahedral, L16xF2 2^19, 262,144 random positions, stochastic (the main "
+                 "path's mode), the 48.8 MB table zeroed in the call; library = zeros + "
+                 "index_add_ on precomputed rows; rays_* = 4,096 rays x 64 samples, ray-major",
+        "rays_ms": rays["ms"],
+        "rays_call_ms": rays["call_ms"],
+        "rays_library_ms": rays["library_ms"],
+        "rays_plain_ms": rays["plain_ms"],
+        "stochastic_selection_differ_share": max(
+            e["stochastic_selection_differ_share"] for e in entries.values()),
+        "deterministic": entries["random"]["deterministic"],
+        "rays_deterministic": entries["rays"]["deterministic"],
     }
 
 
@@ -542,6 +610,15 @@ def phase_render(dev, dm, endmembers, cam):
     return trainer, launches
 
 
+# device kernels of each wrapper, by name (K2 launches a second, reducing kernel)
+KERNEL_NAMES = {
+    "umhs_mlp_fused_fwd": ("mlp_fused_fwd_kernel", "mlp_fused_fwd_tc_kernel"),
+    "umhs_mlp_fused_bwd": ("mlp_fused_bwd_kernel", "reduce_partials_kernel"),
+    "umhs_hash_encode_fwd": ("hash_encode_fwd_kernel",),
+    "umhs_hash_encode_bwd": ("hash_encode_bwd_kernel",),
+}
+
+
 def profile(label: str, fn, top: int = 12) -> dict:
     """fn() once more under torch.profiler (not timed elsewhere): device time
     by kernel and by PyTorch op, and the device's busy share of the wall time."""
@@ -565,8 +642,14 @@ def profile(label: str, fn, top: int = 12) -> dict:
         print(f"  kernel {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:100]}")
     for e in sorted(ops, key=lambda e: -e.device_time_total)[:top]:
         print(f"  op     {e.device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key}")
+    ours = {name: {"ms": sum(e.self_device_time_total for e in kernels
+                             if any(p in e.key for p in patterns)) / 1e3,
+                   "device_kernels": sum(e.count for e in kernels
+                                         if any(p in e.key for p in patterns))}
+            for name, patterns in KERNEL_NAMES.items()}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / wall_us, "device_launches": n_launches}
+            "device_busy_share": busy_us / wall_us, "device_launches": n_launches,
+            "kernels": ours}
 
 
 def phase_kernels_vs_plain(trainer, cam, dev):
@@ -999,6 +1082,10 @@ def phase_bench_schedule(dev):
         before = launch_counts()
         prof = profile("bench steady step", trainer.train_step)
         per_step = {k: v - before[k] for k, v in launch_counts().items()}
+        for sym in TRAIN_KERNELS:
+            k = prof["kernels"][sym]
+            print(f"  {sym} in the traced steady step: {k['ms']:.3f} ms of device time, "
+                  f"{per_step[sym]} launches ({k['device_kernels']} device kernels)")
     applied = trainer.dyn
     summary = {
         "write_dataset_s": write_s, "setup_s": setup_s,
@@ -1180,6 +1267,23 @@ def sweep_vs_plain(dev, extra_steps: int):
     print("sweep vs plain: " + json.dumps(summary))
 
 
+def ptxas_usage(log: str) -> dict:
+    """{kernel<template args>: registers and spill bytes} from nvcc -Xptxas=-v."""
+    usage, kernel = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '\S*?([a-z_]+_kernel)(\S*)'", line)
+        if entry:  # template arguments: the literals (Li8E, Lb1E) after the name
+            args = re.findall(r"L[a-z](\d+)E", entry.group(2))
+            kernel = entry.group(1) + (f"<{','.join(args)}>" if args else "")
+            usage[kernel] = {}
+        elif kernel and "spill stores" in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            usage[kernel].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif kernel and "registers" in line:
+            usage[kernel]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return usage
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeat-schedule", action="store_true",
@@ -1207,10 +1311,13 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = _native.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'cached'}")
+    spills = []
     for src, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+        for kernel, usage in ptxas_usage(log).items():
+            print(f"  ptxas {src} {kernel}: " + json.dumps(usage))
+            if usage["spill_stores"] or usage["spill_loads"]:
+                spills.append(kernel)
+    check(not spills, f"ptxas spilled registers in {spills}")
 
     only = args.repeat_schedule or args.sweep_vs_plain is not None
     if args.repeat_schedule:

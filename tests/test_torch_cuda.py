@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from umhs_torch.data.cameras import generate_camera_rays
-from umhs_torch.data.synthetic import SyntheticSceneConfig, render_views, scene_cameras
+from umhs_torch.data.synthetic import (
+    SyntheticSceneConfig, ray_samples, render_views, scene_cameras)
 from umhs_torch.engine.trainer import Trainer, TrainerConfig
 from umhs_torch.models.model import ModelConfig
 from umhs_torch.data.datamanager import DataManagerConfig, InMemoryDataManager
@@ -67,6 +68,34 @@ def test_k1_matches_plain(cuda, dims, dtype, tol, n):
     assert MLP_FUSED_FWD.launches == before + 1
     assert y.shape == (n, dims[-1]) and y.dtype == torch.float32
     torch.testing.assert_close(y, mlp_plain(params, x, dtype), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize(
+    "dims",
+    [[32, 64, 16], [27, 64, 64, 7], [27, 64, 64, 6], [28, 16, 128], [5, 3, 9, 2, 4],
+     [15, 256, 128]],
+    ids=lambda d: "-".join(map(str, d)),
+)
+def test_k1_bf16_at_odd_n(cuda, dims):
+    """bf16 at n = 2^16 - 333 (a partial last tile): the four field chains
+    and the odd widths run on the tensor cores, the 256-wide chain on the FMA
+    kernel by its shape; one launch each, within 2e-2 of the plain version.
+    An x 4 bytes off 16-byte alignment gives the same result."""
+    n = (1 << 16) - 333
+    gen = torch.Generator().manual_seed(len(dims) + dims[-1])
+    params = _chain(dims, gen, cuda)
+    x = torch.randn((n, dims[0]), generator=gen).to(cuda)
+    before = MLP_FUSED_FWD.launches
+    y = mlp_fused_fwd(params, x, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert MLP_FUSED_FWD.launches == before + 1
+    ref = mlp_plain(params, x, torch.bfloat16)
+    torch.testing.assert_close(y, ref, rtol=2e-2, atol=2e-2)
+    off = torch.empty(n * dims[0] + 1, device=cuda)[1:].view(n, dims[0])
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    assert torch.equal(mlp_fused_fwd(params, off, torch.bfloat16), y)
+    assert MLP_FUSED_FWD.launches == before + 2
 
 
 def test_k1_rejects_what_it_does_not_take(cuda):
@@ -187,6 +216,90 @@ def test_k4_rejects_what_it_does_not_take(cuda):
         hash_encode_bwd(pos.double(), torch.zeros(10, 8, device=cuda), cfg, False)
     with pytest.raises(ValueError):
         hash_encode_bwd(pos, torch.zeros(8, 10, device=cuda).t(), cfg, False)
+
+
+# six levels, two of them dense (16^3 and 28^3 rows fit 2^16), four hashed
+K4_SMALL = dict(num_levels=6, log2_hashmap_size=16, max_resolution=256)
+
+
+@pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])
+@pytest.mark.parametrize("features", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 33, 3001])
+def test_k4_tail_warps_and_widths(cuda, interp, features, n):
+    """Ray-ordered samples (neighbours share rows at the dense levels, where
+    the kernel groups lanes) at n that leave a partial last warp, each F, both
+    modes: deterministic within 1e-5; stochastic with unit gradients exactly
+    n * L * F in all, on the plain version's rows for all but a 1e-4 share."""
+    cfg = HashEncodingConfig(features_per_level=features, interpolation=interp, **K4_SMALL)
+    assert cfg.dense[:2] == (True, True) and not any(cfg.dense[2:])
+    gen = torch.Generator().manual_seed(100 * features + n)
+    pos = torch.from_numpy(ray_samples((n + 63) // 64, 64, seed=n)[:n]).to(cuda)
+    g = torch.randn((n, cfg.output_dim), generator=gen).to(cuda)
+    before = HASH_ENCODE_BWD.launches
+    got = hash_encode_bwd(pos, g, cfg, stochastic=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, hash_encode_bwd_plain(pos, g, cfg, False), rtol=1e-5, atol=1e-5)
+    ones = torch.ones_like(g)
+    sto = hash_encode_bwd(pos, ones, cfg, stochastic=True)
+    assert HASH_ENCODE_BWD.launches == before + 2
+    assert float(sto.sum()) == n * cfg.output_dim
+    differ = float((sto - hash_encode_bwd_plain(pos, ones, cfg, True)).abs().sum())
+    assert differ / (2 * n * cfg.output_dim) <= 1e-4
+
+
+@pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])
+@pytest.mark.parametrize("features", [1, 2, 8])
+def test_k4_all_positions_equal(cuda, interp, features):
+    """Every lane of every warp shares each level's rows: with unit gradients
+    the stochastic table holds exactly n at each level's chosen row, per
+    feature, and nothing else; the deterministic one n * w_v per vertex,
+    against n times one sample's gradient taken in f64 within rtol n * 2^-24
+    (the bound of n sequential f32 adds: on the hashed levels the kernel
+    adds each lane's w_v on its own, as the plain version does)."""
+    cfg = HashEncodingConfig(features_per_level=features, interpolation=interp, **K4_SMALL)
+    n, L, F = 3001, cfg.num_levels, features
+    pos = torch.tensor([[0.3141, 0.5926, 0.5358]], device=cuda).expand(n, 3).contiguous()
+    ones = torch.ones((n, L * F), device=cuda)
+    sto = hash_encode_bwd(pos, ones, cfg, stochastic=True).reshape(-1, F)
+    ref = hash_encode_bwd_plain(pos, ones, cfg, True).reshape(-1, F)
+    hit = sto[:, 0] != 0
+    assert int(hit.sum()) == L and torch.equal(sto[hit], torch.full((L, F), float(n), device=cuda))
+    assert torch.equal(sto, ref)
+    det = hash_encode_bwd(pos, ones, cfg, stochastic=False)
+    one = hash_encode_bwd_plain(pos[:1], ones[:1], cfg, False).double()
+    torch.testing.assert_close(det.double(), n * one, rtol=n * 2.0**-24, atol=0)
+
+
+@pytest.mark.parametrize("stochastic", [True, False], ids=["stochastic", "deterministic"])
+def test_k4_padding_rows_add_nothing(cuda, stochastic):
+    """The compact buffer's padding: many rows at one position with zero
+    gradients. The kernel issues no reduction for them, and the table is the
+    plain version's; all-zero gradients leave it +0 everywhere."""
+    cfg = HashEncodingConfig(interpolation="tetrahedral", **K4_SMALL)
+    gen = torch.Generator().manual_seed(11)
+    real = torch.from_numpy(ray_samples(8, 64, seed=11))
+    pos = torch.cat([real, real[:1].expand(2500, 3)]).contiguous().to(cuda)
+    g = torch.cat([torch.randn((512, cfg.output_dim), generator=gen),
+                   torch.zeros((2500, cfg.output_dim))]).to(cuda)
+    got = hash_encode_bwd(pos, g, cfg, stochastic)
+    torch.testing.assert_close(got, hash_encode_bwd_plain(pos, g, cfg, stochastic),
+                               rtol=1e-5, atol=1e-5)
+    zero = hash_encode_bwd(pos, torch.zeros_like(g), cfg, stochastic)
+    assert not bool(zero.ne(0).any()) and not bool(torch.signbit(zero).any())
+
+
+@pytest.mark.parametrize("features", [2, 4, 8])
+def test_k4_refuses_a_misaligned_gradient(cuda, features):
+    """g is read with vector loads of 4 * F bytes: a view 4 bytes off is refused."""
+    cfg = HashEncodingConfig(features_per_level=features, **K4_SMALL)
+    n = 64
+    pos = torch.rand((n, 3), device=cuda)
+    g = torch.zeros(n * cfg.output_dim + 1, device=cuda)[1:].view(n, cfg.output_dim)
+    assert g.is_contiguous() and g.data_ptr() % (4 * features) != 0
+    before = HASH_ENCODE_BWD.launches
+    with pytest.raises(ValueError, match="aligned"):
+        hash_encode_bwd(pos, g, cfg, stochastic=True)
+    assert HASH_ENCODE_BWD.launches == before
 
 
 @pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])

@@ -59,7 +59,7 @@ def test_plain_row_gather_is_table_indexing():
 
 
 def test_probe_check_runs_on_the_cpu(capsys):
-    assert probe.main(["--check"]) == []
+    assert probe.main(["--check", "--device", "cpu"]) == []
     out = capsys.readouterr().out
     assert out.count("bit for bit") == 3 and "plain/numpy" in out
 
@@ -68,6 +68,18 @@ def test_probe_refuses_to_measure_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         probe.main([])
+
+
+def test_probe_check_needs_the_card_unless_asked_for_the_cpu(monkeypatch, capsys):
+    """--check runs where --device says (cuda by default): without a card it
+    raises instead of falling back to the CPU; measuring refuses the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        probe.main(["--check"])
+    assert capsys.readouterr().out == ""
+    with pytest.raises(SystemExit, match="needs the card"):
+        probe.main(["--device", "cpu"])
+    assert probe.main(["--check", "--device", "cpu"]) == []
 
 
 def test_probe_shapes_and_bounds():

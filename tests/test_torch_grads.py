@@ -22,7 +22,8 @@ from umhs_tpu.ops import activations as j_act
 from umhs_tpu.ops import encodings as j_enc
 from umhs_tpu.ops.pallas.mlp_fused import mlp_apply_fused
 from umhs_torch.data.datamanager import InMemoryDataManager
-from umhs_torch.data.synthetic import SyntheticSceneConfig, render_views, scene_cameras
+from umhs_torch.data.synthetic import (
+    SyntheticSceneConfig, ray_samples, render_views, scene_cameras)
 from umhs_torch.engine import trainer as t_trainer
 from umhs_torch.engine.trainer import Trainer, TrainerConfig, named_leaves
 from umhs_torch.models import field as t_field
@@ -135,16 +136,27 @@ def _positions(n, seed):
     return pos
 
 
-@pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])
-def test_hash_backward_deterministic_matches_jax_vjp(interp):
+def _hash_positions(kind, n, seed):
+    """kind="rays": 40 rays x 64 ray-ordered samples, where many share rows."""
+    return _positions(n, seed) if kind == "random" else ray_samples(40, 64, seed)
+
+
+# ids without a suffix are the random position sets these tests always had
+HASH_CASES = [pytest.param(interp, kind, id=interp + ("" if kind == "random" else "-" + kind))
+              for kind in ("random", "rays") for interp in ("tetrahedral", "trilinear")]
+
+
+@pytest.mark.parametrize("interp,kind", HASH_CASES)
+def test_hash_backward_deterministic_matches_jax_vjp(interp, kind):
     """The table gradient within atol 1e-6 (entries up to ~1e1): sums over
-    repeated rows are taken in another order."""
+    repeated rows are taken in another order. kind="rays": 40 rays x 64
+    ray-ordered samples, where many samples share rows."""
     jcfg = j_enc.HashEncodingConfig(interpolation=interp, stochastic_grad=False, **HASH_KW)
     tcfg = t_enc.HashEncodingConfig(interpolation=interp, stochastic_grad=False, **HASH_KW)
-    pos = _positions(3000, seed=21)
+    pos = _hash_positions(kind, 3000, seed=21)
     rng = np.random.default_rng(22)
     table = rng.uniform(-1, 1, tcfg.table_size * 2).astype(np.float32)
-    g = rng.normal(size=(3000, tcfg.output_dim)).astype(np.float32)
+    g = rng.normal(size=(pos.shape[0], tcfg.output_dim)).astype(np.float32)
     jout, jvjp = jax.vjp(lambda t: j_enc.hash_encode(t, jnp.asarray(pos), jcfg), jnp.asarray(table))
     jgrad = np.asarray(jvjp(jnp.asarray(g))[0])
     assert np.abs(jgrad).max() > 1.0
@@ -157,11 +169,12 @@ def test_hash_backward_deterministic_matches_jax_vjp(interp):
     np.testing.assert_allclose(_np(tt.grad), jgrad, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])
-def test_hash_backward_stochastic_adds_g_to_exactly_one_vertex(interp):
+@pytest.mark.parametrize("interp,kind", HASH_CASES)
+def test_hash_backward_stochastic_adds_g_to_exactly_one_vertex(interp, kind):
     cfg = t_enc.HashEncodingConfig(interpolation=interp, **HASH_KW)
-    pos = _t(_positions(2000, seed=23))
-    g = torch.randn(2000, cfg.output_dim, generator=torch.Generator().manual_seed(24))
+    pos = _t(_hash_positions(kind, 2000, seed=23))
+    n = pos.shape[0]
+    g = torch.randn(n, cfg.output_dim, generator=torch.Generator().manual_seed(24))
     idx, w = t_enc.hash_indices_weights(pos, cfg)
     sel = t_enc.stochastic_vertex(w, t_enc.level_uniforms(pos, cfg.num_levels))
     assert int(sel.min()) >= 0 and int(sel.max()) < cfg.verts_per_cell
@@ -173,7 +186,7 @@ def test_hash_backward_stochastic_adds_g_to_exactly_one_vertex(interp):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     # with unit gradients every (sample, level, feature) adds exactly 1
     ones = t_enc.hash_encode_bwd_plain(pos, torch.ones_like(g), cfg, True)
-    assert float(ones.sum()) == 2000 * cfg.output_dim
+    assert float(ones.sum()) == n * cfg.output_dim
     # and the autograd path takes the stochastic backward by default
     tt = torch.zeros(cfg.table_size * 2, requires_grad=True)
     t_enc.hash_encode(tt, pos, cfg).backward(g)

@@ -138,6 +138,24 @@ def scene_cameras(cfg: SyntheticSceneConfig, poses: np.ndarray) -> Cameras:
     )
 
 
+def ray_samples(num_rays: int, samples: int, seed: int) -> np.ndarray:
+    """(num_rays * samples, 3) f32 positions in [0, 1]^3: `num_rays` random
+    lines through the unit cube, `samples` evenly spaced points on each
+    inside it, ray-major as the compact buffer holds a batch's samples (so
+    neighbouring samples share hash-grid rows at the coarse levels)."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(size=(num_rays, 3))
+    d = rng.normal(size=(num_rays, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d = np.where(np.abs(d) < 1e-6, 1e-6, d)
+    t0, t1 = -a / d, (1 - a) / d
+    near = np.minimum(t0, t1).max(axis=-1, keepdims=True)
+    far = np.maximum(t0, t1).min(axis=-1, keepdims=True)
+    t = near + (far - near) * (np.arange(samples) + 0.5) / samples
+    pos = a[:, None] + t[..., None] * d[:, None]
+    return np.clip(pos, 0.0, 1.0).reshape(-1, 3).astype(np.float32)
+
+
 def write_dataset(root: Path, cfg: Optional[SyntheticSceneConfig] = None) -> Path:
     """Write the scene as a dataset directory (umhs_tpu/data/synthetic.py:151-191):
     train/ and eval/ RGBA PNGs and .npy cubes, and transforms.json with the

@@ -11,6 +11,13 @@
   package. The forward saves only the positions (the JAX residual) and the
   positions get no gradient, as in the JAX custom VJP.
 
+On a CUDA tensor K3 and K4 take every configuration they accept (F in 1, 2,
+4, 8; L up to 32; tetrahedral or trilinear) and K4 both modes, stochastic
+(the main path's) and deterministic, in one kernel each: one thread per
+sample and level in K3, one thread per sample looping over the levels in
+K4, with vector reductions into the table and, on the dense levels, the
+lanes of a warp that share a row summed before their one reduction.
+
 Indices are computed in int64. The XOR-prime hash wraps in uint32 on the
 TPU and in the kernel, so the plain versions mask it with 0xFFFFFFFF before
 taking it modulo the (power-of-two) hashmap size.
@@ -20,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -344,7 +352,10 @@ def hash_encode_bwd_plain(
     return grad
 
 
+@functools.lru_cache(maxsize=None)
 def _level_args(config: HashEncodingConfig):
+    """The launchers' per-level arguments, built once per configuration (the
+    launchers only read them)."""
     L = config.num_levels
     return (
         (ctypes.c_float * L)(*np.asarray(config.scales, np.float32).tolist()),
@@ -412,16 +423,17 @@ def hash_encode_bwd(
     """K4 on a CUDA tensor, `hash_encode_bwd_plain` on a CPU tensor: the
     gradient (T * F,) of the flat table. The kernel adds with float atomics,
     so the order of the adds into a repeated row, and the sum's last bits,
-    change from run to run."""
+    change from run to run. It reads g with vector loads, so g must be
+    aligned to 4 * F bytes (a fresh tensor always is)."""
     if pos.device.type == "cpu":
         return hash_encode_bwd_plain(pos, g, config, stochastic)
     _check_positions("hash_encode_bwd", pos, config)
     L, F = config.num_levels, config.features_per_level
     n = pos.shape[0]
     if (g.dtype != torch.float32 or tuple(g.shape) != (n, L * F) or g.device != pos.device
-            or not g.is_contiguous()):
-        raise ValueError("hash_encode_bwd: g must be a contiguous float32 (N, L * F) tensor "
-                         "on the positions' device")
+            or not g.is_contiguous() or g.data_ptr() % (4 * F) != 0):
+        raise ValueError("hash_encode_bwd: g must be a contiguous, aligned float32 (N, L * F) "
+                         "tensor on the positions' device")
     grad = torch.zeros(config.table_size * F, dtype=torch.float32, device=pos.device)
     with torch.cuda.device(pos.device):
         HASH_ENCODE_BWD.launch(

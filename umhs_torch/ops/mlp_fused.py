@@ -3,11 +3,17 @@ autograd Function that joins them, and their plain versions.
 
 `mlp_fused_fwd` runs a whole layer chain (ReLU between layers, linear last
 layer) in one launch of ``csrc/mlp_fused_fwd.cu``, the port of the Pallas
-kernel ``umhs_tpu/ops/pallas/mlp_fused.py::_fwd_kernel``. `mlp_fused_bwd`
-runs ``csrc/mlp_fused_bwd.cu``, the port of ``_bwd_kernel``: it recomputes
-the forward per tile and returns dx (unless not wanted) and every dW_i,
-db_i. `mlp_fused` is the `torch.autograd.Function` over both: its forward
-saves only x and the weights, as the JAX custom VJP does.
+kernel ``umhs_tpu/ops/pallas/mlp_fused.py::_fwd_kernel``. Its launcher picks
+the kernel by mode and shape: under a bf16 compute dtype a chain whose widths,
+padded (inputs to 16, hidden widths to 16, the output to 8), are all at most
+128 runs on the tensor cores (mma.sync, activations kept in registers; the
+four field chains); f32, and a bf16 chain with a wider layer (the DINO head's
+256), run the f32 FMA kernel. Either way it is the one launch counted.
+
+`mlp_fused_bwd` runs ``csrc/mlp_fused_bwd.cu``, the port of ``_bwd_kernel``:
+it recomputes the forward per tile and returns dx (unless not wanted) and
+every dW_i, db_i. `mlp_fused` is the `torch.autograd.Function` over both:
+its forward saves only x and the weights, as the JAX custom VJP does.
 
 On a CPU tensor each wrapper runs its plain version instead; on a CUDA
 tensor the kernel is the only path and a failed build or launch raises.
@@ -123,6 +129,8 @@ def mlp_fused_fwd(params, x: torch.Tensor,
     if x.device.type == "cpu":
         return mlp_plain(params, x, compute_dtype)
     dims = _chain_dims("mlp_fused_fwd", params, x, compute_dtype)
+    if x.data_ptr() % 16:  # a view at an odd offset: the kernel copies rows in 16-byte pieces
+        x = x.clone()
     packed = _packed(params)
     y = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
     dims_c = (ctypes.c_int * len(dims))(*dims)

@@ -2,7 +2,7 @@
 (the twin of scripts/probe_pallas_gather.py, whose arms were XLA's gather and
 a Pallas DMA gather).
 
-    python -m umhs_torch.probes.gather [--check] [--rows N]
+    python -m umhs_torch.probes.gather [--check] [--rows N] [--device cuda|cpu]
 
 Arms, at the probe's shapes and on the flagship's hash table:
   library   torch.index_select(table, 0, idx), PyTorch's gather (the
@@ -18,7 +18,9 @@ line gives rows, the median of CUDA-event-timed calls, ns per row and the
 bytes bound. Measuring needs the card.
 
 --check compares the kernel with the plain version bit for bit on the card;
-without a card it compares the plain version with a numpy take on the CPU.
+with --device cpu it compares the plain version with a numpy take on the
+CPU. The device is cuda unless --device cpu is given, and without a card the
+probe raises rather than fall back.
 """
 
 from __future__ import annotations
@@ -123,15 +125,16 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true", help="bit-for-bit correctness only")
     ap.add_argument("--rows", type=int, default=0, help="override the gathered row count")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where to run (cpu: --check of the plain version only)")
     args = ap.parse_args(argv)
     rows = args.rows or PROBE_ROWS
-    if not torch.cuda.is_available():
-        if not args.check:
-            raise SystemExit("gather probe: no CUDA device; measuring needs the card "
-                             "(--check runs on the CPU)")
-        device = torch.device("cpu")
-    else:
-        device = torch.device("cuda")
+    if args.device == "cpu" and not args.check:
+        raise SystemExit("gather probe: measuring needs the card (--device cpu takes --check)")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("gather probe: no CUDA device (pass --device cpu to --check the plain "
+                         "version on the CPU)")
+    device = torch.device(args.device)
     if args.check:
         for line in check(device, rows):
             print(line)
