@@ -26,8 +26,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    - K3 hash_encode_fwd: tetrahedral and trilinear at L16xF2 2^19 on 2^20
      positions including exact 0 and 1 (atol 1e-6; table values ~1e-4);
    - K2 mlp_fused_bwd: the four chains at the training buffer's N = 262,144
-     rows, f32 (rtol 1e-4, atol 1e-4 * max) and bf16 (2e-2), dx, dW and db
-     against autograd of mlp_plain;
+     rows, f32 (rtol 1e-4, atol 1e-4 * max; the FMA kernel) and bf16 (2e-2;
+     the tensor-core kernel), dx, dW and db against autograd of mlp_plain
+     (bf16: also against the same backward on K1's own forward, and dx
+     against mlp_plain's only on rows whose ReLUs both forwards decide
+     alike; why: k2_against_plain), each repeated bit for bit; bf16 also at the steady step's stage sizes
+     174,336 and 101,632 rows and at 101,299; each chain's route (the
+     device kernel its launcher picks) with that kernel's ptxas registers;
    - K4 hash_encode_bwd: tetrahedral L16xF2 2^19 at 262,144 random
      positions and at 4,096 rays x 64 evenly spaced samples in ray-major
      order (the compact buffer's layout, where neighbours share rows),
@@ -43,7 +48,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the flagship's 6,098,108 x 2 table at 16,318,464 rows, and at N = 2049
      and 1 (rows 0 and T-1 among the indices); then its own path, the probe
      twin, measures it beside torch.index_select with the launch counts
-     zeroed before and read after.
+     zeroed before and read after; then the kernel, its plain version and
+     index_select are timed by device time on the probe's table.
 3. The serving path at full width: the bench scene (16 + 2 views, 128^2,
    128 bands, 6 spheres) as an in-memory train split (rendered once, also
    for phase 5) with VCA endmembers, Trainer.setup() from seed 0
@@ -69,7 +75,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every gradient within rtol 1e-3 in norm, each plus 4x the plain path's
    own change when it runs from the parameters moved one ulp; each passes
    on the median of the draws (why: phase_train_vs_plain). The kernel run
-   launches K1-K4, the plain runs none.
+   launches K1-K4, the plain runs none. Then the same step in bf16 (the
+   tensor-core K1 and K2): the loss within rtol 1e-3 and every gradient
+   within rtol 1e-2 in norm, each plus 4x the moved plain run's change
+   (why: VS_PLAIN_RTOL).
 7. bench.py's training schedule from a dataset on disk, at full width, in a
    temporary working directory: the bench scene written by write_dataset,
    Trainer(TrainerConfig, ModelConfig, DataManagerConfig) with bench.py's
@@ -316,34 +325,124 @@ def phase_k3(dev):
 K2_ROWS = 4096 * 64
 
 
-def phase_k2(dev):
-    from umhs_torch.ops.mlp import init_mlp
+# the steady step's stage sizes (bench schedule, PERF.md section 5) and a ragged N
+K2_STEADY_ROWS = (174336, 101632, 101632 - 333)
+
+
+def k1_forward_reference(params, x, g):
+    """K2's backward in f64 on K1's own forward: each hidden layer's
+    pre-activation is K1's output on the chain cut after that layer, ReLU'd
+    and rounded to bf16 as the kernels do; dh is rounded to bf16 for both
+    products, db summed before. Returns (dx, [(dW, db)], the rows where some
+    hidden ReLU of K1 decides otherwise than mlp_plain's)."""
+    from umhs_torch.ops.mlp_fused import mlp_fused_fwd, mlp_plain
+
+    layers = params["layers"]
+    acts = [x.bfloat16().double()]
+    flipped = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for l in range(len(layers) - 1):
+        cut = {"layers": layers[:l + 1]}
+        pre = mlp_fused_fwd(cut, x, torch.bfloat16)
+        flipped |= ((pre > 0) != (mlp_plain(cut, x, torch.bfloat16) > 0)).any(1)
+        acts.append(torch.relu(pre).bfloat16().double())
+    dh, grads = g.double(), []
+    for l in reversed(range(len(layers))):
+        if l + 1 < len(layers):
+            dh = dh * (acts[l + 1] > 0)
+        db = dh.sum(0)
+        dh = dh.float().bfloat16().double()
+        grads.insert(0, (acts[l].T @ dh, db))
+        dh = dh @ layers[l]["w"].bfloat16().double().T
+    return dh, grads, flipped
+
+
+# bf16: at most this share of rows may take a hidden ReLU otherwise in K1's
+# forward than in mlp_plain's (see k2_against_plain)
+K2_FLIPPED_ROWS_SHARE = 1e-4
+
+
+def k2_against_plain(name, params, x, g, dt):
+    """K2 against autograd of mlp_plain on one input: every tensor within
+    2e-2 (bf16) or 1e-4 (f32) of its largest entry, and a second run equal
+    bit for bit. Returns (max abs error, max error / max |ref|).
+
+    bf16: K1 and K2 sum on the tensor cores, mlp_plain in f32 on cuBLAS, so
+    a hidden pre-activation within rounding of 0 can take the ReLU one way
+    in K1's forward and the other in mlp_plain's (3 of 16.7M hidden units in
+    feature_mlp at 262,144 rows). K2 follows K1's decision, as it must, and
+    a row's dx then moves by that unit's whole share. So dx is held to the
+    plain version on the rows where the two forwards decide alike, and
+    every tensor, those rows included, to the same backward in f64 on K1's
+    own forward (k1_forward_reference), within the same tolerance; the
+    rows that differ must stay below K2_FLIPPED_ROWS_SHARE."""
     from umhs_torch.ops.mlp_fused import mlp_fused_bwd, mlp_plain_bwd
 
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dt]
+    n = x.shape[0]
+    dx, grads = mlp_fused_bwd(params, x, g, dt)
+    again = mlp_fused_bwd(params, x, g, dt)
+    dx_ref, grads_ref = mlp_plain_bwd(params, x, g, dt)
+    torch.cuda.synchronize()
+    flat = [dx] + [t for pair in grads for t in pair]
+    same = all(torch.equal(a, b) for a, b in zip(flat, [again[0]] + [t for p in again[1] for t in p]))
+    check(same, f"K2 {name} N={n} {dt}: a second run gave other bits")
+    refs = {"plain": [dx_ref] + [t for pair in grads_ref for t in pair]}
+    keep = torch.ones(n, dtype=torch.bool, device=x.device)
+    if dt == torch.bfloat16:
+        dx_k, grads_k, flipped = k1_forward_reference(params, x, g)
+        refs["K1's forward, f64"] = [dx_k] + [t for pair in grads_k for t in pair]
+        keep = ~flipped
+        check(int(flipped.sum()) <= K2_FLIPPED_ROWS_SHARE * n,
+              f"K2 {name} N={n}: {int(flipped.sum())} rows take a ReLU otherwise in K1's "
+              "forward than in mlp_plain's")
+    worst, max_err, line = 0.0, 0.0, []
+    for label, ref_list in refs.items():
+        worst_ref = 0.0
+        for i, (got, ref) in enumerate(zip(flat, ref_list)):
+            if i == 0 and label == "plain":
+                got, ref = got[keep], ref[keep]
+            got, ref = got.double(), ref.double()
+            err = float((got - ref).abs().max())
+            ok = torch.allclose(got, ref, rtol=tol, atol=tol * float(ref.abs().max()))
+            check(ok, f"K2 {name} N={n} {dt} disagrees with {label} (max abs err {err})")
+            worst_ref = max(worst_ref, err / max(float(ref.abs().max()), 1e-30))
+            max_err = max(max_err, err)
+        worst = max(worst, worst_ref)
+        line.append(f"{label} {worst_ref:.3e}")
+    flips = f", rows deciding a ReLU otherwise than mlp_plain: {int((~keep).sum())}" \
+        if dt == torch.bfloat16 else ""
+    print(f"K2 {name} N={n} {str(dt)[6:]}: max error / max|ref|: {'; '.join(line)} "
+          f"(tol {tol:g}){flips}; repeats bit for bit, ok")
+    return max_err, worst
+
+
+def phase_k2(dev, ptxas):
+    from umhs_torch.ops.mlp import init_mlp
+    from umhs_torch.ops.mlp_fused import mlp_fused_bwd, mlp_fused_bwd_route, mlp_plain_bwd
+
     gen = torch.Generator().manual_seed(3)
+    gen_steady = torch.Generator().manual_seed(30)
     n = K2_ROWS
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     max_err = 0.0
     max_rel = {"float32": 0.0, "bfloat16": 0.0}  # max |err| / max |ref| per tensor
     chains = {}
     for name, dims in K1_CHAINS.items():
         params = init_mlp(gen, dims[0], len(dims) - 1, dims[1], dims[-1], dev)
+        route = mlp_fused_bwd_route(dims, torch.bfloat16)
+        print(f"K2 {name} bf16 runs {route}: ptxas {json.dumps(ptxas.get(route))}; "
+              f"f32 runs {mlp_fused_bwd_route(dims, torch.float32)}")
         x = torch.randn((n, dims[0]), generator=gen).to(dev)
         g = torch.randn((n, dims[-1]), generator=gen).to(dev)
-        for dt in (torch.float32, torch.bfloat16):
-            dx, grads = mlp_fused_bwd(params, x, g, dt)
-            dx_ref, grads_ref = mlp_plain_bwd(params, x, g, dt)
-            torch.cuda.synchronize()
-            worst = 0.0
-            for got, ref in [(dx, dx_ref)] + [t for pr in zip(grads, grads_ref) for t in zip(*pr)]:
-                err = float((got - ref).abs().max())
-                ok = torch.allclose(got, ref, rtol=tol[dt], atol=tol[dt] * float(ref.abs().max()))
-                check(ok, f"K2 {name} {dt} disagrees with its plain version (max abs err {err})")
-                worst = max(worst, err / max(float(ref.abs().max()), 1e-30))
-                max_err = max(max_err, err)
+        cases = [(x, g, dt) for dt in (torch.float32, torch.bfloat16)]
+        for rows in K2_STEADY_ROWS:  # inputs of their own: `gen` draws as in earlier runs
+            cases.append((torch.randn((rows, dims[0]), generator=gen_steady).to(dev),
+                          torch.randn((rows, dims[-1]), generator=gen_steady).to(dev),
+                          torch.bfloat16))
+        for xc, gc, dt in cases:
+            err, worst = k2_against_plain(name, params, xc, gc, dt)
+            max_err = max(max_err, err)
             max_rel[str(dt)[6:]] = max(max_rel[str(dt)[6:]], worst)
-            print(f"K2 {name} N={n} {str(dt)[6:]}: max error / max|ref| {worst:.3e} "
-                  f"(tol {tol[dt]:g}) ok")
+        del cases
         # timing at the main path's dtype and dx: mlp_directional's input
         # (SH + posenc) has no parameters upstream, so it takes no dx
         need_dx = name != "mlp_directional"
@@ -367,7 +466,7 @@ def phase_k2(dev):
         nbytes = n * (dims[0] + dims[-1] + (dims[0] if need_dx else 0)) * 4 + 2 * nparams * 4
         b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
         chains[name] = {
-            "dims": dims, "dx": need_dx,
+            "dims": dims, "dx": need_dx, "route": route,
             "ms": device_ms(lambda: mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx)),
             "call_ms": median_ms(lambda: mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx)),
             "plain_ms": device_ms(lambda: mlp_plain_bwd(params, x, g, torch.bfloat16, need_dx),
@@ -391,7 +490,7 @@ def phase_k2(dev):
         "bound_by": "bytes" if by_bytes else "operations",
         "shape": "sum of the four flagship chains, 262,144 rows each, bf16, "
                  "dx except for mlp_directional; library = bf16 addmm chain forward + "
-                 "torch.autograd.grad",
+                 "torch.autograd.grad; also checked at 174,336, 101,632 and 101,299 rows",
         "chains": chains,
     }
 
@@ -613,7 +712,8 @@ def phase_render(dev, dm, endmembers, cam):
 # device kernels of each wrapper, by name (K2 launches a second, reducing kernel)
 KERNEL_NAMES = {
     "umhs_mlp_fused_fwd": ("mlp_fused_fwd_kernel", "mlp_fused_fwd_tc_kernel"),
-    "umhs_mlp_fused_bwd": ("mlp_fused_bwd_kernel", "reduce_partials_kernel"),
+    "umhs_mlp_fused_bwd": ("mlp_fused_bwd_kernel", "mlp_fused_bwd_tc_kernel",
+                           "reduce_partials_kernel"),
     "umhs_hash_encode_fwd": ("hash_encode_fwd_kernel",),
     "umhs_hash_encode_bwd": ("hash_encode_bwd_kernel",),
 }
@@ -792,23 +892,29 @@ def moved_one_ulp(params, seed: int, dev):
     return move(params)
 
 
-# the kernel-vs-plain training step (phase 6): see phase_train_vs_plain
+# the kernel-vs-plain training step (phase 6): see phase_train_vs_plain.
+# Tolerances by compute dtype: (gradients in norm, loss). In bf16 both paths
+# round at the same points (x, W, every hidden activation to bf16; sums and
+# biases in f32), so they part only where a sum taken in another order rounds
+# an activation to the neighbouring bf16 value (2^-8 relative) or puts a
+# pre-activation within rounding of 0 on the other side of the ReLU; spread
+# over a step's ~10^5 samples that stays far below one bf16 ulp in norm.
 VS_PLAIN_DRAWS = 3
-VS_PLAIN_RTOL = 1e-3  # gradients, in norm
-VS_PLAIN_LOSS_RTOL = 1e-5
+VS_PLAIN_RTOL = {"float32": (1e-3, 1e-5), "bfloat16": (1e-2, 1e-3)}
 SPREAD_FACTOR = 4.0
 
 
-def step_grads(trainer, dev, draws, impl, moved_seed=None):
+def step_grads(trainer, dev, draws, impl, moved_seed=None, dtype="float32"):
     """Loss, gradients and stage count of one training step from `trainer`'s
-    state at its current shapes, in f32 with the deterministic hash
-    gradient, from the parameters moved one ulp if `moved_seed` is given.
-    The kernel run must launch K1-K4 and the plain run none."""
+    state at its current shapes, in `dtype` (the MLPs' compute dtype) with
+    the deterministic hash gradient, from the parameters moved one ulp if
+    `moved_seed` is given. The kernel run must launch K1-K4 and the plain
+    run none."""
     from umhs_torch.engine.trainer import Trainer, TrainerConfig, named_leaves
 
-    cfg = dataclasses.replace(trainer.model.config, compute_dtype="float32",
+    cfg = dataclasses.replace(trainer.model.config, compute_dtype=dtype,
                               stochastic_hash_grad=False, impl=impl)
-    t = Trainer(TrainerConfig(seed=0, mixed_precision=False), cfg, num_classes=6,
+    t = Trainer(TrainerConfig(seed=0, mixed_precision=dtype == "bfloat16"), cfg, num_classes=6,
                 device=dev, datamanager=trainer.datamanager)
     state = trainer.state
     if moved_seed is not None:
@@ -827,19 +933,21 @@ def step_grads(trainer, dev, draws, impl, moved_seed=None):
             sum(1 for k in outputs if k.startswith("num_eval_s")))
 
 
-def phase_train_vs_plain(trainer, dev, label):
+def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
     """One training step from `trainer`'s state at its current shapes
     (rays, samples per ray, stage budgets), with the kernels and with the
-    plain versions, f32 and the deterministic hash gradient, same draws.
+    plain versions, in `dtype` (f32, or bf16 MLPs: the tensor-core K1 and
+    K2) with the deterministic hash gradient, same draws.
 
     Two checks. (1) The kernel run, repeated, gives the same loss and the
     same bits in every gradient but the hash table's (K4's float atomics add
     in any order): no kernel races. (2) On each of VS_PLAIN_DRAWS draws of
     the step, the plain step also runs from the parameters moved one ulp,
-    and each gradient with the kernels must lie within VS_PLAIN_RTOL of the
-    plain one in norm, plus SPREAD_FACTOR times the norm of the moved plain
-    run's change (the loss: within VS_PLAIN_LOSS_RTOL plus SPREAD_FACTOR
-    times its change); a tensor passes if its median over the draws does.
+    and each gradient with the kernels must lie within VS_PLAIN_RTOL[dtype][0]
+    of the plain one in norm, plus SPREAD_FACTOR times the norm of the moved
+    plain run's change (the loss: within VS_PLAIN_RTOL[dtype][1] plus
+    SPREAD_FACTOR times its change); a tensor passes if its median over the
+    draws does.
 
     Why in norm and over draws: near convergence the gradients are sums of
     ~10^5 terms that nearly cancel, and now and then f32 rounding puts a
@@ -854,26 +962,26 @@ def phase_train_vs_plain(trainer, dev, label):
     gen_state = trainer._step_gen.get_state()
     draws = [trainer.draw_step() for _ in range(VS_PLAIN_DRAWS)]
     trainer._step_gen.set_state(gen_state)  # the trainer's own stream goes on unchanged
+    rtol, loss_rtol = VS_PLAIN_RTOL[dtype]
     loss_r, grad_r, elem_k, elem_m = [], [], [], []
     for i, d in enumerate(draws):
-        la, ga, stages = step_grads(trainer, dev, d, "auto")
+        la, ga, stages = step_grads(trainer, dev, d, "auto", dtype=dtype)
         if i == 0:
-            la2, ga2, _ = step_grads(trainer, dev, d, "auto")
+            la2, ga2, _ = step_grads(trainer, dev, d, "auto", dtype=dtype)
             same = la2 == la and all(torch.equal(ga2[n], g) for n, g in ga.items()
                                      if n != "hash_table")
             check(same, f"{label}: the kernel step, repeated, gave other bits outside the "
                         "hash table's gradient")
             del ga2
-        lp, gp, _ = step_grads(trainer, dev, d, "plain")
-        lm, gm, _ = step_grads(trainer, dev, d, "plain", moved_seed=i + 1)
+        lp, gp, _ = step_grads(trainer, dev, d, "plain", dtype=dtype)
+        lm, gm, _ = step_grads(trainer, dev, d, "plain", moved_seed=i + 1, dtype=dtype)
         check(np.isfinite(la), f"{label}: non-finite loss with kernels")
-        loss_r.append(abs(la - lp) / (VS_PLAIN_LOSS_RTOL * abs(lp) + SPREAD_FACTOR * abs(lm - lp)))
+        loss_r.append(abs(la - lp) / (loss_rtol * abs(lp) + SPREAD_FACTOR * abs(lm - lp)))
         ratio, ek, em = {}, {}, {}
         for name, g in ga.items():
             ref, moved = gp[name], gm[name]
             ratio[name] = float((g - ref).norm()) / (
-                VS_PLAIN_RTOL * float(ref.norm()) + SPREAD_FACTOR * float((moved - ref).norm())
-                + 1e-30)
+                rtol * float(ref.norm()) + SPREAD_FACTOR * float((moved - ref).norm()) + 1e-30)
             fixed = 1e-3 * ref.abs() + 1e-4 * float(ref.abs().max()) + 1e-30
             ek[name] = float(((g - ref).abs() / fixed).max())
             em[name] = float(((moved - ref).abs() / fixed).max())
@@ -889,6 +997,7 @@ def phase_train_vs_plain(trainer, dev, label):
     loss_med = float(np.median(loss_r))
     grad_med = {n: float(np.median([r[n] for r in grad_r])) for n in grad_r[0]}
     out = {
+        "dtype": dtype,
         "shapes": {"rays": trainer.dyn.rays, "samples_per_ray": trainer.dyn.march.num_samples,
                    "budgets": list(trainer.dyn.budgets), "stages_reported": stages},
         "loss_over_tolerance": loss_r,
@@ -897,7 +1006,7 @@ def phase_train_vs_plain(trainer, dev, label):
         "elementwise_kernels_per_draw": [worst(r) for r in elem_k],
         "elementwise_plain_moved_per_draw": [worst(r) for r in elem_m],
     }
-    print(f"train step kernels vs plain, {label} (f32, deterministic hash gradient, "
+    print(f"train step kernels vs plain, {label} ({dtype}, deterministic hash gradient, "
           f"{VS_PLAIN_DRAWS} draws): " + json.dumps(out))
     check(loss_med <= 1.0, f"{label}: training loss with kernels disagrees with the plain path "
                            f"({loss_med} of its tolerance, median of the draws)")
@@ -913,7 +1022,7 @@ def phase_p1(dev):
     and 1; then the probe twin's measurement (its entry point, the kernel's
     only path) with the launch counts zeroed before and read after; then
     the plain version's time."""
-    from umhs_torch.ops.row_gather import ROW_GATHER, row_gather_plain
+    from umhs_torch.ops.row_gather import ROW_GATHER, row_gather, row_gather_plain
     from umhs_torch.probes import gather as probe
 
     T, FT, N = probe.PROBE_TABLE_ROWS, probe.FLAGSHIP_TABLE_ROWS, probe.PROBE_ROWS
@@ -926,7 +1035,10 @@ def phase_p1(dev):
     launches = ROW_GATHER.launches
     check(launches > 0, "the probe twin did not launch P1")
     table, idx = probe.make_case(T, N, dev)
-    plain_ms = median_ms(lambda: row_gather_plain(table, idx))
+    with uncounted():  # timing beside the probe twin's run, not part of it
+        ms = device_ms(lambda: row_gather(table, idx))
+    plain_ms = device_ms(lambda: row_gather_plain(table, idx))
+    library_ms = device_ms(lambda: torch.index_select(table, 0, idx))
     for label, r in results.items():
         print(f"P1 {label}: " + json.dumps(r))
     main = results["probe_table"]
@@ -936,11 +1048,13 @@ def phase_p1(dev):
         "source": "umhs_torch/csrc/row_gather.cu",
         "replaces": "scripts/probe_pallas_gather.py:39",
         "max_abs_err": 0.0,
-        "ms": main["kernel_ms"],
+        "ms": ms,
+        "call_ms": main["kernel_ms"],
         "plain_ms": plain_ms,
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": main["library_ms"],
+        "library_ms": library_ms,
+        "library_call_ms": main["library_ms"],
         "launches": launches,
         "launches_train": 0,
         "launches_render": 0,
@@ -1311,10 +1425,11 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = _native.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'cached'}")
-    spills = []
+    spills, ptxas = [], {}
     for src, log in reports.items():
         for kernel, usage in ptxas_usage(log).items():
             print(f"  ptxas {src} {kernel}: " + json.dumps(usage))
+            ptxas[kernel] = usage
             if usage["spill_stores"] or usage["spill_loads"]:
                 spills.append(kernel)
     check(not spills, f"ptxas spilled registers in {spills}")
@@ -1327,7 +1442,7 @@ def main() -> None:
     else:
         k1 = phase_k1(dev)
         k3 = phase_k3(dev)
-        k2 = phase_k2(dev)
+        k2 = phase_k2(dev, ptxas)
         k4 = phase_k4(dev)
         p1 = phase_p1(dev)
         dm, endmembers, cam = bench_scene_in_memory(dev)
@@ -1336,6 +1451,7 @@ def main() -> None:
         del trainer
         trainer, train_launches, _ = phase_train(dev, dm, endmembers)
         phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})")
+        phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})", "bfloat16")
         del trainer, dm
         bench_launches = phase_bench_schedule(dev)
 

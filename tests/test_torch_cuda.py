@@ -29,8 +29,8 @@ from umhs_torch.ops.encodings import (
     hash_encode_bwd_plain, hash_encode_fwd, hash_encode_plain)
 from umhs_torch.ops.mlp import init_mlp
 from umhs_torch.ops.mlp_fused import (
-    MLP_FUSED_BWD, MLP_FUSED_FWD, mlp_fused, mlp_fused_bwd, mlp_fused_fwd, mlp_plain,
-    mlp_plain_bwd)
+    MLP_FUSED_BWD, MLP_FUSED_FWD, mlp_fused, mlp_fused_bwd, mlp_fused_bwd_route, mlp_fused_fwd,
+    mlp_plain, mlp_plain_bwd)
 from umhs_torch.ops.row_gather import ROW_GATHER, row_gather, row_gather_plain
 
 pytestmark = pytest.mark.cuda
@@ -126,7 +126,7 @@ def _chain(dims, gen, dev):
 )
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("n", [1, 3001])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 33, 3001])
 def test_k2_matches_plain(cuda, dims, dtype, tol, n):
     """dx, dW, db against autograd of mlp_plain; f32 1e-4 as the Pallas
     backward's test, bf16 2e-2 (sums in another order; the plain path rounds
@@ -147,6 +147,51 @@ def test_k2_matches_plain(cuda, dims, dtype, tol, n):
     again = mlp_fused_bwd(params, x, g, dtype)[1]
     for (w1, b1), (w2, b2) in zip(grads, again):  # the fixed-order reduction repeats bit for bit
         assert torch.equal(w1, w2) and torch.equal(b1, b2)
+
+
+@pytest.mark.parametrize(
+    "dims",
+    [[32, 64, 16], [27, 64, 64, 7], [27, 64, 64, 6], [28, 16, 128], [5, 3, 9, 2, 4], [32, 16],
+     [15, 256, 128]],
+    ids=lambda d: "-".join(map(str, d)),
+)
+def test_k2_bf16_routes_and_edges(cuda, dims):
+    """bf16 at n = 2^16 - 333 (a partial last tile): the field chains and the
+    odd widths run on the tensor cores, the 256-wide chain on the FMA kernel
+    by its shape, one launch each, within 2e-2 of each tensor's largest
+    entry. The run repeats bit for bit; dx skipped leaves dW and db's bits
+    as they were; an x 4 bytes off 16-byte alignment gives the same bits;
+    an all-zero g gives exactly zero gradients."""
+    n = (1 << 16) - 333
+    gen = torch.Generator().manual_seed(len(dims) + dims[-1] + 1)
+    params = _chain(dims, gen, cuda)
+    x = torch.randn((n, dims[0]), generator=gen).to(cuda)
+    g = torch.randn((n, dims[-1]), generator=gen).to(cuda)
+    tensor_cores = max(dims) <= 128
+    assert mlp_fused_bwd_route(dims, torch.bfloat16).startswith(
+        "mlp_fused_bwd_tc_kernel<" if tensor_cores else "mlp_fused_bwd_kernel<")
+    assert mlp_fused_bwd_route(dims, torch.float32) == "mlp_fused_bwd_kernel<0>"
+    before = MLP_FUSED_BWD.launches
+    dx, grads = mlp_fused_bwd(params, x, g, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert MLP_FUSED_BWD.launches == before + 1
+    dx_ref, grads_ref = mlp_plain_bwd(params, x, g, torch.bfloat16)
+    flat = [dx] + [t for pair in grads for t in pair]
+    for got, ref in zip(flat, [dx_ref] + [t for pair in grads_ref for t in pair]):
+        torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2 * float(ref.abs().max()))
+    again = mlp_fused_bwd(params, x, g, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(flat, [again[0]] + [t for p in again[1] for t in p]))
+    no_dx, grads_no_dx = mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx=False)
+    assert no_dx is None
+    assert all(torch.equal(a, b) for a, b in zip(flat[1:], [t for p in grads_no_dx for t in p]))
+    off = torch.empty(n * dims[0] + 1, device=cuda)[1:].view(n, dims[0])
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    moved = mlp_fused_bwd(params, off, g, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(flat, [moved[0]] + [t for p in moved[1] for t in p]))
+    zdx, zgrads = mlp_fused_bwd(params, x, torch.zeros_like(g), torch.bfloat16)
+    assert not any(bool(t.ne(0).any()) for t in [zdx] + [t for p in zgrads for t in p])
+    assert MLP_FUSED_BWD.launches == before + 5
 
 
 def test_k2_skips_dx_and_trains_through_the_function(cuda):

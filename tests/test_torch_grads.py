@@ -80,6 +80,9 @@ def _chain(dims, seed):
         ([28, 16, 128], 1300, "bfloat16", 2e-2),  # N not a multiple of the tile
         ([27, 64, 64, 7], 1300, "float32", 1e-4),
         ([32, 16], 700, "float32", 1e-4),  # a single layer
+        ([27, 64, 64, 7], 1, "bfloat16", 2e-2),  # one row: the tensor-core K2's tile edges
+        ([32, 64, 16], 17, "bfloat16", 2e-2),
+        ([28, 16, 128], 33, "bfloat16", 2e-2),
     ],
 )
 def test_k2_plain_matches_pallas_backward_interpret(dims, n, dtype, tol):
@@ -112,6 +115,60 @@ def test_k2_plain_matches_pallas_backward_interpret(dims, n, dtype, tol):
     np.testing.assert_array_equal(_np(xt.grad), _np(dx))
     for leaf, want in zip(leaves, [t for pair in grads for t in pair]):
         np.testing.assert_array_equal(_np(leaf.grad), _np(want))
+
+
+def _grid_chain(dims, seed):
+    """A chain on a grid of quarters (x in {-1, 0, 1} later): every product
+    and sum is exact in bf16 and f32, and with biases in {-0.5, 0, 0.5} many
+    pre-activations are exactly 0.0, which the ReLU mask must gate off."""
+    rng = np.random.default_rng(seed)
+    layers = [{"w": rng.choice([-0.5, -0.25, 0.25, 0.5], (a, b)).astype(np.float32),
+               "b": rng.choice([-0.5, 0.0, 0.5], (b,)).astype(np.float32)}
+              for a, b in zip(dims[:-1], dims[1:])]
+    jp = {"layers": [{k: jnp.asarray(v) for k, v in lay.items()} for lay in layers]}
+    tp = {"layers": [{k: _t(v) for k, v in lay.items()} for lay in layers]}
+    return jp, tp
+
+
+@pytest.mark.parametrize("case", ["no_dx_bf16", "zero_preactivations_bf16",
+                                  "zero_preactivations_f32"])
+def test_k2_plain_matches_pallas_backward_without_dx_and_at_zero(case):
+    """K2's plain version against the Pallas backward in interpret mode:
+    with dx not wanted (dW and db only, dx None), and on a chain whose
+    first layer has exactly-zero pre-activations (post-activation > 0 masks
+    them, as `_bwd_kernel` does); bf16 within 2e-2, f32 within 1e-4 of each
+    tensor's largest entry."""
+    dtype = "float32" if case.endswith("f32") else "bfloat16"
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    n, need_dx = 40, not case.startswith("no_dx")
+    rng = np.random.default_rng(len(case))
+    if need_dx:
+        dims = [12, 16, 24, 5]
+        jp, tp = _grid_chain(dims, seed=9)
+        x = rng.choice([-1.0, 0.0, 1.0], (n, dims[0])).astype(np.float32)
+        pre = x @ np.asarray(tp["layers"][0]["w"]) + np.asarray(tp["layers"][0]["b"])
+        assert (pre == 0.0).mean() > 0.05  # the case the mask must decide
+    else:
+        dims = [28, 16, 128]
+        jp, tp = _chain(dims, seed=11)
+        x = rng.normal(size=(n, dims[0])).astype(np.float32)
+    g = rng.normal(size=(n, dims[-1])).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def loss(p, xx):
+        return jnp.sum(mlp_apply_fused(p, xx, compute_dtype=jdt) * jnp.asarray(g))
+
+    with pltpu.force_tpu_interpret_mode():
+        jgp, jgx = jax.grad(loss, argnums=(0, 1))(jp, jnp.asarray(x))
+    dx, grads = mlp_plain_bwd(tp, _t(x), _t(g), tdt, need_dx=need_dx)
+    assert (dx is None) == (not need_dx)
+    pairs = [(got, jgp["layers"][i][k])
+             for i, (dw, db) in enumerate(grads) for k, got in (("w", dw), ("b", db))]
+    if need_dx:
+        pairs.append((dx, jgx))
+    for got, ref in pairs:
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(_np(got), ref, rtol=tol, atol=tol * np.abs(ref).max())
 
 
 def test_apply_mlp_gradient_skips_dx_when_the_input_needs_none():

@@ -59,6 +59,22 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* row) {
                : "r"(smem_addr(row)));
 }
 
+// The same two loads, each 8x8 matrix transposed on the way: lane 4 * gid +
+// tig receives elements [2tig][gid] and [2tig + 1][gid] of its matrix. So a
+// matrix S stored row-major as S[k][m] (m contiguous) arrives as the A or B
+// fragment of S^T: the operands of a product that sums over S's rows.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(row)));
+}
+
 // 16 bytes from global to shared memory without registers; only the first
 // `src_bytes` (0-16) are read and the rest are zero-filled. Both addresses
 // 16-byte aligned.

@@ -106,6 +106,12 @@ class Kernel:
         fn.restype = ctypes.c_int
         self._fn = fn
 
+    def library(self) -> ctypes.CDLL:
+        """The loaded library of this kernel's source (built if missing)."""
+        if self._fn is None:
+            self._load()
+        return self._lib
+
     def launch(self, *args) -> None:
         """Call the launcher; raise on a non-zero cudaError_t, else count."""
         if self._fn is None:

@@ -12,7 +12,11 @@ four field chains); f32, and a bf16 chain with a wider layer (the DINO head's
 
 `mlp_fused_bwd` runs ``csrc/mlp_fused_bwd.cu``, the port of ``_bwd_kernel``:
 it recomputes the forward per tile and returns dx (unless not wanted) and
-every dW_i, db_i. `mlp_fused` is the `torch.autograd.Function` over both:
+every dW_i, db_i. Its launcher, too, picks the kernel by mode and shape: a
+bf16 chain within 128 padded wide whose dW tiles fit its warps' registers
+(the four field chains) runs on the tensor cores, recomputing with K1's own
+chain; f32 and other chains run the f32 FMA kernel
+(`mlp_fused_bwd_route` names it). `mlp_fused` is the `torch.autograd.Function` over both:
 its forward saves only x and the weights, as the JAX custom VJP does.
 
 On a CPU tensor each wrapper runs its plain version instead; on a CUDA
@@ -159,6 +163,9 @@ def mlp_fused_bwd(params, x: torch.Tensor, g: torch.Tensor,
     if g.dtype != torch.float32 or tuple(g.shape) != (n, dims[-1]) or g.device != x.device:
         raise ValueError("mlp_fused_bwd: g must be a float32 (N, out) tensor on x's device")
     g = g.contiguous()
+    # views at an odd offset: the kernels copy rows in 16-byte pieces
+    x = x.clone() if x.data_ptr() % 16 else x
+    g = g.clone() if g.data_ptr() % 16 else g
     packed = _packed(params)
     max_blocks = 2 * torch.cuda.get_device_properties(x.device).multi_processor_count
     partials = torch.empty((max_blocks, packed.numel()), dtype=torch.float32, device=x.device)
@@ -180,6 +187,21 @@ def mlp_fused_bwd(params, x: torch.Tensor, g: torch.Tensor,
         grads.append((dw, dparams[off:off + b.numel()]))
         off += b.numel()
     return dx, grads
+
+
+def mlp_fused_bwd_route(dims: List[int], compute_dtype: Optional[torch.dtype]) -> str:
+    """The device kernel K2's launcher runs for the chain of widths `dims` in
+    this mode, named as ptxas names it: "mlp_fused_bwd_tc_kernel<kKT,kOwn>"
+    (the tensor cores) or "mlp_fused_bwd_kernel<bf16>" (the FMA kernel).
+    Loads (and builds) the kernels."""
+    fn = MLP_FUSED_BWD.library().umhs_mlp_fused_bwd_route
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    bf16 = int(compute_dtype == torch.bfloat16)
+    code = fn((ctypes.c_int * len(dims))(*dims), len(dims) - 1, bf16)
+    if code == 0:
+        return f"mlp_fused_bwd_kernel<{bf16}>"
+    return f"mlp_fused_bwd_tc_kernel<{code // 100},{code % 100}>"
 
 
 class _MLPFused(torch.autograd.Function):
