@@ -9,7 +9,8 @@ The second form runs only phase 7's schedule, twice in each of three
 settings (the kernels; the kernels with torch's deterministic algorithms;
 the plain versions with them), and prints, for each setting, whether the
 two runs' losses agree bit for bit and where they first part, their adapt
-decisions and their steady ms per step. The third runs only phase 7's
+decisions and their steady ms per step; it fails unless both runs of the
+first setting, the Trainer as shipped, agree. The third runs only phase 7's
 schedule with phase 6's check after every slice from step 144 on and after
 each of 100 single steps past it, and prints the largest readings.
 
@@ -24,7 +25,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      FMA kernel) and bf16 (2e-2, the tensor-core kernel), at N = 2^20 and at
      an N that is not a multiple of the tile, plus a single-layer chain;
    - K3 hash_encode_fwd: tetrahedral and trilinear at L16xF2 2^19 on 2^20
-     positions including exact 0 and 1 (atol 1e-6; table values ~1e-4);
+     positions including exact 0 and 1, and tetrahedral on 16,384 rays x 64
+     ray-ordered samples (atol 1e-6; table values ~1e-4); with
+     --k3-baseline CSRC also another checkout's K3, timed in turns;
    - K2 mlp_fused_bwd: the four chains at the training buffer's N = 262,144
      rows, f32 (rtol 1e-4, atol 1e-4 * max; the FMA kernel) and bf16 (2e-2;
      the tensor-core kernel), dx, dW and db against autograd of mlp_plain
@@ -34,15 +37,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      174,336 and 101,632 rows and at 101,299; each chain's route (the
      device kernel its launcher picks) with that kernel's ptxas registers;
    - K4 hash_encode_bwd: tetrahedral L16xF2 2^19 at 262,144 random
-     positions and at 4,096 rays x 64 evenly spaced samples in ray-major
-     order (the compact buffer's layout, where neighbours share rows),
-     deterministic (rtol/atol 1e-5: float atomics add in a run-dependent
-     order) and stochastic (the share of (sample, level) pairs whose vertex
-     differs from the plain version's, at most 1e-4; with unit gradients
-     the table sums to exactly N x L x F); each timed beside zeros +
-     index_add_ on the same precomputed rows. With every position equal
-     (each warp's lanes on one row per level) the stochastic table holds
-     exactly N at each level's chosen row.
+     positions, at 4,096 rays x 64 evenly spaced samples in ray-major order
+     (the compact buffer's layout, where neighbours share rows) and with
+     every position equal (one row per level holds every entry), each mode
+     run twice (the same bits again) and held bit for bit to the plain
+     version on CPU copies: both add each entry from +0 in ascending entry
+     order. Stochastic: bit for bit against the plain sum on the CPU over
+     the rows the card draws, and against the plain version itself off the
+     rows of the draws that differ between the card's sin and the CPU's
+     (their share printed, at most K4_DRAW_DIFFER_SHARE); with unit
+     gradients the table sums to exactly N x L x F. Each case timed beside
+     zeros + index_add_ on the same precomputed rows.
    - P1 row_gather: the probe twin's check (umhs_torch.probes.gather), bit
      for bit against table[idx] on the probe's 12,000,000 x 2 f32 table and
      the flagship's 6,098,108 x 2 table at 16,318,464 rows, and at N = 2049
@@ -66,12 +71,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per step, warmup thinning 2), then train(48): full occupancy updates at
    steps 0 and 32, a partial one at 16. Launch counts are zeroed just before
    and read just after; K1-K4 must have launched; the loss must be finite
-   and fall (mean of the last 4 steps below the first 4). One more step
-   runs under torch.profiler.
+   and fall (mean of the last 4 steps below the first 4). A second
+   train(48) from seed 0, its launches uncounted, must give the same loss
+   at every step and the same state, bit for bit. One more step runs under
+   torch.profiler.
 6. One training step from the trained state with kernels against plain
    versions, both in f32 with the deterministic hash gradient and the same
-   draws. The kernel step, run twice, repeats bit for bit outside the hash
-   table's gradient. On each of three draws: the loss within rtol 1e-5 and
+   draws. The kernel step, run twice, repeats bit for bit in every
+   gradient. On each of three draws: the loss within rtol 1e-5 and
    every gradient within rtol 1e-3 in norm, each plus 4x the plain path's
    own change when it runs from the parameters moved one ulp; each passes
    on the median of the draws (why: phase_train_vs_plain). The kernel run
@@ -179,6 +186,26 @@ def device_ms(fn, iters: int = 10) -> float:
     return busy_us / iters / 1e3
 
 
+def device_ms_by_kernel(fn, iters: int = 10) -> dict:
+    """Device ms per call of fn() by device kernel (its name without
+    namespace and template arguments), under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "CUDA" in str(e.device_type):
+            key = e.key.replace("void ", "", 1).replace("(anonymous namespace)::", "")
+            name = re.split(r"[<(]", key, maxsplit=1)[0].strip().split("::")[-1]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / iters / 1e3
+    return out
+
+
 def bound(nbytes: float, flops: float, peak_flops: float):
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -252,7 +279,35 @@ def phase_k1(dev):
     }
 
 
-def phase_k3(dev):
+def k3_baseline(csrc: Path):
+    """K3 built from another checkout's `csrc` directory (its
+    hash_encode_fwd.cu and headers), as fn(table, pos, cfg) -> out, so that
+    two versions are timed in one run on one card."""
+    import ctypes
+
+    from umhs_torch.ops import _native
+    from umhs_torch.ops.encodings import HASH_ENCODE_FWD, _level_args
+
+    out_dir = Path(tempfile.mkdtemp(prefix="umhs_k3_baseline_"))
+    lib_path = out_dir / "hash_encode_fwd_baseline.so"
+    subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-o", str(lib_path),
+                    str(csrc / "hash_encode_fwd.cu")], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib_path)).umhs_hash_encode_fwd
+    fn.argtypes, fn.restype = HASH_ENCODE_FWD.argtypes, ctypes.c_int
+
+    def run(table, pos, cfg):
+        n = pos.shape[0]
+        out = torch.empty((n, cfg.output_dim), dtype=torch.float32, device=pos.device)
+        err = fn(pos.data_ptr(), table.data_ptr(), out.data_ptr(), n, cfg.num_levels,
+                 cfg.features_per_level, *_level_args(cfg), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"baseline K3 failed: cudaError {err}")
+        return out
+
+    return run
+
+
+def phase_k3(dev, baseline=None):
+    from umhs_torch.data.synthetic import ray_samples
     from umhs_torch.ops.encodings import (
         HashEncodingConfig, hash_encode_fwd, hash_encode_plain, hash_indices_weights)
 
@@ -262,10 +317,13 @@ def phase_k3(dev):
     pos[0], pos[1] = 0.0, 1.0
     pos[2] = torch.tensor([0.0, 0.5, 1.0])
     pos[3] = torch.tensor([1.0, 0.0, 0.25])
-    pos = pos.to(dev)
+    positions = {"random": pos.to(dev),
+                 "rays": torch.from_numpy(ray_samples(n // 64, 64, seed=2)).to(dev)}
     entries = {}
     max_err = 0.0
-    for interp in ("tetrahedral", "trilinear"):
+    for interp, kind in (("tetrahedral", "random"), ("tetrahedral", "rays"),
+                         ("trilinear", "random")):
+        pos = positions[kind]
         cfg = HashEncodingConfig(num_levels=16, features_per_level=2, log2_hashmap_size=19,
                                  interpolation=interp)
         table = ((torch.rand((cfg.table_size * 2,), generator=gen) * 2 - 1) * 1e-4).to(dev)
@@ -274,9 +332,9 @@ def phase_k3(dev):
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         ok = err <= 1e-6 and bool(torch.isfinite(out).all())
-        print(f"K3 {interp} N=2^20 L16xF2 2^19: max_abs_err {err:.3e} (atol 1e-6) "
+        print(f"K3 {interp} {kind} N=2^20 L16xF2 2^19: max_abs_err {err:.3e} (atol 1e-6) "
               f"{'ok' if ok else 'MISMATCH'}")
-        check(ok, f"K3 {interp} disagrees with its plain version")
+        check(ok, f"K3 {interp} {kind} disagrees with its plain version")
         max_err = max(max_err, err)
 
         idx, w = hash_indices_weights(pos, cfg)
@@ -290,7 +348,7 @@ def phase_k3(dev):
         sectors = int(torch.unique(idx.reshape(-1) * 8 // 32).numel())
         nbytes = n * 3 * 4 + n * cfg.output_dim * 4 + sectors * 32
         b_ms, b_by = bound(nbytes, 2.0 * n * cfg.num_levels * V * 2, H100_F32_FLOPS)
-        entries[interp] = {
+        entry = {
             "ms": device_ms(lambda: hash_encode_fwd(table, pos, cfg)),
             "call_ms": median_ms(lambda: hash_encode_fwd(table, pos, cfg)),
             "plain_ms": device_ms(lambda: hash_encode_plain(table, pos, cfg), iters=5),
@@ -302,9 +360,20 @@ def phase_k3(dev):
                                 + n * cfg.num_levels * V * 32) / H100_BYTES_PER_S * 1e3,
             "unique_sectors": sectors,
         }
-        print(f"K3 {interp}: " + json.dumps(entries[interp]))
+        if baseline is not None:  # in turns: baseline, this one, this one, baseline
+            check(torch.equal(baseline(table, pos, cfg), out),
+                  f"K3 {interp} {kind}: the baseline's output differs")
+            turns = [device_ms(lambda: baseline(table, pos, cfg)),
+                     device_ms(lambda: hash_encode_fwd(table, pos, cfg)),
+                     device_ms(lambda: hash_encode_fwd(table, pos, cfg)),
+                     device_ms(lambda: baseline(table, pos, cfg))]
+            entry["baseline_turns_ms"] = turns
+            entry["baseline_ms"] = (turns[0] + turns[3]) / 2
+            entry["this_ms"] = (turns[1] + turns[2]) / 2
+        entries[f"{interp} {kind}"] = entry
+        print(f"K3 {interp} {kind}: " + json.dumps(entry))
         del idx, w
-    main = entries["tetrahedral"]
+    main = entries["tetrahedral random"]
     return {
         "name": "hash_encode_fwd",
         "route": "cuda",
@@ -313,8 +382,10 @@ def phase_k3(dev):
         "max_abs_err": max_err,
         **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                                 "bound_by")},
-        "shape": "tetrahedral, L16xF2 2^19, 2^20 positions",
-        "trilinear": entries["trilinear"],
+        "shape": "tetrahedral, L16xF2 2^19, 2^20 random positions; rays = 16,384 rays x 64 "
+                 "samples, ray-major (synthetic.ray_samples)",
+        "rays": entries["tetrahedral rays"],
+        "trilinear": entries["trilinear random"],
         "sector_bound_ms": main["sector_bound_ms"],
     }
 
@@ -495,43 +566,88 @@ def phase_k2(dev, ptxas):
     }
 
 
-def k4_case(label, pos, g, cfg, dev):
-    """K4 against its plain version on one position set, then timed in both
-    modes beside zeros + index_add_ on the same precomputed rows."""
+def bits(t):
+    """A float tensor's bits, on the CPU: equal bits, not merely equal values
+    (+0 and -0 differ)."""
+    return t.detach().cpu().view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+# the share of stochastic draws (sample, level) that may land on another
+# vertex on the card than on the CPU: torch.sin on the two differs by an ulp
+# now and then, and u = frac(sin(.) * 43758.5453) scales that by ~4e4
+K4_DRAW_DIFFER_SHARE = 1e-2
+
+
+def k4_against_cpu(label, pos, g, cfg):
+    """K4 against its plain version on CPU copies, bit for bit: both add each
+    table entry from +0 in ascending entry order. Each mode runs twice and
+    must repeat bit for bit. Stochastic: bit for bit against the plain sum on
+    the CPU over the rows the card draws (torch's ops on the card), and
+    against the plain version itself off the rows of every (sample, level)
+    whose draw differs between the card and the CPU; their count is printed.
+    With unit gradients the stochastic table sums to exactly N x L x F.
+    Returns (largest |kernel - plain| on the compared entries, the share of
+    differing draws)."""
     from umhs_torch.ops.encodings import (
-        hash_encode_bwd, hash_encode_bwd_plain, hash_indices_weights, level_uniforms,
-        stochastic_vertex)
+        hash_encode_bwd, hash_encode_bwd_plain, stochastic_rows)
 
     n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
-    det = hash_encode_bwd(pos, g, cfg, False)
-    ref = hash_encode_bwd_plain(pos, g, cfg, False)
-    torch.cuda.synchronize()
-    err = float((det - ref).abs().max())
-    check(torch.allclose(det, ref, rtol=1e-5, atol=1e-5),
-          f"K4 {label} deterministic disagrees with its plain version (max abs err {err})")
-    # stochastic: with unit gradients each (sample, level, feature) adds 1 to
-    # one row, so |kernel - plain| / 2 counts the differing selections
+    cpu_pos, cpu_g = pos.cpu(), g.cpu()
+    out = {}
+    for mode, stochastic in (("deterministic", False), ("stochastic", True)):
+        got = hash_encode_bwd(pos, g, cfg, stochastic)
+        again = hash_encode_bwd(pos, g, cfg, stochastic)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(got), bits(again)),
+              f"K4 {label} {mode}: a second run gave other bits")
+        out[mode] = (got.cpu(), hash_encode_bwd_plain(cpu_pos, cpu_g, cfg, stochastic))
+        del got, again
+    det, det_ref = out["deterministic"]
+    check(torch.equal(bits(det), bits(det_ref)),
+          f"K4 {label} deterministic: not the plain version's bits on the CPU "
+          f"(max abs err {float((det - det_ref).abs().max())})")
+    sto, sto_ref = out["stochastic"]
+    rows_card, rows_cpu = stochastic_rows(pos, cfg).cpu(), stochastic_rows(cpu_pos, cfg)
+    feat = torch.arange(F)
+    on_card_rows = torch.zeros_like(sto_ref).index_add_(
+        0, (rows_card[..., None] * F + feat).reshape(-1), cpu_g.reshape(-1))
+    check(torch.equal(bits(sto), bits(on_card_rows)),
+          f"K4 {label} stochastic: not the plain sum over the card's draws, bit for bit")
+    differ = rows_card != rows_cpu
+    touched = torch.zeros(cfg.table_size, dtype=torch.bool)
+    touched[rows_card[differ]] = True
+    touched[rows_cpu[differ]] = True
+    keep = ~touched.repeat_interleave(F)
+    check(torch.equal(bits(sto)[keep], bits(sto_ref)[keep]),
+          f"K4 {label} stochastic: not the plain version's bits where the draws agree")
+    share = float(differ.float().mean())
+    err = max(float((det - det_ref).abs().max()), float((sto - sto_ref)[keep].abs().max()))
     ones = torch.ones_like(g)
-    sto = hash_encode_bwd(pos, ones, cfg, True)
-    sto_ref = hash_encode_bwd_plain(pos, ones, cfg, True)
-    torch.cuda.synchronize()
-    check(float(sto.sum()) == n * L * F,
+    check(float(hash_encode_bwd(pos, ones, cfg, True).sum()) == n * L * F,
           f"K4 {label} stochastic did not add each gradient exactly once")
-    differ = float((sto - sto_ref).abs().sum()) / 2 / F / (n * L)
-    print(f"K4 {label} deterministic N={n} L{L}xF{F}: max_abs_err {err:.3e} (rtol/atol 1e-5) "
-          f"ok; stochastic: share of differing vertex selections {differ:.3e} (limit 1e-4)")
-    check(differ <= 1e-4, f"K4 {label} stochastic selections differ from the plain version's: "
-                          f"{differ}")
-    sto_g = hash_encode_bwd(pos, g, cfg, True)
-    check(bool(torch.isfinite(sto_g).all()), f"K4 {label} stochastic: non-finite gradient")
-    del det, ref, sto, sto_ref, sto_g
+    print(f"K4 {label} N={n} L{L}xF{F}: both modes repeat bit for bit and equal the plain "
+          f"version on the CPU bit for bit (stochastic: on the {int(keep.sum())} of "
+          f"{keep.numel()} entries off the rows of {int(differ.sum())} of {differ.numel()} "
+          f"draws ({share:.3e}) that differ between the card's sin and the CPU's, limit "
+          f"{K4_DRAW_DIFFER_SHARE:g}; all of them against the plain sum over the card's draws)")
+    check(share <= K4_DRAW_DIFFER_SHARE, f"K4 {label}: {share} of the draws differ")
+    return err, share
+
+
+def k4_case(label, pos, g, cfg, dev):
+    """k4_against_cpu on one position set, then both modes timed beside
+    zeros + index_add_ on the same precomputed rows."""
+    from umhs_torch.ops.encodings import (
+        hash_encode_bwd, hash_encode_bwd_plain, hash_indices_weights, stochastic_rows)
+
+    n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
+    err, differ = k4_against_cpu(label, pos, g, cfg)
 
     idx, w = hash_indices_weights(pos, cfg)
     feat = torch.arange(F, device=dev)
     flat_det = (idx[..., None] * F + feat).reshape(-1)
     contrib = (w[..., None] * g.reshape(n, L, 1, F)).reshape(-1)
-    sel = stochastic_vertex(w, level_uniforms(pos, L))
-    flat_sto = (torch.gather(idx, 2, sel[..., None]) * F + feat).reshape(-1)
+    flat_sto = (stochastic_rows(pos, cfg)[..., None] * F + feat).reshape(-1)
     g_flat = g.reshape(-1)
     size = cfg.table_size * F
 
@@ -544,7 +660,7 @@ def k4_case(label, pos, g, cfg, dev):
     # bytes: positions and g read once, the gradient table zeroed and written
     nbytes = n * 3 * 4 + n * L * F * 4 + size * 4
     flops_det = n * L * cfg.verts_per_cell * F * 2.0
-    entries = {"max_abs_err": err, "stochastic_selection_differ_share": differ}
+    entries = {"max_abs_err": err, "stochastic_draws_differ_cpu_share": differ}
     for mode, stochastic, lib, flops in (("stochastic", True, library_sto, n * L * F),
                                          ("deterministic", False, library_det, flops_det)):
         b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS)
@@ -555,6 +671,8 @@ def k4_case(label, pos, g, cfg, dev):
             "library_ms": device_ms(lib),
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "ms_by_device_kernel": device_ms_by_kernel(
+                lambda: hash_encode_bwd(pos, g, cfg, stochastic)),
         }
         print(f"K4 {label} {mode}: " + json.dumps(entries[mode]))
     return entries
@@ -576,9 +694,11 @@ def phase_k4(dev):
     cases = {"random": pos.to(dev), "rays": torch.from_numpy(ray_samples(4096, 64, seed=4)).to(dev)}
     entries = {label: k4_case(label, p, g, cfg, dev) for label, p in cases.items()}
 
-    # every lane of every warp on one row per level: with unit gradients the
-    # stochastic table holds exactly n at each level's chosen row, per feature
+    # every sample on one row per level, each row's n entries summed in one
+    # lane: with unit gradients the stochastic table holds exactly n at each
+    # level's chosen row, per feature
     same = torch.tensor([[0.3141, 0.5926, 0.5358]], device=dev).expand(n, 3).contiguous()
+    k4_against_cpu("all positions equal", same, g, cfg)
     ones = torch.ones_like(g)
     sto = hash_encode_bwd(same, ones, cfg, True).reshape(-1, F)
     ref = hash_encode_bwd_plain(same, ones, cfg, True).reshape(-1, F)
@@ -600,14 +720,15 @@ def phase_k4(dev):
         **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                                 "bound_by")},
         "shape": "tetrahedral, L16xF2 2^19, 262,144 random positions, stochastic (the main "
-                 "path's mode), the 48.8 MB table zeroed in the call; library = zeros + "
-                 "index_add_ on precomputed rows; rays_* = 4,096 rays x 64 samples, ray-major",
+                 "path's mode), the 48.8 MB table zeroed and the sort's scratch allocated in "
+                 "the call; library = zeros + index_add_ on precomputed rows (float atomics, "
+                 "any order); rays_* = 4,096 rays x 64 samples, ray-major",
         "rays_ms": rays["ms"],
         "rays_call_ms": rays["call_ms"],
         "rays_library_ms": rays["library_ms"],
         "rays_plain_ms": rays["plain_ms"],
-        "stochastic_selection_differ_share": max(
-            e["stochastic_selection_differ_share"] for e in entries.values()),
+        "stochastic_draws_differ_cpu_share": max(
+            e["stochastic_draws_differ_cpu_share"] for e in entries.values()),
         "deterministic": entries["random"]["deterministic"],
         "rays_deterministic": entries["rays"]["deterministic"],
     }
@@ -715,7 +836,8 @@ KERNEL_NAMES = {
     "umhs_mlp_fused_bwd": ("mlp_fused_bwd_kernel", "mlp_fused_bwd_tc_kernel",
                            "reduce_partials_kernel"),
     "umhs_hash_encode_fwd": ("hash_encode_fwd_kernel",),
-    "umhs_hash_encode_bwd": ("hash_encode_bwd_kernel",),
+    "umhs_hash_encode_bwd": ("emit_kernel", "digit_count_kernel", "digit_scan_kernel",
+                             "digit_scatter_kernel", "row_sum_kernel"),
 }
 
 
@@ -839,6 +961,7 @@ def phase_train(dev, dm, endmembers):
     check(all(np.isfinite(losses)), "non-finite training loss")
     first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
     check(last < first, f"training loss did not fall: {first} -> {last}")
+    repeat = repeat_train(trainer, dev, dm, endmembers, losses)
     plain_steps = [r["step_s"] for r in history if r["occ_update"] is None]
     step_ms = 1e3 * float(np.mean(plain_steps[2:]))  # past the first steps' allocator warm-up
     R = trainer.dyn.rays
@@ -858,6 +981,7 @@ def phase_train(dev, dm, endmembers):
         "steps": TRAIN_STEPS,
         "loss_first4": first, "loss_last4": last,
         "loss_per_step": losses,
+        "repeat": repeat,
         "psnr_last": last_m["psnr"], "psnr_spectral_last": last_m["psnr_spectral"],
         "ms_per_step_without_occ_update": step_ms,
         "rays_per_s": R / step_ms * 1e3,
@@ -873,6 +997,33 @@ def phase_train(dev, dm, endmembers):
     }
     print("train: " + json.dumps(summary))
     return trainer, launches, summary
+
+
+def repeat_train(trainer, dev, dm, endmembers, losses):
+    """train(TRAIN_STEPS) once more from seed 0, beside the main path (its
+    launches uncounted): every loss and every state tensor must equal the
+    first run's bit for bit (K4 sums in a fixed order)."""
+    from umhs_torch.engine.trainer import Trainer, TrainerConfig
+
+    with uncounted():
+        again = Trainer(TrainerConfig(seed=0, mixed_precision=True, save_final=False),
+                        flagship_model_config(), num_classes=6, device=dev, datamanager=dm)
+        again.setup(endmembers)
+        again.train(TRAIN_STEPS)
+    losses_again = [r["metrics"]["loss/total"] for r in again.history]
+    parted = next((i for i, (x, y) in enumerate(zip(losses, losses_again)) if x != y), None)
+    a, b = trainer.state_tensors(), again.state_tensors()
+    differ = sorted(k for k in a if not (
+        torch.equal(bits(a[k]), bits(b[k])) if a[k].is_floating_point()
+        else torch.equal(a[k].cpu(), b[k].cpu())))
+    out = {"identical_losses": parted is None and len(losses) == len(losses_again),
+           "first_step_apart": parted, "state_tensors_differing": differ}
+    print(f"train({TRAIN_STEPS}) repeated from seed 0: " + json.dumps(out))
+    check(out["identical_losses"], f"train({TRAIN_STEPS}) repeated from seed 0 parts at step "
+                                   f"{parted}")
+    check(not differ, f"train({TRAIN_STEPS}) repeated from seed 0 ends in other bits: {differ}")
+    del again, a, b
+    return out
 
 
 def moved_one_ulp(params, seed: int, dev):
@@ -940,8 +1091,8 @@ def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
     K2) with the deterministic hash gradient, same draws.
 
     Two checks. (1) The kernel run, repeated, gives the same loss and the
-    same bits in every gradient but the hash table's (K4's float atomics add
-    in any order): no kernel races. (2) On each of VS_PLAIN_DRAWS draws of
+    same bits in every gradient, the hash table's too (K4 sums in a fixed
+    order): no kernel races. (2) On each of VS_PLAIN_DRAWS draws of
     the step, the plain step also runs from the parameters moved one ulp,
     and each gradient with the kernels must lie within VS_PLAIN_RTOL[dtype][0]
     of the plain one in norm, plus SPREAD_FACTOR times the norm of the moved
@@ -968,10 +1119,8 @@ def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
         la, ga, stages = step_grads(trainer, dev, d, "auto", dtype=dtype)
         if i == 0:
             la2, ga2, _ = step_grads(trainer, dev, d, "auto", dtype=dtype)
-            same = la2 == la and all(torch.equal(ga2[n], g) for n, g in ga.items()
-                                     if n != "hash_table")
-            check(same, f"{label}: the kernel step, repeated, gave other bits outside the "
-                        "hash table's gradient")
+            same = la2 == la and all(torch.equal(bits(ga2[n]), bits(g)) for n, g in ga.items())
+            check(same, f"{label}: the kernel step, repeated, gave other bits")
             del ga2
         lp, gp, _ = step_grads(trainer, dev, d, "plain", dtype=dtype)
         lm, gm, _ = step_grads(trainer, dev, d, "plain", moved_seed=i + 1, dtype=dtype)
@@ -1338,6 +1487,9 @@ def repeat_schedule(dev):
     torch.use_deterministic_algorithms(False)
     for note in sorted(notes):
         print(f"  torch: {note}")
+    shipped = results[REPEAT_SETTINGS[0][0]]
+    check(shipped["identical_losses"] and shipped["adapts_equal"],
+          f"two runs of the schedule with the kernels part at step {shipped['first_step_apart']}")
     return results
 
 
@@ -1405,6 +1557,9 @@ def main() -> None:
     ap.add_argument("--sweep-vs-plain", type=int, metavar="STEPS", default=None,
                     help="only run phase 7's schedule with phase 6's check after every "
                          "slice and after each of STEPS single steps past it")
+    ap.add_argument("--k3-baseline", type=Path, metavar="CSRC", default=None,
+                    help="also build K3 from another checkout's umhs_torch/csrc and time it "
+                         "beside this one on phase 2's inputs, in turns")
     args = ap.parse_args()
     if args.repeat_schedule:  # cuBLAS reads this at its first call
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1441,7 +1596,7 @@ def main() -> None:
         sweep_vs_plain(dev, args.sweep_vs_plain)
     else:
         k1 = phase_k1(dev)
-        k3 = phase_k3(dev)
+        k3 = phase_k3(dev, k3_baseline(args.k3_baseline) if args.k3_baseline else None)
         k2 = phase_k2(dev, ptxas)
         k4 = phase_k4(dev)
         p1 = phase_p1(dev)

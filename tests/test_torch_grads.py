@@ -250,6 +250,31 @@ def test_hash_backward_stochastic_adds_g_to_exactly_one_vertex(interp, kind):
     torch.testing.assert_close(tt.grad, got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("interp,kind", HASH_CASES)
+@pytest.mark.parametrize("stochastic", [False, True], ids=["deterministic", "stochastic"])
+def test_hash_backward_plain_adds_in_ascending_entry_order(stochastic, interp, kind):
+    """hash_encode_bwd_plain on the CPU adds each table entry from +0 in
+    ascending entry order, (s * L + l) * V + v (deterministic, w_v * g
+    rounded once) or s * L + l (stochastic): bit for bit what np.add.at, a
+    sequential loop in index order, gives. K4 keeps this order on the card."""
+    cfg = t_enc.HashEncodingConfig(interpolation=interp, **HASH_KW)
+    pos = _hash_positions(kind, 3000, seed=27)
+    n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
+    g = np.random.default_rng(28).normal(size=(n, L * F)).astype(np.float32)
+    g[::7] = 0.0  # rows that add nothing, as the compact buffer's padding
+    if stochastic:
+        rows = _np(t_enc.stochastic_rows(_t(pos), cfg))[..., None]  # (N, L, 1)
+        vals = g.reshape(n, L, 1, F)
+    else:
+        idx, w = t_enc.hash_indices_weights(_t(pos), cfg)
+        rows, vals = _np(idx), _np(w)[..., None] * g.reshape(n, L, 1, F)  # f32 products
+    want = np.zeros(cfg.table_size * F, np.float32)
+    np.add.at(want, (rows[..., None] * F + np.arange(F)).reshape(-1), vals.reshape(-1))
+    got = _np(t_enc.hash_encode_bwd_plain(_t(pos), _t(g), cfg, stochastic))
+    assert np.abs(want).max() > 1.0
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])
 def test_hash_backward_stochastic_selects_by_the_weights(interp):
     """Over 160k (sample, level) draws each vertex is chosen as often as its

@@ -6,15 +6,29 @@
 // out by hand; this kernel plays the role tiny-cuda-nn's HashGrid had in the
 // original system.
 //
-// One thread per (sample, level): the vertex rows and weights come from
-// umhs::hash_vertices (hash_grid.cuh, shared with K4's backward). Each row's
+// For each (sample, level) the vertex rows and weights come from
+// umhs::hash_vertices (hash_grid.cuh, shared with K4's backward); each row's
 // F features come in one vector load and sum_v w_v * row_v is accumulated in
 // f32 into out[n, l * F + f].
 //
-// What bounds it on an H100: random row gathers. At L16xF2 2^19 the table is
-// 48.8 MB, which nearly fits the 50 MB L2; each vertex touches one 32-byte
-// sector for 8 useful bytes. Threads of one sample sit next to each other so
-// the position loads are shared and the output row is written contiguously.
+// What bounds it on an H100: random row gathers, one 32-byte sector for
+// 8 useful bytes per vertex at L16xF2 2^19 (48.8 MB of table against a 50 MB
+// L2), at the rate the SMs keep sector reads in flight. Designs that walk the
+// levels in step so that one level's slice of the table stays in L2 were
+// slower (PERF.md, PR 6): fewer reads in flight per SM, or, with the level as
+// the slow grid dimension, a partial-sector store per (sample, level).
+//
+// What this design does about it:
+// - A block takes 32 samples and every level: warp w computes levels w,
+//   w + 8, ..., two levels at a time with all their vertex reads issued
+//   together, for the 32 samples, one a lane. A warp's lanes are
+//   neighbouring samples at one level, so on ray-ordered input they share
+//   the dense levels' rows in L1.
+// - The output goes through a tile of 32 samples x L * F floats in shared
+//   memory (rows padded by one float, so a warp's stores hit 32 banks) and
+//   leaves as one contiguous run of coalesced words, stored with the
+//   streaming hint (evict first): the output, 128 MB at 2^20 samples, then
+//   displaces less of the table from L2.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -71,35 +85,55 @@ template <int F, bool kTetra>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ table,
                        float* __restrict__ out, int64_t n, int L, Levels lv) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= n * L) return;
-  const int64_t s = t / L;
-  const int l = static_cast<int>(t - s * L);
-  const float p[3] = {__ldg(pos + 3 * s), __ldg(pos + 3 * s + 1), __ldg(pos + 3 * s + 2)};
-  constexpr int V = kTetra ? 4 : 8;
-  uint32_t rows[V];
-  float w[V];
-  umhs::hash_vertices<kTetra>(p, l, lv, rows, w);
-  float acc[F];
+  extern __shared__ float tile[];  // 32 rows of L * F + 1 floats
+  const int width = L * F, stride = width + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * 32;
+  const int64_t s = first + lane;
+  if (s < n) {
+    const float p[3] = {__ldg(pos + 3 * s), __ldg(pos + 3 * s + 1), __ldg(pos + 3 * s + 2)};
+    constexpr int V = kTetra ? 4 : 8;
+    constexpr int kStep = kThreads / 32;
+    for (int l = warp; l < L; l += 2 * kStep) {
+      const int l1 = l + kStep < L ? l + kStep : l;
+      uint32_t r0[V], r1[V];
+      float w0[V], w1[V];
+      umhs::hash_vertices<kTetra>(p, l, lv, r0, w0);
+      umhs::hash_vertices<kTetra>(p, l1, lv, r1, w1);
+      float a0[F], a1[F];
 #pragma unroll
-  for (int i = 0; i < F; ++i) acc[i] = 0.f;
+      for (int i = 0; i < F; ++i) a0[i] = a1[i] = 0.f;
 #pragma unroll
-  for (int v = 0; v < V; ++v) Row<F>::add(table, rows[v], w[v], acc);
-
-  float* o = out + t * F;  // out[s, l * F + f], since t = s * L + l
+      for (int v = 0; v < V; ++v) Row<F>::add(table, r0[v], w0[v], a0);
 #pragma unroll
-  for (int i = 0; i < F; ++i) o[i] = acc[i];
+      for (int v = 0; v < V; ++v) Row<F>::add(table, r1[v], w1[v], a1);
+#pragma unroll
+      for (int i = 0; i < F; ++i) tile[lane * stride + l * F + i] = a0[i];
+      if (l1 != l) {
+#pragma unroll
+        for (int i = 0; i < F; ++i) tile[lane * stride + l1 * F + i] = a1[i];
+      }
+    }
+  }
+  __syncthreads();
+  const int rows_here = static_cast<int>(n - first < 32 ? n - first : 32);
+  float* dst = out + first * width;
+  const int count = rows_here * width;
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const int r = i / width;
+    __stcs(dst + i, tile[r * stride + (i - r * width)]);
+  }
 }
 
 template <int F>
 cudaError_t launch_f(const float* pos, const float* table, float* out, int64_t n, int L,
                      const Levels& lv, bool tetra, cudaStream_t stream) {
-  const int64_t threads = n * L;
-  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  const size_t shared = static_cast<size_t>(32) * (L * F + 1) * sizeof(float);
+  const unsigned blocks = static_cast<unsigned>((n + 31) / 32);
   if (tetra)
-    hash_encode_fwd_kernel<F, true><<<blocks, kThreads, 0, stream>>>(pos, table, out, n, L, lv);
+    hash_encode_fwd_kernel<F, true><<<blocks, kThreads, shared, stream>>>(pos, table, out, n, L, lv);
   else
-    hash_encode_fwd_kernel<F, false><<<blocks, kThreads, 0, stream>>>(pos, table, out, n, L, lv);
+    hash_encode_fwd_kernel<F, false><<<blocks, kThreads, shared, stream>>>(pos, table, out, n, L, lv);
   return cudaGetLastError();
 }
 

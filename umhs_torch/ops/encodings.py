@@ -13,10 +13,12 @@
 
 On a CUDA tensor K3 and K4 take every configuration they accept (F in 1, 2,
 4, 8; L up to 32; tetrahedral or trilinear) and K4 both modes, stochastic
-(the main path's) and deterministic, in one kernel each: one thread per
-sample and level in K3, one thread per sample looping over the levels in
-K4, with vector reductions into the table and, on the dense levels, the
-lanes of a warp that share a row summed before their one reduction.
+(the main path's) and deterministic. In K3 a warp takes 32 neighbouring
+samples at one level, and a block's rows of the output leave through shared
+memory as coalesced streaming stores. K4 fixes the order of its sums: it sorts the (row, entry) pairs by
+row with a stable radix sort and adds each row's contributions in ascending
+entry order from +0, as the plain version's `index_add_` does on the CPU,
+so the two give the same bits and a training run repeats bit for bit.
 
 Indices are computed in int64. The XOR-prime hash wraps in uint32 on the
 TPU and in the kernel, so the plain versions mask it with 0xFFFFFFFF before
@@ -329,6 +331,14 @@ def stochastic_vertex(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return sel
 
 
+def stochastic_rows(pos: torch.Tensor, config: HashEncodingConfig) -> torch.Tensor:
+    """The table row each (sample, level) of the stochastic backward adds
+    its gradient to: (N, 3) positions -> (N, L) int64."""
+    idx, weights = hash_indices_weights(pos, config)
+    v = stochastic_vertex(weights, level_uniforms(pos, config.num_levels))
+    return torch.gather(idx, 2, v[..., None])[..., 0]
+
+
 def hash_encode_bwd_plain(
     pos: torch.Tensor, g: torch.Tensor, config: HashEncodingConfig, stochastic: bool
 ) -> torch.Tensor:
@@ -336,17 +346,18 @@ def hash_encode_bwd_plain(
     output gradient g (N, L * F) at positions (N, 3).
 
     Deterministic: each vertex gets w_v * g. Stochastic: one vertex per
-    (sample, level), chosen by `stochastic_vertex`, gets g."""
+    (sample, level), chosen by `stochastic_vertex`, gets g. On the CPU the
+    1-D `index_add_` adds into each entry from +0 in ascending entry order,
+    (s * L + l) * V + v or s * L + l, the order K4 keeps."""
     n, L, F = pos.shape[0], config.num_levels, config.features_per_level
-    idx, weights = hash_indices_weights(pos, config)  # (N, L, V)
     g = g.reshape(n, L, F).float()
     feat = torch.arange(F, device=pos.device)
     grad = torch.zeros(config.table_size * F, dtype=torch.float32, device=pos.device)
     if stochastic:
-        v = stochastic_vertex(weights, level_uniforms(pos, L))
-        rows = torch.gather(idx, 2, v[..., None])[..., 0]  # (N, L)
+        rows = stochastic_rows(pos, config)  # (N, L)
         grad.index_add_(0, (rows[..., None] * F + feat).reshape(-1), g.reshape(-1))
     else:
+        idx, weights = hash_indices_weights(pos, config)  # (N, L, V)
         contrib = weights[..., None] * g[:, :, None, :]  # (N, L, V, F)
         grad.index_add_(0, (idx[..., None] * F + feat).reshape(-1), contrib.reshape(-1))
     return grad
@@ -391,8 +402,18 @@ HASH_ENCODE_BWD = Kernel(
      ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
      ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
 )
+
+
+def hash_encode_bwd_scratch_bytes(n: int, config: HashEncodingConfig, stochastic: bool) -> int:
+    """Bytes of device scratch K4 needs for n samples (its sort buffers);
+    0 when its n * L * (vertices per entry) entries exceed 2^31 - 1."""
+    fn = HASH_ENCODE_BWD.library().umhs_hash_encode_bwd_scratch_bytes
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int64
+    return int(fn(n, config.num_levels, config.features_per_level,
+                  int(config.interpolation == "tetrahedral"), int(stochastic)))
 
 
 def hash_encode_fwd(
@@ -421,10 +442,13 @@ def hash_encode_bwd(
     pos: torch.Tensor, g: torch.Tensor, config: HashEncodingConfig, stochastic: bool
 ) -> torch.Tensor:
     """K4 on a CUDA tensor, `hash_encode_bwd_plain` on a CPU tensor: the
-    gradient (T * F,) of the flat table. The kernel adds with float atomics,
-    so the order of the adds into a repeated row, and the sum's last bits,
-    change from run to run. It reads g with vector loads, so g must be
-    aligned to 4 * F bytes (a fresh tensor always is)."""
+    gradient (T * F,) of the flat table. The kernel adds each row's
+    contributions in ascending entry order from +0, the order of the plain
+    version's `index_add_` on the CPU: it gives the plain version's bits
+    there (in the stochastic mode wherever both choose the same vertex) and
+    the same bits on every run. Its sort buffers come from PyTorch's caching
+    allocator. It reads g with vector loads, so g must be aligned to 4 * F
+    bytes (a fresh tensor always is)."""
     if pos.device.type == "cpu":
         return hash_encode_bwd_plain(pos, g, config, stochastic)
     _check_positions("hash_encode_bwd", pos, config)
@@ -435,10 +459,17 @@ def hash_encode_bwd(
         raise ValueError("hash_encode_bwd: g must be a contiguous, aligned float32 (N, L * F) "
                          "tensor on the positions' device")
     grad = torch.zeros(config.table_size * F, dtype=torch.float32, device=pos.device)
+    if n == 0:
+        return grad
+    nbytes = hash_encode_bwd_scratch_bytes(n, config, stochastic)
+    if nbytes == 0:
+        raise ValueError(f"hash_encode_bwd: {n} samples x {L} levels exceed 2^31 - 1 entries")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=pos.device)
     with torch.cuda.device(pos.device):
         HASH_ENCODE_BWD.launch(
             pos.data_ptr(), g.data_ptr(), grad.data_ptr(), n, L, F, *_level_args(config),
-            int(stochastic), torch.cuda.current_stream(pos.device).cuda_stream,
+            int(stochastic), scratch.data_ptr(), nbytes,
+            torch.cuda.current_stream(pos.device).cuda_stream,
         )
     return grad
 
