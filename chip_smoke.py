@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of umhs_torch, the PyTorch/CUDA port, on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--quality all] [--p1-baseline CSRC] [--k3-baseline CSRC]
     python3 chip_smoke.py --repeat-schedule
     python3 chip_smoke.py --sweep-vs-plain 100
 
@@ -50,11 +50,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      zeros + index_add_ on the same precomputed rows.
    - P1 row_gather: the probe twin's check (umhs_torch.probes.gather), bit
      for bit against table[idx] on the probe's 12,000,000 x 2 f32 table and
-     the flagship's 6,098,108 x 2 table at 16,318,464 rows, and at N = 2049
-     and 1 (rows 0 and T-1 among the indices); then its own path, the probe
-     twin, measures it beside torch.index_select with the launch counts
-     zeroed before and read after; then the kernel, its plain version and
-     index_select are timed by device time on the probe's table.
+     the flagship's 6,098,108 x 2 table at 16,318,464 rows and at the edge
+     N (rows 0 and T-1 among the indices); then its own path, the probe
+     twin, measures it beside torch.index_select (and, with --p1-baseline
+     CSRC, another checkout's P1) with the launch counts zeroed before and
+     read after: each arm timed the same way and in turns, by device time
+     under torch.profiler with the device kernels it launched listed by
+     name and by CUDA events around a batch of calls, with a warm L2 and
+     with a cold one (256 MB written before each call); then the plain
+     version's device time.
 3. The serving path at full width: the bench scene (16 + 2 views, 128^2,
    128 bands, 6 spheres) as an in-memory train split (rendered once, also
    for phase 5) with VCA endmembers, Trainer.setup() from seed 0
@@ -106,6 +110,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    those two steps and of the round trip are left out of the schedule's
    counts. One steady step runs under torch.profiler at the end, with the
    device ms of K1-K4 in it beside their launches.
+
+8. The quality twin (umhs_torch.scripts.quality_reference_scale, the twin of
+   scripts/quality_reference_scale.py) through its entry point: 2,000 steps,
+   256^2, 21 bands, seed 42, tetrahedral, at full width (L16xF2 2^19 hash,
+   128^3 x 4 occupancy, 6 classes, the specular residual, bf16), with the
+   launch counts zeroed before and read after (K1-K4 must launch). It prints
+   the JSON, the LPIPS variant, steps/s and the card, reads one eval image
+   it wrote back through data/png.py, and fails unless eval_all_images comes
+   within reach of docs/tetra_2000_256.json: PSNR and spectral PSNR at most
+   1.0 dB below (~4x the 0.26 dB seed stdev of docs/seed_variance.json), SAM
+   at most 1.25x. --quality all also runs the trilinear and the 141-band
+   bf16 configurations against docs/trilinear_2000_256.json and
+   docs/bayspec141_2000_256.json, under the same rule.
 
 The last lines are the card (nvidia-smi), one JSON object of kernel numbers
 and, last, {"ok": true, "device": {...}}.
@@ -184,26 +201,6 @@ def device_ms(fn, iters: int = 10) -> float:
     busy_us = sum(e.self_device_time_total for e in prof.key_averages()
                   if "CUDA" in str(e.device_type))
     return busy_us / iters / 1e3
-
-
-def device_ms_by_kernel(fn, iters: int = 10) -> dict:
-    """Device ms per call of fn() by device kernel (its name without
-    namespace and template arguments), under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if "CUDA" in str(e.device_type):
-            key = e.key.replace("void ", "", 1).replace("(anonymous namespace)::", "")
-            name = re.split(r"[<(]", key, maxsplit=1)[0].strip().split("::")[-1]
-            out[name] = out.get(name, 0.0) + e.self_device_time_total / iters / 1e3
-    return out
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -639,6 +636,7 @@ def k4_case(label, pos, g, cfg, dev):
     zeros + index_add_ on the same precomputed rows."""
     from umhs_torch.ops.encodings import (
         hash_encode_bwd, hash_encode_bwd_plain, hash_indices_weights, stochastic_rows)
+    from umhs_torch.utils.device_time import device_ms_by_kernel
 
     n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
     err, differ = k4_against_cpu(label, pos, g, cfg)
@@ -1165,31 +1163,76 @@ def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
     return out
 
 
-def phase_p1(dev):
+def p1_baseline(csrc: Path):
+    """P1 built from another checkout's `csrc` directory (its row_gather.cu
+    and headers), as fn(table, idx) -> out, so that two versions are timed in
+    one run on one card. The launcher must take the one-row-per-thread
+    kernel's arguments: (table, idx, out, n, stream)."""
+    import ctypes
+
+    from umhs_torch.ops import _native
+
+    out_dir = Path(tempfile.mkdtemp(prefix="umhs_p1_baseline_"))
+    lib_path = out_dir / "row_gather_baseline.so"
+    subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-o", str(lib_path),
+                    str(csrc / "row_gather.cu")], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib_path)).umhs_row_gather
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(table, idx):
+        n = idx.shape[0]
+        out = torch.empty((n, 2), dtype=torch.float32, device=idx.device)
+        err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"baseline P1 failed: cudaError {err}")
+        return out
+
+    return run
+
+
+def phase_p1(dev, baseline=None):
     """P1, the row gather: the probe twin's check, bit for bit against
-    table[idx] at the probe's shape, on the flagship table and at N = 2049
-    and 1; then the probe twin's measurement (its entry point, the kernel's
-    only path) with the launch counts zeroed before and read after; then
-    the plain version's time."""
-    from umhs_torch.ops.row_gather import ROW_GATHER, row_gather, row_gather_plain
+    table[idx] on both tables at the probe's N and at the edge N; then the
+    probe twin's measurement (its entry point, the kernel's only path) with
+    the launch counts zeroed before and read after: the kernel,
+    index_select and, with --p1-baseline, another checkout's P1, timed the
+    same way and in turns, warm and cold, with the device kernels each arm
+    launched listed by name; then the plain version's device time."""
+    from umhs_torch.ops.row_gather import ROW_GATHER, _blocks_per_sm, row_gather_plain
     from umhs_torch.probes import gather as probe
 
     T, FT, N = probe.PROBE_TABLE_ROWS, probe.FLAGSHIP_TABLE_ROWS, probe.PROBE_ROWS
     for line in probe.check(dev):  # raises on a mismatch
         print(f"P1 {line}")
+    if baseline is not None:
+        with uncounted():
+            table, idx = probe.make_case(FT, N, dev)
+            check(torch.equal(baseline(table, idx), row_gather_plain(table, idx)),
+                  "baseline P1 disagrees with the plain version")
 
+    extra = {"baseline": baseline} if baseline is not None else None
     zero_launch_counts()
-    results = {label: probe.measure(rows, N, dev)
+    results = {label: probe.measure(rows, N, dev, extra_arms=extra)
                for label, rows in (("probe_table", T), ("flagship_table", FT))}
     launches = ROW_GATHER.launches
     check(launches > 0, "the probe twin did not launch P1")
-    table, idx = probe.make_case(T, N, dev)
-    with uncounted():  # timing beside the probe twin's run, not part of it
-        ms = device_ms(lambda: row_gather(table, idx))
-    plain_ms = device_ms(lambda: row_gather_plain(table, idx))
-    library_ms = device_ms(lambda: torch.index_select(table, 0, idx))
+    blocks_per_sm = _blocks_per_sm(dev)
+    print(f"P1: {blocks_per_sm} blocks of row_gather_kernel resident per SM")
+    arms = ["kernel", "library"] + (["baseline"] if baseline is not None else [])
     for label, r in results.items():
-        print(f"P1 {label}: " + json.dumps(r))
+        print(f"P1 {label} ({r['table_rows']:,} x 2 f32, {N:,} rows): bound {r['bound_ms']:.4f} "
+              f"ms, one sector per row {r['sector_bound_ms']:.4f} ms")
+        for arm in arms:
+            for l2 in ("warm", "cold"):
+                p = arm if l2 == "warm" else f"{arm}_cold"
+                events = (f", events {r[p + '_batch_ms']:.4f} ms per call" if l2 == "warm"
+                          else "")
+                print(f"  {arm:<8} {l2}: device {r[p + '_ms']:.4f} ms{events}; kernels "
+                      + json.dumps({k: round(v, 4) for k, v in r[p + "_kernels"].items()}))
+    table, idx = probe.make_case(T, N, dev)
+    plain_ms = device_ms(lambda: row_gather_plain(table, idx))
     main = results["probe_table"]
     return {
         "name": "row_gather",
@@ -1197,21 +1240,25 @@ def phase_p1(dev):
         "source": "umhs_torch/csrc/row_gather.cu",
         "replaces": "scripts/probe_pallas_gather.py:39",
         "max_abs_err": 0.0,
-        "ms": ms,
-        "call_ms": main["kernel_ms"],
+        "ms": main["kernel_ms"],
+        "call_ms": main["kernel_batch_ms"],
+        "cold_ms": main["kernel_cold_ms"],
         "plain_ms": plain_ms,
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": library_ms,
-        "library_call_ms": main["library_ms"],
+        "library_ms": main["library_ms"],
+        "library_cold_ms": main["library_cold_ms"],
+        "baseline_ms": main.get("baseline_ms"),
         "launches": launches,
         "launches_train": 0,
         "launches_render": 0,
         "ns_per_row": main["kernel_ns_per_row"],
         "sector_bound_ms": main["sector_bound_ms"],
+        "blocks_per_sm": blocks_per_sm,
         "shape": f"table {T:,} x 2 f32 (96 MB), {N:,} int32 indices; launches = the probe "
                  "twin's run (its path); library = torch.index_select",
-        "flagship_table": results["flagship_table"],
+        "flagship_table": {k: v for k, v in results["flagship_table"].items()
+                           if not k.endswith("_kernels")},
     }
 
 
@@ -1533,6 +1580,67 @@ def sweep_vs_plain(dev, extra_steps: int):
     print("sweep vs plain: " + json.dumps(summary))
 
 
+QUALITY_RUNS = {  # the quality twin's flags and its JAX target (docs/)
+    "tetrahedral": ([], "tetra_2000_256.json"),
+    "trilinear": (["--interp", "trilinear"], "trilinear_2000_256.json"),
+    "bayspec141": (["--bands", "141", "--hs-dtype", "bfloat16", "--target-samples", "196608"],
+                   "bayspec141_2000_256.json"),
+}
+QUALITY_PSNR_MARGIN_DB = 1.0  # ~4x the 0.26 dB seed stdev of docs/seed_variance.json
+QUALITY_SAM_FACTOR = 1.25
+
+
+def phase_quality(dev, runs, smi):
+    """Phase 8: the quality twin (umhs_torch.scripts.quality_reference_scale)
+    at 2,000 steps, 256^2, seed 42, at full width, for each configuration in
+    `runs`, with the launch counts zeroed before each and read after; each
+    must come within reach of its JAX target in docs/: PSNR and spectral
+    PSNR at most QUALITY_PSNR_MARGIN_DB below, SAM at most QUALITY_SAM_FACTOR
+    times. One eval image it wrote is read back through data/png.py."""
+    from umhs_torch.data.png import read_png
+    from umhs_torch.scripts import quality_reference_scale as quality
+
+    docs = Path(__file__).resolve().parent / "docs"
+    launches = {}
+    for label in runs:
+        flags, target_file = QUALITY_RUNS[label]
+        target = json.loads((docs / target_file).read_text())["eval_all_images"]
+        args = quality.parse_args(["--steps", "2000", "--image-size", "256", *flags])
+        seen = {}
+
+        def read_back(trainer):
+            path = trainer.run_dir / "eval_images" / f"step-{trainer.step:09d}-0-img.png"
+            seen["shape"] = read_png(path).shape
+
+        zero_launch_counts()
+        result = quality.run(args, inspect=read_back)
+        launches[label] = launch_counts()
+        for sym in TRAIN_KERNELS:
+            check(launches[label][sym] > 0, f"quality {label}: kernel {sym} was not launched")
+        got = result["eval_all_images"]
+        steps_per_s = args.steps / result["train_wall_clock_s"]
+        print(f"quality {label}: " + json.dumps(result))
+        print(f"quality {label}: lpips_variant {result['lpips_variant']}, {steps_per_s:.1f} steps/s "
+              f"over {args.steps} steps; {smi}; eval image {seen['shape']}")
+        print(f"quality {label} against {target_file}: PSNR {got['psnr']} ({target['psnr']}), "
+              f"spectral PSNR {got['psnr_spectral']} ({target['psnr_spectral']}), SAM "
+              f"{got['sam_spectral']} ({target['sam_spectral']})")
+        size = args.image_size
+        check(seen["shape"] == (size, 2 * size, 3),
+              f"quality {label}: eval image read back as {seen['shape']}")
+        check(all(np.isfinite(v) for v in got.values()), f"quality {label}: non-finite metric")
+        check(got["psnr"] >= target["psnr"] - QUALITY_PSNR_MARGIN_DB,
+              f"quality {label}: PSNR {got['psnr']} below {target['psnr']} - "
+              f"{QUALITY_PSNR_MARGIN_DB}")
+        check(got["psnr_spectral"] >= target["psnr_spectral"] - QUALITY_PSNR_MARGIN_DB,
+              f"quality {label}: spectral PSNR {got['psnr_spectral']} below "
+              f"{target['psnr_spectral']} - {QUALITY_PSNR_MARGIN_DB}")
+        check(got["sam_spectral"] <= QUALITY_SAM_FACTOR * target["sam_spectral"],
+              f"quality {label}: SAM {got['sam_spectral']} above {QUALITY_SAM_FACTOR} x "
+              f"{target['sam_spectral']}")
+    return launches
+
+
 def ptxas_usage(log: str) -> dict:
     """{kernel<template args>: registers and spill bytes} from nvcc -Xptxas=-v."""
     usage, kernel = {}, None
@@ -1560,6 +1668,12 @@ def main() -> None:
     ap.add_argument("--k3-baseline", type=Path, metavar="CSRC", default=None,
                     help="also build K3 from another checkout's umhs_torch/csrc and time it "
                          "beside this one on phase 2's inputs, in turns")
+    ap.add_argument("--p1-baseline", type=Path, metavar="CSRC", default=None,
+                    help="also build P1 from another checkout's umhs_torch/csrc and time it "
+                         "beside this one in the probe twin's measurement, in turns")
+    ap.add_argument("--quality", choices=["tetrahedral", "all"], default="tetrahedral",
+                    help="phase 8's quality runs: the tetrahedral one, or also the trilinear "
+                         "and the 141-band bf16 ones")
     args = ap.parse_args()
     if args.repeat_schedule:  # cuBLAS reads this at its first call
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1599,7 +1713,7 @@ def main() -> None:
         k3 = phase_k3(dev, k3_baseline(args.k3_baseline) if args.k3_baseline else None)
         k2 = phase_k2(dev, ptxas)
         k4 = phase_k4(dev)
-        p1 = phase_p1(dev)
+        p1 = phase_p1(dev, p1_baseline(args.p1_baseline) if args.p1_baseline else None)
         dm, endmembers, cam = bench_scene_in_memory(dev)
         trainer, render_launches = phase_render(dev, dm, endmembers, cam)
         phase_kernels_vs_plain(trainer, cam, dev)
@@ -1609,12 +1723,16 @@ def main() -> None:
         phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})", "bfloat16")
         del trainer, dm
         bench_launches = phase_bench_schedule(dev)
+        quality_runs = list(QUALITY_RUNS) if args.quality == "all" else ["tetrahedral"]
+        quality_launches = phase_quality(dev, quality_runs, smi)
 
         for entry in (k1, k2, k3, k4):
             sym = "umhs_" + entry["name"]
             entry["launches"] = bench_launches[sym]  # the bench schedule's run
             entry["launches_train"] = train_launches[sym]
             entry["launches_render"] = render_launches[sym]
+            entry["launches_quality"] = quality_launches["tetrahedral"][sym]
+        p1["launches_quality"] = quality_launches["tetrahedral"].get("umhs_row_gather", 0)
     print(smi)
     if not only:
         print(json.dumps({"kernels": [k1, k2, k3, k4, p1]}))

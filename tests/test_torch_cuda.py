@@ -31,7 +31,8 @@ from umhs_torch.ops.mlp import init_mlp
 from umhs_torch.ops.mlp_fused import (
     MLP_FUSED_BWD, MLP_FUSED_FWD, mlp_fused, mlp_fused_bwd, mlp_fused_bwd_route, mlp_fused_fwd,
     mlp_plain, mlp_plain_bwd)
-from umhs_torch.ops.row_gather import ROW_GATHER, row_gather, row_gather_plain
+from umhs_torch.ops.row_gather import (
+    SLICE_BYTES, WAVE, ROW_GATHER, row_gather, row_gather_plain, row_gather_slices)
 
 pytestmark = pytest.mark.cuda
 # the kernels a training step launches (P1, the row gather, is on no path)
@@ -505,24 +506,41 @@ def test_train_step_kernels_match_plain_path(cuda):
 
 
 # ------------------------------------------------------------------- P1
-@pytest.mark.parametrize("n", [0, 1, 2047, 2049])
+P1_N = [0, 1, 3, 4, 5, 2047, 2049, 8 * 127 - 1, 8 * 127 + 1, WAVE - 1, WAVE, WAVE + 1,
+        8 * WAVE - 1, 8 * WAVE + 1, 37 * WAVE + 5]
+
+
+# tables that the kernel walks in 1, 3 and 6 slices
+P1_TABLE_ROWS = [5000, 2 * SLICE_BYTES // 8 + 5, 5 * SLICE_BYTES // 8 + 5]
+
+
+@pytest.mark.parametrize("n", P1_N)
 def test_p1_matches_plain_bit_for_bit(cuda, n):
+    """At each edge N, with the table's first and last rows among the
+    indices, on tables of 1, 3 and 6 slices (the grid strides over the
+    waves at the largest N); a launch is counted per call with rows."""
     gen = torch.Generator(device=cuda).manual_seed(n)
-    table = torch.randn((5000, 2), generator=gen, device=cuda)
-    idx = torch.randint(0, 5000, (n,), generator=gen, device=cuda, dtype=torch.int32)
-    before = ROW_GATHER.launches
-    out = row_gather(table, idx)
-    torch.cuda.synchronize()
-    assert out.shape == (n, 2) and out.dtype == torch.float32
-    assert torch.equal(out, row_gather_plain(table, idx))
-    assert ROW_GATHER.launches == before + (1 if n else 0)
-    assert torch.equal(row_gather(table, idx, impl="plain"), out)
-    assert ROW_GATHER.launches == before + (1 if n else 0)
+    for t, slices in zip(P1_TABLE_ROWS, (1, 3, 6)):
+        assert row_gather_slices(t) == slices
+        table = torch.randn((t, 2), generator=gen, device=cuda)
+        idx = torch.randint(0, t, (n,), generator=gen, device=cuda, dtype=torch.int32)
+        if n:
+            idx[0], idx[-1] = t - 1, 0
+        want = row_gather_plain(table, idx)
+        before = ROW_GATHER.launches
+        out = row_gather(table, idx)
+        torch.cuda.synchronize()
+        assert out.shape == (n, 2) and out.dtype == torch.float32
+        assert torch.equal(out, want)
+        assert ROW_GATHER.launches == before + (1 if n else 0)
+        assert torch.equal(row_gather(table, idx, impl="plain"), want)
+        assert ROW_GATHER.launches == before + (1 if n else 0)
 
 
 def test_p1_first_and_last_rows(cuda):
-    table = torch.randn((1 << 20, 2), device=cuda)
-    t = table.shape[0]
+    """The flagship's table (six slices), rows 0, T/2 and T - 1."""
+    t = 6_098_108
+    table = torch.randn((t, 2), device=cuda)
     idx = torch.tensor([0, t - 1, t - 1, 0, t // 2], dtype=torch.int32, device=cuda)
     out = row_gather(table, idx)
     assert torch.equal(out, table[idx.long()])
@@ -536,6 +554,20 @@ def test_p1_refuses_bad_inputs(cuda):
                                (table, idx.long()), (table, idx.cpu()), (table.t(), idx)):
         with pytest.raises(ValueError):
             row_gather(bad_table, bad_idx)
+
+
+# ------------------------------------------------------------------ LPIPS
+def test_lpips_on_the_card_matches_the_cpu(cuda):
+    """Two unrelated seeded 256^2 images (a distance far from 0): the trunk
+    on the card, f32 convolutions (TF32 off), within rtol 1e-4 of the CPU."""
+    from umhs_torch.utils import metrics
+
+    a = np.random.default_rng(0).random((256, 256, 3)).astype(np.float32)
+    b = np.random.default_rng(1).random((256, 256, 3)).astype(np.float32)
+    want = metrics.lpips(a, b, "cpu")
+    got = metrics.lpips(a, b, cuda)
+    assert want > 1e-3
+    assert got == pytest.approx(want, rel=1e-4)
 
 
 # ------------------------------------------------ a dataset on disk, adapted

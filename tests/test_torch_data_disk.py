@@ -100,7 +100,7 @@ def test_png_reader_matches_pil(tmp_path, mode):
         np.testing.assert_array_equal(read_png(path), np.asarray(Image.open(path)), err_msg=filt)
 
 
-@pytest.mark.parametrize("mode", ["RGB", "RGBA"])
+@pytest.mark.parametrize("mode", ["L", "RGB", "RGBA"])
 def test_pil_reads_the_written_png(tmp_path, mode):
     arr = _image(mode, np.random.default_rng(3))
     write_png(tmp_path / "x.png", arr)
@@ -119,8 +119,9 @@ def test_png_rejects_other_formats(tmp_path):
     (tmp_path / "n.png").write_bytes(b"not a png")
     with pytest.raises(ValueError):
         read_png(tmp_path / "n.png")
-    with pytest.raises(ValueError):
-        write_png(tmp_path / "x.png", np.zeros((4, 4), np.uint8))
+    for arr in (np.zeros((4, 4, 2), np.uint8), np.zeros((4, 4), np.uint16)):
+        with pytest.raises(ValueError):
+            write_png(tmp_path / "x.png", arr)
 
 
 # ------------------------------------------------------------ write_dataset

@@ -10,10 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from umhs_torch.ops.row_gather import ROW_GATHER, row_gather, row_gather_plain
+from umhs_torch.ops.row_gather import (
+    ROW_GATHER, ROWS, SLICE_BYTES, THREADS, WAVE, row_gather, row_gather_grid, row_gather_plain,
+    row_gather_slices)
 from umhs_torch.probes import gather as probe
 
 ROOT = Path(__file__).resolve().parent.parent
+BLOCKS_PER_SM = 10  # umhs_row_gather_blocks_per_sm on an H100 (PERF.md, P1)
 
 
 def _jax_probe():
@@ -50,6 +53,74 @@ def test_row_gather_takes_any_n(n):
     assert ROW_GATHER.launches == before  # CPU tensors never reach the kernel
     with pytest.raises(ValueError):
         row_gather(torch.from_numpy(table), torch.from_numpy(idx), impl="fast")
+
+
+# N: empty, under a warp, the JAX kernel's block edges, 8k +- 1, a wave's
+# edges, and enough waves that blocks stride over several
+PARTITION_N = [0, 1, 3, 4, 5, 2047, 2049, 8 * 127 - 1, 8 * 127 + 1, WAVE - 1, WAVE, WAVE + 1,
+               8 * WAVE - 1, 8 * WAVE + 1, 37 * WAVE + 5]
+
+
+def _kernel_partition(table, idx, sms):
+    """csrc/row_gather.cu's loops over blocks, waves, slices and rows, run
+    with the plain gather: each thread t of a block owns rows w0 + k *
+    THREADS + t of each wave w0 it strides to, reads their indices (-1 past
+    N), and gathers in each slice, in alternate directions on alternate
+    waves, the rows whose index lies in [lo, lo + slice_rows) by the
+    kernel's unsigned compare. Returns the output and how often each row
+    was written."""
+    n, t = idx.shape[0], table.shape[0]
+    slices = row_gather_slices(t)
+    slice_rows = -(-t // slices)
+    blocks = row_gather_grid(n, sms, BLOCKS_PER_SM) if n else 0
+    out = torch.full((n, 2), float("nan"))
+    writes = np.zeros(n, np.int64)
+    lanes = np.arange(ROWS)[:, None] * THREADS + np.arange(THREADS)[None]  # (ROWS, THREADS)
+    for b in range(blocks):
+        for wave, w0 in enumerate(range(b * WAVE, n, blocks * WAVE)):
+            rows = w0 + lanes
+            live = rows < n
+            r = np.where(live, idx.numpy()[np.minimum(rows, n - 1)], -1).astype(np.int64)
+            staged = torch.zeros(rows.shape + (2,))
+            order = range(slices) if wave % 2 == 0 else reversed(range(slices))
+            for s in order:
+                take = (r - s * slice_rows) % 2**32 < slice_rows
+                staged[torch.from_numpy(take)] = row_gather_plain(
+                    table, torch.from_numpy(r[take].astype(np.int32)))
+            out[torch.from_numpy(rows[live])] = staged[torch.from_numpy(live)]
+            np.add.at(writes, rows[live], 1)
+    return out, writes
+
+
+@pytest.mark.parametrize("n", PARTITION_N)
+def test_row_gather_partition_covers_every_row_once(n):
+    """The kernel's partition of the rows, on its plain version: every row
+    written once, with table[idx] bit for bit, on a one-slice table and on
+    one of four slices, with rows 0 and T - 1 among the indices, on a card
+    of one SM (so that blocks stride over waves) and of 132, with 10 blocks
+    resident on each (the kernel's occupancy on an H100, PERF.md)."""
+    rng = np.random.default_rng(n)
+    for t in (300, 3 * SLICE_BYTES // 8 + 5):
+        table = torch.from_numpy(rng.normal(size=(t, 2)).astype(np.float32))
+        idx = torch.from_numpy(rng.integers(0, t, size=n).astype(np.int32))
+        if n:
+            idx[0], idx[-1] = t - 1, 0
+        assert row_gather_slices(t) == (1 if t == 300 else 4)
+        for sms in (1, 132):
+            out, writes = _kernel_partition(table, idx, sms)
+            assert (writes == 1).all()
+            assert torch.equal(out, row_gather_plain(table, idx))
+
+
+def test_row_gather_slices_and_grid():
+    assert row_gather_slices(1) == 1 and row_gather_slices(SLICE_BYTES // 8) == 1
+    assert row_gather_slices(SLICE_BYTES // 8 + 1) == 2
+    assert row_gather_slices(probe.FLAGSHIP_TABLE_ROWS) == 6  # 48.8 MB
+    assert row_gather_slices(probe.PROBE_TABLE_ROWS) == 6  # 96 MB
+    assert row_gather_slices(2**31 - 1) == 6
+    assert row_gather_grid(1, 132, BLOCKS_PER_SM) == 1
+    assert row_gather_grid(WAVE + 1, 132, BLOCKS_PER_SM) == 2
+    assert row_gather_grid(probe.PROBE_ROWS, 132, BLOCKS_PER_SM) == 132 * BLOCKS_PER_SM
 
 
 def test_plain_row_gather_is_table_indexing():

@@ -53,6 +53,14 @@ def scene_dir(tmp_path_factory):
     return write_dataset(tmp_path_factory.mktemp("scene"), SCENE)
 
 
+@pytest.fixture(scope="module")
+def scene32_dir(tmp_path_factory):
+    """The same scene at 32^2: the JAX package's LPIPS needs 32 x 32 (its
+    trunk ends in a fifth max-pool), so eval_image parity runs here."""
+    return write_dataset(tmp_path_factory.mktemp("scene32"),
+                         dataclasses.replace(SCENE, image_size=32))
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """These runs are thousands of small ops: beside the suite's other
@@ -376,7 +384,7 @@ def test_eval_loops(scene_dir, tmp_path, monkeypatch):
                        "rmse_spectral", "rgb_loss", "spectral_loss"}
     assert ev == t.eval_batch()  # seeded with the step
     image_keys = {"psnr", "ssim", "rmse", "psnr_spectral", "ssim_spectral", "sam_spectral",
-                  "rmse_spectral"}
+                  "rmse_spectral", "lpips_vgg16random"}
     per_image = [t.eval_image(i) for i in range(2)]
     assert all(set(m) == image_keys for m in per_image)
     assert all(np.isfinite(v) for m in per_image for v in m.values())
@@ -386,45 +394,93 @@ def test_eval_loops(scene_dir, tmp_path, monkeypatch):
         assert avg[k] == pytest.approx((per_image[0][k] + per_image[1][k]) / 2, rel=1e-12)
 
 
+def _spectral_sam_parts(t, jt, idx):
+    """Each trainer's spectral render of eval view `idx` with its ground
+    truth, as its eval_image reads them, and the rays of no weight at all.
+    On those rays the JAX compositing reads a ray's sum as a difference of
+    an XLA prefix sum, whose order of addition leaves a residue under 1e-6,
+    where the port's sequential prefix sum leaves exactly 0. SAM leaves out
+    pixels with |pred| |gt| < 1e-8, so that residue alone moves it (by
+    ~0.05 rad at 32^2)."""
+    rays, batch, hw = t.datamanager.eval_image(idx)
+    ours = {k: v.cpu().numpy() for k, v in t.render_camera(rays, hw).items()}
+    jrays, jbatch, jhw = jt.datamanager.eval_image(idx)
+    theirs = jt.render_camera(jrays, jhw)
+    empty = ours["accumulation"][..., 0] == 0
+    np.testing.assert_array_equal(np.asarray(theirs["accumulation"])[..., 0] == 0, empty)
+    return ((ours["spectral"], batch["hs_image"].float().cpu().numpy()),
+            (np.array(theirs["spectral"]), np.asarray(jbatch["hs_image"])), empty)
+
+
 @pytest.mark.parametrize("background", ["random", "white"])
-def test_eval_image_matches_jax(scene_dir, tmp_path, monkeypatch, background):
+def test_eval_image_matches_jax(scene32_dir, tmp_path, monkeypatch, background):
     """eval_image and eval_all_images of a state trained 16 steps in the port
     against umhs_tpu's Trainer.eval_image on the same state (through
-    umhs_torch.convert) and the same eval views: background blending (over
-    black for "random", over white), the RGB and spectral pairs and every
-    metric agree within 1e-5 (relative)."""
+    umhs_torch.convert) and the same eval views, at 32^2: background
+    blending (over black for "random", over white), the RGB and spectral
+    pairs and every metric, LPIPS included, agree within 1e-5 (relative);
+    the eval images and the segmentation dump are the same files under the
+    same names, their pixels within 1 of 255 (uint8 truncation of values
+    equal within 1e-5), read back by PIL and by the port's reader."""
     import jax
+    from PIL import Image
 
     from umhs_tpu.data.datamanager import DataManagerConfig as JDataManagerConfig
     from umhs_tpu.data.dataparser import DataParserConfig as JDataParserConfig
     from umhs_tpu.engine.trainer import TrainerConfig as JTrainerConfig
     from umhs_torch import convert
+    from umhs_torch.data.png import read_png
 
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(j_metrics, "lpips", lambda *a: None)  # no LPIPS in the port yet
     model_kw = {**MODEL_KW, "background_color": background}
-    t = _trainer(scene_dir, tmp_path, model_kw=model_kw).setup()
+    t = _trainer(scene32_dir, tmp_path, model_kw=model_kw,
+                 eval_seg_dump_dir=tmp_path / "t_seg").setup()
     t.train(num_iterations=16)
     jt = JTrainer(JTrainerConfig(output_dir=tmp_path / "j", mixed_precision=False,
-                                 use_mesh=False, save_eval_images=False),
+                                 use_mesh=False, eval_seg_dump_dir=tmp_path / "j_seg"),
                   JModelConfig(**model_kw),
-                  JDataManagerConfig(dataparser=JDataParserConfig(data=scene_dir, num_classes=2),
+                  JDataManagerConfig(dataparser=JDataParserConfig(data=scene32_dir, num_classes=2),
                                      train_num_rays_per_batch=256, eval_num_rays_per_batch=128),
                   num_classes=2)
     occ = convert.occ_state_to_numpy(t.state["occ"])
     jt.state = {"params": jax.tree.map(jnp.asarray, convert.params_to_numpy(t.state["params"])),
                 "occ": {k: jnp.asarray(v) for k, v in occ.items()},
                 "step": jnp.int32(t.step)}
+    jt.step = t.step  # the host step, which names the eval images
     per_image = []
     for i in range(2):
         got, want = t.eval_image(i), jt.eval_image(i)
-        assert set(got) == set(want)
-        for k in got:
+        assert set(got) == set(want) and "lpips_vgg16random" in got
+        for k in set(got) - {"sam_spectral"}:
             assert got[k] == pytest.approx(want[k], rel=1e-5, abs=1e-6), (i, k)
-        per_image.append(want)
+        # SAM: the residue on rays of no weight, then SAM with it taken out
+        # of both renders alike
+        (ours, gt), (theirs, jgt), empty = _spectral_sam_parts(t, jt, i)
+        assert (ours[empty] == 0).all() and (np.abs(theirs[empty]) < 1e-6).all()
+        assert got["sam_spectral"] == t_metrics.sam(ours, gt)
+        assert want["sam_spectral"] == j_metrics.sam(theirs, jgt)
+        ours[empty], theirs[empty] = 0.0, 0.0
+        want_sam = j_metrics.sam(theirs, jgt)
+        assert t_metrics.sam(ours, gt) == pytest.approx(want_sam, rel=1e-5, abs=1e-6), i
+        per_image.append({**want, "sam_spectral": want_sam})
     avg = t.eval_all_images()
     for k in avg:
         assert avg[k] == pytest.approx((per_image[0][k] + per_image[1][k]) / 2, rel=1e-5), k
+
+    names = {f"step-{16:09d}-{i}-{n}.png" for i in range(2)
+             for n in ("img", "depth", "accumulation", "seg_pred")}
+    assert {p.name for p in (t.run_dir / "eval_images").iterdir()} == names
+    for mine, theirs in ((t.run_dir / "eval_images", jt.run_dir / "eval_images"),
+                         (tmp_path / "t_seg", tmp_path / "j_seg")):
+        files = sorted(p.relative_to(mine) for p in mine.rglob("*.png"))
+        assert files == sorted(p.relative_to(theirs) for p in theirs.rglob("*.png"))
+        for rel in files:
+            ours = read_png(mine / rel)
+            np.testing.assert_array_equal(np.asarray(Image.open(mine / rel)), ours)
+            ref = np.asarray(Image.open(theirs / rel)).astype(int)
+            assert ours.shape == ref.shape and np.abs(ours.astype(int) - ref).max() <= 1, rel
+    assert read_png(tmp_path / "t_seg" / "seg_pred_1.png").shape == (32, 32)
+    assert read_png(t.run_dir / "eval_images" / f"step-{16:09d}-0-img.png").shape == (32, 64, 3)
 
 
 def test_trainer_takes_wavelengths_as_an_array():

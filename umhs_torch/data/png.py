@@ -4,7 +4,7 @@
 16-bit gray, with any of the five row filters, and returns the array that
 ``np.asarray(PIL.Image.open(path))`` gives: (H, W) for gray, else
 (H, W, C), uint8 (uint16 for 16-bit gray). Any other format raises.
-`write_png` writes 8-bit RGB or RGBA (filter 0 on every row).
+`write_png` writes 8-bit gray, RGB or RGBA (filter 0 on every row).
 """
 
 from __future__ import annotations
@@ -118,12 +118,15 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path, image: np.ndarray) -> None:
-    """Write an (H, W, 3) or (H, W, 4) uint8 array as an 8-bit RGB or RGBA PNG."""
+    """Write an (H, W) uint8 array as an 8-bit gray PNG, or an (H, W, 3) or
+    (H, W, 4) one as RGB or RGBA."""
     image = np.asarray(image)
-    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] not in (3, 4):
-        raise ValueError("write_png takes an (H, W, 3) or (H, W, 4) uint8 array")
-    height, width, channels = image.shape
-    color = 2 if channels == 3 else 6
+    if image.dtype != np.uint8 or not (
+            image.ndim == 2 or (image.ndim == 3 and image.shape[2] in (3, 4))):
+        raise ValueError("write_png takes an (H, W), (H, W, 3) or (H, W, 4) uint8 array")
+    height, width = image.shape[:2]
+    channels = 1 if image.ndim == 2 else image.shape[2]
+    color = {1: 0, 3: 2, 4: 6}[channels]
     rows = np.concatenate([np.zeros((height, 1), np.uint8),
                            np.ascontiguousarray(image).reshape(height, width * channels)], axis=1)
     ihdr = struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)

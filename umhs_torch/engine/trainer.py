@@ -46,10 +46,12 @@ import torch
 from .. import resolve_device
 from ..data.datamanager import (
     DataManagerConfig, InMemoryDataManager, UMHSDataManager, draw_pixels, sample_pixel_batch)
+from ..data.png import write_png
 from ..models.model import ModelConfig, UMHSModel
 from ..ops.occupancy import draw_partial_cells
 from ..ops.ray_marching import MarchConfig
 from ..utils import metrics as metrics_utils
+from ..utils.colormaps import apply_colormap, apply_depth_colormap
 from ..utils.writer import ConsoleWriter
 
 
@@ -85,6 +87,12 @@ class TrainerConfig:
     seed: int = 42
     load_dir: Optional[Path] = None
     load_step: Optional[int] = None
+    # eval_image writes the segmentation as seg_pred_{idx}.png (class ids,
+    # 8-bit gray) and color/{idx}.png here when set
+    eval_seg_dump_dir: Optional[Path] = None
+    # eval_image writes gt|pred, depth and accumulation composites (and the
+    # segmentation) under run_dir/eval_images/ and to the writer
+    save_eval_images: bool = True
     # dynamic batch sizing: at the scheduled steps (and, after them, every
     # adapt_every steps when the evaluated samples per ray drift by more than
     # adapt_drift) resize the rays per step, the samples per ray and the
@@ -596,11 +604,15 @@ class Trainer:
     def eval_image(self, idx: int = 0) -> Dict[str, float]:
         """Full-image metrics of eval view `idx` (trainer.py:1249-1296): PSNR,
         SSIM and RMSE on RGB over black; with spectra, spectral PSNR, SSIM,
-        SAM and RMSE."""
+        SAM and RMSE, and LPIPS on RGB (under "lpips" with ImageNet weights,
+        else "lpips_vgg16random"), with the segmentation dump when
+        eval_seg_dump_dir is set. Then the eval images, unless
+        save_eval_images is off."""
         rays, batch, hw = self.datamanager.eval_image(idx)
         outputs = self.render_camera(rays, hw)
+        outputs = {k: v.cpu().numpy() for k, v in outputs.items()}
         gt_rgb = self.model.blend_background(batch["image"]).cpu().numpy()
-        pred_rgb = outputs["rgb"].cpu().numpy()
+        pred_rgb = outputs["rgb"]
         m = {
             "psnr": metrics_utils.psnr(pred_rgb, gt_rgb),
             "ssim": metrics_utils.ssim(pred_rgb, gt_rgb),
@@ -608,14 +620,44 @@ class Trainer:
         }
         if "spectral" in self.model.config.method and "hs_image" in batch:
             gt_s = batch["hs_image"].float().cpu().numpy()
-            pred_s = outputs["spectral"].cpu().numpy()
+            pred_s = outputs["spectral"]
             m.update({
                 "psnr_spectral": metrics_utils.psnr(pred_s, gt_s),
                 "ssim_spectral": metrics_utils.ssim(pred_s, gt_s),
                 "sam_spectral": metrics_utils.sam(pred_s, gt_s),
                 "rmse_spectral": metrics_utils.rmse(pred_s, gt_s),
             })
+            lp = metrics_utils.lpips(pred_rgb, gt_rgb, self.device)
+            calibrated = metrics_utils.LPIPS_VARIANT == "vgg16_imagenet"
+            m["lpips" if calibrated else "lpips_vgg16random"] = lp
+            if self.config.eval_seg_dump_dir is not None:
+                d = Path(self.config.eval_seg_dump_dir)
+                (d / "color").mkdir(parents=True, exist_ok=True)
+                write_png(d / f"seg_pred_{idx}.png", outputs["seg_raw"][..., 0].astype(np.uint8))
+                write_png(d / "color" / f"{idx}.png",
+                          (np.clip(outputs["seg_pred"], 0, 1) * 255).astype(np.uint8))
+        if self.config.save_eval_images:
+            self._emit_eval_images(idx, gt_rgb, pred_rgb, outputs)
         return m
+
+    def _emit_eval_images(self, idx: int, gt_rgb: np.ndarray, pred_rgb: np.ndarray,
+                          outputs: Dict[str, np.ndarray]) -> None:
+        """gt|pred side by side, turbo depth attenuated by the accumulation,
+        turbo accumulation and, with classes, the segmentation: each to the
+        writer and to run_dir/eval_images/step-{step:09d}-{idx}-{name}.png
+        (trainer.py:1298-1324)."""
+        composites = {
+            "img": np.concatenate([np.clip(gt_rgb, 0, 1), np.clip(pred_rgb, 0, 1)], axis=1),
+            "depth": apply_depth_colormap(outputs["depth"], outputs.get("accumulation")),
+            "accumulation": apply_colormap(outputs["accumulation"]),
+        }
+        if "seg_pred" in outputs:
+            composites["seg_pred"] = np.clip(outputs["seg_pred"], 0, 1)
+        d = self.run_dir / "eval_images"
+        d.mkdir(parents=True, exist_ok=True)
+        for name, img in composites.items():
+            self.writer.write_image(self.step, f"eval_img_{idx}/{name}", img)
+            write_png(d / f"step-{self.step:09d}-{idx}-{name}.png", (img * 255).astype(np.uint8))
 
     def eval_all_images(self) -> Dict[str, float]:
         """eval_image's metrics averaged over the eval split."""

@@ -5,11 +5,18 @@ scripts/probe_pallas_gather.py::_pallas_gather).
 `row_gather_plain` on a CPU tensor or when impl="plain" asks for it. It sits
 on no path of the system: its entry point is the probe twin
 `umhs_torch.probes.gather`, which times it beside `torch.index_select`.
+
+The kernel walks the table in slices (`row_gather_slices`): a block reads
+the indices of its wave of THREADS * ROWS rows once, gathers in each slice
+the rows whose index falls in it, and writes the wave out; `row_gather_grid`
+gives its grid. The launcher passes both to the kernel, so that the CPU
+tests can hold the kernel's partition of the rows to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -18,8 +25,47 @@ from ._native import Kernel
 ROW_GATHER = Kernel(
     "row_gather.cu",
     "umhs_row_gather",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+     ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p],
 )
+# csrc/row_gather.cu's block (kThreads, kRows there): THREADS threads of ROWS
+# rows each make a wave
+THREADS, ROWS = 128, 14
+WAVE = THREADS * ROWS
+# table bytes per slice, and at most this many slices: on an H100 (700 W)
+# six slices ran fastest on the 96 MB table, with one, three and twelve
+# slower; on the 48.8 MB table three and six tied (PERF.md, P1)
+SLICE_BYTES = 8 << 20
+MAX_SLICES = 6
+_BLOCKS_PER_SM: Dict[int, int] = {}  # device index -> the kernel's resident blocks per SM
+
+
+def row_gather_slices(table_rows: int) -> int:
+    """How many slices the kernel walks a (table_rows, 2) f32 table in."""
+    return min(MAX_SLICES, max(1, -(-table_rows * 8 // SLICE_BYTES)))
+
+
+def row_gather_grid(n: int, sms: int, blocks_per_sm: int) -> int:
+    """The kernel's block count for n rows on a card of `sms` SMs with
+    `blocks_per_sm` of its blocks resident on each: one block per wave, at
+    most the resident blocks, each striding over the waves."""
+    return min(-(-n // WAVE), sms * blocks_per_sm)
+
+
+def _blocks_per_sm(device: torch.device) -> int:
+    """The kernel's resident blocks per SM on `device` (its occupancy)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _BLOCKS_PER_SM:
+        fn = ROW_GATHER.library().umhs_row_gather_blocks_per_sm
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = fn(ctypes.byref(blocks))
+        if err != 0 or blocks.value < 1:
+            raise RuntimeError(f"umhs_row_gather_blocks_per_sm failed: cudaError {err}, "
+                               f"{blocks.value} blocks")
+        _BLOCKS_PER_SM[index] = blocks.value
+    return _BLOCKS_PER_SM[index]
 
 
 def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -48,11 +94,17 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, impl: str = "auto") -> to
             or not idx.is_contiguous()):
         raise ValueError("row_gather: idx must be a contiguous (N,) int32 tensor on the "
                          "table's device")
+    t = table.shape[0]
+    if not 0 < t < 2**31:
+        raise ValueError(f"row_gather: the table must have 1 to 2^31 - 1 rows, not {t}")
+    slices = row_gather_slices(t)
     n = idx.shape[0]
     out = torch.empty((n, 2), dtype=torch.float32, device=table.device)
     if n == 0:
         return out
+    sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+    blocks = row_gather_grid(n, sms, _blocks_per_sm(table.device))
     with torch.cuda.device(table.device):
-        ROW_GATHER.launch(table.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
-                          torch.cuda.current_stream(table.device).cuda_stream)
+        ROW_GATHER.launch(table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, t, -(-t // slices),
+                          blocks, torch.cuda.current_stream(table.device).cuda_stream)
     return out

@@ -7,32 +7,37 @@ a Pallas DMA gather).
 Arms, at the probe's shapes and on the flagship's hash table:
   library   torch.index_select(table, 0, idx), PyTorch's gather (the
             probe's XLA arm)
-  kernel    P1, umhs_torch/csrc/row_gather.cu, one thread and one float2
-            load per row
+  kernel    P1, umhs_torch/csrc/row_gather.cu, which walks the table in
+            slices so that the L2 holds the rows being read
 
 Tables: the probe's 12,000,000 x 2 f32 (96 MB, more than the H100's 50 MB
 L2; the JAX probe's comment says ~48 MB) and the flagship's L16xF2 2^19 table
 of 6,098,108 x 2 f32 (48.8 MB, which nearly fits). Rows: 16,318,464 random
-indices (254,976 compact samples x 64 tetrahedral lanes), or --rows N. Each
-line gives rows, the median of CUDA-event-timed calls, ns per row and the
-bytes bound. Measuring needs the card.
+indices (254,976 compact samples x 64 tetrahedral lanes), or --rows N. Both
+arms (and any others `measure` is given) are timed the same way and in
+turns, with a warm L2 and a cold one: device time under torch.profiler with
+each device kernel listed by name, and, warm, CUDA events around a batch of
+calls. Each line gives them with ns per row and the bytes bound. Measuring
+needs the card.
 
---check compares the kernel with the plain version bit for bit on the card;
-with --device cpu it compares the plain version with a numpy take on the
-CPU. The device is cuda unless --device cpu is given, and without a card the
-probe raises rather than fall back.
+--check compares the kernel with the plain version bit for bit on the card,
+on both tables at the probe's N and at the kernel's edge N; with --device
+cpu it compares the plain version with a numpy take on the CPU. The device
+is cuda unless --device cpu is given, and without a card the probe raises
+rather than fall back.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..ops.row_gather import row_gather, row_gather_plain
+from ..ops.row_gather import WAVE, row_gather, row_gather_plain
+from ..utils.device_time import device_ms_by_kernel
 
 F = 2
 PROBE_TABLE_ROWS = 12_000_000  # probe_pallas_gather.py:121
@@ -50,21 +55,22 @@ def make_case(table_rows: int, rows: int, device, seed: int = 0):
     return table, idx
 
 
-def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() over `iters` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
+FLUSH_BYTES = 256 << 20  # written between calls for a cold L2 (the H100's is 50 MB)
+ROUNDS = 2  # each arm timed this many times, in turns: A B C, then C B A
+
+
+def batch_ms(fn: Callable, iters: int = 20) -> float:
+    """ms per call of fn() from CUDA events around `iters` back-to-back calls."""
+    fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bounds_ms(idx: torch.Tensor) -> Dict[str, float]:
@@ -80,44 +86,81 @@ def bounds_ms(idx: torch.Tensor) -> Dict[str, float]:
     }
 
 
-def measure(table_rows: int, rows: int, device, seed: int = 0) -> Dict[str, object]:
-    """Both arms on one table: their median ms and ns per row, and the bounds."""
+def measure(table_rows: int, rows: int, device, seed: int = 0,
+            extra_arms: Optional[Dict[str, Callable]] = None) -> Dict[str, object]:
+    """The kernel, torch.index_select and `extra_arms` (name: fn(table, idx))
+    on one table, each timed the same way and in turns, with a warm L2 and
+    with a cold one (FLUSH_BYTES written before each call): device ms under
+    the profiler, with the ms of each device kernel the arm launched by
+    name, and, warm, ms per call from CUDA events around a batch of calls.
+    Each number is the mean of ROUNDS; the result holds the bounds too.
+    Cold, the device time counts the kernels the arm launched warm (not the
+    flush)."""
     table, idx = make_case(table_rows, rows, device, seed)
+    arms = {"kernel": lambda: row_gather(table, idx),
+            "library": lambda: torch.index_select(table, 0, idx)}
+    arms.update({name: (lambda fn=fn: fn(table, idx)) for name, fn in (extra_arms or {}).items()})
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
     result: Dict[str, object] = {"table_rows": table_rows, "rows": rows, **bounds_ms(idx)}
-    for arm, fn in (("library", lambda: torch.index_select(table, 0, idx)),
-                    ("kernel", lambda: row_gather(table, idx))):
-        ms = median_ms(fn)
-        result[f"{arm}_ms"] = ms
-        result[f"{arm}_ns_per_row"] = ms * 1e6 / rows
+    own: Dict[str, List[str]] = {}  # the kernels each arm launches, from its warm runs
+    for l2, between in (("warm", None), ("cold", lambda: flush.fill_(1))):
+        runs: Dict[str, List] = {name: [] for name in arms}
+        for r in range(ROUNDS):
+            for name in (list(arms) if r % 2 == 0 else list(arms)[::-1]):
+                by_kernel = device_ms_by_kernel(arms[name], between, own.get(name))
+                call_ms = None
+                if between is None:
+                    own[name] = sorted(set(own.get(name, [])) | set(by_kernel))
+                    call_ms = batch_ms(arms[name])
+                runs[name].append((sum(by_kernel.values()), by_kernel, call_ms))
+        for name, got in runs.items():
+            prefix = name if l2 == "warm" else f"{name}_cold"
+            result[f"{prefix}_ms"] = float(np.mean([g[0] for g in got]))
+            if l2 == "warm":
+                result[f"{prefix}_batch_ms"] = float(np.mean([g[2] for g in got]))
+            result[f"{prefix}_kernels"] = {k: float(np.mean([g[1].get(k, 0.0) for g in got]))
+                                           for k in got[0][1]}
+            result[f"{prefix}_ns_per_row"] = result[f"{prefix}_ms"] * 1e6 / rows
+    del flush
     return result
+
+
+def edge_rows() -> List[int]:
+    """Row counts at the kernel's edges: 0, under a warp, the Pallas kernel's
+    2048-row block +- 1, 8k +- 1 and a wave of csrc/row_gather.cu +- 1."""
+    return [0, 1, 3, 4, 5, 2047, 2049, 8 * 127 - 1, 8 * 127 + 1, WAVE - 1, WAVE + 1,
+            8 * WAVE + 1]
 
 
 def check(device, rows: int = PROBE_ROWS) -> List[str]:
     """Bit-for-bit checks, with the table's last row first among the indices
     and its first row last; raises AssertionError on a mismatch. On the
-    card: the kernel against the plain version at `rows` rows on the probe's
-    and the flagship's table, and at N = 2049 and 1. On the CPU: the plain
-    version against numpy's take."""
+    card: the kernel against the plain version on the probe's and the
+    flagship's table, at `rows` rows and at every edge_rows() N. On the CPU:
+    the plain version against numpy's take at 4096, 2049 and 1 rows."""
     lines = []
     if device.type == "cuda":
-        cases = [(PROBE_TABLE_ROWS, rows), (FLAGSHIP_TABLE_ROWS, rows),
-                 (PROBE_TABLE_ROWS, 2049), (PROBE_TABLE_ROWS, 1)]
+        cases = [(t, [rows] + edge_rows()) for t in (PROBE_TABLE_ROWS, FLAGSHIP_TABLE_ROWS)]
     else:
-        cases = [(4096, 2 * 2048), (4096, 2049), (4096, 1)]
-    for table_rows, n in cases:
-        table, idx = make_case(table_rows, n, device, seed=n)
-        idx[0] = table_rows - 1
-        if n > 1:
-            idx[-1] = 0
-        if device.type == "cuda":
-            got, want, arms = row_gather(table, idx), row_gather_plain(table, idx), "kernel/plain"
-        else:
-            got = row_gather(table, idx)
-            want = torch.from_numpy(np.take(table.numpy(), idx.numpy(), axis=0))
-            arms = "plain/numpy"
-        assert got.shape == (n, F) and got.dtype == torch.float32
-        assert torch.equal(got, want), f"{arms} differ at T={table_rows} N={n}"
-        lines.append(f"check {arms} T={table_rows:,} N={n:,}: bit for bit")
+        cases = [(4096, [2 * 2048, 2049, 1])]
+    for table_rows, counts in cases:
+        table, all_idx = make_case(table_rows, max(counts), device)
+        for n in counts:
+            idx = all_idx[:n].clone()
+            if n:
+                idx[0] = table_rows - 1
+            if n > 1:
+                idx[-1] = 0
+            if device.type == "cuda":
+                got, want, arms = row_gather(table, idx), row_gather_plain(table, idx), \
+                    "kernel/plain"
+            else:
+                got = row_gather(table, idx)
+                want = torch.from_numpy(np.take(table.numpy(), idx.numpy(), axis=0))
+                arms = "plain/numpy"
+            assert got.shape == (n, F) and got.dtype == torch.float32
+            assert torch.equal(got, want), f"{arms} differ at T={table_rows} N={n}"
+            lines.append(f"check {arms} T={table_rows:,} N={n:,}: bit for bit")
     return lines
 
 
@@ -142,10 +185,16 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     results = []
     for table_rows in (PROBE_TABLE_ROWS, FLAGSHIP_TABLE_ROWS):
         r = measure(table_rows, rows, device)
-        for arm in ("library", "kernel"):
-            print(f"{arm:<8} table={table_rows:>11,} rows={rows:>11,}  {r[f'{arm}_ms']:8.3f} ms"
-                  f"  {r[f'{arm}_ns_per_row']:6.3f} ns/row  bound {r['bound_ms']:.3f} ms"
-                  f" (one sector per row {r['sector_bound_ms']:.3f} ms)")
+        print(f"table={table_rows:,} rows={rows:,}: bound {r['bound_ms']:.3f} ms (one sector "
+              f"per row {r['sector_bound_ms']:.3f} ms)")
+        for arm in ("kernel", "library"):
+            for l2 in ("warm", "cold"):
+                p = arm if l2 == "warm" else f"{arm}_cold"
+                events = (f"; events {r[p + '_batch_ms']:8.3f} ms per call" if l2 == "warm"
+                          else "")
+                print(f"  {arm:<8} {l2}: device {r[p + '_ms']:8.3f} ms, {r[p + '_ns_per_row']:6.3f} "
+                      f"ns/row{events}; kernels "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in r[p + "_kernels"].items()))
         results.append(r)
     sys.stdout.flush()
     return results

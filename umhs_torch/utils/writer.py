@@ -11,3 +11,6 @@ class ConsoleWriter:
     def write(self, step: int, scalars: Dict[str, float]) -> None:
         body = ", ".join(f"{k}={float(v):.6g}" for k, v in scalars.items())
         print(f"[step {step}] {body}", flush=True)
+
+    def write_image(self, step: int, name: str, image) -> None:
+        """An (H, W, 3) image in [0, 1]: the console shows none."""
