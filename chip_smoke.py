@@ -18,6 +18,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device and build: the card's name and power limit, then every kernel in
    umhs_torch/csrc is compiled by nvcc into umhs_torch/_build/ (timed), with
    ptxas's registers and spill bytes per kernel; any spill fails the run.
+   Then the native cube loader (umhs_torch/native/loader.cpp) by g++, timed.
 2. Each kernel against its plain PyTorch version on the card, at the
    flagship shapes, with its median time, the plain version's, one PyTorch
    yardstick's and the bound from bytes or operations:
@@ -123,6 +124,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at most 1.25x. --quality all also runs the trilinear and the 141-band
    bf16 configurations against docs/trilinear_2000_256.json and
    docs/bayspec141_2000_256.json, under the same rule.
+
+9. The user's entry points, at full width, in a temporary working
+   directory with the bench scene written by write_dataset: load_cubes on
+   its 16 train cubes, the native loader against the plain loop in turns
+   (the same bits; seconds of each). Then cli.train with the command line a
+   user would type (printed): the README's flags, the flagship model's as
+   dotted flags and bench.py's trainer settings, to step 672 with one
+   checkpoint, --vis console --log-gradients True; the launch counts zeroed
+   before and read after (K1-K4 must launch). Its losses and adapt decisions
+   must equal phase 7's bit for bit, step for step; otherwise the first step
+   where they part and every field in which the resolved configs differ
+   are printed and the run fails. config.yml, metrics.jsonl (with
+   grad_norm/total) and final_metrics.json must exist, and eval_all_images
+   PSNR must reach 25 dB. `python -m umhs_torch.cli.eval --load-config`
+   runs in a fresh process, on the card by default: its results within a
+   relative 1e-6 of final_metrics.json's (the largest difference printed).
+   cli.render camera-path renders 8 frames of an orbit (128^2, fov 50) with
+   the README's outputs rgb, abundances_0, wv_10 and seg_pred: each PNG
+   frame reads back as (128, 512, 3), frame 0's rgb tile equals
+   Trainer.render_camera on the same rays bit for bit, K1 and K3 launch and
+   K2 and K4 do not; ms per frame. The viewer on port 0 in a thread: /,
+   /outputs, and /render of rgb, depth and abundances_0 (PNGs of (128, 128,
+   3); ms per request), an unknown output answered with 500, and one
+   /render under utils/profiler.trace, whose Chrome trace must name K1's
+   and K3's device kernels; K1 and K3 launch, K2 and K4 do not.
 
 The last lines are the card (nvidia-smi), one JSON object of kernel numbers
 and, last, {"ok": true, "device": {...}}.
@@ -1344,7 +1370,9 @@ def adapt_records(trainer):
 
 
 def phase_bench_schedule(dev):
-    """bench.py's training schedule from a dataset on disk, at full width."""
+    """bench.py's training schedule from a dataset on disk, at full width.
+    Returns its launches, every step's loss and its adapt decisions (phase
+    9 holds cli.train to them), and its resolved configs."""
     with bench_dataset() as (work, root, write_s):
         t0 = time.perf_counter()
         trainer = bench_trainer(root, dev)
@@ -1414,7 +1442,9 @@ def phase_bench_schedule(dev):
         "checkpoint_round_trip": side["round_trip"],
     }
     print("bench schedule: " + json.dumps(summary))
-    return launches
+    configs = {"trainer": trainer.config, "model": trainer.model.config,
+               "datamanager": trainer.datamanager.config}
+    return launches, losses, adapt_records(trainer), configs
 
 
 def check_adapts(trainer):
@@ -1641,6 +1671,273 @@ def phase_quality(dev, runs, smi):
     return launches
 
 
+# phase 9: the user's entry points, at full width
+ENTRY_FRAMES = 8
+ENTRY_OUTPUTS = ("rgb", "abundances_0", "wv_10", "seg_pred")  # the README's list
+ENTRY_MIN_PSNR = 25.0  # phase 7 read 28.47 dB on the same scene and length (PERF.md)
+
+
+def entry_train_argv(root):
+    """A user's command line for cli.train: the README's flags, the flagship
+    model's (flagship_model_config) as dotted flags, and bench.py's trainer
+    settings (bench_trainer), run to step 672 with one checkpoint there."""
+    schedule_end = BENCH_WARMUP_UNTIL + BENCH_STEADY_STEPS
+    return [
+        "umhsnerf", "--data", str(root),
+        "--pipeline.num_classes", "6", "--pipeline.model.method", "rgb+spectral",
+        "--pipeline.model.temperature", "0.4", "--pipeline.model.pred_specular", "True",
+        "--pipeline.model.load_vca", "True",
+        "--pipeline.datamanager.train-num-rays-per-batch", "4096",
+        "--experiment-name", "entry-points", "--vis", "console", "--log-gradients", "True",
+        "--pipeline.model.grid-resolution", "128", "--pipeline.model.grid-levels", "4",
+        "--pipeline.model.num-candidates", "1024", "--pipeline.model.max-samples-per-ray", "64",
+        "--pipeline.model.cone-angle", "0.004", "--pipeline.model.hash-num-levels", "16",
+        "--pipeline.model.hash-features-per-level", "2",
+        "--pipeline.model.log2-hashmap-size", "19",
+        "--pipeline.model.hash-interpolation", "tetrahedral",
+        "--pipeline.model.stage-boundaries", "8,16", "--pipeline.model.march-pool", "4",
+        "--pipeline.model.occ-warmup-full-every", "2",
+        "--trainer.adapt-steps", ",".join(str(s) for s in BENCH_ADAPT_STEPS),
+        "--trainer.adapt-prefetch-steps", str(BENCH_PREFETCH), "--trainer.adapt-every", "0",
+        "--optimizers.fields.optimizer.lr", "2e-2",
+        "--optimizers.fields.scheduler.max-steps", "10000",
+        "--mixed-precision", "True", "--machine.seed", "42",
+        "--pipeline.datamanager.eval-num-rays-per-batch", "1024",
+        "--max-num-iterations", str(schedule_end), "--steps-per-save", str(schedule_end),
+    ]
+
+
+def config_differences(a, b, prefix=""):
+    """The dotted names of the fields in which two config dataclasses differ."""
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x) and dataclasses.is_dataclass(y):
+            out += config_differences(x, y, f"{prefix}{f.name}.")
+        elif x != y:
+            out.append(f"{prefix}{f.name}: {x!r} vs {y!r}")
+    return out
+
+
+def orbit_path_json(n, size, fov):
+    """A camera path of `n` frames on an orbit of radius 1 (the dataparser's
+    scaled space) around the origin."""
+    from umhs_torch.data.synthetic import _look_at
+
+    path = []
+    for i in range(n):
+        theta, phi = 2 * np.pi * i / n, 0.5
+        eye = np.array([np.cos(theta) * np.cos(phi), np.sin(theta) * np.cos(phi), np.sin(phi)])
+        path.append({"camera_to_world": _look_at(eye, np.zeros(3)).reshape(-1).tolist(),
+                     "fov": fov, "aspect": 1.0})
+    return {"camera_path": path, "render_height": size, "render_width": size, "fps": 8,
+            "seconds": 1}
+
+
+def time_loader(root):
+    """load_cubes on the scene's train cubes, native and plain in turns
+    (native, plain, plain, native): the same bits, and each arm's seconds."""
+    from umhs_torch.data.dataset import load_cubes
+    from umhs_torch.native import read_npy_header
+
+    paths = sorted((root / "train").glob("*.npy"))
+    shape = read_npy_header(paths[0]).shape
+    seconds, stacks = {"auto": [], "plain": []}, {}
+    for impl in ("auto", "plain", "plain", "auto"):
+        t0 = time.perf_counter()
+        stacks[impl] = load_cubes(paths, shape, impl=impl)
+        seconds[impl].append(time.perf_counter() - t0)
+    check(np.array_equal(stacks["auto"].view(np.int32), stacks["plain"].view(np.int32)),
+          "load_cubes: the native loader and the plain loop disagree")
+    out = {"files": len(paths), "shape": list(shape), "dtype": str(stacks["auto"].dtype),
+           "bytes": int(stacks["auto"].nbytes), "native_s": seconds["auto"],
+           "plain_s": seconds["plain"]}
+    print("loader: " + json.dumps(out))
+    return out
+
+
+def phase_entry_points(dev, bench_losses, bench_adapts, bench_configs):
+    """Phase 9: the user's entry points on the bench scene, at full width."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from umhs_torch.cli import render as cli_render
+    from umhs_torch.cli import train as cli_train
+    from umhs_torch.cli import viewer as cli_viewer
+    from umhs_torch.data.png import read_png
+    from umhs_torch.data.synthetic import BENCH_SCENE
+    from umhs_torch.utils.profiler import trace
+
+    summary = {}
+    with bench_dataset() as (work, root, write_s):
+        summary["write_dataset_s"] = write_s
+        summary["loader"] = time_loader(root)
+
+        # cli.train, as a user types it
+        argv = entry_train_argv(root)
+        print("cli.train: python -m umhs_torch.cli.train " + " ".join(argv))
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        result = cli_train.main(argv)
+        torch.cuda.synchronize()
+        summary["train_s"] = time.perf_counter() - t0
+        launches_train = launch_counts()
+        for sym in TRAIN_KERNELS:
+            check(launches_train[sym] > 0, f"kernel {sym} was not launched by cli.train")
+        trainer = result.trainer
+        losses = [r["metrics"]["loss/total"] for r in trainer.history]
+        adapts = adapt_records(trainer)
+        parted = next((i for i, (x, y) in enumerate(zip(losses, bench_losses)) if x != y),
+                      None if len(losses) == len(bench_losses) else min(len(losses),
+                                                                        len(bench_losses)))
+        diffs = []
+        for name, ours in (("trainer", trainer.config), ("model", trainer.model.config),
+                           ("datamanager", trainer.datamanager.config)):
+            diffs += config_differences(bench_configs[name], ours, f"{name}.")
+        print(f"  resolved config against phase 7's ({len(diffs)} fields differ): "
+              + json.dumps(diffs))
+        if parted is not None or adapts != bench_adapts:
+            fail(f"cli.train parts from phase 7: first at step {parted} of {len(losses)} "
+                 f"(phase 7: {len(bench_losses)} steps), adapts equal: "
+                 f"{adapts == bench_adapts}; the resolved configs differ in {diffs}")
+        print(f"  cli.train: {len(losses)} losses and {len(adapts)} adapts equal phase 7's "
+              f"bit for bit")
+        run_dir = trainer.run_dir
+        for name in ("config.yml", "metrics.jsonl", "final_metrics.json"):
+            check((run_dir / name).is_file(), f"cli.train wrote no {name}")
+        records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        check(any("grad_norm/total" in r for r in records), "metrics.jsonl has no grad_norm/total")
+        final = json.loads((run_dir / "final_metrics.json").read_text())
+        evals = final["eval"]
+        check(evals["psnr"] >= ENTRY_MIN_PSNR,
+              f"cli.train eval_all_images PSNR {evals['psnr']} below {ENTRY_MIN_PSNR}")
+        summary.update(eval_all_images=evals, launches_train=launches_train,
+                       metrics_records=len(records),
+                       grad_norm_last={k: v for k, v in records[-1].items()
+                                       if k.startswith("grad_norm/")})
+        config_yml = run_dir / "config.yml"
+
+        # cli.eval in a fresh process, on the card by default
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(Path(__file__).resolve().parent)] + [p for p in [env.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "umhs_torch.cli.eval", "--load-config", str(config_yml),
+             "--output-path", str(work / "eval.json")],
+            cwd=work, env=env, capture_output=True, text=True, timeout=900)
+        summary["eval_subprocess_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cli.eval exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                                    f"{proc.stderr[-4000:]}")
+        got = json.loads((work / "eval.json").read_text())
+        check(got["checkpoint_step"] == trainer.step,
+              f"cli.eval loaded step {got['checkpoint_step']}, not {trainer.step}")
+        check(sorted(got["results"]) == sorted(evals), "cli.eval reports other metrics")
+        rel = {k: abs(got["results"][k] - v) / max(abs(v), 1e-30) for k, v in evals.items()}
+        worst = max(rel, key=rel.get)
+        print(f"  cli.eval (subprocess, {summary['eval_subprocess_s']:.1f} s wall): largest "
+              f"relative difference to final_metrics.json {rel[worst]:.3g} ({worst})")
+        check(rel[worst] <= 1e-6, f"cli.eval's {worst} differs from final_metrics.json by "
+                                  f"{rel[worst]}")
+        summary["eval_max_rel_diff"] = rel[worst]
+
+        # cli.render camera-path
+        size = BENCH_SCENE.image_size
+        path_json = orbit_path_json(ENTRY_FRAMES, size, 50.0)
+        (work / "orbit.json").write_text(json.dumps(path_json))
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        rendered = cli_render.main([
+            "camera-path", "--load-config", str(config_yml),
+            "--camera-path-filename", str(work / "orbit.json"),
+            "--output-path", str(work / "renders" / "orbit.mp4"),
+            "--rendered-output-names", *ENTRY_OUTPUTS])
+        summary["render_s"] = time.perf_counter() - t0
+        launches_render = launch_counts()
+        for sym in RENDER_KERNELS:
+            check(launches_render[sym] > 0, f"kernel {sym} was not launched by cli.render")
+        for sym in set(TRAIN_KERNELS) - set(RENDER_KERNELS):
+            check(launches_render[sym] == 0, f"cli.render launched {sym}")
+        frames = sorted(rendered.written.glob("frame_*.png"))
+        check(len(frames) == ENTRY_FRAMES, f"cli.render wrote {len(frames)} frames")
+        tiles = len(ENTRY_OUTPUTS)
+        for fr in frames:
+            check(read_png(fr).shape == (size, size * tiles, 3),
+                  f"{fr.name} reads back as {read_png(fr).shape}")
+        cam0 = path_json["camera_path"][0]
+        c2w = np.asarray(cam0["camera_to_world"], np.float32).reshape(4, 4)[:3]
+        focal = 0.5 * size / np.tan(0.5 * np.deg2rad(cam0["fov"]))
+        with uncounted():
+            ref = cli_render.render_outputs(
+                trainer, cli_render.camera_dict(c2w, focal, size, size, dev), size, size)
+        ref_rgb = (np.clip(ref["rgb"], 0, 1) * 255).astype(np.uint8)
+        check(np.array_equal(read_png(frames[0])[:, :size], ref_rgb),
+              "frame 0's rgb tile differs from Trainer.render_camera on the same rays")
+        frame_ms = [1e3 * s for s in rendered.frame_s]
+        print(f"  cli.render: {len(frames)} frames of {size}x{size * tiles} "
+              f"({', '.join(ENTRY_OUTPUTS)}), {np.mean(frame_ms[1:]):.1f} ms per frame past the "
+              f"first ({frame_ms[0]:.1f}); frame 0's rgb equals render_camera bit for bit")
+        summary.update(render_ms_per_frame=frame_ms, launches_render=launches_render)
+
+        # the viewer on a free port, one request one render
+        zero_launch_counts()
+        server = cli_viewer.make_server(["--load-config", str(config_yml), "--port", "0",
+                                         "--resolution", str(size)])
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        view = "theta=0.8&phi=0.5&radius=1.0&fov=50"
+        request_ms = {}
+        try:
+            check(b"umhs" in urllib.request.urlopen(base + "/", timeout=60).read(),
+                  "viewer: / is not the page")
+            names = json.loads(urllib.request.urlopen(base + "/outputs", timeout=60).read())
+            check("rgb" in names and "abundances_0" in names, f"viewer outputs {names}")
+            for out in ("rgb", "depth", "abundances_0"):
+                times = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    png = urllib.request.urlopen(f"{base}/render?{view}&output={out}",
+                                                 timeout=120).read()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                (work / f"view_{out}.png").write_bytes(png)
+                shape = read_png(work / f"view_{out}.png").shape
+                check(shape == (size, size, 3), f"viewer /render {out}: PNG of shape {shape}")
+                request_ms[out] = times
+            try:
+                urllib.request.urlopen(f"{base}/render?{view}&output=no_such_output", timeout=60)
+                fail("viewer: an unknown output did not fail")
+            except urllib.error.HTTPError as e:
+                check(e.code == 500, f"viewer: an unknown output returned {e.code}, not 500")
+            with trace(work / "profiles") as trace_path:
+                urllib.request.urlopen(f"{base}/render?{view}&output=rgb", timeout=120).read()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        check(not thread.is_alive(), "the viewer's server thread did not stop")
+        launches_viewer = launch_counts()
+        for sym in RENDER_KERNELS:
+            check(launches_viewer[sym] > 0, f"kernel {sym} was not launched by the viewer")
+        for sym in set(TRAIN_KERNELS) - set(RENDER_KERNELS):
+            check(launches_viewer[sym] == 0, f"the viewer launched {sym}")
+        check(trace_path.is_file(), "profiler.trace wrote no Chrome trace")
+        text = trace_path.read_text()
+        named = {sym: [k for k in KERNEL_NAMES[sym] if k in text] for sym in RENDER_KERNELS}
+        device_kernels = sorted({e.get("name", "")[:80] for e in json.loads(text)["traceEvents"]
+                                 if e.get("cat") == "kernel"})
+        check(all(named.values()), f"the trace of one /render names {named}; its device "
+                                   f"kernels: {device_kernels}")
+        print(f"  viewer: ms per /render request {json.dumps(request_ms)}; unknown output "
+              f"500; trace {trace_path.name} ({len(text)} bytes, {len(device_kernels)} device "
+              f"kernel names) names {named}")
+        summary.update(viewer_ms_per_request=request_ms, launches_viewer=launches_viewer)
+        del trainer, result
+    print("entry points: " + json.dumps(summary))
+    return summary
+
+
 def ptxas_usage(log: str) -> dict:
     """{kernel<template args>: registers and spill bytes} from nvcc -Xptxas=-v."""
     usage, kernel = {}, None
@@ -1679,6 +1976,7 @@ def main() -> None:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
+    from umhs_torch import native
     from umhs_torch.ops import _native
 
     dev = torch.device("cuda")
@@ -1702,6 +2000,10 @@ def main() -> None:
             if usage["spill_stores"] or usage["spill_loads"]:
                 spills.append(kernel)
     check(not spills, f"ptxas spilled registers in {spills}")
+    t0 = time.perf_counter()
+    built = native.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s for the native cube loader "
+          f"({'g++' if built else 'cached'}, {native.library_path().name})")
 
     only = args.repeat_schedule or args.sweep_vs_plain is not None
     if args.repeat_schedule:
@@ -1722,9 +2024,10 @@ def main() -> None:
         phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})")
         phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})", "bfloat16")
         del trainer, dm
-        bench_launches = phase_bench_schedule(dev)
+        bench_launches, bench_losses, bench_adapts, bench_configs = phase_bench_schedule(dev)
         quality_runs = list(QUALITY_RUNS) if args.quality == "all" else ["tetrahedral"]
         quality_launches = phase_quality(dev, quality_runs, smi)
+        entry_points = phase_entry_points(dev, bench_losses, bench_adapts, bench_configs)
 
         for entry in (k1, k2, k3, k4):
             sym = "umhs_" + entry["name"]
@@ -1732,6 +2035,8 @@ def main() -> None:
             entry["launches_train"] = train_launches[sym]
             entry["launches_render"] = render_launches[sym]
             entry["launches_quality"] = quality_launches["tetrahedral"][sym]
+            for path in ("train", "render", "viewer"):  # phase 9's entry points
+                entry[f"launches_cli_{path}"] = entry_points[f"launches_{path}"][sym]
         p1["launches_quality"] = quality_launches["tetrahedral"].get("umhs_row_gather", 0)
     print(smi)
     if not only:

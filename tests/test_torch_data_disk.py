@@ -269,14 +269,16 @@ def test_integer_cubes_are_scaled_and_clamped(tmp_path):
         paths.append(tmp_path / f"{i}.npy")
         np.save(paths[-1], cube)
     got = t_ds.load_cubes(paths, (4, 5, 3))
-    for g, p in zip(got, paths):  # the numpy path of umhs_tpu/native/__init__.py:108-115
+    for g, p in zip(got, paths):  # loader.cpp's scaling: p[i] * (1.0f / max), in float32
         raw = np.load(p)
         want = raw.astype(np.float32)
         if np.issubdtype(raw.dtype, np.integer):
-            want = want / float(np.iinfo(raw.dtype).max)
+            want = want * (np.float32(1.0) / np.float32(np.iinfo(raw.dtype).max))
         np.testing.assert_array_equal(g, np.clip(want, 0.0, 1.0))
-    # the native loader scales in another rounding order
-    np.testing.assert_allclose(got, parallel_load_cubes(paths, (4, 5, 3)), rtol=2e-7, atol=0)
+    # umhs_tpu's loader (native where g++ builds it) gives the same bits, and
+    # so does the port's plain loop
+    np.testing.assert_array_equal(got, parallel_load_cubes(paths, (4, 5, 3)))
+    np.testing.assert_array_equal(got, t_ds.load_cubes(paths, (4, 5, 3), impl="plain"))
     assert got.min() >= 0.0 and got.max() <= 1.0
     with pytest.raises(ValueError):
         t_ds.load_cubes(paths, (4, 5, 2))

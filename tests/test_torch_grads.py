@@ -228,7 +228,7 @@ def test_hash_backward_deterministic_matches_jax_vjp(interp, kind):
 
 @pytest.mark.parametrize("interp,kind", HASH_CASES)
 def test_hash_backward_stochastic_adds_g_to_exactly_one_vertex(interp, kind):
-    cfg = t_enc.HashEncodingConfig(interpolation=interp, **HASH_KW)
+    cfg = t_enc.HashEncodingConfig(interpolation=interp, stochastic_grad=True, **HASH_KW)
     pos = _t(_hash_positions(kind, 2000, seed=23))
     n = pos.shape[0]
     g = torch.randn(n, cfg.output_dim, generator=torch.Generator().manual_seed(24))
@@ -244,7 +244,7 @@ def test_hash_backward_stochastic_adds_g_to_exactly_one_vertex(interp, kind):
     # with unit gradients every (sample, level, feature) adds exactly 1
     ones = t_enc.hash_encode_bwd_plain(pos, torch.ones_like(g), cfg, True)
     assert float(ones.sum()) == n * cfg.output_dim
-    # and the autograd path takes the stochastic backward by default
+    # and the autograd path takes the stochastic backward when the config asks
     tt = torch.zeros(cfg.table_size * 2, requires_grad=True)
     t_enc.hash_encode(tt, pos, cfg).backward(g)
     torch.testing.assert_close(tt.grad, got, rtol=0, atol=0)

@@ -6,6 +6,7 @@ clamped to [0, 1]), frame masks and the flat ids of their valid pixels,
 segmentation PNGs and DINO feature tensors. It owns the `vca.npy` side
 effect: when the cache is absent, VCA runs on the first cube and writes the
 endmember matrix that the trainer's setup reads (load_vca). Cubes are read
+by the native loader (umhs_torch/native) where it takes their format, else
 one by one with numpy.
 """
 
@@ -18,6 +19,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import native
 from .dataparser import DataparserOutputs
 from .png import read_png
 from .vca import vca_endmembers_from_cube
@@ -30,17 +32,30 @@ def _load_image(path: Path) -> np.ndarray:
     return img
 
 
-def load_cubes(paths: Sequence, item_shape: Sequence[int]) -> np.ndarray:
+def load_cubes(paths: Sequence, item_shape: Sequence[int], impl: str = "auto") -> np.ndarray:
     """N same-shape .npy cubes -> one (N, *item_shape) float32 stack, integer
-    types scaled by their maximum, clamped to [0, 1]."""
+    types scaled by the float32 reciprocal of their maximum, clamped to
+    [0, 1].
+
+    The headers are read first. With impl="auto" a call whose files the
+    native loader all takes (v1/v2 .npy, C order, <f4, <f8, |u1 or <u2:
+    native.takes) goes to it; any other call, and impl="plain", takes the
+    numpy loop below. Both give the same bits."""
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    item_shape = tuple(item_shape)
+    headers = [native.read_npy_header(p) for p in paths]
+    for p, h in zip(paths, headers):
+        if h.shape != item_shape:
+            raise ValueError(f"{p}: shape {h.shape} != {item_shape}")
+    if impl == "auto" and all(native.takes(h) for h in headers):
+        return native.parallel_load_cubes(paths, item_shape)
     out = np.empty((len(paths), *item_shape), dtype=np.float32)
     for i, p in enumerate(paths):
         raw = np.load(p)
-        if raw.shape != tuple(item_shape):
-            raise ValueError(f"{p}: shape {raw.shape} != {tuple(item_shape)}")
         arr = raw.astype(np.float32)
-        if np.issubdtype(raw.dtype, np.integer):
-            arr = arr / float(np.iinfo(raw.dtype).max)
+        if np.issubdtype(raw.dtype, np.integer):  # loader.cpp's p[i] * (1.0f / max)
+            arr = arr * (np.float32(1.0) / np.float32(np.iinfo(raw.dtype).max))
         out[i] = np.clip(arr, 0.0, 1.0)
     return out
 

@@ -4,7 +4,8 @@
 16-bit gray, with any of the five row filters, and returns the array that
 ``np.asarray(PIL.Image.open(path))`` gives: (H, W) for gray, else
 (H, W, C), uint8 (uint16 for 16-bit gray). Any other format raises.
-`write_png` writes 8-bit gray, RGB or RGBA (filter 0 on every row).
+`write_png` writes 8-bit gray, RGB or RGBA (filter 0 on every row), and
+`png_bytes` gives the same file as bytes.
 """
 
 from __future__ import annotations
@@ -117,9 +118,9 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
         ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
 
 
-def write_png(path, image: np.ndarray) -> None:
-    """Write an (H, W) uint8 array as an 8-bit gray PNG, or an (H, W, 3) or
-    (H, W, 4) one as RGB or RGBA."""
+def png_bytes(image: np.ndarray) -> bytes:
+    """The PNG file of an (H, W) uint8 array as 8-bit gray, or of an
+    (H, W, 3) or (H, W, 4) one as RGB or RGBA."""
     image = np.asarray(image)
     if image.dtype != np.uint8 or not (
             image.ndim == 2 or (image.ndim == 3 and image.shape[2] in (3, 4))):
@@ -130,6 +131,12 @@ def write_png(path, image: np.ndarray) -> None:
     rows = np.concatenate([np.zeros((height, 1), np.uint8),
                            np.ascontiguousarray(image).reshape(height, width * channels)], axis=1)
     ihdr = struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path, image: np.ndarray) -> None:
+    """Write `png_bytes(image)` to `path`."""
+    data = png_bytes(image)
     with open(path, "wb") as f:
-        f.write(SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+        f.write(data)

@@ -52,7 +52,7 @@ from ..ops.occupancy import draw_partial_cells
 from ..ops.ray_marching import MarchConfig
 from ..utils import metrics as metrics_utils
 from ..utils.colormaps import apply_colormap, apply_depth_colormap
-from ..utils.writer import ConsoleWriter
+from ..utils.writer import Writer, make_writer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,8 +66,9 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The fields of umhs_tpu's TrainerConfig that change what is computed;
-    its XLA compile and mesh options have no counterpart here."""
+    """The fields of umhs_tpu's TrainerConfig that change what is computed,
+    and its writer and gradient-norm logging; its XLA compile and mesh
+    options have no counterpart here (configs.py lists them as inert)."""
 
     method_name: str = "umhsnerf"
     experiment_name: str = "unnamed"
@@ -85,6 +86,10 @@ class TrainerConfig:
     mixed_precision: bool = True
     gradient_accumulation_steps: int = 1
     seed: int = 42
+    # each step's metrics gain grad_norm/total, grad_norm/hash_table and
+    # grad_norm/endmembers: global L2 norms of the gradients Adam receives
+    log_gradients: bool = False
+    vis: str = "console"  # console | tensorboard | wandb ('+' or ',' joined)
     load_dir: Optional[Path] = None
     load_step: Optional[int] = None
     # eval_image writes the segmentation as seg_pred_{idx}.png (class ids,
@@ -241,7 +246,7 @@ class Trainer:
                                scene_scale=datamanager.scene_scale, device=self.device)
         self.lr_schedule = make_lr_schedule(config.optimizer)
         self.optimizer: Optional[MultiStepAdam] = None
-        self.writer = ConsoleWriter()
+        self.writer: Writer = make_writer(config.vis, self.run_dir)
         self.state: Dict[str, object] = {}
         self.history: List[Dict[str, object]] = []
         self.adapt_log: List[Dict[str, object]] = []
@@ -345,17 +350,36 @@ class Trainer:
         self.model.post_step(self.state["params"])
         self.state["step"] = self.step + 1
 
+    def gradient_norms(self) -> Dict[str, torch.Tensor]:
+        """Global L2 norms of the parameters' .grad (trainer.py:452-464):
+        all of them, the hash table's and the endmembers'."""
+        params = self.state["params"]
+
+        def norm(tensors) -> torch.Tensor:
+            grads = [t.grad.float() for t in tensors if t.grad is not None]
+            if not grads:
+                return torch.zeros((), device=self.device)
+            return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+
+        out = {"grad_norm/total": norm(t for _, t in named_leaves(params))}
+        for key in ("hash_table", "endmembers"):
+            if key in params:
+                out[f"grad_norm/{key}"] = norm([params[key]])
+        return out
+
     def train_step(self, draws: Optional[Dict[str, object]] = None) -> Dict[str, float]:
         """One training step (trainer.py:431-474); returns its loss terms and
-        metrics as floats."""
+        metrics (with log_gradients, the gradient norms) as floats."""
         draws = self.draw_step() if draws is None else draws
         total, loss_dict, outputs, batch = self.loss_and_grads(draws)
+        grad_norms = self.gradient_norms() if self.config.log_gradients else {}
         self.apply_gradients()
         with torch.no_grad():
             metrics = self.model.metrics({k: v.detach() for k, v in outputs.items()}, batch)
         out = {f"loss/{k}": v.detach() for k, v in loss_dict.items()}
         out["loss/total"] = total.detach()
         out.update(metrics)
+        out.update(grad_norms)
         values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=self.device)
                               for v in out.values()]).tolist()  # one host sync
         return dict(zip(out.keys(), values))

@@ -108,8 +108,9 @@ class HashEncodingConfig:
     # "trilinear" = 8 cube corners; "tetrahedral" = 4 simplex vertices
     interpolation: str = "trilinear"
     # backward splats each (sample, level) gradient onto one vertex, drawn
-    # with probability equal to its weight, instead of onto all V
-    stochastic_grad: bool = True
+    # with probability equal to its weight, instead of onto all V (off by
+    # default, as in umhs_tpu; the model turns it on with stochastic_hash_grad)
+    stochastic_grad: bool = False
 
     @property
     def verts_per_cell(self) -> int:
