@@ -1,8 +1,8 @@
 """umhs_torch.configs against umhs_tpu.configs on the CPU: the config
 dataclasses' defaults, dotted flags resolved to the same values, config.yml
 written by one package and read by the other (the port's YAML held to
-PyYAML), the JAX-only fields recorded as inert and the later slices'
-features refused."""
+PyYAML), the JAX-only fields recorded as inert, and the proposal sampler's
+and the DINO head's fields resolved as the JAX package resolves them."""
 
 import dataclasses
 import math
@@ -115,8 +115,8 @@ def test_hash_grid_backward_defaults_to_exact():
 def test_argv_resolves_to_the_jax_values(case):
     jcfg, jign, tcfg, tign = _both(ARGVS[case])
     assert _shared(T._to_plain(tcfg)) == _shared(J._to_plain(jcfg))
-    assert set(jign) <= set(tign)
-    assert set(tign) - set(jign) <= {"pipeline.model.pred_dino"}
+    assert tcfg.pipeline.model.pred_dino == jcfg.pipeline.model.pred_dino
+    assert set(tign) == set(jign)
 
 
 def test_reference_flags_parse():
@@ -125,8 +125,9 @@ def test_reference_flags_parse():
     assert cfg.trainer.log_gradients is True and cfg.trainer.vis == "console"
     assert cfg.pipeline.model.temperature == 0.4 and cfg.pipeline.model.pred_specular is True
     assert cfg.pipeline.datamanager.dataparser.data == Path("data/processed/hotdog")
-    assert {"pipeline.model.implementation", "pipeline.datamanager.images_on_gpu",
-            "pipeline.model.pred_dino"} <= set(ignored)
+    assert {"pipeline.model.implementation", "pipeline.datamanager.images_on_gpu"} <= set(
+        ignored)
+    assert cfg.pipeline.model.pred_dino is False and "pipeline.model.pred_dino" not in ignored
 
 
 @pytest.mark.parametrize("argv", [["--pipeline.model.nope", "1"], ["--nope", "1"],
@@ -184,9 +185,10 @@ def test_jax_written_file_loads_in_the_port(case, tmp_path, capsys):
     got, inert = T.read_config(tmp_path / "config.yml")
     assert got == tcfg
     assert {"trainer.use_mesh", "trainer.fast_compile_effort",
-            "pipeline.model.hash_split_dense_gather", "pipeline.model.sampler",
-            "pipeline.model.num_proposal_samples"} <= set(inert)
-    assert inert["pipeline.model.num_proposal_samples"] == [256, 96]
+            "pipeline.model.hash_split_dense_gather"} <= set(inert)
+    assert not {"pipeline.model.sampler", "pipeline.model.num_proposal_samples"} & set(inert)
+    assert got.pipeline.model.num_proposal_samples == (256, 96)
+    assert got.pipeline.model.sampler == "occgrid"
     assert T.load_config(tmp_path / "config.yml") == tcfg
     assert "inert fields" in capsys.readouterr().out
 
@@ -211,28 +213,38 @@ def test_inert_flags_are_recorded():
             "--pipeline.model.distortion-loss-mult", "0.01",
             "--pipeline.model.sampler", "occgrid", "--machine.num-devices", "4"]
     cfg, ignored = T.apply_cli_overrides(base, argv)
-    assert cfg == base
+    # the proposal sampler's fields are real fields now: applied, not recorded
+    assert cfg == dataclasses.replace(base, pipeline=dataclasses.replace(
+        base.pipeline, model=dataclasses.replace(
+            base.pipeline.model, num_nerf_samples=64, num_proposal_samples=(128, 64),
+            interlevel_loss_mult=2.0, distortion_loss_mult=0.01, sampler="occgrid")))
     assert ignored == {
         "trainer.use_mesh": "False", "trainer.fuse_occ_update": "False",
         "trainer.fast_compile_effort": "None", "trainer.background_full_compile": "False",
         "trainer.full_compile_defer_chunks": "7",
         "pipeline.model.hash_split_dense_gather": "True",
-        "pipeline.model.num_nerf_samples": "64", "pipeline.model.num_proposal_samples": "128,64",
-        "pipeline.model.interlevel_loss_mult": "2.0",
-        "pipeline.model.distortion_loss_mult": "0.01", "pipeline.model.sampler": "occgrid",
         "machine.num_devices": "4"}
     for (_, _), (kind, _, why) in T.JAX_ONLY.items():
-        assert kind in ("inert", "later") and why
+        assert kind == "inert" and why
 
 
 @pytest.mark.parametrize("flag,value", [("sampler", "proposal"), ("pred_dino", "True")])
 def test_later_slices_raise(flag, value, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.apply_cli_overrides(T.umhs_method_defaults(), [f"--pipeline.model.{flag}", value])
-    jcfg, _ = J.apply_cli_overrides(J.umhs_method_defaults(), [f"--pipeline.model.{flag}", value])
+    """The two features the port once refused (the proposal sampler, the DINO
+    head) now resolve: the flag gives the JAX package's config, and a
+    config.yml the JAX package wrote with it loads to the same values."""
+    argv = [f"--pipeline.model.{flag}", value]
+    tcfg, tign = T.apply_cli_overrides(T.umhs_method_defaults(), argv)
+    jcfg, jign = J.apply_cli_overrides(J.umhs_method_defaults(), argv)
+    assert _shared(T._to_plain(tcfg)) == _shared(J._to_plain(jcfg))
+    assert getattr(tcfg.pipeline.model, flag) == getattr(jcfg.pipeline.model, flag)
+    assert getattr(tcfg.pipeline.model, flag) != getattr(T.umhs_method_defaults().pipeline.model,
+                                                         flag)
+    assert tign == jign == {}
     J.save_config(jcfg, tmp_path / "config.yml")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.load_config(tmp_path / "config.yml")
+    got, inert = T.read_config(tmp_path / "config.yml")
+    assert got == tcfg
+    assert f"pipeline.model.{flag}" not in inert
 
 
 def test_impl_is_left_out_at_its_default(tmp_path):

@@ -602,3 +602,118 @@ def test_disk_dataset_training_through_one_adapt(cuda, tmp_path, monkeypatch):
     assert np.isfinite(m["loss/total"]) and "num_eval_s3_per_batch" in last
     assert m["rays_per_batch"] == t.dyn.rays != 1024
     assert np.isfinite(t.eval_batch()["psnr"])
+
+
+# ------------------------------------- the proposal sampler and the DINO head
+def test_proposal_chains_match_plain(cuda):
+    """The proposal nets' 10 -> 16 -> 1 chain at an odd N: K1 within 2e-2
+    (bf16, on the tensor cores) and 1e-5 (f32) of the plain version; K2, dx
+    and the weight gradients, within 2e-2 of the largest entry (bf16) and
+    1e-4 (f32) of autograd through the plain version, each one launch."""
+    n, dims = (1 << 16) - 333, [10, 16, 1]
+    gen = torch.Generator().manual_seed(10)
+    params = _chain(dims, gen, cuda)
+    x = torch.randn((n, 10), generator=gen).to(cuda)
+    g = torch.randn((n, 1), generator=gen).to(cuda)
+    assert mlp_fused_bwd_route(dims, torch.bfloat16).startswith("mlp_fused_bwd_tc_kernel")
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        torch.testing.assert_close(mlp_fused_fwd(params, x, dtype), mlp_plain(params, x, dtype),
+                                   rtol=tol, atol=tol)
+        before = MLP_FUSED_BWD.launches
+        dx, grads = mlp_fused_bwd(params, x, g, dtype)
+        assert MLP_FUSED_BWD.launches == before + 1
+        dx_ref, grads_ref = mlp_plain_bwd(params, x, g, dtype)
+        btol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        for got, ref in zip([dx] + [t for p in grads for t in p],
+                            [dx_ref] + [t for p in grads_ref for t in p]):
+            torch.testing.assert_close(got, ref, rtol=btol, atol=btol * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("max_res", [128, 256])
+def test_proposal_grids_match_plain(cuda, max_res):
+    """nerfacto's proposal grids (L5 F2 2^17, trilinear, from 16 to max_res):
+    K3 within 1e-6 of the plain version, K4 in both modes bit for bit
+    against the plain version on the CPU (_k4_holds); the proposal nets use
+    the deterministic mode."""
+    cfg = HashEncodingConfig(num_levels=5, max_resolution=max_res, log2_hashmap_size=17,
+                             base_resolution=16)
+    gen = torch.Generator().manual_seed(max_res)
+    pos = torch.from_numpy(ray_samples(512, 64, seed=max_res)).to(cuda)
+    table = ((torch.rand((cfg.table_size * 2,), generator=gen) * 2 - 1) * 1e-1).to(cuda)
+    torch.testing.assert_close(hash_encode_fwd(table, pos, cfg), hash_encode_plain(table, pos, cfg),
+                               rtol=0, atol=1e-6)
+    g = torch.randn((pos.shape[0], cfg.output_dim), generator=gen).to(cuda)
+    assert _k4_holds(pos, g, cfg) <= K4_DRAW_DIFFER_SHARE
+
+
+def _step_both(model_kw, dm, cuda, step=0, seed=5):
+    """One training step at `step` with the kernels and with the plain
+    versions (f32, same state and draws): {impl: (loss, {leaf: grad})}; the
+    kernel step must launch K1-K4 and the plain one none."""
+    results, state, draws = {}, None, None
+    for impl in ("auto", "plain"):
+        t = Trainer(TrainerConfig(seed=seed, mixed_precision=False),
+                    dataclasses.replace(ModelConfig(**model_kw), impl=impl), num_classes=4,
+                    device=cuda, datamanager=dm).setup()
+        if state is None:
+            if t.model.config.sampler == "occgrid":
+                t.update_occupancy()
+            state, draws = dict(t.state, step=step), t.draw_step()
+        t.state = state
+        before = {k.symbol: k.launches for k in KERNELS.values()}
+        total, loss, _, _ = t.loss_and_grads(draws)
+        torch.cuda.synchronize()
+        ran = sorted(k.symbol for k in KERNELS.values() if k.launches > before[k.symbol])
+        assert ran == (TRAIN_KERNELS if impl == "auto" else [])
+        results[impl] = (float(total.detach()), {k: float(v.detach()) for k, v in loss.items()},
+                         {n: p.grad.clone() for n, p in named_leaves(state["params"])})
+        for _, p in named_leaves(state["params"]):
+            p.grad = None
+    return results
+
+
+def _small_scene_dm(cuda, rays=512, dino=False):
+    scene = SyntheticSceneConfig(num_views_train=3, image_size=32, num_bands=16)
+    poses, cubes, rgba = render_views(scene, 3, 0.0)
+    dm = InMemoryDataManager(rgba, scene_cameras(scene, poses), hs_images=cubes,
+                             config=DataManagerConfig(train_num_rays_per_batch=rays),
+                             wavelengths=scene.wavelengths, device=cuda)
+    if dino:  # a fixed map of each view's RGB, as write_dino_sidecars makes it
+        w = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 128)).astype(np.float32))
+        dm.data["dino_feat"] = torch.tanh(dm.data["image"][..., :3].cpu() @ w).to(cuda)
+    return dm
+
+
+def test_proposal_train_step_kernels_match_plain_path(cuda):
+    """The proposal sampler's training step at step 500 (rgb+spectral,
+    proposals (64, 32) -> 16, f32): the loss within rtol 1e-4 and every gradient, each proposal
+    net's too, within 1e-3 in norm of the plain path's."""
+    kw = dict(method="rgb+spectral", pred_specular=True, sampler="proposal",
+              num_proposal_samples=(64, 32), num_nerf_samples=16, hash_num_levels=8,
+              log2_hashmap_size=14, near_plane=0.5, far_plane=6.0, stochastic_hash_grad=False)
+    res = _step_both(kw, _small_scene_dm(cuda), cuda, step=500)  # inside the specular ramp
+    (la, terms, ga), (lp, _, gp) = res["auto"], res["plain"]
+    assert {"interlevel_loss", "distortion_loss"} <= set(terms)
+    assert np.isfinite(la) and la == pytest.approx(lp, rel=1e-4)
+    assert {"proposal_0.hash_table", "proposal_1.mlp.layers.0.w"} <= set(ga)
+    for name, g in ga.items():
+        ref = gp[name]
+        assert float(ref.norm()) > 0, name
+        assert float((g - ref).norm()) <= 1e-3 * float(ref.norm()), name
+
+
+def test_dino_train_step_kernels_match_plain_path(cuda):
+    """The flagship's step with pred_dino past step 3000 (the cluster loss
+    in the sum), f32: the loss within rtol 1e-5, every gradient within 1e-3
+    in norm of the plain path's, the DINO leaves' included."""
+    kw = dict(method="rgb+spectral", pred_specular=True, pred_dino=True, temperature=0.4,
+              grid_resolution=32, grid_levels=2, max_samples_per_ray=32, hash_num_levels=8,
+              log2_hashmap_size=14, hash_interpolation="tetrahedral", stochastic_hash_grad=False)
+    res = _step_both(kw, _small_scene_dm(cuda, dino=True), cuda, step=3001)
+    (la, terms, ga), (lp, _, gp) = res["auto"], res["plain"]
+    assert terms["cluster_loss"] != 0.0 and np.isfinite(terms["dino_mse"])
+    assert np.isfinite(la) and la == pytest.approx(lp, rel=1e-5)
+    for name, g in ga.items():
+        ref = gp[name]
+        assert float(ref.norm()) > 0, name
+        assert float((g - ref).norm()) <= 1e-3 * float(ref.norm()), name

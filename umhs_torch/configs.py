@@ -81,12 +81,10 @@ def umhs_method_defaults() -> FullConfig:
 # ---------------------------------------------------------------------------
 
 _COMPILE = "an XLA compile or dispatch option on the TPU; the math is the same"
-_PROPOSAL = "used by the proposal sampler only; inert while sampler is 'occgrid'"
 
 # (dataclass, field) -> (what the port does, the JAX default, why).
 # "inert": accepted, recorded and printed, otherwise ignored (the value does
-# not change what is computed here). "later": a feature of a later slice; its
-# JAX default is accepted and any other value raises NotImplementedError.
+# not change what is computed here).
 JAX_ONLY: Dict[Tuple[str, str], Tuple[str, Any, str]] = {
     ("TrainerConfig", "use_mesh"): ("inert", True, "one card: there is no device mesh"),
     ("TrainerConfig", "fuse_occ_update"): ("inert", True, _COMPILE),
@@ -97,27 +95,7 @@ JAX_ONLY: Dict[Tuple[str, str], Tuple[str, Any, str]] = {
         "inert", False, "the TPU's gather layout of the dense hash levels; same values"),
     ("HashEncodingConfig", "split_dense_gather"): (
         "inert", False, "the TPU's gather layout of the dense hash levels; same values"),
-    ("ModelConfig", "num_nerf_samples"): ("inert", 48, _PROPOSAL),
-    ("ModelConfig", "num_proposal_samples"): ("inert", (256, 96), _PROPOSAL),
-    ("ModelConfig", "interlevel_loss_mult"): ("inert", 1.0, _PROPOSAL),
-    ("ModelConfig", "distortion_loss_mult"): ("inert", 0.002, _PROPOSAL),
-    ("ModelConfig", "sampler"): (
-        "later", "occgrid", "ROADMAP.md Queue 1, the proposal branch (sampler 'proposal')"),
-    ("ModelConfig", "pred_dino"): ("later", False, "ROADMAP.md Queue 1, the DINO head"),
 }
-
-
-def _jax_only(cls_name: str, name: str, value, path: str):
-    """The JAX_ONLY entry of a field the port's dataclass lacks: raises for an
-    unknown field and for a later slice's feature asked for."""
-    entry = JAX_ONLY.get((cls_name, name))
-    if entry is None:
-        raise KeyError(f"unknown config field '{name}' on {cls_name} ({path})")
-    kind, default, why = entry
-    if kind == "later" and value != default:
-        raise NotImplementedError(
-            f"{path}={value!r} is not in the PyTorch port yet: {why}")
-    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -199,12 +177,9 @@ def _set_path(cfg, dotted: str, raw: str, inert: Dict[str, str], path: str):
     head, _, rest = dotted.partition(".")
     fields = {f.name for f in dataclasses.fields(cfg)}
     if head not in fields:
-        entry = JAX_ONLY.get((type(cfg).__name__, head))
-        if rest or entry is None:
+        if rest or (type(cfg).__name__, head) not in JAX_ONLY:
             raise KeyError(f"unknown config field '{head}' on {type(cfg).__name__}; "
                            f"valid: {sorted(fields)}")
-        if entry[0] == "later":  # its JAX default parses and passes; anything else raises
-            _jax_only(type(cfg).__name__, head, _parse_value(raw, type(entry[1])), path)
         inert[path] = raw
         return cfg
     if rest:
@@ -284,9 +259,10 @@ def _from_plain(obj, inert: Dict[str, Any], path: str = ""):
                 sub = f"{path}.{k}" if path else k
                 if k in known:
                     kwargs[k] = _from_plain(v, inert, sub)
-                else:
-                    _jax_only(name, k, tuple(v) if isinstance(v, list) else v, sub)
+                elif (name, k) in JAX_ONLY:
                     inert[sub] = v
+                else:
+                    raise KeyError(f"unknown config field '{k}' on {name} ({sub})")
             for f in dataclasses.fields(cls):  # tuple fields come back as lists
                 if isinstance(kwargs.get(f.name), list):
                     kwargs[f.name] = tuple(kwargs[f.name])

@@ -2,7 +2,10 @@
 
 Parameters keep the JAX package's tree and layouts: the flat hash table
 (T * F,), every MLP as {"layers": [{"w": (in, out), "b": (out,)}]} (no
-transpose), "endmembers" (K, B) and the optional "appearance_embedding".
+transpose), "endmembers" (K, B) and the optional "appearance_embedding";
+with the proposal sampler "proposal_0" and "proposal_1" ({"hash_table",
+"mlp"} each), with pred_dino "dino_mlp" and "dino_clusters" (K, 128). The
+conversions map over the whole tree, so these travel as the others do.
 
 The occupancy state keeps "occs", "occs_low", "binaries" and
 "binaries_pooled" as they are. The uint32 "packed_words" travel as int64

@@ -16,7 +16,7 @@ import numpy as np
 
 from ..ops.spec_to_rgb import build_spec_to_rgb_matrix, srgb_gamma_np
 from .cameras import Cameras
-from .png import write_png
+from .png import read_png, write_png
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +188,30 @@ def write_dataset(root: Path, cfg: Optional[SyntheticSceneConfig] = None) -> Pat
     with open(root / "transforms.json", "w") as f:
         json.dump(meta, f, indent=2)
     return root
+
+
+def write_dino_sidecars(root: Path, dim: int = 128, seed: int = 0) -> None:
+    """Give every frame of the dataset at `root` a DINO feature sidecar in
+    the layout `data/dataset.py` reads: `<image>_dino.pt`, a torch.save'd
+    (dim, H, W) float32 tensor, named by the frame's `dino_file_path` in
+    transforms.json. The features are a fixed map of the view's RGB over
+    black, tanh(rgb @ W) with W (3, dim) drawn from `seed`, so that they are
+    a function of the scene a field can learn."""
+    import torch
+
+    root = Path(root)
+    w = np.random.default_rng(seed).normal(size=(3, dim)).astype(np.float32)
+    with open(root / "transforms.json") as f:
+        meta = json.load(f)
+    for frame in meta["frames"]:
+        rgba = read_png(root / frame["file_path"]).astype(np.float32) / 255.0
+        rgb = rgba[..., :3] * rgba[..., 3:4] if rgba.shape[-1] == 4 else rgba[..., :3]
+        feat = np.tanh(rgb @ w)  # (H, W, dim)
+        rel = str(Path(frame["file_path"]).with_suffix("")) + "_dino.pt"
+        torch.save(torch.from_numpy(np.ascontiguousarray(feat.transpose(2, 0, 1))), root / rel)
+        frame["dino_file_path"] = rel
+    with open(root / "transforms.json", "w") as f:
+        json.dump(meta, f, indent=2)
 
 
 # The scene bench.py trains the flagship model on (bench.py:190-198).

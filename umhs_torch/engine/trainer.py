@@ -23,10 +23,15 @@ rate, optax.MultiSteps accumulation over gradient_accumulation_steps) and
 the endmember clamp.
 
 Every random draw is injectable: `train_step(draws)` takes the pixels, the
-march jitter and the background (`draw_step` makes them from the step
-generator, seeded with seed + 1), the occupancy update draws its cells and
-jitter from a generator seeded with seed + 2 + step, and `eval_batch` from
-one seeded with the step.
+march jitter and the background, and with the proposal sampler its
+stratification jitters (`draw_step` makes them from the step generator,
+seeded with seed + 1), the occupancy update draws its cells and jitter from
+a generator seeded with seed + 2 + step, and `eval_batch` from one seeded
+with the step; `render_camera` gives the proposal sampler the same jitters,
+from a generator seeded with 0, in every chunk, as the JAX render does.
+
+The proposal sampler runs no occupancy update and no dynamic batching, as
+in the JAX trainer: its samples per ray are fixed by construction.
 """
 
 from __future__ import annotations
@@ -317,14 +322,29 @@ class Trainer:
 
     def draw_step(self) -> Dict[str, object]:
         """One step's draws from the step generator at the current ray count:
-        the pixels, the march jitter (R,) and the background (R, 3)."""
+        the pixels, the march jitter (R,) and the background (R, 3); with the
+        proposal sampler, then its jitters (P + 1, R, 1)."""
         R = self.dyn.rays
         gen = self._step_gen
-        return {
+        draws = {
             "pixels": self.datamanager.draw(gen, R),
             "t_jitter": torch.rand((R,), generator=gen, device=self.device),
             "background": torch.rand((R, 3), generator=gen, device=self.device),
         }
+        prop = self.proposal_jitter(gen, R)
+        if prop is not None:
+            draws["prop_jitter"] = prop
+        return draws
+
+    def proposal_jitter(self, gen: torch.Generator, rays: int) -> Optional[torch.Tensor]:
+        """The proposal sampler's stratification jitters for `rays` rays,
+        (len(num_proposal_samples) + 1, rays, 1) uniform draws from `gen`;
+        None with the occgrid sampler (nothing is drawn)."""
+        cfg = self.model.config
+        if cfg.sampler != "proposal":
+            return None
+        n = len(cfg.num_proposal_samples) + 1
+        return torch.rand((n, rays, 1), generator=gen, device=self.device)
 
     def loss_and_grads(self, draws: Dict[str, object]):
         """Forward and backward of one batch at the state's step and the
@@ -337,8 +357,9 @@ class Trainer:
         outputs = self.model.forward(params, self.state["occ"], rays,
                                      compact_budget=self.dyn.compact_budget, step=self.step,
                                      train=True, t_jitter=draws["t_jitter"],
-                                     march_config=self.dyn.march)
-        loss_dict = self.model.loss(outputs, batch, draws["background"])
+                                     march_config=self.dyn.march,
+                                     prop_jitter=draws.get("prop_jitter"))
+        loss_dict = self.model.loss(outputs, batch, draws["background"], step=self.step)
         total = sum(loss_dict.values())
         total.backward()
         return total, loss_dict, outputs, batch
@@ -415,7 +436,8 @@ class Trainer:
             self._last_n = n
             window_steps += n
             window_rays += n * self.dyn.rays
-            if cfg.dynamic_batching and self.pending_adapt is None:
+            if (cfg.dynamic_batching and self.model.config.sampler == "occgrid"
+                    and self.pending_adapt is None):
                 self._maybe_adapt(metrics, crossed)
 
             if crossed(cfg.steps_per_log) or self.step == total_iters:
@@ -566,7 +588,7 @@ class Trainer:
     def eval_batch(self) -> Dict[str, float]:
         """Metrics and loss terms on a random eval-split ray batch
         (trainer.py:1160-1186); the pixels and the background come from a
-        generator seeded with the step."""
+        generator seeded with the step (then the proposal sampler's jitters)."""
         dm = self.datamanager
         if not isinstance(dm, UMHSDataManager):
             raise ValueError("eval_batch needs a datamanager with an eval split")
@@ -577,11 +599,12 @@ class Trainer:
         rays, batch = sample_pixel_batch(data, cam, R, draw_pixels(gen, data, R),
                                          camera_type=dm.eval_outputs.cameras.camera_type)
         background = torch.rand((R, 3), generator=gen, device=self.device)
+        prop_jitter = self.proposal_jitter(gen, R)
         with torch.no_grad():
             outputs = self.model.forward(self.state["params"], self.state["occ"], rays,
-                                         step=self.step)
+                                         step=self.step, prop_jitter=prop_jitter)
             out = {**self.model.metrics(outputs, batch),
-                   **self.model.loss(outputs, batch, background)}
+                   **self.model.loss(outputs, batch, background, step=self.step)}
         values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=self.device)
                               for v in out.values()]).tolist()
         return dict(zip(out.keys(), values))
@@ -599,7 +622,9 @@ class Trainer:
         with rays from the origin along +z, as the JAX trainer does: padded
         rays take part in each chunk's global sample budget and depth clip,
         so padding the same way gives the same image. `step` gates the
-        specular warmup ramp (the state's step when None)."""
+        specular warmup ramp (the state's step when None). The proposal
+        sampler's jitters are drawn once, from a generator seeded with 0, and
+        serve every chunk."""
         h, w = hw
         n = h * w
         chunk = chunk or self.model.config.eval_num_rays_per_chunk
@@ -614,12 +639,15 @@ class Trainer:
                 v = torch.cat([v, fill])
             padded[k] = v
         step = self.step if step is None else step
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        prop_jitter = self.proposal_jitter(gen, chunk)
         outs = []
         with torch.no_grad():
             for c in range(num_chunks):
                 sl = {k: v[c * chunk:(c + 1) * chunk] for k, v in padded.items()}
                 outs.append(self.model.forward(
-                    self.state["params"], self.state["occ"], sl, step=step))
+                    self.state["params"], self.state["occ"], sl, step=step,
+                    prop_jitter=prop_jitter))
         return {
             k: torch.cat([o[k].reshape(chunk, -1) for o in outs])[:n].reshape(h, w, -1)
             for k in outs[0]

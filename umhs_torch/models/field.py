@@ -8,8 +8,12 @@
   sigmoid per-class scalars; the spectrum is the linear mixture
   sum_k a_k * s_k * E[k, :]; with pred_specular a view-dependent residual
   s1 * sigmoid(mlp_directional(SH(dir), posenc)) is added, its gate ramped in
-  over the first `specular_ramp_steps` steps in f32. The rgb method has one
+  over the first `specular_ramp_steps` steps in f32; with pred_dino the DINO
+  head maps the detached geometry features to `dino_dim` channels (15 -> 256
+  -> 128: K1's and K2's FMA routes, K2 without dx). The rgb method has one
   head over (SH(dir), geo_feat).
+- `init_proposal_params` and `proposal_density`: a proposal net of the
+  proposal sampler, a small hash grid and a 2-layer MLP to one density.
 
 Parameters are a plain dict with the JAX package's names and layouts.
 `clamp_endmembers` is the after-step callback that keeps the endmembers in
@@ -52,6 +56,8 @@ class FieldConfig:
     temperature: float = 0.2
     pred_specular: bool = False
     specular_ramp_steps: int = 1000
+    pred_dino: bool = False
+    dino_dim: int = 128
     use_scene_contraction: bool = True
     aabb_min: Tuple[float, float, float] = (-1.0, -1.0, -1.0)
     aabb_max: Tuple[float, float, float] = (1.0, 1.0, 1.0)
@@ -84,7 +90,9 @@ def init_field_params(
     device="cpu",
 ) -> Dict[str, object]:
     """Seeded field parameters. endmembers_init: optional (K, B) VCA result,
-    else standard normal."""
+    else standard normal. With pred_dino (spectral methods) the DINO head
+    "dino_mlp" and its (K, dino_dim) standard-normal cluster centres
+    "dino_clusters" are drawn last."""
     g = generator
     params: Dict[str, object] = {
         "hash_table": init_hash_table(g, cfg.hash, device),
@@ -113,6 +121,10 @@ def init_field_params(
         else:
             em = torch.randn((cfg.num_classes, cfg.num_bands), generator=g)
         params["endmembers"] = em.to(device)
+        if cfg.pred_dino:
+            params["dino_mlp"] = init_mlp(g, cfg.geo_feat_dim, 2, 256, cfg.dino_dim, device)
+            params["dino_clusters"] = torch.randn(
+                (cfg.num_classes, cfg.dino_dim), generator=g).to(device)
     else:
         params["mlp_head"] = init_mlp(
             g, cfg.sh_dim + cfg.geo_feat_dim + cfg.appearance_embedding_dim,
@@ -188,7 +200,8 @@ def field_outputs(
     step: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Heads at flat samples: positions/directions (N, 3), geo_feat (N, G).
-    Returns 'rgb', or 'spectral' ('spectral2', 'specular') and 'abundances'."""
+    Returns 'rgb', or 'spectral' ('spectral2', 'specular'), 'abundances'
+    and, with pred_dino, 'dino' (no gradient reaches geo_feat from it)."""
     n = positions.shape[0]
     out: Dict[str, torch.Tensor] = {}
     appearance = _appearance_vector(params, cfg, camera_indices, train, n)
@@ -229,7 +242,31 @@ def field_outputs(
     else:
         out["spectral"] = spec
     out["abundances"] = abundances
+    if cfg.pred_dino:
+        out["dino"] = apply_mlp(params["dino_mlp"], geo_feat.detach(), **mlp)
     return out
+
+
+def init_proposal_params(generator: torch.Generator, hash_cfg: HashEncodingConfig,
+                         width: int = 16, device="cpu") -> Dict[str, object]:
+    """A density-only proposal net: a hash grid and a 2-layer MLP to one
+    density logit."""
+    return {
+        "hash_table": init_hash_table(generator, hash_cfg, device),
+        "mlp": init_mlp(generator, hash_cfg.output_dim, 2, width, 1, device),
+    }
+
+
+def proposal_density(params, hash_cfg: HashEncodingConfig, field_cfg: FieldConfig,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """A proposal net's density at world positions (..., 3) -> (...,), with
+    the main field's contraction, compute dtype and impl."""
+    unit, selector = normalized_positions(positions, field_cfg)
+    enc = hash_encode(params["hash_table"], unit, hash_cfg, impl=field_cfg.impl)
+    raw = apply_mlp(params["mlp"], enc, compute_dtype=field_cfg.compute_dtype,
+                    impl=field_cfg.impl)[..., 0]
+    density = trunc_exp(raw.float())
+    return torch.where(selector, density, torch.zeros_like(density))
 
 
 def clamp_endmembers(params):

@@ -1,19 +1,27 @@
-"""UMHS model: occupancy-grid NeRF with spectral unmixing
-(port of umhs_tpu/models/model.py, the occgrid render forward).
+"""UMHS model: NeRF with spectral unmixing (port of umhs_tpu/models/model.py).
 
 `UMHSModel` is a static descriptor (configs and colour system); parameters,
-occupancy state and rays are arguments. The forward marches the rays through
-the occupancy grid, gathers the valid samples into a compact buffer (in
-stages with an exact transmittance check between them when per-stage
-budgets are given), runs the field there, composites weights, accumulates
-spectra, abundances, depth and opacity per ray, projects the spectrum to RGB
-and segments it against the endmembers.
+occupancy state and rays are arguments. Two samplers, as in the JAX model:
+
+- "occgrid" (the reference method's): the forward marches the rays through
+  the occupancy grid, gathers the valid samples into a compact buffer (in
+  stages with an exact transmittance check between them when per-stage
+  budgets are given), runs the field there, composites weights, accumulates
+  spectra, abundances, depth and opacity per ray, projects the spectrum to
+  RGB and segments it against the endmembers.
+- "proposal" (nerfacto's, scripts/nerfacto.sh): uniform s-space bins, a
+  chain of proposal density nets with PDF resampling, then the main field
+  on the padded (R, num_nerf_samples) block; no occupancy grid.
+
+With pred_dino (spectral methods) the DINO head's features are accumulated
+with detached weights and probed against the learnable `dino_clusters`.
 
 The training side: `forward(train=True, t_jitter=...)` marches with a
-per-ray start jitter and looks up the train appearance vector; `loss` takes
-its random background as an argument; `metrics`, `post_step` (endmember
-clamp), `occ_update_due` and `update_occupancy(full=...)` mirror the JAX
-model. The proposal sampler and the DINO head come later.
+per-ray start jitter and looks up the train appearance vector (the proposal
+sampler takes its stratification jitters as `prop_jitter`); `loss` takes its
+random background and the step as arguments; `metrics`, `post_step`
+(endmember clamp), `occ_update_due` and `update_occupancy(full=...)` mirror
+the JAX model.
 """
 
 from __future__ import annotations
@@ -33,6 +41,13 @@ from ..ops.compositing import (
     segment_accumulate,
 )
 from ..ops.encodings import HashEncodingConfig
+from ..ops.proposal_sampling import (
+    distortion_loss,
+    interlevel_loss,
+    pdf_resample,
+    sdist_to_t,
+    uniform_bins,
+)
 from ..ops.occupancy import (
     OccGridConfig,
     init_occ_state,
@@ -50,12 +65,15 @@ from .field import (
     field_density,
     field_outputs,
     init_field_params,
+    init_proposal_params,
+    proposal_density,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The occgrid fields of umhs_tpu's ModelConfig, same defaults."""
+    """umhs_tpu's ModelConfig, same defaults (less the TPU's gather layout
+    of the dense hash levels), plus the port's `impl`."""
 
     method: str = "rgb"  # rgb | spectral | rgb+spectral
     grid_resolution: int = 128
@@ -76,6 +94,7 @@ class ModelConfig:
     rgb_loss_weight: float = 1.0
     spectral_loss_weight: float = 5.0
     temperature: float = 0.2
+    pred_dino: bool = False
     pred_specular: bool = False
     specular_ramp_steps: int = 1000
     load_vca: bool = False  # setup() reads the dataset's vca.npy endmembers
@@ -94,6 +113,13 @@ class ModelConfig:
     compact_fraction: float = 0.5
     stage_samples: int = 16
     stage_boundaries: Tuple[int, ...] = (8, 16)
+    # "occgrid" (occupancy marching) or "proposal" (nerfacto's proposal
+    # nets with PDF resampling; no occupancy grid)
+    sampler: str = "occgrid"
+    num_proposal_samples: Tuple[int, ...] = (256, 96)
+    num_nerf_samples: int = 48
+    interlevel_loss_mult: float = 1.0
+    distortion_loss_mult: float = 0.002
     # "auto": hand-written kernels on CUDA tensors, plain versions on CPU;
     # "plain": plain versions everywhere (to hold the kernels against them)
     impl: str = "auto"
@@ -159,6 +185,7 @@ class UMHSModel:
             temperature=config.temperature,
             pred_specular=config.pred_specular,
             specular_ramp_steps=config.specular_ramp_steps,
+            pred_dino=config.pred_dino,
             use_scene_contraction=not config.disable_scene_contraction,
             aabb_min=aabb_min,
             aabb_max=aabb_max,
@@ -177,11 +204,24 @@ class UMHSModel:
         self.converter = (
             ColourSystem(self.wavelengths, device=self.device) if self.wavelengths else None
         )
+        # the proposal nets' grids (nerfacto's: 5 levels, exact backward)
+        self.proposal_hash_configs = (
+            HashEncodingConfig(num_levels=5, max_resolution=128, log2_hashmap_size=17,
+                               base_resolution=16),
+            HashEncodingConfig(num_levels=5, max_resolution=256, log2_hashmap_size=17,
+                               base_resolution=16),
+        )
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator, endmembers_init: Optional[np.ndarray] = None):
-        """(params, empty occupancy state) on the model's device."""
+        """(params, empty occupancy state) on the model's device; with the
+        proposal sampler, "proposal_i" drawn after the field's parameters."""
         params = init_field_params(generator, self.field_config, endmembers_init, self.device)
+        if self.config.sampler == "proposal":
+            n = len(self.config.num_proposal_samples)
+            for i, hcfg in enumerate(self.proposal_hash_configs[:n]):
+                params[f"proposal_{i}"] = init_proposal_params(generator, hcfg,
+                                                               device=self.device)
         return params, init_occ_state(self.occ_config, self.device)
 
     def update_occupancy(self, occ_state, params, jitter: torch.Tensor, full: bool = True,
@@ -196,7 +236,10 @@ class UMHSModel:
         )
 
     def occ_update_due(self, step: int) -> Tuple[bool, bool]:
-        """(due, full) at `step` (nerfacc's schedule with warmup thinning)."""
+        """(due, full) at `step` (nerfacc's schedule with warmup thinning);
+        never with the proposal sampler."""
+        if self.config.sampler == "proposal":
+            return False, False
         return occ_update_due(step, self.occ_config)
 
     @staticmethod
@@ -228,6 +271,7 @@ class UMHSModel:
         train: bool = False,
         t_jitter: Optional[torch.Tensor] = None,
         march_config: Optional[MarchConfig] = None,
+        prop_jitter: Optional[Sequence[torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         """Render rays {"origins", "directions" (R, 3), "camera_indices" (R,)}.
 
@@ -243,8 +287,13 @@ class UMHSModel:
         compact_fraction * R * S. step gates the specular warmup ramp.
         march_config overrides the model's march (the trainer's adapted
         samples per ray S).
+
+        The proposal sampler ignores occ_state, compact_budget, t_jitter and
+        march_config: see `_forward_proposal`.
         """
         cfg = self.config
+        if cfg.sampler == "proposal":
+            return self._forward_proposal(params, rays, prop_jitter, train=train, step=step)
         march_cfg = march_config or self.march_config
         # nerfacc semantics: alpha threshold min(alpha_thre, mean occupancy)
         alpha_thre = torch.clamp_max(torch.mean(occ_state["occs"]), cfg.alpha_thre)
@@ -340,13 +389,18 @@ class UMHSModel:
             for sd_ in stage_data:
                 w_flat = weights[:, sd_["lo"]:sd_["hi"]].reshape(-1)
                 sd_["w"] = w_flat[sd_["src"]] * sd_["live"]
+                sd_["w_sg"] = sd_["w"].detach()
 
-            def accumulate_fn(key):
+            def accumulate_fn(key, w="w"):
                 return sum(
-                    segment_accumulate(sd_["w"][:, None] * sd_["heads"][key],
+                    segment_accumulate(sd_[w][:, None] * sd_["heads"][key],
                                        sd_["starts"], sd_["counts"])
                     for sd_ in stage_data
                 )
+
+            def accumulate_sg(key):
+                # detached weights, values with their gradient (the DINO head)
+                return accumulate_fn(key, "w_sg")
 
             num_eval_stages = [mp.sum(dim=-1, dtype=torch.int32) for mp in mask_parts]
         else:
@@ -368,6 +422,9 @@ class UMHSModel:
             def accumulate_fn(key):
                 return accumulate(weights, heads[key])
 
+            def accumulate_sg(key):
+                return accumulate(weights.detach(), heads[key])
+
             num_eval_stages = [mask.sum(dim=-1, dtype=torch.int32)]
 
         outputs: Dict[str, torch.Tensor] = {
@@ -381,25 +438,128 @@ class UMHSModel:
         }
         for i, ne in enumerate(num_eval_stages[2:], start=3):
             outputs[f"num_eval_s{i}_per_ray"] = ne
+        self._ray_outputs(params, outputs, accumulate_fn, accumulate_sg)
+        return outputs
 
+    def _ray_outputs(self, params, outputs: Dict[str, torch.Tensor], accumulate_fn,
+                     accumulate_sg) -> None:
+        """The per-ray heads into `outputs` (which holds the accumulation):
+        rgb, or the spectrum, its RGB projection, abundances and the
+        segmentation, and with pred_dino the DINO features (accumulated with
+        detached weights) and their probe against dino_clusters."""
+        cfg = self.config
         if cfg.method == "rgb":
             outputs["rgb"] = accumulate_fn("rgb")
-        if "spectral" in cfg.method:
-            spectral = accumulate_fn("spectral")
-            outputs["spectral"] = spectral
-            if cfg.pred_specular:
-                outputs["spectral2"] = accumulate_fn("spectral2")
-                outputs["specular"] = accumulate_fn("specular").detach()
-            rgb = self.converter(spectral)
-            outputs["rgb"] = rgb.detach() if cfg.method == "spectral" else rgb
-            outputs["abundances"] = accumulate_fn("abundances").detach()
-            # unsupervised material segmentation against the endmembers
-            _, cluster_probs = cluster_probe(spectral, params["endmembers"], alpha=0.2)
-            acc_if = (outputs["accumulation"] > 0.5).float()
-            labels = torch.argmax(cluster_probs, dim=1)
-            outputs["seg_probs"] = cluster_probs
-            outputs["seg_raw"] = (labels.float() * acc_if[:, 0]).detach()
-            outputs["seg_pred"] = (label_to_rgb(labels) * acc_if).detach()
+        if "spectral" not in cfg.method:
+            return
+        spectral = accumulate_fn("spectral")
+        outputs["spectral"] = spectral
+        if cfg.pred_specular:
+            outputs["spectral2"] = accumulate_fn("spectral2")
+            outputs["specular"] = accumulate_fn("specular").detach()
+        rgb = self.converter(spectral)
+        outputs["rgb"] = rgb.detach() if cfg.method == "spectral" else rgb
+        outputs["abundances"] = accumulate_fn("abundances").detach()
+        # unsupervised material segmentation against the endmembers
+        _, cluster_probs = cluster_probe(spectral, params["endmembers"], alpha=0.2)
+        acc_if = (outputs["accumulation"] > 0.5).float()
+        labels = torch.argmax(cluster_probs, dim=1)
+        outputs["seg_probs"] = cluster_probs
+        outputs["seg_raw"] = (labels.float() * acc_if[:, 0]).detach()
+        outputs["seg_pred"] = (label_to_rgb(labels) * acc_if).detach()
+        if cfg.pred_dino:
+            outputs["dino"] = accumulate_sg("dino")
+            # with detached features and one-hot probabilities the cluster
+            # loss moves the centres only (a spherical k-means step)
+            ip, probs = cluster_probe(outputs["dino"].detach(), params["dino_clusters"],
+                                      alpha=None)
+            outputs["cluster_probs"] = probs
+            outputs["inner_products"] = ip
+
+    def _forward_proposal(
+        self,
+        params,
+        rays: Dict[str, torch.Tensor],
+        prop_jitter: Optional[Sequence[torch.Tensor]] = None,
+        train: bool = False,
+        step: Optional[int] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """nerfacto's forward (umhs_tpu/models/model.py:651-778): uniform
+        s-bins, each proposal net's weights on them and PDF resampling to the
+        next count, then the main field on the final bins (every lane valid).
+        Bins live in s-space, warped to t between near_plane and far_plane.
+
+        prop_jitter: len(num_proposal_samples) + 1 tensors (R, 1) of uniform
+        [0, 1) draws (a (P + 1, R, 1) tensor will do), the JAX package's
+        uniform(k_i, (R, 1)) for the keys split from its forward's key: the
+        first for the uniform bins, then one per resampling; None for none.
+        train=True adds the proposal supervision's histograms (prop_edges_i,
+        prop_weights_i, final_edges, final_weights) to the outputs."""
+        cfg = self.config
+        fc = self.field_config
+        o, d = rays["origins"], rays["directions"]
+        d_unit = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+        cam_idx = rays.get("camera_indices")
+        if cam_idx is None:
+            cam_idx = torch.zeros(o.shape[0], dtype=torch.int32, device=o.device)
+        R = o.shape[0]
+        near, far = cfg.near_plane, cfg.far_plane
+        jitters = (list(prop_jitter) if prop_jitter is not None
+                   else [None] * (len(cfg.num_proposal_samples) + 1))
+        if len(jitters) != len(cfg.num_proposal_samples) + 1:
+            raise ValueError(f"prop_jitter: {len(jitters)} draws for "
+                             f"{len(cfg.num_proposal_samples)} proposal levels")
+
+        def positions_of(s_edges):
+            t_edges = sdist_to_t(s_edges, near, far)
+            t_lo, t_hi = t_edges[:, :-1], t_edges[:, 1:]
+            return t_lo, t_hi, o[:, None, :] + d_unit[:, None, :] * ((t_lo + t_hi) / 2.0)[..., None]
+
+        aux_edges, aux_weights = [], []
+        s_edges = uniform_bins(R, cfg.num_proposal_samples[0], jitters[0], device=o.device)
+        counts = list(cfg.num_proposal_samples[1:]) + [cfg.num_nerf_samples]
+        for i, n_next in enumerate(counts):
+            t_lo, t_hi, pos = positions_of(s_edges)
+            sigma = proposal_density(params[f"proposal_{i}"], self.proposal_hash_configs[i], fc,
+                                     pos.reshape(-1, 3)).reshape(t_lo.shape)
+            w = render_weights(t_lo, t_hi, sigma, torch.ones_like(t_lo, dtype=torch.bool),
+                               alpha_thre=0.0, early_stop_eps=0.0)
+            aux_edges.append(s_edges)
+            aux_weights.append(w)
+            s_edges = pdf_resample(s_edges, w, n_next, jitters[i + 1])
+
+        # the main field on the final bins: the padded path, every lane valid
+        S = cfg.num_nerf_samples
+        t_starts, t_ends, positions = positions_of(s_edges)
+        mask = torch.ones_like(t_starts, dtype=torch.bool)
+        flat_pos = positions.reshape(-1, 3)
+        density, geo_feat = field_density(params, fc, flat_pos)
+        density = density.reshape(R, S)
+        flat_dirs = d_unit[:, None, :].expand(R, S, 3).reshape(-1, 3)
+        flat_cam = cam_idx[:, None].expand(R, S).reshape(-1)
+        heads = field_outputs(params, fc, flat_pos, flat_dirs, flat_cam, geo_feat,
+                              train=train, step=step)
+        heads = {k: v.reshape(R, S, -1) for k, v in heads.items()}
+        if cfg.use_gradient_scaling:
+            scaling = torch.clamp(((t_starts + t_ends) / 2.0) ** 2, 0.0, 1.0)
+            density = _grad_scale(density, scaling)
+            heads = {k: _grad_scale(v, scaling[..., None]) for k, v in heads.items()}
+        weights = render_weights(t_starts, t_ends, density, mask, alpha_thre=0.0,
+                                 early_stop_eps=0.0)
+
+        outputs: Dict[str, torch.Tensor] = {
+            "accumulation": render_accumulation(weights),
+            "depth": render_depth_expected(weights, t_starts, t_ends, mask),
+            "num_samples_per_ray": torch.full((R,), S, dtype=torch.int32, device=o.device),
+        }
+        self._ray_outputs(params, outputs, lambda key: accumulate(weights, heads[key]),
+                          lambda key: accumulate(weights.detach(), heads[key]))
+        if train:  # the proposal supervision's s-space histograms, for the loss
+            for i, (e, w) in enumerate(zip(aux_edges, aux_weights)):
+                outputs[f"prop_edges_{i}"] = e
+                outputs[f"prop_weights_{i}"] = w
+            outputs["final_edges"] = s_edges
+            outputs["final_weights"] = weights
         return outputs
 
     def loss(
@@ -407,25 +567,43 @@ class UMHSModel:
         outputs: Dict[str, torch.Tensor],
         batch: Dict[str, torch.Tensor],
         background: Optional[torch.Tensor] = None,
+        step: int = 0,
     ) -> Dict[str, torch.Tensor]:
         """Loss terms (umhs_tpu/models/model.py:783-840); their sum is the
         training loss. `background` (R, 3) is the random background colour
         (the JAX package draws it as uniform(k_bg, (R, 3))), needed when
-        background_color is "random"."""
+        background_color is "random". With the proposal histograms in the
+        outputs (a proposal forward with train=True) the interlevel and
+        distortion losses are added; with pred_dino and "dino_feat" in the
+        batch, the DINO features' NaN-ignoring MSE and the cluster loss,
+        which counts only once `step` is past 3000."""
         cfg = self.config
         pred_rgb, gt_rgb = self._blend_background_for_loss(
             outputs["rgb"], outputs["accumulation"], batch["image"], background)
         if cfg.method == "rgb":
-            return {"rgb_loss": torch.mean((pred_rgb - gt_rgb) ** 2)}
-        spectral_mse = torch.mean((outputs["spectral"] - batch["hs_image"]) ** 2)
-        if cfg.method == "spectral":
-            return {"spectral_loss": spectral_mse}
-        if cfg.method == "rgb+spectral":
-            return {
-                "spectral_loss": cfg.spectral_loss_weight * spectral_mse,
-                "rgb_loss": cfg.rgb_loss_weight * torch.mean((pred_rgb - gt_rgb) ** 2),
-            }
-        raise ValueError(f"unknown method {cfg.method}")
+            loss = {"rgb_loss": torch.mean((pred_rgb - gt_rgb) ** 2)}
+        elif cfg.method == "spectral":
+            loss = {"spectral_loss": torch.mean((outputs["spectral"] - batch["hs_image"]) ** 2)}
+        elif cfg.method == "rgb+spectral":
+            spectral_mse = torch.mean((outputs["spectral"] - batch["hs_image"]) ** 2)
+            loss = {"spectral_loss": cfg.spectral_loss_weight * spectral_mse,
+                    "rgb_loss": cfg.rgb_loss_weight * torch.mean((pred_rgb - gt_rgb) ** 2)}
+        else:
+            raise ValueError(f"unknown method {cfg.method}")
+
+        if "final_edges" in outputs:
+            loss["interlevel_loss"] = cfg.interlevel_loss_mult * sum(
+                interlevel_loss(outputs[f"prop_edges_{i}"], outputs[f"prop_weights_{i}"],
+                                outputs["final_edges"], outputs["final_weights"])
+                for i in range(len(cfg.num_proposal_samples)))
+            loss["distortion_loss"] = cfg.distortion_loss_mult * distortion_loss(
+                outputs["final_edges"], outputs["final_weights"])
+        if cfg.pred_dino and "dino_feat" in batch:
+            loss["dino_mse"] = torch.nanmean((outputs["dino"] - batch["dino_feat"]) ** 2)
+            cluster_w = 1.0 if step > 3000 else 0.0
+            loss["cluster_loss"] = cluster_w * -torch.mean(
+                torch.sum(outputs["cluster_probs"] * outputs["inner_products"], dim=1))
+        return loss
 
     def _blend_background_for_loss(self, pred_rgb, accumulation, gt_image, background):
         """pred += bg * (1 - acc); RGBA ground truth composited over the same

@@ -179,8 +179,11 @@ def init_hash_table(
     return (u * 2e-4 - 1e-4).to(device)
 
 
+@functools.lru_cache(maxsize=None)
 def _level_tensors(config: HashEncodingConfig, device):
-    """Per-level (scale f32, res, size, offset, dense) tensors, each (L,)."""
+    """Per-level (scale f32, res, size, offset, dense) tensors, each (L,),
+    made once per configuration and device (the callers only read them): on
+    the card each is a host-to-device copy, which waits for the stream."""
     scales = torch.as_tensor(np.asarray(config.scales, np.float32), device=device)
     res = torch.as_tensor(config.resolutions, dtype=torch.int64, device=device)
     sizes = torch.as_tensor(config.level_sizes, dtype=torch.int64, device=device)

@@ -95,7 +95,9 @@ def measure(table_rows: int, rows: int, device, seed: int = 0,
     name, and, warm, ms per call from CUDA events around a batch of calls.
     Each number is the mean of ROUNDS; the result holds the bounds too.
     Cold, the device time counts the kernels the arm launched warm (not the
-    flush)."""
+    flush). A profile that lost device events (device_ms_by_kernel gives
+    None) is left out of the means; where every one was, the arm's device
+    numbers are None."""
     table, idx = make_case(table_rows, rows, device, seed)
     arms = {"kernel": lambda: row_gather(table, idx),
             "library": lambda: torch.index_select(table, 0, idx)}
@@ -105,22 +107,29 @@ def measure(table_rows: int, rows: int, device, seed: int = 0,
     own: Dict[str, List[str]] = {}  # the kernels each arm launches, from its warm runs
     for l2, between in (("warm", None), ("cold", lambda: flush.fill_(1))):
         runs: Dict[str, List] = {name: [] for name in arms}
+        calls: Dict[str, List[float]] = {name: [] for name in arms}
         for r in range(ROUNDS):
             for name in (list(arms) if r % 2 == 0 else list(arms)[::-1]):
+                if between is not None and name not in own:
+                    continue  # no warm reading named the arm's kernels
                 by_kernel = device_ms_by_kernel(arms[name], between, own.get(name))
-                call_ms = None
+                if between is None:
+                    calls[name].append(batch_ms(arms[name]))
+                if by_kernel is None:
+                    continue
                 if between is None:
                     own[name] = sorted(set(own.get(name, [])) | set(by_kernel))
-                    call_ms = batch_ms(arms[name])
-                runs[name].append((sum(by_kernel.values()), by_kernel, call_ms))
+                runs[name].append((sum(by_kernel.values()), by_kernel))
         for name, got in runs.items():
             prefix = name if l2 == "warm" else f"{name}_cold"
-            result[f"{prefix}_ms"] = float(np.mean([g[0] for g in got]))
             if l2 == "warm":
-                result[f"{prefix}_batch_ms"] = float(np.mean([g[2] for g in got]))
-            result[f"{prefix}_kernels"] = {k: float(np.mean([g[1].get(k, 0.0) for g in got]))
-                                           for k in got[0][1]}
-            result[f"{prefix}_ns_per_row"] = result[f"{prefix}_ms"] * 1e6 / rows
+                result[f"{prefix}_batch_ms"] = float(np.mean(calls[name]))
+            ms = float(np.mean([g[0] for g in got])) if got else None
+            result[f"{prefix}_ms"] = ms
+            result[f"{prefix}_kernels"] = ({k: float(np.mean([g[1].get(k, 0.0) for g in got]))
+                                            for k in got[0][1]} if got else None)
+            result[f"{prefix}_ns_per_row"] = ms * 1e6 / rows if got else None
+            result[f"{prefix}_readings"] = len(got)
     del flush
     return result
 
@@ -192,6 +201,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
                 p = arm if l2 == "warm" else f"{arm}_cold"
                 events = (f"; events {r[p + '_batch_ms']:8.3f} ms per call" if l2 == "warm"
                           else "")
+                if r[p + "_ms"] is None:
+                    print(f"  {arm:<8} {l2}: device not measured (every profile lost "
+                          f"events){events}")
+                    continue
                 print(f"  {arm:<8} {l2}: device {r[p + '_ms']:8.3f} ms, {r[p + '_ns_per_row']:6.3f} "
                       f"ns/row{events}; kernels "
                       + ", ".join(f"{k} {v:.3f}" for k, v in r[p + "_kernels"].items()))
