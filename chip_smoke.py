@@ -4,6 +4,8 @@
     python3 chip_smoke.py [--quality all] [--p1-baseline CSRC] [--k3-baseline CSRC]
     python3 chip_smoke.py --repeat-schedule
     python3 chip_smoke.py --sweep-vs-plain 100
+    python3 chip_smoke.py --seed-variance
+    python3 chip_smoke.py --mesh-cards    (on more than one card)
 
 The second form runs only phase 7's schedule, twice in each of three
 settings (the kernels; the kernels with torch's deterministic algorithms;
@@ -12,7 +14,13 @@ two runs' losses agree bit for bit and where they first part, their adapt
 decisions and their steady ms per step; it fails unless both runs of the
 first setting, the Trainer as shipped, agree. The third runs only phase 7's
 schedule with phase 6's check after every slice from step 144 on and after
-each of 100 single steps past it, and prints the largest readings.
+each of 100 single steps past it, and prints the largest readings. The
+fourth runs only the seed-variance twin (umhs_torch.scripts.
+quality_seed_variance) at 3 seeds, 2,000 steps, 256^2 and prints its spread
+beside the JAX package's docs/seed_variance.json. The fifth runs only phase
+9's cli.train command line, `python -m umhs_torch.cli.train`, in a process
+of its own over every visible card (one rank per card on NCCL), and then on
+one card (mesh_cards).
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device and build: the card's name and power limit, then every kernel in
@@ -185,6 +193,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    included), and the hash table's gradient the same bits with the DINO
    terms and without them, which reach the DINO leaves only. render_camera
    of one eval view: dino finite, (128, 128, 128).
+
+11. Data-parallel training (umhs_torch/parallel/mesh.py), each part timed.
+   11a: phase 5's train(48) through a mesh of one card in a real NCCL group
+   (the step's one all_reduce, setup's broadcasts), the launch counts zeroed
+   before and read after (K1-K4 must launch): every loss and every state
+   tensor equal to phase 5's bit for bit. 11b: two ranks on the one card,
+   joined by gloo by name (NCCL refuses two ranks on one device), started by
+   umhs_torch.parallel.mesh.launch as cli.train starts its ranks; each renders
+   the bench scene and runs phase 5's configuration at 4096 global rays
+   (2048 a rank, the initial stage budget dropping nothing) for train(32),
+   the counts zeroed before and read after on each rank (K1-K4 must launch
+   on both). Checked: both ranks read the same metrics and end with the
+   same state bits, and the same occupancy bits after a partial update; on
+   three draws, the ranks' step (bf16, deterministic hash gradient) against
+   one process's on the same global draws, each loss term and gradient
+   under phase 6's bf16 gate (median of the draws, none above
+   VS_PLAIN_DRAW_CAP) and the *_per_batch counts equal; one eval view
+   rendered ray-sharded, the same bits on both ranks and its rgb, spectral
+   and accumulation within atol 1e-3 of one process's render (phase 4's
+   check); a repeat of train(32) from seed 0 bit for bit.
+   11c: 11b's wall ms per step and the seconds of an all_reduce of the
+   step's flat buffer (its bytes printed): two ranks share one card and its
+   host, so this measures correctness, not scaling.
 
 The last lines are the card (nvidia-smi), one JSON object of kernel numbers
 and, last, {"ok": true, "device": {...}}.
@@ -1089,6 +1120,7 @@ def phase_train(dev, dm, endmembers):
     check(all(np.isfinite(losses)), "non-finite training loss")
     first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
     check(last < first, f"training loss did not fall: {first} -> {last}")
+    state48 = {k: v.cpu() for k, v in trainer.state_tensors().items()}  # for phase 11a
     repeat = repeat_train(trainer, dev, dm, endmembers, losses)
     plain_steps = [r["step_s"] for r in history if r["occ_update"] is None]
     step_ms = 1e3 * float(np.mean(plain_steps[2:]))  # past the first steps' allocator warm-up
@@ -1124,7 +1156,7 @@ def phase_train(dev, dm, endmembers):
         "launches_per_partial_update": per_partial,
     }
     print("train: " + json.dumps(summary))
-    return trainer, launches, summary
+    return trainer, launches, summary, state48
 
 
 def repeat_train(trainer, dev, dm, endmembers, losses):
@@ -1812,6 +1844,31 @@ def phase_quality(dev, runs, smi):
     return launches
 
 
+SEED_VARIANCE_FLAGS = ["--seeds", "42", "43", "44", "--steps", "2000", "--image-size", "256"]
+
+
+def seed_variance(smi):
+    """--seed-variance: the seed-variance twin (umhs_torch.scripts.
+    quality_seed_variance, each seed a process of its own) at 3 seeds, 2,000
+    steps, 256^2, printed beside the JAX package's docs/seed_variance.json
+    (3 seeds, 3,000 steps); every metric of every seed must be finite.
+    Phase 8's gate does not read it."""
+    from umhs_torch.scripts import quality_seed_variance as twin
+
+    docs = Path(__file__).resolve().parent / "docs"
+    t0 = time.perf_counter()
+    result = twin.main([*SEED_VARIANCE_FLAGS, "--out",
+                        str(Path("outputs") / "seed_variance_2000_256.json")])
+    seconds = time.perf_counter() - t0
+    jax = json.loads((docs / "seed_variance.json").read_text())
+    print("seed variance: " + json.dumps(result))
+    print(f"seed variance: {seconds:.1f} s for {len(result['per_seed'])} seeds; {smi}")
+    print(f"seed variance of the JAX package (docs/seed_variance.json, "
+          f"{json.dumps(jax['config'])}): " + json.dumps(jax["summary"]))
+    for seed, metrics in result["per_seed"].items():
+        check(all(np.isfinite(v) for v in metrics.values()), f"seed {seed}: non-finite metric")
+
+
 # phase 9: the user's entry points, at full width
 ENTRY_FRAMES = 8
 ENTRY_OUTPUTS = ("rgb", "abundances_0", "wv_10", "seg_pred")  # the README's list
@@ -2077,6 +2134,75 @@ def phase_entry_points(dev, bench_losses, bench_adapts, bench_configs):
         del trainer, result
     print("entry points: " + json.dumps(summary))
     return summary
+
+
+def trained_run_files(run_dir: Path) -> dict:
+    """What cli.train wrote into `run_dir`: final_metrics.json, the
+    checkpoints' names and the last one's applied shapes."""
+    checkpoints = sorted(p.name for p in (run_dir / "umhs_models").glob("step-*"))
+    shapes = run_dir / "umhs_models" / checkpoints[-1] / "dynamic_batch.json"
+    return {"final": json.loads((run_dir / "final_metrics.json").read_text()),
+            "checkpoints": checkpoints, "shapes": json.loads(shapes.read_text()),
+            "config_yml": (run_dir / "config.yml").is_file()}
+
+
+def mesh_cards(smi):
+    """--mesh-cards: phase 9's cli.train command line as a user types it,
+    `python -m umhs_torch.cli.train ...`, in a process of its own over
+    every visible card (cli.train launches one rank per card on NCCL), then
+    with --trainer.use-mesh False on one card in this process. Checked: the
+    command exits 0 having launched one rank per card, and its launcher
+    found every rank's final state equal bit for bit; each run wrote
+    config.yml, final_metrics.json and one checkpoint; K1-K4 launched in the
+    one-card run; both runs' eval_all_images PSNR at least ENTRY_MIN_PSNR.
+    Printed side by side: both runs' final metrics, evals and applied
+    shapes."""
+    from umhs_torch.cli import train as cli_train
+
+    cards = torch.cuda.device_count()
+    check(cards > 1, f"--mesh-cards needs more than one visible card, not {cards}")
+    with bench_dataset() as (work, root, _):
+        argv = entry_train_argv(root)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(Path(__file__).resolve().parent)] + [p for p in [env.get("PYTHONPATH")] if p])
+        cmd = [sys.executable, "-m", "umhs_torch.cli.train", *argv, "--experiment-name", "cards"]
+        print("--mesh-cards: python -m umhs_torch.cli.train " + " ".join(cmd[3:]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True,
+                              timeout=900)
+        cards_s = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        print("\n".join(f"  | {line}" for line in lines if line.startswith("[umhs-train]")))
+        check(proc.returncode == 0, f"--mesh-cards: cli.train over {cards} cards exited "
+              f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+        check(f"[umhs-train] data parallel: {cards} ranks, one per card, nccl" in lines,
+              f"--mesh-cards: cli.train did not launch {cards} ranks")
+        check(any(line.startswith(f"[umhs-train] {cards} ranks end with the same state bits")
+                  for line in lines), "--mesh-cards: cli.train's launcher printed no agreement")
+        run_dir = next(line.split("run_dir=", 1)[1] for line in lines
+                       if line.startswith("[umhs-train] method=") and "run_dir=" in line)
+        runs = {"cards": trained_run_files(work / run_dir)}
+
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        result = cli_train.main([*argv, "--trainer.use-mesh", "False", "--experiment-name", "one"])
+        one_s = time.perf_counter() - t0
+        launches_one = launch_counts()
+        runs["one"] = trained_run_files(result.trainer.run_dir)
+        del result
+    for sym in TRAIN_KERNELS:
+        check(launches_one[sym] > 0, f"--mesh-cards: kernel {sym} not launched on one card")
+    summary = {"cards": cards, "backend": "nccl", "seconds": {"cards": cards_s, "one": one_s},
+               "launches_one": launches_one, **{label: run for label, run in runs.items()}}
+    print(f"--mesh-cards ({smi}): " + json.dumps(summary))
+    for label, run in runs.items():
+        check(run["config_yml"], f"--mesh-cards {label}: no config.yml")
+        check(len(run["checkpoints"]) == 1, f"--mesh-cards {label}: checkpoints "
+                                             f"{run['checkpoints']}, not one")
+        psnr = run["final"]["eval"]["psnr"]
+        check(psnr >= ENTRY_MIN_PSNR,
+              f"--mesh-cards {label}: eval_all_images PSNR {psnr} below {ENTRY_MIN_PSNR}")
 
 
 # phase 10: the proposal sampler (scripts/nerfacto.sh) and the DINO head
@@ -2497,6 +2623,280 @@ def phase_10(dev):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 11: data-parallel training (umhs_torch/parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2  # 11b: two ranks on the one card, on gloo
+MESH_STEPS = 32  # 11b's train() on every rank
+
+
+def digest(tensors) -> dict:
+    """sha1 of each tensor's bytes, by name: equal digests, equal bits."""
+    import hashlib
+
+    return {k: hashlib.sha1(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                            .numpy().tobytes()).hexdigest() for k, v in tensors.items()}
+
+
+def phase_11(dev, dm, endmembers, phase5_losses, state48):
+    """11a, then 11b and 11c; returns each kernel's launches in 11a's
+    train(48) and, per rank, in 11b's train(32)."""
+    t0 = time.perf_counter()
+    launches_a = phase_mesh_one_rank(dev, dm, endmembers, phase5_losses, state48)
+    t1 = time.perf_counter()
+    launches_b = phase_mesh_two_ranks(endmembers)
+    print(f"phase 11 seconds: " + json.dumps({"11a": t1 - t0, "11b": time.perf_counter() - t1}))
+    return launches_a, launches_b
+
+
+def phase_mesh_one_rank(dev, dm, endmembers, phase5_losses, state48):
+    """11a: phase 5's train(48) through a mesh of one card in a real NCCL
+    group (its one all_reduce a step, the broadcasts of setup): every loss
+    and every state tensor must equal phase 5's bit for bit, since a sum
+    over one rank divided by one changes no bit."""
+    from umhs_torch.engine.trainer import Trainer, TrainerConfig
+    from umhs_torch.parallel.mesh import close_mesh, free_port, init_mesh
+
+    mesh = init_mesh(0, 1, "nccl", dev, f"tcp://127.0.0.1:{free_port()}")
+    try:
+        check((mesh.size, mesh.backend) == (1, "nccl"), f"11a: a mesh of {mesh}")
+        trainer = Trainer(TrainerConfig(seed=0, mixed_precision=True, save_final=False),
+                          flagship_model_config(), num_classes=6, datamanager=dm, mesh=mesh)
+        trainer.setup(endmembers)
+        zero_launch_counts()
+        trainer.train(TRAIN_STEPS)
+        launches = launch_counts()
+        state = trainer.state_tensors()
+    finally:
+        close_mesh(mesh)
+    for sym in TRAIN_KERNELS:
+        check(launches[sym] > 0, f"11a: kernel {sym} was not launched through the mesh")
+    losses = [r["metrics"]["loss/total"] for r in trainer.history]
+    parted = next((i for i, (x, y) in enumerate(zip(phase5_losses, losses)) if x != y), None)
+    differ = sorted(k for k, v in state48.items() if not (
+        torch.equal(bits(v), bits(state[k])) if v.is_floating_point()
+        else torch.equal(v, state[k].cpu())))
+    out = {"identical_losses": parted is None and len(losses) == len(phase5_losses),
+           "first_step_apart": parted, "state_tensors_differing": differ,
+           "launches": launches}
+    print(f"11a, mesh of one card (nccl), train({TRAIN_STEPS}) against phase 5: "
+          + json.dumps(out))
+    check(out["identical_losses"], f"11a: losses part from phase 5's at step {parted}")
+    check(not differ, f"11a: state tensors differ from phase 5's: {differ}")
+    return launches
+
+
+def mesh_values_and_grads(trainer, draws):
+    """trainer.reduced_step(draws): its values as floats (one readback) and
+    every gradient the step reached (cloned, then cleared)."""
+    from umhs_torch.engine.trainer import named_leaves
+
+    out = trainer.reduced_step(draws)
+    values = dict(zip(out, torch.stack([torch.as_tensor(v, dtype=torch.float32, device=v.device)
+                                        for v in out.values()]).tolist()))
+    grads = {}
+    for n, p in named_leaves(trainer.state["params"]):
+        if p.grad is not None:
+            grads[n] = p.grad.clone()
+        p.grad = None
+    return values, grads
+
+
+def mesh_vs_one_process(t, mesh, make_trainer):
+    """11b's step check: on VS_PLAIN_DRAWS global draws at t's state and
+    shapes, the ranks' reduced step (bf16, deterministic hash gradient)
+    against one process's step on the same draws, under phase 6's gate: each
+    gradient in norm and each loss term within VS_PLAIN_RTOL["bfloat16"] of
+    the one-process value plus SPREAD_FACTOR times the change of the one-
+    process step from the parameters moved one ulp. Rank 0 computes the
+    readings; every rank takes part in the reduced steps."""
+    cfg = dataclasses.replace(t.model.config, stochastic_hash_grad=False)
+    ranks, solo = make_trainer(cfg, mesh), make_trainer(cfg, None)
+    gen_state = t._step_gen.get_state()
+    draws = [t.draw_step() for _ in range(VS_PLAIN_DRAWS)]
+    t._step_gen.set_state(gen_state)
+    rtol, loss_rtol = VS_PLAIN_RTOL["bfloat16"]
+    readings, flat = [], None
+    for i, d in enumerate(draws):
+        ranks.state, ranks.dyn = t.state, t.dyn
+        v2, g2 = mesh_values_and_grads(ranks, d)
+        flat = sum(g.numel() for g in g2.values()) + len(v2)
+        if mesh.rank != 0:
+            continue
+        solo.state, solo.dyn = t.state, t.dyn
+        v1, g1 = mesh_values_and_grads(solo, d)
+        solo.state = dict(t.state, params=moved_one_ulp(t.state["params"], i + 1, mesh.device))
+        vm, gm = mesh_values_and_grads(solo, d)
+        terms = [k for k in v1 if k.startswith("loss/")]
+        counts = [k for k in v1 if k.endswith("_per_batch")]
+        readings.append({
+            "loss": {k: abs(v2[k] - v1[k]) / (loss_rtol * abs(v1[k])
+                                              + SPREAD_FACTOR * abs(vm[k] - v1[k]) + 1e-30)
+                     for k in terms},
+            "grad": {n: float((g2[n] - g).norm()) / (
+                rtol * float(g.norm()) + SPREAD_FACTOR * float((gm[n] - g).norm()) + 1e-30)
+                for n, g in g1.items()},
+            "grads_reached": [sorted(g2) == sorted(g1)],
+            "counts": {k: [v2[k], v1[k]] for k in counts},
+        })
+        del g1, gm
+    return readings, flat
+
+
+def mesh_rank(mesh, endmembers):
+    """11b on one rank (run by umhs_torch.parallel.mesh.launch, as cli.train runs
+    its ranks): the bench scene, phase 5's configuration over the mesh,
+    train(MESH_STEPS) with the launch counts zeroed before and read after;
+    then, uncounted: a partial occupancy update, the step against one
+    process, one eval view rendered ray-sharded (and, on rank 0, in one
+    process), the all_reduce of the step's flat buffer timed, and
+    train(MESH_STEPS) again from seed 0. Returns what the parent checks."""
+    import torch.distributed as dist
+
+    from umhs_torch.data.cameras import generate_camera_rays
+    from umhs_torch.data.datamanager import DataManagerConfig, InMemoryDataManager
+    from umhs_torch.data.synthetic import BENCH_SCENE, render_views, scene_cameras
+    from umhs_torch.engine.trainer import Trainer, TrainerConfig
+    from umhs_torch.ops import row_gather  # noqa: F401  (registers P1's count, read below)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    scene = BENCH_SCENE
+    poses, cubes, rgba = render_views(scene, scene.num_views_train, 0.0)
+    dm = InMemoryDataManager(rgba, scene_cameras(scene, poses), hs_images=cubes,
+                             config=DataManagerConfig(train_num_rays_per_batch=4096),
+                             wavelengths=scene.wavelengths, device=dev)
+
+    def make_trainer(cfg=None, on=mesh):
+        return Trainer(TrainerConfig(seed=0, mixed_precision=True, save_final=False),
+                       cfg or flagship_model_config(), num_classes=6, device=dev,
+                       datamanager=dm, mesh=on)
+
+    t = make_trainer().setup(endmembers)
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train(MESH_STEPS)
+    torch.cuda.synchronize()
+    out = {"train_s": time.perf_counter() - t0, "launches": launch_counts(),
+           "metrics": [r["metrics"] for r in t.history],
+           "step_ms": [1e3 * r["step_s"] for r in t.history if r["occ_update"] is None],
+           "state": digest(t.state_tensors())}
+    with uncounted():
+        t.update_occupancy(full=False)
+        out["occ_after_update"] = digest(t.state["occ"])
+        out["vs_one_process"], flat = mesh_vs_one_process(t, mesh, make_trainer)
+        poses_eval, _, _ = render_views(scene, scene.num_views_eval, 0.13)
+        cam = scene_cameras(scene, poses_eval).to_device_dict(dev)
+        size = scene.image_size
+        rays = generate_camera_rays(cam, 0, size, size)
+        view = t.render_camera(rays, (size, size), step=1000)
+        out["render_digest"] = digest(view)
+        if mesh.rank == 0:
+            solo = make_trainer(on=None)
+            solo.state = t.state
+            alone = solo.render_camera(rays, (size, size), step=1000)
+            # phase 4's outputs; depth is clipped to the range of the samples
+            # of the rays rendered together (render_depth_expected), which a
+            # shard narrows, as each shard's does in the JAX package
+            out["render_vs_one_process"] = {
+                k: float((view[k].float() - alone[k].float()).abs().max())
+                for k in ("rgb", "spectral", "accumulation")}
+        buf = torch.zeros(flat, device=dev)
+        times = []
+        for _ in range(6):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        out["all_reduce"] = {"bytes": 4 * flat, "s": times[1:]}
+        again = make_trainer().setup(endmembers)
+        again.train(MESH_STEPS)
+        out["repeat_metrics"] = [r["metrics"] for r in again.history]
+        out["repeat_state"] = digest(again.state_tensors())
+    return out
+
+
+def phase_mesh_two_ranks(endmembers):
+    """11b: two ranks on the one card (gloo by name: NCCL refuses two ranks
+    on one device) through umhs_torch.parallel.mesh.launch, the launcher of
+    cli.train, at the flagship's width in bf16, 4096 global rays (2048 a
+    rank) and the initial stage budget, which drops nothing. Checked: K1-K4
+    launch on every rank; both ranks read the same metrics and end with the
+    same state bits, and the same occupancy bits after a partial update; on
+    three draws, each loss term and gradient of the ranks' step against one
+    process's under phase 6's gate (median of the draws) with the
+    *_per_batch counts equal; the ray-sharded render's rgb, spectral and
+    accumulation within atol 1e-3 of one process's (phase 4's check) and the
+    same bits on both ranks; a
+    repeat of train(MESH_STEPS) bit for bit. 11c: the wall ms per step and
+    the all_reduce's seconds for the flat buffer's bytes."""
+    from umhs_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    results = launch(mesh_rank, MESH_RANKS, "gloo", ["cuda:0"] * MESH_RANKS, args=(endmembers,))
+    wall_s = time.perf_counter() - t0
+    r0 = results[0]
+    for rank, r in enumerate(results):
+        for sym in TRAIN_KERNELS:
+            check(r["launches"][sym] > 0, f"11b: kernel {sym} was not launched on rank {rank}")
+        check(json.dumps(r["metrics"]) == json.dumps(r0["metrics"]),
+              f"11b: rank {rank} read other metrics than rank 0")
+        check(r["state"] == r0["state"], f"11b: rank {rank} ends train({MESH_STEPS}) with other "
+              f"bits: {sorted(k for k in r0['state'] if r['state'][k] != r0['state'][k])}")
+        check(r["occ_after_update"] == r0["occ_after_update"],
+              f"11b: rank {rank}'s occupancy update gave other bits")
+        check(r["render_digest"] == r0["render_digest"], f"11b: rank {rank} rendered other bits")
+        check(json.dumps(r["repeat_metrics"]) == json.dumps(r["metrics"]),
+              f"11b: train({MESH_STEPS}) repeated on rank {rank} read other metrics")
+        check(r["repeat_state"] == r["state"],
+              f"11b: train({MESH_STEPS}) repeated on rank {rank} ends in other bits")
+    losses = [m["loss/total"] for m in r0["metrics"]]
+    check(all(np.isfinite(losses)), "11b: non-finite training loss")
+    readings = r0["vs_one_process"]
+    loss_med = {k: float(np.median([r["loss"][k] for r in readings])) for k in readings[0]["loss"]}
+    grad_med = {n: float(np.median([r["grad"][n] for r in readings])) for n in readings[0]["grad"]}
+    worst = max([*loss_med.items(), *grad_med.items()], key=lambda kv: kv[1])
+    steady = r0["step_ms"][2:]
+    ar = r0["all_reduce"]
+    summary = {
+        "ranks": MESH_RANKS, "backend": "gloo", "rays_per_step": 4096, "rays_per_rank": 2048,
+        "launches_per_rank": [r["launches"] for r in results],
+        "loss_first4": float(np.mean(losses[:4])), "loss_last4": float(np.mean(losses[-4:])),
+        "vs_one_process_worst_median": list(worst),
+        "vs_one_process_worst_per_draw": [
+            max([*r["loss"].items(), *r["grad"].items()], key=lambda kv: kv[1])
+            for r in readings],
+        "counts_per_draw": [r["counts"] for r in readings],
+        "render_vs_one_process_max_abs": r0["render_vs_one_process"],
+        "train_s": r0["train_s"], "launch_wall_s": wall_s,
+    }
+    print(f"11b, {MESH_RANKS} ranks on one card (gloo), train({MESH_STEPS}) at 4096 rays: "
+          + json.dumps(summary))
+    print("11c (two ranks share one card and its host: this measures correctness, not "
+          "scaling): " + json.dumps({
+              "ms_per_step_median": float(np.median(steady)), "ms_per_step": steady,
+              "all_reduce_bytes": ar["bytes"], "all_reduce_s": ar["s"],
+              "all_reduce_s_median": float(np.median(ar["s"]))}))
+    for r in readings:
+        check(r["grads_reached"] == [True], "11b: the ranks' step reached other parameters")
+        for k, (a, b) in r["counts"].items():
+            check(a == b, f"11b: {k} of the ranks' step {a} != one process's {b}")
+    for name, ratio in [*loss_med.items(), *grad_med.items()]:
+        check(ratio <= 1.0, f"11b: {name} of the ranks' step disagrees with one process's "
+                            f"({ratio} of its tolerance, median of the draws)")
+    for i, r in enumerate(readings):
+        for name, ratio in [*r["loss"].items(), *r["grad"].items()]:
+            check(ratio <= VS_PLAIN_DRAW_CAP, f"11b: {name} on draw {i}: {ratio} of its tolerance")
+    for k, err in r0["render_vs_one_process"].items():
+        check(err <= 1e-3, f"11b: the ray-sharded render's {k} is {err} from one process's")
+    return {sym: [r["launches"][sym] for r in results] for sym in r0["launches"]}
+
+
 def ptxas_usage(log: str) -> dict:
     """{kernel<template args>: registers and spill bytes} from nvcc -Xptxas=-v."""
     usage, kernel = {}, None
@@ -2527,6 +2927,10 @@ def main() -> None:
     ap.add_argument("--p1-baseline", type=Path, metavar="CSRC", default=None,
                     help="also build P1 from another checkout's umhs_torch/csrc and time it "
                          "beside this one in the probe twin's measurement, in turns")
+    ap.add_argument("--seed-variance", action="store_true",
+                    help="only the seed-variance twin: 3 seeds, 2,000 steps, 256^2")
+    ap.add_argument("--mesh-cards", action="store_true",
+                    help="only phase 9's cli.train over every visible card (NCCL) and on one")
     ap.add_argument("--quality", choices=["tetrahedral", "all"], default="tetrahedral",
                     help="phase 8's quality runs: the tetrahedral one, or also the trilinear "
                          "and the 141-band bf16 ones")
@@ -2564,9 +2968,14 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s for the native cube loader "
           f"({'g++' if built else 'cached'}, {native.library_path().name})")
 
-    only = args.repeat_schedule or args.sweep_vs_plain is not None
+    only = (args.repeat_schedule or args.sweep_vs_plain is not None or args.seed_variance
+            or args.mesh_cards)
     if args.repeat_schedule:
         repeat_schedule(dev)
+    elif args.seed_variance:
+        seed_variance(smi)
+    elif args.mesh_cards:
+        mesh_cards(smi)
     elif args.sweep_vs_plain is not None:
         sweep_vs_plain(dev, args.sweep_vs_plain)
     else:
@@ -2579,15 +2988,17 @@ def main() -> None:
         trainer, render_launches = phase_render(dev, dm, endmembers, cam)
         phase_kernels_vs_plain(trainer, cam, dev)
         del trainer
-        trainer, train_launches, _ = phase_train(dev, dm, endmembers)
+        trainer, train_launches, train_summary, state48 = phase_train(dev, dm, endmembers)
         phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})")
         phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})", "bfloat16")
-        del trainer, dm
+        del trainer
         bench_launches, bench_losses, bench_adapts, bench_configs = phase_bench_schedule(dev)
         quality_runs = list(QUALITY_RUNS) if args.quality == "all" else ["tetrahedral"]
         quality_launches = phase_quality(dev, quality_runs, smi)
         entry_points = phase_entry_points(dev, bench_losses, bench_adapts, bench_configs)
         slice_kernels, nerfacto, dino = phase_10(dev)
+        mesh1, mesh2 = phase_11(dev, dm, endmembers, train_summary["loss_per_step"], state48)
+        del dm, state48
 
         for entry in (k1, k2, k3, k4):
             sym = "umhs_" + entry["name"]
@@ -2601,7 +3012,11 @@ def main() -> None:
             entry["launches_quality"] = quality_launches["tetrahedral"][sym]
             for path in ("train", "render", "viewer"):  # phase 9's entry points
                 entry[f"launches_cli_{path}"] = entry_points[f"launches_{path}"][sym]
+            entry["launches_mesh_1_rank"] = mesh1[sym]  # phase 11a's train(48)
+            entry["launches_mesh_2_ranks"] = mesh2[sym]  # phase 11b's train(32), per rank
         p1["launches_quality"] = quality_launches["tetrahedral"].get("umhs_row_gather", 0)
+        p1["launches_mesh_1_rank"] = mesh1["umhs_row_gather"]
+        p1["launches_mesh_2_ranks"] = mesh2["umhs_row_gather"]
     print(smi)
     if not only:
         print(json.dumps({"kernels": [k1, k2, k3, k4, p1]}))

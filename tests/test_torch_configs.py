@@ -184,8 +184,9 @@ def test_jax_written_file_loads_in_the_port(case, tmp_path, capsys):
     J.save_config(jcfg, tmp_path / "config.yml")
     got, inert = T.read_config(tmp_path / "config.yml")
     assert got == tcfg
-    assert {"trainer.use_mesh", "trainer.fast_compile_effort",
-            "pipeline.model.hash_split_dense_gather"} <= set(inert)
+    assert {"trainer.fast_compile_effort", "pipeline.model.hash_split_dense_gather"} <= set(
+        inert)
+    assert "trainer.use_mesh" not in inert and got.trainer.use_mesh == jcfg.trainer.use_mesh
     assert not {"pipeline.model.sampler", "pipeline.model.num_proposal_samples"} & set(inert)
     assert got.pipeline.model.num_proposal_samples == (256, 96)
     assert got.pipeline.model.sampler == "occgrid"
@@ -214,12 +215,14 @@ def test_inert_flags_are_recorded():
             "--pipeline.model.sampler", "occgrid", "--machine.num-devices", "4"]
     cfg, ignored = T.apply_cli_overrides(base, argv)
     # the proposal sampler's fields are real fields now: applied, not recorded
-    assert cfg == dataclasses.replace(base, pipeline=dataclasses.replace(
+    # so is use_mesh (data parallel over the cards)
+    assert cfg == dataclasses.replace(base, trainer=dataclasses.replace(
+        base.trainer, use_mesh=False), pipeline=dataclasses.replace(
         base.pipeline, model=dataclasses.replace(
             base.pipeline.model, num_nerf_samples=64, num_proposal_samples=(128, 64),
             interlevel_loss_mult=2.0, distortion_loss_mult=0.01, sampler="occgrid")))
     assert ignored == {
-        "trainer.use_mesh": "False", "trainer.fuse_occ_update": "False",
+        "trainer.fuse_occ_update": "False",
         "trainer.fast_compile_effort": "None", "trainer.background_full_compile": "False",
         "trainer.full_compile_defer_chunks": "7",
         "pipeline.model.hash_split_dense_gather": "True",
@@ -308,3 +311,23 @@ def test_yaml_scalars_round_trip_through_pyyaml():
 def test_yaml_outside_the_subset_raises(text):
     with pytest.raises(ValueError):
         T.load_yaml(text)
+
+
+def test_use_mesh_is_a_real_field(tmp_path):
+    """use_mesh is TrainerConfig's own field with the JAX default (True),
+    not an inert JAX-only one: the flag sets it and config.yml keeps it.
+    --machine.num-devices stays accepted and inert, as in the JAX package
+    (the mesh takes every visible card)."""
+    assert ("TrainerConfig", "use_mesh") not in T.JAX_ONLY
+    fields = {f.name: f.default for f in dataclasses.fields(T.TrainerConfig)}
+    assert fields["use_mesh"] is True
+    assert fields["use_mesh"] == {f.name: f.default for f in
+                                  dataclasses.fields(J.TrainerConfig)}["use_mesh"]
+    base = T.umhs_method_defaults()
+    cfg, ignored = T.apply_cli_overrides(base, ["--trainer.use-mesh", "False"])
+    assert cfg.trainer.use_mesh is False and not ignored
+    T.save_config(cfg, tmp_path / "config.yml")
+    assert T.load_config(tmp_path / "config.yml").trainer.use_mesh is False
+    assert J.load_config(tmp_path / "config.yml").trainer.use_mesh is False
+    cfg, ignored = T.apply_cli_overrides(base, ["--machine.num-devices", "4"])
+    assert cfg == base and ignored == {"machine.num_devices": "4"}

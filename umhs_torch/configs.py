@@ -86,7 +86,6 @@ _COMPILE = "an XLA compile or dispatch option on the TPU; the math is the same"
 # "inert": accepted, recorded and printed, otherwise ignored (the value does
 # not change what is computed here).
 JAX_ONLY: Dict[Tuple[str, str], Tuple[str, Any, str]] = {
-    ("TrainerConfig", "use_mesh"): ("inert", True, "one card: there is no device mesh"),
     ("TrainerConfig", "fuse_occ_update"): ("inert", True, _COMPILE),
     ("TrainerConfig", "fast_compile_effort"): ("inert", -1.0, _COMPILE),
     ("TrainerConfig", "background_full_compile"): ("inert", True, _COMPILE),

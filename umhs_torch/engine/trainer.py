@@ -32,6 +32,17 @@ from a generator seeded with 0, in every chunk, as the JAX render does.
 
 The proposal sampler runs no occupancy update and no dynamic batching, as
 in the JAX trainer: its samples per ray are fixed by construction.
+
+Data parallel (`mesh=`, one process per rank, parallel/mesh.py): every rank
+holds the same state (broadcast from rank 0 at setup and after a restore),
+draws the whole batch from the same generator and marches, shades and
+differentiates its contiguous shard of it, at each stage's budget over the
+ranks (`local_budget`); then one all_reduce (`reduce_step`) gives every rank
+the mean gradients and loss and the metrics (counts summed), so every rank
+makes the same update and the same adapt decisions. The occupancy update
+runs replicated, the same bits on every rank. Eval and render shard the
+rays when their count divides the world size. Rank 0 alone writes the
+checkpoints, the writer's logs, the eval images and endmembers.npy.
 """
 
 from __future__ import annotations
@@ -55,9 +66,11 @@ from ..data.png import write_png
 from ..models.model import ModelConfig, UMHSModel
 from ..ops.occupancy import draw_partial_cells
 from ..ops.ray_marching import MarchConfig
+from ..parallel.mesh import (
+    Mesh, barrier, local_budget, make_eval_forward, put_replicated, reduce_step, shard_draws)
 from ..utils import metrics as metrics_utils
 from ..utils.colormaps import apply_colormap, apply_depth_colormap
-from ..utils.writer import Writer, make_writer
+from ..utils.writer import MultiWriter, Writer, make_writer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +85,7 @@ class OptimizerConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     """The fields of umhs_tpu's TrainerConfig that change what is computed,
-    and its writer and gradient-norm logging; its XLA compile and mesh
+    its writer and gradient-norm logging, and use_mesh; its XLA compile
     options have no counterpart here (configs.py lists them as inert)."""
 
     method_name: str = "umhsnerf"
@@ -91,6 +104,9 @@ class TrainerConfig:
     mixed_precision: bool = True
     gradient_accumulation_steps: int = 1
     seed: int = 42
+    # train over every visible card, one process per card (cli/train.py;
+    # parallel/mesh.py); with one card, or off, one process
+    use_mesh: bool = True
     # each step's metrics gain grad_norm/total, grad_norm/hash_table and
     # grad_norm/endmembers: global L2 norms of the gradients Adam receives
     log_gradients: bool = False
@@ -232,17 +248,28 @@ class Trainer:
         device="cuda",
         *,
         datamanager: Optional[InMemoryDataManager] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """From a DataManagerConfig (a dataset on disk), or from a built
         `datamanager`, which gives the model its wavelengths, image count
-        and scene scale."""
+        and scene scale. `mesh`: this process's rank of a data-parallel
+        mesh (its device is the trainer's); None trains in one process."""
+        if mesh is not None and mesh.size > 1 and not config.use_mesh:
+            raise ValueError(f"a mesh of {mesh.size} ranks with use_mesh=False")
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         if datamanager is None:
             if datamanager_config is None:
                 raise ValueError("Trainer needs a datamanager_config or a datamanager")
-            datamanager = UMHSDataManager(datamanager_config, num_classes=num_classes,
-                                          device=self.device)
+            # one rank at a time: parsing deletes and rewrites vca.npy in the
+            # working directory, which setup reads
+            for r in range(mesh.size if mesh is not None else 1):
+                if mesh is None or mesh.rank == r:
+                    datamanager = UMHSDataManager(datamanager_config, num_classes=num_classes,
+                                                  device=self.device)
+                if mesh is not None:
+                    barrier(mesh)
         self.datamanager = datamanager
         if config.mixed_precision and model_config.compute_dtype == "float32":
             model_config = dataclasses.replace(model_config, compute_dtype="bfloat16")
@@ -251,7 +278,8 @@ class Trainer:
                                scene_scale=datamanager.scene_scale, device=self.device)
         self.lr_schedule = make_lr_schedule(config.optimizer)
         self.optimizer: Optional[MultiStepAdam] = None
-        self.writer: Writer = make_writer(config.vis, self.run_dir)
+        self.writer: Writer = (make_writer(config.vis, self.run_dir) if self.is_main
+                               else MultiWriter([]))
         self.state: Dict[str, object] = {}
         self.history: List[Dict[str, object]] = []
         self.adapt_log: List[Dict[str, object]] = []
@@ -270,6 +298,11 @@ class Trainer:
     @property
     def step(self) -> int:
         return int(self.state["step"])
+
+    @property
+    def is_main(self) -> bool:
+        """True in one process per run: the only one, or rank 0."""
+        return self.mesh is None or self.mesh.is_main
 
     def reset_dynamic_shapes(self) -> None:
         """Shapes before any adaptation: the configured rays per step, the
@@ -298,9 +331,26 @@ class Trainer:
         self._step_gen = torch.Generator(device=self.device)
         self._step_gen.manual_seed(cfg.seed + 1)
         self.reset_dynamic_shapes()
+        self._replicate()
         if cfg.load_dir is not None:
             self.load_checkpoint(cfg.load_dir, cfg.load_step)
         return self
+
+    def _replicate(self) -> None:
+        """Over a mesh, rank 0's parameters, occupancy state and optimizer
+        state on every rank (trainer.py:403-408, 1401-1404). Adam's step
+        counts stay on the host of each rank: every rank counts the same
+        updates, from the same checkpoint."""
+        if self.mesh is None:
+            return
+        opt = self.optimizer.state_dict()
+        tensors = [t.detach() for _, t in named_leaves(self.state["params"])]
+        tensors += list(self.state["occ"].values())
+        tensors += [v for st in opt["adam"]["state"].values() for v in st.values()
+                    if torch.is_tensor(v)]
+        tensors += list(opt["acc"] or [])
+        with torch.no_grad():
+            put_replicated([t for t in tensors if t.device.type == self.device.type], self.mesh)
 
     # ------------------------------------------------------------------
     def update_occupancy(self, full: bool = True) -> None:
@@ -349,13 +399,19 @@ class Trainer:
     def loss_and_grads(self, draws: Dict[str, object]):
         """Forward and backward of one batch at the state's step and the
         current shapes: returns (total loss, loss terms, outputs, batch); the
-        gradients are left in each parameter's .grad."""
-        rays, batch = self.datamanager.sample(self.dyn.rays, draws["pixels"])
+        gradients are left in each parameter's .grad. Over a mesh: of this
+        rank's shard of the draws, at each stage's budget on one rank."""
+        rays_count, budget = self.dyn.rays, self.dyn.compact_budget
+        if self.mesh is not None:
+            draws = shard_draws(draws, self.mesh)
+            rays_count //= self.mesh.size
+            budget = local_budget(budget, self.mesh.size)
+        rays, batch = self.datamanager.sample(rays_count, draws["pixels"])
         params = self.state["params"]
         for _, t in named_leaves(params):
             t.grad = None
         outputs = self.model.forward(params, self.state["occ"], rays,
-                                     compact_budget=self.dyn.compact_budget, step=self.step,
+                                     compact_budget=budget, step=self.step,
                                      train=True, t_jitter=draws["t_jitter"],
                                      march_config=self.dyn.march,
                                      prop_jitter=draws.get("prop_jitter"))
@@ -388,19 +444,34 @@ class Trainer:
                 out[f"grad_norm/{key}"] = norm([params[key]])
         return out
 
-    def train_step(self, draws: Optional[Dict[str, object]] = None) -> Dict[str, float]:
-        """One training step (trainer.py:431-474); returns its loss terms and
-        metrics (with log_gradients, the gradient norms) as floats."""
-        draws = self.draw_step() if draws is None else draws
+    def reduced_step(self, draws: Dict[str, object]) -> Dict[str, torch.Tensor]:
+        """`loss_and_grads` and the metrics of one batch, then, over a mesh,
+        the step's one collective (`reduce_step`). Returns the loss terms
+        ("loss/<term>"), their sum ("loss/total") and the metrics as 0-d
+        tensors (over a mesh: means over the ranks, the *_per_batch counts
+        summed); each parameter's .grad holds the (mean) gradient."""
         total, loss_dict, outputs, batch = self.loss_and_grads(draws)
-        grad_norms = self.gradient_norms() if self.config.log_gradients else {}
-        self.apply_gradients()
         with torch.no_grad():
             metrics = self.model.metrics({k: v.detach() for k, v in outputs.items()}, batch)
         out = {f"loss/{k}": v.detach() for k, v in loss_dict.items()}
         out["loss/total"] = total.detach()
         out.update(metrics)
-        out.update(grad_norms)
+        if self.mesh is not None:
+            # a parameter the step's graph does not reach has no gradient on
+            # any rank: the graph's shape follows the config and the step
+            grads = [t.grad for _, t in named_leaves(self.state["params"]) if t.grad is not None]
+            out = reduce_step(self.mesh, grads, out)
+        return out
+
+    def train_step(self, draws: Optional[Dict[str, object]] = None) -> Dict[str, float]:
+        """One training step (trainer.py:431-474); returns its loss terms and
+        metrics (with log_gradients, the gradient norms of the reduced
+        gradients) as floats."""
+        draws = self.draw_step() if draws is None else draws
+        out = self.reduced_step(draws)
+        if self.config.log_gradients:
+            out.update(self.gradient_norms())
+        self.apply_gradients()
         values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=self.device)
                               for v in out.values()]).tolist()  # one host sync
         return dict(zip(out.keys(), values))
@@ -449,7 +520,7 @@ class Trainer:
                 window_t0, window_steps, window_rays = time.perf_counter(), 0, 0
                 self.writer.write(self.step, metrics)
                 last_metrics = metrics
-            if crossed(100) and "endmembers" in self.state["params"]:
+            if crossed(100) and "endmembers" in self.state["params"] and self.is_main:
                 np.save("endmembers.npy", self.state["params"]["endmembers"].detach().cpu().numpy())
             if crossed(cfg.steps_per_eval_batch) and self.step < total_iters:
                 self.writer.write(self.step, {f"eval/{k}": v for k, v in self.eval_batch().items()})
@@ -504,7 +575,8 @@ class Trainer:
                                  eval_stages=eval_stage_metrics(metrics))
         if new is None:
             self.adapt_log.append({"decided": self.step, "noop": True})
-            print(f"[trainer] dynamic batch at step {self.step}: no change")
+            if self.is_main:
+                print(f"[trainer] dynamic batch at step {self.step}: no change")
             return
         new["decided"] = self.step
         new["apply_step"] = self.step + cfg.adapt_prefetch_steps
@@ -518,6 +590,8 @@ class Trainer:
         """Make a decision of compute_adapt the current shapes."""
         self.dyn = DynamicShapes(new["rays"], new["march"], tuple(new["budgets"]))
         new["applied"] = self.step
+        if not self.is_main:
+            return
         print(f"[trainer] dynamic batch at step {self.step}: mean eval samples/ray "
               f"{new['mean_eval']:.1f} (marched {new['mean_spr']:.1f}, p99 {new['p99']:.0f}) "
               f"-> rays {new['rays']}, samples/ray {new['march'].num_samples}, "
@@ -600,14 +674,28 @@ class Trainer:
                                          camera_type=dm.eval_outputs.cameras.camera_type)
         background = torch.rand((R, 3), generator=gen, device=self.device)
         prop_jitter = self.proposal_jitter(gen, R)
+        outputs = self.eval_forward(rays, prop_jitter=prop_jitter)
         with torch.no_grad():
-            outputs = self.model.forward(self.state["params"], self.state["occ"], rays,
-                                         step=self.step, prop_jitter=prop_jitter)
             out = {**self.model.metrics(outputs, batch),
                    **self.model.loss(outputs, batch, background, step=self.step)}
         values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=self.device)
                               for v in out.values()]).tolist()
         return dict(zip(out.keys(), values))
+
+    def eval_forward(self, rays: Dict[str, torch.Tensor], step: Optional[int] = None,
+                     prop_jitter: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The inference forward of `rays` at `step` (the state's when None)
+        with the proposal sampler's jitters, without gradients; over a mesh
+        each rank renders its shard when the ray count divides the world
+        size, and every rank gets every output (make_eval_forward)."""
+        params, occ = self.state["params"], self.state["occ"]
+        step = self.step if step is None else step
+
+        def forward(r, pj):
+            return self.model.forward(params, occ, r, step=step, prop_jitter=pj)
+
+        with torch.no_grad():
+            return make_eval_forward(forward, self.mesh)(rays, prop_jitter)
 
     def render_camera(
         self,
@@ -624,7 +712,8 @@ class Trainer:
         so padding the same way gives the same image. `step` gates the
         specular warmup ramp (the state's step when None). The proposal
         sampler's jitters are drawn once, from a generator seeded with 0, and
-        serve every chunk."""
+        serve every chunk. Over a mesh each chunk is ray-sharded when the
+        chunk divides the world size (eval_forward)."""
         h, w = hw
         n = h * w
         chunk = chunk or self.model.config.eval_num_rays_per_chunk
@@ -642,12 +731,9 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(0)
         prop_jitter = self.proposal_jitter(gen, chunk)
         outs = []
-        with torch.no_grad():
-            for c in range(num_chunks):
-                sl = {k: v[c * chunk:(c + 1) * chunk] for k, v in padded.items()}
-                outs.append(self.model.forward(
-                    self.state["params"], self.state["occ"], sl, step=step,
-                    prop_jitter=prop_jitter))
+        for c in range(num_chunks):
+            sl = {k: v[c * chunk:(c + 1) * chunk] for k, v in padded.items()}
+            outs.append(self.eval_forward(sl, step, prop_jitter))
         return {
             k: torch.cat([o[k].reshape(chunk, -1) for o in outs])[:n].reshape(h, w, -1)
             for k in outs[0]
@@ -682,13 +768,13 @@ class Trainer:
             lp = metrics_utils.lpips(pred_rgb, gt_rgb, self.device)
             calibrated = metrics_utils.LPIPS_VARIANT == "vgg16_imagenet"
             m["lpips" if calibrated else "lpips_vgg16random"] = lp
-            if self.config.eval_seg_dump_dir is not None:
+            if self.config.eval_seg_dump_dir is not None and self.is_main:
                 d = Path(self.config.eval_seg_dump_dir)
                 (d / "color").mkdir(parents=True, exist_ok=True)
                 write_png(d / f"seg_pred_{idx}.png", outputs["seg_raw"][..., 0].astype(np.uint8))
                 write_png(d / "color" / f"{idx}.png",
                           (np.clip(outputs["seg_pred"], 0, 1) * 255).astype(np.uint8))
-        if self.config.save_eval_images:
+        if self.config.save_eval_images and self.is_main:
             self._emit_eval_images(idx, gt_rgb, pred_rgb, outputs)
         return m
 
@@ -737,9 +823,17 @@ class Trainer:
     def save_checkpoint(self, directory: Optional[Path] = None) -> Path:
         """`step-{step:09d}/` under `directory` (checkpoint_dir when None):
         state.pt (parameters, optimizer, occupancy, step generator) and
-        dynamic_batch.json (the applied shapes). Returns its path."""
+        dynamic_batch.json (the applied shapes). Returns its path. Over a
+        mesh rank 0 writes it while the others wait."""
         ckpt_dir = Path(directory) if directory is not None else self.checkpoint_dir
         path = ckpt_dir / f"step-{self.step:09d}"
+        if self.is_main:
+            self._write_checkpoint(ckpt_dir, path)
+        if self.mesh is not None:
+            barrier(self.mesh)
+        return path
+
+    def _write_checkpoint(self, ckpt_dir: Path, path: Path) -> None:
         path.mkdir(parents=True, exist_ok=True)
         torch.save({
             "step": self.step,
@@ -755,12 +849,12 @@ class Trainer:
             for p in sorted(ckpt_dir.glob("step-*")):
                 if p.name != path.name:
                     shutil.rmtree(p, ignore_errors=True)
-        return path
 
     def load_checkpoint(self, load_dir: Path, load_step: Optional[int] = None) -> None:
         """Restore `load_dir/step-{load_step:09d}` (the latest when None) into
         the set-up state, with the applied shapes; a decision that was
-        pending when it was saved is dropped."""
+        pending when it was saved is dropped. Over a mesh every rank reads
+        it, then takes rank 0's tensors."""
         load_dir = Path(load_dir)
         if load_step is None:
             steps = sorted(int(p.name.split("-")[1]) for p in load_dir.glob("step-*"))
@@ -783,6 +877,7 @@ class Trainer:
             dataclasses.replace(self.model.march_config, num_samples=int(dyn["num_samples"])),
             tuple(int(b) for b in dyn["budgets"]))
         self.pending_adapt = None
-        if "endmembers" in self.state["params"]:
+        self._replicate()
+        if "endmembers" in self.state["params"] and self.is_main:
             np.save("endmembers_loaded.npy",
                     self.state["params"]["endmembers"].detach().cpu().numpy())

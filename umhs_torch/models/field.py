@@ -113,7 +113,9 @@ def init_field_params(
         params["mlp_directional"] = init_mlp(
             g, cfg.sh_dim + cfg.posenc_dim, 2, 16, cfg.num_bands, device)
         if endmembers_init is not None:
-            em = torch.as_tensor(np.asarray(endmembers_init, np.float32))
+            # a copy: on the CPU the parameter would share the caller's
+            # array, and each optimizer step would write into it
+            em = torch.tensor(np.asarray(endmembers_init, np.float32))
             if tuple(em.shape) != (cfg.num_classes, cfg.num_bands):
                 raise ValueError(
                     f"endmember init shape {tuple(em.shape)} != "
