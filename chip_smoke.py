@@ -2,6 +2,7 @@
 """GPU smoke run of umhs_torch, the PyTorch/CUDA port, on one NVIDIA card.
 
     python3 chip_smoke.py [--quality all] [--p1-baseline CSRC] [--k3-baseline CSRC]
+                          [--mlp-baseline CSRC] [--schedule-baseline TREE]
     python3 chip_smoke.py --repeat-schedule
     python3 chip_smoke.py --sweep-vs-plain 100
     python3 chip_smoke.py --seed-variance
@@ -34,6 +35,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    - K1 mlp_fused_fwd: the four field MLP chains, f32 (rtol/atol 1e-5, the
      FMA kernel) and bf16 (2e-2, the tensor-core kernel), at N = 2^20 and at
      an N that is not a multiple of the tile, plus a single-layer chain;
+     each chain's route (the device kernel its launcher picks) with that
+     kernel's ptxas registers;
    - K3 hash_encode_fwd: tetrahedral and trilinear at L16xF2 2^19 on 2^20
      positions including exact 0 and 1, and tetrahedral on 16,384 rays x 64
      ray-ordered samples (atol 1e-6; table values ~1e-4); with
@@ -121,7 +124,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    end of the steady window, at its last adapted shapes. The launches of
    those two steps and of the round trip are left out of the schedule's
    counts. One steady step runs under torch.profiler at the end, with the
-   device ms of K1-K4 in it beside their launches.
+   device ms of K1-K4 in it beside their launches. With --schedule-baseline
+   TREE (another checkout, e.g. the parent commit unpacked by git archive),
+   the schedule runs again from that tree in a process of its own, and its
+   672 losses and adapt decisions must equal this run's bit for bit.
 
 8. The quality twin (umhs_torch.scripts.quality_reference_scale, the twin of
    scripts/quality_reference_scale.py) through its entry point: 2,000 steps,
@@ -165,8 +171,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    First K1-K4 at this phase's shapes against their plain versions, timed
    as in phase 2 (phase_slice_kernels): the proposal chain 10 -> 16 -> 1 at
    2,097,152 and 786,432 rows, the DINO chain 15 -> 256 -> 128 at 262,144
-   (its FMA routes), the proposal grids L5 F2 2^17 on as many ray-ordered
-   positions, K4 deterministic (84M and 31M (row, entry) pairs).
+   (K1's and K2's wide tensor-core kernels), each chain's routes with their
+   ptxas registers and spills, the proposal grids L5 F2 2^17 on as many
+   ray-ordered positions, K4 deterministic (84M and 31M (row, entry)
+   pairs). With --mlp-baseline CSRC, another checkout's K1 and K2 (e.g. the
+   parent's FMA routes for the DINO chain) on the DINO chain's inputs, timed
+   in turns beside these.
    10a: scripts/nerfacto.sh through cli.train with a literal argv (printed)
    on the bench scene written to disk: the rgb method, the proposal sampler
    ((256, 96) -> 48), 8192 rays, seed 42, the method's defaults otherwise
@@ -187,8 +197,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    128-channel DINO sidecars (write_dino_sidecars: a seeded fixed map of
    each view's RGB): train(96) at 4096 rays, the launch counts zeroed
    before and read after; the mean dino_mse of the last 8 steps below that
-   of the first 8. The DINO chain's K2 route, and K1's and K2's FMA kernels
-   in a traced step (their device ms). At step 3001 (the cluster loss in the sum): phase 6's
+   of the first 8. The DINO chain's routes (K1's and K2's wide kernels, or
+   the run fails), and those kernels in a traced step (their device ms). At
+   step 3001 (the cluster loss in the sum): phase 6's
    kernel-vs-plain step over every leaf (dino_mlp and dino_clusters
    included), and the hash table's gradient the same bits with the DINO
    terms and without them, which reach the DINO leaves only. render_camera
@@ -365,9 +376,9 @@ def k1_times(params, x, dims):
     }
 
 
-def phase_k1(dev):
+def phase_k1(dev, ptxas):
     from umhs_torch.ops.mlp import init_mlp
-    from umhs_torch.ops.mlp_fused import mlp_fused_fwd, mlp_plain
+    from umhs_torch.ops.mlp_fused import mlp_fused_fwd, mlp_fused_fwd_route, mlp_plain
 
     gen = torch.Generator().manual_seed(1)
     n_full, n_odd = 1 << 20, (1 << 20) - 333
@@ -377,6 +388,9 @@ def phase_k1(dev):
     chains = {}
     for name, dims in cases:
         params = init_mlp(gen, dims[0], len(dims) - 1, dims[1], dims[-1], dev)
+        route = mlp_fused_fwd_route(dims, torch.bfloat16)
+        print(f"K1 {name} bf16 runs {route}: ptxas {json.dumps(ptxas.get(route))}; "
+              f"f32 runs {mlp_fused_fwd_route(dims, torch.float32)}")
         for n in (n_full, n_odd):
             x = torch.randn((n, dims[0]), generator=gen).to(dev)
             for dt in (torch.float32, torch.bfloat16):
@@ -393,7 +407,7 @@ def phase_k1(dev):
             continue
         # timing at the main path's shape and dtype: N = 2^20 rows, bf16
         x = torch.randn((n_full, dims[0]), generator=gen).to(dev)
-        chains[name] = {"dims": dims, **k1_times(params, x, dims)}
+        chains[name] = {"dims": dims, "route": route, **k1_times(params, x, dims)}
         print(f"K1 {name} N=2^20 bf16: " + json.dumps(chains[name]))
     total = {k: sum(c[k] for c in chains.values())
              for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -436,6 +450,79 @@ def k3_baseline(csrc: Path):
         return out
 
     return run
+
+
+def mlp_baseline(csrc: Path):
+    """K1 and K2 built from another checkout's `csrc` directory (its
+    mlp_fused_fwd.cu, mlp_fused_bwd.cu and headers), as fwd(params, x, dt)
+    -> y and bwd(params, x, g, dt, need_dx) -> (dx, [(dW, db)]), so that two
+    versions are timed in one run on one card. A checkout from before the
+    wide kernels has no dx_partials argument (nor umhs_mlp_fused_bwd_dx_slices)."""
+    import ctypes
+
+    from umhs_torch.ops import _native
+    from umhs_torch.ops.mlp_fused import MLP_FUSED_BWD, MLP_FUSED_FWD, _packed
+
+    out_dir = Path(tempfile.mkdtemp(prefix="umhs_mlp_baseline_"))
+    jobs = {src: subprocess.Popen([_native._nvcc(), *_native.NVCC_FLAGS, "-o",
+                                   str(out_dir / f"{src}.so"), str(csrc / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in ("mlp_fused_fwd.cu", "mlp_fused_bwd.cu")}
+    libs = {}
+    for src, proc in jobs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"baseline {src} did not build:\n{log}")
+        for kernel, usage in ptxas_usage(log).items():
+            print(f"  baseline ptxas {src} {kernel}: " + json.dumps(usage))
+        libs[src] = ctypes.CDLL(str(out_dir / f"{src}.so"))
+    fwd_fn = libs["mlp_fused_fwd.cu"].umhs_mlp_fused_fwd
+    fwd_fn.argtypes, fwd_fn.restype = MLP_FUSED_FWD.argtypes, ctypes.c_int
+    bwd_lib = libs["mlp_fused_bwd.cu"]
+    slices_fn = getattr(bwd_lib, "umhs_mlp_fused_bwd_dx_slices", None)
+    if slices_fn is not None:
+        slices_fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
+    bwd_fn = bwd_lib.umhs_mlp_fused_bwd
+    bwd_fn.restype = ctypes.c_int
+    bwd_fn.argtypes = (MLP_FUSED_BWD.argtypes if slices_fn is not None
+                       else MLP_FUSED_BWD.argtypes[:4] + MLP_FUSED_BWD.argtypes[5:])
+
+    def chain(params, x):
+        dims = [x.shape[1]] + [lay["w"].shape[1] for lay in params["layers"]]
+        return dims, (ctypes.c_int * len(dims))(*dims)
+
+    def fwd(params, x, dt):
+        dims, dims_c = chain(params, x)
+        y = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
+        packed = _packed(params)
+        err = fwd_fn(x.data_ptr(), packed.data_ptr(), y.data_ptr(), dims_c, len(dims) - 1,
+                     x.shape[0], int(dt == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"baseline K1 failed: cudaError {err}")
+        return y
+
+    def bwd(params, x, g, dt, need_dx):
+        dims, dims_c = chain(params, x)
+        n, bf16, packed = x.shape[0], int(dt == torch.bfloat16), _packed(params)
+        max_blocks = 2 * torch.cuda.get_device_properties(x.device).multi_processor_count
+        partials = torch.empty((max_blocks, packed.numel()), device=x.device)
+        dparams = torch.empty_like(packed)
+        dx = torch.empty((n, dims[0]), device=x.device) if need_dx else None
+        args = [x.data_ptr(), g.data_ptr(), packed.data_ptr(), dx.data_ptr() if need_dx else None]
+        if slices_fn is not None:
+            slices = slices_fn(dims_c, len(dims) - 1, bf16) if need_dx else 0
+            scratch = torch.empty((slices, n, dims[0]), device=x.device) if slices else None
+            args.append(scratch.data_ptr() if slices else None)
+        err = bwd_fn(*args, partials.data_ptr(), dparams.data_ptr(), dims_c, len(dims) - 1, n,
+                     bf16, max_blocks, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"baseline K2 failed: cudaError {err}")
+        grads, off = [], 0
+        for lay in params["layers"]:
+            w, b = lay["w"], lay["b"]
+            grads.append((dparams[off:off + w.numel()].view(w.shape),
+                          dparams[off + w.numel():off + w.numel() + b.numel()]))
+            off += w.numel() + b.numel()
+        return dx, grads
+
+    return fwd, bwd
 
 
 def k3_times(table, pos, cfg):
@@ -631,8 +718,9 @@ def k2_times(params, x, g, dims, need_dx):
     """K2 on x (N, dims[0]) and g (N, dims[-1]) in bf16, with dx when
     `need_dx`: its device ms, ms per call, the plain version's and one
     PyTorch call's (a bf16 addmm chain and torch.autograd.grad) device ms,
-    and the bound (the recompute, dW and dh MACs on the bf16 tensor cores,
-    or x, g and the weights read and dx and the weight gradients written)."""
+    and the bound (the MACs of the recompute below the last layer, dW and
+    dh on the bf16 tensor cores, or x, g and the weights read and dx and the
+    weight gradients written)."""
     from umhs_torch.ops.mlp_fused import mlp_fused_bwd, mlp_plain_bwd
 
     n = x.shape[0]
@@ -650,8 +738,9 @@ def k2_times(params, x, g, dims, need_dx):
         return torch.autograd.grad(h, ([xb] if need_dx else []) + leaves, gb)
 
     macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-    # recompute, dW and dh per layer (no dh below the first without dx)
-    flops = 2.0 * n * (3 * macs - (0 if need_dx else dims[0] * dims[1]))
+    # recompute, dW and dh per layer; no recompute of the last layer (its
+    # output is not used: g stands for it) and no dh below the first without dx
+    flops = 2.0 * n * (3 * macs - dims[-2] * dims[-1] - (0 if need_dx else dims[0] * dims[1]))
     nparams = sum(lay["w"].numel() + lay["b"].numel() for lay in params["layers"])
     nbytes = n * (dims[0] + dims[-1] + (dims[0] if need_dx else 0)) * 4 + 2 * nparams * 4
     b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
@@ -991,9 +1080,10 @@ def phase_render(dev, dm, endmembers, cam):
 
 # device kernels of each wrapper, by name (K2 launches a second, reducing kernel)
 KERNEL_NAMES = {
-    "umhs_mlp_fused_fwd": ("mlp_fused_fwd_kernel", "mlp_fused_fwd_tc_kernel"),
+    "umhs_mlp_fused_fwd": ("mlp_fused_fwd_kernel", "mlp_fused_fwd_tc_kernel",
+                           "mlp_fused_fwd_wide_kernel"),
     "umhs_mlp_fused_bwd": ("mlp_fused_bwd_kernel", "mlp_fused_bwd_tc_kernel",
-                           "reduce_partials_kernel"),
+                           "mlp_fused_bwd_wide_kernel", "reduce_partials_kernel"),
     "umhs_hash_encode_fwd": ("hash_encode_fwd_kernel",),
     "umhs_hash_encode_bwd": ("emit_kernel", "digit_count_kernel", "digit_scan_kernel",
                              "digit_scatter_kernel", "row_sum_kernel"),
@@ -1620,6 +1710,38 @@ def phase_bench_schedule(dev):
     return launches, losses, adapt_records(trainer), configs
 
 
+def schedule_against_tree(tree: Path, losses, adapts):
+    """Phase 7's schedule again from another checkout (`tree`: its
+    chip_smoke.py and umhs_torch, its kernels built there), in a process of
+    its own on the same card, without the checks beside the schedule (they
+    do not move it: phase 9 holds cli.train, which runs none, to phase 7 bit
+    for bit). Every loss and the adapt decisions must equal this run's bit
+    for bit."""
+    code = ("import json, torch\nimport chip_smoke as cs\n"
+            "with cs.bench_dataset() as (work, root, _):\n"
+            "    t = cs.bench_trainer(root, torch.device('cuda'))\n"
+            "    _, losses = cs.drive_schedule(t)\n"
+            "    print('SCHEDULE ' + json.dumps({'losses': [float(v).hex() for v in losses],\n"
+            "                                    'adapts': cs.adapt_records(t)}))\n")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(tree.resolve())))
+    check(proc.returncode == 0, f"the schedule from {tree} failed:\n{proc.stdout[-3000:]}\n"
+                                f"{proc.stderr[-3000:]}")
+    theirs = json.loads([ln for ln in proc.stdout.splitlines()
+                         if ln.startswith("SCHEDULE ")][-1][len("SCHEDULE "):])
+    ours = [float(v).hex() for v in losses]
+    first = next((i for i, (a, b) in enumerate(zip(ours, theirs["losses"])) if a != b), None)
+    same = ours == theirs["losses"]
+    same_adapts = json.loads(json.dumps(adapts)) == theirs["adapts"]
+    print(f"bench schedule against {tree}: {len(ours)} losses bit for bit: {same} (first "
+          f"differing step: {first}); adapts equal: {same_adapts}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(same and same_adapts, f"phase 7's schedule differs from {tree}'s")
+    return {"losses_bit_for_bit": same, "adapts_equal": same_adapts, "steps": len(ours)}
+
+
 def check_adapts(trainer):
     """Decisions only at the scheduled steps (the first not a no-op), each
     applied 80 steps later with one budget per stage, each a multiple of 256
@@ -2216,24 +2338,29 @@ DINO_DIM = 128
 PROPOSAL_ROWS = (NERFACTO_RAYS * 256, NERFACTO_RAYS * 96)
 
 
-def phase_slice_kernels(dev):
+def phase_slice_kernels(dev, ptxas, baseline=None):
     """K1-K4 at phase 10's shapes against their plain versions, timed: the
     proposal nets' 10 -> 16 -> 1 chain at 2,097,152 and 786,432 rows (bf16,
     the tensor cores; K2 with dx, which reaches the proposal grids), the DINO
-    head's 15 -> 256 -> 128 at 262,144 rows (bf16, the FMA kernels; K2
-    without dx), and the proposal grids (L5 F2 2^17, trilinear, to
-    resolution 128 and 256) on as many ray-ordered positions, K4 in the
-    deterministic mode the proposal nets use. K1 within 2e-2 and K2 as
-    k2_against_plain; K3 within atol 1e-6; K4 repeated bit for bit, at
+    head's 15 -> 256 -> 128 at 262,144 rows (bf16, K1's and K2's wide
+    tensor-core kernels; K2 without dx), and the proposal grids (L5 F2 2^17,
+    trilinear, to resolution 128 and 256) on as many ray-ordered positions,
+    K4 in the deterministic mode the proposal nets use. K1 within 2e-2 and
+    K2 as k2_against_plain; K3 within atol 1e-6; K4 repeated bit for bit, at
     786,432 rows bit for bit against the plain version on the CPU, at
     2,097,152 within 1e-5 of the largest entry of the plain version on the
-    card (which adds with float atomics)."""
+    card (which adds with float atomics). Each chain's K1 and K2 route is
+    printed with its ptxas registers and spills. With `baseline`
+    (mlp_baseline: another checkout's K1 and K2), the DINO chain's K1 and K2
+    (without dx) are also timed against it in turns (baseline, this, this,
+    baseline), its outputs within 2e-2 of this checkout's."""
     from umhs_torch.data.synthetic import ray_samples
     from umhs_torch.ops.encodings import (
         HashEncodingConfig, hash_encode_bwd, hash_encode_bwd_plain, hash_encode_fwd,
         hash_encode_plain)
     from umhs_torch.ops.mlp import init_mlp
-    from umhs_torch.ops.mlp_fused import mlp_fused_bwd_route, mlp_fused_fwd, mlp_plain
+    from umhs_torch.ops.mlp_fused import (
+        mlp_fused_bwd_route, mlp_fused_fwd, mlp_fused_fwd_route, mlp_plain)
 
     gen = torch.Generator().manual_seed(10)
     out = {"mlp_fused_fwd": {}, "mlp_fused_bwd": {}, "hash_encode_fwd": {},
@@ -2251,10 +2378,17 @@ def phase_slice_kernels(dev):
         del y, ref
         err2, _ = k2_against_plain(label, params, x, g, torch.bfloat16)
         base = {"dims": dims, "rows": n}
-        out["mlp_fused_fwd"][label] = {**base, "max_abs_err": err, **k1_times(params, x, dims)}
+        routes = (mlp_fused_fwd_route(dims, torch.bfloat16),
+                  mlp_fused_bwd_route(dims, torch.bfloat16))
+        for k, route in zip(("K1", "K2"), routes):
+            print(f"{k} {label} {dims} bf16 runs {route}: ptxas {json.dumps(ptxas.get(route))}")
+        out["mlp_fused_fwd"][label] = {**base, "max_abs_err": err, "route": routes[0],
+                                       "ptxas": ptxas.get(routes[0]), **k1_times(params, x, dims)}
         out["mlp_fused_bwd"][label] = {**base, "dx": need_dx, "max_abs_err": err2,
-                                       "route": mlp_fused_bwd_route(dims, torch.bfloat16),
+                                       "route": routes[1], "ptxas": ptxas.get(routes[1]),
                                        **k2_times(params, x, g, dims, need_dx)}
+        if baseline is not None and label == "dino":
+            mlp_against_baseline(baseline, params, x, g, need_dx, out, label)
         print(f"K1 {label} {dims} N={n}: " + json.dumps(out["mlp_fused_fwd"][label]))
         print(f"K2 {label} {dims} N={n}: " + json.dumps(out["mlp_fused_bwd"][label]))
         del params, x, g
@@ -2292,6 +2426,74 @@ def phase_slice_kernels(dev):
               + json.dumps(out["hash_encode_bwd"][label]))
         del pos, table, g
     return out
+
+
+K2_CALLS_CODE = """
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from umhs_torch.ops.mlp import init_mlp
+from umhs_torch.ops.mlp_fused import mlp_fused_bwd
+dev, gen, out = torch.device("cuda"), torch.Generator().manual_seed(3), {}
+for name, dims in cs.K1_CHAINS.items():
+    params = init_mlp(gen, dims[0], len(dims) - 1, dims[1], dims[-1], dev)
+    x = torch.randn((cs.K2_ROWS, dims[0]), generator=gen).to(dev)
+    g = torch.randn((cs.K2_ROWS, dims[-1]), generator=gen).to(dev)
+    need_dx = name != "mlp_directional"
+    out[name] = cs.median_ms(lambda: mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx),
+                             iters=50)
+print("K2_CALLS " + json.dumps(out))
+"""
+
+
+def k2_calls_against_tree(tree: Path):
+    """K2's ms per call through the wrapper (`call_ms`, host time in) on
+    phase 2's four chains, from another checkout's umhs_torch (`tree`, its
+    kernels built there) and from this one, each in a process of its own
+    running the same measurement code (this file's median_ms), in turns:
+    the other tree, this, this, the other."""
+    here = Path(__file__).resolve()
+    turns = []
+    for root in (tree, here.parent, here.parent, tree):
+        proc = subprocess.run([sys.executable, "-c", K2_CALLS_CODE, str(here)], cwd=root,
+                              capture_output=True, text=True,
+                              env=dict(os.environ, PYTHONPATH=str(root.resolve())))
+        check(proc.returncode == 0, f"K2 calls from {root} failed:\n{proc.stdout[-3000:]}\n"
+                                    f"{proc.stderr[-3000:]}")
+        turns.append(json.loads([ln for ln in proc.stdout.splitlines()
+                                 if ln.startswith("K2_CALLS ")][-1][len("K2_CALLS "):]))
+    result = {name: {"baseline_turns": [turns[0][name], turns[3][name]],
+                     "this_turns": [turns[1][name], turns[2][name]]} for name in turns[0]}
+    for r in result.values():
+        r["baseline_call_ms"] = sum(r["baseline_turns"]) / 2
+        r["this_call_ms"] = sum(r["this_turns"]) / 2
+    print(f"K2 call_ms against {tree}: " + json.dumps(result))
+    return result
+
+
+def mlp_against_baseline(baseline, params, x, g, need_dx, out, label):
+    """Another checkout's K1 and K2 (mlp_baseline) on the same inputs: each
+    within 2e-2 of this checkout's (K2: of each tensor's largest entry), then
+    both timed in turns, baseline, this, this, baseline, by device_ms; into
+    out's entries for `label`."""
+    from umhs_torch.ops.mlp_fused import mlp_fused_bwd, mlp_fused_fwd
+
+    fwd, bwd = baseline
+    dt = torch.bfloat16
+    check(torch.allclose(fwd(params, x, dt), mlp_fused_fwd(params, x, dt), rtol=2e-2, atol=2e-2),
+          f"K1 {label}: the baseline's output differs by more than 2e-2")
+    got, ours = bwd(params, x, g, dt, need_dx)[1], mlp_fused_bwd(params, x, g, dt, need_dx)[1]
+    for a, b in ((a, b) for pa, pb in zip(got, ours) for a, b in zip(pa, pb)):
+        check(torch.allclose(a, b, rtol=2e-2, atol=2e-2 * float(b.abs().max())),
+              f"K2 {label}: the baseline's gradients differ by more than 2e-2")
+    arms = {"mlp_fused_fwd": (lambda: fwd(params, x, dt), lambda: mlp_fused_fwd(params, x, dt)),
+            "mlp_fused_bwd": (lambda: bwd(params, x, g, dt, need_dx),
+                              lambda: mlp_fused_bwd(params, x, g, dt, need_dx))}
+    for name, (theirs, this) in arms.items():
+        turns = [device_ms(theirs), device_ms(this), device_ms(this), device_ms(theirs)]
+        out[name][label].update(baseline_turns_ms=turns, baseline_ms=(turns[0] + turns[3]) / 2,
+                                this_ms=(turns[1] + turns[2]) / 2)
 
 
 def nerfacto_argv(root):
@@ -2550,7 +2752,7 @@ def phase_dino(dev):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from umhs_torch.data.synthetic import write_dino_sidecars
-    from umhs_torch.ops.mlp_fused import mlp_fused_bwd_route
+    from umhs_torch.ops.mlp_fused import mlp_fused_bwd_route, mlp_fused_fwd_route
 
     summary = {}
     with bench_dataset() as (work, root, write_s):
@@ -2576,7 +2778,8 @@ def phase_dino(dev):
         check(all(np.isfinite(mse)) and last < first, f"pred_dino: dino_mse {first} -> {last}")
 
         dims = [15, 256, DINO_DIM]
-        route_k2 = mlp_fused_bwd_route(dims, torch.bfloat16)
+        routes = [mlp_fused_fwd_route(dims, torch.bfloat16),
+                  mlp_fused_bwd_route(dims, torch.bfloat16)]
         before = launch_counts()
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2584,18 +2787,18 @@ def phase_dino(dev):
             torch.cuda.synchronize()
         per_step = {k: v - before[k] for k, v in launch_counts().items()}
         events = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
-        fma = {name: {"device_kernels": sum(e.count for e in events if name in e.key),
-                      "ms": sum(e.self_device_time_total for e in events if name in e.key) / 1e3}
-               for name in ("mlp_fused_fwd_kernel", "mlp_fused_bwd_kernel")}
+        wide = {name: {"device_kernels": sum(e.count for e in events if name in e.key),
+                       "ms": sum(e.self_device_time_total for e in events if name in e.key) / 1e3}
+                for name in routes}
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        print(f"  pred_dino: the DINO chain {dims} runs K1's FMA kernel and K2's {route_k2} "
-              f"(bf16); in a traced step, of {busy_ms:.1f} ms of device time: {json.dumps(fma)}")
-        check(route_k2.startswith("mlp_fused_bwd_kernel"),
-              f"pred_dino: the DINO chain's K2 takes {route_k2}, not the FMA kernel")
-        check(all(v["device_kernels"] > 0 for v in fma.values()),
-              f"pred_dino: the FMA kernels did not run in the step: {fma}")
+        print(f"  pred_dino: the DINO chain {dims} runs K1's {routes[0]} and K2's {routes[1]} "
+              f"(bf16); in a traced step, of {busy_ms:.1f} ms of device time: {json.dumps(wide)}")
+        check(routes == ["mlp_fused_fwd_wide_kernel", "mlp_fused_bwd_wide_kernel"],
+              f"pred_dino: the DINO chain takes {routes}, not the wide tensor-core kernels")
+        check(all(v["device_kernels"] > 0 for v in wide.values()),
+              f"pred_dino: the wide kernels did not run in the step: {wide}")
         summary.update(dino_mse_first8=first, dino_mse_last8=last, launches_train=launches,
-                       dino_chain_k2_route=route_k2, fma_kernels_in_step=fma,
+                       dino_chain_routes=routes, dino_kernels_in_step=wide,
                        launches_per_step=per_step, traced_step_device_ms=busy_ms)
         with uncounted():
             summary.update(dino_step_checks(trainer, dev))
@@ -2610,11 +2813,11 @@ def phase_dino(dev):
     return summary
 
 
-def phase_10(dev):
+def phase_10(dev, ptxas, baseline=None):
     """Phase 10, each part timed: the kernels at its shapes, 10a, 10b."""
     seconds, results = {}, []
-    for label, fn in (("kernels", phase_slice_kernels), ("10a nerfacto", phase_nerfacto),
-                      ("10b pred_dino", phase_dino)):
+    for label, fn in (("kernels", lambda d: phase_slice_kernels(d, ptxas, baseline)),
+                      ("10a nerfacto", phase_nerfacto), ("10b pred_dino", phase_dino)):
         t0 = time.perf_counter()
         results.append(fn(dev))
         seconds[label] = time.perf_counter() - t0
@@ -2924,6 +3127,13 @@ def main() -> None:
     ap.add_argument("--k3-baseline", type=Path, metavar="CSRC", default=None,
                     help="also build K3 from another checkout's umhs_torch/csrc and time it "
                          "beside this one on phase 2's inputs, in turns")
+    ap.add_argument("--mlp-baseline", type=Path, metavar="CSRC", default=None,
+                    help="also build K1 and K2 from another checkout's umhs_torch/csrc and time "
+                         "them beside this one on phase 10's DINO chain, in turns, and time "
+                         "K2's wrapper of that checkout beside this one on phase 2's chains")
+    ap.add_argument("--schedule-baseline", type=Path, metavar="TREE", default=None,
+                    help="also run phase 7's schedule from another checkout's tree in a process "
+                         "of its own and hold its losses and adapts to this run's, bit for bit")
     ap.add_argument("--p1-baseline", type=Path, metavar="CSRC", default=None,
                     help="also build P1 from another checkout's umhs_torch/csrc and time it "
                          "beside this one in the probe twin's measurement, in turns")
@@ -2979,9 +3189,11 @@ def main() -> None:
     elif args.sweep_vs_plain is not None:
         sweep_vs_plain(dev, args.sweep_vs_plain)
     else:
-        k1 = phase_k1(dev)
+        k1 = phase_k1(dev, ptxas)
         k3 = phase_k3(dev, k3_baseline(args.k3_baseline) if args.k3_baseline else None)
         k2 = phase_k2(dev, ptxas)
+        if args.mlp_baseline:
+            k2["call_ms_against_tree"] = k2_calls_against_tree(args.mlp_baseline.parents[1])
         k4 = phase_k4(dev)
         p1 = phase_p1(dev, p1_baseline(args.p1_baseline) if args.p1_baseline else None)
         dm, endmembers, cam = bench_scene_in_memory(dev)
@@ -2993,10 +3205,13 @@ def main() -> None:
         phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})", "bfloat16")
         del trainer
         bench_launches, bench_losses, bench_adapts, bench_configs = phase_bench_schedule(dev)
+        if args.schedule_baseline:
+            schedule_against_tree(args.schedule_baseline, bench_losses, bench_adapts)
         quality_runs = list(QUALITY_RUNS) if args.quality == "all" else ["tetrahedral"]
         quality_launches = phase_quality(dev, quality_runs, smi)
         entry_points = phase_entry_points(dev, bench_losses, bench_adapts, bench_configs)
-        slice_kernels, nerfacto, dino = phase_10(dev)
+        slice_kernels, nerfacto, dino = phase_10(
+            dev, ptxas, mlp_baseline(args.mlp_baseline) if args.mlp_baseline else None)
         mesh1, mesh2 = phase_11(dev, dm, endmembers, train_summary["loss_per_step"], state48)
         del dm, state48
 

@@ -6,8 +6,9 @@ Marked `cuda` and skipped without an NVIDIA card. On a machine with one
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 chip_smoke.py runs the same checks at the flagship shapes; these cover the
-edge cases at small sizes, including the 256-wide chain of the DINO head,
-and a small training step with the kernels against the plain path.
+edge cases at small sizes, including the 256-wide chain of the DINO head
+and other chains on K1's and K2's wide tensor-core kernels, and a small
+training step with the kernels against the plain path.
 """
 
 import dataclasses
@@ -30,7 +31,7 @@ from umhs_torch.ops.encodings import (
 from umhs_torch.ops.mlp import init_mlp
 from umhs_torch.ops.mlp_fused import (
     MLP_FUSED_BWD, MLP_FUSED_FWD, mlp_fused, mlp_fused_bwd, mlp_fused_bwd_route, mlp_fused_fwd,
-    mlp_plain, mlp_plain_bwd)
+    mlp_fused_fwd_route, mlp_plain, mlp_plain_bwd)
 from umhs_torch.ops.row_gather import (
     SLICE_BYTES, WAVE, ROW_GATHER, row_gather, row_gather_plain, row_gather_slices)
 
@@ -79,13 +80,16 @@ def test_k1_matches_plain(cuda, dims, dtype, tol, n):
 )
 def test_k1_bf16_at_odd_n(cuda, dims):
     """bf16 at n = 2^16 - 333 (a partial last tile): the four field chains
-    and the odd widths run on the tensor cores, the 256-wide chain on the FMA
-    kernel by its shape; one launch each, within 2e-2 of the plain version.
-    An x 4 bytes off 16-byte alignment gives the same result."""
+    and the odd widths run on the tensor cores (mlp_fused_fwd_tc_kernel), the
+    256-wide chain on the wide tensor-core kernel by its shape; f32 on the
+    FMA kernel; one launch each, within 2e-2 of the plain version. An x 4
+    bytes off 16-byte alignment gives the same result."""
     n = (1 << 16) - 333
     gen = torch.Generator().manual_seed(len(dims) + dims[-1])
     params = _chain(dims, gen, cuda)
     x = torch.randn((n, dims[0]), generator=gen).to(cuda)
+    assert mlp_fused_fwd_route(dims, torch.bfloat16).startswith(_routes(dims)[0])
+    assert mlp_fused_fwd_route(dims, torch.float32) == "mlp_fused_fwd_kernel<0>"
     before = MLP_FUSED_FWD.launches
     y = mlp_fused_fwd(params, x, torch.bfloat16)
     torch.cuda.synchronize()
@@ -111,6 +115,19 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     wide = init_mlp(torch.Generator().manual_seed(0), 8, 2, 300, 4, cuda)
     with pytest.raises(ValueError):
         mlp_fused_fwd(wide, x)
+
+
+def _routes(dims):
+    """The bf16 routes K1 and K2 take by shape, as their launchers choose
+    (route prefixes for the narrow tensor-core kernels, whose template
+    arguments depend on the widths): every padded width within 128, the
+    tensor cores; a chain of up to two layers (K2: of two) up to 256, the
+    wide tensor-core kernels; else the FMA kernels."""
+    padded = [-(-d // 16) * 16 for d in dims]
+    if max(padded) <= 128:
+        return "mlp_fused_fwd_tc_kernel<", "mlp_fused_bwd_tc_kernel<"
+    return ("mlp_fused_fwd_wide_kernel" if len(dims) <= 3 else "mlp_fused_fwd_kernel<1>",
+            "mlp_fused_bwd_wide_kernel" if len(dims) == 3 else "mlp_fused_bwd_kernel<1>")
 
 
 def _chain(dims, gen, dev):
@@ -158,8 +175,9 @@ def test_k2_matches_plain(cuda, dims, dtype, tol, n):
 )
 def test_k2_bf16_routes_and_edges(cuda, dims):
     """bf16 at n = 2^16 - 333 (a partial last tile): the field chains and the
-    odd widths run on the tensor cores, the 256-wide chain on the FMA kernel
-    by its shape, one launch each, within 2e-2 of each tensor's largest
+    odd widths run on the tensor cores (mlp_fused_bwd_tc_kernel), the
+    256-wide chain on the wide tensor-core kernel by its shape, f32 on the
+    FMA kernel; one launch each, within 2e-2 of each tensor's largest
     entry. The run repeats bit for bit; dx skipped leaves dW and db's bits
     as they were; an x 4 bytes off 16-byte alignment gives the same bits;
     an all-zero g gives exactly zero gradients."""
@@ -168,9 +186,7 @@ def test_k2_bf16_routes_and_edges(cuda, dims):
     params = _chain(dims, gen, cuda)
     x = torch.randn((n, dims[0]), generator=gen).to(cuda)
     g = torch.randn((n, dims[-1]), generator=gen).to(cuda)
-    tensor_cores = max(dims) <= 128
-    assert mlp_fused_bwd_route(dims, torch.bfloat16).startswith(
-        "mlp_fused_bwd_tc_kernel<" if tensor_cores else "mlp_fused_bwd_kernel<")
+    assert mlp_fused_bwd_route(dims, torch.bfloat16).startswith(_routes(dims)[1])
     assert mlp_fused_bwd_route(dims, torch.float32) == "mlp_fused_bwd_kernel<0>"
     before = MLP_FUSED_BWD.launches
     dx, grads = mlp_fused_bwd(params, x, g, torch.bfloat16)
@@ -193,6 +209,68 @@ def test_k2_bf16_routes_and_edges(cuda, dims):
     zdx, zgrads = mlp_fused_bwd(params, x, torch.zeros_like(g), torch.bfloat16)
     assert not any(bool(t.ne(0).any()) for t in [zdx] + [t for p in zgrads for t in p])
     assert MLP_FUSED_BWD.launches == before + 5
+
+
+@pytest.mark.parametrize("dims", [[15, 256, 128], [15, 200, 128], [31, 256, 250], [40, 256]],
+                         ids=lambda d: "-".join(map(str, d)))
+@pytest.mark.parametrize("n", [1, 17, 33, 1300])
+def test_wide_chains_match_plain(cuda, dims, n):
+    """bf16 chains wider than 128 (the DINO head's 15-256-128, a hidden width
+    off the 64-column slices, an output width off the 16-column tiles, one
+    layer): K1 on its wide kernel within 2e-2 of the plain version; K2 (on
+    its wide kernel for two layers) with and without dx within 2e-2 of each
+    tensor's largest entry, each run twice bit for bit, dW and db the same
+    bits with dx and without; one launch each."""
+    gen = torch.Generator().manual_seed(n + sum(dims))
+    params = _chain(dims, gen, cuda)
+    x = torch.randn((n, dims[0]), generator=gen).to(cuda)
+    g = torch.randn((n, dims[-1]), generator=gen).to(cuda)
+    routes = _routes(dims)
+    assert mlp_fused_fwd_route(dims, torch.bfloat16) == routes[0] == "mlp_fused_fwd_wide_kernel"
+    assert mlp_fused_bwd_route(dims, torch.bfloat16) == routes[1]
+    before = MLP_FUSED_FWD.launches
+    y = mlp_fused_fwd(params, x, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert MLP_FUSED_FWD.launches == before + 1
+    torch.testing.assert_close(y, mlp_plain(params, x, torch.bfloat16), rtol=2e-2, atol=2e-2)
+    for need_dx in (True, False):
+        before = MLP_FUSED_BWD.launches
+        dx, grads = mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx)
+        torch.cuda.synchronize()
+        assert MLP_FUSED_BWD.launches == before + 1 and (dx is None) != need_dx
+        dx_ref, grads_ref = mlp_plain_bwd(params, x, g, torch.bfloat16, need_dx)
+        flat = [t for pair in grads for t in pair]
+        pairs = list(zip(flat, [t for pair in grads_ref for t in pair]))
+        for got, ref in pairs + ([(dx, dx_ref)] if need_dx else []):
+            assert got.shape == ref.shape and got.dtype == torch.float32
+            torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2 * float(ref.abs().max()))
+        again_dx, again = mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx)
+        assert all(torch.equal(a, b) for a, b in zip(flat, [t for p in again for t in p]))
+        assert not need_dx or torch.equal(dx, again_dx)
+        if need_dx:
+            with_dx = flat
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(flat, with_dx))
+
+
+def test_deeper_wide_chain_routes(cuda):
+    """A three-layer bf16 chain wider than 128 is not one the wide kernels
+    take: K1 and K2 both run their FMA kernels (so K2's recompute decides
+    each ReLU as K1's forward does), within 2e-2 of the plain version."""
+    dims = [32, 256, 64, 8]
+    assert mlp_fused_fwd_route(dims, torch.bfloat16) == "mlp_fused_fwd_kernel<1>"
+    assert mlp_fused_bwd_route(dims, torch.bfloat16) == "mlp_fused_bwd_kernel<1>"
+    gen = torch.Generator().manual_seed(4)
+    params = _chain(dims, gen, cuda)
+    x = torch.randn((1300, 32), generator=gen).to(cuda)
+    g = torch.randn((1300, 8), generator=gen).to(cuda)
+    torch.testing.assert_close(mlp_fused_fwd(params, x, torch.bfloat16),
+                               mlp_plain(params, x, torch.bfloat16), rtol=2e-2, atol=2e-2)
+    dx, grads = mlp_fused_bwd(params, x, g, torch.bfloat16)
+    dx_ref, grads_ref = mlp_plain_bwd(params, x, g, torch.bfloat16)
+    for got, ref in zip([dx] + [t for p in grads for t in p],
+                        [dx_ref] + [t for p in grads_ref for t in p]):
+        torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2 * float(ref.abs().max()))
 
 
 def test_k2_skips_dx_and_trains_through_the_function(cuda):

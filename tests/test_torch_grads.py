@@ -83,6 +83,15 @@ def _chain(dims, seed):
         ([27, 64, 64, 7], 1, "bfloat16", 2e-2),  # one row: the tensor-core K2's tile edges
         ([32, 64, 16], 17, "bfloat16", 2e-2),
         ([28, 16, 128], 33, "bfloat16", 2e-2),
+        # the DINO head, on K2's wide route on the card: N off the 1024 tile, 1, 33
+        ([15, 256, 128], 1300, "bfloat16", 2e-2),
+        ([15, 256, 128], 1300, "float32", 1e-4),
+        ([15, 256, 128], 1, "bfloat16", 2e-2),
+        ([15, 256, 128], 1, "float32", 1e-4),
+        ([15, 256, 128], 33, "bfloat16", 2e-2),
+        ([15, 256, 128], 33, "float32", 1e-4),
+        ([32, 256, 64, 8], 1300, "bfloat16", 2e-2),  # three layers wider than 128
+        ([32, 256, 64, 8], 1300, "float32", 1e-4),
     ],
 )
 def test_k2_plain_matches_pallas_backward_interpret(dims, n, dtype, tol):
@@ -130,11 +139,12 @@ def _grid_chain(dims, seed):
     return jp, tp
 
 
-@pytest.mark.parametrize("case", ["no_dx_bf16", "zero_preactivations_bf16",
+@pytest.mark.parametrize("case", ["no_dx_bf16", "no_dx_dino_bf16", "zero_preactivations_bf16",
                                   "zero_preactivations_f32"])
 def test_k2_plain_matches_pallas_backward_without_dx_and_at_zero(case):
     """K2's plain version against the Pallas backward in interpret mode:
-    with dx not wanted (dW and db only, dx None), and on a chain whose
+    with dx not wanted (dW and db only, dx None; the mlp_directional chain
+    and the DINO head's 15-256-128), and on a chain whose
     first layer has exactly-zero pre-activations (post-activation > 0 masks
     them, as `_bwd_kernel` does); bf16 within 2e-2, f32 within 1e-4 of each
     tensor's largest entry."""
@@ -148,8 +158,8 @@ def test_k2_plain_matches_pallas_backward_without_dx_and_at_zero(case):
         x = rng.choice([-1.0, 0.0, 1.0], (n, dims[0])).astype(np.float32)
         pre = x @ np.asarray(tp["layers"][0]["w"]) + np.asarray(tp["layers"][0]["b"])
         assert (pre == 0.0).mean() > 0.05  # the case the mask must decide
-    else:
-        dims = [28, 16, 128]
+    else:  # the DINO head's chain: geo_feat is detached, so its K2 takes no dx
+        dims = [15, 256, 128] if "dino" in case else [28, 16, 128]
         jp, tp = _chain(dims, seed=11)
         x = rng.normal(size=(n, dims[0])).astype(np.float32)
     g = rng.normal(size=(n, dims[-1])).astype(np.float32)

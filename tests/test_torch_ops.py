@@ -82,6 +82,15 @@ def _mlp_params(dims, seed):
         ([32, 64, 16], 1300, "float32", 1e-5),  # N not a multiple of the tile
         ([28, 16, 128], 1300, "bfloat16", 2e-2),
         ([32, 16], 700, "float32", 1e-5),  # a single layer
+        # the DINO head, on K1's wide route on the card: N off the 1024 tile, 1, 33
+        ([15, 256, 128], 1300, "bfloat16", 2e-2),
+        ([15, 256, 128], 1300, "float32", 1e-5),
+        ([15, 256, 128], 1, "bfloat16", 2e-2),
+        ([15, 256, 128], 1, "float32", 1e-5),
+        ([15, 256, 128], 33, "bfloat16", 2e-2),
+        ([15, 256, 128], 33, "float32", 1e-5),
+        ([32, 256, 64, 8], 1300, "bfloat16", 2e-2),  # three layers wider than 128
+        ([32, 256, 64, 8], 1300, "float32", 1e-5),
     ],
 )
 def test_k1_plain_matches_pallas_interpret(dims, n, dtype, tol):

@@ -2,16 +2,27 @@
 // recompute (mlp_fused_bwd.cu): both run the same code, so K2 sees the
 // forward's activations bit for bit (and takes every ReLU the same way).
 //
-// A warp runs a tile of 16 * kM rows through the chain on mma.sync m16n8k16
-// (bf16 operands, f32 sums; fragment layout in mma_bf16.cuh). The weights
-// are staged once per block into shared memory as bf16 W^T[n][k], K padded
-// to 16 and N to 8 (hidden widths to 16) by zero weights and zero biases,
-// rows 16 bytes apart beyond K so that ldmatrix reads them without bank
-// conflicts; the biases stay f32. x comes in by cp.async (stage_rows) and
-// its A fragments are rounded from f32 (x_fragments). The f32 accumulator
-// fragment of one layer, after bias, ReLU and rounding to bf16x2, is exactly
-// the A fragment of the next layer, so activations between layers stay in
-// registers (chain_forward).
+// Chains whose padded widths are at most 128 (the four field chains, the
+// proposal chain): a warp runs a tile of 16 * kM rows through the chain on
+// mma.sync m16n8k16 (bf16 operands, f32 sums; fragment layout in
+// mma_bf16.cuh). The weights are staged once per block into shared memory
+// as bf16 W^T[n][k], K padded to 16 and N to 8 (hidden widths to 16) by zero
+// weights and zero biases, rows 16 bytes apart beyond K so that ldmatrix
+// reads them without bank conflicts; the biases stay f32. x comes in by
+// cp.async (stage_rows) and its A fragments are rounded from f32
+// (x_fragments). The f32 accumulator fragment of one layer, after bias, ReLU
+// and rounding to bf16x2, is exactly the A fragment of the next layer, so
+// activations between layers stay in registers (chain_forward).
+//
+// Wider chains (up to 256, the DINO head's 15 -> 256 -> 128): a 256-wide
+// activation as A fragments is 64 registers a thread, and the next layer's
+// another 64. So the wide kernels keep each layer's bf16 input in shared
+// memory instead, row-major at a row stride of K + 8 (stage_x_bf16 for x),
+// and pairs_product reads one A fragment per k-tile by ldmatrix and feeds it
+// to up to four n-tile pairs (64 output columns) at once: 32 f32 sums, a
+// handful of other registers. Every output element is still the sum of the
+// same mma k-tiles in the same order from zero, whichever pairs are grouped,
+// so K2's recompute of a column slice has K1's bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,16 +57,18 @@ __device__ __forceinline__ int fast_div(int e, uint32_t magic) {
 }
 
 // Fills `c` for the chain of widths d[0..num_layers]; false when a padded
-// width exceeds kChainMaxWidth.
-inline bool tc_chain(const int* d, int num_layers, TcChain& c) {
+// width exceeds max_width. The last layer's output is padded to last_pad
+// (8, or 16 where every layer is read in n-tile pairs).
+inline bool tc_chain(const int* d, int num_layers, TcChain& c,
+                     int max_width = kChainMaxWidth, int last_pad = 8) {
   c = TcChain{};
   c.num_layers = num_layers;
   int w_elems = 0, b_floats = 0;
   for (int l = 0; l <= num_layers; ++l) c.d[l] = d[l];
   for (int l = 0; l < num_layers; ++l) {
     const int kp = round_up(d[l], 16);
-    const int np = l + 1 == num_layers ? round_up(d[l + 1], 8) : round_up(d[l + 1], 16);
-    if (kp > kChainMaxWidth || np > kChainMaxWidth) return false;
+    const int np = round_up(d[l + 1], l + 1 == num_layers ? last_pad : 16);
+    if (kp > max_width || np > max_width) return false;
     c.kt[l] = kp / 16;
     c.nt[l] = np / 8;
     c.w_off[l] = w_elems;
@@ -223,6 +236,82 @@ __device__ __forceinline__ void chain_forward(uint32_t (&a)[kM][kKT][4], const T
 #pragma unroll
             for (int q = 0; q < 4; ++q) a[mi][kt][q] = an[mi][kt][q];
       hook.hidden(l + 1, a);
+    }
+  }
+}
+
+// ------------------------------------------------- chains wider than 128
+
+constexpr int kWideMaxWidth = 256;  // widest padded layer the wide kernels take
+
+// Rounds `rows` rows of x (width d, row-major), from row row0 on, to bf16
+// into dst (row stride ds), zero past row n and from column d to kp; the
+// warp's lanes call it together.
+__device__ __forceinline__ void stage_x_bf16(const float* __restrict__ x, int n, int64_t row0,
+                                             int rows, int d, int kp, __nv_bfloat16* dst,
+                                             int ds, int lane) {
+  for (int e = lane; e < rows * kp; e += 32) {
+    const int r = e / kp, k = e - r * kp;
+    const int64_t row = row0 + r;
+    dst[r * ds + k] = __float2bfloat16_rn(row < n && k < d ? x[row * d + k] : 0.f);
+  }
+}
+
+// Stages W_l^T (bf16, zero-padded, row stride K + 8) and b_l (f32) of every
+// layer of `c`, reading params in their own order (coalesced) and writing
+// the transpose; the block's threads call it together.
+__device__ __forceinline__ void stage_wide_weights(const TcChain& c,
+                                                   const float* __restrict__ params,
+                                                   __nv_bfloat16* wt, float* bias) {
+  const int tid = threadIdx.x, threads = blockDim.x;
+  for (int i = tid; i < c.w_bytes / 16; i += threads)
+    reinterpret_cast<uint4*>(wt)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  int goff = 0;
+  for (int l = 0; l < c.num_layers; ++l) {
+    const int din = c.d[l], dout = c.d[l + 1], stride = 16 * c.kt[l] + 8;
+    __nv_bfloat16* w = wt + c.w_off[l];
+    for (int e = tid; e < din * dout; e += threads) {
+      const int k = e / dout, nn = e - k * dout;
+      w[nn * stride + k] = __float2bfloat16_rn(params[goff + e]);
+    }
+    for (int i = tid; i < 8 * c.nt[l]; i += threads)
+      bias[c.b_off[l] + i] = i < dout ? params[goff + din * dout + i] : 0.f;
+    goff += din * dout + dout;
+  }
+}
+
+// acc[p][h] = sum over k-tiles kt < kts of A(kt) . B(n-tile 2p + h, kt), for
+// the n-tile pairs p < pairs (at most kP): A is a warp's 16 rows, bf16,
+// row-major at row stride `as`; B is bf16 W^T[n][k] at row stride `ws`, from
+// its first n-tile pair on. One ldmatrix of A per k-tile feeds every pair,
+// and a k-tile's B fragments are all loaded before its first mma.
+template <int kP>
+__device__ __forceinline__ void pairs_product(float (&acc)[kP][2][4], const __nv_bfloat16* a,
+                                              int as, const __nv_bfloat16* w, int ws, int pairs,
+                                              int kts, int lane) {
+#pragma unroll
+  for (int p = 0; p < kP; ++p)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[p][h][q] = 0.f;
+  // ldmatrix rows: A's matrix lane / 8 is rows 8 ((lane / 8) % 2) on, k half
+  // lane / 16; B's is n-tile 2p + lane / 16, k half (lane / 8) % 2
+  const __nv_bfloat16* arow = a + (lane & 15) * as + 8 * (lane >> 4);
+  const __nv_bfloat16* wrow = w + (8 * (lane >> 4) + (lane & 7)) * ws + 8 * ((lane >> 3) & 1);
+  for (int kt = 0; kt < kts; ++kt) {
+    uint32_t af[4], bf[kP][4];
+    ldmatrix_x4(af, arow + 16 * kt);
+#pragma unroll
+    for (int p = 0; p < kP; ++p)
+      if (p < pairs) ldmatrix_x4(bf[p], wrow + 16 * p * ws + 16 * kt);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      if (p < pairs) {
+        mma_bf16_16816(acc[p][0], af, bf[p][0], bf[p][1]);
+        mma_bf16_16816(acc[p][1], af, bf[p][2], bf[p][3]);
+      }
     }
   }
 }

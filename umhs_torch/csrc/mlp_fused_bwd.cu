@@ -28,12 +28,12 @@
 // small, so an ideal kernel is bound by bytes: 0.112 ms for the four field
 // chains at 262,144 rows (x and g read once, dx written once, at 3.35 TB/s).
 //
-// Two kernels, chosen by mode and shape in the C launcher below (a dispatch
-// on shape: a failed launch still returns its error, and nothing falls back
-// from one kernel to the other):
+// Three kernels, chosen by mode and shape in the C launcher below (a
+// dispatch on shape: a failed launch still returns its error, and nothing
+// falls back from one kernel to another):
 //
 // - bf16 mode, every padded width <= 128 and at most 16 dW tiles per warp
-//   (8 where a width exceeds 64; the four field chains):
+//   (8 where a width exceeds 64; the four field chains, the proposal chain):
 //   mlp_fused_bwd_tc_kernel, mma.sync m16n8k16 bf16 with f32 sums. A block
 //   of 4 warps takes 64 rows at a time, 16 per warp, and walks its tiles
 //   persistently. The recompute is K1's own chain (mlp_chain_tc.cuh), so
@@ -54,8 +54,31 @@
 //   written as coalesced rows (float4 where the width allows), and skipped
 //   when not wanted. At the end each block writes its dW and db to its row of
 //   partials.
-// - f32 mode, and chains the tensor-core kernel does not take (dino_mlp's
-//   256, off on the main path): mlp_fused_bwd_kernel, f32 fused
+// - bf16 mode, two layers, padded widths up to 256 (dino_mlp's 15 -> 256 ->
+//   128): mlp_fused_bwd_wide_kernel. Here the dW tiles do not fit the
+//   registers of a block (the DINO chain has 32 + 256 m16n8 tiles), so the
+//   hidden width is cut into slices of 64 columns (32 or 16 where the output
+//   is wider), one per block row of the grid (blockIdx.y). For a two-layer
+//   chain a slice is independent of the others: it needs x, g, W0[:, c],
+//   b0[c] and W1[c, :], and owns dW0[:, c], db0[c] and dW1[c, :] (slice 0
+//   also db1), so nothing is computed twice; only dx, a sum over slices,
+//   goes through per-slice partials that a second pass adds in slice order.
+//   What bounds it: at the DINO chain's 262,144 rows the tensor-core work
+//   (about 39 GFLOP as the kernel does it) is ~0.04 ms at the bf16 peak and
+//   the bytes (x and g once, 150 MB) ~0.05 ms; each slice reads x and g
+//   again, from L2 where the four slices of a row block run together (the
+//   grid holds every block at once). The kernel itself is bound by the
+//   latency of its mma.sync chains: one block of 8 warps fits an SM (180 KB
+//   of shared memory, ~220 registers a thread). What the design does about
+//   it: the next tile's x and g rows come in by cp.async during this tile's
+//   work; each k-tile's A fragment feeds 8 products (pairs_product, shared
+//   with K1) with every B fragment loaded before the first; in the dW
+//   phase a warp owns 9 neighbouring tiles (in (layer, m-tile, n-tile)
+//   order) and reads their shared A fragments once. The recompute of
+//   a1[:, c] runs K1's wide arithmetic (pairs_product over the same
+//   k-tiles in the same order from zero), so each ReLU decision is K1's.
+// - f32 mode, and chains neither tensor-core kernel takes (three or more
+//   layers with a width above 128): mlp_fused_bwd_kernel, f32 fused
 //   multiply-adds from shared memory. Each thread keeps a 4x4 block of
 //   outputs in registers; activations and dh are stored transposed
 //   (feature-major, rows padded by 4 floats) so the row-blocked products read
@@ -745,6 +768,361 @@ cudaError_t launch_tc(const float* x, const float* g, const float* params, float
   return cudaGetLastError();
 }
 
+// -------------------------------------------- tensor cores, wider than 128
+
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideRows = 16 * kWideWarps;  // rows of a block's tile: 16 per warp
+constexpr int kWideOwn = 9;                 // dW tiles a warp owns
+
+// A two-layer chain d0 -> d1 -> d2, its hidden width cut into slices of 16 hk
+// columns, one slice per blockIdx.y.
+struct WideBwdDims {
+  int d0, d1, d2;
+  int kt0, nk2, nt2;     // 16-wide k-tiles of x and of g; 8-wide n-tiles of g
+  int hk, slices;        // 16-wide hidden k-tiles of a slice (the last may have fewer)
+  // byte offsets in shared memory, each a multiple of 16:
+  int w0t, w1s, w0s, b0;         // W0[:, c]^T, W1[c, :], W0[:, c] (bf16), b0[c] (f32)
+  int act0, act1, gb, dh1, dbs;  // the tile's x, a1[:, c], g, dh1[:, c] (bf16); column sums
+  int stage;                     // each warp's next 16 rows of x and g (f32), or -1: none
+  int db_floats;                 // floats of one warp's column sums: db0[c], then db1
+  int param_floats;              // unpadded weights + biases (global layout)
+  int smem;
+};
+
+// Rows of g (width d, row-major) from row row0 on into a warp's 16 rows of
+// gb (bf16, row stride gs, zero past row n and from column d to 16 nk);
+// with db, also each column's f32 sum over the 16 rows into db. Each lane
+// owns column pairs 2 cp, 2 cp + 1. g is device memory, or the warp's
+// staged copy (row0 0, n 16).
+__device__ __forceinline__ void stage_g(const float* __restrict__ g, int n, int64_t row0, int d,
+                                        int nk, __nv_bfloat16* gb, int gs, float* db, int lane) {
+  for (int cp = lane; cp < 8 * nk; cp += 32) {
+    const int col = 2 * cp;
+    float2 v[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int64_t row = row0 + r;
+      const float* src = g + row * d + col;
+      if (row >= n || col >= d)
+        v[r] = make_float2(0.f, 0.f);
+      else if ((d & 1) == 0)
+        v[r] = *reinterpret_cast<const float2*>(src);
+      else
+        v[r] = make_float2(src[0], col + 1 < d ? src[1] : 0.f);
+    }
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      s0 += v[r].x;
+      s1 += v[r].y;
+      *reinterpret_cast<uint32_t*>(gb + r * gs + col) = umhs::pack_bf16x2(v[r].x, v[r].y);
+    }
+    if (db != nullptr) {
+      db[col] += s0;
+      db[col + 1] += s1;
+    }
+  }
+}
+
+// Block (r, c) walks tiles r, r + gridDim.x, ... of 128 rows for slice c of
+// the hidden width: the recompute of a1[:, c] (K1's pairs_product on the
+// same k-tiles, so K1's bits and ReLU decisions), dh1[:, c] = bf16(g) .
+// W1[c, :]^T gated by a1 > 0, and (with dx) this slice's share of dx,
+// dh1[:, c] . W0[:, c]^T, into its own partial slice. After a block
+// barrier, the dW tiles of the slice, dW0[:, c] = x^T . dh1[:, c] and
+// dW1[c, :] = a1[:, c]^T . bf16(g), sum over the tile's rows into the
+// registers of the warp that owns them (tiles 9 w .. 9 w + 8 for warp w).
+__global__ void __launch_bounds__(kWideThreads, 1)
+mlp_fused_bwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                          const float* __restrict__ params, float* __restrict__ dxp,
+                          float* __restrict__ partials, int n, WideBwdDims dims) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int d0 = dims.d0, d1 = dims.d1, d2 = dims.d2, kt0 = dims.kt0, nk2 = dims.nk2;
+  const int slice = blockIdx.y, col0 = 16 * dims.hk * slice;
+  const int hkc = min(dims.hk, (d1 + 15) / 16 - dims.hk * slice);  // this slice's k-tiles
+  const int hw = 16 * dims.hk;  // columns of a full slice
+  const int s0 = 16 * kt0 + 8, sh = hw + 8, sg = 16 * nk2 + 8;  // row strides, bf16
+  auto at = [&](int off) { return reinterpret_cast<__nv_bfloat16*>(smem_raw + off); };
+  __nv_bfloat16 *w0t = at(dims.w0t), *w1s = at(dims.w1s), *w0s = at(dims.w0s);
+  __nv_bfloat16 *act0 = at(dims.act0), *act1 = at(dims.act1), *gb = at(dims.gb);
+  __nv_bfloat16* dh1 = at(dims.dh1);
+  float* b0 = reinterpret_cast<float*>(smem_raw + dims.b0);
+  float* dbs = reinterpret_cast<float*>(smem_raw + dims.dbs);
+  const int tid = threadIdx.x;
+
+  // This slice's weights, zero-padded, and zeroed column sums; once per block.
+  for (int i = tid; i < dims.act0 / 16; i += kWideThreads)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = tid; i < kWideWarps * dims.db_floats; i += kWideThreads) dbs[i] = 0.f;
+  __syncthreads();
+  const int cols = min(hw, d1 - col0);  // real hidden columns of the slice
+  for (int e = tid; e < d0 * cols; e += kWideThreads) {
+    const int i = e / cols, h = e - i * cols;
+    const __nv_bfloat16 v = __float2bfloat16_rn(params[i * d1 + col0 + h]);
+    w0t[h * s0 + i] = v;
+    w0s[i * sh + h] = v;
+  }
+  for (int e = tid; e < cols * d2; e += kWideThreads) {
+    const int h = e / d2, o = e - h * d2;
+    w1s[h * sg + o] = __float2bfloat16_rn(params[d0 * d1 + d1 + (col0 + h) * d2 + o]);
+  }
+  for (int h = tid; h < hw; h += kWideThreads) b0[h] = h < cols ? params[d0 * d1 + col0 + h] : 0.f;
+  __syncthreads();
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rw = 16 * warp;  // this warp's first row in the tile area
+  float* dbw = dbs + warp * dims.db_floats;
+  float* dxc = dxp == nullptr ? nullptr : dxp + static_cast<size_t>(slice) * n * d0;
+  const int t0 = kt0 * 2 * hkc, tiles_owned = t0 + hkc * dims.nt2;  // dW0, then dW1 tiles
+  float acc[kWideOwn][4];
+#pragma unroll
+  for (int u = 0; u < kWideOwn; ++u)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[u][q] = 0.f;
+
+  // The next tile's rows come in by cp.async while this one computes, where
+  // the shared memory holds a staging area; else straight from device memory.
+  const bool staged = dims.stage >= 0;
+  float* xst = staged ? reinterpret_cast<float*>(smem_raw + dims.stage) + warp * 16 * (d0 + d2)
+                      : nullptr;
+  float* gst = staged ? xst + 16 * d0 : nullptr;
+  auto prefetch = [&](int tile) {
+    umhs::stage_rows(x, n, tile * kWideWarps + warp, 16, xst, d0, d0, 0, lane);
+    umhs::stage_rows(g, n, tile * kWideWarps + warp, 16, gst, d2, d2, 0, lane);
+  };
+  const int num_tiles = (n + kWideRows - 1) / kWideRows;
+  if (staged && blockIdx.x < num_tiles) prefetch(blockIdx.x);
+  umhs::cp_async_commit();
+  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int64_t row0 = static_cast<int64_t>(tile) * kWideRows + rw;
+    umhs::cp_async_wait<0>();  // this tile's rows have landed
+    __syncwarp();
+    umhs::stage_x_bf16(staged ? xst : x, staged ? 16 : n, staged ? 0 : row0, 16, d0, 16 * kt0,
+                       act0 + rw * s0, s0, lane);
+    stage_g(staged ? gst : g, staged ? 16 : n, staged ? 0 : row0, d2, nk2, gb + rw * sg, sg,
+            slice == 0 ? dbw + hw : nullptr, lane);
+    __syncwarp();  // the staging area is free
+    if (staged && tile + gridDim.x < num_tiles) prefetch(tile + gridDim.x);
+    umhs::cp_async_commit();
+
+    // the recompute: a1[:, c] = relu(x . W0[:, c] + b0[c]), bf16
+    float pr[4][2][4];
+    umhs::pairs_product<4>(pr, act0 + rw * s0, s0, w0t, s0, hkc, kt0, lane);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (p >= hkc) continue;
+        const int col = 16 * p + 8 * h + 2 * tig;
+        const float2 bv = *reinterpret_cast<const float2*>(b0 + col);
+        const float* v = pr[p][h];
+        *reinterpret_cast<uint32_t*>(act1 + (rw + gid) * sh + col) =
+            umhs::pack_bf16x2(fmaxf(v[0] + bv.x, 0.f), fmaxf(v[1] + bv.y, 0.f));
+        *reinterpret_cast<uint32_t*>(act1 + (rw + gid + 8) * sh + col) =
+            umhs::pack_bf16x2(fmaxf(v[2] + bv.x, 0.f), fmaxf(v[3] + bv.y, 0.f));
+      }
+    __syncwarp();
+
+    // dh1[:, c] = bf16(g) . W1[c, :]^T, gated by a1 > 0, summed into db0 in
+    // f32, then rounded to bf16
+    umhs::pairs_product<4>(pr, gb + rw * sg, sg, w1s, sg, hkc, nk2, lane);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (p >= hkc) continue;
+        const int col = 16 * p + 8 * h + 2 * tig;
+        float* v = pr[p][h];
+        const uint32_t m0 = *reinterpret_cast<const uint32_t*>(act1 + (rw + gid) * sh + col);
+        const uint32_t m1 = *reinterpret_cast<const uint32_t*>(act1 + (rw + gid + 8) * sh + col);
+        v[0] = gate(m0, 0, v[0]);
+        v[1] = gate(m0, 1, v[1]);
+        v[2] = gate(m1, 0, v[2]);
+        v[3] = gate(m1, 1, v[3]);
+        col_sums(dbw + col, v[0] + v[2], v[1] + v[3], lane);
+        *reinterpret_cast<uint32_t*>(dh1 + (rw + gid) * sh + col) = umhs::pack_bf16x2(v[0], v[1]);
+        *reinterpret_cast<uint32_t*>(dh1 + (rw + gid + 8) * sh + col) =
+            umhs::pack_bf16x2(v[2], v[3]);
+      }
+
+    if (dxc != nullptr) {  // this slice's dx: dh1[:, c] . W0[:, c]^T, f32
+      __syncwarp();
+      for (int q0 = 0; q0 < kt0; q0 += 4) {
+        umhs::pairs_product<4>(pr, dh1 + rw * sh, sh, w0s + 16 * q0 * sh, sh, min(4, kt0 - q0),
+                               hkc, lane);
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = 16 * (q0 + p) + 8 * h + 2 * tig;
+            if (q0 + p >= kt0 || col >= d0) continue;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int64_t row = row0 + gid + 8 * half;
+              if (row >= n) continue;
+              float* out = dxc + row * d0 + col;
+              out[0] = pr[p][h][2 * half];
+              if (col + 1 < d0) out[1] = pr[p][h][2 * half + 1];
+            }
+          }
+      }
+    }
+    __syncthreads();  // every warp's rows are in the tile area
+
+    // dW += a^T . dh over the tile's rows for the tiles this warp owns: both
+    // operands sum over rows, so both come in transposed. A warp's tiles are
+    // neighbours in (dW0 then dW1, m-tile, n-tile) order, so most share their
+    // A fragment, which is read once per 16 rows for all of them.
+    uint32_t af[kWideRows / 16][4];
+    int akey = -1;
+#pragma unroll
+    for (int u = 0; u < kWideOwn; ++u) {
+      const int t = kWideOwn * warp + u;
+      if (t < tiles_owned) {
+        const bool first = t < t0;  // dW0[:, c]: 16-row m-tiles of x, 8-wide n-tiles of dh1
+        const int tt = first ? t : t - t0, nts = first ? 2 * hkc : dims.nt2;
+        const int mt = tt / nts, nt = tt - mt * nts;
+        const int as = first ? s0 : sh, bs = first ? sh : sg;
+        if ((first ? mt : 256 + mt) != akey) {
+          akey = first ? mt : 256 + mt;
+          const __nv_bfloat16* arow = (first ? act0 : act1) +
+              ((lane & 7) + 8 * (lane >> 4)) * as + 16 * mt + 8 * ((lane >> 3) & 1);
+#pragma unroll
+          for (int k = 0; k < kWideRows / 16; ++k)
+            umhs::ldmatrix_x4_trans(af[k], arow + 16 * k * as);
+        }
+        const __nv_bfloat16* brow = (first ? dh1 : gb) +
+            ((lane & 7) + 8 * ((lane >> 3) & 1)) * bs + 8 * nt;
+#pragma unroll
+        for (int k = 0; k < kWideRows / 16; ++k) {
+          uint32_t bf[2];
+          umhs::ldmatrix_x2_trans(bf, brow + 16 * k * bs);
+          umhs::mma_bf16_16816(acc[u], af[k], bf[0], bf[1]);
+        }
+      }
+    }
+    __syncthreads();  // the tile area is free for the next tile
+  }
+  umhs::cp_async_wait<0>();
+
+  // This block's sums into its row of partials: the slice's part of dW0,
+  // b0 and dW1 (and b1 from slice 0); every slice of row r writes its own
+  // entries, so the row is whole.
+  float* part = partials + static_cast<size_t>(blockIdx.x) * dims.param_floats;
+  const int goff1 = d0 * d1 + d1;
+#pragma unroll
+  for (int u = 0; u < kWideOwn; ++u) {
+    const int t = kWideOwn * warp + u;
+    if (t < tiles_owned) {
+      const bool first = t < t0;
+      const int tt = first ? t : t - t0, nts = first ? 2 * hkc : dims.nt2;
+      const int mt = tt / nts, nt = tt - mt * nts;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = 16 * mt + gid + 8 * (q >> 1), j = 8 * nt + 2 * tig + (q & 1);
+        if (first && i < d0 && j < cols) part[i * d1 + col0 + j] = acc[u][q];
+        if (!first && i < cols && j < d2) part[goff1 + (col0 + i) * d2 + j] = acc[u][q];
+      }
+    }
+  }
+  for (int j = tid; j < cols; j += kWideThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kWideWarps; ++w) s += dbs[w * dims.db_floats + j];
+    part[d0 * d1 + col0 + j] = s;
+  }
+  if (slice == 0) {
+    for (int j = tid; j < d2; j += kWideThreads) {
+      float s = 0.f;
+      for (int w = 0; w < kWideWarps; ++w) s += dbs[w * dims.db_floats + hw + j];
+      part[goff1 + d1 * d2 + j] = s;
+    }
+  }
+}
+
+// Fills `wd` for the wide kernel; false when the chain is not one it takes:
+// other than two layers, a padded width above 256, or too much shared
+// memory. A slice is 64 hidden columns, or 32 or 16 where the slice's dW
+// tiles would exceed what its warps hold in registers.
+bool wide_bwd_dims(const int* d, int L, WideBwdDims& wd) {
+  using umhs::round_up;
+  wd = WideBwdDims{};
+  if (L != 2) return false;
+  const int d0p = round_up(d[0], 16), h1p = round_up(d[1], 16), d2p = round_up(d[2], 16);
+  if (std::max({d0p, h1p, d2p}) > umhs::kWideMaxWidth) return false;
+  wd.d0 = d[0];
+  wd.d1 = d[1];
+  wd.d2 = d[2];
+  wd.kt0 = d0p / 16;
+  wd.nk2 = d2p / 16;
+  wd.nt2 = round_up(d[2], 8) / 8;
+  int hk = 4;
+  while (hk > 1 && hk * (2 * wd.kt0 + wd.nt2) > kWideWarps * kWideOwn) hk /= 2;
+  if (hk * (2 * wd.kt0 + wd.nt2) > kWideWarps * kWideOwn) return false;
+  wd.hk = std::min(hk, h1p / 16);
+  wd.slices = (h1p / 16 + wd.hk - 1) / wd.hk;
+  const int hw = 16 * wd.hk, s0 = d0p + 8, sh = hw + 8, sg = d2p + 8;
+  int off = 0;
+  auto take = [&](int bytes) { const int at = off; off += round_up(bytes, 16); return at; };
+  wd.w0t = take(2 * hw * s0);
+  wd.w1s = take(2 * hw * sg);
+  wd.w0s = take(2 * d0p * sh);
+  wd.b0 = take(4 * hw);
+  wd.act0 = take(2 * kWideRows * s0);  // the weights, zeroed as one, end here
+  wd.act1 = take(2 * kWideRows * sh);
+  wd.gb = take(2 * kWideRows * sg);
+  wd.dh1 = take(2 * kWideRows * sh);
+  wd.db_floats = round_up(hw + d2p, 4);
+  wd.dbs = take(4 * kWideWarps * wd.db_floats);
+  const int staged = off + 4 * kWideWarps * 16 * (d[0] + d[2]);
+  wd.stage = staged <= kSmemLimit ? off : -1;  // the DINO chain's: 72 KB
+  wd.smem = std::max(off, wd.stage >= 0 ? staged : 0);
+  wd.param_floats = d[0] * d[1] + d[1] + d[1] * d[2] + d[2];
+  return wd.smem <= kSmemLimit;
+}
+
+cudaError_t launch_wide(const float* x, const float* g, const float* params, float* dx,
+                        float* dx_partials, float* partials, float* dparams, int n,
+                        const WideBwdDims& wd, int max_blocks, cudaStream_t stream) {
+  auto kernel = mlp_fused_bwd_wide_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wd.smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWideThreads, wd.smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (n + kWideRows - 1) / kWideRows;
+  const int rows = std::max(1, std::min({tiles, std::max(per_sm, 1) * umhs::num_sms() / wd.slices,
+                                         max_blocks}));
+  // dx: straight into dx with one slice, else each slice's share into its
+  // partial slice, summed in slice order below
+  float* dxp = dx == nullptr ? nullptr : (wd.slices == 1 ? dx : dx_partials);
+  kernel<<<dim3(rows, wd.slices), kWideThreads, wd.smem, stream>>>(x, g, params, dxp, partials,
+                                                                  n, wd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int count = wd.param_floats;
+  reduce_partials_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      partials, dparams, rows, count);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || dx == nullptr || wd.slices == 1 || n == 0) return err;
+  const int dx_count = n * wd.d0;
+  reduce_partials_kernel<<<(dx_count + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      dx_partials, dx, wd.slices, dx_count);
+  return cudaGetLastError();
+}
+
+// The bf16 route of the chain d[0..L]: 100 kKT + kOwn for
+// mlp_fused_bwd_tc_kernel<kKT, kOwn>, 1 for mlp_fused_bwd_wide_kernel, 0 for
+// the FMA kernel; fills the dims of the kernel it names.
+int bf16_route(const int* d, int L, TcBwdDims& td, size_t& smem, WideBwdDims& wd) {
+  int kts = 0, own = 0;
+  if (tc_bwd_dims(d, L, td, smem, kts, own)) return 100 * kts + own;
+  if (wide_bwd_dims(d, L, wd)) return 1;
+  return 0;
+}
+
 }  // namespace
 
 // x: (n, dims[0]) f32; g: (n, dims[num_layers]) f32, the gradient of the
@@ -753,9 +1131,9 @@ cudaError_t launch_tc(const float* x, const float* g, const float* params, float
 // partials: scratch of max_blocks x len(params) floats (max_blocks >= 1).
 // Returns a cudaError_t.
 extern "C" int umhs_mlp_fused_bwd(const float* x, const float* g, const float* params,
-                                  float* dx, float* partials, float* dparams,
-                                  const int* dims_host, int num_layers, int n, int bf16,
-                                  int max_blocks, void* stream) {
+                                  float* dx, float* dx_partials, float* partials,
+                                  float* dparams, const int* dims_host, int num_layers, int n,
+                                  int bf16, int max_blocks, void* stream) {
   if (num_layers < 1 || num_layers > kMaxLayers || n < 0 || max_blocks < 1)
     return cudaErrorInvalidValue;
   for (int l = 0; l <= num_layers; ++l)
@@ -763,18 +1141,27 @@ extern "C" int umhs_mlp_fused_bwd(const float* x, const float* g, const float* p
   auto s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     TcBwdDims td;
+    WideBwdDims wd;
     size_t smem = 0;
-    int kts = 0, own = 0;
-    if (tc_bwd_dims(dims_host, num_layers, td, smem, kts, own)) {
-      if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
-          reinterpret_cast<uintptr_t>(dx) % 16 != 0)
-        return cudaErrorMisalignedAddress;
-      if (kts == 8) return launch_tc<8, 8>(x, g, params, dx, partials, dparams, n, td, smem,
-                                           max_blocks, s);
-      return own == 8 ? launch_tc<4, 8>(x, g, params, dx, partials, dparams, n, td, smem,
-                                         max_blocks, s)
-                      : launch_tc<4, 16>(x, g, params, dx, partials, dparams, n, td, smem,
-                                          max_blocks, s);
+    const int route = bf16_route(dims_host, num_layers, td, smem, wd);
+    if (route != 0 && (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+                       reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+                       reinterpret_cast<uintptr_t>(dx) % 16 != 0))
+      return cudaErrorMisalignedAddress;
+    switch (route) {
+      case 808: return launch_tc<8, 8>(x, g, params, dx, partials, dparams, n, td, smem,
+                                       max_blocks, s);
+      case 408: return launch_tc<4, 8>(x, g, params, dx, partials, dparams, n, td, smem,
+                                       max_blocks, s);
+      case 416: return launch_tc<4, 16>(x, g, params, dx, partials, dparams, n, td, smem,
+                                        max_blocks, s);
+      case 1:
+        if (dx != nullptr && wd.slices > 1 &&
+            (dx_partials == nullptr || static_cast<int64_t>(n) * wd.d0 >= (int64_t{1} << 31)))
+          return cudaErrorInvalidValue;
+        return launch_wide(x, g, params, dx, dx_partials, partials, dparams, n, wd, max_blocks,
+                           s);
+      default: break;
     }
   }
   Dims dims{};
@@ -818,13 +1205,25 @@ extern "C" int umhs_mlp_fused_bwd(const float* x, const float* g, const float* p
 }
 
 // The kernel umhs_mlp_fused_bwd runs for the chain dims[0..num_layers] in
-// this mode: 100 kKT + kOwn for mlp_fused_bwd_tc_kernel<kKT, kOwn>, 0 for
-// the FMA kernel.
+// this mode: 100 kKT + kOwn for mlp_fused_bwd_tc_kernel<kKT, kOwn>, 1 for
+// mlp_fused_bwd_wide_kernel, 0 for the FMA kernel; -1 for a chain it refuses.
 extern "C" int umhs_mlp_fused_bwd_route(const int* dims_host, int num_layers, int bf16) {
-  if (!bf16 || num_layers < 1 || num_layers > kMaxLayers) return 0;
+  if (num_layers < 1 || num_layers > kMaxLayers) return -1;
+  for (int l = 0; l <= num_layers; ++l)
+    if (dims_host[l] < 1 || dims_host[l] > kMaxWidth) return -1;
+  if (!bf16) return 0;
   TcBwdDims td;
+  WideBwdDims wd;
   size_t smem = 0;
-  int kts = 0, own = 0;
-  if (!tc_bwd_dims(dims_host, num_layers, td, smem, kts, own)) return 0;
-  return 100 * kts + own;
+  return bf16_route(dims_host, num_layers, td, smem, wd);
+}
+
+// The number of (n, dims[0]) f32 slices of dx_partials umhs_mlp_fused_bwd
+// needs for this chain and mode when dx is wanted: the wide kernel's slices
+// of the hidden width when there are two or more, else 0.
+extern "C" int umhs_mlp_fused_bwd_dx_slices(const int* dims_host, int num_layers, int bf16) {
+  if (umhs_mlp_fused_bwd_route(dims_host, num_layers, bf16) != 1) return 0;
+  WideBwdDims wd;
+  wide_bwd_dims(dims_host, num_layers, wd);
+  return wd.slices > 1 ? wd.slices : 0;
 }

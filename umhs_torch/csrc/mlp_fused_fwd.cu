@@ -14,8 +14,8 @@
 // takes 0.565 ms even at their peak, so the bf16 mode runs on the tensor
 // cores.
 //
-// Two kernels, chosen by mode and shape in the C launcher below (a dispatch
-// on shape: a failed launch still returns its error):
+// Three kernels, chosen by mode and shape in the C launcher below (a
+// dispatch on shape: a failed launch still returns its error):
 //
 // - bf16 mode, every padded width <= 128 (the four flagship chains):
 //   mlp_fused_fwd_tc_kernel, mma.sync m16n8k16 bf16 with f32 accumulation
@@ -40,9 +40,27 @@
 //   registers. The last layer's f32 fragments are staged through shared
 //   memory and written as coalesced rows (float4 where the width allows).
 //   The grid is persistent over tiles; ptxas reports no spills.
-// - f32 mode, and bf16 chains with a layer wider than 128 (dino_mlp's 256,
-//   off on the main path): mlp_fused_fwd_kernel, f32 fused multiply-adds
-//   from shared memory. Each thread keeps a 4x4 block of outputs in
+// - bf16 mode, one or two layers with a padded width above 128 and none
+//   above 256 (dino_mlp's 15 -> 256 -> 128): mlp_fused_fwd_wide_kernel. A
+//   256-wide activation as A fragments would take 64 registers a thread and
+//   the next layer's another 64, so each warp keeps its 16 rows' bf16 layer
+//   input in shared memory (a 16 x 264 bf16 buffer for the DINO chain's
+//   hidden layer) and pairs_product (mlp_chain_tc.cuh) reads one A fragment
+//   per k-tile by ldmatrix for four n-tile pairs (64 output columns) at a
+//   time; the weights, bf16 W^T (80 KB for the DINO chain against 148 KB in
+//   f32), are staged once per block, and as many warps as the shared memory
+//   then holds (16 for the DINO chain) share them. The last layer's sums,
+//   biased, go to y straight from the fragments as f32 pairs (each quad of
+//   lanes writes 32 whole bytes of a row). What bounds it: the DINO chain at
+//   262,144 rows writes 134 MB of y (0.045 ms at 3.35 TB/s) for ~19 GFLOP
+//   of tensor-core work (0.02 ms); the kernel reads each B fragment from
+//   shared memory once per 16 rows, so ldmatrix traffic and the latency of
+//   one warp's mma chain, not the bytes, set its time. Three-layer and
+//   deeper chains wider than 128 stay on the FMA kernel, because K2's wide
+//   kernel takes two layers and K2 must recompute with K1's arithmetic.
+// - f32 mode, and bf16 chains neither tensor-core kernel takes (three or
+//   more layers with a width above 128): mlp_fused_fwd_kernel, f32 fused
+//   multiply-adds from shared memory. Each thread keeps a 4x4 block of outputs in
 //   registers and streams the tile's activations (stored transposed, so a
 //   warp's float4 loads are contiguous) and the weights (a broadcast float4
 //   per k); the transposed rows are padded by 4 floats; x is read and y
@@ -345,6 +363,144 @@ cudaError_t launch_tc(const float* x, const float* params, float* y, int n,
   return cudaGetLastError();
 }
 
+// -------------------------------------------- tensor cores, wider than 128
+
+constexpr int kWideMaxWarps = 16;
+
+struct WideDims {
+  umhs::TcChain c;  // W^T and b of every layer, every output padded to 16 (two n-tiles)
+  int warps;        // warps per block: as many as the shared memory holds, at most 16
+  int buf_elems[2]; // bf16 elements of a warp's two activation buffers (even, odd layers' inputs)
+};
+
+// One warp per 16-row tile, persistent over tiles. Each layer's bf16 input
+// lies in the warp's buffer of its parity; pairs_product takes 64 output
+// columns at a time. A hidden layer's sums, biased, ReLU'd and rounded to
+// bf16, go into the other buffer; the last layer's, biased, to y as f32
+// pairs straight from the fragments (each quad of lanes writes 32 whole
+// bytes of a row).
+__global__ void __launch_bounds__(32 * kWideMaxWarps)
+mlp_fused_fwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ params,
+                          float* __restrict__ y, int n, WideDims dims) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const umhs::TcChain& c = dims.c;
+  __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  float* bias = reinterpret_cast<float*>(smem_raw + c.w_bytes);
+  umhs::stage_wide_weights(c, params, wt, bias);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  __nv_bfloat16* const buf0 = reinterpret_cast<__nv_bfloat16*>(bias + c.b_floats) +
+                             warp * (dims.buf_elems[0] + dims.buf_elems[1]);
+  __nv_bfloat16* const buf1 = buf0 + dims.buf_elems[0];
+  const int L = c.num_layers, d0 = c.d[0], dl = c.d[L];
+  const int num_tiles = (n + 15) / 16;
+  for (int tile = blockIdx.x * dims.warps + warp; tile < num_tiles;
+       tile += gridDim.x * dims.warps) {
+    const int64_t row0 = static_cast<int64_t>(tile) * 16;
+    umhs::stage_x_bf16(x, n, row0, 16, d0, 16 * c.kt[0], buf0, 16 * c.kt[0] + 8, lane);
+    __syncwarp();
+    for (int l = 0; l < L; ++l) {
+      const int kts = c.kt[l], as = 16 * kts + 8, pairs = c.nt[l] / 2;
+      const bool last = l + 1 == L;
+      const __nv_bfloat16* in = l & 1 ? buf1 : buf0;
+      __nv_bfloat16* out = l & 1 ? buf0 : buf1;
+      const int os = last ? 0 : 16 * c.kt[l + 1] + 8;
+      const float* b = bias + c.b_off[l];
+      for (int p0 = 0; p0 < pairs; p0 += 4) {
+        float acc[4][2][4];
+        umhs::pairs_product<4>(acc, in, as, wt + c.w_off[l] + 16 * p0 * as, as,
+                               min(4, pairs - p0), kts, lane);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = 16 * (p0 + p) + 8 * h + 2 * tig;
+            if (p0 + p >= pairs) continue;
+            const float2 bv = *reinterpret_cast<const float2*>(b + col);
+            const float* v = acc[p][h];
+            if (!last) {
+              *reinterpret_cast<uint32_t*>(out + gid * os + col) =
+                  umhs::pack_bf16x2(fmaxf(v[0] + bv.x, 0.f), fmaxf(v[1] + bv.y, 0.f));
+              *reinterpret_cast<uint32_t*>(out + (gid + 8) * os + col) =
+                  umhs::pack_bf16x2(fmaxf(v[2] + bv.x, 0.f), fmaxf(v[3] + bv.y, 0.f));
+            } else if (col < dl) {
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int64_t row = row0 + gid + 8 * half;
+                if (row >= n) continue;
+                float* yr = y + row * dl + col;
+                const float a0 = v[2 * half] + bv.x, a1 = v[2 * half + 1] + bv.y;
+                if ((dl & 1) == 0) {
+                  *reinterpret_cast<float2*>(yr) = make_float2(a0, a1);
+                } else {
+                  yr[0] = a0;
+                  if (col + 1 < dl) yr[1] = a1;
+                }
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Fills `wd` and the shared-memory bytes of the wide kernel; false when the
+// chain is not one it takes: more than two layers (K2's wide kernel takes
+// two, and K2 must recompute with K1's arithmetic), a padded width above
+// 256, or weights that leave no room for one warp.
+bool wide_dims(const int* d, int num_layers, WideDims& wd, size_t& smem) {
+  wd = WideDims{};
+  if (num_layers > 2 ||
+      !umhs::tc_chain(d, num_layers, wd.c, umhs::kWideMaxWidth, 16))
+    return false;
+  for (int l = 0; l < num_layers; ++l) {
+    const int elems = 16 * (16 * wd.c.kt[l] + 8);
+    wd.buf_elems[l & 1] = std::max(wd.buf_elems[l & 1], elems);
+  }
+  const size_t weights = static_cast<size_t>(wd.c.w_bytes) + sizeof(float) * wd.c.b_floats;
+  const size_t per_warp = 2 * static_cast<size_t>(wd.buf_elems[0] + wd.buf_elems[1]);
+  if (weights + per_warp > static_cast<size_t>(kSmemLimit)) return false;
+  wd.warps = static_cast<int>(std::min<size_t>(kWideMaxWarps,
+                                               (kSmemLimit - weights) / per_warp));
+  smem = weights + wd.warps * per_warp;
+  return true;
+}
+
+cudaError_t launch_wide(const float* x, const float* params, float* y, int n,
+                        const WideDims& wd, size_t smem, cudaStream_t stream) {
+  auto kernel = mlp_fused_fwd_wide_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int threads = 32 * wd.warps;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (n + 15) / 16;
+  const int blocks = (tiles + wd.warps - 1) / wd.warps;
+  const int grid = std::min(blocks, std::max(per_sm, 1) * umhs::num_sms());
+  kernel<<<grid, threads, smem, stream>>>(x, params, y, n, wd);
+  return cudaGetLastError();
+}
+
+// The bf16 route of the chain d[0..num_layers]: 100 kKT + kM for
+// mlp_fused_fwd_tc_kernel<kKT, kM> (32 rows per warp and activations of up
+// to 4 k-tiles when the layer inputs and the output are at most 64 wide,
+// else 16 rows and up to 8), 1 for mlp_fused_fwd_wide_kernel, 0 for the FMA
+// kernel; fills the dims and shared-memory bytes of the kernel it names.
+int bf16_route(const int* d, int num_layers, TcDims& td, WideDims& wd, size_t& smem) {
+  int widest = d[num_layers];
+  for (int l = 0; l < num_layers; ++l) widest = std::max(widest, d[l]);
+  const bool narrow = widest <= 64;
+  if (tc_dims(d, num_layers, narrow ? 32 : 16, td, smem)) return narrow ? 402 : 801;
+  if (wide_dims(d, num_layers, wd, smem)) return 1;
+  return 0;
+}
+
 }  // namespace
 
 // x: (n, dims[0]) f32; params: [W0, b0, W1, b1, ...] f32 with W_i row-major
@@ -370,16 +526,15 @@ extern "C" int umhs_mlp_fused_fwd(const float* x, const float* params, float* y,
   }
   auto s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    // 32 rows per warp and activations of up to 4 k-tiles when the layer
-    // inputs and the output are at most 64 wide; else 16 rows and up to 8
-    int widest = dims_host[num_layers];
-    for (int l = 0; l < num_layers; ++l) widest = std::max(widest, dims_host[l]);
-    const bool narrow = widest <= 64;
     TcDims td;
+    WideDims wd;
     size_t smem = 0;
-    if (tc_dims(dims_host, num_layers, narrow ? 32 : 16, td, smem))
-      return narrow ? launch_tc<4, 2>(x, params, y, n, td, smem, s)
-                    : launch_tc<8, 1>(x, params, y, n, td, smem, s);
+    switch (bf16_route(dims_host, num_layers, td, wd, smem)) {
+      case 402: return launch_tc<4, 2>(x, params, y, n, td, smem, s);
+      case 801: return launch_tc<8, 1>(x, params, y, n, td, smem, s);
+      case 1: return launch_wide(x, params, y, n, wd, smem, s);
+      default: break;
+    }
   }
   dims.max_width4 = max_width4;
   dims.param_floats = param_floats;
@@ -402,4 +557,18 @@ extern "C" int umhs_mlp_fused_fwd(const float* x, const float* params, float* y,
   dims.stride = tr + 4;
   return bf16 ? launch<true>(x, params, y, n, dims, smem, s)
               : launch<false>(x, params, y, n, dims, smem, s);
+}
+
+// The kernel umhs_mlp_fused_fwd runs for the chain dims[0..num_layers] in
+// this mode: 100 kKT + kM for mlp_fused_fwd_tc_kernel<kKT, kM>, 1 for
+// mlp_fused_fwd_wide_kernel, 0 for the FMA kernel; -1 for a chain it refuses.
+extern "C" int umhs_mlp_fused_fwd_route(const int* dims_host, int num_layers, int bf16) {
+  if (num_layers < 1 || num_layers > kMaxLayers) return -1;
+  for (int l = 0; l <= num_layers; ++l)
+    if (dims_host[l] < 1 || dims_host[l] > kMaxWidth) return -1;
+  if (!bf16) return 0;
+  TcDims td;
+  WideDims wd;
+  size_t smem = 0;
+  return bf16_route(dims_host, num_layers, td, wd, smem);
 }

@@ -4,20 +4,28 @@ autograd Function that joins them, and their plain versions.
 `mlp_fused_fwd` runs a whole layer chain (ReLU between layers, linear last
 layer) in one launch of ``csrc/mlp_fused_fwd.cu``, the port of the Pallas
 kernel ``umhs_tpu/ops/pallas/mlp_fused.py::_fwd_kernel``. Its launcher picks
-the kernel by mode and shape: under a bf16 compute dtype a chain whose widths,
-padded (inputs to 16, hidden widths to 16, the output to 8), are all at most
-128 runs on the tensor cores (mma.sync, activations kept in registers; the
-four field chains); f32, and a bf16 chain with a wider layer (the DINO head's
-256), run the f32 FMA kernel. Either way it is the one launch counted.
+the kernel by mode and shape. Under a bf16 compute dtype a chain whose
+widths, padded (inputs to 16, hidden widths to 16, the output to 8), are all
+at most 128 runs on the tensor cores with its activations in registers (the
+four field chains, the proposal chain); a chain of one or two layers up to
+256 wide (the DINO head's 15 -> 256 -> 128) runs the wide tensor-core
+kernel, its activations in shared memory; f32, and deeper chains wider than
+128, run the f32 FMA kernel. Either way it is the one launch counted
+(`mlp_fused_fwd_route` names the kernel).
 
 `mlp_fused_bwd` runs ``csrc/mlp_fused_bwd.cu``, the port of ``_bwd_kernel``:
 it recomputes the forward per tile and returns dx (unless not wanted) and
 every dW_i, db_i. Its launcher, too, picks the kernel by mode and shape: a
 bf16 chain within 128 padded wide whose dW tiles fit its warps' registers
-(the four field chains) runs on the tensor cores, recomputing with K1's own
-chain; f32 and other chains run the f32 FMA kernel
-(`mlp_fused_bwd_route` names it). `mlp_fused` is the `torch.autograd.Function` over both:
-its forward saves only x and the weights, as the JAX custom VJP does.
+(the field chains) runs on the tensor cores, recomputing with K1's own
+chain; a bf16 two-layer chain up to 256 wide (the DINO head) runs the wide
+tensor-core kernel, which splits the hidden width into slices of 64
+columns, one per block row of the grid, and recomputes with K1's wide
+arithmetic; f32 and other chains run the f32 FMA kernel
+(`mlp_fused_bwd_route` names it). With more than one slice, dx comes from
+per-slice partials summed in slice order (`dx_partials`). `mlp_fused` is
+the `torch.autograd.Function` over both: its forward saves only x and the
+weights, as the JAX custom VJP does.
 
 On a CPU tensor each wrapper runs its plain version instead; on a CUDA
 tensor the kernel is the only path and a failed build or launch raises.
@@ -33,6 +41,7 @@ version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -52,8 +61,8 @@ MLP_FUSED_BWD = Kernel(
     "mlp_fused_bwd.cu",
     "umhs_mlp_fused_bwd",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
 
 LayerGrads = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -171,12 +180,18 @@ def mlp_fused_bwd(params, x: torch.Tensor, g: torch.Tensor,
     partials = torch.empty((max_blocks, packed.numel()), dtype=torch.float32, device=x.device)
     dparams = torch.empty_like(packed)
     dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device) if need_dx else None
+    bf16 = int(compute_dtype == torch.bfloat16)
     dims_c = (ctypes.c_int * len(dims))(*dims)
+    slices = (_call_int(MLP_FUSED_BWD, "umhs_mlp_fused_bwd_dx_slices", tuple(dims), bf16)
+              if need_dx else 0)
+    dx_partials = (torch.empty((slices, n, dims[0]), dtype=torch.float32, device=x.device)
+                   if slices else None)
     with torch.cuda.device(x.device):
         MLP_FUSED_BWD.launch(
             x.data_ptr(), g.data_ptr(), packed.data_ptr(),
-            dx.data_ptr() if need_dx else None, partials.data_ptr(), dparams.data_ptr(),
-            dims_c, len(dims) - 1, n, int(compute_dtype == torch.bfloat16), max_blocks,
+            dx.data_ptr() if need_dx else None,
+            dx_partials.data_ptr() if slices else None, partials.data_ptr(), dparams.data_ptr(),
+            dims_c, len(dims) - 1, n, bf16, max_blocks,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     grads, off = [], 0
@@ -189,19 +204,47 @@ def mlp_fused_bwd(params, x: torch.Tensor, g: torch.Tensor,
     return dx, grads
 
 
+@functools.lru_cache(maxsize=None)
+def _call_int(kernel: Kernel, symbol: str, dims: Tuple[int, ...], bf16: int) -> int:
+    """An int query of a kernel's library about the chain `dims` in a mode
+    (loads, and builds, the kernels); asked once per chain and mode, since
+    the wrappers ask it on every call."""
+    fn = getattr(kernel.library(), symbol)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn((ctypes.c_int * len(dims))(*dims), len(dims) - 1, bf16)
+
+
+def _route_name(stem: str, code: int, bf16: int) -> str:
+    if code < 0:
+        raise ValueError(f"{stem}: the launcher refuses this chain")
+    if code == 0:
+        return f"{stem}_kernel<{bf16}>"
+    if code == 1:
+        return f"{stem}_wide_kernel"
+    return f"{stem}_tc_kernel<{code // 100},{code % 100}>"
+
+
+def mlp_fused_fwd_route(dims: List[int], compute_dtype: Optional[torch.dtype]) -> str:
+    """The device kernel K1's launcher runs for the chain of widths `dims` in
+    this mode, named as ptxas names it: "mlp_fused_fwd_tc_kernel<kKT,kM>" or
+    "mlp_fused_fwd_wide_kernel" (the tensor cores) or
+    "mlp_fused_fwd_kernel<bf16>" (the FMA kernel). Loads (and builds) the
+    kernels."""
+    bf16 = int(compute_dtype == torch.bfloat16)
+    code = _call_int(MLP_FUSED_FWD, "umhs_mlp_fused_fwd_route", tuple(dims), bf16)
+    return _route_name("mlp_fused_fwd", code, bf16)
+
+
 def mlp_fused_bwd_route(dims: List[int], compute_dtype: Optional[torch.dtype]) -> str:
     """The device kernel K2's launcher runs for the chain of widths `dims` in
     this mode, named as ptxas names it: "mlp_fused_bwd_tc_kernel<kKT,kOwn>"
-    (the tensor cores) or "mlp_fused_bwd_kernel<bf16>" (the FMA kernel).
-    Loads (and builds) the kernels."""
-    fn = MLP_FUSED_BWD.library().umhs_mlp_fused_bwd_route
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
+    or "mlp_fused_bwd_wide_kernel" (the tensor cores) or
+    "mlp_fused_bwd_kernel<bf16>" (the FMA kernel). Loads (and builds) the
+    kernels."""
     bf16 = int(compute_dtype == torch.bfloat16)
-    code = fn((ctypes.c_int * len(dims))(*dims), len(dims) - 1, bf16)
-    if code == 0:
-        return f"mlp_fused_bwd_kernel<{bf16}>"
-    return f"mlp_fused_bwd_tc_kernel<{code // 100},{code % 100}>"
+    code = _call_int(MLP_FUSED_BWD, "umhs_mlp_fused_bwd_route", tuple(dims), bf16)
+    return _route_name("mlp_fused_bwd", code, bf16)
 
 
 class _MLPFused(torch.autograd.Function):
