@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of umhs_torch, the PyTorch/CUDA port, on one NVIDIA card.
 
-    python3 chip_smoke.py [--quality all] [--p1-baseline CSRC] [--k3-baseline CSRC]
-                          [--mlp-baseline CSRC] [--schedule-baseline TREE]
+    python3 chip_smoke.py [--quality all] [--baseline TREE]
     python3 chip_smoke.py --repeat-schedule
     python3 chip_smoke.py --sweep-vs-plain 100
     python3 chip_smoke.py --seed-variance
@@ -39,8 +38,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      kernel's ptxas registers;
    - K3 hash_encode_fwd: tetrahedral and trilinear at L16xF2 2^19 on 2^20
      positions including exact 0 and 1, and tetrahedral on 16,384 rays x 64
-     ray-ordered samples (atol 1e-6; table values ~1e-4); with
-     --k3-baseline CSRC also another checkout's K3, timed in turns;
+     ray-ordered samples (atol 1e-6; table values ~1e-4);
    - K2 mlp_fused_bwd: the four chains at the training buffer's N = 262,144
      rows, f32 (rtol 1e-4, atol 1e-4 * max; the FMA kernel) and bf16 (2e-2;
      the tensor-core kernel), dx, dW and db against autograd of mlp_plain
@@ -60,20 +58,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rows of the draws that differ between the card's sin and the CPU's
      (their share printed, at most K4_DRAW_DIFFER_SHARE); with unit
      gradients the table sums to exactly N x L x F. Each case timed beside
-     zeros + index_add_ on the same precomputed rows.
+     zeros + index_add_ on the same precomputed rows, and with every level
+     on each route; each level's route (hash_encode_bwd_route: "runs" or
+     "entries") is printed with its entries per run on these inputs.
    - P1 row_gather: the probe twin's check (umhs_torch.probes.gather), bit
      for bit against table[idx] on the probe's 12,000,000 x 2 f32 table and
      the flagship's 6,098,108 x 2 table at 16,318,464 rows and at the edge
      N (rows 0 and T-1 among the indices); then its own path, the probe
-     twin, measures it beside torch.index_select (and, with --p1-baseline
-     CSRC, another checkout's P1) with the launch counts zeroed before and
-     read after: each arm timed the same way and in turns, by device time
-     under torch.profiler with the device kernels it launched listed by
-     name and by CUDA events around a batch of calls, with a warm L2 and
+     twin, measures it beside torch.index_select with the launch counts
+     zeroed before and read after: each arm timed the same way and in
+     turns, by device time under torch.profiler with the device kernels it
+     launched listed by name and by CUDA events around a batch of calls, with
+     a warm L2 and
      with a cold one (256 MB written before each call; a profile that lost
      device events is left out, and an arm with none whole reads null);
      then the kernel's, index_select's and the plain version's device time
      by device_ms (the kernels line's ms, library_ms and plain_ms).
+   With --baseline TREE (another checkout, e.g. the parent commit unpacked
+   by git archive into the git-ignored chip_archive/): every kernel at
+   phase 2's and phase 10's shapes through each tree's own wrappers, a
+   process each, in turns (TREE, this, this, TREE: baseline_against_tree),
+   device ms and ms per call; K3, K4 (both modes, random and ray-ordered
+   flagship inputs, both proposal grids) and P1 must give TREE's bits,
+   K1 and K2 on the DINO chain within 2e-2 of them.
 3. The serving path at full width: the bench scene (16 + 2 views, 128^2,
    128 bands, 6 spheres) as an in-memory train split (rendered once, also
    for phase 5) with VCA endmembers, Trainer.setup() from seed 0
@@ -124,10 +131,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    end of the steady window, at its last adapted shapes. The launches of
    those two steps and of the round trip are left out of the schedule's
    counts. One steady step runs under torch.profiler at the end, with the
-   device ms of K1-K4 in it beside their launches. With --schedule-baseline
-   TREE (another checkout, e.g. the parent commit unpacked by git archive),
-   the schedule runs again from that tree in a process of its own, and its
-   672 losses and adapt decisions must equal this run's bit for bit.
+   device ms of K1-K4 in it beside their launches. With --baseline TREE the
+   schedule runs again from that tree in a process of its own, and its 672
+   losses and adapt decisions must equal this run's bit for bit.
 
 8. The quality twin (umhs_torch.scripts.quality_reference_scale, the twin of
    scripts/quality_reference_scale.py) through its entry point: 2,000 steps,
@@ -174,9 +180,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (K1's and K2's wide tensor-core kernels), each chain's routes with their
    ptxas registers and spills, the proposal grids L5 F2 2^17 on as many
    ray-ordered positions, K4 deterministic (84M and 31M (row, entry)
-   pairs). With --mlp-baseline CSRC, another checkout's K1 and K2 (e.g. the
-   parent's FMA routes for the DINO chain) on the DINO chain's inputs, timed
-   in turns beside these.
+   pairs), each grid's K4 route per level printed with its entries per run.
    10a: scripts/nerfacto.sh through cli.train with a literal argv (printed)
    on the bench scene written to disk: the rgb method, the proposal sampler
    ((256, 96) -> 48), 8192 rays, seed 42, the method's defaults otherwise
@@ -425,106 +429,6 @@ def phase_k1(dev, ptxas):
     }
 
 
-def k3_baseline(csrc: Path):
-    """K3 built from another checkout's `csrc` directory (its
-    hash_encode_fwd.cu and headers), as fn(table, pos, cfg) -> out, so that
-    two versions are timed in one run on one card."""
-    import ctypes
-
-    from umhs_torch.ops import _native
-    from umhs_torch.ops.encodings import HASH_ENCODE_FWD, _level_args
-
-    out_dir = Path(tempfile.mkdtemp(prefix="umhs_k3_baseline_"))
-    lib_path = out_dir / "hash_encode_fwd_baseline.so"
-    subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-o", str(lib_path),
-                    str(csrc / "hash_encode_fwd.cu")], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib_path)).umhs_hash_encode_fwd
-    fn.argtypes, fn.restype = HASH_ENCODE_FWD.argtypes, ctypes.c_int
-
-    def run(table, pos, cfg):
-        n = pos.shape[0]
-        out = torch.empty((n, cfg.output_dim), dtype=torch.float32, device=pos.device)
-        err = fn(pos.data_ptr(), table.data_ptr(), out.data_ptr(), n, cfg.num_levels,
-                 cfg.features_per_level, *_level_args(cfg), torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"baseline K3 failed: cudaError {err}")
-        return out
-
-    return run
-
-
-def mlp_baseline(csrc: Path):
-    """K1 and K2 built from another checkout's `csrc` directory (its
-    mlp_fused_fwd.cu, mlp_fused_bwd.cu and headers), as fwd(params, x, dt)
-    -> y and bwd(params, x, g, dt, need_dx) -> (dx, [(dW, db)]), so that two
-    versions are timed in one run on one card. A checkout from before the
-    wide kernels has no dx_partials argument (nor umhs_mlp_fused_bwd_dx_slices)."""
-    import ctypes
-
-    from umhs_torch.ops import _native
-    from umhs_torch.ops.mlp_fused import MLP_FUSED_BWD, MLP_FUSED_FWD, _packed
-
-    out_dir = Path(tempfile.mkdtemp(prefix="umhs_mlp_baseline_"))
-    jobs = {src: subprocess.Popen([_native._nvcc(), *_native.NVCC_FLAGS, "-o",
-                                   str(out_dir / f"{src}.so"), str(csrc / src)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src in ("mlp_fused_fwd.cu", "mlp_fused_bwd.cu")}
-    libs = {}
-    for src, proc in jobs.items():
-        log, _ = proc.communicate()
-        check(proc.returncode == 0, f"baseline {src} did not build:\n{log}")
-        for kernel, usage in ptxas_usage(log).items():
-            print(f"  baseline ptxas {src} {kernel}: " + json.dumps(usage))
-        libs[src] = ctypes.CDLL(str(out_dir / f"{src}.so"))
-    fwd_fn = libs["mlp_fused_fwd.cu"].umhs_mlp_fused_fwd
-    fwd_fn.argtypes, fwd_fn.restype = MLP_FUSED_FWD.argtypes, ctypes.c_int
-    bwd_lib = libs["mlp_fused_bwd.cu"]
-    slices_fn = getattr(bwd_lib, "umhs_mlp_fused_bwd_dx_slices", None)
-    if slices_fn is not None:
-        slices_fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
-    bwd_fn = bwd_lib.umhs_mlp_fused_bwd
-    bwd_fn.restype = ctypes.c_int
-    bwd_fn.argtypes = (MLP_FUSED_BWD.argtypes if slices_fn is not None
-                       else MLP_FUSED_BWD.argtypes[:4] + MLP_FUSED_BWD.argtypes[5:])
-
-    def chain(params, x):
-        dims = [x.shape[1]] + [lay["w"].shape[1] for lay in params["layers"]]
-        return dims, (ctypes.c_int * len(dims))(*dims)
-
-    def fwd(params, x, dt):
-        dims, dims_c = chain(params, x)
-        y = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
-        packed = _packed(params)
-        err = fwd_fn(x.data_ptr(), packed.data_ptr(), y.data_ptr(), dims_c, len(dims) - 1,
-                     x.shape[0], int(dt == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"baseline K1 failed: cudaError {err}")
-        return y
-
-    def bwd(params, x, g, dt, need_dx):
-        dims, dims_c = chain(params, x)
-        n, bf16, packed = x.shape[0], int(dt == torch.bfloat16), _packed(params)
-        max_blocks = 2 * torch.cuda.get_device_properties(x.device).multi_processor_count
-        partials = torch.empty((max_blocks, packed.numel()), device=x.device)
-        dparams = torch.empty_like(packed)
-        dx = torch.empty((n, dims[0]), device=x.device) if need_dx else None
-        args = [x.data_ptr(), g.data_ptr(), packed.data_ptr(), dx.data_ptr() if need_dx else None]
-        if slices_fn is not None:
-            slices = slices_fn(dims_c, len(dims) - 1, bf16) if need_dx else 0
-            scratch = torch.empty((slices, n, dims[0]), device=x.device) if slices else None
-            args.append(scratch.data_ptr() if slices else None)
-        err = bwd_fn(*args, partials.data_ptr(), dparams.data_ptr(), dims_c, len(dims) - 1, n,
-                     bf16, max_blocks, torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"baseline K2 failed: cudaError {err}")
-        grads, off = [], 0
-        for lay in params["layers"]:
-            w, b = lay["w"], lay["b"]
-            grads.append((dparams[off:off + w.numel()].view(w.shape),
-                          dparams[off + w.numel():off + w.numel() + b.numel()]))
-            off += w.numel() + b.numel()
-        return dx, grads
-
-    return fwd, bwd
-
-
 def k3_times(table, pos, cfg):
     """K3 on positions (N, 3): its device ms, ms per call, the plain
     version's and one PyTorch call's (index_select of the vertex rows and the
@@ -557,7 +461,7 @@ def k3_times(table, pos, cfg):
     }
 
 
-def phase_k3(dev, baseline=None):
+def phase_k3(dev):
     from umhs_torch.data.synthetic import ray_samples
     from umhs_torch.ops.encodings import HashEncodingConfig, hash_encode_fwd, hash_encode_plain
 
@@ -588,16 +492,6 @@ def phase_k3(dev, baseline=None):
         max_err = max(max_err, err)
 
         entry = k3_times(table, pos, cfg)
-        if baseline is not None:  # in turns: baseline, this one, this one, baseline
-            check(torch.equal(baseline(table, pos, cfg), out),
-                  f"K3 {interp} {kind}: the baseline's output differs")
-            turns = [device_ms(lambda: baseline(table, pos, cfg)),
-                     device_ms(lambda: hash_encode_fwd(table, pos, cfg)),
-                     device_ms(lambda: hash_encode_fwd(table, pos, cfg)),
-                     device_ms(lambda: baseline(table, pos, cfg))]
-            entry["baseline_turns_ms"] = turns
-            entry["baseline_ms"] = (turns[0] + turns[3]) / 2
-            entry["this_ms"] = (turns[1] + turns[2]) / 2
         entries[f"{interp} {kind}"] = entry
         print(f"K3 {interp} {kind}: " + json.dumps(entry))
     main = entries["tetrahedral random"]
@@ -879,10 +773,12 @@ def k4_times(pos, g, cfg, stochastic):
     """K4 in one mode on positions (N, 3) and g (N, L * F): its device ms
     (also by device kernel), ms per call, the plain version's and one
     PyTorch call's (zeros + index_add_ on the same precomputed rows, float
-    atomics) device ms, and the bound (positions and g read once, the
-    gradient table zeroed and written)."""
+    atomics) device ms, the bound (positions and g read once, the gradient
+    table zeroed and written), and the device ms with every level on each
+    route (every_level_ms), which the rule's choice is held against."""
     from umhs_torch.ops.encodings import (
-        hash_encode_bwd, hash_encode_bwd_plain, hash_indices_weights, stochastic_rows)
+        HASH_BWD_ROUTES, hash_encode_bwd, hash_encode_bwd_plain, hash_indices_weights,
+        stochastic_rows)
     from umhs_torch.utils.device_time import device_ms_by_kernel
 
     n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
@@ -903,6 +799,11 @@ def k4_times(pos, g, cfg, stochastic):
         return torch.zeros(size, device=pos.device).index_add_(0, flat, values)
 
     b_ms, b_by = bound(n * 3 * 4 + n * L * F * 4 + size * 4, flops, H100_F32_FLOPS)
+    # the rule's route against every level on each route (the same bits)
+    every = {name: (name,) * L for name in HASH_BWD_ROUTES}
+    with uncounted():
+        route_ms = {name: device_ms(lambda: hash_encode_bwd(pos, g, cfg, stochastic, route))
+                    for name, route in every.items()}
     return {
         "ms": device_ms(lambda: hash_encode_bwd(pos, g, cfg, stochastic)),
         "call_ms": median_ms(lambda: hash_encode_bwd(pos, g, cfg, stochastic)),
@@ -912,14 +813,48 @@ def k4_times(pos, g, cfg, stochastic):
         "bound_by": b_by,
         "ms_by_device_kernel": device_ms_by_kernel(
             lambda: hash_encode_bwd(pos, g, cfg, stochastic)),
+        "every_level_ms": route_ms,
     }
+
+
+def k4_route_report(label, pos, g, cfg):
+    """Each level's K4 route (hash_encode_bwd_route) in both modes, printed
+    with its entries per run on these inputs: the entries that add something
+    over their distinct (chunk, row) pairs, chunks of hash_encode_bwd_chunk
+    samples (the runs route's; there a row's run splits further only where
+    two rows of a chunk share the low 16 bits of the level-local row and
+    interleave)."""
+    from umhs_torch.ops.encodings import (
+        hash_encode_bwd_chunk, hash_encode_bwd_route, hash_indices_weights, stochastic_rows)
+
+    n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
+    idx, w = hash_indices_weights(pos, cfg)  # (n, L, V)
+    gl = g.reshape(n, L, F)
+    report = {}
+    for mode, stochastic in (("deterministic", False), ("stochastic", True)):
+        route = hash_encode_bwd_route(cfg, n, stochastic)
+        chunk = torch.arange(n, device=pos.device) // hash_encode_bwd_chunk(cfg, stochastic)
+        drawn = stochastic_rows(pos, cfg) if stochastic else None
+        per_run = []
+        for lvl in range(L):
+            if stochastic:
+                rows, keep = drawn[:, lvl:lvl + 1], (gl[:, lvl] != 0).any(-1, keepdim=True)
+            else:
+                rows, keep = idx[:, lvl], ((w[:, lvl, :, None] * gl[:, lvl, None, :]) != 0).any(-1)
+            key = (chunk[:, None] * cfg.table_size + rows)[keep]
+            per_run.append(key.numel() / max(int(torch.unique(key).numel()), 1))
+        report[mode] = {"route": list(route), "entries_per_run": per_run}
+        print(f"K4 {label} {mode}: route by level {list(route)}; entries per run by level "
+              + json.dumps([round(v, 3) for v in per_run]))
+    return report
 
 
 def k4_case(label, pos, g, cfg):
     """k4_against_cpu on one position set, then both modes timed beside
-    zeros + index_add_ on the same precomputed rows."""
+    zeros + index_add_ on the same precomputed rows, with each level's route."""
     err, differ = k4_against_cpu(label, pos, g, cfg)
-    entries = {"max_abs_err": err, "stochastic_draws_differ_cpu_share": differ}
+    entries = {"max_abs_err": err, "stochastic_draws_differ_cpu_share": differ,
+               "routes": k4_route_report(label, pos, g, cfg)}
     for mode, stochastic in (("stochastic", True), ("deterministic", False)):
         entries[mode] = k4_times(pos, g, cfg, stochastic)
         print(f"K4 {label} {mode}: " + json.dumps(entries[mode]))
@@ -1085,8 +1020,10 @@ KERNEL_NAMES = {
     "umhs_mlp_fused_bwd": ("mlp_fused_bwd_kernel", "mlp_fused_bwd_tc_kernel",
                            "mlp_fused_bwd_wide_kernel", "reduce_partials_kernel"),
     "umhs_hash_encode_fwd": ("hash_encode_fwd_kernel",),
-    "umhs_hash_encode_bwd": ("emit_kernel", "digit_count_kernel", "digit_scan_kernel",
-                             "digit_scatter_kernel", "row_sum_kernel"),
+    "umhs_hash_encode_bwd": ("emit_kernel", "run_emit_kernel", "digit_count_kernel",
+                             "digit_scan_kernel", "digit_scatter_kernel",
+                             "digit_scatter_walk_kernel", "row_sum_kernel",
+                             "compact_runs_kernel", "run_fold_kernel"),
 }
 
 
@@ -1441,43 +1378,14 @@ def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
     return out
 
 
-def p1_baseline(csrc: Path):
-    """P1 built from another checkout's `csrc` directory (its row_gather.cu
-    and headers), as fn(table, idx) -> out, so that two versions are timed in
-    one run on one card. The launcher must take the one-row-per-thread
-    kernel's arguments: (table, idx, out, n, stream)."""
-    import ctypes
-
-    from umhs_torch.ops import _native
-
-    out_dir = Path(tempfile.mkdtemp(prefix="umhs_p1_baseline_"))
-    lib_path = out_dir / "row_gather_baseline.so"
-    subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-o", str(lib_path),
-                    str(csrc / "row_gather.cu")], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib_path)).umhs_row_gather
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def run(table, idx):
-        n = idx.shape[0]
-        out = torch.empty((n, 2), dtype=torch.float32, device=idx.device)
-        err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
-                 torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"baseline P1 failed: cudaError {err}")
-        return out
-
-    return run
-
-
-def phase_p1(dev, baseline=None):
+def phase_p1(dev):
     """P1, the row gather: the probe twin's check, bit for bit against
     table[idx] on both tables at the probe's N and at the edge N; then the
     probe twin's measurement (its entry point, the kernel's only path) with
-    the launch counts zeroed before and read after: the kernel,
-    index_select and, with --p1-baseline, another checkout's P1, timed the
-    same way and in turns, warm and cold, with the device kernels each arm
-    launched listed by name; then the plain version's device time."""
+    the launch counts zeroed before and read after: the kernel and
+    index_select, timed the same way and in turns, warm and cold, with the
+    device kernels each arm launched listed by name; then the plain
+    version's device time."""
     from umhs_torch.ops.row_gather import (
         ROW_GATHER, _blocks_per_sm, row_gather, row_gather_plain)
     from umhs_torch.probes import gather as probe
@@ -1485,21 +1393,14 @@ def phase_p1(dev, baseline=None):
     T, FT, N = probe.PROBE_TABLE_ROWS, probe.FLAGSHIP_TABLE_ROWS, probe.PROBE_ROWS
     for line in probe.check(dev):  # raises on a mismatch
         print(f"P1 {line}")
-    if baseline is not None:
-        with uncounted():
-            table, idx = probe.make_case(FT, N, dev)
-            check(torch.equal(baseline(table, idx), row_gather_plain(table, idx)),
-                  "baseline P1 disagrees with the plain version")
-
-    extra = {"baseline": baseline} if baseline is not None else None
     zero_launch_counts()
-    results = {label: probe.measure(rows, N, dev, extra_arms=extra)
+    results = {label: probe.measure(rows, N, dev)
                for label, rows in (("probe_table", T), ("flagship_table", FT))}
     launches = ROW_GATHER.launches
     check(launches > 0, "the probe twin did not launch P1")
     blocks_per_sm = _blocks_per_sm(dev)
     print(f"P1: {blocks_per_sm} blocks of row_gather_kernel resident per SM")
-    arms = ["kernel", "library"] + (["baseline"] if baseline is not None else [])
+    arms = ["kernel", "library"]
     for label, r in results.items():
         print(f"P1 {label} ({r['table_rows']:,} x 2 f32, {N:,} rows): bound {r['bound_ms']:.4f} "
               f"ms, one sector per row {r['sector_bound_ms']:.4f} ms")
@@ -1536,7 +1437,6 @@ def phase_p1(dev, baseline=None):
         "library_ms": library_ms,
         "probe_library_ms": main["library_ms"],
         "library_cold_ms": main["library_cold_ms"],
-        "baseline_ms": main.get("baseline_ms"),
         "launches": launches,
         "launches_train": 0,
         "launches_render": 0,
@@ -1740,6 +1640,152 @@ def schedule_against_tree(tree: Path, losses, adapts):
           f"{time.perf_counter() - t0:.1f} s")
     check(same and same_adapts, f"phase 7's schedule differs from {tree}'s")
     return {"losses_bit_for_bit": same, "adapts_equal": same_adapts, "steps": len(ours)}
+
+
+BASELINE_CODE = """
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+print("TREE " + json.dumps(cs.tree_measurements(sys.argv[2])))
+"""
+
+
+def tree_measurements(save_dir: str) -> dict:
+    """The kernels at phase 2's and phase 10's shapes through whichever
+    umhs_torch is on sys.path (run by baseline_against_tree in a process of
+    its own from a tree, its kernels built there): per case the device ms
+    (device_ms), the ms per call (median_ms, the wrapper's host time in) and
+    the sha1 of the output's bits; the DINO chain's K1 and K2 outputs saved
+    under save_dir. Inputs come from fixed seeds, the same in every tree."""
+    import hashlib
+
+    from umhs_torch.data.synthetic import ray_samples
+    from umhs_torch.ops import _native
+    from umhs_torch.ops.encodings import HashEncodingConfig, hash_encode_bwd, hash_encode_fwd
+    from umhs_torch.ops.mlp import init_mlp
+    from umhs_torch.ops.mlp_fused import mlp_fused_bwd, mlp_fused_fwd
+    from umhs_torch.ops.row_gather import row_gather
+    from umhs_torch.probes import gather as probe
+
+    _native.build_all()
+    dev = torch.device("cuda")
+    out = {}
+
+    def digest(y) -> str:
+        h = hashlib.sha1()
+        for part in (y if isinstance(y, (list, tuple)) else [y]):
+            if isinstance(part, (list, tuple)):
+                h.update(digest(part).encode())
+            elif part is not None:
+                h.update(bits(part.contiguous()).numpy().tobytes())
+        return h.hexdigest()
+
+    def case(name, fn, calls=True):
+        y = fn()
+        torch.cuda.synchronize()
+        out[name] = {"ms": device_ms(fn), "call_ms": median_ms(fn) if calls else None,
+                     "digest": digest(y)}
+        return y
+
+    gen = torch.Generator().manual_seed(4)
+    flag = HashEncodingConfig(num_levels=16, features_per_level=2, log2_hashmap_size=19,
+                              interpolation="tetrahedral")
+    pos = torch.rand((K2_ROWS, 3), generator=gen)
+    pos[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 0.5, 1.0], [1.0, 0.0, 0.25]])
+    g = torch.randn((K2_ROWS, flag.output_dim), generator=gen).to(dev)
+    for kind, p in (("random", pos.to(dev)),
+                    ("rays", torch.from_numpy(ray_samples(4096, 64, seed=4)).to(dev))):
+        for mode, stochastic in (("stochastic", True), ("deterministic", False)):
+            case(f"K4 flagship {kind} {mode}", lambda: hash_encode_bwd(p, g, flag, stochastic))
+    for i, (n, max_res) in enumerate(zip(PROPOSAL_ROWS, (128, 256))):
+        cfg = HashEncodingConfig(num_levels=5, max_resolution=max_res, log2_hashmap_size=17,
+                                 base_resolution=16)
+        p = torch.from_numpy(ray_samples(NERFACTO_RAYS, n // NERFACTO_RAYS, seed=20 + i)).to(dev)
+        gp = torch.randn((n, cfg.output_dim), generator=gen).to(dev)
+        case(f"K4 proposal_{i} deterministic", lambda: hash_encode_bwd(p, gp, cfg, False))
+        del p, gp
+    torch.cuda.empty_cache()
+
+    n = 1 << 20
+    pos = torch.rand((n, 3), generator=gen).to(dev)
+    rays = torch.from_numpy(ray_samples(n // 64, 64, seed=2)).to(dev)
+    for interp, kind, p in (("tetrahedral", "random", pos), ("tetrahedral", "rays", rays),
+                            ("trilinear", "random", pos)):
+        cfg = HashEncodingConfig(num_levels=16, features_per_level=2, log2_hashmap_size=19,
+                                 interpolation=interp)
+        table = ((torch.rand((cfg.table_size * 2,), generator=gen) * 2 - 1) * 1e-4).to(dev)
+        case(f"K3 {interp} {kind}", lambda: hash_encode_fwd(table, p, cfg))
+
+    dims = [15, 256, DINO_DIM]
+    params = init_mlp(gen, dims[0], len(dims) - 1, dims[1], dims[-1], dev)
+    x = torch.randn((K2_ROWS, dims[0]), generator=gen).to(dev)
+    gy = torch.randn((K2_ROWS, dims[-1]), generator=gen).to(dev)
+    y = case("K1 dino", lambda: mlp_fused_fwd(params, x, torch.bfloat16), calls=False)
+    _, grads = case("K2 dino", lambda: mlp_fused_bwd(params, x, gy, torch.bfloat16, False),
+                    calls=False)
+    torch.save({"y": y.cpu(), "grads": [[t.cpu() for t in pair] for pair in grads]},
+               Path(save_dir) / "dino.pt")
+    for name, dims in K1_CHAINS.items():  # phase 2's chains: K2's calls, dx but for the last
+        params = init_mlp(gen, dims[0], len(dims) - 1, dims[1], dims[-1], dev)
+        x = torch.randn((K2_ROWS, dims[0]), generator=gen).to(dev)
+        gy = torch.randn((K2_ROWS, dims[-1]), generator=gen).to(dev)
+        need_dx = name != "mlp_directional"
+        fn = lambda: mlp_fused_bwd(params, x, gy, torch.bfloat16, need_dx)  # noqa: E731
+        out[f"K2 call {name}"] = {"call_ms": median_ms(fn, iters=50), "digest": digest(fn())}
+
+    table, idx = probe.make_case(probe.PROBE_TABLE_ROWS, probe.PROBE_ROWS, dev)
+    case("P1 probe table", lambda: row_gather(table, idx))
+    return out
+
+
+def baseline_against_tree(tree: Path) -> dict:
+    """Every kernel against another checkout's (`tree`, e.g. the parent commit
+    unpacked by git archive), each through its own tree's wrappers, in turns:
+    tree_measurements in a process of its own from the tree, from this
+    checkout, from this checkout, from the tree. K3, K4 and P1 must give the
+    tree's bits at every case; K1 and K2 on the DINO chain within 2e-2 (of
+    each tensor's largest entry for K2); every case's bits must repeat
+    across this checkout's two processes. Returns {case: the four readings
+    in turns, their means, and whether the bits are the tree's}."""
+    here = Path(__file__).resolve()
+    save = Path(tempfile.mkdtemp(prefix="umhs_baseline_"))
+    turns = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for i, root in enumerate((tree, here.parent, here.parent, tree)):
+        (save / str(i)).mkdir()
+        proc = subprocess.run([sys.executable, "-c", BASELINE_CODE, str(here), str(save / str(i))],
+                              cwd=root, capture_output=True, text=True,
+                              env=dict(os.environ, PYTHONPATH=str(root.resolve())))
+        check(proc.returncode == 0, f"the kernels from {root} failed:\n{proc.stdout[-3000:]}\n"
+                                    f"{proc.stderr[-3000:]}")
+        turns.append(json.loads([ln for ln in proc.stdout.splitlines()
+                                 if ln.startswith("TREE ")][-1][len("TREE "):]))
+    result = {}
+    for name in turns[0]:
+        r = [t[name] for t in turns]
+        check(r[1]["digest"] == r[2]["digest"], f"{name}: this checkout's bits do not repeat")
+        entry = {"same_bits": r[0]["digest"] == r[1]["digest"] == r[3]["digest"]}
+        for key in ("ms", "call_ms"):
+            if r[0].get(key) is None:
+                continue
+            entry[f"turns_{key}"] = [v[key] for v in r]
+            entry[f"baseline_{key}"] = (r[0][key] + r[3][key]) / 2
+            entry[f"this_{key}"] = (r[1][key] + r[2][key]) / 2
+        if not name.startswith(("K1", "K2")):
+            check(entry["same_bits"], f"{name}: not the bits of {tree}'s kernel")
+        result[name] = entry
+        print(f"against {tree}: {name}: " + json.dumps(entry))
+    theirs, ours = (torch.load(save / str(i) / "dino.pt") for i in (0, 1))
+    check(torch.allclose(theirs["y"], ours["y"], rtol=2e-2, atol=2e-2),
+          f"K1 dino: {tree}'s output differs by more than 2e-2")
+    for a, b in ((a, b) for pa, pb in zip(theirs["grads"], ours["grads"]) for a, b in zip(pa, pb)):
+        check(torch.allclose(a, b, rtol=2e-2, atol=2e-2 * float(b.abs().max())),
+              f"K2 dino: {tree}'s gradients differ by more than 2e-2")
+    shutil.rmtree(save, ignore_errors=True)
+    print(f"kernels against {tree}: {time.perf_counter() - t0:.1f} s for four processes")
+    return result
 
 
 def check_adapts(trainer):
@@ -2336,9 +2382,12 @@ DINO_DIM = 128
 # the rows each proposal level's chain and grid take at 8192 rays: 256 and 96
 # samples per ray; the main field's 48 (proposals (256, 96) -> 48)
 PROPOSAL_ROWS = (NERFACTO_RAYS * 256, NERFACTO_RAYS * 96)
+# 10a before K4's runs route (PERF.md section 5, NVIDIA H100 80GB HBM3, 700 W):
+# K4's device ms in the traced step, ms per step, the step's busy share
+NERFACTO_BEFORE_RUNS = {"k4_traced_ms": 14.69, "ms_per_step": 38.28, "busy_share": 0.601}
 
 
-def phase_slice_kernels(dev, ptxas, baseline=None):
+def phase_slice_kernels(dev, ptxas):
     """K1-K4 at phase 10's shapes against their plain versions, timed: the
     proposal nets' 10 -> 16 -> 1 chain at 2,097,152 and 786,432 rows (bf16,
     the tensor cores; K2 with dx, which reaches the proposal grids), the DINO
@@ -2350,10 +2399,8 @@ def phase_slice_kernels(dev, ptxas, baseline=None):
     786,432 rows bit for bit against the plain version on the CPU, at
     2,097,152 within 1e-5 of the largest entry of the plain version on the
     card (which adds with float atomics). Each chain's K1 and K2 route is
-    printed with its ptxas registers and spills. With `baseline`
-    (mlp_baseline: another checkout's K1 and K2), the DINO chain's K1 and K2
-    (without dx) are also timed against it in turns (baseline, this, this,
-    baseline), its outputs within 2e-2 of this checkout's."""
+    printed with its ptxas registers and spills, and each grid's K4 route
+    per level with its entries per run (k4_route_report)."""
     from umhs_torch.data.synthetic import ray_samples
     from umhs_torch.ops.encodings import (
         HashEncodingConfig, hash_encode_bwd, hash_encode_bwd_plain, hash_encode_fwd,
@@ -2387,8 +2434,6 @@ def phase_slice_kernels(dev, ptxas, baseline=None):
         out["mlp_fused_bwd"][label] = {**base, "dx": need_dx, "max_abs_err": err2,
                                        "route": routes[1], "ptxas": ptxas.get(routes[1]),
                                        **k2_times(params, x, g, dims, need_dx)}
-        if baseline is not None and label == "dino":
-            mlp_against_baseline(baseline, params, x, g, need_dx, out, label)
         print(f"K1 {label} {dims} N={n}: " + json.dumps(out["mlp_fused_fwd"][label]))
         print(f"K2 {label} {dims} N={n}: " + json.dumps(out["mlp_fused_bwd"][label]))
         del params, x, g
@@ -2419,81 +2464,14 @@ def phase_slice_kernels(dev, ptxas, baseline=None):
         base = {"rows": n, "max_resolution": max_res, "table_rows": cfg.table_size}
         out["hash_encode_fwd"][label] = {**base, "max_abs_err": err, **k3_times(table, pos, cfg)}
         out["hash_encode_bwd"][label] = {**base, "pairs": pairs, "max_abs_err": err4,
-                                         **k4_times(pos, g, cfg, False)}
+                                         **k4_times(pos, g, cfg, False),
+                                         "routes": k4_route_report(label, pos, g, cfg)}
         print(f"K3 {label} L5 2^17 to {max_res}, N={n}: "
               + json.dumps(out["hash_encode_fwd"][label]))
         print(f"K4 {label} deterministic, {pairs:,} (row, entry) pairs: "
               + json.dumps(out["hash_encode_bwd"][label]))
         del pos, table, g
     return out
-
-
-K2_CALLS_CODE = """
-import importlib.util, json, sys, torch
-spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
-cs = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(cs)
-from umhs_torch.ops.mlp import init_mlp
-from umhs_torch.ops.mlp_fused import mlp_fused_bwd
-dev, gen, out = torch.device("cuda"), torch.Generator().manual_seed(3), {}
-for name, dims in cs.K1_CHAINS.items():
-    params = init_mlp(gen, dims[0], len(dims) - 1, dims[1], dims[-1], dev)
-    x = torch.randn((cs.K2_ROWS, dims[0]), generator=gen).to(dev)
-    g = torch.randn((cs.K2_ROWS, dims[-1]), generator=gen).to(dev)
-    need_dx = name != "mlp_directional"
-    out[name] = cs.median_ms(lambda: mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx),
-                             iters=50)
-print("K2_CALLS " + json.dumps(out))
-"""
-
-
-def k2_calls_against_tree(tree: Path):
-    """K2's ms per call through the wrapper (`call_ms`, host time in) on
-    phase 2's four chains, from another checkout's umhs_torch (`tree`, its
-    kernels built there) and from this one, each in a process of its own
-    running the same measurement code (this file's median_ms), in turns:
-    the other tree, this, this, the other."""
-    here = Path(__file__).resolve()
-    turns = []
-    for root in (tree, here.parent, here.parent, tree):
-        proc = subprocess.run([sys.executable, "-c", K2_CALLS_CODE, str(here)], cwd=root,
-                              capture_output=True, text=True,
-                              env=dict(os.environ, PYTHONPATH=str(root.resolve())))
-        check(proc.returncode == 0, f"K2 calls from {root} failed:\n{proc.stdout[-3000:]}\n"
-                                    f"{proc.stderr[-3000:]}")
-        turns.append(json.loads([ln for ln in proc.stdout.splitlines()
-                                 if ln.startswith("K2_CALLS ")][-1][len("K2_CALLS "):]))
-    result = {name: {"baseline_turns": [turns[0][name], turns[3][name]],
-                     "this_turns": [turns[1][name], turns[2][name]]} for name in turns[0]}
-    for r in result.values():
-        r["baseline_call_ms"] = sum(r["baseline_turns"]) / 2
-        r["this_call_ms"] = sum(r["this_turns"]) / 2
-    print(f"K2 call_ms against {tree}: " + json.dumps(result))
-    return result
-
-
-def mlp_against_baseline(baseline, params, x, g, need_dx, out, label):
-    """Another checkout's K1 and K2 (mlp_baseline) on the same inputs: each
-    within 2e-2 of this checkout's (K2: of each tensor's largest entry), then
-    both timed in turns, baseline, this, this, baseline, by device_ms; into
-    out's entries for `label`."""
-    from umhs_torch.ops.mlp_fused import mlp_fused_bwd, mlp_fused_fwd
-
-    fwd, bwd = baseline
-    dt = torch.bfloat16
-    check(torch.allclose(fwd(params, x, dt), mlp_fused_fwd(params, x, dt), rtol=2e-2, atol=2e-2),
-          f"K1 {label}: the baseline's output differs by more than 2e-2")
-    got, ours = bwd(params, x, g, dt, need_dx)[1], mlp_fused_bwd(params, x, g, dt, need_dx)[1]
-    for a, b in ((a, b) for pa, pb in zip(got, ours) for a, b in zip(pa, pb)):
-        check(torch.allclose(a, b, rtol=2e-2, atol=2e-2 * float(b.abs().max())),
-              f"K2 {label}: the baseline's gradients differ by more than 2e-2")
-    arms = {"mlp_fused_fwd": (lambda: fwd(params, x, dt), lambda: mlp_fused_fwd(params, x, dt)),
-            "mlp_fused_bwd": (lambda: bwd(params, x, g, dt, need_dx),
-                              lambda: mlp_fused_bwd(params, x, g, dt, need_dx))}
-    for name, (theirs, this) in arms.items():
-        turns = [device_ms(theirs), device_ms(this), device_ms(this), device_ms(theirs)]
-        out[name][label].update(baseline_turns_ms=turns, baseline_ms=(turns[0] + turns[3]) / 2,
-                                this_ms=(turns[1] + turns[2]) / 2)
 
 
 def nerfacto_argv(root):
@@ -2698,6 +2676,11 @@ def phase_nerfacto(dev):
         print("  nerfacto step: host syncs by source line "
               + json.dumps(summary["host_syncs"]) + "; without the profiler "
               + json.dumps(summary["busy"]))
+        now = {"k4_traced_ms": prof["kernels"]["umhs_hash_encode_bwd"]["ms"],
+               "ms_per_step": summary["ms_per_step"], "busy_share": summary["busy"]["busy_share"]}
+        print("  nerfacto against the step before K4's runs route: "
+              + json.dumps({k: {"now": now[k], "before": v}
+                            for k, v in NERFACTO_BEFORE_RUNS.items()}))
         del trainer, result
     print("nerfacto: " + json.dumps(summary))
     return summary
@@ -2813,10 +2796,10 @@ def phase_dino(dev):
     return summary
 
 
-def phase_10(dev, ptxas, baseline=None):
+def phase_10(dev, ptxas):
     """Phase 10, each part timed: the kernels at its shapes, 10a, 10b."""
     seconds, results = {}, []
-    for label, fn in (("kernels", lambda d: phase_slice_kernels(d, ptxas, baseline)),
+    for label, fn in (("kernels", lambda d: phase_slice_kernels(d, ptxas)),
                       ("10a nerfacto", phase_nerfacto), ("10b pred_dino", phase_dino)):
         t0 = time.perf_counter()
         results.append(fn(dev))
@@ -3124,19 +3107,10 @@ def main() -> None:
     ap.add_argument("--sweep-vs-plain", type=int, metavar="STEPS", default=None,
                     help="only run phase 7's schedule with phase 6's check after every "
                          "slice and after each of STEPS single steps past it")
-    ap.add_argument("--k3-baseline", type=Path, metavar="CSRC", default=None,
-                    help="also build K3 from another checkout's umhs_torch/csrc and time it "
-                         "beside this one on phase 2's inputs, in turns")
-    ap.add_argument("--mlp-baseline", type=Path, metavar="CSRC", default=None,
-                    help="also build K1 and K2 from another checkout's umhs_torch/csrc and time "
-                         "them beside this one on phase 10's DINO chain, in turns, and time "
-                         "K2's wrapper of that checkout beside this one on phase 2's chains")
-    ap.add_argument("--schedule-baseline", type=Path, metavar="TREE", default=None,
-                    help="also run phase 7's schedule from another checkout's tree in a process "
-                         "of its own and hold its losses and adapts to this run's, bit for bit")
-    ap.add_argument("--p1-baseline", type=Path, metavar="CSRC", default=None,
-                    help="also build P1 from another checkout's umhs_torch/csrc and time it "
-                         "beside this one in the probe twin's measurement, in turns")
+    ap.add_argument("--baseline", type=Path, metavar="TREE", default=None,
+                    help="also time every kernel against another checkout's tree (each through "
+                         "its own wrappers, a process each, in turns), hold their bits to it, "
+                         "and run phase 7's schedule from it, bit for bit")
     ap.add_argument("--seed-variance", action="store_true",
                     help="only the seed-variance twin: 3 seeds, 2,000 steps, 256^2")
     ap.add_argument("--mesh-cards", action="store_true",
@@ -3190,12 +3164,14 @@ def main() -> None:
         sweep_vs_plain(dev, args.sweep_vs_plain)
     else:
         k1 = phase_k1(dev, ptxas)
-        k3 = phase_k3(dev, k3_baseline(args.k3_baseline) if args.k3_baseline else None)
+        k3 = phase_k3(dev)
         k2 = phase_k2(dev, ptxas)
-        if args.mlp_baseline:
-            k2["call_ms_against_tree"] = k2_calls_against_tree(args.mlp_baseline.parents[1])
         k4 = phase_k4(dev)
-        p1 = phase_p1(dev, p1_baseline(args.p1_baseline) if args.p1_baseline else None)
+        p1 = phase_p1(dev)
+        if args.baseline:
+            against = baseline_against_tree(args.baseline)
+            for entry, prefix in ((k1, "K1 "), (k2, "K2 "), (k3, "K3 "), (k4, "K4 "), (p1, "P1 ")):
+                entry["against_tree"] = {k: v for k, v in against.items() if k.startswith(prefix)}
         dm, endmembers, cam = bench_scene_in_memory(dev)
         trainer, render_launches = phase_render(dev, dm, endmembers, cam)
         phase_kernels_vs_plain(trainer, cam, dev)
@@ -3205,13 +3181,12 @@ def main() -> None:
         phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})", "bfloat16")
         del trainer
         bench_launches, bench_losses, bench_adapts, bench_configs = phase_bench_schedule(dev)
-        if args.schedule_baseline:
-            schedule_against_tree(args.schedule_baseline, bench_losses, bench_adapts)
+        if args.baseline:
+            schedule_against_tree(args.baseline, bench_losses, bench_adapts)
         quality_runs = list(QUALITY_RUNS) if args.quality == "all" else ["tetrahedral"]
         quality_launches = phase_quality(dev, quality_runs, smi)
         entry_points = phase_entry_points(dev, bench_losses, bench_adapts, bench_configs)
-        slice_kernels, nerfacto, dino = phase_10(
-            dev, ptxas, mlp_baseline(args.mlp_baseline) if args.mlp_baseline else None)
+        slice_kernels, nerfacto, dino = phase_10(dev, ptxas)
         mesh1, mesh2 = phase_11(dev, dm, endmembers, train_summary["loss_per_step"], state48)
         del dm, state48
 

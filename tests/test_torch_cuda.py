@@ -27,7 +27,8 @@ from umhs_torch.engine.trainer import named_leaves
 from umhs_torch.ops._native import KERNELS
 from umhs_torch.ops.encodings import (
     HASH_ENCODE_BWD, HASH_ENCODE_FWD, HashEncodingConfig, hash_encode_bwd,
-    hash_encode_bwd_plain, hash_encode_fwd, hash_encode_plain, stochastic_rows)
+    hash_encode_bwd_plain, hash_encode_bwd_route, hash_encode_fwd, hash_encode_plain,
+    stochastic_rows)
 from umhs_torch.ops.mlp import init_mlp
 from umhs_torch.ops.mlp_fused import (
     MLP_FUSED_BWD, MLP_FUSED_FWD, mlp_fused, mlp_fused_bwd, mlp_fused_bwd_route, mlp_fused_fwd,
@@ -411,6 +412,67 @@ def test_k4_tail_warps_and_widths(cuda, kind, n, features, interp):
     assert n < 1000 or differ <= K4_DRAW_DIFFER_SHARE
     ones = torch.ones_like(g)
     assert float(hash_encode_bwd(pos, ones, cfg, stochastic=True).sum()) == n * cfg.output_dim
+
+
+# nerfacto's proposal grids: L5 F2 2^17 trilinear to resolution 128 and 256
+K4_PROPOSAL = {128: 256, 256: 96}  # max resolution: samples per ray
+
+
+@pytest.mark.parametrize("max_res", sorted(K4_PROPOSAL))
+def test_k4_proposal_grids_on_rays(cuda, max_res):
+    """A proposal grid on 256 ray-ordered rays of its samples (the coarse
+    levels on the runs route, the rest on entries: hash_encode_bwd_route),
+    both modes through _k4_holds: repeated and the plain version's bits."""
+    cfg = HashEncodingConfig(num_levels=5, max_resolution=max_res, log2_hashmap_size=17)
+    pos = torch.from_numpy(ray_samples(256, K4_PROPOSAL[max_res], seed=max_res))
+    n = pos.shape[0]
+    assert "runs" in hash_encode_bwd_route(cfg, n, False)
+    g = torch.randn((n, cfg.output_dim), generator=torch.Generator().manual_seed(n))
+    g[::9] = 0.0  # samples that add nothing, as the compact buffer's padding
+    assert _k4_holds(pos.to(cuda), g.to(cuda), cfg) <= K4_DRAW_DIFFER_SHARE
+
+
+K4_ROUTE_CONFIGS = {
+    **{f"small-{interp}-F{f}": dict(features_per_level=f, interpolation=interp, **K4_SMALL)
+       for interp in ("tetrahedral", "trilinear") for f in (1, 2, 4, 8)},
+    "proposal_0": dict(num_levels=5, max_resolution=128, log2_hashmap_size=17),
+    "flagship": dict(num_levels=16, log2_hashmap_size=19, interpolation="tetrahedral"),
+}
+
+
+@pytest.mark.parametrize("name", list(K4_ROUTE_CONFIGS))
+@pytest.mark.parametrize("n", [1, 255, 3001])
+@pytest.mark.parametrize("kind", ["random", "rays", "equal"])
+def test_k4_routes_give_the_same_bits(cuda, kind, n, name):
+    """Every level on the runs route, every level on the entries route, and
+    the two alternating by level: the same bits in both modes, and in the
+    deterministic one the plain version's on the CPU (chunks shorter than n,
+    longer than n, a short last chunk; rows across every chunk)."""
+    cfg = HashEncodingConfig(**K4_ROUTE_CONFIGS[name])
+    L = cfg.num_levels
+    routes = [("runs",) * L, ("entries",) * L,
+              tuple("runs" if lvl % 2 == 0 else "entries" for lvl in range(L))]
+    pos = _k4_positions(kind, n, seed=3 * n + L).to(cuda)
+    g = torch.randn((n, cfg.output_dim), generator=torch.Generator().manual_seed(n))
+    g[::5] = 0.0
+    g = g.to(cuda)
+    for stochastic in (False, True):
+        got = [hash_encode_bwd(pos, g, cfg, stochastic, route) for route in routes]
+        torch.cuda.synchronize()
+        for other in got[1:]:
+            assert torch.equal(_bits(got[0]), _bits(other))
+        if not stochastic:
+            assert torch.equal(_bits(got[0]), _bits(hash_encode_bwd_plain(pos.cpu(), g.cpu(), cfg,
+                                                                          False)))
+
+
+def test_k4_rejects_an_unknown_route(cuda):
+    cfg = HashEncodingConfig(num_levels=4, log2_hashmap_size=10)
+    pos, g = torch.rand(10, 3, device=cuda), torch.zeros(10, 8, device=cuda)
+    with pytest.raises(ValueError):
+        hash_encode_bwd(pos, g, cfg, False, ("runs", "sorted", "entries", "entries"))
+    with pytest.raises(ValueError):
+        hash_encode_bwd(pos, g, cfg, False, ("runs",) * 3)
 
 
 @pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])

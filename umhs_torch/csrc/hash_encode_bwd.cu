@@ -27,39 +27,70 @@
 // deterministic contribution is __fmul_rn(w_v, g), never an FMA into the
 // sum. That is the order in which the plain version's 1-D index_add_ adds
 // on the CPU, so the two give the same bits, and a run repeats bit for bit.
-// No float atomics: every integer count is order-free, and every table row
-// is written by one lane.
+// An entry whose values are all zero (the compact buffer's padding rows) is
+// dropped: a sum that starts at +0 never becomes -0, so adding +-0 changes no
+// bit. No float atomics: every integer count is order-free, and every table
+// row is summed by one lane.
 //
-// The pipeline, one launch of the wrapper (every buffer comes from the
-// wrapper's scratch tensor; umhs_hash_encode_bwd_scratch_bytes sizes it):
-// 1. emit: one thread per sample walks the levels and writes each of its
-//    entries into a slot, level-major: slot k = (l * n + s) * VE + v (VE = V,
-//    or 1 when stochastic), as a key, the row, and the F values it adds (g,
-//    or __fmul_rn(w_v, g)). A row belongs to one level, so within a row
-//    ascending slot order is ascending e. An entry whose values are all zero
-//    (the compact buffer's padding rows) gets the key kSkip: adding it
-//    would change no bit, since the table starts at +0.
-// 2. a stable LSD radix sort of the entries by key on 8-bit digits, as many
-//    passes as the table's row count needs (3 at L16 2^19: 6,098,108 rows
-//    < 2^23), the values moving with their keys. Each pass:
-//    digit_count_kernel counts each tile's digits, digit_scan_kernel scans
-//    the counts over the tiles of each digit, and digit_scatter_kernel
-//    places each entry at its digit's start + the earlier tiles' count + its
-//    rank among the tile's earlier entries of that digit (ranks from warp
-//    ballots over the digit's bits), through a copy of the tile in shared
-//    memory laid out in digit order, so that the stores to device memory
-//    coalesce. The first pass drops the kSkip entries and records how many
-//    remain.
+// Each level takes one of two routes, as the wrapper's rule says
+// (hash_encode_bwd_route in umhs_torch/ops/encodings.py; both give the same
+// bits, so the rule only picks the faster). Every buffer comes from the
+// wrapper's scratch tensor, sized by umhs_hash_encode_bwd_scratch_bytes; the
+// routes run one after the other on the stream and share it.
+//
+// Route "runs" (coarse levels, where ray-ordered samples hit the same rows
+// again and again): what gets sorted globally is runs of entries, not entries.
+// 1. run_emit_kernel: a block takes a chunk of C consecutive samples at one
+//    level (C * VE = chunk_entries(F) entries, 2,048 at F <= 2), computes
+//    their entries, keeps the nonzero ones in ascending e, and sorts them in
+//    shared memory by the low 16 bits of the level-local row, stably (two
+//    8-bit passes of warp-ballot ranks, as the global sort's). A run is a
+//    stretch of equal rows in that order; its values are written contiguous
+//    into the chunk's slots of the values buffer, and one descriptor per run
+//    (row, [start, end) of its values) into the chunk's slots. Two rows that
+//    share the low 16 bits stay in ascending e among themselves, so a row's
+//    runs within a chunk are still in ascending e (only shorter).
+// 2. digit_scan_kernel over the chunks' run counts and compact_runs_kernel
+//    pack the descriptors in chunk order; a stable LSD radix sort of the
+//    descriptors (the kernels of the other route on 9-bit digits, moving the
+//    two-word span with each key) by the low bits of the row that tell a
+//    level's rows apart (two passes for levels of 2^17 rows; two levels'
+//    rows with the same low bits stay in level order) keeps each row's runs
+//    together and in chunk order. A chunk is a range of e within one level,
+//    so a row's runs in that order hold its entries in ascending e.
+// 3. run_fold_kernel: a warp takes the rows whose first run is among its 32
+//    sorted descriptors; per row its lanes read 32 runs' values at a time
+//    into shared memory, in order, and lanes 0..F-1 add them from +0 one by
+//    one, a feature each.
+//
+// Route "entries" (fine levels, ~1 entry per run): every entry is sorted.
+// 1. emit_kernel: one thread per sample walks the route's levels and writes
+//    each entry into a slot, level-major: slot k = (i * n + s) * VE + v for
+//    the route's i-th level (VE = V, or 1 when stochastic), as a key (the
+//    row, or kSkip when its values are all zero) and the F values it adds.
+//    A row belongs to one level, so within a row ascending slot order is
+//    ascending e.
+// 2. the stable LSD radix sort of the entries by key on 8-bit digits, as many
+//    passes as the route's rows need (3 at L16 2^19: 6,098,108 rows < 2^23),
+//    the values moving with their keys. Each pass: digit_count_kernel counts
+//    each tile's digits, digit_scan_kernel scans the counts over the tiles of
+//    each digit, and digit_scatter_kernel places each entry at its digit's
+//    start + the earlier tiles' count + its rank among the tile's earlier
+//    entries of that digit (ranks from warp ballots over the digit's bits),
+//    through a copy of the tile in shared memory laid out in digit order, so
+//    that the stores to device memory coalesce. The first pass drops the
+//    kSkip entries and records how many remain.
 // 3. row_sum_kernel: each warp owns 256 sorted entries, 8 consecutive ones
 //    a lane, and sums every row whose run starts there: each lane adds the
 //    runs that start in its entries, and a run that crosses lanes is carried
 //    from lane to lane in order, on past the warp's entries while it lasts.
 //
-// What bounds it on an H100: bytes. Per entry the sort reads and writes a
-// key and F values once per pass, all in order but the placement's digit
-// runs, and the sum writes each touched table row once, at random; the
-// table is zeroed by the wrapper. A dense level's row can hold thousands of
-// entries, whose sum is one chain of dependent adds, fed 256 entries a round.
+// What bounds it on an H100: bytes. The entries route reads and writes a key
+// and F values per entry once per pass. The runs route writes each entry's
+// values once and reads them once; what it sorts is a descriptor per run (7
+// times fewer than entries at nerfacto's first proposal grid), and its chunk
+// sort stays in shared memory. A dense level's row can hold thousands of
+// entries, whose sum is one chain of dependent adds.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -69,14 +100,30 @@ namespace {
 
 constexpr int kThreads = 256;  // every kernel's block
 constexpr int kWarps = kThreads / 32;
-constexpr int kDigitBits = 8;
+constexpr int kDigitBits = 8;  // the chunk sort's and the entries route's digits
 constexpr int kDigits = 1 << kDigitBits;
+constexpr int kRunDigitBits = 9;  // the runs' sort: two passes for levels of 2^17 rows
 constexpr int kRun = 8;  // consecutive sorted entries per lane in the sum
 constexpr int kSumBatch = 32 * kRun;  // sorted entries per warp round of the sum
+constexpr int kBlocksPerSm = 8;  // per SM, the grid of the kernels that walk their tiles
+// The launch bounds that name a minimum of blocks per SM (1 or 2, the same
+// register cap of 255 or 128): without one, ptxas gave those kernels 32-48
+// registers and spilled, and digit_scatter_kernel ran 3% slower (H100).
+constexpr int kFoldFloats = 512;  // staged values per warp in run_fold_kernel
 constexpr uint32_t kSkip = 0xffffffffu;  // key of an entry that adds nothing
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kThreads == kDigits, "one thread per digit in the scans");
 using umhs::Levels;
+
+// The levels one route takes, ascending.
+struct LevelList {
+  int count;
+  int level[umhs::kMaxLevels];
+};
+
+// Entries per chunk of the runs route: the staged values take 16 KB of
+// shared memory, and the run starts fit the warp counters' 2,048 words.
+__host__ __device__ constexpr int chunk_entries(int F) { return F <= 2 ? 2048 : 4096 / F; }
 
 // torch.remainder(v, 1.f): fmod, shifted into [0, 1) for negative v.
 __device__ __forceinline__ float frac1(float v) {
@@ -139,51 +186,29 @@ __device__ __forceinline__ bool all_zero(const float (&v)[F]) {
   return zero;
 }
 
-// 1. One thread per sample: every entry's key and values into its slot.
-template <int F, bool kTetra, bool kStochastic>
-__global__ void __launch_bounds__(kThreads)
-emit_kernel(const float* __restrict__ pos, const float* __restrict__ g,
-            uint32_t* __restrict__ keys, float* __restrict__ vals, uint32_t n, int L, Levels lv) {
-  const uint32_t s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= n) return;
-  const float p[3] = {__ldg(pos + 3 * s), __ldg(pos + 3 * s + 1), __ldg(pos + 3 * s + 2)};
-  const float u = kStochastic ? position_uniform(p) : 0.f;
-  const float* gs = g + static_cast<size_t>(s) * L * F;  // g[s, l * F + f]
-  constexpr int V = kTetra ? 4 : 8;
-  constexpr int VE = kStochastic ? 1 : V;
-  for (int l = 0; l < L; ++l) {
-    uint32_t rows[V];
-    float w[V];
-    umhs::hash_vertices<kTetra>(p, l, lv, rows, w);
-    float gv[F];
-    load_row<F>(gs + l * F, gv);
-    const size_t k = (static_cast<size_t>(l) * n + s) * VE;
-    if (kStochastic) {
-      const float ul = level_uniform(u, l);
-      uint32_t row = rows[V - 1];
-      bool found = false;
-      float cum = 0.f;
+// The row of one (sample, level) of the stochastic mode: the first vertex
+// whose running weight sum exceeds u_l, else the last.
+template <int V>
+__device__ __forceinline__ uint32_t drawn_row(const uint32_t (&rows)[V], const float (&w)[V],
+                                              float ul) {
+  uint32_t row = rows[V - 1];
+  bool found = false;
+  float cum = 0.f;
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        cum = v == 0 ? w[0] : __fadd_rn(cum, w[v]);
-        if (!found && ul < cum) {
-          row = rows[v];
-          found = true;
-        }
-      }
-      keys[k] = all_zero<F>(gv) ? kSkip : row;
-      store_row<F>(vals + k * F, gv);
-    } else {
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        float c[F];
-#pragma unroll
-        for (int f = 0; f < F; ++f) c[f] = __fmul_rn(w[v], gv[f]);
-        keys[k + v] = all_zero<F>(c) ? kSkip : rows[v];
-        store_row<F>(vals + (k + v) * F, c);
-      }
+  for (int v = 0; v < V; ++v) {
+    cum = v == 0 ? w[0] : __fadd_rn(cum, w[v]);
+    if (!found && ul < cum) {
+      row = rows[v];
+      found = true;
     }
   }
+  return row;
+}
+
+// Rows of a level of the table.
+__device__ __forceinline__ uint32_t level_rows(const Levels& lv, int l) {
+  const uint32_t r = static_cast<uint32_t>(lv.res[l]);
+  return lv.dense[l] ? r * r * r : lv.hash_mask + 1u;
 }
 
 // Exclusive prefix of v over the block's threads in thread order; *total
@@ -211,97 +236,50 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* t
   return before + x - v;
 }
 
-// Entries per lane in a sort tile: the staged tile's keys and values fit
-// 48 KB of shared memory beside the counters.
-__host__ __device__ constexpr int sort_items(int F) { return F == 1 ? 16 : (F == 2 ? 8 : 4); }
+// The lanes of the warp that hold the same digit d (of kBits bits) and are
+// valid.
+template <int kBits>
+__device__ __forceinline__ unsigned digit_peers(uint32_t d, bool valid) {
+  unsigned peers = __ballot_sync(kFull, valid);
+#pragma unroll
+  for (int b = 0; b < kBits; ++b) {
+    const bool bit = (d >> b) & 1u;
+    const unsigned set = __ballot_sync(kFull, bit);
+    peers &= bit ? set : ~set;
+  }
+  return peers;
+}
 
-// 2a. Digit counts of one tile: counts[d * tiles + tile]. Entries past the
-// live count (*count, or m where count is null) and kSkip keys are not counted.
+// --------------------------------------------------------------- route "runs"
+
+// One stable pass of the chunk sort in shared memory: the first m (key,
+// order) pairs placed by digit ((key - off) >> shift) & 255, kSkip keys
+// dropped; returns how many were placed. Warp w takes positions
+// w * 32 * kItems + j * 32 + lane in order and ranks each among the warp's
+// earlier pairs of its digit, as digit_scatter_kernel does, its peers found
+// by __match_any_sync (faster here than digit_peers' ballots; slower in the
+// global sort, measured on an H100). Every thread of the block calls it.
 template <int kItems>
-__global__ void __launch_bounds__(kThreads)
-digit_count_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ count,
-                   uint32_t m, int shift, uint32_t* __restrict__ counts, uint32_t tiles) {
-  __shared__ uint32_t hist[kDigits];
-  hist[threadIdx.x] = 0;
-  __syncthreads();
-  const uint32_t live = count ? *count : m;
-  const size_t base = static_cast<size_t>(blockIdx.x) * kThreads * kItems;
-#pragma unroll 4
-  for (int i = 0; i < kItems; ++i) {
-    const size_t idx = base + static_cast<size_t>(i) * kThreads + threadIdx.x;
-    if (idx >= live) break;
-    const uint32_t key = keys[idx];
-    if (key != kSkip) atomicAdd(&hist[(key >> shift) & (kDigits - 1)], 1u);
-  }
-  __syncthreads();
-  counts[static_cast<size_t>(threadIdx.x) * tiles + blockIdx.x] = hist[threadIdx.x];
-}
-
-// 2b. One block per digit: its counts turned into exclusive prefixes over
-// the tiles, in place; totals[d] = the digit's count.
-__global__ void __launch_bounds__(kThreads)
-digit_scan_kernel(uint32_t* __restrict__ counts, uint32_t tiles, uint32_t* __restrict__ totals) {
-  uint32_t* c = counts + static_cast<size_t>(blockIdx.x) * tiles;
-  uint32_t carry = 0;
-  for (uint32_t start = 0; start < tiles; start += kThreads) {
-    const uint32_t idx = start + threadIdx.x;
-    const uint32_t v = idx < tiles ? c[idx] : 0u;
-    uint32_t chunk;
-    const uint32_t before = block_exclusive_scan(v, &chunk);
-    if (idx < tiles) c[idx] = carry + before;
-    carry += chunk;
-  }
-  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
-}
-
-// 2c. Stable placement of one tile's entries (key and F values) by their
-// digit. Warp w takes the tile's entries w * 32 * kItems + j * 32 + lane,
-// j = 0..kItems-1, in index order, and ranks each among the warp's earlier
-// entries of its digit (ballots over the digit's bits). The tile is then
-// laid out in shared memory in digit order and written out a digit run at a
-// time, so that neighbouring lanes store to neighbouring addresses. The
-// first pass drops kSkip keys; its block 0 writes the live count.
-template <int F, bool kFirst>
-__global__ void __launch_bounds__(kThreads)
-digit_scatter_kernel(const uint32_t* __restrict__ keys_in, const float* __restrict__ vals_in,
-                     uint32_t* __restrict__ keys_out, float* __restrict__ vals_out,
-                     uint32_t* __restrict__ count, uint32_t m, int shift,
-                     const uint32_t* __restrict__ counts, uint32_t tiles,
-                     const uint32_t* __restrict__ totals) {
-  constexpr int kItems = sort_items(F);
-  constexpr int kTile = kThreads * kItems;
-  __shared__ uint32_t start[kDigits];  // where this tile's entries of digit d go in the output
-  __shared__ uint32_t local[kDigits];  // where they go in the staged tile
-  __shared__ uint32_t warp_count[kWarps][kDigits];
-  __shared__ uint32_t staged_keys[kTile];
-  __shared__ __align__(16) float staged_vals[kTile * F];
+__device__ __forceinline__ uint32_t chunk_sort_pass(uint32_t* keys, uint16_t* order, uint32_t m,
+                                                uint32_t off, int shift,
+                                                uint32_t (*warp_count)[kDigits],
+                                                uint32_t* digit_start) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  uint32_t total;
-  const uint32_t digit_start = block_exclusive_scan(totals[t], &total);
-  start[t] = digit_start + counts[static_cast<size_t>(t) * tiles + blockIdx.x];
+  const unsigned below = (1u << lane) - 1u;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) warp_count[w][t] = 0;
-  if (kFirst && blockIdx.x == 0 && t == 0) *count = total;
-  const uint32_t live = kFirst ? m : *count;
   __syncthreads();
-
-  const unsigned below = (1u << lane) - 1u;
-  const size_t base = static_cast<size_t>(blockIdx.x) * kTile + warp * (32 * kItems) + lane;
+  const uint32_t base = warp * (32 * kItems) + lane;
   uint32_t key[kItems], rank[kItems];
+  uint16_t ord[kItems];
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
-    const size_t idx = base + 32 * j;
-    bool valid = idx < live;
-    key[j] = valid ? keys_in[idx] : kSkip;
-    if (kFirst) valid = valid && key[j] != kSkip;
-    const uint32_t d = (key[j] >> shift) & (kDigits - 1);
-    unsigned peers = __ballot_sync(kFull, valid);  // the valid lanes of the same digit
-#pragma unroll
-    for (int b = 0; b < kDigitBits; ++b) {
-      const bool bit = (d >> b) & 1u;
-      const unsigned set = __ballot_sync(kFull, bit);
-      peers &= bit ? set : ~set;
-    }
+    const uint32_t at = base + 32 * j;
+    key[j] = at < m ? keys[at] : kSkip;
+    const bool valid = key[j] != kSkip;
+    ord[j] = valid ? order[at] : 0;
+    const uint32_t d = ((key[j] - off) >> shift) & (kDigits - 1);
+    const unsigned peers = __match_any_sync(kFull, valid ? d : kDigits + lane);
     rank[j] = valid ? warp_count[warp][d] + __popc(peers & below) : kSkip;
     __syncwarp();
     if (valid && (peers & below) == 0u) warp_count[warp][d] += __popc(peers);
@@ -315,13 +293,460 @@ digit_scatter_kernel(const uint32_t* __restrict__ keys_in, const float* __restri
     warp_count[w][t] = run;
     run += c;
   }
-  uint32_t in_tile;
-  local[t] = block_exclusive_scan(run, &in_tile);  // syncs: warp_count is complete
+  uint32_t total;
+  digit_start[t] = block_exclusive_scan(run, &total);  // syncs: warp_count is complete
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     if (rank[j] == kSkip) continue;
-    const uint32_t d = (key[j] >> shift) & (kDigits - 1);
+    const uint32_t d = ((key[j] - off) >> shift) & (kDigits - 1);
+    const uint32_t at = digit_start[d] + warp_count[warp][d] + rank[j];
+    keys[at] = key[j];
+    order[at] = ord[j];
+  }
+  __syncthreads();
+  return total;
+}
+
+// 1. A block per (chunk, level of the route): the chunk's nonzero entries
+// sorted by row in shared memory, their values written in that order into
+// the chunk's slots [chunk * E, chunk * E + m) of vals, and one descriptor
+// per run into the chunk's slots of run_rows and run_spans (the run's slots
+// [start, end) of vals); run_count[chunk] = its runs. Chunks are numbered
+// level-major: chunk = i * chunks + c for the route's i-th level.
+template <int F, bool kTetra, bool kStochastic>
+__global__ void __launch_bounds__(kThreads)
+run_emit_kernel(const float* __restrict__ pos, const float* __restrict__ g, uint32_t n, int L,
+                Levels lv, LevelList list, uint32_t chunks, float* __restrict__ vals,
+                uint32_t* __restrict__ run_rows, uint2* __restrict__ run_spans,
+                uint32_t* __restrict__ run_count) {
+  constexpr int V = kTetra ? 4 : 8;
+  constexpr int VE = kStochastic ? 1 : V;
+  constexpr int E = chunk_entries(F);
+  constexpr int C = E / VE;  // samples per chunk
+  constexpr int kItems = E / kThreads;
+  static_assert(E <= kWarps * kDigits, "the run starts reuse warp_count");
+  __shared__ uint32_t keys[E];
+  __shared__ uint16_t order[E];
+  __shared__ __align__(16) float staged[E * F];
+  __shared__ uint32_t warp_count[kWarps][kDigits];
+  __shared__ uint32_t digit_start[kDigits];
+  const int t = threadIdx.x;
+  const int l = list.level[blockIdx.y];
+  const size_t chunk = static_cast<size_t>(blockIdx.y) * chunks + blockIdx.x;
+  const uint32_t first = blockIdx.x * static_cast<uint32_t>(C);
+
+  // the chunk's entries in ascending e: slot j = (s - first) * VE + v holds
+  // the row (kSkip when its values are all zero, or past n) and the values
+  for (uint32_t local = t; local < static_cast<uint32_t>(C); local += kThreads) {
+    const uint32_t s = first + local;
+    uint32_t* key = keys + local * VE;
+    if (s >= n) {
+#pragma unroll
+      for (int v = 0; v < VE; ++v) key[v] = kSkip;
+      continue;
+    }
+    const float p[3] = {__ldg(pos + 3 * s), __ldg(pos + 3 * s + 1), __ldg(pos + 3 * s + 2)};
+    uint32_t rows[V];
+    float w[V];
+    umhs::hash_vertices<kTetra>(p, l, lv, rows, w);
+    float gv[F];
+    load_row<F>(g + static_cast<size_t>(s) * L * F + l * F, gv);
+    if (kStochastic) {
+      const uint32_t r = drawn_row<V>(rows, w, level_uniform(position_uniform(p), l));
+      key[0] = all_zero<F>(gv) ? kSkip : r;
+      store_row<F>(staged + local * F, gv);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float c[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) c[f] = __fmul_rn(w[v], gv[f]);
+        key[v] = all_zero<F>(c) ? kSkip : rows[v];
+        store_row<F>(staged + (local * VE + v) * F, c);
+      }
+    }
+  }
+  for (int j = t; j < E; j += kThreads) order[j] = static_cast<uint16_t>(j);
+  __syncthreads();
+
+  // stable sort by the low 16 bits of the level-local row (8 when the level
+  // has at most 256 rows); the first pass drops the kSkip entries, leaving m
+  const uint32_t off = static_cast<uint32_t>(lv.offset[l]);
+  const int bits = level_rows(lv, l) > static_cast<uint32_t>(kDigits) ? 2 * kDigitBits : kDigitBits;
+  uint32_t m = E;
+  for (int shift = 0; shift < bits; shift += kDigitBits)
+    m = chunk_sort_pass<kItems>(keys, order, m, off, shift, warp_count, digit_start);
+
+  // the runs: thread t counts the run starts among sorted positions
+  // [t * kItems, t * kItems + kItems) and records them in order
+  uint32_t heads = 0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const uint32_t p = t * kItems + k;
+    heads += p < m && (p == 0 || keys[p] != keys[p - 1]);
+  }
+  uint32_t runs;
+  uint32_t r = block_exclusive_scan(heads, &runs);
+  uint32_t* head_at = &warp_count[0][0];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const uint32_t p = t * kItems + k;
+    if (p < m && (p == 0 || keys[p] != keys[p - 1])) head_at[r++] = p;
+  }
+  __syncthreads();
+  const size_t slot0 = chunk * E;
+  for (uint32_t q = t; q < runs; q += kThreads) {
+    const uint32_t p = head_at[q], end = q + 1 < runs ? head_at[q + 1] : m;
+    run_rows[slot0 + q] = keys[p];
+    run_spans[slot0 + q] = make_uint2(static_cast<uint32_t>(slot0 + p),
+                                      static_cast<uint32_t>(slot0 + end));
+  }
+  if (t == 0) run_count[chunk] = runs;
+  for (uint32_t p = t; p < m; p += kThreads) {
+    float v[F];
+    const uint32_t o = order[p];
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = staged[o * F + f];
+    store_row<F>(vals + (slot0 + p) * F, v);
+  }
+}
+
+// 2a. The chunks' descriptors packed in chunk order, a warp a chunk: chunk
+// c's runs go to [offsets[c], offsets[c + 1]) (offsets: the exclusive scan
+// of the run counts; *total: all of them).
+__global__ void __launch_bounds__(kThreads)
+compact_runs_kernel(const uint32_t* __restrict__ rows_in, const uint2* __restrict__ spans_in,
+                    const uint32_t* __restrict__ offsets, const uint32_t* __restrict__ total,
+                    uint32_t chunks, uint32_t chunk_slots, uint32_t* __restrict__ rows_out,
+                    uint2* __restrict__ spans_out) {
+  const uint32_t c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= chunks) return;
+  const uint32_t begin = offsets[c], end = c + 1 < chunks ? offsets[c + 1] : *total;
+  const size_t slot0 = static_cast<size_t>(c) * chunk_slots;
+  for (uint32_t q = threadIdx.x & 31; q < end - begin; q += 32) {
+    rows_out[begin + q] = rows_in[slot0 + q];
+    spans_out[begin + q] = spans_in[slot0 + q];
+  }
+}
+
+// 3. Warp w of the grid's walk owns sorted descriptors [32 w, 32 w + 32) and
+// folds each row whose first run lies there, 32 aligned descriptors (a
+// group) at a time, the next group's rows and spans loaded while this one's
+// values are folded. A group's runs of the row, laid end to end, are read
+// kPer entries a lane per window (each lane finds its entries' runs by a
+// binary search over the runs' places) into the warp's shared buffer, one
+// feature after another, and padded with +0 to a multiple of 4 entries
+// (adding +0 to a sum that started at +0 changes no bit); the next window's
+// loads are in flight while lanes 0..F-1 each add one feature's entries,
+// four per shared load, from +0 in order, one __fadd_rn each.
+template <int F>
+__global__ void __launch_bounds__(kThreads, 2)
+run_fold_kernel(const uint32_t* __restrict__ rows, const uint2* __restrict__ spans,
+                const uint32_t* __restrict__ count, const float* __restrict__ vals,
+                float* __restrict__ grad) {
+  constexpr int kPer = kFoldFloats / F / 32;  // entries per lane in a window
+  constexpr uint32_t kCap = 32 * kPer;  // entries per window
+  __shared__ __align__(16) float staged[kWarps][kFoldFloats];
+  __shared__ uint32_t place[kWarps][32];  // where each lane's run starts in the row's group
+  __shared__ uint32_t source[kWarps][32];  // and in vals
+  const uint32_t live = *count;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* buf = staged[warp];
+  const uint32_t warps = gridDim.x * kWarps;
+  for (uint32_t w = blockIdx.x * kWarps + warp; static_cast<uint64_t>(w) * 32 < live; w += warps) {
+    const uint32_t i = w * 32 + lane;
+    const uint32_t mine = i < live ? rows[i] : kSkip;
+    const uint2 my_span = i < live ? spans[i] : make_uint2(0u, 0u);
+    uint32_t prev = __shfl_up_sync(kFull, mine, 1);
+    if (lane == 0) prev = w > 0 ? rows[w * 32 - 1] : kSkip;
+    unsigned heads = __ballot_sync(kFull, i < live && mine != prev);
+    while (heads) {
+      const int h = __ffs(heads) - 1;
+      heads &= heads - 1;
+      const uint32_t row = __shfl_sync(kFull, mine, h);
+      float mine_acc = 0.f;  // lane f < F: the row's sum of feature f
+      uint32_t group = w * 32, g_row = mine;
+      uint2 span = my_span;
+      int first = h;
+      while (true) {
+        const bool in = lane >= first && g_row == row;  // a row's runs lie together
+        const bool more = __shfl_sync(kFull, in, 31) && group + 32 < live;
+        uint32_t n_row = kSkip;  // the next group, in flight while this one is folded
+        uint2 n_span = make_uint2(0u, 0u);
+        if (more) {
+          const uint32_t k = group + 32 + lane;
+          n_row = k < live ? rows[k] : kSkip;
+          n_span = k < live ? spans[k] : make_uint2(0u, 0u);
+        }
+        const uint32_t len = in ? span.y - span.x : 0u;
+        uint32_t incl = len;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const uint32_t y = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += y;
+        }
+        const uint32_t total = __shfl_sync(kFull, incl, 31);
+        place[warp][lane] = incl - len;
+        source[warp][lane] = span.x;
+        __syncwarp();
+        // entry e of the group lies in the run of the last lane whose place <= e
+        float v[kPer][F];
+        auto load = [&](uint32_t lo) {
+#pragma unroll
+          for (int q = 0; q < kPer; ++q) {
+            const uint32_t e = lo + q * 32 + lane;
+            if (e >= total) continue;
+            int k = 0;
+#pragma unroll
+            for (int step = 16; step > 0; step >>= 1)
+              if (place[warp][k + step] <= e) k += step;
+            load_row<F>(vals + (static_cast<size_t>(source[warp][k]) + (e - place[warp][k])) * F,
+                        v[q]);
+          }
+        };
+        load(0);
+        for (uint32_t lo = 0; lo < total; lo += kCap) {
+#pragma unroll
+          for (int q = 0; q < kPer; ++q) {
+            const bool real = lo + q * 32 + lane < total;
+#pragma unroll
+            for (int f = 0; f < F; ++f) buf[f * kCap + q * 32 + lane] = real ? v[q][f] : 0.f;
+          }
+          __syncwarp();
+          if (lo + kCap < total) load(lo + kCap);
+          if (lane < F) {
+            const uint32_t cnt = total - lo < kCap ? total - lo : kCap;
+            const float4* x = reinterpret_cast<const float4*>(buf + lane * kCap);
+#pragma unroll 4
+            for (uint32_t c = 0; c < (cnt + 3) / 4; ++c) {
+              const float4 y = x[c];
+              mine_acc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(mine_acc, y.x), y.y), y.z), y.w);
+            }
+          }
+          __syncwarp();
+        }
+        if (!more) break;
+        group += 32;
+        g_row = n_row;
+        span = n_span;
+        first = 0;
+      }
+      if (lane < F) grad[static_cast<size_t>(row) * F + lane] = mine_acc;
+    }
+  }
+}
+
+// ------------------------------------------------------------ route "entries"
+
+// 1. One thread per sample: every entry of the route's levels, key and
+// values into its slot.
+template <int F, bool kTetra, bool kStochastic>
+__global__ void __launch_bounds__(kThreads)
+emit_kernel(const float* __restrict__ pos, const float* __restrict__ g, uint32_t* __restrict__ keys,
+            float* __restrict__ vals, uint32_t n, int L, Levels lv, LevelList list) {
+  const uint32_t s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= n) return;
+  const float p[3] = {__ldg(pos + 3 * s), __ldg(pos + 3 * s + 1), __ldg(pos + 3 * s + 2)};
+  const float u = kStochastic ? position_uniform(p) : 0.f;
+  const float* gs = g + static_cast<size_t>(s) * L * F;  // g[s, l * F + f]
+  constexpr int V = kTetra ? 4 : 8;
+  constexpr int VE = kStochastic ? 1 : V;
+  for (int i = 0; i < list.count; ++i) {
+    const int l = list.level[i];
+    uint32_t rows[V];
+    float w[V];
+    umhs::hash_vertices<kTetra>(p, l, lv, rows, w);
+    float gv[F];
+    load_row<F>(gs + l * F, gv);
+    const size_t k = (static_cast<size_t>(i) * n + s) * VE;
+    if (kStochastic) {
+      const uint32_t row = drawn_row<V>(rows, w, level_uniform(u, l));
+      keys[k] = all_zero<F>(gv) ? kSkip : row;
+      store_row<F>(vals + k * F, gv);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float c[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) c[f] = __fmul_rn(w[v], gv[f]);
+        keys[k + v] = all_zero<F>(c) ? kSkip : rows[v];
+        store_row<F>(vals + (k + v) * F, c);
+      }
+    }
+  }
+}
+
+// Entries per lane in a sort tile: the staged tile's keys and values fit
+// 48 KB of shared memory beside the counters.
+__host__ __device__ constexpr int sort_items(int F) { return F == 1 ? 16 : (F == 2 ? 8 : 4); }
+
+__device__ __forceinline__ uint32_t tiles_of(uint32_t live, uint32_t tile) {
+  return static_cast<uint32_t>((static_cast<uint64_t>(live) + tile - 1) / tile);
+}
+
+// 2a. Digit counts of each tile: counts[d * stride + tile], digits of kBits
+// bits. The live entries are the first *live_in (m where live_in is null);
+// kSkip keys are not counted. The blocks walk the live tiles.
+template <int kItems, int kBits>
+__global__ void __launch_bounds__(kThreads)
+digit_count_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ live_in,
+                   uint32_t m, int shift, uint32_t* __restrict__ counts, uint32_t stride) {
+  constexpr int kTile = kThreads * kItems;
+  constexpr int kD = 1 << kBits;
+  __shared__ uint32_t hist[kD];
+  const uint32_t live = live_in ? *live_in : m;
+  const uint32_t tiles = tiles_of(live, kTile);
+  for (uint32_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+#pragma unroll
+    for (int d = threadIdx.x; d < kD; d += kThreads) hist[d] = 0;
+    __syncthreads();
+    const size_t base = static_cast<size_t>(tile) * kTile;
+#pragma unroll 4
+    for (int i = 0; i < kItems; ++i) {
+      const size_t idx = base + static_cast<size_t>(i) * kThreads + threadIdx.x;
+      if (idx >= live) break;
+      const uint32_t key = keys[idx];
+      if (key != kSkip) atomicAdd(&hist[(key >> shift) & (kD - 1)], 1u);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int d = threadIdx.x; d < kD; d += kThreads)
+      counts[static_cast<size_t>(d) * stride + tile] = hist[d];
+    __syncthreads();  // hist is zeroed again
+  }
+}
+
+// 2b. One block per digit d: counts[d * stride + tile] over the live tiles
+// (ceil(live / per_tile) of them, live = *live_in or m) turned into
+// exclusive prefixes in place; totals[d] = the digit's count. The counts
+// pass through shared memory kScanItems a thread at a time: loaded and
+// stored coalesced, scanned a consecutive stretch per thread (the index
+// padded by one word in 32, so that the stretches fall in distinct banks).
+constexpr int kScanItems = 16;
+__device__ __forceinline__ int scan_pad(int j) { return j + (j >> 5); }
+
+__global__ void __launch_bounds__(kThreads)
+digit_scan_kernel(uint32_t* __restrict__ counts, uint32_t stride,
+                  const uint32_t* __restrict__ live_in, uint32_t m, uint32_t per_tile,
+                  uint32_t* __restrict__ totals) {
+  constexpr int kChunk = kThreads * kScanItems;
+  __shared__ uint32_t s[kChunk + kChunk / 32];
+  const int t = threadIdx.x;
+  const uint32_t tiles = tiles_of(live_in ? *live_in : m, per_tile);
+  uint32_t* c = counts + static_cast<size_t>(blockIdx.x) * stride;
+  uint32_t carry = 0;
+  for (uint32_t base = 0; base < tiles; base += kChunk) {
+#pragma unroll
+    for (int q = 0; q < kScanItems; ++q) {
+      const int j = q * kThreads + t;
+      s[scan_pad(j)] = base + j < tiles ? c[base + j] : 0u;
+    }
+    __syncthreads();
+    uint32_t sum = 0;
+#pragma unroll
+    for (int q = 0; q < kScanItems; ++q) sum += s[scan_pad(t * kScanItems + q)];
+    uint32_t chunk;
+    uint32_t run = carry + block_exclusive_scan(sum, &chunk);
+#pragma unroll
+    for (int q = 0; q < kScanItems; ++q) {
+      const int j = scan_pad(t * kScanItems + q);
+      const uint32_t v = s[j];
+      s[j] = run;
+      run += v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kScanItems; ++q) {
+      const int j = q * kThreads + t;
+      if (base + j < tiles) c[base + j] = s[scan_pad(j)];
+    }
+    carry += chunk;
+    __syncthreads();  // s is loaded again
+  }
+  if (t == 0) totals[blockIdx.x] = carry;
+}
+
+// 2c. Stable placement of one tile's entries (key and F words) by their
+// digit of kBits bits; thread t owns digits t * kPer .. t * kPer + kPer - 1
+// (kPer = 2^kBits / kThreads) and gets their starts from the totals in
+// digit_start. Warp w takes the tile's entries w * 32 * kItems + j * 32 + lane,
+// j = 0..kItems-1, in index order, and ranks each among the warp's earlier
+// entries of its digit (ballots over the digit's bits). The tile is then
+// laid out in shared memory in digit order and written out a digit run at a
+// time, so that neighbouring lanes store to neighbouring addresses. The
+// first pass drops kSkip keys. Every thread of the block calls it.
+template <int F, bool kFirst, int kBits>
+__device__ __forceinline__ void scatter_tile(const uint32_t* __restrict__ keys_in,
+                                             const float* __restrict__ vals_in,
+                                             uint32_t* __restrict__ keys_out,
+                                             float* __restrict__ vals_out, size_t first,
+                                             uint32_t in_tile_live, int shift,
+                                             const uint32_t* __restrict__ counts,
+                                             uint32_t stride, uint32_t tile,
+                                             const uint32_t (&digit_start)[(1 << kBits) /
+                                                                           kThreads]) {
+  constexpr int kItems = sort_items(F);
+  constexpr int kTile = kThreads * kItems;
+  constexpr int kD = 1 << kBits, kPer = kD / kThreads;
+  __shared__ uint32_t start[kD];  // where this tile's entries of digit d go in the output
+  __shared__ uint32_t local[kD];  // where they go in the staged tile
+  __shared__ uint32_t warp_count[kWarps][kD];
+  __shared__ uint32_t staged_keys[kTile];
+  __shared__ __align__(16) float staged_vals[kTile * F];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int d = t * kPer + i;
+    start[d] = digit_start[i] + counts[static_cast<size_t>(d) * stride + tile];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) warp_count[w][d] = 0;
+  }
+  __syncthreads();
+
+  const unsigned below = (1u << lane) - 1u;
+  const uint32_t mine = warp * (32 * kItems) + lane;  // the warp's entries in the tile
+  const size_t base = first + mine;
+  uint32_t key[kItems], rank[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const size_t idx = base + 32 * j;
+    bool valid = mine + 32 * j < in_tile_live;
+    key[j] = valid ? keys_in[idx] : kSkip;
+    if (kFirst) valid = valid && key[j] != kSkip;
+    const uint32_t d = (key[j] >> shift) & (kD - 1);
+    const unsigned peers = digit_peers<kBits>(d, valid);
+    rank[j] = valid ? warp_count[warp][d] + __popc(peers & below) : kSkip;
+    __syncwarp();
+    if (valid && (peers & below) == 0u) warp_count[warp][d] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  uint32_t runs[kPer], sum = 0;  // thread t's digits' counts over the warps -> prefixes
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    uint32_t run = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const uint32_t c = warp_count[w][t * kPer + i];
+      warp_count[w][t * kPer + i] = run;
+      run += c;
+    }
+    runs[i] = run;
+    sum += run;
+  }
+  uint32_t in_tile;
+  uint32_t before = block_exclusive_scan(sum, &in_tile);  // syncs: warp_count is complete
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    local[t * kPer + i] = before;
+    before += runs[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    if (rank[j] == kSkip) continue;
+    const uint32_t d = (key[j] >> shift) & (kD - 1);
     const uint32_t at = local[d] + warp_count[warp][d] + rank[j];
     staged_keys[at] = key[j];
     float v[F];
@@ -331,13 +756,81 @@ digit_scatter_kernel(const uint32_t* __restrict__ keys_in, const float* __restri
   __syncthreads();
   for (uint32_t i = t; i < in_tile; i += kThreads) {
     const uint32_t k = staged_keys[i];
-    const uint32_t d = (k >> shift) & (kDigits - 1);
+    const uint32_t d = (k >> shift) & (kD - 1);
     const size_t at = start[d] + (i - local[d]);
     keys_out[at] = k;
     float v[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) v[f] = staged_vals[i * F + f];
     store_row<F>(vals_out + at * F, v);
+  }
+}
+
+// Where each digit of thread t's kPer starts in the output, from the
+// digits' totals (thread t owns digits t * kPer ..); *total: all of them.
+template <int kBits>
+__device__ __forceinline__ void digit_starts(const uint32_t* __restrict__ totals,
+                                             uint32_t (&starts)[(1 << kBits) / kThreads],
+                                             uint32_t* total) {
+  constexpr int kPer = (1 << kBits) / kThreads;
+  uint32_t sum = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) sum += totals[threadIdx.x * kPer + i];
+  uint32_t before = block_exclusive_scan(sum, total);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    starts[i] = before;
+    before += totals[threadIdx.x * kPer + i];
+  }
+}
+
+// The placement of a pass on 8-bit digits, one tile a block (the grid sized
+// to the tiles; the entries route). Each block scans the digit totals for
+// the digits' starts; the first pass's block 0 writes the live count (its
+// kSkip keys dropped).
+template <int F, bool kFirst>
+__global__ void __launch_bounds__(kThreads, 1)
+digit_scatter_kernel(const uint32_t* __restrict__ keys_in, const float* __restrict__ vals_in,
+                     uint32_t* __restrict__ keys_out, float* __restrict__ vals_out,
+                     const uint32_t* __restrict__ live_in, uint32_t m,
+                     uint32_t* __restrict__ count, int shift,
+                     const uint32_t* __restrict__ counts, uint32_t stride,
+                     const uint32_t* __restrict__ totals) {
+  uint32_t total, starts[1];
+  digit_starts<kDigitBits>(totals, starts, &total);
+  if (kFirst && blockIdx.x == 0 && threadIdx.x == 0) *count = total;
+  constexpr uint32_t kTile = kThreads * sort_items(F);
+  const uint32_t live = live_in ? *live_in : m;
+  const size_t first = static_cast<size_t>(blockIdx.x) * kTile;
+  if (first < live)
+    scatter_tile<F, kFirst, kDigitBits>(
+        keys_in, vals_in, keys_out, vals_out, first,
+        live - first < kTile ? static_cast<uint32_t>(live - first) : kTile, shift, counts, stride,
+        blockIdx.x, starts);
+}
+
+// The same on digits of kBits bits where the blocks (a grid of at most
+// grid_cap) walk the live tiles: the runs route, whose count lives on the card.
+template <int F, bool kFirst, int kBits>
+__global__ void __launch_bounds__(kThreads, 2)
+digit_scatter_walk_kernel(const uint32_t* __restrict__ keys_in, const float* __restrict__ vals_in,
+                          uint32_t* __restrict__ keys_out, float* __restrict__ vals_out,
+                          const uint32_t* __restrict__ live_in, uint32_t m,
+                          uint32_t* __restrict__ count, int shift,
+                          const uint32_t* __restrict__ counts, uint32_t stride,
+                          const uint32_t* __restrict__ totals) {
+  constexpr uint32_t kTile = kThreads * sort_items(F);
+  uint32_t total, starts[(1 << kBits) / kThreads];
+  digit_starts<kBits>(totals, starts, &total);
+  if (kFirst && blockIdx.x == 0 && threadIdx.x == 0) *count = total;
+  const uint32_t live = live_in ? *live_in : m;
+  const uint32_t tiles = tiles_of(live, kTile);
+  for (uint32_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t first = static_cast<size_t>(tile) * kTile;
+    const uint32_t in_tile = live - first < kTile ? static_cast<uint32_t>(live - first) : kTile;
+    scatter_tile<F, kFirst, kBits>(keys_in, vals_in, keys_out, vals_out, first, in_tile, shift,
+                                   counts, stride, tile, starts);
+    __syncthreads();  // the shared arrays serve the next tile
   }
 }
 
@@ -461,42 +954,233 @@ row_sum_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ vals
   if (lane == 0) store_row<F>(grad + static_cast<size_t>(carry_row) * F, carry);
 }
 
-uint32_t sort_passes(uint32_t table_rows) {
+// ------------------------------------------------------------------ launches
+
+// LSD passes of digit_bits for keys below `rows`.
+uint32_t sort_passes(uint64_t rows, int digit_bits) {
   uint32_t bits = 0;
-  while (bits < 32 && ((table_rows - 1u) >> bits) != 0u) ++bits;
-  return bits == 0 ? 1u : (bits + kDigitBits - 1) / kDigitBits;
+  while (bits < 32 && ((rows - 1u) >> bits) != 0u) ++bits;
+  return bits == 0 ? 1u : (bits + digit_bits - 1) / digit_bits;
 }
 
 size_t align256(size_t b) { return (b + 255) / 256 * 256; }
 
-// The scratch's layout: keys (m u32) and values (m x F f32), twice, then the
-// digit counts, the digit totals and the live count.
-struct Scratch {
-  uint32_t *keys_a, *keys_b, *counts, *totals, *count;
-  float *vals_a, *vals_b;
-  size_t bytes;
+uint64_t ceil_div(uint64_t a, uint64_t b) { return (a + b - 1) / b; }
+
+// Carves consecutive 256-aligned pieces out of the scratch (sizes only when
+// the base is null).
+struct Carver {
+  char* base;
+  size_t off = 0;
+  template <typename T>
+  T* take(uint64_t count) {
+    T* at = base ? reinterpret_cast<T*>(base + off) : nullptr;
+    off += align256(count * sizeof(T));
+    return at;
+  }
 };
 
-Scratch scratch_layout(void* base, uint64_t m, int F) {
-  const uint64_t tile = kThreads * sort_items(F);
-  const uint64_t tiles = (m + tile - 1) / tile;
-  char* p = static_cast<char*>(base);
-  Scratch s{};
-  size_t off = 0;
-  auto take = [&](size_t b) {
-    char* at = p ? p + off : nullptr;
-    off += align256(b);
-    return at;
-  };
-  s.keys_a = reinterpret_cast<uint32_t*>(take(m * 4));
-  s.keys_b = reinterpret_cast<uint32_t*>(take(m * 4));
-  s.vals_a = reinterpret_cast<float*>(take(m * 4 * F));
-  s.vals_b = reinterpret_cast<float*>(take(m * 4 * F));
-  s.counts = reinterpret_cast<uint32_t*>(take(static_cast<size_t>(kDigits) * tiles * 4));
-  s.totals = reinterpret_cast<uint32_t*>(take(kDigits * 4));
-  s.count = reinterpret_cast<uint32_t*>(take(4));
-  s.bytes = off;
+// The buffers of one stable radix sort of m keys, each with W 32-bit words:
+// the keys and words twice, the digit counts, the digit totals, the live count.
+struct SortBuffers {
+  uint32_t *keys_a, *keys_b, *counts, *totals, *count;
+  float *vals_a, *vals_b;
+  uint32_t stride;  // tiles
+};
+
+SortBuffers sort_buffers(Carver& cv, uint64_t m, int W, int digit_bits) {
+  SortBuffers s{};
+  s.stride = static_cast<uint32_t>(ceil_div(m, kThreads * sort_items(W)));
+  s.keys_a = cv.take<uint32_t>(m);
+  s.keys_b = cv.take<uint32_t>(m);
+  s.vals_a = cv.take<float>(m * W);
+  s.vals_b = cv.take<float>(m * W);
+  s.counts = cv.take<uint32_t>((1ull << digit_bits) * (s.stride > 0 ? s.stride : 1));
+  s.totals = cv.take<uint32_t>(1ull << digit_bits);
+  s.count = cv.take<uint32_t>(1);
   return s;
+}
+
+// The runs route's buffers: the values (chunk-major slots), the run counts
+// of the chunks, their total, and the descriptors' sort (its b-buffers first
+// hold the chunks' descriptor slots, its a-buffers the packed descriptors).
+struct RunBuffers {
+  float* vals;
+  uint32_t *run_count, *run_total;
+  SortBuffers sort;
+};
+
+struct RouteShape {
+  uint32_t chunks;  // per level
+  uint64_t slots;  // chunks of all the route's levels x chunk entries
+};
+
+RouteShape run_shape(uint64_t n, int levels, int F, int VE) {
+  const uint64_t C = chunk_entries(F) / VE;
+  const uint64_t chunks = ceil_div(n, C);
+  return {static_cast<uint32_t>(chunks), chunks * levels * chunk_entries(F)};
+}
+
+RunBuffers run_buffers(Carver& cv, uint64_t n, int levels, int F, int VE) {
+  const RouteShape rs = run_shape(n, levels, F, VE);
+  RunBuffers b{};
+  b.vals = cv.take<float>(rs.slots * F);
+  b.run_count = cv.take<uint32_t>(static_cast<uint64_t>(rs.chunks) * levels);
+  b.run_total = cv.take<uint32_t>(1);
+  b.sort = sort_buffers(cv, rs.slots, 2, kRunDigitBits);
+  return b;
+}
+
+// Sorts (keys, W words) from the a-buffers, stably, by the low 8 * passes
+// bits; the live entries are the first *live_in (m where null), and the
+// first pass drops kSkip keys. On return the a-pointers hold the result.
+// A null live_in sizes the grid to the tiles, one a block (the entries
+// route: m entries, kSkip keys dropped by the first pass); a count on the
+// card (the runs route's packed descriptors) caps it at grid_cap blocks,
+// which walk the live tiles.
+template <int W, int kBits>
+void radix_sort(SortBuffers& s, uint32_t m, const uint32_t* live_in, uint32_t passes,
+                int grid_cap, cudaStream_t stream) {
+  constexpr int kItems = sort_items(W);
+  const uint32_t tiles = s.stride > 0 ? s.stride : 1;
+  const bool walk = live_in != nullptr;
+  static_assert(kBits == kDigitBits || W == 2, "the walk sorts the runs' two-word spans");
+  const unsigned grid = !walk || tiles < static_cast<uint32_t>(grid_cap)
+                            ? tiles : static_cast<unsigned>(grid_cap);
+  for (uint32_t p = 0; p < passes; ++p) {
+    const int shift = static_cast<int>(p) * kBits;
+    const uint32_t* live = p == 0 ? live_in : s.count;
+    digit_count_kernel<kItems, kBits><<<grid, kThreads, 0, stream>>>(s.keys_a, live, m, shift,
+                                                                     s.counts, s.stride);
+    digit_scan_kernel<<<1 << kBits, kThreads, 0, stream>>>(s.counts, s.stride, live, m,
+                                                           kThreads * kItems, s.totals);
+    auto scatter = !walk ? (p == 0 ? digit_scatter_kernel<W, true> : digit_scatter_kernel<W, false>)
+                         : (p == 0 ? digit_scatter_walk_kernel<W, true, kBits>
+                                   : digit_scatter_walk_kernel<W, false, kBits>);
+    scatter<<<grid, kThreads, 0, stream>>>(s.keys_a, s.vals_a, s.keys_b, s.vals_b, live, m,
+                                           s.count, shift, s.counts, s.stride, s.totals);
+    uint32_t* k = s.keys_a;
+    s.keys_a = s.keys_b;
+    s.keys_b = k;
+    float* v = s.vals_a;
+    s.vals_a = s.vals_b;
+    s.vals_b = v;
+  }
+}
+
+// Rows of the table up to the end of the list's last level.
+uint32_t rows_through(const LevelList& list, const int* res, const int* offsets,
+                      const int* dense, uint32_t hash_mask) {
+  const int l = list.level[list.count - 1];
+  const uint64_t r = static_cast<uint64_t>(res[l]);
+  return static_cast<uint32_t>(offsets[l] + (dense[l] ? r * r * r : hash_mask + 1ull));
+}
+
+// Rows of the list's largest level: the runs' sort orders them by the low
+// bits that tell a level's rows apart, since two rows of one level differ by
+// less than its size, and the descriptors come level by level, so equal low
+// bits of two levels' rows stay apart in that (stable) order.
+uint64_t largest_level(const LevelList& list, const int* res, const int* dense,
+                       uint32_t hash_mask) {
+  uint64_t most = 1;
+  for (int i = 0; i < list.count; ++i) {
+    const uint64_t r = static_cast<uint64_t>(res[list.level[i]]);
+    const uint64_t rows = dense[list.level[i]] ? r * r * r : hash_mask + 1ull;
+    most = rows > most ? rows : most;
+  }
+  return most;
+}
+
+template <int F, bool kTetra, bool kStochastic>
+void launch_runs(const float* pos, const float* g, float* grad, uint32_t n, int L,
+                 const Levels& lv, const LevelList& list, uint64_t level_rows, RunBuffers b,
+                 int grid_cap, cudaStream_t stream) {
+  constexpr int VE = kStochastic ? 1 : (kTetra ? 4 : 8);
+  const RouteShape rs = run_shape(n, list.count, F, VE);
+  const uint32_t chunks = rs.chunks * list.count;
+  run_emit_kernel<F, kTetra, kStochastic><<<dim3(rs.chunks, list.count), kThreads, 0, stream>>>(
+      pos, g, n, L, lv, list, rs.chunks, b.vals, b.sort.keys_b,
+      reinterpret_cast<uint2*>(b.sort.vals_b), b.run_count);
+  digit_scan_kernel<<<1, kThreads, 0, stream>>>(b.run_count, 0, nullptr, chunks, 1, b.run_total);
+  compact_runs_kernel<<<(chunks + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      b.sort.keys_b, reinterpret_cast<const uint2*>(b.sort.vals_b), b.run_count, b.run_total,
+      chunks, chunk_entries(F), b.sort.keys_a, reinterpret_cast<uint2*>(b.sort.vals_a));
+  radix_sort<2, kRunDigitBits>(b.sort, static_cast<uint32_t>(rs.slots), b.run_total,
+                               sort_passes(level_rows, kRunDigitBits), grid_cap, stream);
+  const uint64_t warps = ceil_div(rs.slots, 32);
+  const uint64_t blocks = ceil_div(warps, kWarps);
+  run_fold_kernel<F><<<blocks < static_cast<uint64_t>(grid_cap) ? blocks : grid_cap, kThreads, 0,
+                       stream>>>(b.sort.keys_a, reinterpret_cast<const uint2*>(b.sort.vals_a),
+                                 b.sort.count, b.vals, grad);
+}
+
+template <int F, bool kTetra, bool kStochastic>
+void launch_entries(const float* pos, const float* g, float* grad, uint32_t n, int L,
+                    const Levels& lv, const LevelList& list, uint32_t rows, SortBuffers s,
+                    int grid_cap, cudaStream_t stream) {
+  constexpr int VE = kStochastic ? 1 : (kTetra ? 4 : 8);
+  const uint32_t m = n * list.count * VE;
+  emit_kernel<F, kTetra, kStochastic><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      pos, g, s.keys_a, s.vals_a, n, L, lv, list);
+  radix_sort<F, kDigitBits>(s, m, nullptr, sort_passes(rows, kDigitBits), grid_cap, stream);
+  const uint64_t warps = ceil_div(m, kSumBatch);
+  const unsigned blocks = static_cast<unsigned>(ceil_div(warps, kWarps));
+  row_sum_kernel<F><<<blocks, kThreads, 0, stream>>>(s.keys_a, s.vals_a, s.count, grad);
+}
+
+// The two routes' level lists from the per-level flags (nonzero: runs).
+void split_levels(int L, const int* runs, LevelList& by_runs, LevelList& by_entries) {
+  by_runs.count = by_entries.count = 0;
+  for (int l = 0; l < L; ++l) {
+    LevelList& list = runs != nullptr && runs[l] ? by_runs : by_entries;
+    list.level[list.count++] = l;
+  }
+}
+
+// Scratch bytes of both routes (they run one after the other and share it).
+size_t route_scratch(void* base, uint64_t n, int F, int VE, const LevelList& by_runs,
+                     const LevelList& by_entries, RunBuffers* rb, SortBuffers* sb) {
+  Carver runs{static_cast<char*>(base)}, entries{static_cast<char*>(base)};
+  RunBuffers r{};
+  SortBuffers s{};
+  if (by_runs.count) r = run_buffers(runs, n, by_runs.count, F, VE);
+  if (by_entries.count) s = sort_buffers(entries, n * by_entries.count * VE, F, kDigitBits);
+  if (rb) *rb = r;
+  if (sb) *sb = s;
+  return runs.off > entries.off ? runs.off : entries.off;
+}
+
+template <int F, bool kTetra, bool kStochastic>
+cudaError_t launch(const float* pos, const float* g, float* grad, uint32_t n, int L,
+                   const Levels& lv, const int* res, const int* offsets, const int* dense,
+                   const LevelList& by_runs, const LevelList& by_entries, const RunBuffers& rb,
+                   const SortBuffers& sb, cudaStream_t stream) {
+  const int grid_cap = umhs::num_sms() * kBlocksPerSm;
+  if (by_runs.count)
+    launch_runs<F, kTetra, kStochastic>(pos, g, grad, n, L, lv, by_runs,
+                                        largest_level(by_runs, res, dense, lv.hash_mask), rb,
+                                        grid_cap, stream);
+  if (by_entries.count)
+    launch_entries<F, kTetra, kStochastic>(
+        pos, g, grad, n, L, lv, by_entries,
+        rows_through(by_entries, res, offsets, dense, lv.hash_mask), sb, grid_cap, stream);
+  return cudaGetLastError();
+}
+
+template <int F>
+cudaError_t launch_f(bool tetra, bool stochastic, const float* pos, const float* g, float* grad,
+                     uint32_t n, int L, const Levels& lv, const int* res, const int* offsets,
+                     const int* dense, const LevelList& by_runs, const LevelList& by_entries,
+                     const RunBuffers& rb, const SortBuffers& sb, cudaStream_t s) {
+  if (tetra)
+    return stochastic ? launch<F, true, true>(pos, g, grad, n, L, lv, res, offsets, dense,
+                                               by_runs, by_entries, rb, sb, s)
+                      : launch<F, true, false>(pos, g, grad, n, L, lv, res, offsets, dense,
+                                                by_runs, by_entries, rb, sb, s);
+  return stochastic ? launch<F, false, true>(pos, g, grad, n, L, lv, res, offsets, dense,
+                                              by_runs, by_entries, rb, sb, s)
+                    : launch<F, false, false>(pos, g, grad, n, L, lv, res, offsets, dense,
+                                               by_runs, by_entries, rb, sb, s);
 }
 
 uint64_t entries(int64_t n, int L, bool tetra, bool stochastic) {
@@ -505,79 +1189,41 @@ uint64_t entries(int64_t n, int L, bool tetra, bool stochastic) {
 
 constexpr uint64_t kMaxEntries = 0x7fffffffull;  // slot indices fit int32
 
-template <int F, bool kTetra, bool kStochastic>
-cudaError_t launch(const float* pos, const float* g, float* grad, uint32_t n, int L,
-                   const Levels& lv, uint32_t table_rows, const Scratch& sc, cudaStream_t stream) {
-  constexpr int VE = kStochastic ? 1 : (kTetra ? 4 : 8);
-  constexpr int kItems = sort_items(F);
-  const uint32_t m = n * L * VE;
-  const uint32_t tiles = (m + kThreads * kItems - 1) / (kThreads * kItems);
-  emit_kernel<F, kTetra, kStochastic><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      pos, g, sc.keys_b, sc.vals_b, n, L, lv);
-  const uint32_t passes = sort_passes(table_rows);
-  uint32_t *src_k = sc.keys_b, *dst_k = sc.keys_a;
-  float *src_v = sc.vals_b, *dst_v = sc.vals_a;
-  for (uint32_t p = 0; p < passes; ++p) {
-    const int shift = static_cast<int>(p) * kDigitBits;
-    const uint32_t* live = p == 0 ? nullptr : sc.count;
-    digit_count_kernel<kItems><<<tiles, kThreads, 0, stream>>>(src_k, live, m, shift, sc.counts,
-                                                               tiles);
-    digit_scan_kernel<<<kDigits, kThreads, 0, stream>>>(sc.counts, tiles, sc.totals);
-    if (p == 0)
-      digit_scatter_kernel<F, true><<<tiles, kThreads, 0, stream>>>(
-          src_k, src_v, dst_k, dst_v, sc.count, m, shift, sc.counts, tiles, sc.totals);
-    else
-      digit_scatter_kernel<F, false><<<tiles, kThreads, 0, stream>>>(
-          src_k, src_v, dst_k, dst_v, sc.count, m, shift, sc.counts, tiles, sc.totals);
-    uint32_t* k = src_k;
-    src_k = dst_k;
-    dst_k = k;
-    float* v = src_v;
-    src_v = dst_v;
-    dst_v = v;
-  }
-  const uint64_t warps = (static_cast<uint64_t>(m) + kSumBatch - 1) / kSumBatch;
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  row_sum_kernel<F><<<blocks, kThreads, 0, stream>>>(src_k, src_v, sc.count, grad);
-  return cudaGetLastError();
-}
-
-template <int F>
-cudaError_t launch_f(const float* pos, const float* g, float* grad, uint32_t n, int L,
-                     const Levels& lv, uint32_t rows, const Scratch& sc, bool tetra,
-                     bool stochastic, cudaStream_t s) {
-  if (tetra)
-    return stochastic ? launch<F, true, true>(pos, g, grad, n, L, lv, rows, sc, s)
-                      : launch<F, true, false>(pos, g, grad, n, L, lv, rows, sc, s);
-  return stochastic ? launch<F, false, true>(pos, g, grad, n, L, lv, rows, sc, s)
-                    : launch<F, false, false>(pos, g, grad, n, L, lv, rows, sc, s);
-}
+bool valid_f(int F) { return F == 1 || F == 2 || F == 4 || F == 8; }
 
 }  // namespace
 
 // Bytes of scratch device memory umhs_hash_encode_bwd needs for n samples
-// at L levels of F features; 0 when n * L * (vertices per entry) exceeds
-// 2^31 - 1 entries.
+// at L levels of F features, with runs[l] != 0 for the levels that take the
+// runs route; 0 when n * L * (vertices per entry) exceeds 2^31 - 1 entries.
 extern "C" int64_t umhs_hash_encode_bwd_scratch_bytes(int64_t n, int L, int F, int tetrahedral,
-                                                      int stochastic) {
-  const uint64_t m = entries(n, L, tetrahedral != 0, stochastic != 0);
-  if (n < 0 || L < 1 || (F != 1 && F != 2 && F != 4 && F != 8) || m > kMaxEntries) return 0;
-  return static_cast<int64_t>(scratch_layout(nullptr, m, F).bytes);
+                                                      int stochastic, const int* runs) {
+  const bool stoch = stochastic != 0;
+  const uint64_t m = entries(n, L, tetrahedral != 0, stoch);
+  if (n < 0 || L < 1 || L > umhs::kMaxLevels || !valid_f(F) || m > kMaxEntries) return 0;
+  LevelList by_runs, by_entries;
+  split_levels(L, runs, by_runs, by_entries);
+  const int VE = stoch ? 1 : (tetrahedral ? 4 : 8);
+  return static_cast<int64_t>(
+      route_scratch(nullptr, static_cast<uint64_t>(n), F, VE, by_runs, by_entries, nullptr,
+                    nullptr));
 }
 
 // pos: (n, 3) f32 in [0, 1]; g: (n, L * F) f32, the gradient of K3's
 // output, aligned to 4 * F bytes; grad: (rows * F,) f32, aligned to 4 * F
 // bytes, zeroed by the caller; every row with a contribution is written.
-// scales/res/offsets/dense: per-level host arrays of length L. scratch:
-// umhs_hash_encode_bwd_scratch_bytes(...) bytes of device memory, aligned to
-// 256, given as scratch_bytes. Returns a cudaError_t.
+// scales/res/offsets/dense: per-level host arrays of length L; runs: per
+// level, nonzero for the runs route (the wrapper's hash_encode_bwd_route).
+// scratch: umhs_hash_encode_bwd_scratch_bytes(...) bytes of device memory,
+// aligned to 256, given as scratch_bytes. Returns a cudaError_t.
 extern "C" int umhs_hash_encode_bwd(const float* pos, const float* g, float* grad,
                                     int64_t n, int L, int F, const float* scales,
                                     const int* res, const int* offsets, const int* dense,
                                     int log2_hashmap_size, int tetrahedral, int stochastic,
-                                    void* scratch, int64_t scratch_bytes, void* stream) {
+                                    const int* runs, void* scratch, int64_t scratch_bytes,
+                                    void* stream) {
   Levels lv;
-  if (n < 0 || (F != 1 && F != 2 && F != 4 && F != 8) ||
+  if (n < 0 || !valid_f(F) ||
       !umhs::fill_levels(lv, L, scales, res, offsets, dense, log2_hashmap_size))
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(g) % (4 * F) != 0 ||
@@ -586,22 +1232,27 @@ extern "C" int umhs_hash_encode_bwd(const float* pos, const float* g, float* gra
     return cudaErrorMisalignedAddress;
   if (n == 0) return cudaSuccess;
   const bool tetra = tetrahedral != 0, stoch = stochastic != 0;
-  const uint64_t m = entries(n, L, tetra, stoch);
-  if (m > kMaxEntries) return cudaErrorInvalidValue;
-  const Scratch sc = scratch_layout(scratch, m, F);
-  if (scratch == nullptr || scratch_bytes < static_cast<int64_t>(sc.bytes))
+  if (entries(n, L, tetra, stoch) > kMaxEntries) return cudaErrorInvalidValue;
+  LevelList by_runs, by_entries;
+  split_levels(L, runs, by_runs, by_entries);
+  const int VE = stoch ? 1 : (tetra ? 4 : 8);
+  RunBuffers rb;
+  SortBuffers sb;
+  const size_t need = route_scratch(scratch, static_cast<uint64_t>(n), F, VE, by_runs, by_entries,
+                                    &rb, &sb);
+  if (scratch == nullptr || scratch_bytes < static_cast<int64_t>(need))
     return cudaErrorInvalidValue;
-  const int last = L - 1;
-  const uint64_t last_rows = dense[last] ? static_cast<uint64_t>(res[last]) * res[last] * res[last]
-                                         : static_cast<uint64_t>(lv.hash_mask) + 1u;
-  const uint32_t rows = static_cast<uint32_t>(offsets[last] + last_rows);
   auto s = static_cast<cudaStream_t>(stream);
   const uint32_t n32 = static_cast<uint32_t>(n);
   switch (F) {
-    case 1: return launch_f<1>(pos, g, grad, n32, L, lv, rows, sc, tetra, stoch, s);
-    case 2: return launch_f<2>(pos, g, grad, n32, L, lv, rows, sc, tetra, stoch, s);
-    case 4: return launch_f<4>(pos, g, grad, n32, L, lv, rows, sc, tetra, stoch, s);
-    case 8: return launch_f<8>(pos, g, grad, n32, L, lv, rows, sc, tetra, stoch, s);
+    case 1: return launch_f<1>(tetra, stoch, pos, g, grad, n32, L, lv, res, offsets, dense,
+                               by_runs, by_entries, rb, sb, s);
+    case 2: return launch_f<2>(tetra, stoch, pos, g, grad, n32, L, lv, res, offsets, dense,
+                               by_runs, by_entries, rb, sb, s);
+    case 4: return launch_f<4>(tetra, stoch, pos, g, grad, n32, L, lv, res, offsets, dense,
+                               by_runs, by_entries, rb, sb, s);
+    case 8: return launch_f<8>(tetra, stoch, pos, g, grad, n32, L, lv, res, offsets, dense,
+                               by_runs, by_entries, rb, sb, s);
     default: return cudaErrorInvalidValue;
   }
 }

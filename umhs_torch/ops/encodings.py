@@ -15,10 +15,13 @@ On a CUDA tensor K3 and K4 take every configuration they accept (F in 1, 2,
 4, 8; L up to 32; tetrahedral or trilinear) and K4 both modes, stochastic
 (the main path's) and deterministic. In K3 a warp takes 32 neighbouring
 samples at one level, and a block's rows of the output leave through shared
-memory as coalesced streaming stores. K4 fixes the order of its sums: it sorts the (row, entry) pairs by
-row with a stable radix sort and adds each row's contributions in ascending
-entry order from +0, as the plain version's `index_add_` does on the CPU,
-so the two give the same bits and a training run repeats bit for bit.
+memory as coalesced streaming stores. K4 fixes the order of its sums: it adds
+each row's contributions in ascending entry order from +0, as the plain
+version's `index_add_` does on the CPU, so the two give the same bits and a
+training run repeats bit for bit. Each level takes one of two routes to that
+order (`hash_encode_bwd_route`): "runs" sorts each chunk of consecutive
+samples by row in shared memory and then sorts the chunks' runs of equal rows
+globally; "entries" sorts every (row, entry) pair with a stable radix sort.
 
 Indices are computed in int64. The XOR-prime hash wraps in uint32 on the
 TPU and in the kernel, so the plain versions mask it with 0xFFFFFFFF before
@@ -31,7 +34,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -406,18 +409,72 @@ HASH_ENCODE_BWD = Kernel(
      ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
      ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
+     ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
 )
 
+# K4's routes, per level: "runs" (chunks sorted in shared memory, then their
+# runs of equal rows sorted) and "entries" (every (row, entry) pair sorted)
+HASH_BWD_ROUTES = ("runs", "entries")
+# the rule's bounds for "runs": the finest level resolution, and the fewest
+# entries per table row of the level on average (n * 8 / its rows)
+RUNS_MAX_RESOLUTION = 128
+RUNS_MIN_ENTRIES_PER_ROW = 16
 
-def hash_encode_bwd_scratch_bytes(n: int, config: HashEncodingConfig, stochastic: bool) -> int:
-    """Bytes of device scratch K4 needs for n samples (its sort buffers);
-    0 when its n * L * (vertices per entry) entries exceed 2^31 - 1."""
+
+@functools.lru_cache(maxsize=256)  # asked on every backward, with few distinct n
+def hash_encode_bwd_route(
+    config: HashEncodingConfig, n: int, stochastic: bool
+) -> Tuple[str, ...]:
+    """The route K4 takes at each level for n samples, a name of
+    HASH_BWD_ROUTES per level. Both give the same bits; the rule picks the
+    faster on an H100 (PERF.md section 6): "runs" where a chunk of
+    ray-ordered samples adds to the same rows again and again, i.e. in the
+    deterministic mode with trilinear interpolation (8 entries per sample
+    and cell) at levels of resolution at most RUNS_MAX_RESOLUTION whose rows
+    get RUNS_MIN_ENTRIES_PER_ROW or more of the n * 8 entries on average;
+    "entries" elsewhere: the stochastic mode's one entry per (sample, level)
+    and the tetrahedral 4 leave too few entries per run."""
+    if n < 0:
+        raise ValueError(f"hash_encode_bwd_route: n = {n}")
+    pays = not stochastic and config.interpolation == "trilinear"
+    return tuple(
+        "runs" if pays and res <= RUNS_MAX_RESOLUTION
+        and n * 8 >= RUNS_MIN_ENTRIES_PER_ROW * rows else "entries"
+        for res, rows in zip(config.resolutions, config.level_sizes))
+
+
+def hash_encode_bwd_chunk(config: HashEncodingConfig, stochastic: bool) -> int:
+    """Consecutive samples per chunk of the runs route at one level: its
+    2,048 entries at F <= 2 (4096 / F above), as csrc/hash_encode_bwd.cu's
+    chunk_entries."""
+    F = config.features_per_level
+    entries = 2048 if F <= 2 else 4096 // F
+    return entries // (1 if stochastic else config.verts_per_cell)
+
+
+@functools.lru_cache(maxsize=None)
+def _route_flags(route: Tuple[str, ...]):
+    if any(r not in HASH_BWD_ROUTES for r in route):
+        raise ValueError(f"unknown K4 route in {route}")
+    return (ctypes.c_int * len(route))(*[int(r == "runs") for r in route])
+
+
+def hash_encode_bwd_scratch_bytes(
+    n: int, config: HashEncodingConfig, stochastic: bool, route: Optional[Sequence[str]] = None
+) -> int:
+    """Bytes of device scratch K4 needs for n samples on `route` (default
+    hash_encode_bwd_route's); 0 when its n * L * (vertices per entry)
+    entries exceed 2^31 - 1."""
+    route = tuple(route or hash_encode_bwd_route(config, n, stochastic))
+    if len(route) != config.num_levels:
+        raise ValueError(f"K4 route {route}: one name per level of {config.num_levels}")
     fn = HASH_ENCODE_BWD.library().umhs_hash_encode_bwd_scratch_bytes
-    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int64
     return int(fn(n, config.num_levels, config.features_per_level,
-                  int(config.interpolation == "tetrahedral"), int(stochastic)))
+                  int(config.interpolation == "tetrahedral"), int(stochastic),
+                  _route_flags(route)))
 
 
 def hash_encode_fwd(
@@ -443,16 +500,18 @@ def hash_encode_fwd(
 
 
 def hash_encode_bwd(
-    pos: torch.Tensor, g: torch.Tensor, config: HashEncodingConfig, stochastic: bool
+    pos: torch.Tensor, g: torch.Tensor, config: HashEncodingConfig, stochastic: bool,
+    route: Optional[Sequence[str]] = None,
 ) -> torch.Tensor:
     """K4 on a CUDA tensor, `hash_encode_bwd_plain` on a CPU tensor: the
     gradient (T * F,) of the flat table. The kernel adds each row's
     contributions in ascending entry order from +0, the order of the plain
     version's `index_add_` on the CPU: it gives the plain version's bits
     there (in the stochastic mode wherever both choose the same vertex) and
-    the same bits on every run. Its sort buffers come from PyTorch's caching
-    allocator. It reads g with vector loads, so g must be aligned to 4 * F
-    bytes (a fresh tensor always is)."""
+    the same bits on every run, on either route. `route` names each level's
+    (default: hash_encode_bwd_route's rule). Its sort buffers come from
+    PyTorch's caching allocator. It reads g with vector loads, so g must be
+    aligned to 4 * F bytes (a fresh tensor always is)."""
     if pos.device.type == "cpu":
         return hash_encode_bwd_plain(pos, g, config, stochastic)
     _check_positions("hash_encode_bwd", pos, config)
@@ -465,14 +524,15 @@ def hash_encode_bwd(
     grad = torch.zeros(config.table_size * F, dtype=torch.float32, device=pos.device)
     if n == 0:
         return grad
-    nbytes = hash_encode_bwd_scratch_bytes(n, config, stochastic)
+    route = tuple(route or hash_encode_bwd_route(config, n, stochastic))
+    nbytes = hash_encode_bwd_scratch_bytes(n, config, stochastic, route)
     if nbytes == 0:
         raise ValueError(f"hash_encode_bwd: {n} samples x {L} levels exceed 2^31 - 1 entries")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=pos.device)
     with torch.cuda.device(pos.device):
         HASH_ENCODE_BWD.launch(
             pos.data_ptr(), g.data_ptr(), grad.data_ptr(), n, L, F, *_level_args(config),
-            int(stochastic), scratch.data_ptr(), nbytes,
+            int(stochastic), _route_flags(route), scratch.data_ptr(), nbytes,
             torch.cuda.current_stream(pos.device).cuda_stream,
         )
     return grad

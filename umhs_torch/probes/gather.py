@@ -86,13 +86,12 @@ def bounds_ms(idx: torch.Tensor) -> Dict[str, float]:
     }
 
 
-def measure(table_rows: int, rows: int, device, seed: int = 0,
-            extra_arms: Optional[Dict[str, Callable]] = None) -> Dict[str, object]:
-    """The kernel, torch.index_select and `extra_arms` (name: fn(table, idx))
-    on one table, each timed the same way and in turns, with a warm L2 and
-    with a cold one (FLUSH_BYTES written before each call): device ms under
-    the profiler, with the ms of each device kernel the arm launched by
-    name, and, warm, ms per call from CUDA events around a batch of calls.
+def measure(table_rows: int, rows: int, device, seed: int = 0) -> Dict[str, object]:
+    """The kernel and torch.index_select on one table, each timed the same
+    way and in turns, with a warm L2 and with a cold one (FLUSH_BYTES written
+    before each call): device ms under the profiler, with the ms of each
+    device kernel the arm launched by name, and, warm, ms per call from CUDA
+    events around a batch of calls.
     Each number is the mean of ROUNDS; the result holds the bounds too.
     Cold, the device time counts the kernels the arm launched warm (not the
     flush). A profile that lost device events (device_ms_by_kernel gives
@@ -101,7 +100,6 @@ def measure(table_rows: int, rows: int, device, seed: int = 0,
     table, idx = make_case(table_rows, rows, device, seed)
     arms = {"kernel": lambda: row_gather(table, idx),
             "library": lambda: torch.index_select(table, 0, idx)}
-    arms.update({name: (lambda fn=fn: fn(table, idx)) for name, fn in (extra_arms or {}).items()})
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
     result: Dict[str, object] = {"table_rows": table_rows, "rows": rows, **bounds_ms(idx)}
     own: Dict[str, List[str]] = {}  # the kernels each arm launches, from its warm runs
