@@ -74,20 +74,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      device events is left out, and an arm with none whole reads null);
      then the kernel's, index_select's and the plain version's device time
      by device_ms (the kernels line's ms, library_ms and plain_ms).
+   - K6 (phase_k6), the compact path's compaction and compositing, at
+     phase 7's steady shapes (79,360 rays x 64 lanes, stages 0-8, 8-16,
+     16-64 with budgets 179,200 / 103,936 / 93,440, the flagship's heads
+     of 128, 128, 128 and 6 channels): K6a compact_stage and K6b
+     compact_gather (both ways) bit for bit against their plain versions;
+     K6c render_weights forward and backward (also at nerfacto's 8192 rays
+     x 256, 96 and 48 samples, with the t gradients) and K6d
+     segment_accumulate forward and backward, each held with its plain
+     version to an f64 evaluation of the same function: the kernel's error
+     at most the plain version's plus K6_TOL; each repeated bit for bit;
+     timed as above, with torch.segment_reduce as K6d's yardstick and the
+     bounds by bytes; each launcher's ptxas registers and spills.
    With --baseline TREE (another checkout, e.g. the parent commit unpacked
    by git archive into the git-ignored chip_archive/): every kernel at
    phase 2's and phase 10's shapes through each tree's own wrappers, a
    process each, in turns (TREE, this, this, TREE: baseline_against_tree),
    device ms and ms per call; K3, K4 (both modes, random and ray-ordered
    flagship inputs, both proposal grids) and P1 must give TREE's bits,
-   K1 and K2 on the DINO chain within 2e-2 of them.
+   K1 and K2 on the DINO chain within 2e-2 of them; K6 at phase 7's steady
+   shapes through the tree's own code (the plain PyTorch of its model in a
+   tree without K6: k6_parent_code), K6a's and K6b's bits the tree's.
 3. The serving path at full width: the bench scene (16 + 2 views, 128^2,
    128 bands, 6 spheres) as an in-memory train split (rendered once, also
    for phase 5) with VCA endmembers, Trainer.setup() from seed 0
    with a bf16 compute dtype, the step-0 full occupancy update (and one
    more, timed as the steady state), then render_camera of both eval views
    at step 1000. Launch counts are zeroed
-   just before and read just after; K1 and K3 must have launched.
+   just before and read just after; K1, K3 and K6's forward kernels (K6a,
+   K6b, K6c's and K6d's forwards) must have launched.
    One more render runs under torch.profiler for the device-time breakdown.
 4. The same render with kernels against plain versions, both in f32, on a
    64x64 crop (atol 1e-3 on rgb, spectral and accumulation); the first must
@@ -96,7 +111,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Trainer.setup() from seed 0 (bf16, stochastic hash gradient, 4096 rays
    per step, warmup thinning 2), then train(48): full occupancy updates at
    steps 0 and 32, a partial one at 16. Launch counts are zeroed just before
-   and read just after; K1-K4 must have launched; the loss must be finite
+   and read just after; K1-K4 and K6a-K6d must have launched; the loss must be finite
    and fall (mean of the last 4 steps below the first 4). A second
    train(48) from seed 0, its launches uncounted, must give the same loss
    at every step and the same state, bit for bit. One more step runs under
@@ -131,9 +146,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    end of the steady window, at its last adapted shapes. The launches of
    those two steps and of the round trip are left out of the schedule's
    counts. One steady step runs under torch.profiler at the end, with the
-   device ms of K1-K4 in it beside their launches. With --baseline TREE the
-   schedule runs again from that tree in a process of its own, and its 672
-   losses and adapt decisions must equal this run's bit for bit.
+   device ms of K1-K4 and K6 in it beside their launches. With --baseline
+   TREE the schedule runs from that tree and from this checkout, a process
+   each, in turns (TREE, this, this, TREE: schedule_against_tree), each
+   followed by one traced steady step (with its indexing_backward_kernel
+   calls named by their forward op), phase 5's configuration's traced step
+   and a traced 128^2 render: this checkout's runs must give this run's 672
+   losses and adapts bit for bit, and the tree's runs each other's; the
+   first step where the trees' losses part, both trees' adapts and their
+   eval_all_images are printed, and this tree's eval_all_images PSNR must
+   be at most 1.0 dB below the tree's (K6 sums in another order than the
+   plain code, so the trees' training bits part).
 
 8. The quality twin (umhs_torch.scripts.quality_reference_scale, the twin of
    scripts/quality_reference_scale.py) through its entry point: 2,000 steps,
@@ -166,12 +189,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    cli.render camera-path renders 8 frames of an orbit (128^2, fov 50) with
    the README's outputs rgb, abundances_0, wv_10 and seg_pred: each PNG
    frame reads back as (128, 512, 3), frame 0's rgb tile equals
-   Trainer.render_camera on the same rays bit for bit, K1 and K3 launch and
-   K2 and K4 do not; ms per frame. The viewer on port 0 in a thread: /,
+   Trainer.render_camera on the same rays bit for bit, the render's kernels
+   (K1, K3, K6's forwards) launch and K2, K4 and K6's backwards do not; ms
+   per frame. The viewer on port 0 in a thread: /,
    /outputs, and /render of rgb, depth and abundances_0 (PNGs of (128, 128,
    3); ms per request), an unknown output answered with 500, and one
    /render under utils/profiler.trace, whose Chrome trace must name K1's
-   and K3's device kernels; K1 and K3 launch, K2 and K4 do not.
+   and K3's device kernels; the render's kernels launch, K2, K4 and K6's
+   backwards do not.
 
 10. The proposal sampler and the DINO head, at full width, each part timed.
    First K1-K4 at this phase's shapes against their plain versions, timed
@@ -186,10 +211,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ((256, 96) -> 48), 8192 rays, seed 42, the method's defaults otherwise
    (bf16, main hash L16xF2 2^19 trilinear), cut to 500 steps; the launch
    counts zeroed before and read after (K1-K4 must launch; no occupancy
-   update, no adapt). eval_all_images must be finite and 5 dB or more above
+   update, no adapt; K6c forward and backward launch, K6a, K6b and K6d do
+   not: no compact buffer). eval_all_images must be finite and 5 dB or more above
    the step-0 eval batch's PSNR (a fresh Trainer from the run's config.yml);
    the training views' PSNR through the same render is printed beside.
-   cli.render renders 2 orbit frames (K1 and K3 launch, K2 and K4 do not).
+   cli.render renders 2 orbit frames (K1, K3 and K6c's forward launch, the
+   rest do not).
    One more step runs under torch.profiler (K1-K4's device ms in it).
    Two Trainers from seed 0 run train(48): the same losses bit for bit.
    Phase 6's kernel-vs-plain step at the trained state, 8192 rays, f32,
@@ -702,9 +729,10 @@ def phase_k2(dev, ptxas):
 
 
 def bits(t):
-    """A float tensor's bits, on the CPU: equal bits, not merely equal values
+    """A tensor's bits, on the CPU: equal bits, not merely equal values
     (+0 and -0 differ)."""
-    return t.detach().cpu().view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t.detach().cpu().view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                                  8: torch.int64}[t.element_size()])
 
 
 # the share of stochastic draws (sample, level) that may land on another
@@ -917,7 +945,22 @@ def phase_k4(dev):
     }
 
 
-RENDER_KERNELS = ("umhs_mlp_fused_fwd", "umhs_hash_encode_fwd")
+K6_DEVICE_KERNELS = {  # the device kernels each K6 launcher runs
+    "compact_stage": ("compact_count_kernel", "compact_scan_kernel", "compact_place_kernel"),
+    "compact_gather": ("lanes_from_rows_kernel", "rows_from_lanes_kernel"),
+    "render_weights_fwd": ("render_weights_fwd_kernel",),
+    "render_weights_bwd": ("render_weights_bwd_kernel",),
+    "segment_accumulate_fwd": ("segment_accumulate_fwd_kernel",),
+    "segment_accumulate_bwd": ("segment_accumulate_bwd_kernel",),
+}
+# the K6 kernels of a forward, and those of its backward
+K6_FORWARD = ("umhs_compact_stage", "umhs_compact_gather", "umhs_render_weights_fwd",
+              "umhs_segment_accumulate_fwd")
+K6_BACKWARD = ("umhs_render_weights_bwd", "umhs_segment_accumulate_bwd")
+RENDER_KERNELS = ("umhs_mlp_fused_fwd", "umhs_hash_encode_fwd") + K6_FORWARD
+# the proposal sampler's render (no compact buffer: K6c only)
+PROPOSAL_RENDER_KERNELS = ("umhs_mlp_fused_fwd", "umhs_hash_encode_fwd",
+                           "umhs_render_weights_fwd")
 
 
 def flagship_model_config():
@@ -1024,6 +1067,7 @@ KERNEL_NAMES = {
                              "digit_scan_kernel", "digit_scatter_kernel",
                              "digit_scatter_walk_kernel", "row_sum_kernel",
                              "compact_runs_kernel", "run_fold_kernel"),
+    **{"umhs_" + name: kernels for name, kernels in K6_DEVICE_KERNELS.items()},
 }
 
 
@@ -1055,9 +1099,11 @@ def profile(label: str, fn, top: int = 12) -> dict:
                    "device_kernels": sum(e.count for e in kernels
                                          if any(p in e.key for p in patterns))}
             for name, patterns in KERNEL_NAMES.items()}
+    top_kernels = [[e.key[:100], e.self_device_time_total / 1e3, e.count]
+                   for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us, "device_launches": n_launches,
-            "kernels": ours}
+            "kernels": ours, "top_kernels": top_kernels}
 
 
 def phase_kernels_vs_plain(trainer, cam, dev):
@@ -1090,7 +1136,19 @@ def phase_kernels_vs_plain(trainer, cam, dev):
 TRAIN_STEPS = 48
 # the kernels of the training path (P1, the row gather, is on no path of it)
 TRAIN_KERNELS = ("umhs_hash_encode_bwd", "umhs_hash_encode_fwd", "umhs_mlp_fused_bwd",
-                 "umhs_mlp_fused_fwd")
+                 "umhs_mlp_fused_fwd") + K6_FORWARD + K6_BACKWARD
+PROPOSAL_TRAIN_KERNELS = ("umhs_hash_encode_bwd", "umhs_hash_encode_fwd", "umhs_mlp_fused_bwd",
+                          "umhs_mlp_fused_fwd", "umhs_render_weights_fwd",
+                          "umhs_render_weights_bwd")
+
+
+def path_kernels(model_config, train: bool):
+    """The kernels a training step (train) or a render of `model_config`
+    launches: the occupancy grid's compact path runs K1-K4 and K6a-K6d, the
+    proposal sampler K1-K4 and K6c."""
+    if model_config.sampler == "proposal":
+        return PROPOSAL_TRAIN_KERNELS if train else PROPOSAL_RENDER_KERNELS
+    return TRAIN_KERNELS if train else RENDER_KERNELS
 
 
 def launch_counts():
@@ -1268,7 +1326,7 @@ def step_grads(trainer, dev, draws, impl, moved_seed=None, dtype="float32"):
     total, loss_dict, outputs, _ = t.loss_and_grads(draws)
     torch.cuda.synchronize()
     ran = sorted(k for k, v in launch_counts().items() if v > before[k])
-    want = sorted(TRAIN_KERNELS) if impl == "auto" else []
+    want = sorted(path_kernels(cfg, train=True)) if impl == "auto" else []
     check(ran == want, f"{impl} training step launched {ran}, expected {want}")
     grads = {n: p.grad.clone() for n, p in named_leaves(state["params"])}
     for _, p in named_leaves(state["params"]):
@@ -1451,6 +1509,298 @@ def phase_p1(dev):
     }
 
 
+# ------------------------------------------------------------------- K6
+# phase 7's steady step (PERF.md section 5): 79,360 rays of 64 lanes in three
+# stages with these budgets, and the heads the flagship accumulates per stage
+K6_RAYS, K6_SAMPLES = 79_360, 64
+K6_STAGES = ((0, 8), (8, 16), (16, 64))
+K6_BUDGETS = (179_200, 103_936, 93_440)
+K6_HEADS = {"spectral": 128, "spectral2": 128, "specular": 128, "abundances": 6}
+K6_ALPHA_THRE, K6_EPS = 0.01, 1e-4  # the model's filters (its alpha_thre, early_stop_eps)
+# K6c at nerfacto's shapes: its 8192 rays at the proposal levels' and the
+# main field's samples per ray
+K6C_PROPOSAL_SAMPLES = (256, 96, 48)
+# the kernels' error against f64 may exceed the plain version's by at most:
+# K6c's weights (in [0, 1]) 1e-6; its gradients and K6d's outputs and
+# gradients 1e-5 and 1e-6 of the reference's largest entry (f32 rounding of
+# sums the kernels take in another, shorter order)
+K6_TOL = {"weights": 1e-6, "render_grad": 1e-5, "accumulate": 1e-6}
+K6_ENTRIES = {  # name: (source, the XLA code on the TPU it replaces)
+    "compact_stage": ("umhs_torch/csrc/compact.cu", "umhs_tpu/models/model.py:440"),
+    "compact_gather": ("umhs_torch/csrc/compact.cu", "umhs_tpu/models/model.py:483"),
+    "render_weights_fwd": ("umhs_torch/csrc/composite.cu", "umhs_tpu/ops/compositing.py:34"),
+    "render_weights_bwd": ("umhs_torch/csrc/composite.cu", "umhs_tpu/ops/compositing.py:34"),
+    "segment_accumulate_fwd": ("umhs_torch/csrc/composite.cu", "umhs_tpu/ops/compositing.py:84"),
+    "segment_accumulate_bwd": ("umhs_torch/csrc/composite.cu", "umhs_tpu/ops/compositing.py:84"),
+}
+
+
+def k6_inputs(dev, seed=13):
+    """Phase 7-like lanes: 30% of the rays hold a valid prefix of 1 to 64
+    lanes (the others none), dt in [1, 5] mm from t = 0.2, densities
+    exponential with mean 20; the rays alive after stage 1 (70%) and 2
+    (40%). The budgets overflow in each stage, as adapts allow."""
+    gen = torch.Generator().manual_seed(seed)
+    R, S = K6_RAYS, K6_SAMPLES
+    n = torch.randint(1, S + 1, (R,), generator=gen)
+    n = torch.where(torch.rand(R, generator=gen) < 0.3, n, torch.zeros_like(n))
+    dt = torch.rand((R, S), generator=gen) * 0.004 + 0.001
+    te = 0.2 + torch.cumsum(dt, 1)
+    alive = [None, torch.rand(R, generator=gen) < 0.7, torch.rand(R, generator=gen) < 0.4]
+    return {"mask": (torch.arange(S)[None, :] < n[:, None]).to(dev), "ts": (te - dt).to(dev),
+            "te": te.to(dev), "sigma": (-20.0 * torch.log1p(-torch.rand((R, S), generator=gen)))
+            .to(dev), "alive": [a if a is None else a.to(dev) for a in alive]}
+
+
+def k6_render_reference(ts, te, sg, m, thre, eps):
+    """render_weights in f64 with the alpha and early-stop decisions of the
+    plain version in f32 (a lane within rounding of a threshold falls
+    either way in f32; the reference holds the arithmetic): the weights and
+    the leaves (ts, te, sg) in f64 for autograd."""
+    with torch.no_grad():
+        delta = torch.clamp_min(te - ts, 0.0)
+        x = torch.where(m, sg * delta, torch.zeros_like(sg))
+        a = 1.0 - torch.exp(-x)
+        use = not (isinstance(thre, float) and thre <= 0.0)
+        keep = (m & (a >= thre)) if use else torch.ones_like(m)
+        x = torch.where(keep, x, torch.zeros_like(x))
+        alive = (torch.exp(-(torch.cumsum(x, -1) - x)) >= eps) if eps > 0 else torch.ones_like(m)
+    leaves = [t.double().requires_grad_(True) for t in (ts, te, sg)]
+    delta = torch.clamp_min(leaves[1] - leaves[0], 0.0)
+    x = torch.where(m, leaves[2] * delta, torch.zeros_like(delta))
+    a = torch.where(keep & alive, 1.0 - torch.exp(-x), torch.zeros_like(x))
+    x = torch.where(keep, x, torch.zeros_like(x))
+    return a * torch.exp(-(torch.cumsum(x, -1) - x)), leaves
+
+
+def k6_plain_ms(fn) -> float:
+    """A plain version's ms per call: its device time held behind a spin
+    (held_ms), or, when a call waits for the device (the plain compaction's
+    `nonzero`), CUDA events around each call (median_ms), which then count
+    that wait: the profiler's reading (device_ms) refuses the plain
+    compaction, one of whose kernels runs in 9 calls of 10."""
+    ms = held_ms(fn, 10)
+    return ms if ms is not None else median_ms(fn)
+
+
+def k6_err(x, ref):
+    return float((x.detach().double() - ref).abs().max())
+
+
+def k6_render_case(label, ts, te, sg, m, thre, eps, need_t):
+    """K6c forward and backward against the plain version and the f64
+    reference on the card, bit for bit when run again; times."""
+    from umhs_torch.ops.compositing import (
+        render_weights, render_weights_bwd_cuda, render_weights_cuda, render_weights_plain)
+
+    g = torch.randn(sg.shape, device=sg.device, generator=torch.Generator(sg.device).manual_seed(7))
+    need = (True, need_t, need_t)
+    w = render_weights_cuda(ts, te, sg, m, thre, eps)
+    grads = render_weights_bwd_cuda(ts, te, sg, m, thre, eps, g, need)
+    check(torch.equal(w, render_weights_cuda(ts, te, sg, m, thre, eps)),
+          f"K6c {label}: a second forward gave other bits")
+    check(all(a is None or torch.equal(a, b) for a, b in zip(
+        grads, render_weights_bwd_cuda(ts, te, sg, m, thre, eps, g, need))),
+        f"K6c {label}: a second backward gave other bits")
+    leaves = [ts.clone().requires_grad_(need_t), te.clone().requires_grad_(need_t),
+              sg.clone().requires_grad_(True)]
+    wp = render_weights(*leaves, m, thre, eps, impl="plain")
+    pgrads = torch.autograd.grad(wp, leaves[::-1][:1] + (leaves[:2] if need_t else []), g,
+                                 retain_graph=True)
+    ref, refs = k6_render_reference(ts, te, sg, m, thre, eps)
+    rgrads = torch.autograd.grad(ref, refs[::-1][:1] + (refs[:2] if need_t else []), g.double())
+    errs = {"weights": (k6_err(w, ref), k6_err(wp, ref))}
+    for name, a, p, r in zip(("sigmas", "t_starts", "t_ends"), [x for x in grads if x is not None],
+                             pgrads, rgrads):
+        errs[name] = (k6_err(a, r), k6_err(p, r), float(r.abs().max()))
+    check(errs["weights"][0] <= errs["weights"][1] + K6_TOL["weights"],
+          f"K6c {label}: weights err {errs['weights']} against f64")
+    for name, (e, pe, scale) in ((k, v) for k, v in errs.items() if k != "weights"):
+        check(e <= pe + K6_TOL["render_grad"] * scale,
+              f"K6c {label}: d{name} err {e} against f64, the plain version's {pe}")
+    R, S = sg.shape
+    nbytes_fwd = R * S * (3 * 4 + 1 + 4)
+    nbytes_bwd = R * S * (3 * 4 + 1 + 4 + 4 * sum(need))
+    times = {
+        "fwd_ms": device_ms(lambda: render_weights_cuda(ts, te, sg, m, thre, eps)),
+        "fwd_call_ms": median_ms(lambda: render_weights_cuda(ts, te, sg, m, thre, eps)),
+        "bwd_ms": device_ms(lambda: render_weights_bwd_cuda(ts, te, sg, m, thre, eps, g, need)),
+        "bwd_call_ms": median_ms(
+            lambda: render_weights_bwd_cuda(ts, te, sg, m, thre, eps, g, need)),
+        "plain_fwd_ms": k6_plain_ms(lambda: render_weights_plain(ts, te, sg, m, thre, eps)),
+        "plain_bwd_ms": k6_plain_ms(lambda: torch.autograd.grad(
+            wp, leaves[::-1][:1] + (leaves[:2] if need_t else []), g, retain_graph=True)),
+        "fwd_bound_ms": nbytes_fwd / H100_BYTES_PER_S * 1e3,
+        "bwd_bound_ms": nbytes_bwd / H100_BYTES_PER_S * 1e3,
+    }
+    del wp
+    out = {"shape": [R, S], "errors_kernel_plain": errs, **times}
+    print(f"K6c {label} ({R} x {S}): " + json.dumps(out))
+    return out
+
+
+def phase_k6(dev, ptxas):
+    """K6a-K6d against their plain versions at phase 7's steady shapes (and
+    K6c at nerfacto's), each repeated bit for bit, with device ms, ms per
+    call, the plain version's device ms, one PyTorch call's where one
+    exists, and the bound by bytes. K6a and K6b bit for bit against the
+    plain versions; K6c and K6d held with the plain version to f64 (K6_TOL)."""
+    from umhs_torch.ops.compact import (
+        compact_stage, compact_stage_plain, gather_lanes_plain, lanes_from_rows_cuda,
+        rows_from_lanes_cuda)
+    from umhs_torch.ops.compositing import (
+        compact_accumulate_bwd_cuda, compact_accumulate_cuda, compact_accumulate_plain)
+
+    k6_ptxas = {name: {k: v for k, v in ptxas.items() if k.split("<")[0] in kernels}
+                for name, kernels in K6_DEVICE_KERNELS.items()}
+    for name, usage in k6_ptxas.items():
+        print(f"K6 {name} ptxas: " + json.dumps(usage))
+    x = k6_inputs(dev)
+    gen = torch.Generator(dev).manual_seed(8)
+    R, S = K6_RAYS, K6_SAMPLES
+    a = {k: 0.0 for k in ("ms", "call_ms", "plain_ms", "bound_bytes")}
+    b = dict(a)
+    d_fwd, d_bwd = dict(a), dict(a)
+    d_fwd["library_ms"] = 0.0
+    d_err = {"fwd": [], "bwd": []}
+    stages = []
+    for (lo, hi), Bs, alive in zip(K6_STAGES, K6_BUDGETS, x["alive"]):
+        L = hi - lo
+        m = x["mask"][:, lo:hi]
+        c = compact_stage(m, alive, Bs)
+        again = compact_stage(m, alive, Bs)
+        ref = compact_stage_plain(m, alive, Bs)
+        torch.cuda.synchronize()
+        for k in ("slot", "mask", "src", "live", "counts", "starts"):
+            check(torch.equal(getattr(c, k), getattr(ref, k)),
+                  f"K6a stage {lo}-{hi}: {k} differs from the plain version")
+            check(torch.equal(getattr(c, k), getattr(again, k)), f"K6a: {k} not repeated")
+        total = int(c.total)
+        check(total == ref.total, f"K6a stage {lo}-{hi}: total {total} against {ref.total}")
+        a["ms"] += device_ms(lambda: compact_stage(m, alive, Bs))
+        a["call_ms"] += median_ms(lambda: compact_stage(m, alive, Bs))
+        a["plain_ms"] += k6_plain_ms(lambda: compact_stage_plain(m, alive, Bs))
+        a["bound_bytes"] += R * L * (1 + 4 + 1) + R + Bs * (8 + 4) + R * 16 + 4
+
+        rows = torch.randn(Bs, device=dev, generator=gen).requires_grad_(True)
+        gl = torch.randn((R, L), device=dev, generator=gen)
+        lanes = lanes_from_rows_cuda(rows.detach(), c)
+        plain = gather_lanes_plain(rows, c)
+        check(torch.equal(lanes, plain), f"K6b stage {lo}-{hi}: lanes differ from the plain")
+        back = rows_from_lanes_cuda(gl, c)
+        (pback,) = torch.autograd.grad(plain, rows, gl, retain_graph=True)
+        check(torch.equal(back, pback), f"K6b stage {lo}-{hi}: rows differ from the plain "
+                                        "gather's gradient")
+        check(torch.equal(back, rows_from_lanes_cuda(gl, c)), "K6b: rows not repeated")
+        b["ms"] += device_ms(lambda: lanes_from_rows_cuda(rows.detach(), c))
+        b["ms"] += device_ms(lambda: rows_from_lanes_cuda(gl, c))
+        b["call_ms"] += median_ms(lambda: lanes_from_rows_cuda(rows.detach(), c))
+        b["call_ms"] += median_ms(lambda: rows_from_lanes_cuda(gl, c))
+        b["plain_ms"] += k6_plain_ms(lambda: gather_lanes_plain(rows.detach(), c))
+        b["plain_ms"] += k6_plain_ms(lambda: torch.autograd.grad(plain, rows, gl,
+                                                               retain_graph=True))
+        b["bound_bytes"] += R * L * (4 + 1 + 4) + total * 4 + Bs * (8 + 4) + total * 4
+        del plain
+
+        w_wide = torch.rand((R, S), device=dev, generator=gen)
+        w = w_wide[:, lo:hi]
+        counts = c.counts
+        for head, C in K6_HEADS.items():
+            h = torch.randn((Bs, C), device=dev, generator=gen)
+            g = torch.randn((R, C), device=dev, generator=gen)
+            out = compact_accumulate_cuda(w, h, c)
+            dh, dw = compact_accumulate_bwd_cuda(w, h, c, g)
+            check(torch.equal(out, compact_accumulate_cuda(w, h, c)), "K6d: forward not repeated")
+            dh2, dw2 = compact_accumulate_bwd_cuda(w, h, c, g)
+            check(torch.equal(dh, dh2) and torch.equal(dw, dw2), "K6d: backward not repeated")
+            wp = w.detach().clone().requires_grad_(True)
+            hp = h.detach().clone().requires_grad_(True)
+            outp = compact_accumulate_plain(wp, hp, c)
+            dwp, dhp = torch.autograd.grad(outp, (wp, hp), g, retain_graph=True)
+            w64 = w.detach().double().requires_grad_(True)
+            h64 = h.detach().double().requires_grad_(True)
+            c64 = dataclasses.replace(c, live=c.live.double())
+            ref = compact_accumulate_plain(w64, h64, c64)
+            dw64, dh64 = torch.autograd.grad(ref, (w64, h64), g.double())
+            for kind, pairs in (("fwd", [(out, outp, ref)]),
+                                ("bwd", [(dh, dhp, dh64), (dw, dwp, dw64)])):
+                for k, p, r in pairs:
+                    e, pe, scale = k6_err(k, r), k6_err(p, r), float(r.abs().max())
+                    d_err[kind].append((e, pe, scale))
+                    check(e <= pe + K6_TOL["accumulate"] * scale,
+                          f"K6d {kind} stage {lo}-{hi} {head}: err {e} against f64, the plain "
+                          f"version's {pe} (largest entry {scale})")
+            wv = (w.reshape(-1)[c.src] * c.live)[:total, None] * h[:total]
+            d_fwd["ms"] += device_ms(lambda: compact_accumulate_cuda(w, h, c))
+            d_fwd["call_ms"] += median_ms(lambda: compact_accumulate_cuda(w, h, c))
+            d_fwd["plain_ms"] += k6_plain_ms(lambda: compact_accumulate_plain(w, h, c))
+            d_fwd["library_ms"] += k6_plain_ms(
+                lambda: torch.segment_reduce(wv, "sum", lengths=counts))
+            d_fwd["bound_bytes"] += total * (C * 4 + 4 + 8) + R * (16 + C * 4)
+            d_bwd["ms"] += device_ms(lambda: compact_accumulate_bwd_cuda(w, h, c, g))
+            d_bwd["call_ms"] += median_ms(lambda: compact_accumulate_bwd_cuda(w, h, c, g))
+            d_bwd["plain_ms"] += k6_plain_ms(lambda: torch.autograd.grad(
+                outp, (wp, hp), g, retain_graph=True))
+            d_bwd["bound_bytes"] += total * (C * 4 + 4 + 8) + Bs * C * 4 + R * C * 4 + R * L * 4
+            del outp, wv, ref
+        stages.append({"lanes": [lo, hi], "budget": Bs, "total": total,
+                       "dropped": int(compact_stage_plain(m, alive, 1 << 30).total) - total})
+    print("K6 stages at phase 7's steady shapes: " + json.dumps(stages))
+    thre = torch.tensor(K6_ALPHA_THRE, device=dev)  # as the model passes min(0.01, mean occs)
+    sigma_all = x["sigma"]
+    render = {"flagship": k6_render_case("phase 7", x["ts"], x["te"], sigma_all, x["mask"],
+                                         thre, K6_EPS, need_t=False)}
+    for S_p in K6C_PROPOSAL_SAMPLES:
+        R_p = NERFACTO_RAYS
+        gp = torch.Generator().manual_seed(S_p)
+        dt = torch.rand((R_p, S_p), generator=gp) * 0.01 + 1e-4
+        te = (0.05 + torch.cumsum(dt, 1)).to(dev)
+        ts = te - dt.to(dev)
+        sg = (-5.0 * torch.log1p(-torch.rand((R_p, S_p), generator=gp))).to(dev)
+        ones = torch.ones((R_p, S_p), dtype=torch.bool, device=dev)
+        render[f"nerfacto_{S_p}"] = k6_render_case(f"nerfacto {S_p}", ts, te, sg, ones, 0.0, 0.0,
+                                                   need_t=True)
+    rf = render["flagship"]
+    errs = rf["errors_kernel_plain"]
+
+    def entry(name, t, err, shape, bound_bytes=None, bound_ms=None, **extra):
+        source, replaces = K6_ENTRIES[name]
+        b_ms = bound_ms if bound_ms is not None else bound_bytes / H100_BYTES_PER_S * 1e3
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "max_abs_err": err, "ms": t["ms"], "call_ms": t["call_ms"],
+                "plain_ms": t["plain_ms"], "library_ms": t.get("library_ms"),
+                "bound_ms": b_ms, "bound_by": "bytes", "shape": shape,
+                "ptxas": k6_ptxas[name], **extra}
+
+    stage_shape = ("phase 7's steady step: 79,360 rays x 64 lanes, stages 0-8, 8-16, 16-64 "
+                   "with budgets 179,200 / 103,936 / 93,440, summed over the stages")
+    entries = [
+        entry("compact_stage", a, 0.0, stage_shape, a["bound_bytes"]),
+        entry("compact_gather", b, 0.0, stage_shape + "; lanes from rows and rows from lanes",
+              b["bound_bytes"]),
+        entry("render_weights_fwd", {"ms": rf["fwd_ms"], "call_ms": rf["fwd_call_ms"],
+                                     "plain_ms": rf["plain_fwd_ms"]},
+              errs["weights"][0], "79,360 x 64 lanes, alpha_thre a tensor, eps 1e-4",
+              bound_ms=rf["fwd_bound_ms"], plain_max_abs_err=errs["weights"][1],
+              at_nerfacto_shapes={k: v for k, v in render.items() if k != "flagship"}),
+        entry("render_weights_bwd", {"ms": rf["bwd_ms"], "call_ms": rf["bwd_call_ms"],
+                                     "plain_ms": rf["plain_bwd_ms"]},
+              errs["sigmas"][0], "as the forward; d sigmas only (the march's t take no "
+              "gradient); plain = autograd of the plain forward", bound_ms=rf["bwd_bound_ms"],
+              plain_max_abs_err=errs["sigmas"][1]),
+        entry("segment_accumulate_fwd", d_fwd, max(e for e, _, _ in d_err["fwd"]),
+              stage_shape + ", heads spectral, spectral2, specular (128) and abundances (6), "
+              "f32; library = torch.segment_reduce(sum, lengths=counts) on w * h precomputed",
+              d_fwd["bound_bytes"], plain_max_abs_err=max(p for _, p, _ in d_err["fwd"])),
+        entry("segment_accumulate_bwd", d_bwd, max(e for e, _, _ in d_err["bwd"]),
+              "as the forward; dh and dw; plain = autograd of the plain forward",
+              d_bwd["bound_bytes"], plain_max_abs_err=max(p for _, p, _ in d_err["bwd"])),
+    ]
+    for e in entries:
+        print(f"K6 {e['name']}: " + json.dumps(e))
+    return entries
+
+
 BENCH_ADAPT_STEPS = (64, 176, 304, 448)  # bench.py:241-247
 BENCH_PREFETCH = 80  # bench.py:258
 BENCH_WARMUP_UNTIL = (max(BENCH_ADAPT_STEPS) + BENCH_PREFETCH + 32 + 31) // 32 * 32  # 576
@@ -1607,48 +1957,186 @@ def phase_bench_schedule(dev):
     print("bench schedule: " + json.dumps(summary))
     configs = {"trainer": trainer.config, "model": trainer.model.config,
                "datamanager": trainer.datamanager.config}
-    return launches, losses, adapt_records(trainer), configs
+    return launches, losses, adapt_records(trainer), configs, eval_all
 
 
-def schedule_against_tree(tree: Path, losses, adapts):
-    """Phase 7's schedule again from another checkout (`tree`: its
-    chip_smoke.py and umhs_torch, its kernels built there), in a process of
-    its own on the same card, without the checks beside the schedule (they
-    do not move it: phase 9 holds cli.train, which runs none, to phase 7 bit
-    for bit). Every loss and the adapt decisions must equal this run's bit
-    for bit."""
-    code = ("import json, torch\nimport chip_smoke as cs\n"
-            "with cs.bench_dataset() as (work, root, _):\n"
-            "    t = cs.bench_trainer(root, torch.device('cuda'))\n"
-            "    _, losses = cs.drive_schedule(t)\n"
-            "    print('SCHEDULE ' + json.dumps({'losses': [float(v).hex() for v in losses],\n"
-            "                                    'adapts': cs.adapt_records(t)}))\n")
+SITE_KERNELS = ("indexing_backward_kernel", "vectorized_gather_kernel")
+
+
+def kernel_sites(fn) -> dict:
+    """fn() once more under torch.profiler with stacks and shapes: for each
+    device kernel in SITE_KERNELS, its calls by the op that made them, with
+    device ms and count, largest first. A kernel launched by a backward is
+    named by the forward op of its autograd node (the node's sequence
+    number matched to the forward op's); one launched by a forward op by
+    that op. An op is placed by its innermost two umhs_torch Python frames
+    where the profiler records them (on an H100 it was seen to record
+    none), else by its input shapes."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       with_stack=True, record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+
+    def place(e):
+        """e's op name with its umhs_torch frames (the profiler records each
+        Python call as an event named file(line): fn), or its input shapes."""
+        frames, node = [], e
+        while node is not None and len(frames) < 2:
+            if "umhs_torch/" in node.name and "): " in node.name:
+                frames.append(node.name)
+            node = node.cpu_parent
+        return f"{e.name} at {' < '.join(frames) or f'shapes {e.input_shapes}'}"
+
+    forward = {}  # sequence number -> {forward op: its place}
+    for e in events:
+        if e.sequence_nr >= 0 and e.name.startswith("aten::"):
+            forward.setdefault(e.sequence_nr, {}).setdefault(e.name, place(e))
+
+    def forward_site(node):
+        """The place of the forward op of autograd node `node`
+        (IndexBackward0 -> aten::index), or the node's name."""
+        op = node.name.split(": ")[-1]
+        ops = forward.get(node.sequence_nr, {})
+        name = "aten::" + re.sub(r"(?<!^)(?=[A-Z])", "_", op.split("Backward")[0]).lower()
+        return ops.get(name) or next(iter(ops.values()), op)
+
+    sites = {k: {} for k in SITE_KERNELS}
+    for e in events:
+        for kernel in SITE_KERNELS:
+            mine = [k for k in e.kernels if kernel in k.name]
+            if not mine:
+                continue
+            chain, node = [], e
+            while node is not None:
+                chain.append(node)
+                node = node.cpu_parent
+            backward = next((n for n in chain if n.name.startswith("autograd::engine::")), None)
+            op = next((n for n in chain if n.name.startswith("aten::")), e)
+            name = forward_site(backward) if backward is not None else place(op)
+            site = sites[kernel].setdefault(name, {"site": name, "ms": 0.0, "kernels": 0})
+            site["ms"] += sum(k.duration for k in mine) / 1e3
+            site["kernels"] += len(mine)
+    return {k: sorted(v.values(), key=lambda v: -v["ms"]) for k, v in sites.items()}
+
+
+def traced(prof: dict) -> dict:
+    """The parts of a profile() reading that --baseline compares."""
+    top = prof.get("top_kernels", [])
+    share = sum(ms for name, ms, _ in top if "indexing_backward_kernel" in name)
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_busy_share",
+                                 "device_launches")} | {
+        "indexing_backward_ms": share, "top_kernels": top[:8]}
+
+
+def schedule_measurements() -> dict:
+    """Phase 7's schedule through whichever umhs_torch is on sys.path (run by
+    schedule_against_tree in a process of its own from a tree), then: its
+    losses (hex) and adapts, steady ms per step, eval_all_images, one traced
+    steady step, and one more with its indexing backward's and forward
+    gathers' kernels by site (kernel_sites); then
+    phase 5's configuration (4096 rays, train(48)) with one traced step, and
+    a traced 128^2 render of an eval view from that state."""
+    from umhs_torch.data.cameras import generate_camera_rays
+    from umhs_torch.engine.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    out = {}
+    with bench_dataset() as (work, root, _):
+        t = bench_trainer(root, dev)
+        slices, losses = drive_schedule(t)
+        out.update(losses=[float(v).hex() for v in losses], adapts=adapt_records(t),
+                   **steady_rates(slices), eval_all_images=t.eval_all_images())
+        out["steady_step"] = traced(profile("steady step", t.train_step))
+        out["steady_step_sites"] = kernel_sites(t.train_step)
+        del t
+    dm, endmembers, cam = bench_scene_in_memory(dev)
+    t = Trainer(TrainerConfig(seed=0, mixed_precision=True, save_final=False),
+                flagship_model_config(), num_classes=6, device=dev, datamanager=dm)
+    t.setup(endmembers)
+    t.train(TRAIN_STEPS)
+    out["step_4096"] = traced(profile("4096-ray step", t.train_step))
+    rays = generate_camera_rays(cam, 0, 128, 128)
+    out["render_128"] = traced(profile("render", lambda: t.render_camera(rays, (128, 128),
+                                                                          step=1000)))
+    return out
+
+
+SCHEDULE_PSNR_MARGIN_DB = 1.0  # phase 8's margin, ~4x the seed stdev (PERF.md section 2)
+
+
+def schedule_against_tree(tree: Path, losses, adapts, eval_all) -> dict:
+    """Phase 7's schedule from another checkout (`tree`) against this one,
+    each through its own umhs_torch (schedule_measurements), in a process
+    of its own, in turns: tree, this, this, tree. This checkout's two runs
+    must give phase 7's losses and adapts bit for bit, and the tree's two
+    each other's. Printed: the first step at which the trees' losses part,
+    both trees' adapts, eval_all_images, steady ms per step and the traced
+    steps (phase 7's steady step, phase 5's, phase 3's render) with the
+    indexing backward's share, and its calls and the forward gathers' by
+    site (kernel_sites). The sums K6 takes in
+    another order change the training bits, so the trees are held to each
+    other on quality: this tree's eval_all_images PSNR at most
+    SCHEDULE_PSNR_MARGIN_DB below the tree's."""
+    here = Path(__file__).resolve()
+    turns = []
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True, text=True,
-                          env=dict(os.environ, PYTHONPATH=str(tree.resolve())))
-    check(proc.returncode == 0, f"the schedule from {tree} failed:\n{proc.stdout[-3000:]}\n"
-                                f"{proc.stderr[-3000:]}")
-    theirs = json.loads([ln for ln in proc.stdout.splitlines()
-                         if ln.startswith("SCHEDULE ")][-1][len("SCHEDULE "):])
+    for root in (tree, here.parent, here.parent, tree):
+        turns.append(in_tree(root, "schedule_measurements"))
     ours = [float(v).hex() for v in losses]
+    adapts = json.loads(json.dumps(adapts))
+    for i in (1, 2):
+        check(turns[i]["losses"] == ours and turns[i]["adapts"] == adapts,
+              f"this checkout's schedule in a process of its own (turn {i}) is not phase 7's")
+    check(turns[0]["losses"] == turns[3]["losses"], f"{tree}'s two schedules part")
+    theirs = turns[0]
     first = next((i for i, (a, b) in enumerate(zip(ours, theirs["losses"])) if a != b), None)
-    same = ours == theirs["losses"]
-    same_adapts = json.loads(json.dumps(adapts)) == theirs["adapts"]
-    print(f"bench schedule against {tree}: {len(ours)} losses bit for bit: {same} (first "
-          f"differing step: {first}); adapts equal: {same_adapts}; "
-          f"{time.perf_counter() - t0:.1f} s")
-    check(same and same_adapts, f"phase 7's schedule differs from {tree}'s")
-    return {"losses_bit_for_bit": same, "adapts_equal": same_adapts, "steps": len(ours)}
+    psnr, psnr_tree = eval_all["psnr"], theirs["eval_all_images"]["psnr"]
+    result = {
+        "first_step_apart": first, "steps": len(ours),
+        "adapts": adapts, "tree_adapts": theirs["adapts"],
+        "adapts_equal": adapts == theirs["adapts"],
+        "eval_all_images": eval_all, "tree_eval_all_images": theirs["eval_all_images"],
+        "turns": [{k: v for k, v in r.items() if k not in ("losses", "adapts")} for r in turns],
+        "seconds": time.perf_counter() - t0,
+    }
+    print(f"bench schedule against {tree}: " + json.dumps(result))
+    for key in ("steady_ms_per_step", "steady_step", "step_4096", "render_128"):
+        print(f"  {key} in turns (tree, this, this, tree): "
+              + json.dumps([r[key] for r in turns]))
+    for label, r in (("tree", turns[0]), ("this", turns[1])):
+        print(f"  {label}: the steady step's {' and '.join(SITE_KERNELS)} by site: "
+              + json.dumps(r["steady_step_sites"]))
+    check(psnr >= psnr_tree - SCHEDULE_PSNR_MARGIN_DB,
+          f"eval_all_images PSNR {psnr} is more than {SCHEDULE_PSNR_MARGIN_DB} dB below "
+          f"{tree}'s {psnr_tree}")
+    return result
 
 
-BASELINE_CODE = """
+TREE_CODE = """
 import importlib.util, json, sys
 spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
-print("TREE " + json.dumps(cs.tree_measurements(sys.argv[2])))
+print("TREE " + json.dumps(getattr(cs, sys.argv[2])(*sys.argv[3:])))
 """
+
+
+def in_tree(root: Path, function: str, *args: str) -> dict:
+    """This script's `function`(*args) in a process of its own with `root`'s
+    umhs_torch (PYTHONPATH and cwd `root`, its kernels built there): its
+    JSON result. Fails the run if the process fails."""
+    proc = subprocess.run([sys.executable, "-c", TREE_CODE, str(Path(__file__).resolve()),
+                           function, *args], cwd=root, capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(root.resolve())))
+    check(proc.returncode == 0, f"{function} from {root} failed:\n{proc.stdout[-3000:]}\n"
+                                f"{proc.stderr[-3000:]}")
+    return json.loads([ln for ln in proc.stdout.splitlines()
+                       if ln.startswith("TREE ")][-1][len("TREE "):])
 
 
 def tree_measurements(save_dir: str) -> dict:
@@ -1681,11 +2169,13 @@ def tree_measurements(save_dir: str) -> dict:
                 h.update(bits(part.contiguous()).numpy().tobytes())
         return h.hexdigest()
 
-    def case(name, fn, calls=True):
+    def case(name, fn, calls=True, held=False):
         y = fn()
         torch.cuda.synchronize()
-        out[name] = {"ms": device_ms(fn), "call_ms": median_ms(fn) if calls else None,
-                     "digest": digest(y)}
+        # held: device time behind a spin, None where a call waits for the
+        # device (a tree's plain compaction)
+        out[name] = {"ms": held_ms(fn, 10) if held else device_ms(fn),
+                     "call_ms": median_ms(fn) if calls else None, "digest": digest(y)}
         return y
 
     gen = torch.Generator().manual_seed(4)
@@ -1736,7 +2226,111 @@ def tree_measurements(save_dir: str) -> dict:
 
     table, idx = probe.make_case(probe.PROBE_TABLE_ROWS, probe.PROBE_ROWS, dev)
     case("P1 probe table", lambda: row_gather(table, idx))
+    del table, idx
+    torch.cuda.empty_cache()
+    k6_tree_cases(dev, case)
     return out
+
+
+def k6_parent_code():
+    """A tree without K6 (umhs_torch.ops.compact absent): the compact path's
+    code as its models/model.py ran it (plain PyTorch: cumsum, nonzero, the
+    gathers and their autograd, segment_accumulate of w[src] * live * h), as
+    (stage, lanes, accumulate) with the K6 wrappers' signatures."""
+    from types import SimpleNamespace
+
+    from umhs_torch.ops.compositing import segment_accumulate
+
+    def stage(m, alive, budget):
+        R, L = m.shape
+        if alive is not None:
+            m = m & alive[:, None]
+        flat_mask = m.reshape(-1)
+        fm = flat_mask.int()
+        slot = torch.cumsum(fm, dim=0, dtype=torch.int32) - fm
+        flat_mask = flat_mask & (slot < budget)
+        m = flat_mask.reshape(R, L)
+        kept = torch.nonzero(flat_mask).squeeze(1)
+        total = kept.shape[0]
+        src = torch.zeros(budget, dtype=torch.int64, device=m.device)
+        src[:total] = kept
+        live = (torch.arange(budget, device=m.device) < total).float()
+        counts = m.sum(dim=-1)
+        return SimpleNamespace(slot=slot, mask=m, src=src, live=live, counts=counts,
+                               starts=torch.cumsum(counts, dim=0) - counts, total=total)
+
+    def lanes(rows, c):
+        R, L = c.mask.shape
+        back = rows[torch.clamp(c.slot.reshape(R, L).long(), 0, rows.shape[0] - 1)]
+        return torch.where(c.mask, back, torch.zeros_like(back))
+
+    def accumulate(w, h, c):
+        wc = w.reshape(-1)[c.src] * c.live
+        return segment_accumulate(wc[:, None] * h, c.starts, c.counts)
+
+    return stage, lanes, accumulate
+
+
+def k6_tree_cases(dev, case):
+    """K6 at phase 7's steady shapes through the tree's own code: its
+    kernels (compact_stage, gather_lanes, render_weights, compact_accumulate)
+    or, in a tree without them, the plain PyTorch its model ran
+    (k6_parent_code). Per stage for the three stages, and for the four
+    heads: the compaction; the density gather with its gradient; the
+    weights forward, and with their gradient; the heads' sums forward, and
+    with their gradients."""
+    import importlib.util
+
+    from umhs_torch.ops.compositing import render_weights
+
+    if importlib.util.find_spec("umhs_torch.ops.compact") is not None:
+        from umhs_torch.ops.compact import compact_stage, gather_lanes
+        from umhs_torch.ops.compositing import compact_accumulate
+
+        stage, lanes, accumulate = compact_stage, gather_lanes, compact_accumulate
+    else:
+        stage, lanes, accumulate = k6_parent_code()
+    x = k6_inputs(dev)
+    gen = torch.Generator().manual_seed(14)
+    R = K6_RAYS
+    splits = list(zip(K6_STAGES, K6_BUDGETS, x["alive"]))
+    comps = [stage(x["mask"][:, lo:hi], alive, Bs) for (lo, hi), Bs, alive in splits]
+
+    def compaction():
+        cs_ = [stage(x["mask"][:, lo:hi], alive, Bs) for (lo, hi), Bs, alive in splits]
+        return [[c.slot, c.mask, c.src, c.live, c.counts, c.starts] for c in cs_]
+
+    case("K6 compact_stage", compaction, held=True)
+    rows = [torch.randn(Bs, generator=gen).to(dev).requires_grad_(True) for Bs in K6_BUDGETS]
+    g_lanes = [torch.randn((R, hi - lo), generator=gen).to(dev) for lo, hi in K6_STAGES]
+
+    def gathers():
+        outs = [lanes(r, c) for r, c in zip(rows, comps)]
+        return outs + list(torch.autograd.grad(outs, rows, g_lanes))
+
+    case("K6 compact_gather", gathers, held=True)
+    thre = torch.tensor(K6_ALPHA_THRE, device=dev)
+    sigma = x["sigma"].clone().requires_grad_(True)
+    g_w = torch.randn((R, K6_SAMPLES), generator=gen).to(dev)
+    case("K6 render_weights_fwd",
+         lambda: render_weights(x["ts"], x["te"], sigma.detach(), x["mask"], thre, K6_EPS),
+         held=True)
+    case("K6 render_weights_fwd_bwd", lambda: torch.autograd.grad(
+        render_weights(x["ts"], x["te"], sigma, x["mask"], thre, K6_EPS), sigma, g_w), held=True)
+    weights = torch.rand((R, K6_SAMPLES), generator=gen).to(dev).requires_grad_(True)
+    heads = [[torch.randn((Bs, C), generator=gen).to(dev).requires_grad_(True)
+              for C in K6_HEADS.values()] for Bs in K6_BUDGETS]
+    g_heads = [torch.randn((R, C), generator=gen).to(dev) for C in K6_HEADS.values()]
+
+    def sums():
+        return [sum(accumulate(weights[:, lo:hi], hs[j], c)
+                    for (lo, hi), hs, c in zip(K6_STAGES, heads, comps))
+                for j in range(len(K6_HEADS))]
+
+    case("K6 segment_accumulate_fwd", lambda: [[t.detach() for t in sums()]], held=True)
+    leaves = [weights] + [h for hs in heads for h in hs]
+    case("K6 segment_accumulate_fwd_bwd",
+         lambda: torch.autograd.grad(sums(), leaves, g_heads), held=True)
 
 
 def baseline_against_tree(tree: Path) -> dict:
@@ -1755,25 +2349,19 @@ def baseline_against_tree(tree: Path) -> dict:
     t0 = time.perf_counter()
     for i, root in enumerate((tree, here.parent, here.parent, tree)):
         (save / str(i)).mkdir()
-        proc = subprocess.run([sys.executable, "-c", BASELINE_CODE, str(here), str(save / str(i))],
-                              cwd=root, capture_output=True, text=True,
-                              env=dict(os.environ, PYTHONPATH=str(root.resolve())))
-        check(proc.returncode == 0, f"the kernels from {root} failed:\n{proc.stdout[-3000:]}\n"
-                                    f"{proc.stderr[-3000:]}")
-        turns.append(json.loads([ln for ln in proc.stdout.splitlines()
-                                 if ln.startswith("TREE ")][-1][len("TREE "):]))
+        turns.append(in_tree(root, "tree_measurements", str(save / str(i))))
     result = {}
     for name in turns[0]:
         r = [t[name] for t in turns]
         check(r[1]["digest"] == r[2]["digest"], f"{name}: this checkout's bits do not repeat")
         entry = {"same_bits": r[0]["digest"] == r[1]["digest"] == r[3]["digest"]}
         for key in ("ms", "call_ms"):
-            if r[0].get(key) is None:
+            if any(v.get(key) is None for v in r):
                 continue
             entry[f"turns_{key}"] = [v[key] for v in r]
             entry[f"baseline_{key}"] = (r[0][key] + r[3][key]) / 2
             entry[f"this_{key}"] = (r[1][key] + r[2][key]) / 2
-        if not name.startswith(("K1", "K2")):
+        if not name.startswith(("K1", "K2", "K6 render", "K6 segment")):
             check(entry["same_bits"], f"{name}: not the bits of {tree}'s kernel")
         result[name] = entry
         print(f"against {tree}: {name}: " + json.dumps(entry))
@@ -2290,7 +2878,8 @@ def phase_entry_points(dev, bench_losses, bench_adapts, bench_configs):
             check(launches_viewer[sym] == 0, f"the viewer launched {sym}")
         check(trace_path.is_file(), "profiler.trace wrote no Chrome trace")
         text = trace_path.read_text()
-        named = {sym: [k for k in KERNEL_NAMES[sym] if k in text] for sym in RENDER_KERNELS}
+        named = {sym: [k for k in KERNEL_NAMES[sym] if k in text]
+                 for sym in ("umhs_mlp_fused_fwd", "umhs_hash_encode_fwd")}
         device_kernels = sorted({e.get("name", "")[:80] for e in json.loads(text)["traceEvents"]
                                  if e.get("cat") == "kernel"})
         check(all(named.values()), f"the trace of one /render names {named}; its device "
@@ -2588,7 +3177,7 @@ def phase_nerfacto(dev):
         torch.cuda.synchronize()
         summary["train_s"] = time.perf_counter() - t0
         launches_train = launch_counts()
-        for sym in TRAIN_KERNELS:
+        for sym in PROPOSAL_TRAIN_KERNELS:
             check(launches_train[sym] > 0, f"nerfacto: kernel {sym} was not launched by cli.train")
         trainer = result.trainer
         cfg = trainer.model.config
@@ -2641,9 +3230,9 @@ def phase_nerfacto(dev):
             "--output-path", str(work / "renders" / "orbit.mp4"),
             "--rendered-output-names", "rgb", "depth"])
         launches_render = launch_counts()
-        for sym in RENDER_KERNELS:
+        for sym in PROPOSAL_RENDER_KERNELS:
             check(launches_render[sym] > 0, f"nerfacto: cli.render did not launch {sym}")
-        for sym in set(TRAIN_KERNELS) - set(RENDER_KERNELS):
+        for sym in set(TRAIN_KERNELS) - set(PROPOSAL_RENDER_KERNELS):
             check(launches_render[sym] == 0, f"nerfacto: cli.render launched {sym}")
         frames = sorted(rendered.written.glob("frame_*.png"))
         check(len(frames) == NERFACTO_FRAMES and all(
@@ -2657,7 +3246,7 @@ def phase_nerfacto(dev):
         before = launch_counts()
         prof = profile("nerfacto step", trainer.train_step)
         per_step = {k: v - before[k] for k, v in launch_counts().items()}
-        for sym in TRAIN_KERNELS:
+        for sym in PROPOSAL_TRAIN_KERNELS:
             k = prof["kernels"][sym]
             print(f"  {sym} in the traced nerfacto step: {k['ms']:.3f} ms of device time, "
                   f"{per_step[sym]} launches ({k['device_kernels']} device kernels)")
@@ -3090,6 +3679,9 @@ def ptxas_usage(log: str) -> dict:
         entry = re.search(r"Compiling entry function '\S*?([a-z_]+_kernel)(\S*)'", line)
         if entry:  # template arguments: the literals (Li8E, Lb1E) after the name
             args = re.findall(r"L[a-z](\d+)E", entry.group(2))
+            if not args:  # or a value type: float (IfE) or bf16 (I13__nv_bfloat16E)
+                args = {"IfE": ["float"], "I13__nv_bfloat16E": ["bf16"]}.get(
+                    re.match(r"(I(?:f|13__nv_bfloat16)E)?", entry.group(2)).group(1), [])
             kernel = entry.group(1) + (f"<{','.join(args)}>" if args else "")
             usage[kernel] = {}
         elif kernel and "spill stores" in line:
@@ -3168,10 +3760,15 @@ def main() -> None:
         k2 = phase_k2(dev, ptxas)
         k4 = phase_k4(dev)
         p1 = phase_p1(dev)
+        k6 = phase_k6(dev, ptxas)
         if args.baseline:
             against = baseline_against_tree(args.baseline)
             for entry, prefix in ((k1, "K1 "), (k2, "K2 "), (k3, "K3 "), (k4, "K4 "), (p1, "P1 ")):
                 entry["against_tree"] = {k: v for k, v in against.items() if k.startswith(prefix)}
+            for entry in k6:  # render_weights_bwd: the tree's forward and backward
+                stem = entry["name"].replace("_bwd", "_fwd_bwd")
+                entry["against_tree"] = {k: v for k, v in against.items()
+                                         if k == f"K6 {stem}"}
         dm, endmembers, cam = bench_scene_in_memory(dev)
         trainer, render_launches = phase_render(dev, dm, endmembers, cam)
         phase_kernels_vs_plain(trainer, cam, dev)
@@ -3180,9 +3777,10 @@ def main() -> None:
         phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})")
         phase_train_vs_plain(trainer, dev, f"after train({TRAIN_STEPS})", "bfloat16")
         del trainer
-        bench_launches, bench_losses, bench_adapts, bench_configs = phase_bench_schedule(dev)
+        (bench_launches, bench_losses, bench_adapts, bench_configs,
+         bench_eval_all) = phase_bench_schedule(dev)
         if args.baseline:
-            schedule_against_tree(args.baseline, bench_losses, bench_adapts)
+            schedule_against_tree(args.baseline, bench_losses, bench_adapts, bench_eval_all)
         quality_runs = list(QUALITY_RUNS) if args.quality == "all" else ["tetrahedral"]
         quality_launches = phase_quality(dev, quality_runs, smi)
         entry_points = phase_entry_points(dev, bench_losses, bench_adapts, bench_configs)
@@ -3190,12 +3788,13 @@ def main() -> None:
         mesh1, mesh2 = phase_11(dev, dm, endmembers, train_summary["loss_per_step"], state48)
         del dm, state48
 
-        for entry in (k1, k2, k3, k4):
+        for entry in (k1, k2, k3, k4, *k6):
             sym = "umhs_" + entry["name"]
             entry["launches_nerfacto_train"] = nerfacto["launches_train"][sym]
             entry["launches_nerfacto_render"] = nerfacto["launches_render"][sym]
             entry["launches_dino_train"] = dino["launches_train"][sym]
-            entry["at_phase10_shapes"] = slice_kernels[entry["name"]]
+            if entry["name"] in slice_kernels:
+                entry["at_phase10_shapes"] = slice_kernels[entry["name"]]
             entry["launches"] = bench_launches[sym]  # the bench schedule's run
             entry["launches_train"] = train_launches[sym]
             entry["launches_render"] = render_launches[sym]
@@ -3209,7 +3808,7 @@ def main() -> None:
         p1["launches_mesh_2_ranks"] = mesh2["umhs_row_gather"]
     print(smi)
     if not only:
-        print(json.dumps({"kernels": [k1, k2, k3, k4, p1]}))
+        print(json.dumps({"kernels": [k1, k2, k3, k4, p1, *k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

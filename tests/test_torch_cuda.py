@@ -35,11 +35,19 @@ from umhs_torch.ops.mlp_fused import (
     mlp_fused_fwd_route, mlp_plain, mlp_plain_bwd)
 from umhs_torch.ops.row_gather import (
     SLICE_BYTES, WAVE, ROW_GATHER, row_gather, row_gather_plain, row_gather_slices)
+from umhs_torch.ops import compact as k6_compact
+from umhs_torch.ops import compositing as k6_comp
 
 pytestmark = pytest.mark.cuda
 # the kernels a training step launches (P1, the row gather, is on no path)
-TRAIN_KERNELS = sorted(k.symbol for k in (MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD,
-                                          HASH_ENCODE_BWD))
+TRAIN_KERNELS = sorted(k.symbol for k in (
+    MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD, HASH_ENCODE_BWD, k6_compact.COMPACT_STAGE,
+    k6_compact.COMPACT_GATHER, k6_comp.RENDER_WEIGHTS_FWD, k6_comp.RENDER_WEIGHTS_BWD,
+    k6_comp.SEGMENT_ACCUMULATE_FWD, k6_comp.SEGMENT_ACCUMULATE_BWD))
+# the proposal sampler's step: no compact buffer, K6c only
+PROPOSAL_TRAIN_KERNELS = sorted(k.symbol for k in (
+    MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD, HASH_ENCODE_BWD, k6_comp.RENDER_WEIGHTS_FWD,
+    k6_comp.RENDER_WEIGHTS_BWD))
 
 
 @pytest.fixture
@@ -789,7 +797,7 @@ def test_proposal_grids_match_plain(cuda, max_res):
 def _step_both(model_kw, dm, cuda, step=0, seed=5):
     """One training step at `step` with the kernels and with the plain
     versions (f32, same state and draws): {impl: (loss, {leaf: grad})}; the
-    kernel step must launch K1-K4 and the plain one none."""
+    kernel step must launch its sampler's kernels and the plain one none."""
     results, state, draws = {}, None, None
     for impl in ("auto", "plain"):
         t = Trainer(TrainerConfig(seed=seed, mixed_precision=False),
@@ -804,7 +812,8 @@ def _step_both(model_kw, dm, cuda, step=0, seed=5):
         total, loss, _, _ = t.loss_and_grads(draws)
         torch.cuda.synchronize()
         ran = sorted(k.symbol for k in KERNELS.values() if k.launches > before[k.symbol])
-        assert ran == (TRAIN_KERNELS if impl == "auto" else [])
+        want = PROPOSAL_TRAIN_KERNELS if t.model.config.sampler == "proposal" else TRAIN_KERNELS
+        assert ran == (want if impl == "auto" else [])
         results[impl] = (float(total.detach()), {k: float(v.detach()) for k, v in loss.items()},
                          {n: p.grad.clone() for n, p in named_leaves(state["params"])})
         for _, p in named_leaves(state["params"]):
@@ -857,3 +866,185 @@ def test_dino_train_step_kernels_match_plain_path(cuda):
         ref = gp[name]
         assert float(ref.norm()) > 0, name
         assert float((g - ref).norm()) <= 1e-3 * float(ref.norm()), name
+
+
+# -------------------------------------------------------------------- K6
+def _k6_mask(R, S, seed, hit=0.3):
+    """A march's (R, S) mask: a share `hit` of the rays holds a valid prefix
+    of 1 to S lanes, the others none."""
+    gen = torch.Generator().manual_seed(seed)
+    n = torch.randint(1, S + 1, (R,), generator=gen)
+    n = torch.where(torch.rand(R, generator=gen) < hit, n, torch.zeros_like(n))
+    return torch.arange(S)[None, :] < n[:, None]
+
+
+K6A_CASES = [  # R, S, lo, hi, budget, later stage (dead rays)
+    (1, 1, 0, 1, 1, False), (37, 8, 0, 8, 256, False), (300, 64, 0, 8, 256, False),
+    (300, 64, 8, 16, 100, True), (3001, 64, 16, 64, 8192, True), (5000, 96, 0, 96, 1 << 17, False),
+    (4096, 64, 0, 64, 262144, False), (9000, 33, 5, 33, 7000, True)]
+
+
+@pytest.mark.parametrize("R,S,lo,hi,budget,dead", K6A_CASES)
+def test_k6a_matches_plain(cuda, R, S, lo, hi, budget, dead):
+    """K6a gives the plain version's slot map, kept lanes, src, live,
+    counts, starts and total exactly, on a column slice of an (R, S) mask,
+    with overflow and empty rays; a second run gives the same bits."""
+    mask = _k6_mask(R, S, R + S)
+    live = (torch.rand(R, generator=torch.Generator().manual_seed(R)) < 0.6) if dead else None
+    ref = k6_compact.compact_stage_plain(mask[:, lo:hi], live, budget)
+    m = mask.to(cuda)
+    lv = live.to(cuda) if dead else None
+    got = k6_compact.compact_stage(m[:, lo:hi], lv, budget)
+    again = k6_compact.compact_stage(m[:, lo:hi], lv, budget)
+    torch.cuda.synchronize()
+    for k in ("slot", "mask", "src", "live", "counts", "starts"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(ref, k)), k
+        assert torch.equal(getattr(got, k), getattr(again, k)), k
+    assert int(got.total) == ref.total
+
+
+def test_k6a_nothing_kept(cuda):
+    """An empty mask: total 0, src 0 and live 0 on every row, no ray counted."""
+    mask = torch.zeros((50, 16), dtype=torch.bool, device=cuda)
+    c = k6_compact.compact_stage(mask, None, 512)
+    assert int(c.total) == 0 and int(c.src.abs().sum()) == 0 and float(c.live.sum()) == 0.0
+    assert int(c.counts.sum()) == 0 and int(c.starts.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("R,S,lo,hi,budget,dead", K6A_CASES[1:])
+def test_k6b_gathers_match_plain(cuda, R, S, lo, hi, budget, dead):
+    """K6b both ways, bit for bit: lanes from rows against the plain gather,
+    rows from lanes against the plain gather's autograd (each kept lane
+    reads one row, each row below the total one lane; rows past it get 0)."""
+    mask = _k6_mask(R, S, R + S + 1).to(cuda)
+    live = (torch.rand(R, device=cuda) < 0.6) if dead else None
+    c = k6_compact.compact_stage(mask[:, lo:hi], live, budget)
+    rows = torch.randn(budget, device=cuda, requires_grad=True)
+    g = torch.randn(c.mask.shape, device=cuda)
+    got = k6_compact.gather_lanes(rows, c)
+    ref = k6_compact.gather_lanes(rows, c, impl="plain")
+    assert torch.equal(got, ref)
+    (dg,) = torch.autograd.grad(got, rows, g)
+    (dr,) = torch.autograd.grad(ref, rows, g)
+    assert torch.equal(dg, dr)
+    wide = torch.randn((R, S), device=cuda)  # a column slice, row stride S
+    assert torch.equal(k6_compact.rows_from_lanes_cuda(wide[:, lo:hi], c),
+                       wide[:, lo:hi].reshape(-1)[c.src] * c.live)
+
+
+def _rw_reference(ts, te, sg, m, thre, eps):
+    """render_weights in f64 with the alpha and early-stop decisions of the
+    plain version in f32: the arithmetic's reference, without the filters'
+    discontinuities (a lane within rounding of a threshold may fall either
+    way in f32)."""
+    with torch.no_grad():
+        delta = torch.clamp_min(te - ts, 0.0)
+        x = torch.where(m, sg * delta, torch.zeros_like(sg))
+        a = 1.0 - torch.exp(-x)
+        use = not (isinstance(thre, float) and thre <= 0.0)
+        keep = (m & (a >= thre)) if use else torch.ones_like(m)
+        x = torch.where(keep, x, torch.zeros_like(x))
+        trans = torch.exp(-(torch.cumsum(x, -1) - x))
+        alive = (trans >= eps) if eps > 0 else torch.ones_like(m)
+    ts64, te64, sg64 = (t.double().requires_grad_(True) for t in (ts, te, sg))
+    delta = torch.clamp_min(te64 - ts64, 0.0)
+    x = torch.where(m, sg64 * delta, torch.zeros_like(sg64))
+    a = torch.where(keep, 1.0 - torch.exp(-x), torch.zeros_like(x))
+    x = torch.where(keep, x, torch.zeros_like(x))
+    w = torch.where(alive, a, torch.zeros_like(a)) * torch.exp(-(torch.cumsum(x, -1) - x))
+    return w, (ts64, te64, sg64)
+
+
+@pytest.mark.parametrize("S", [1, 7, 32, 33, 48, 64, 96, 256])
+@pytest.mark.parametrize("thre,eps", [(0.0, 0.0), (0.01, 1e-4), ("tensor", 1e-4)],
+                         ids=["no-filters", "float", "tensor"])
+def test_k6c_matches_plain_and_f64(cuda, S, thre, eps):
+    """K6c forward and backward against the f64 reference: the kernel's
+    error no larger than the plain version's plus 1e-6 (weights, in [0, 1])
+    and plus 1e-5 of the largest entry (each gradient; the plain version's
+    backward scans in f32 too); the same bits when run again."""
+    R = 513
+    gen = torch.Generator().manual_seed(S)
+    dt = torch.rand((R, S), generator=gen) * 0.02 + 0.002
+    te = 0.5 + torch.cumsum(dt, 1)
+    ts = te - dt
+    sg = torch.distributions.Exponential(0.05).sample((R, S))
+    m = torch.rand((R, S), generator=gen) < 0.8
+    ts, te, sg, m = (t.to(cuda) for t in (ts, te, sg, m))
+    tthre = torch.tensor(0.02, device=cuda) if thre == "tensor" else thre
+    g = torch.randn((R, S), device=cuda)
+    ins = [t.clone().requires_grad_(True) for t in (ts, te, sg)]
+    pins = [t.clone().requires_grad_(True) for t in (ts, te, sg)]
+    w = k6_comp.render_weights(*ins, m, tthre, eps)
+    wp = k6_comp.render_weights(*pins, m, tthre, eps, impl="plain")
+    ref, refs = _rw_reference(ts, te, sg, m, tthre, eps)
+    grads = torch.autograd.grad(w, ins, g)
+    pgrads = torch.autograd.grad(wp, pins, g)
+    rgrads = torch.autograd.grad(ref, refs, g.double())
+    err, perr = (float((x.double() - ref).abs().max()) for x in (w, wp))
+    assert err <= perr + 1e-6, (err, perr)
+    for name, a, p, r in zip(("t_starts", "t_ends", "sigmas"), grads, pgrads, rgrads):
+        e, pe = (float((x.double() - r).abs().max()) for x in (a, p))
+        assert e <= pe + 1e-5 * float(r.abs().max()), (name, e, pe)
+    again = k6_comp.render_weights_bwd_cuda(ts, te, sg, m, tthre, eps, g)
+    assert torch.equal(k6_comp.render_weights_cuda(ts, te, sg, m, tthre, eps), w)
+    for a, b in zip((grads[2], grads[0], grads[1]), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [1, 6, 33, 128])
+@pytest.mark.parametrize("R,S,lo,hi,budget,dead", [K6A_CASES[3], K6A_CASES[4], K6A_CASES[6]])
+def test_k6d_matches_plain_and_f64(cuda, R, S, lo, hi, budget, dead, C, dtype):
+    """K6d forward and backward against the plain version evaluated in f64
+    (the same sums): the kernel's error no larger than the plain version's
+    plus 1e-6 of the largest entry (the plain version's prefix difference
+    loses to cancellation on long buffers); bf16 values are read exactly, and
+    dh, which rounds to bf16 once, within one bf16 ulp of the f64 product.
+    Rows past the total get dh = 0 and add to no lane; detached weights take
+    no gradient; a second run gives the same bits."""
+    mask = _k6_mask(R, S, R + C).to(cuda)
+    live = (torch.rand(R, device=cuda) < 0.6) if dead else None
+    c = k6_compact.compact_stage(mask[:, lo:hi], live, budget)
+    wide = torch.rand((R, S), device=cuda, requires_grad=True)
+    wl = wide[:, lo:hi]  # the model's column slice, row stride S
+    h = torch.randn((budget, C), device=cuda).to(dtype).requires_grad_(True)
+    g = torch.randn((R, C), device=cuda)
+    out = k6_comp.compact_accumulate(wl, h, c)
+    dwide, dh = torch.autograd.grad(out, (wide, h), g)
+    dw = dwide[:, lo:hi]
+    wp = wl.detach().clone().requires_grad_(True)
+    outp = k6_comp.compact_accumulate(wp, h.detach(), c, impl="plain")
+    (dwp,) = torch.autograd.grad(outp, (wp,), g)
+    w64, h64 = wl.detach().double().requires_grad_(True), h.detach().double().requires_grad_(True)
+    c64 = dataclasses.replace(c, live=c.live.double())
+    ref = k6_comp.compact_accumulate(w64, h64, c64, impl="plain")
+    dw64, dh64 = torch.autograd.grad(ref, (w64, h64), g.double())
+    for name, a, p, r in (("out", out, outp, ref), ("dw", dw, dwp, dw64)):
+        e, pe = (float((x.double() - r).abs().max()) for x in (a, p))
+        assert e <= pe + 1e-6 * float(r.abs().max()), (name, e, pe)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    assert float(((dh.double() - dh64).abs() - ulp * dh64.abs()).max()) <= 1e-30
+    total = int(c.total)
+    assert float(dh[total:].abs().max() if total < budget else 0.0) == 0.0
+    assert float(dw[~c.mask].abs().max() if (~c.mask).any() else 0.0) == 0.0
+    out2 = k6_comp.compact_accumulate(wl.detach(), h, c)  # detached weights
+    (dh2,) = torch.autograd.grad(out2, (h,), g)
+    assert torch.equal(out2, out) and torch.equal(dh2, dh)
+    dh3, dw3 = k6_comp.compact_accumulate_bwd_cuda(wl.detach(), h.detach(), c, g)
+    assert torch.equal(dh3, dh) and torch.equal(dw3, dw)
+
+
+def test_k6_kernels_refuse_bad_inputs(cuda):
+    mask = _k6_mask(40, 16, 3).to(cuda)
+    c = k6_compact.compact_stage(mask, None, 256)
+    w = torch.rand((40, 16), device=cuda)
+    with pytest.raises(ValueError):
+        k6_comp.compact_accumulate_cuda(w, torch.randn((256, 3), device=cuda).half(), c)
+    with pytest.raises(ValueError):
+        k6_comp.compact_accumulate_cuda(w.cpu(), torch.randn((256, 3), device=cuda), c)
+    with pytest.raises(ValueError):
+        k6_comp.render_weights_cuda(*(torch.rand((4, 300), device=cuda),) * 3,
+                                    torch.ones((4, 300), dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):
+        k6_compact.lanes_from_rows_cuda(torch.zeros(256), c)

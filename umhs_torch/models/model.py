@@ -33,12 +33,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops.compact import compact_stage, gather_lanes
 from ..ops.compositing import (
     accumulate,
+    compact_accumulate,
     render_accumulation,
     render_depth_expected,
     render_weights,
-    segment_accumulate,
 )
 from ..ops.encodings import HashEncodingConfig
 from ..ops.proposal_sampling import (
@@ -338,20 +339,9 @@ class UMHSModel:
             od_prev = None
             for (lo, hi), Bs in zip(lane_splits, stage_budgets):
                 L = hi - lo
-                m = mask[:, lo:hi]
-                if live_rays is not None:
-                    m = m & live_rays[:, None]
-                flat_mask = m.reshape(-1)
-                fm = flat_mask.int()
-                slot = torch.cumsum(fm, dim=0, dtype=torch.int32) - fm
-                # drop overflow so no slot past the buffer is ever read
-                flat_mask = flat_mask & (slot < Bs)
-                m = flat_mask.reshape(R, L)
-                kept = torch.nonzero(flat_mask).squeeze(1)  # ascending == slot order
-                total = kept.shape[0]
-                src = torch.zeros(Bs, dtype=torch.int64, device=o.device)
-                src[:total] = kept
-                live = (torch.arange(Bs, device=o.device) < total).float()
+                # K6a: the slot map, src (the lane of each row), counts, starts
+                comp = compact_stage(mask[:, lo:hi], live_rays, Bs, impl=cfg.impl)
+                m, src = comp.mask, comp.src
 
                 pos_c = positions[:, lo:hi].reshape(-1, 3)[src]
                 ray_id = src // L
@@ -363,15 +353,11 @@ class UMHSModel:
                     density_c = _grad_scale(density_c, scaling_c)
                     heads_c = {k: _grad_scale(v, scaling_c[..., None]) for k, v in heads_c.items()}
 
-                # densities back in the (R, L) layout through the slot map
-                back = density_c[torch.clamp(slot.reshape(R, L).long(), 0, Bs - 1)]
-                density_l = torch.where(m, back, torch.zeros_like(back))
+                # K6b: densities back in the (R, L) layout through the slot map
+                density_l = gather_lanes(density_c, comp, impl=cfg.impl)
                 density_parts.append(density_l)
                 mask_parts.append(m)
-                counts = m.sum(dim=-1)
-                starts = torch.cumsum(counts, dim=0) - counts
-                stage_data.append({"src": src, "live": live, "heads": heads_c,
-                                   "counts": counts, "starts": starts, "lo": lo, "hi": hi})
+                stage_data.append({"comp": comp, "heads": heads_c, "lo": lo, "hi": hi})
 
                 if hi < S:
                     # exact transmittance after this stage, with the
@@ -385,22 +371,20 @@ class UMHSModel:
 
             mask = torch.cat(mask_parts, dim=1)
             weights = render_weights(t_starts, t_ends, torch.cat(density_parts, dim=1), mask,
-                                     alpha_thre=alpha_thre, early_stop_eps=cfg.early_stop_eps)
-            for sd_ in stage_data:
-                w_flat = weights[:, sd_["lo"]:sd_["hi"]].reshape(-1)
-                sd_["w"] = w_flat[sd_["src"]] * sd_["live"]
-                sd_["w_sg"] = sd_["w"].detach()
+                                     alpha_thre=alpha_thre, early_stop_eps=cfg.early_stop_eps,
+                                     impl=cfg.impl)
 
-            def accumulate_fn(key, w="w"):
+            def accumulate_fn(key, w=weights):
+                # K6d: each stage's rows, their weights gathered through src
                 return sum(
-                    segment_accumulate(sd_[w][:, None] * sd_["heads"][key],
-                                       sd_["starts"], sd_["counts"])
+                    compact_accumulate(w[:, sd_["lo"]:sd_["hi"]], sd_["heads"][key],
+                                       sd_["comp"], impl=cfg.impl)
                     for sd_ in stage_data
                 )
 
             def accumulate_sg(key):
                 # detached weights, values with their gradient (the DINO head)
-                return accumulate_fn(key, "w_sg")
+                return accumulate_fn(key, weights.detach())
 
             num_eval_stages = [mp.sum(dim=-1, dtype=torch.int32) for mp in mask_parts]
         else:
@@ -417,7 +401,8 @@ class UMHSModel:
                 density = _grad_scale(density, scaling)
                 heads = {k: _grad_scale(v, scaling[..., None]) for k, v in heads.items()}
             weights = render_weights(t_starts, t_ends, density, mask,
-                                     alpha_thre=alpha_thre, early_stop_eps=cfg.early_stop_eps)
+                                     alpha_thre=alpha_thre, early_stop_eps=cfg.early_stop_eps,
+                                     impl=cfg.impl)
 
             def accumulate_fn(key):
                 return accumulate(weights, heads[key])
@@ -523,7 +508,7 @@ class UMHSModel:
             sigma = proposal_density(params[f"proposal_{i}"], self.proposal_hash_configs[i], fc,
                                      pos.reshape(-1, 3)).reshape(t_lo.shape)
             w = render_weights(t_lo, t_hi, sigma, torch.ones_like(t_lo, dtype=torch.bool),
-                               alpha_thre=0.0, early_stop_eps=0.0)
+                               alpha_thre=0.0, early_stop_eps=0.0, impl=cfg.impl)
             aux_edges.append(s_edges)
             aux_weights.append(w)
             s_edges = pdf_resample(s_edges, w, n_next, jitters[i + 1])
@@ -545,7 +530,7 @@ class UMHSModel:
             density = _grad_scale(density, scaling)
             heads = {k: _grad_scale(v, scaling[..., None]) for k, v in heads.items()}
         weights = render_weights(t_starts, t_ends, density, mask, alpha_thre=0.0,
-                                 early_stop_eps=0.0)
+                                 early_stop_eps=0.0, impl=cfg.impl)
 
         outputs: Dict[str, torch.Tensor] = {
             "accumulation": render_accumulation(weights),
