@@ -37,13 +37,17 @@ from umhs_torch.ops.row_gather import (
     SLICE_BYTES, WAVE, ROW_GATHER, row_gather, row_gather_plain, row_gather_slices)
 from umhs_torch.ops import compact as k6_compact
 from umhs_torch.ops import compositing as k6_comp
+from umhs_torch.ops import occupancy as k7_occ
+from umhs_torch.ops import ray_marching as k5_march
 
 pytestmark = pytest.mark.cuda
-# the kernels a training step launches (P1, the row gather, is on no path)
+# the kernels a training step launches (P1, the row gather, is on no path;
+# the occupancy update's K7 runs beside the step, not in it)
 TRAIN_KERNELS = sorted(k.symbol for k in (
     MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD, HASH_ENCODE_BWD, k6_compact.COMPACT_STAGE,
     k6_compact.COMPACT_GATHER, k6_comp.RENDER_WEIGHTS_FWD, k6_comp.RENDER_WEIGHTS_BWD,
-    k6_comp.SEGMENT_ACCUMULATE_FWD, k6_comp.SEGMENT_ACCUMULATE_BWD))
+    k6_comp.SEGMENT_ACCUMULATE_FWD, k6_comp.SEGMENT_ACCUMULATE_BWD, k5_march.MARCH_COUNT,
+    k5_march.MARCH_EMIT))
 # the proposal sampler's step: no compact buffer, K6c only
 PROPOSAL_TRAIN_KERNELS = sorted(k.symbol for k in (
     MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD, HASH_ENCODE_BWD, k6_comp.RENDER_WEIGHTS_FWD,
@@ -1048,3 +1052,257 @@ def test_k6_kernels_refuse_bad_inputs(cuda):
                                     torch.ones((4, 300), dtype=torch.bool, device=cuda))
     with pytest.raises(ValueError):
         k6_compact.lanes_from_rows_cuda(torch.zeros(256), c)
+
+
+# ------------------------------------------------------------- K5 and K7
+K5_BOX = ((-1.1, -0.7, -1.3), (1.3, 1.5, 0.9))  # off-centre: the centre and half round
+
+
+def _k5_grid(cuda, res, levels, pool, kind, seed=5, packed=True):
+    """(OccGridConfig, occ_state on the card): a bitfield with a dense ball in
+    level 0 and 30% of the outer shells ("random"), every cell ("dense") or
+    none ("empty"), its pooled bytes and packed words by the plain versions,
+    and a random occs_low for the od culling."""
+    cfg = k7_occ.OccGridConfig(resolution=res, levels=levels, aabb_min=K5_BOX[0],
+                               aabb_max=K5_BOX[1], pool=pool)
+    n = levels * res**3
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "dense":
+        bits = torch.ones(n, dtype=torch.bool)
+    elif kind == "empty":
+        bits = torch.zeros(n, dtype=torch.bool)
+    else:
+        bits = torch.rand(n, generator=gen) < 0.3
+        ijk = torch.stack(torch.meshgrid(*[torch.arange(res)] * 3, indexing="ij"), -1).flip(-1)
+        ball = ((ijk - res / 2 + 0.5).norm(dim=-1) < res / 4).reshape(-1)
+        bits[:res**3] = ball | (torch.rand(res**3, generator=gen) < 0.05)
+    state = {"binaries": bits.to(cuda),
+             "occs_low": (-0.02 * torch.log1p(-torch.rand(n, generator=gen))).to(cuda)}
+    if pool > 1:
+        state["binaries_pooled"] = k7_occ._pool_binaries(state["binaries"], cfg)
+    if packed and res % 4 == 0:
+        state["packed_words"] = k7_occ._pack_supercell_words(state["binaries"], cfg)
+    return cfg, state
+
+
+def _k5_rays(cuda, R, seed=7):
+    """R rays: from a sphere of radius 4 toward points in the box; a tenth
+    start inside the level-0 box, a tenth point away from it (they miss)."""
+    gen = torch.Generator().manual_seed(seed)
+    lo, hi = torch.tensor(K5_BOX[0]), torch.tensor(K5_BOX[1])
+    centre = (lo + hi) / 2
+    o = torch.randn((R, 3), generator=gen)
+    o = centre + 4.0 * o / o.norm(dim=-1, keepdim=True)
+    d = lo + (hi - lo) * torch.rand((R, 3), generator=gen) - o
+    m = R // 10
+    o[:m] = lo + (hi - lo) * torch.rand((m, 3), generator=gen)
+    d[:m] = torch.randn((m, 3), generator=gen)
+    d[m:2 * m] = o[m:2 * m] - centre
+    return o.to(cuda), d.to(cuda), torch.rand(R, generator=gen).to(cuda)
+
+
+def _k5_march(res, pool, **kw):
+    rss = float(np.linalg.norm(np.subtract(K5_BOX[1], K5_BOX[0]))) / 1000.0
+    args = dict(num_candidates=1024, num_samples=64, occ_subsamples=4, pool=pool,
+                render_step_size=rss, cone_angle=0.004)
+    args.update(kw)
+    return k5_march.MarchConfig(**args)
+
+
+K5_CASES = {  # label: (R, res, levels, pool, grid, samples a ray in budget, jitter, march kw)
+    "random": (3001, 32, 2, 4, "random", None, False, {}),
+    "random-binding": (3001, 32, 2, 4, "random", 16, False, {}),
+    "dense-binding": (3001, 32, 2, 4, "dense", 16, False, {}),
+    "dense": (3001, 32, 2, 4, "dense", None, True, {}),
+    "empty-binding": (3001, 32, 2, 4, "empty", 16, True, {}),
+    "jitter-binding": (3001, 32, 2, 4, "random", 24, True, {}),
+    "no-pool": (3001, 32, 2, 0, "random", 16, True, {}),
+    "pool-2": (3001, 32, 2, 2, "random", 16, True, {}),
+    "bytes": (3001, 32, 2, 4, "random", 16, True, {"packed": False}),
+    "res-36-pool-2": (1000, 36, 2, 2, "random", 16, True, {}),
+    "k-1": (1000, 32, 2, 0, "random", 8, True, dict(num_candidates=256, num_samples=48,
+                                                     occ_subsamples=1)),
+    "linear": (1000, 32, 2, 4, "random", 16, True, dict(cone_angle=0.0)),
+    "fine-1024": (500, 32, 2, 4, "random", None, True, dict(num_candidates=4096, num_samples=512,
+                                                          pool_supers=256)),
+    "one-ray": (1, 32, 2, 4, "random", 4, True, {}),
+    "phase-3": (4096, 128, 4, 4, "random", 32, False, {}),
+    "phase-5": (4096, 128, 4, 4, "random", 32, True, {}),
+    "phase-7": (79_360, 128, 4, 4, "random", 376_576 / 79_360, True, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k5_matches_plain_bit_for_bit(cuda, case):
+    """K5 against the plain march on the card: t_starts, t_ends, mask,
+    num_samples and num_occupied the same bits, and again on a second run.
+    Dense grids stride every ray in both rank-selects, binding budgets scale
+    every ray's down; rays miss the box or start inside it."""
+    R, res, levels, pool, grid, per_ray, jitter, kw = K5_CASES[case]
+    kw = dict(kw)
+    cfg, state = _k5_grid(cuda, res, levels, pool, grid, packed=kw.pop("packed", True))
+    march = _k5_march(res, pool, **kw)
+    o, d, jit = _k5_rays(cuda, R)
+    budget = None if per_ray is None else int(per_ray * R)
+    args = (state, cfg, march, o, d, jit if jitter else None, budget)
+    got = k5_march.march_rays_cuda(*args)
+    again = k5_march.march_rays_cuda(*args)
+    ref = k5_march.march_rays_plain(*args)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        assert torch.equal(got[k], again[k]), k
+    n = got["num_samples"]
+    if grid != "empty":
+        assert int(n.sum()) > 0
+    if budget is not None:
+        assert int(n.sum()) <= budget
+
+
+def test_k5_launches_through_the_wrapper(cuda):
+    cfg, state = _k5_grid(cuda, 32, 2, 4, "random")
+    o, d, _ = _k5_rays(cuda, 100)
+    before = (k5_march.MARCH_COUNT.launches, k5_march.MARCH_EMIT.launches)
+    k5_march.march_rays(state, cfg, _k5_march(32, 4), o, d)
+    k5_march.march_rays(state, cfg, _k5_march(32, 4), o, d, impl="plain")
+    assert (k5_march.MARCH_COUNT.launches, k5_march.MARCH_EMIT.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def k5_od_reference(state, cfg, march, o, d, od_max):
+    """The od culling in f64 over the plain march's own candidates: (the
+    occupied mask, the od before each candidate, the mask before the
+    culling)."""
+    c = k5_march.march_candidates_plain(state, cfg, march, o, d)
+    vals, _ = k7_occ.query_grid_values(state["occs_low"], c["positions"], cfg)
+    occ = c["occupied"]
+    contrib = torch.where(occ, vals, torch.zeros_like(vals)).double() * (
+        c["dts"].double() / march.render_step_size)
+    od = torch.cumsum(contrib, -1) - contrib
+    return occ & (od < od_max), od, occ
+
+
+@pytest.mark.parametrize("pool", [0, 4])
+@pytest.mark.parametrize("od_max", [0.05, 0.5, float("inf")])
+def test_k5_od_culling_against_f64(cuda, od_max, pool):
+    """The od culling sums in candidate order in f32 where the plain version's
+    cumsum takes another order: held with the plain version to an f64
+    evaluation. A ray with a candidate whose od lies within 1e-5 (relative)
+    of od_max may go either way; every other ray's count equals f64's."""
+    cfg, state = _k5_grid(cuda, 32, 2, pool, "random")
+    march = _k5_march(32, pool, early_stop_od=0.5)
+    o, d, _ = _k5_rays(cuda, 3001)
+    got = k5_march.march_rays_cuda(state, cfg, march, o, d, None, None, od_max)
+    ref = k5_march.march_rays_plain(state, cfg, march, o, d, None, None, od_max)
+    mask64, od, unculled = k5_od_reference(state, cfg, march, o, d, od_max)
+    near = ((od - od_max).abs() <= 1e-5 * od_max).any(-1) if od_max < float("inf") else \
+        torch.zeros(o.shape[0], dtype=torch.bool, device=cuda)
+    want = mask64.sum(-1).int() * march.occ_subsamples
+    for r in (got, ref):
+        assert torch.equal(r["num_occupied"][~near], want[~near])
+    same = ~near
+    for k in ref:
+        assert torch.equal(got[k][same], ref[k][same]), k
+    if od_max < float("inf"):
+        assert int(mask64.sum()) < int(unculled.sum())  # it culled
+
+
+def _k7_density(p):
+    """A density that varies inside a cell, so probes of one cell differ."""
+    return torch.relu(30.0 - 20.0 * p.norm(dim=-1)) + 2.0 * (p[..., 0] > 0.2).float()
+
+
+K7_GRIDS = [(32, 2, 4), (32, 2, 2), (32, 2, 0), (36, 2, 2), (36, 1, 0), (128, 4, 4)]
+
+
+@pytest.mark.parametrize("res,levels,pool", K7_GRIDS)
+def test_k7_full_update_matches_plain(cuda, res, levels, pool):
+    """K7 against the plain update on the card, full: occs, occs_low, the
+    bitfield, its pooled bytes and packed words the same bits, twice."""
+    cfg = k7_occ.OccGridConfig(resolution=res, levels=levels, aabb_min=K5_BOX[0],
+                               aabb_max=K5_BOX[1], pool=pool)
+    n = levels * res**3
+    gen = torch.Generator(cuda).manual_seed(res + pool)
+    state = {"occs": 0.02 * torch.rand(n, device=cuda, generator=gen),
+             "occs_low": 0.01 * torch.rand(n, device=cuda, generator=gen)}
+    jitter = torch.rand((n, 3), device=cuda, generator=gen)
+    got = k7_occ.update_occ_state_cuda(state, cfg, _k7_density, 0.004, jitter)
+    again = k7_occ.update_occ_state_cuda(state, cfg, _k7_density, 0.004, jitter)
+    ref = k7_occ.update_occ_state_plain(state, cfg, _k7_density, 0.004, jitter)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        assert torch.equal(got[k], again[k]), k
+    assert 0.0 < float(got["binaries"].float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("res,levels,pool", [(32, 2, 4), (36, 2, 2), (128, 4, 4)])
+def test_k7_partial_update_with_repeated_cells_matches_plain(cuda, res, levels, pool):
+    """A partial update whose cells repeat (each drawn up to four times):
+    the largest probe in occs, the smallest in occs_low, the same bits as
+    the plain version's scatter_reduce; a NaN density maps to 0."""
+    cfg = k7_occ.OccGridConfig(resolution=res, levels=levels, aabb_min=K5_BOX[0],
+                               aabb_max=K5_BOX[1], pool=pool)
+    n = levels * res**3
+    gen = torch.Generator(cuda).manual_seed(res)
+    state = {"occs": 0.05 * torch.rand(n, device=cuda, generator=gen),
+             "occs_low": 0.01 * torch.rand(n, device=cuda, generator=gen)}
+    m = max(n // 9, 64)
+    cell = torch.randint(0, res**3, (m,), device=cuda, generator=gen)
+    level = torch.randint(0, levels, (m,), device=cuda, generator=gen)
+    q = m // 4
+    cell[q:2 * q], level[q:2 * q] = cell[:q], level[:q]
+    cell[2 * q:2 * q + q // 2], level[2 * q:2 * q + q // 2] = cell[:q // 2], level[:q // 2]
+    jitter = torch.rand((m, 3), device=cuda, generator=gen)
+
+    def density(p):
+        out = _k7_density(p)
+        out[::97] = float("nan")
+        return out
+
+    args = (state, cfg, density, 0.004, jitter, (level, cell))
+    got, again = k7_occ.update_occ_state_cuda(*args), k7_occ.update_occ_state_cuda(*args)
+    ref = k7_occ.update_occ_state_plain(*args)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        assert torch.equal(got[k], again[k]), k
+
+
+def test_k7_launches_and_the_model_path(cuda):
+    """The model's update goes through K7a twice (before and after the
+    density) and K7b once; impl="plain" launches neither."""
+    cfg = k7_occ.OccGridConfig(resolution=32, levels=2, pool=4)
+    n = 2 * 32**3
+    state = {"occs": torch.zeros(n, device=cuda), "occs_low": torch.zeros(n, device=cuda)}
+    jitter = torch.rand((n, 3), device=cuda)
+    before = (k7_occ.OCC_UPDATE.launches, k7_occ.OCC_PACK.launches)
+    k7_occ.update_occ_state(state, cfg, _k7_density, 0.004, jitter)
+    k7_occ.update_occ_state(state, cfg, _k7_density, 0.004, jitter, impl="plain")
+    assert (k7_occ.OCC_UPDATE.launches, k7_occ.OCC_PACK.launches) == (before[0] + 2,
+                                                                       before[1] + 1)
+
+
+def test_k5_k7_refuse_bad_inputs(cuda):
+    cfg, state = _k5_grid(cuda, 32, 2, 4, "random")
+    o, d, jit = _k5_rays(cuda, 64)
+    march = _k5_march(32, 4)
+    with pytest.raises(ValueError):
+        k5_march.march_rays_cuda(state, cfg, march, o.double(), d)
+    with pytest.raises(ValueError):
+        k5_march.march_rays_cuda(state, cfg, march, o, d, jit[:10])
+    with pytest.raises(ValueError):
+        k5_march.march_rays_cuda(dict(state, packed_words=state["packed_words"].int()), cfg,
+                                 march, o, d)
+    with pytest.raises(ValueError, match="candidates"):
+        k5_march.march_rays_cuda(state, cfg, _k5_march(32, 0, num_candidates=8192,
+                                                       occ_subsamples=1), o, d)
+    n = 2 * 32**3
+    occs = torch.zeros(n, device=cuda)
+    with pytest.raises(ValueError):
+        k7_occ.update_occ_state_cuda({"occs": occs, "occs_low": occs}, cfg, _k7_density, 0.004,
+                                     torch.rand((n, 2), device=cuda))
+    with pytest.raises(ValueError):
+        k7_occ.update_occ_state_cuda({"occs": occs, "occs_low": occs}, cfg,
+                                     lambda p: _k7_density(p).double(), 0.004,
+                                     torch.rand((n, 3), device=cuda))
+    with pytest.raises(ValueError):
+        k7_occ.threshold_pack_cuda(occs[:-1], occs.mean(), cfg)

@@ -70,11 +70,14 @@ def test_kernel_sources_are_in_the_package():
         RENDER_WEIGHTS_BWD, RENDER_WEIGHTS_FWD, SEGMENT_ACCUMULATE_BWD, SEGMENT_ACCUMULATE_FWD)
     from umhs_torch.ops.encodings import HASH_ENCODE_BWD, HASH_ENCODE_FWD
     from umhs_torch.ops.mlp_fused import MLP_FUSED_BWD, MLP_FUSED_FWD
+    from umhs_torch.ops.occupancy import OCC_PACK, OCC_UPDATE
+    from umhs_torch.ops.ray_marching import MARCH_COUNT, MARCH_EMIT
     from umhs_torch.ops.row_gather import ROW_GATHER
 
     kernels = (MLP_FUSED_FWD, MLP_FUSED_BWD, HASH_ENCODE_FWD, HASH_ENCODE_BWD, ROW_GATHER,
                COMPACT_STAGE, COMPACT_GATHER, RENDER_WEIGHTS_FWD, RENDER_WEIGHTS_BWD,
-               SEGMENT_ACCUMULATE_FWD, SEGMENT_ACCUMULATE_BWD)
+               SEGMENT_ACCUMULATE_FWD, SEGMENT_ACCUMULATE_BWD, MARCH_COUNT, MARCH_EMIT,
+               OCC_UPDATE, OCC_PACK)
     assert sorted(_native.KERNELS) == sorted(k.symbol for k in kernels)
     for k in kernels:
         assert (_native.CSRC_DIR / k.source).is_file()

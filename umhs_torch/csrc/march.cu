@@ -1,0 +1,488 @@
+// K5: the occupancy grid's march, in two launches.
+//
+// Replaces the XLA code of umhs_tpu/ops/ray_marching.py:250 `march_rays`
+// (with `candidate_ts` :112, `_ts_at_index` :142, `_rank_select` :168) and
+// the packed-word queries of umhs_tpu/ops/occupancy.py:255-315. In the
+// original system nerfacc's CUDA ray-marching kernel did this work. The port
+// ran it as plain PyTorch (umhs_torch/ops/ray_marching.py, march_rays_plain):
+// some 220 operator calls a march, and two gathers of the packed words that
+// took a third of the steady training step's device time.
+//
+// Per ray, with the flagship's settings in brackets (1024 candidates, 4
+// fine samples a cell, pool 4, 64 samples a ray):
+// 1. Clip to the AABB of the outermost level: t0 = max(t_enter, near) plus
+//    jitter * render_step_size when training; t_max = min(t_exit, far).
+// 2. Pre-pass (pool > 1): Ma [64] supercell candidates on the cone schedule
+//    at step dt0 * k * p; a candidate is kept if its supercell is occupied,
+//    it lies inside the grid and t < t_max. Rank-select up to `supers` [32]
+//    of them: a ray over budget takes an even stride, its dt scaled by
+//    count / budget, (t, dt) recomputed from the schedule at the index.
+// 3. Split each kept supercell interval into p [4] cell intervals and query
+//    each cell's bit; without a pre-pass, query Mc [256] candidates on the
+//    schedule at step dt0 * k. Optional od culling drops the candidates
+//    behind an optical depth (sum of occs_low * dt / dt0) above od_max.
+// 4. Rank-select Sc [16] of the M [128] candidates under the batch budget
+//    total_budget // k, which needs the sum over all rays of min(count, Sc):
+//    hence two launches. Emit k [4] fine intervals a kept candidate.
+//
+// K5a (march_count_kernel): a warp a ray. Each lane takes every 32nd
+// candidate; a ballot gives a 32-bit word of occupancy bits per 32
+// candidates, and word w stays in lane w (so a stage holds at most 1,024
+// candidates). It writes the ray's state (t0, count, the pre-pass's count,
+// the fine and pre-pass words), num_occupied, and adds the block's sum of
+// min(count, Sc) to a device int32 total (one integer atomicAdd a block:
+// exact and order-free). K5b (march_emit_kernel): a warp a ray again. The
+// batch scale from the device total, then per output column the slot's
+// rank, its candidate found by a shuffle binary search over the words'
+// running counts and a popcount search in the word, the candidate's (t, dt)
+// recomputed (for a cell candidate, its supercell's too), and the k fine
+// intervals written straight into the (R, S) outputs. No float atomics, no
+// host sync; every output is written by one thread, so every run gives the
+// same bits.
+//
+// The arithmetic follows PyTorch's CUDA kernels op by op (occupancy.cuh),
+// so the outputs equal the plain version's on the card bit for bit. The od
+// culling is the exception: it sums a ray's candidates one at a time in
+// f32, where the plain version's cumsum takes another order.
+//
+// What bounds it on an H100: neither bytes nor operations at these sizes.
+// The outputs are (2 * 4 + 1) * S bytes a ray (~48.6 MB at phase 7's 79,360
+// rays and S 64, ~0.015 ms); the word table (2 MB) stays in the L2. Each
+// candidate costs an exp, a log2, four IEEE divisions and a dependent L2
+// load, so the work is latency: a simple design first, no tiling of the
+// table in shared memory.
+#include <stdint.h>
+
+#include "common.cuh"
+#include "occupancy.cuh"
+
+namespace umhs {
+
+// One candidate schedule (nerfacc's cone marching): dt = max(t * cone, dt0),
+// linear until t reaches dt0 / cone, geometric after. Mirrors
+// umhs_torch/ops/ray_marching.py's Schedule.
+struct Schedule {
+  float dt0, cone;
+  float inv_dt0;  // float32(1) / float32(dt0)
+  float t_crit;   // float32(dt0 / cone), divided in double
+  float growth;   // log1p(cone) as PyTorch computes it on the card
+  int32_t linear; // cone <= 0
+};
+
+// Mirrors umhs_torch/ops/ray_marching.py's MarchParams field for field.
+struct MarchParams {
+  OccParams grid;
+  int32_t R;
+  int32_t M;       // fine candidates a ray (supers * pool, or Mc)
+  int32_t Ma;      // pre-pass candidates a ray (0 without a pre-pass)
+  int32_t Sc;      // slots a ray (num_samples // k)
+  int32_t supers;  // pre-pass slots
+  int32_t k;       // fine samples a slot
+  int32_t pool;    // cells a supercell along an axis (1 without a pre-pass)
+  int32_t pre_mode, fine_mode, od, has_budget, total_budget;
+  int32_t words_fine, words_pre, width;
+  float lo[3], hi[3], tiny, near_plane, far_plane, jitter_step;
+  float inv_p, inv_k, od_inv_step, od_max;
+  Schedule pre, coarse;
+};
+
+}  // namespace umhs
+
+namespace {
+
+using umhs::MarchParams;
+using umhs::Schedule;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;  // rays per block
+enum Query { kNone = 0, kPacked = 1, kBytes = 2 };
+
+// Schedule state of one ray: the linear steps before the geometric phase.
+struct RaySchedule {
+  float t0, k_crit, t_at_crit;
+};
+
+__device__ __forceinline__ RaySchedule ray_schedule(const Schedule& s, float t0) {
+  RaySchedule r{t0, 0.0f, t0};
+  if (!s.linear) {
+    // ceil(clamp_min(t_crit - t0, 0) / dt0): the division by a Python number
+    r.k_crit = ceilf(__fmul_rn(umhs::clamp_min_f(__fsub_rn(s.t_crit, t0), 0.0f), s.inv_dt0));
+    r.t_at_crit = __fadd_rn(t0, __fmul_rn(r.k_crit, s.dt0));
+  }
+  return r;
+}
+
+// (t, dt) of candidate index kf.
+__device__ __forceinline__ void schedule_at(const Schedule& s, const RaySchedule& r, float kf,
+                                            float& t, float& dt) {
+  const float t_lin = __fadd_rn(r.t0, __fmul_rn(kf, s.dt0));
+  if (s.linear) {
+    t = t_lin;
+    dt = s.dt0;
+    return;
+  }
+  const float t_exp = __fmul_rn(r.t_at_crit, expf(__fmul_rn(__fsub_rn(kf, r.k_crit), s.growth)));
+  t = kf < r.k_crit ? t_lin : t_exp;
+  dt = umhs::clamp_min_f(__fmul_rn(t, s.cone), s.dt0);
+}
+
+__device__ __forceinline__ int warp_sum(int v) { return __reduce_add_sync(kFull, v); }
+
+__device__ __forceinline__ int warp_exclusive_scan(int v, int lane) {
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  return x - v;
+}
+
+// Position of the n-th (0-based) set bit of w (n < popc(w)).
+__device__ __forceinline__ int nth_set_bit(unsigned w, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int width = 16; width >= 1; width >>= 1) {
+    const int c = __popc(w & ((1u << width) - 1u));
+    if (n >= c) {
+      n -= c;
+      w >>= width;
+      pos += width;
+    }
+  }
+  return pos;
+}
+
+// A stage's occupancy words, word w in lane w, with their exclusive running
+// counts: the candidate index of the occupied candidate of rank `rank`
+// (0-based), or M - 1 past the count (searchsorted's M, clamped). Called by
+// every lane of the warp, each with its own rank.
+__device__ __forceinline__ int select_index(unsigned word, int excl, int nwords, int rank,
+                                            int M) {
+  int lo = 0;  // the last word whose running count is <= rank
+#pragma unroll
+  for (int step = 16; step >= 1; step >>= 1) {
+    const int cand = lo + step;
+    const int v = __shfl_sync(kFull, excl, cand & 31);
+    if (cand < nwords && v <= rank) lo = cand;
+  }
+  const unsigned w = __shfl_sync(kFull, word, lo);
+  const int n = rank - __shfl_sync(kFull, excl, lo);
+  if (n < 0 || n >= __popc(w)) return M - 1;
+  return 32 * lo + nth_set_bit(w, n);
+}
+
+// Slot `slot`'s occupied rank: an even stride when the ray is over budget.
+__device__ __forceinline__ int slot_rank(int slot, int count, int budget) {
+  return count > budget ? (slot * count) / max(budget, 1) : slot;
+}
+
+// dt's scale of a ray over budget: clamp_min(count / max(budget, 1), 1).
+__device__ __forceinline__ float dt_scale_of(int count, int budget) {
+  return umhs::clamp_min_f(
+      __fdiv_rn(static_cast<float>(count), static_cast<float>(max(budget, 1))), 1.0f);
+}
+
+// The pre-pass's words and counts in a warp, and the ray's schedule.
+struct PrePass {
+  unsigned word;
+  int excl, count, budget;
+  float dt_scale;
+  RaySchedule rs;
+};
+
+// Kept supercell interval of pre-pass slot s, (0, 0) past the budget. Called
+// by every lane.
+__device__ __forceinline__ void pre_slot(const MarchParams& P, const PrePass& A, int s,
+                                         float& t, float& dt) {
+  const int idx = select_index(A.word, A.excl, P.words_pre,
+                               slot_rank(s, A.count, A.budget), P.Ma);
+  float ts, dts;
+  schedule_at(P.pre, A.rs, static_cast<float>(idx), ts, dts);
+  const bool valid = s < A.budget;
+  t = valid ? ts : 0.0f;
+  dt = valid ? __fmul_rn(dts, A.dt_scale) : 0.0f;
+}
+
+// Fine candidate j's interval in the pool path: the p-th part of its
+// supercell's. Called by every lane.
+__device__ __forceinline__ bool fine_interval(const MarchParams& P, const PrePass& A, int j,
+                                              float& ts, float& dts) {
+  const int s = j / P.pool, i = j - s * P.pool;
+  float tA, dtA;
+  pre_slot(P, A, s, tA, dtA);
+  dts = __fmul_rn(dtA, P.inv_p);
+  ts = __fadd_rn(tA, __fmul_rn(static_cast<float>(i), dts));
+  return s < A.budget;
+}
+
+__device__ __forceinline__ void midpoint(const float o[3], const float d[3], float t, float dt,
+                                         float pos[3]) {
+  const float mid = __fadd_rn(t, __fmul_rn(dt, 0.5f));
+#pragma unroll
+  for (int c = 0; c < 3; ++c) pos[c] = __fadd_rn(o[c], __fmul_rn(d[c], mid));
+}
+
+// Supercell occupancy (pre-pass) of a world position: any bit of its packed
+// word, or its byte in the pooled bitfield; and inside the grid.
+__device__ __forceinline__ bool query_pre(const MarchParams& P, const float pos[3],
+                                          const int64_t* __restrict__ packed,
+                                          const uint8_t* __restrict__ pooled) {
+  const umhs::OccParams& g = P.grid;
+  if (P.pre_mode == kPacked) {
+    const umhs::CellIndex c = umhs::locate_cell(g, pos, g.res);
+    const int r4 = g.res >> 2;
+    const int64_t row = static_cast<int64_t>(c.lvl) * r4 * r4 * r4 + (c.ijk[0] >> 2) +
+                        static_cast<int64_t>(c.ijk[1] >> 2) * r4 +
+                        static_cast<int64_t>(c.ijk[2] >> 2) * r4 * r4;
+    return c.inside && (packed[2 * row] | packed[2 * row + 1]) != 0;
+  }
+  const int rp = g.res / P.pool;
+  const umhs::CellIndex c = umhs::locate_cell(g, pos, rp);
+  const int64_t flat = static_cast<int64_t>(c.lvl) * rp * rp * rp + c.ijk[0] +
+                       static_cast<int64_t>(c.ijk[1]) * rp +
+                       static_cast<int64_t>(c.ijk[2]) * rp * rp;
+  return c.inside && pooled[flat] != 0;
+}
+
+// Cell occupancy of a world position: its bit in the packed words, or its
+// byte in the bitfield; and inside the grid. `cell_flat` gets the cell's
+// flat index (for the od culling's occs_low).
+__device__ __forceinline__ bool query_fine(const MarchParams& P, const float pos[3],
+                                           const int64_t* __restrict__ packed,
+                                           const uint8_t* __restrict__ binaries,
+                                           int64_t& cell_flat) {
+  const umhs::OccParams& g = P.grid;
+  const int res = g.res;
+  const umhs::CellIndex c = umhs::locate_cell(g, pos, res);
+  cell_flat = static_cast<int64_t>(c.lvl) * res * res * res + c.ijk[0] +
+              static_cast<int64_t>(c.ijk[1]) * res + static_cast<int64_t>(c.ijk[2]) * res * res;
+  if (P.fine_mode == kPacked) {
+    const int r4 = res >> 2;
+    const int64_t row = static_cast<int64_t>(c.lvl) * r4 * r4 * r4 + (c.ijk[0] >> 2) +
+                        static_cast<int64_t>(c.ijk[1] >> 2) * r4 +
+                        static_cast<int64_t>(c.ijk[2] >> 2) * r4 * r4;
+    const int bit = (c.ijk[0] & 3) + ((c.ijk[1] & 3) << 2) + ((c.ijk[2] & 3) << 4);
+    const int64_t word = packed[2 * row + (bit >> 5)];
+    return c.inside && ((word >> (bit & 31)) & 1) == 1;
+  }
+  return c.inside && binaries[cell_flat] != 0;
+}
+
+// The pre-pass's words of a ray, from the state K5a wrote (or computes).
+__device__ __forceinline__ PrePass pre_pass_of(const MarchParams& P, unsigned word, int count,
+                                               float t0, int lane) {
+  PrePass A;
+  A.word = word;
+  A.excl = warp_exclusive_scan(__popc(word), lane);
+  A.count = count;
+  A.budget = min(count, P.supers);
+  A.dt_scale = dt_scale_of(count, A.budget);
+  A.rs = ray_schedule(P.pre, t0);
+  return A;
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+march_count_kernel(const MarchParams P, const float* __restrict__ origins,
+                   const float* __restrict__ dirs, const float* __restrict__ jitter,
+                   const int64_t* __restrict__ packed, const uint8_t* __restrict__ binaries,
+                   const uint8_t* __restrict__ pooled, const float* __restrict__ occs_low,
+                   int32_t* __restrict__ state, int32_t* __restrict__ total,
+                   int32_t* __restrict__ num_occupied) {
+  __shared__ int32_t block_keep[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int32_t r = blockIdx.x * kWarps + warp;
+  int32_t keep = 0;
+  if (r < P.R) {  // uniform over the warp
+    float o[3], d[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      o[c] = origins[3 * static_cast<int64_t>(r) + c];
+      d[c] = dirs[3 * static_cast<int64_t>(r) + c];
+    }
+    // 1. the slab test: 1 / safe as reciprocal() rounds it
+    float t_enter = -INFINITY, t_exit = INFINITY;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float safe = fabsf(d[c]) > P.tiny ? d[c] : P.tiny;
+      const float inv = __fdiv_rn(1.0f, safe);
+      const float ta = __fmul_rn(__fsub_rn(P.lo[c], o[c]), inv);
+      const float tb = __fmul_rn(__fsub_rn(P.hi[c], o[c]), inv);
+      t_enter = fmaxf(t_enter, fminf(ta, tb));
+      t_exit = fminf(t_exit, fmaxf(ta, tb));
+    }
+    const float t_min = umhs::clamp_min_f(t_enter, P.near_plane);
+    const float t_max = umhs::clamp_max_f(t_exit, P.far_plane);
+    const float t0 =
+        jitter != nullptr ? __fadd_rn(t_min, __fmul_rn(jitter[r], P.jitter_step)) : t_min;
+
+    // 2. the pre-pass's supercell words
+    unsigned word_pre = 0;
+    int count_pre = 0;
+    PrePass A{};
+    if (P.pre_mode != kNone) {
+      const RaySchedule rs = ray_schedule(P.pre, t0);
+      for (int c = 0; c < P.words_pre; ++c) {
+        const int j = 32 * c + lane;
+        bool occ = false;
+        if (j < P.Ma) {
+          float t, dt, pos[3];
+          schedule_at(P.pre, rs, static_cast<float>(j), t, dt);
+          if (t < t_max) {
+            midpoint(o, d, t, dt, pos);
+            occ = query_pre(P, pos, packed, pooled);
+          }
+        }
+        const unsigned b = __ballot_sync(kFull, occ);
+        if (lane == c) word_pre = b;
+      }
+      count_pre = warp_sum(__popc(word_pre));
+      A = pre_pass_of(P, word_pre, count_pre, t0, lane);
+    }
+
+    // 3. the cell candidates' words, with the optional od culling
+    const RaySchedule rc = ray_schedule(P.coarse, t0);
+    unsigned word = 0;
+    float od_run = 0.0f;
+    for (int c = 0; c < P.words_fine; ++c) {
+      const int j = 32 * c + lane;
+      float ts = 0.0f, dts = 0.0f;
+      bool in_range;
+      if (P.pre_mode != kNone) {
+        in_range = fine_interval(P, A, j < P.M ? j : P.M - 1, ts, dts) && j < P.M;
+      } else {
+        schedule_at(P.coarse, rc, static_cast<float>(j), ts, dts);
+        in_range = j < P.M && ts < t_max;
+      }
+      bool occ = false;
+      int64_t cell = 0;
+      if (in_range) {
+        float pos[3];
+        midpoint(o, d, ts, dts, pos);
+        occ = query_fine(P, pos, packed, binaries, cell);
+      }
+      if (P.od) {
+        // od before this candidate: the occupied candidates' occs_low * dt
+        // / dt0 summed one at a time in candidate order
+        const float contrib =
+            __fmul_rn(occ ? occs_low[cell] : 0.0f, __fmul_rn(dts, P.od_inv_step));
+        float od_here = 0.0f;
+        for (int l = 0; l < 32; ++l) {
+          const float cl = __shfl_sync(kFull, contrib, l);
+          if (lane == l) od_here = od_run;
+          od_run = __fadd_rn(od_run, cl);
+        }
+        occ = occ && od_here < P.od_max;
+      }
+      const unsigned b = __ballot_sync(kFull, occ);
+      if (lane == c) word = b;
+    }
+    const int count = warp_sum(__popc(word));
+    int32_t* row = state + static_cast<int64_t>(r) * P.width;
+    if (lane == 0) {
+      row[0] = __float_as_int(t0);
+      row[1] = count;
+      row[2] = count_pre;
+      num_occupied[r] = count * P.k;
+    }
+    if (lane < P.words_fine) row[3 + lane] = static_cast<int32_t>(word);
+    if (lane < P.words_pre) row[3 + P.words_fine + lane] = static_cast<int32_t>(word_pre);
+    keep = min(count, P.Sc);
+  }
+  if (P.has_budget) {
+    if (lane == 0) block_keep[warp] = keep;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int32_t sum = 0;
+      for (int w = 0; w < kWarps; ++w) sum += block_keep[w];
+      if (sum) atomicAdd(total, sum);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+march_emit_kernel(const MarchParams P, const int32_t* __restrict__ state,
+                  const int32_t* __restrict__ total, float* __restrict__ t_starts,
+                  float* __restrict__ t_ends, uint8_t* __restrict__ mask,
+                  int32_t* __restrict__ num_samples) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int32_t r = blockIdx.x * kWarps + warp;
+  if (r >= P.R) return;  // uniform over the warp
+  const int32_t* row = state + static_cast<int64_t>(r) * P.width;
+  const float t0 = __int_as_float(row[0]);
+  const int count = row[1];
+  const unsigned word = lane < P.words_fine ? static_cast<unsigned>(row[3 + lane]) : 0u;
+  const int excl = warp_exclusive_scan(__popc(word), lane);
+  PrePass A{};
+  if (P.pre_mode != kNone) {
+    const unsigned wa =
+        lane < P.words_pre ? static_cast<unsigned>(row[3 + P.words_fine + lane]) : 0u;
+    A = pre_pass_of(P, wa, row[2], t0, lane);
+  }
+  const RaySchedule rc = ray_schedule(P.coarse, t0);
+
+  // the budget: min(count, Sc), scaled down with the batch's
+  int budget = min(count, P.Sc);
+  if (P.has_budget) {
+    const float tot = static_cast<float>(max(*total, 1));
+    const float scale =
+        umhs::clamp_max_f(__fdiv_rn(static_cast<float>(P.total_budget), tot), 1.0f);
+    budget = max(static_cast<int>(__fmul_rn(static_cast<float>(budget), scale)), min(count, 1));
+  }
+  const float dt_scale = dt_scale_of(count, budget);
+  const int S = P.Sc * P.k;
+  const int64_t base = static_cast<int64_t>(r) * S;
+  for (int c0 = 0; c0 < S; c0 += 32) {  // uniform over the warp
+    const int col = c0 + lane;
+    const int slot = col / P.k, q = col - slot * P.k;
+    const bool valid = col < S && slot < budget;
+    const int idx = select_index(word, excl, P.words_fine, slot_rank(slot, count, budget), P.M);
+    float ts, dts;
+    if (P.pre_mode != kNone) {
+      fine_interval(P, A, idx, ts, dts);
+    } else {
+      schedule_at(P.coarse, rc, static_cast<float>(idx), ts, dts);
+    }
+    const float dt_sel = __fmul_rn(dts, dt_scale);
+    float t_start, t_end;
+    if (P.k > 1) {
+      const float dt_fine = __fmul_rn(dt_sel, P.inv_k);
+      t_start = __fadd_rn(ts, __fmul_rn(static_cast<float>(q), dt_fine));
+      t_end = __fadd_rn(t_start, dt_fine);
+    } else {
+      t_start = ts;
+      t_end = __fadd_rn(ts, dt_sel);
+    }
+    if (col < S) {
+      t_starts[base + col] = valid ? t_start : 0.0f;
+      t_ends[base + col] = valid ? t_end : 0.0f;
+      mask[base + col] = valid;
+    }
+  }
+  if (lane == 0) num_samples[r] = budget * P.k;
+}
+
+}  // namespace
+
+extern "C" int umhs_march_params_size() { return static_cast<int>(sizeof(MarchParams)); }
+
+extern "C" int umhs_march_count(const MarchParams* params, const float* origins,
+                                const float* dirs, const float* jitter, const int64_t* packed,
+                                const uint8_t* binaries, const uint8_t* pooled,
+                                const float* occs_low, int32_t* state, int32_t* total,
+                                int32_t* num_occupied, cudaStream_t stream) {
+  const MarchParams P = *params;
+  const int blocks = (P.R + kWarps - 1) / kWarps;
+  march_count_kernel<<<blocks, kWarps * 32, 0, stream>>>(
+      P, origins, dirs, jitter, packed, binaries, pooled, occs_low, state, total, num_occupied);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int umhs_march_emit(const MarchParams* params, const int32_t* state,
+                               const int32_t* total, float* t_starts, float* t_ends,
+                               uint8_t* mask, int32_t* num_samples, cudaStream_t stream) {
+  const MarchParams P = *params;
+  const int blocks = (P.R + kWarps - 1) / kWarps;
+  march_emit_kernel<<<blocks, kWarps * 32, 0, stream>>>(P, state, total, t_starts, t_ends, mask,
+                                                        num_samples);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -233,7 +233,7 @@ class UMHSModel:
         cells = None if full else partial_cells(occ_state, self.occ_config, cell_draws)
         return update_occ_state(
             occ_state, self.occ_config, density_fn(params, self.field_config),
-            self.render_step_size, jitter, cells=cells,
+            self.render_step_size, jitter, cells=cells, impl=self.config.impl,
         )
 
     def occ_update_due(self, step: int) -> Tuple[bool, bool]:
@@ -315,7 +315,7 @@ class UMHSModel:
             occ_state, self.occ_config, march_cfg, o, d,
             t_jitter=t_jitter if train else None,
             total_budget=(sum(B) if multi else B) if compact else None,
-            early_stop_od_value=od_val,
+            early_stop_od_value=od_val, impl=cfg.impl,
         )
         t_starts, t_ends, mask = march["t_starts"], march["t_ends"], march["mask"]
         d_unit = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)

@@ -92,6 +92,7 @@ class Kernel:
         self.launches = 0
         self._lib = None
         self._fn = None
+        self._checked = {}
         KERNELS[symbol] = self
 
     def _load(self):
@@ -111,6 +112,19 @@ class Kernel:
         if self._fn is None:
             self._load()
         return self._lib
+
+    def check_struct(self, symbol: str, struct) -> None:
+        """Raise unless the library's `symbol`() (a sizeof) equals the ctypes
+        mirror's size: a parameter struct passed by pointer must match."""
+        if symbol in self._checked:
+            return
+        fn = getattr(self.library(), symbol)
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        size = fn()
+        if size != ctypes.sizeof(struct):
+            raise RuntimeError(f"{symbol}: the kernel's struct is {size} bytes, its ctypes "
+                               f"mirror {ctypes.sizeof(struct)}")
+        self._checked[symbol] = size
 
     def launch(self, *args) -> None:
         """Call the launcher; raise on a non-zero cudaError_t, else count."""

@@ -13,15 +13,28 @@ partial (sampled cells, as the trainer runs after warmup). Every random
 draw is an argument: the in-cell jitter, and for the partial update the
 cells' draws (`draw_partial_cells` makes them from a torch.Generator, a
 test from the JAX key splits). `occ_update_due` is nerfacc's schedule.
+
+K7, the update on the card (``csrc/occupancy.cu``, port of the XLA code of
+umhs_tpu/ops/occupancy.py:347 `update_occ_state`): K7a `umhs_occ_update`
+places the probes before the density evaluation and folds the densities
+into the EMA after it; K7b `umhs_occ_pack` thresholds, pools and packs in
+one pass. impl="auto" launches them on a CUDA tensor, the plain version
+runs on a CPU tensor or with impl="plain"; both give the same bits. The
+density evaluation (K3 and K1), the mean of `occs` and `partial_cells`'
+cumsum and searchsorted stay PyTorch calls. Nothing is read back.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ._native import Kernel
+from .compact import _check_impl, _stream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +94,19 @@ def _pack_supercell_words(binaries: torch.Tensor, config: OccGridConfig) -> torc
     lo = (bits[..., :32] * weights).sum(-1)
     hi = (bits[..., 32:] * weights).sum(-1)
     return torch.stack([lo, hi], dim=-1).reshape(-1)
+
+
+def _threshold_pack_plain(occs: torch.Tensor, mean: torch.Tensor, config: OccGridConfig):
+    """Plain version of K7b: binaries = occs > min(mean, occ_thre), then the
+    pooled bitfield (pool > 1) and the packed words (res % 4 == 0)."""
+    thre = torch.clamp_max(mean, config.occ_thre)
+    binaries = occs > thre
+    out = {"binaries": binaries}
+    if config.pool > 1:
+        out["binaries_pooled"] = _pool_binaries(binaries, config)
+    if config.resolution % 4 == 0:
+        out["packed_words"] = _pack_supercell_words(binaries, config)
+    return out
 
 
 def init_occ_state(config: OccGridConfig, device="cpu"):
@@ -258,6 +284,7 @@ def update_occ_state(
     render_step_size: float,
     jitter: torch.Tensor,
     cells: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    impl: str = "auto",
 ):
     """One EMA update. Full when `cells` is None: every cell of every level
     is probed at the jittered point `jitter` (levels * res^3, 3) in [0, 1)^3
@@ -272,39 +299,219 @@ def update_occ_state(
     twice. The rule here, deterministic on every device: the largest probe
     wins in `occs` and the smallest in `occs_low` (the JAX package's
     scatter-set leaves the winner unspecified; the two agree on cells probed
-    once)."""
-    res3 = config.cells_per_level
-    L = config.levels
-    dev = jitter.device
-    if cells is None:
-        cell_flat = torch.arange(res3, device=dev).repeat(L)
-        level = torch.arange(L, device=dev).repeat_interleave(res3)
-    else:
-        level, cell_flat = (c.long() for c in cells)
+    once).
+
+    impl="auto": K7 on a CUDA tensor, the plain version on a CPU tensor;
+    impl="plain": the plain version anywhere."""
+    _check_impl(impl)
+    if impl == "plain" or jitter.device.type == "cpu":
+        return update_occ_state_plain(state, config, density_fn, render_step_size, jitter, cells)
+    return update_occ_state_cuda(state, config, density_fn, render_step_size, jitter, cells)
+
+
+def update_occ_state_plain(
+    state,
+    config: OccGridConfig,
+    density_fn: Callable[[torch.Tensor], torch.Tensor],
+    render_step_size: float,
+    jitter: torch.Tensor,
+    cells: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """Plain version of update_occ_state (K7a and K7b)."""
+    level, cell_flat = _probe_cells_plain(config, jitter.device, cells)
     positions = _level_world_positions(config, level, cell_flat, jitter)
     occ = _eval_occ(density_fn, positions) * render_step_size
+    occs, occs_low = _fold_plain(state, config, occ, level, cell_flat, full=cells is None)
+    out = {"occs": occs, "occs_low": occs_low}
+    out.update(_threshold_pack_plain(occs, torch.mean(occs), config))
+    return out
+
+
+def _probe_cells_plain(config: OccGridConfig, dev, cells):
+    """(level, cell) of every probe: every cell of every level, or `cells`."""
+    if cells is None:
+        res3, L = config.cells_per_level, config.levels
+        return (torch.arange(L, device=dev).repeat_interleave(res3),
+                torch.arange(res3, device=dev).repeat(L))
+    return tuple(c.long() for c in cells)
+
+
+def _fold_plain(state, config: OccGridConfig, occ, level, cell_flat, full: bool):
+    """Plain version of K7a's fold: the probes' density * step `occ` into
+    (occs, occs_low)."""
     # a NaN would persist through the EMA max and silently empty the grid
     occ = torch.nan_to_num(occ)
-
-    if cells is None:
+    if full:
         occs = torch.maximum(state["occs"] * config.ema_decay, occ)
         rise = torch.clamp_min(state["occs_low"] * 2.0, config.occ_thre)
-        occs_low = torch.minimum(occ, rise)
+        return occs, torch.minimum(occ, rise)
+    flat_idx = level * config.cells_per_level + cell_flat
+    new = torch.maximum(state["occs"][flat_idx] * config.ema_decay, occ)
+    rise = torch.clamp_min(state["occs_low"][flat_idx] * 2.0, config.occ_thre)
+    new_low = torch.minimum(occ, rise)
+    occs = state["occs"].scatter_reduce(0, flat_idx, new, "amax", include_self=False)
+    occs_low = state["occs_low"].scatter_reduce(0, flat_idx, new_low, "amin",
+                                                include_self=False)
+    return occs, occs_low
+
+
+class OccParams(ctypes.Structure):
+    """The grid's constants, passed to K5 and K7 by value (csrc/occupancy.cuh
+    `OccParams`): each float as PyTorch's CUDA kernels round it."""
+
+    _fields_ = [
+        ("res", ctypes.c_int32), ("levels", ctypes.c_int32), ("pool", ctypes.c_int32),
+        ("center", ctypes.c_float * 3), ("half", ctypes.c_float * 3),
+        ("inv_res", ctypes.c_float), ("max_scale", ctypes.c_float), ("min_maxc", ctypes.c_float),
+        ("decay", ctypes.c_float), ("occ_thre", ctypes.c_float), ("step", ctypes.c_float),
+    ]
+
+
+def occ_params(config: OccGridConfig, render_step_size: float = 0.0) -> OccParams:
+    """OccParams of `config`: a Python number that the plain version divides
+    by is taken as its f32 reciprocal, since PyTorch's CUDA division by a
+    Python number multiplies by that."""
+    res = config.resolution
+    return OccParams(
+        res=res, levels=config.levels, pool=config.pool,
+        center=(ctypes.c_float * 3)(*config.center.tolist()),
+        half=(ctypes.c_float * 3)(*config.half_extent.tolist()),
+        inv_res=float(np.float32(1.0) / np.float32(res)), max_scale=config.max_scale,
+        min_maxc=1e-12, decay=config.ema_decay, occ_thre=config.occ_thre,
+        step=render_step_size,
+    )
+
+
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+OCC_UPDATE = Kernel("occupancy.cu", "umhs_occ_update",
+                    [ctypes.c_int, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P])
+OCC_PACK = Kernel("occupancy.cu", "umhs_occ_pack", [_P, _P, _P, _P, _P, _P, _P])
+
+
+def check_grid_limits(config: OccGridConfig, name: str) -> None:
+    """Refuse, before any launch, a grid whose cells an int32 cannot index."""
+    if config.levels * config.cells_per_level >= 2**31 or config.levels < 1:
+        raise ValueError(f"{name}: a grid of {config.levels} x {config.resolution}^3 cells is "
+                         "beyond the kernel's int32 cell index")
+
+
+def update_occ_state_cuda(
+    state,
+    config: OccGridConfig,
+    density_fn: Callable[[torch.Tensor], torch.Tensor],
+    render_step_size: float,
+    jitter: torch.Tensor,
+    cells: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """update_occ_state on the card: K7a places the probes (occ_probe_cuda),
+    the density is evaluated, K7a folds it in (occ_fold_cuda), then K7b
+    thresholds, pools and packs against the device's mean."""
+    probes = occ_probe_cuda(state, config, jitter, cells)
+    sigma = _eval_occ(density_fn, probes.positions)
+    out = occ_fold_cuda(probes, sigma, render_step_size)
+    out.update(threshold_pack_cuda(out["occs"], torch.mean(out["occs"]), config))
+    return out
+
+
+@dataclasses.dataclass
+class Probes:
+    """K7a's probes between its two launches: the world positions (n, 3),
+    the cells (None for a full update) and the grids being written."""
+
+    state: dict
+    config: OccGridConfig
+    cells: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    positions: torch.Tensor
+    occs: torch.Tensor
+    occs_low: torch.Tensor
+
+
+def occ_probe_cuda(state, config: OccGridConfig, jitter: torch.Tensor,
+                   cells: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Probes:
+    """K7a, mode 0: the probes' world positions; for a partial update also,
+    at each probed cell, the values every probe of it shares (occs * decay
+    and the envelope's rise) in copies of the grids."""
+    check_grid_limits(config, "update_occ_state_cuda")
+    dev = jitter.device
+    if dev.type != "cuda":
+        raise ValueError(f"update_occ_state_cuda: needs a CUDA tensor, not {dev}")
+    n = config.levels * config.cells_per_level if cells is None else cells[0].shape[0]
+    if jitter.dtype != torch.float32 or tuple(jitter.shape) != (n, 3) or n == 0:
+        raise ValueError(f"update_occ_state_cuda: jitter must be ({n}, 3) float32, not "
+                         f"{tuple(jitter.shape)} {jitter.dtype}")
+    for key in ("occs", "occs_low"):
+        t = state[key]
+        if (t.dtype != torch.float32 or t.device != dev or not t.is_contiguous()
+                or t.numel() != config.levels * config.cells_per_level):
+            raise ValueError(f"update_occ_state_cuda: state[{key!r}] must be a contiguous "
+                             f"float32 grid on {dev}")
+    if cells is None:
+        level = cell = None
+        occs, occs_low = torch.empty_like(state["occs"]), torch.empty_like(state["occs_low"])
     else:
-        flat_idx = level * res3 + cell_flat
-        new = torch.maximum(state["occs"][flat_idx] * config.ema_decay, occ)
-        rise = torch.clamp_min(state["occs_low"][flat_idx] * 2.0, config.occ_thre)
-        new_low = torch.minimum(occ, rise)
-        occs = state["occs"].scatter_reduce(0, flat_idx, new, "amax", include_self=False)
-        occs_low = state["occs_low"].scatter_reduce(0, flat_idx, new_low, "amin",
-                                                    include_self=False)
-    thre = torch.clamp_max(torch.mean(occs), config.occ_thre)
-    binaries = occs > thre
-    out = {"occs": occs, "occs_low": occs_low, "binaries": binaries}
-    if config.pool > 1:
-        out["binaries_pooled"] = _pool_binaries(binaries, config)
-    if config.resolution % 4 == 0:
-        out["packed_words"] = _pack_supercell_words(binaries, config)
+        level, cell = (c.to(device=dev, dtype=torch.int64).contiguous() for c in cells)
+        if level.shape != (n,) or cell.shape != (n,):
+            raise ValueError("update_occ_state_cuda: cells must be two (M,) tensors")
+        occs, occs_low = state["occs"].clone(), state["occs_low"].clone()
+    probes = Probes(state, config, None if cells is None else (level, cell),
+                    torch.empty((n, 3), dtype=torch.float32, device=dev), occs, occs_low)
+    OCC_UPDATE.check_struct("umhs_occ_params_size", OccParams)
+    with torch.cuda.device(dev):
+        OCC_UPDATE.launch(0, ctypes.byref(occ_params(config)), n, _ptr(level), _ptr(cell),
+                          jitter.contiguous().data_ptr(), state["occs"].data_ptr(),
+                          state["occs_low"].data_ptr(), None, probes.positions.data_ptr(),
+                          occs.data_ptr(), occs_low.data_ptr(), _stream(jitter))
+    return probes
+
+
+def occ_fold_cuda(probes: Probes, sigma: torch.Tensor, render_step_size: float):
+    """K7a, mode 1: the densities `sigma` (n,) at the probes folded into the
+    grids: {"occs", "occs_low"}. Each call writes the grids `probes` holds."""
+    n = probes.positions.shape[0]
+    if sigma.dtype != torch.float32 or sigma.shape != (n,) or sigma.device != \
+            probes.positions.device:
+        raise ValueError(f"update_occ_state_cuda: the density must be ({n},) float32 on the "
+                         f"card, not {tuple(sigma.shape)} {sigma.dtype}")
+    level, cell = probes.cells if probes.cells is not None else (None, None)
+    state = probes.state
+    with torch.cuda.device(sigma.device):
+        OCC_UPDATE.launch(1, ctypes.byref(occ_params(probes.config, render_step_size)), n,
+                          _ptr(level), _ptr(cell), None, state["occs"].data_ptr(),
+                          state["occs_low"].data_ptr(), sigma.contiguous().data_ptr(), None,
+                          probes.occs.data_ptr(), probes.occs_low.data_ptr(), _stream(sigma))
+    return {"occs": probes.occs, "occs_low": probes.occs_low}
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def threshold_pack_cuda(occs: torch.Tensor, mean: torch.Tensor, config: OccGridConfig):
+    """K7b: as _threshold_pack_plain, in one pass (one warp a 4^3 supercell
+    where res % 4 == 0, else a thread a cell, then a thread a pooled cell
+    for a pool other than 4), with the mean read on the device."""
+    check_grid_limits(config, "threshold_pack_cuda")
+    n = config.levels * config.cells_per_level
+    if occs.dtype != torch.float32 or occs.shape != (n,) or not occs.is_contiguous() \
+            or occs.device.type != "cuda":
+        raise ValueError(f"threshold_pack_cuda: occs must be a contiguous ({n},) float32 "
+                         "tensor on the card")
+    if mean.dtype != torch.float32 or mean.numel() != 1 or mean.device != occs.device:
+        raise ValueError("threshold_pack_cuda: mean must be one float32 on occs' device")
+    dev = occs.device
+    r, L, p = config.resolution, config.levels, config.pool
+    out = {"binaries": torch.empty(n, dtype=torch.bool, device=dev)}
+    if p > 1:
+        out["binaries_pooled"] = torch.empty(L * (r // p) ** 3, dtype=torch.bool, device=dev)
+    if r % 4 == 0:
+        out["packed_words"] = torch.empty(L * (r // 4) ** 3 * 2, dtype=torch.int64, device=dev)
+    OCC_PACK.check_struct("umhs_occ_params_size", OccParams)
+    with torch.cuda.device(dev):
+        OCC_PACK.launch(ctypes.byref(occ_params(config)), occs.data_ptr(),
+                        mean.contiguous().data_ptr(), out["binaries"].data_ptr(),
+                        out["packed_words"].data_ptr() if "packed_words" in out else None,
+                        out["binaries_pooled"].data_ptr() if "binaries_pooled" in out else None,
+                        _stream(occs))
     return out
 
 
