@@ -81,11 +81,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      compact_gather (both ways) bit for bit against their plain versions;
      K6c render_weights forward and backward (also at nerfacto's 8192 rays
      x 256, 96 and 48 samples, with the t gradients) and K6d
-     segment_accumulate forward and backward, each held with its plain
-     version to an f64 evaluation of the same function: the kernel's error
-     at most the plain version's plus K6_TOL; each repeated bit for bit;
-     timed as above, with torch.segment_reduce as K6d's yardstick and the
-     bounds by bytes; each launcher's ptxas registers and spills.
+     segment_accumulate forward (a launch a head over the three stages,
+     equal to the single-stage calls added in stage order) and backward (a
+     launch a stage), each held with its plain version to an f64
+     evaluation of the same function: the kernel's error at most the plain
+     version's plus K6_TOL; each repeated bit for bit; timed as above, with
+     torch.segment_reduce (a call a stage and head) as K6d's yardstick and
+     the bounds by bytes; each launcher's ptxas registers and spills.
    - K5 and K7 (phase_k5k7, once the bench scene is staged), the occupancy
      grid's march and update at the flagship's shapes: K7 (K7a occ_update,
      K7b occ_pack) updates the 128^3 x 4 grid from a density like the bench
@@ -109,7 +111,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    flagship inputs, both proposal grids) and P1 must give TREE's bits,
    K1 and K2 on the DINO chain within 2e-2 of them; K6 at phase 7's steady
    shapes through the tree's own code (the plain PyTorch of its model in a
-   tree without K6: k6_parent_code), K6a's and K6b's bits the tree's; K7
+   tree without K6: k6_parent_code), K6a's, K6b's and (in a tree with K6's
+   kernels) K6d's forward bits the tree's; K7
    (full and partial) and K5 through the tree's own update_occ_state and
    march_rays (k5k7_tree_cases), K7's bits the tree's (K5's are printed: a
    tree before the budget scale's one-division repair may round apart).
@@ -969,7 +972,7 @@ def phase_k4(dev):
 
 
 K6_DEVICE_KERNELS = {  # the device kernels each K6 launcher runs
-    "compact_stage": ("compact_count_kernel", "compact_scan_kernel", "compact_place_kernel"),
+    "compact_stage": ("compact_stage_kernel",),
     "compact_gather": ("lanes_from_rows_kernel", "rows_from_lanes_kernel"),
     "render_weights_fwd": ("render_weights_fwd_kernel",),
     "render_weights_bwd": ("render_weights_bwd_kernel",),
@@ -1694,7 +1697,8 @@ def phase_k6(dev, ptxas):
         compact_stage, compact_stage_plain, gather_lanes_plain, lanes_from_rows_cuda,
         rows_from_lanes_cuda)
     from umhs_torch.ops.compositing import (
-        compact_accumulate_bwd_cuda, compact_accumulate_cuda, compact_accumulate_plain)
+        compact_accumulate_cuda, compact_accumulate_stages_bwd_cuda,
+        compact_accumulate_stages_cuda, compact_accumulate_stages_plain)
 
     k6_ptxas = {name: {k: v for k, v in ptxas.items() if k.split("<")[0] in kernels}
                 for name, kernels in K6_DEVICE_KERNELS.items()}
@@ -1708,7 +1712,7 @@ def phase_k6(dev, ptxas):
     d_fwd, d_bwd = dict(a), dict(a)
     d_fwd["library_ms"] = 0.0
     d_err = {"fwd": [], "bwd": []}
-    stages = []
+    stages, comps, totals = [], [], []
     for (lo, hi), Bs, alive in zip(K6_STAGES, K6_BUDGETS, x["alive"]):
         L = hi - lo
         m = x["mask"][:, lo:hi]
@@ -1722,6 +1726,7 @@ def phase_k6(dev, ptxas):
             check(torch.equal(getattr(c, k), getattr(again, k)), f"K6a: {k} not repeated")
         total = int(c.total)
         check(total == ref.total, f"K6a stage {lo}-{hi}: total {total} against {ref.total}")
+        totals.append(total)
         a["ms"] += device_ms(lambda: compact_stage(m, alive, Bs))
         a["call_ms"] += median_ms(lambda: compact_stage(m, alive, Bs))
         a["plain_ms"] += k6_plain_ms(lambda: compact_stage_plain(m, alive, Bs))
@@ -1747,49 +1752,63 @@ def phase_k6(dev, ptxas):
         b["bound_bytes"] += R * L * (4 + 1 + 4) + total * 4 + Bs * (8 + 4) + total * 4
         del plain
 
-        w_wide = torch.rand((R, S), device=dev, generator=gen)
-        w = w_wide[:, lo:hi]
-        counts = c.counts
-        for head, C in K6_HEADS.items():
-            h = torch.randn((Bs, C), device=dev, generator=gen)
-            g = torch.randn((R, C), device=dev, generator=gen)
-            out = compact_accumulate_cuda(w, h, c)
-            dh, dw = compact_accumulate_bwd_cuda(w, h, c, g)
-            check(torch.equal(out, compact_accumulate_cuda(w, h, c)), "K6d: forward not repeated")
-            dh2, dw2 = compact_accumulate_bwd_cuda(w, h, c, g)
-            check(torch.equal(dh, dh2) and torch.equal(dw, dw2), "K6d: backward not repeated")
-            wp = w.detach().clone().requires_grad_(True)
-            hp = h.detach().clone().requires_grad_(True)
-            outp = compact_accumulate_plain(wp, hp, c)
-            dwp, dhp = torch.autograd.grad(outp, (wp, hp), g, retain_graph=True)
-            w64 = w.detach().double().requires_grad_(True)
-            h64 = h.detach().double().requires_grad_(True)
-            c64 = dataclasses.replace(c, live=c.live.double())
-            ref = compact_accumulate_plain(w64, h64, c64)
-            dw64, dh64 = torch.autograd.grad(ref, (w64, h64), g.double())
-            for kind, pairs in (("fwd", [(out, outp, ref)]),
-                                ("bwd", [(dh, dhp, dh64), (dw, dwp, dw64)])):
-                for k, p, r in pairs:
-                    e, pe, scale = k6_err(k, r), k6_err(p, r), float(r.abs().max())
-                    d_err[kind].append((e, pe, scale))
-                    check(e <= pe + K6_TOL["accumulate"] * scale,
-                          f"K6d {kind} stage {lo}-{hi} {head}: err {e} against f64, the plain "
-                          f"version's {pe} (largest entry {scale})")
-            wv = (w.reshape(-1)[c.src] * c.live)[:total, None] * h[:total]
-            d_fwd["ms"] += device_ms(lambda: compact_accumulate_cuda(w, h, c))
-            d_fwd["call_ms"] += median_ms(lambda: compact_accumulate_cuda(w, h, c))
-            d_fwd["plain_ms"] += k6_plain_ms(lambda: compact_accumulate_plain(w, h, c))
-            d_fwd["library_ms"] += k6_plain_ms(
-                lambda: torch.segment_reduce(wv, "sum", lengths=counts))
-            d_fwd["bound_bytes"] += total * (C * 4 + 4 + 8) + R * (16 + C * 4)
-            d_bwd["ms"] += device_ms(lambda: compact_accumulate_bwd_cuda(w, h, c, g))
-            d_bwd["call_ms"] += median_ms(lambda: compact_accumulate_bwd_cuda(w, h, c, g))
-            d_bwd["plain_ms"] += k6_plain_ms(lambda: torch.autograd.grad(
-                outp, (wp, hp), g, retain_graph=True))
-            d_bwd["bound_bytes"] += total * (C * 4 + 4 + 8) + Bs * C * 4 + R * C * 4 + R * L * 4
-            del outp, wv, ref
+        comps.append(c)
         stages.append({"lanes": [lo, hi], "budget": Bs, "total": total,
                        "dropped": int(compact_stage_plain(m, alive, 1 << 30).total) - total})
+
+    # K6d: a launch a head over the three stages (the model's accumulate_fn)
+    w = torch.rand((R, S), device=dev, generator=gen)
+    for head, C in K6_HEADS.items():
+        hs = [torch.randn((c.src.shape[0], C), device=dev, generator=gen) for c in comps]
+        g = torch.randn((R, C), device=dev, generator=gen)
+        heads = [(lo, hi, h, c) for (lo, hi), h, c in zip(K6_STAGES, hs, comps)]
+        out = compact_accumulate_stages_cuda(w, heads)
+        check(torch.equal(out, compact_accumulate_stages_cuda(w, heads)),
+              "K6d: forward not repeated")
+        singles = [compact_accumulate_cuda(w[:, lo:hi], h, c) for lo, hi, h, c in heads]
+        check(torch.equal(out, singles[0] + singles[1] + singles[2]),
+              f"K6d {head}: the stages' launch is not the single-stage calls added in stage order")
+        dw, dh = compact_accumulate_stages_bwd_cuda(w, heads, g)
+        dw2, dh2 = compact_accumulate_stages_bwd_cuda(w, heads, g)
+        check(torch.equal(dw, dw2) and all(torch.equal(a, b) for a, b in zip(dh, dh2)),
+              "K6d: backward not repeated")
+        wp = w.clone().requires_grad_(True)
+        hp = [h.clone().requires_grad_(True) for h in hs]
+        outp = compact_accumulate_stages_plain(
+            wp, [(lo, hi, h, c) for (lo, hi), h, c in zip(K6_STAGES, hp, comps)])
+        dwp, *dhp = torch.autograd.grad(outp, [wp] + hp, g, retain_graph=True)
+        w64 = w.double().requires_grad_(True)
+        h64 = [h.double().requires_grad_(True) for h in hs]
+        ref = compact_accumulate_stages_plain(
+            w64, [(lo, hi, h, dataclasses.replace(c, live=c.live.double()))
+                  for (lo, hi), h, c in zip(K6_STAGES, h64, comps)])
+        dw64, *dh64 = torch.autograd.grad(ref, [w64] + h64, g.double())
+        for kind, triples in (("fwd", [(out, outp, ref)]),
+                              ("bwd", list(zip(dh, dhp, dh64)) + [(dw, dwp, dw64)])):
+            for k, p, r in triples:
+                e, pe, scale = k6_err(k, r), k6_err(p, r), float(r.abs().max())
+                d_err[kind].append((e, pe, scale))
+                check(e <= pe + K6_TOL["accumulate"] * scale,
+                      f"K6d {kind} {head}: err {e} against f64, the plain version's {pe} "
+                      f"(largest entry {scale})")
+        wvs = [((w[:, lo:hi].reshape(-1)[c.src] * c.live)[:t, None] * h[:t], c.counts)
+               for (lo, hi), h, c, t in zip(K6_STAGES, hs, comps, totals)]
+        d_fwd["ms"] += device_ms(lambda: compact_accumulate_stages_cuda(w, heads))
+        d_fwd["call_ms"] += median_ms(lambda: compact_accumulate_stages_cuda(w, heads))
+        d_fwd["plain_ms"] += k6_plain_ms(lambda: compact_accumulate_stages_plain(w, heads))
+        d_fwd["library_ms"] += sum(k6_plain_ms(
+            lambda: torch.segment_reduce(wv, "sum", lengths=n)) for wv, n in wvs)
+        # each stage's rows (C values, src, the weight) and its starts and
+        # counts read once, out written once
+        d_fwd["bound_bytes"] += R * C * 4 + sum(t * (C * 4 + 12) + R * 16 for t in totals)
+        d_bwd["ms"] += device_ms(lambda: compact_accumulate_stages_bwd_cuda(w, heads, g))
+        d_bwd["call_ms"] += median_ms(lambda: compact_accumulate_stages_bwd_cuda(w, heads, g))
+        d_bwd["plain_ms"] += k6_plain_ms(lambda: torch.autograd.grad(
+            outp, [wp] + hp, g, retain_graph=True))
+        d_bwd["bound_bytes"] += sum(t * (C * 4 + 4 + 8) + c.src.shape[0] * C * 4 + R * C * 4
+                                    + R * (hi - lo) * 4
+                                    for (lo, hi), c, t in zip(K6_STAGES, comps, totals))
+        del outp, wvs, ref
     print("K6 stages at phase 7's steady shapes: " + json.dumps(stages))
     thre = torch.tensor(K6_ALPHA_THRE, device=dev)  # as the model passes min(0.01, mean occs)
     sigma_all = x["sigma"]
@@ -1835,10 +1854,13 @@ def phase_k6(dev, ptxas):
               plain_max_abs_err=errs["sigmas"][1]),
         entry("segment_accumulate_fwd", d_fwd, max(e for e, _, _ in d_err["fwd"]),
               stage_shape + ", heads spectral, spectral2, specular (128) and abundances (6), "
-              "f32; library = torch.segment_reduce(sum, lengths=counts) on w * h precomputed",
-              d_fwd["bound_bytes"], plain_max_abs_err=max(p for _, p, _ in d_err["fwd"])),
+              "f32, a launch a head over the three stages, summed over the heads; library = "
+              "torch.segment_reduce(sum, lengths=counts) on w * h precomputed, a call a stage "
+              "and head", d_fwd["bound_bytes"],
+              plain_max_abs_err=max(p for _, p, _ in d_err["fwd"])),
         entry("segment_accumulate_bwd", d_bwd, max(e for e, _, _ in d_err["bwd"]),
-              "as the forward; dh and dw; plain = autograd of the plain forward",
+              "as the forward; dh and dw, a launch a stage into one zeroed (R, S) dw; plain = "
+              "autograd of the plain forward",
               d_bwd["bound_bytes"], plain_max_abs_err=max(p for _, p, _ in d_err["bwd"])),
     ]
     for e in entries:
@@ -2613,13 +2635,17 @@ def k6_tree_cases(dev, case):
 
     from umhs_torch.ops.compositing import render_weights
 
+    from umhs_torch.ops import compositing
+
     if importlib.util.find_spec("umhs_torch.ops.compact") is not None:
         from umhs_torch.ops.compact import compact_stage, gather_lanes
-        from umhs_torch.ops.compositing import compact_accumulate
 
-        stage, lanes, accumulate = compact_stage, gather_lanes, compact_accumulate
+        stage, lanes, accumulate = compact_stage, gather_lanes, compositing.compact_accumulate
     else:
         stage, lanes, accumulate = k6_parent_code()
+    # a head's sums over the stages as the tree's model takes them: one call
+    # over every stage, or a call a stage added in stage order
+    accumulate_stages = getattr(compositing, "compact_accumulate_stages", None)
     x = k6_inputs(dev)
     gen = torch.Generator().manual_seed(14)
     R = K6_RAYS
@@ -2653,6 +2679,10 @@ def k6_tree_cases(dev, case):
     g_heads = [torch.randn((R, C), generator=gen).to(dev) for C in K6_HEADS.values()]
 
     def sums():
+        if accumulate_stages is not None:
+            return [accumulate_stages(weights, [(lo, hi, hs[j], c) for (lo, hi), hs, c
+                                                in zip(K6_STAGES, heads, comps)])
+                    for j in range(len(K6_HEADS))]
         return [sum(accumulate(weights[:, lo:hi], hs[j], c)
                     for (lo, hi), hs, c in zip(K6_STAGES, heads, comps))
                 for j in range(len(K6_HEADS))]
@@ -2718,6 +2748,7 @@ def baseline_against_tree(tree: Path) -> dict:
         (save / str(i)).mkdir()
         turns.append(in_tree(root, "tree_measurements", str(save / str(i))))
     result = {}
+    k6_tree = (tree / "umhs_torch" / "ops" / "compact.py").exists()
     for name in turns[0]:
         r = [t[name] for t in turns]
         check(r[1]["digest"] == r[2]["digest"], f"{name}: this checkout's bits do not repeat")
@@ -2728,8 +2759,11 @@ def baseline_against_tree(tree: Path) -> dict:
             entry[f"turns_{key}"] = [v[key] for v in r]
             entry[f"baseline_{key}"] = (r[0][key] + r[3][key]) / 2
             entry[f"this_{key}"] = (r[1][key] + r[2][key]) / 2
-        # K5: a tree before the budget scale's repair rounds it apart (rarely)
-        if not name.startswith(("K1", "K2", "K5", "K6 render", "K6 segment")):
+        # K5: a tree before the budget scale's repair rounds it apart (rarely);
+        # K6d's forward gives the bits of a tree with K6's kernels, its
+        # backward's weights sum in autograd's order
+        held_k6d = name == "K6 segment_accumulate_fwd" and k6_tree
+        if held_k6d or not name.startswith(("K1", "K2", "K5", "K6 render", "K6 segment")):
             check(entry["same_bits"], f"{name}: not the bits of {tree}'s kernel")
         result[name] = entry
         print(f"against {tree}: {name}: " + json.dumps(entry))

@@ -915,6 +915,117 @@ def test_k6a_nothing_kept(cuda):
     assert int(c.counts.sum()) == 0 and int(c.starts.abs().sum()) == 0
 
 
+K6A_SCAN_CASES = [  # R, S, lo, hi, budget, later stage: tiles' edges (512 rays at L = 8, 85
+    # at 48), phase 7's steady shapes, look-backs over hundreds of tiles,
+    # budgets that cut inside a tile, L 1 to 96, unaligned column slices
+    (511, 64, 0, 8, 1 << 14, False), (512, 64, 0, 8, 1 << 14, False),
+    (513, 64, 8, 16, 1 << 14, True), (84, 64, 16, 64, 1 << 14, False),
+    (85, 64, 16, 64, 1 << 14, False), (86, 64, 16, 64, 1 << 14, True),
+    (79_360, 64, 0, 8, 179_200, False), (79_360, 64, 8, 16, 103_936, True),
+    (79_360, 64, 16, 64, 93_440, True), ((1 << 17) + 1, 1, 0, 1, 5_000, False),
+    ((1 << 17) + 1, 64, 0, 64, 1 << 20, False), (20_000, 96, 0, 96, 123_457, False),
+    (30_000, 64, 3, 11, 40_001, True), (9_001, 33, 5, 33, 7_000, True),
+    (4_097, 100, 2, 50, 30_000, False)]
+
+
+@pytest.mark.parametrize("R,S,lo,hi,budget,dead", K6A_SCAN_CASES)
+def test_k6a_single_pass_scan_matches_plain(cuda, R, S, lo, hi, budget, dead):
+    """K6a's single-pass scan gives the plain version's slot map, kept
+    lanes, src, live, counts, starts and total exactly, 50 times in a row
+    (a race in the look-back would change a bit), in one launch a call."""
+    mask = _k6_mask(R, S, R + S + lo, hit=0.4).to(cuda)
+    live = (torch.rand(R, device=cuda) < 0.6) if dead else None
+    m = mask[:, lo:hi]
+    ref = k6_compact.compact_stage_plain(m, live, budget)
+    before = k6_compact.COMPACT_STAGE.launches
+    for _ in range(50):
+        got = k6_compact.compact_stage(m, live, budget)
+        for k in ("slot", "mask", "src", "live", "counts", "starts"):
+            assert torch.equal(getattr(got, k), getattr(ref, k)), k
+        assert int(got.total) == ref.total
+    assert k6_compact.COMPACT_STAGE.launches == before + 50
+
+
+K6D_STAGES = ((0, 8), (8, 16), (16, 64))
+
+
+def _k6d_stage_inputs(cuda, C, dtype, aligned, bounds=K6D_STAGES, R=9_000, seed=0):
+    """Each stage's compaction of a (R, S) march (budgets that overflow), the
+    (R, S) weights with an odd row stride, and each stage's (Bs, C) values,
+    leaves with their gradient; unaligned values sit one element into rows
+    one wider (no vector loads)."""
+    S = bounds[-1][1]
+    mask = _k6_mask(R, S, seed + C, hit=0.5).to(cuda)
+    gen = torch.Generator(cuda).manual_seed(seed)
+    comps, live = [], None
+    for lo, hi in bounds:
+        budget = max(256, int(mask[:, lo:hi].sum()) * 3 // 4)
+        comps.append(k6_compact.compact_stage(mask[:, lo:hi], live, budget))
+        live = torch.rand(R, device=cuda, generator=gen) < 0.7
+    wide = torch.rand((R, S + 1), device=cuda, generator=gen).requires_grad_(True)
+    values = []
+    for c in comps:
+        Bs = c.src.shape[0]
+        h = torch.randn((Bs, C + (0 if aligned else 1)), device=cuda, generator=gen).to(dtype)
+        values.append((h if aligned else h[:, 1:]).detach().requires_grad_(True))
+    return wide, comps, values
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [1, 6, 33, 128])
+def test_k6d_stages_equal_stage_sums(cuda, C, dtype, aligned):
+    """K6d's one launch over the stages equals the single-stage calls added
+    in stage order (torch.equal), holds to f64 as the plain version does
+    (its error no larger than the plain version's plus 1e-6 of the largest
+    entry), and its backward (a launch a stage into one dw) equals the
+    single-stage backward's dh and dw; with detached weights the values'
+    gradients are the same and the weights take none."""
+    wide, comps, values = _k6d_stage_inputs(cuda, C, dtype, aligned)
+    w = wide[:, 1:]
+    stages = [(lo, hi, v, c) for (lo, hi), v, c in zip(K6D_STAGES, values, comps)]
+    before = k6_comp.SEGMENT_ACCUMULATE_FWD.launches
+    out = k6_comp.compact_accumulate_stages(w, stages)
+    assert k6_comp.SEGMENT_ACCUMULATE_FWD.launches == before + 1
+    singles = [k6_comp.compact_accumulate_cuda(w.detach()[:, lo:hi], v.detach(), c)
+               for lo, hi, v, c in stages]
+    assert torch.equal(out, singles[0] + singles[1] + singles[2])
+    wd = w.detach()
+    plain = k6_comp.compact_accumulate_stages(wd, stages, impl="plain")
+    ref = k6_comp.compact_accumulate_stages(
+        wd.double(), [(lo, hi, v.detach().double(), dataclasses.replace(c, live=c.live.double()))
+                      for lo, hi, v, c in stages], impl="plain")
+    e, pe = (float((x.double() - ref).abs().max()) for x in (out, plain))
+    assert e <= pe + 1e-6 * float(ref.abs().max()), (e, pe)
+    g = torch.randn(out.shape, device=cuda)
+    dwide, *dhs = torch.autograd.grad(out, [wide] + values, g)
+    for (lo, hi, v, c), dh in zip(stages, dhs):
+        dh1, dw1 = k6_comp.compact_accumulate_bwd_cuda(wd[:, lo:hi], v.detach(), c, g)
+        assert torch.equal(dh, dh1) and torch.equal(dwide[:, 1 + lo:1 + hi], dw1)
+    assert float(dwide[:, 0].abs().max()) == 0.0
+    out2 = k6_comp.compact_accumulate_stages(wd, stages)
+    dhs2 = torch.autograd.grad(out2, values, g)
+    assert torch.equal(out2, out) and all(torch.equal(a, b) for a, b in zip(dhs2, dhs))
+
+
+def test_k6d_stages_past_one_launch(cuda):
+    """Ten stages of two lanes (more than MAX_STAGES a launch): the launches
+    chain onto out, and the sums still equal the single-stage calls added
+    in stage order."""
+    bounds = tuple((2 * k, 2 * k + 2) for k in range(10))
+    wide, comps, values = _k6d_stage_inputs(cuda, 128, torch.float32, True, bounds, R=3_000)
+    w = wide.detach()[:, 1:]
+    stages = [(lo, hi, v.detach(), c) for (lo, hi), v, c in zip(bounds, values, comps)]
+    before = k6_comp.SEGMENT_ACCUMULATE_FWD.launches
+    out = k6_comp.compact_accumulate_stages_cuda(w, stages)
+    assert k6_comp.SEGMENT_ACCUMULATE_FWD.launches == before + 2
+    ref = None
+    for lo, hi, v, c in stages:
+        one = k6_comp.compact_accumulate_cuda(w[:, lo:hi], v, c)
+        ref = one if ref is None else ref + one
+    assert torch.equal(out, ref)
+
+
 @pytest.mark.parametrize("R,S,lo,hi,budget,dead", K6A_CASES[1:])
 def test_k6b_gathers_match_plain(cuda, R, S, lo, hi, budget, dead):
     """K6b both ways, bit for bit: lanes from rows against the plain gather,
@@ -1052,6 +1163,13 @@ def test_k6_kernels_refuse_bad_inputs(cuda):
                                     torch.ones((4, 300), dtype=torch.bool, device=cuda))
     with pytest.raises(ValueError):
         k6_compact.lanes_from_rows_cuda(torch.zeros(256), c)
+    with pytest.raises(ValueError):
+        k6_compact.compact_stage_cuda(torch.ones((8, 300), dtype=torch.bool, device=cuda), None,
+                                      64)
+    with pytest.raises(ValueError):
+        k6_comp.compact_accumulate_stages_cuda(
+            w, [(0, 16, torch.randn((256, 3), device=cuda), c),
+                (0, 16, torch.randn((256, 4), device=cuda), c)])
 
 
 # ------------------------------------------------------------- K5 and K7

@@ -7,6 +7,7 @@ tensors the wrappers take the plain versions; the kernels themselves run on
 the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import ctypes
 import dataclasses
 
 import jax
@@ -190,6 +191,176 @@ def test_compact_accumulate_vjp_matches_jax(dtype):
     np.testing.assert_allclose(_np(th.grad.float()), np.asarray(jdh), rtol=tol, atol=tol)
 
 
+# -------------------------------------------------- K6d over every stage
+STAGE_BOUNDS = ((0, 8), (8, 16), (16, 24))
+STAGE_BUDGETS = (700, 400, 300)  # the first overflows
+
+
+def _stage_inputs(seed, C):
+    """Three stages of a (300, 24) march as the model runs them: each
+    stage's mask and-ed with the rays alive after the one before, budgets
+    that overflow, the (R, S) weights and each stage's (Bs, C) values."""
+    mask, _, _, _ = _stage_mask(seed, dead=False)
+    rng = np.random.default_rng(seed + 1)
+    R, S = mask.shape
+    jc, tc, live = [], [], None
+    for (lo, hi), Bs in zip(STAGE_BOUNDS, STAGE_BUDGETS):
+        jc.append(_jax_compact(mask[:, lo:hi], live, Bs))
+        tc.append(t_compact.compact_stage(_t(mask)[:, lo:hi], None if live is None else _t(live),
+                                          Bs))
+        live = rng.uniform(size=R) < 0.7
+    w = rng.uniform(size=(R, S)).astype(np.float32)
+    hs = [rng.normal(size=(Bs, C)).astype(np.float32) for Bs in STAGE_BUDGETS]
+    g = rng.normal(size=(R, C)).astype(np.float32)
+    return jc, tc, w, hs, g
+
+
+@pytest.mark.parametrize("detached", [False, True], ids=["weights-grad", "detached-weights"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compact_accumulate_stages_vjp_matches_jax(dtype, detached):
+    """compact_accumulate_stages' plain version (each stage's plain K6d on its
+    columns of the (R, S) weights, added in stage order) against the JAX
+    package's staged accumulate_fn and accumulate_sg (umhs_tpu/models/
+    model.py:531-549: the weights gathered through each stage's src times
+    live, segment_accumulate, summed over the stages), forward and VJP of
+    the weights and every stage's values, within atol 1e-5 (the prefix sums
+    add in another order); bf16 values held to JAX on their f32 values
+    (their gradient within 1e-2: one rounding). With detached weights the
+    weights take no gradient and the values' gradients are unchanged."""
+    jc, tc, w, hs, g = _stage_inputs(21, 5)
+    tdtype = getattr(torch, dtype)
+    hs = [_np(_t(h).to(tdtype).float()) for h in hs]
+
+    def jfn(w_, *h_):
+        w_in = jax.lax.stop_gradient(w_) if detached else w_
+        return sum(j_comp.segment_accumulate(
+            (jnp.take(w_in[:, lo:hi].reshape(-1), c["src"], axis=0, mode="clip")
+             * c["live"])[:, None] * h, c["starts"], c["counts"])
+            for (lo, hi), c, h in zip(STAGE_BOUNDS, jc, h_))
+
+    jout, vjp = jax.vjp(jfn, jnp.asarray(w), *map(jnp.asarray, hs))
+    tw = _t(w).requires_grad_(True)
+    ths = [_t(h).to(tdtype).requires_grad_(True) for h in hs]
+    tout = t_comp.compact_accumulate_stages(
+        tw.detach() if detached else tw,
+        [(lo, hi, h, c) for (lo, hi), h, c in zip(STAGE_BOUNDS, ths, tc)])
+    tout.backward(_t(g))
+    np.testing.assert_allclose(_np(tout), np.asarray(jout), rtol=0, atol=1e-5)
+    assert np.abs(np.asarray(jout)).max() > 0.1
+    jdw, *jdh = vjp(jnp.asarray(g))
+    if detached:
+        assert tw.grad is None and float(np.abs(np.asarray(jdw)).max()) == 0.0
+    else:
+        np.testing.assert_allclose(_np(tw.grad), np.asarray(jdw), rtol=0, atol=1e-5)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for th, ref in zip(ths, jdh):
+        np.testing.assert_allclose(_np(th.grad.float()), np.asarray(ref), rtol=tol, atol=tol)
+
+
+def test_compact_accumulate_is_one_stage():
+    """compact_accumulate (one stage) is compact_accumulate_stages with that
+    stage, and the stages' plain version is the stage sums added in stage
+    order, bit for bit."""
+    _, tc, w, hs, _ = _stage_inputs(22, 3)
+    tw = _t(w)
+    stages = [(lo, hi, _t(h), c) for (lo, hi), h, c in zip(STAGE_BOUNDS, hs, tc)]
+    singles = [t_comp.compact_accumulate(tw[:, lo:hi], h, c) for lo, hi, h, c in stages]
+    assert torch.equal(t_comp.compact_accumulate_stages(tw, stages),
+                       singles[0] + singles[1] + singles[2])
+    lo, hi, h, c = stages[1]
+    assert torch.equal(t_comp.compact_accumulate_stages(tw, [stages[1]]),
+                       t_comp.compact_accumulate_plain(tw[:, lo:hi], h, c))
+
+
+# ------------------------------------------------------ the host's rules
+@pytest.mark.parametrize("L", [1, 3, 7, 8, 16, 33, 48, 64, 96, 255, 256])
+def test_compact_tile_rays_rule(L):
+    """K6a's tile: whole rays within 4,096 lanes, a multiple of 16 lanes (a
+    thread's 16 lanes start 64-byte aligned in slot), and the most such
+    rays."""
+    tr = t_compact.compact_tile_rays(L)
+    assert tr >= 1 and tr * L <= t_compact.TILE_LANES
+    assert tr * L % t_compact.LANES_PER_THREAD == 0
+    more = [k for k in range(tr + 1, t_compact.TILE_LANES // L + 1)
+            if k * L % t_compact.LANES_PER_THREAD == 0]
+    assert not more, (tr, more[:3])
+
+
+def test_compact_host_rules_refuse_and_pick():
+    """K6a refuses more than 256 lanes a stage; its mask loads are the
+    widest of 16, 8, 4 bytes that divides L, the row stride and the
+    address, else 1 (phase 7's stages: 8 bytes at offsets 0 and 8 of a
+    64-byte row, 16 at offset 16)."""
+    for L in (0, 257):
+        with pytest.raises(ValueError, match="L"):
+            t_compact.compact_tile_rays(L)
+    with pytest.raises(ValueError, match="L <= 256"):
+        t_compact.compact_stage_cuda(torch.zeros((4, 300), dtype=torch.bool), None, 8)
+    base = 1 << 20
+    assert t_compact.mask_vector_bytes(8, 64, base) == 8
+    assert t_compact.mask_vector_bytes(8, 64, base + 8) == 8
+    assert t_compact.mask_vector_bytes(48, 64, base + 16) == 16
+    assert t_compact.mask_vector_bytes(64, 64, base) == 16
+    assert t_compact.mask_vector_bytes(48, 64, base + 4) == 4
+    assert t_compact.mask_vector_bytes(28, 33, base + 5) == 1
+    assert t_compact.mask_vector_bytes(8, 12, base) == 4
+    assert t_compact.mask_vector_bytes(1, 1, base) == 1
+
+
+def test_scan_workspace_epochs():
+    """K6a's workspace: allocated zeroed once (a ticket, then at least
+    MIN_FLAGS flags), one epoch a call from 1, grown (zeroed, epochs anew)
+    when a stage has more tiles, and cleared once when the epochs run out,
+    never on another call."""
+    ws = t_compact.ScanWorkspace()
+    buf, e = ws.take(10, "cpu")
+    assert e == 1 and buf.numel() == 1 + t_compact.MIN_FLAGS and int(buf.abs().sum()) == 0
+    buf.fill_(7)  # what launches leave behind
+    for want in (2, 3):
+        again, e = ws.take(t_compact.MIN_FLAGS, "cpu")
+        assert again is buf and e == want and int(buf[5]) == 7  # no clear per call
+    big, e = ws.take(t_compact.MIN_FLAGS + 1, "cpu")
+    assert big is not buf and e == 1 and big.numel() == t_compact.MIN_FLAGS + 2
+    assert int(big.abs().sum()) == 0
+    big.fill_(7)
+    ws.epoch = t_compact.EPOCH_LIMIT - 2
+    same, e = ws.take(1, "cpu")
+    assert e == t_compact.EPOCH_LIMIT - 1 and int(same[3]) == 7  # the last epoch a flag holds
+    same, e = ws.take(1, "cpu")
+    assert same is big and e == 1 and int(same.abs().sum()) == 0  # wrapped: cleared once
+    assert (t_compact.EPOCH_LIMIT - 1) << 2 | 3 < 1 << 32  # epoch and status fit a flag's half
+
+
+@pytest.mark.parametrize("C,G", [(1, 1), (3, 1), (4, 1), (5, 2), (6, 2), (8, 2), (9, 4),
+                                 (16, 4), (17, 8), (21, 8), (33, 16), (64, 16), (65, 32),
+                                 (128, 32), (141, 32)])
+def test_accumulate_group_lanes_rule(C, G):
+    """K6d's lanes a ray: a power of two, four channels a lane, the fewest
+    that cover C, at most a warp (a 141-wide head takes two chunks)."""
+    got = t_comp.accumulate_group_lanes(C)
+    assert got == G and got & (got - 1) == 0 and got <= 32
+    assert 4 * got >= C or got == 32
+    assert got == 1 or 2 * got < C  # half as many would not cover C
+
+
+def test_accumulate_vector_rows_and_stage_layout():
+    """K6d's route per stage: vector loads where C and the row stride are
+    multiples of 4 and the rows 16-byte (f32) or 8-byte (bf16) aligned,
+    else the same kernel's scalar loads; the ctypes mirror of a stage is the
+    C struct's 56 bytes (four pointers, the row stride, four int32)."""
+    h = torch.zeros((10, 132))
+    assert t_comp.accumulate_vector_rows(h[:, :128])
+    assert not t_comp.accumulate_vector_rows(h[:, 1:129])
+    assert not t_comp.accumulate_vector_rows(h[:, :6])
+    assert not t_comp.accumulate_vector_rows(torch.zeros((10, 130))[:, :128])
+    hb = torch.zeros((10, 132), dtype=torch.bfloat16)
+    assert t_comp.accumulate_vector_rows(hb[:, 4:132])
+    assert not t_comp.accumulate_vector_rows(hb[:, 2:130])
+    S = t_comp.SegmentStage
+    assert ctypes.sizeof(S) == 56 and S.h_stride.offset == 32 and S.lo.offset == 40
+    assert S.vec.offset == 48
+
+
 # ----------------------------------------------------- the staged path
 KW = dict(method="rgb+spectral", pred_specular=True, temperature=0.4, grid_resolution=16,
           grid_levels=1, march_pool=4, max_samples_per_ray=8, num_candidates=256,
@@ -279,6 +450,9 @@ def test_cpu_tensors_take_the_plain_versions():
     h = torch.randn((256, 3), generator=torch.Generator().manual_seed(2))
     assert torch.equal(t_comp.compact_accumulate(w, h, c),
                        t_comp.compact_accumulate(w, h, c, impl="plain"))
+    stages = [(0, 12, h, c), (0, 12, h * 2, c)]
+    assert torch.equal(t_comp.compact_accumulate_stages(w, stages),
+                       t_comp.compact_accumulate_stages(w, stages, impl="plain"))
     assert _launches() == before
 
 
@@ -298,6 +472,9 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         lambda: t_comp.render_weights_bwd_cuda(ts, te, sg, m, 0.0, 1e-4, torch.zeros_like(sg)),
         lambda: t_comp.compact_accumulate_cuda(w, h, c),
         lambda: t_comp.compact_accumulate_bwd_cuda(w, h, c, torch.zeros((40, 3))),
+        lambda: t_comp.compact_accumulate_stages_cuda(w, [(0, 12, h, c)]),
+        lambda: t_comp.compact_accumulate_stages_bwd_cuda(w, [(0, 12, h, c)],
+                                                          torch.zeros((40, 3))),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA|card"):
@@ -328,13 +505,20 @@ def test_bad_shapes_and_dtypes_are_refused():
         "weights must be": lambda: t_comp.compact_accumulate_cuda(w.t(), h, c),
         "values must be": lambda: t_comp.compact_accumulate_cuda(w, h[:100], c),
         "values must be ": lambda: t_comp.compact_accumulate_cuda(w, h.half(), c),
+        "at least one stage": lambda: t_comp.compact_accumulate_stages_cuda(w, []),
+        "do not fit": lambda: t_comp.compact_accumulate_stages_cuda(w, [(4, 16, h, c)]),
+        "every stage's values": lambda: t_comp.compact_accumulate_stages_cuda(
+            w, [(0, 12, h, c), (0, 12, torch.randn((256, 4)), c)]),
+        "every stage's values ": lambda: t_comp.compact_accumulate_stages_cuda(
+            w, [(0, 12, h, c), (0, 12, h.bfloat16(), c)]),
     }
     for msg, call in bad.items():
         with pytest.raises(ValueError, match=msg.strip()):
             call()
     for call in (lambda: t_compact.compact_stage(mask, None, 256, impl="fast"),
                  lambda: t_comp.render_weights(ts, te, sg, m, impl="cuda"),
-                 lambda: t_comp.compact_accumulate(w, h, c, impl="")):
+                 lambda: t_comp.compact_accumulate(w, h, c, impl=""),
+                 lambda: t_comp.compact_accumulate_stages(w, [(0, 12, h, c)], impl="kernel")):
         with pytest.raises(ValueError, match="impl"):
             call()
 

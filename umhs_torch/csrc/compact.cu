@@ -19,13 +19,31 @@
 // a sort, an atomic or a host sync, and each output element is written by
 // one thread, so every run gives the same bits.
 //
-// What bounds it on an H100: bytes. The stage's mask is read twice (one
-// byte a lane), slot, kept and src written once; the gathers read one
-// float and an index per element. The three compaction passes are a warp a
-// ray (a ballot gives each lane its rank in the ray), one block that scans
-// the per-ray counts in tiles of 4,096 rays, and a warp a ray again; the
-// scan's one block is a few microseconds at 79,360 rays, small beside the
-// per-lane passes. A simple design first: the passes are not fused.
+// What bounds it on an H100: bytes. K6a reads the stage's mask once (one
+// byte a lane) and writes slot, kept, src, live, counts and starts once;
+// the gathers read one float and an index per element.
+//
+// K6a is one launch a stage: a single-pass scan with decoupled look-back
+// (Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", NVIDIA, 2016) over tiles of whole rays, at most 4,096 lanes a
+// tile. A block takes its tile from an atomic ticket, so the tiles start in
+// order and a block that waits on a predecessor knows it is running. Each
+// thread reads 16 consecutive lanes of the tile in vector loads (16, 8 or
+// 4 bytes where the column slice allows, so no lane of a warp idles at
+// L = 8), keeps them as 16 bits, and the block scans the threads' counts.
+// The block publishes its aggregate, a warp looks back over the
+// predecessors' flags, and the block publishes its inclusive prefix, each
+// flag one 64-bit word (epoch, status, value) in one store. From the same
+// registers it writes slot, kept and src, then each ray's counts and starts
+// after the drop. The blocks with the last tickets wait for the last
+// tile's prefix and write `live` and the rows past the total, so the stage
+// is one launch. The flags live in a workspace the wrapper allocates once
+// per device and stream and never clears per call: a flag counts only
+// with the launch's epoch, a number the wrapper hands in and steps by one
+// each call (it clears the workspace once when the epoch wraps). The last
+// block to take a ticket sets the ticket back to 0 for the next launch.
+// An epoch handed in by value would repeat under a replayed CUDA graph; a
+// graph would need it on the device.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -33,121 +51,239 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;  // warps (rays) per block in the per-ray passes
-constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 4;  // counts per thread per tile of the scan
-constexpr int kThreads = 256;  // threads per block in the gathers
+constexpr int kThreads = 256;        // threads per block in every kernel here
+constexpr int kLanesPerThread = 16;  // K6a: consecutive lanes a thread
+constexpr int kTileLanes = kThreads * kLanesPerThread;  // K6a: lanes a tile at most
+constexpr int kFillRows = 8;         // K6a: rows a thread in a fill block
+constexpr uint32_t kAggregate = 1, kInclusive = 2;  // a flag's status
 
-__device__ __forceinline__ bool lane_on(const uint8_t* mask, int64_t stride,
-                                        const uint8_t* live_rays, int32_t r, int32_t l,
-                                        int32_t L) {
-  return l < L && (live_rays == nullptr || live_rays[r]) &&
-         mask[static_cast<int64_t>(r) * stride + l] != 0;
+struct StageArgs {
+  const uint8_t* mask;
+  int64_t stride;
+  const uint8_t* live_rays;
+  int32_t R, L, budget, tile_rays, vec_bytes, n_tiles;
+  uint32_t epoch;
+  unsigned long long* flags;  // one a tile
+  unsigned int* ticket;
+  int32_t* slot;
+  uint8_t* kept;
+  int64_t* src;
+  float* live;
+  int64_t* counts;
+  int64_t* starts;
+  int32_t* total;
+};
+
+__device__ __forceinline__ unsigned long long load_flag(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// counts[r] = the lanes of ray r that are on (before the overflow drop).
-__global__ void __launch_bounds__(kWarps * 32)
-compact_count_kernel(const uint8_t* __restrict__ mask, int64_t stride,
-                     const uint8_t* __restrict__ live_rays, int32_t R, int32_t L,
-                     int64_t* __restrict__ counts) {
-  const int32_t r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= R) return;  // uniform over the warp
-  int32_t n = 0;
-  for (int32_t l0 = 0; l0 < L; l0 += 32)
-    n += __popc(__ballot_sync(kFull, lane_on(mask, stride, live_rays, r, l0 + lane, L)));
-  if (lane == 0) counts[r] = n;
+__device__ __forceinline__ void store_flag(unsigned long long* p, uint32_t epoch,
+                                           uint32_t status, int32_t value) {
+  const unsigned long long v =
+      (static_cast<unsigned long long>((epoch << 2) | status) << 32) |
+      static_cast<uint32_t>(value);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" : : "l"(p), "l"(v) : "memory");
 }
 
-// starts[r] = the exclusive scan of counts (before the drop), in tiles of
-// kScanThreads * kScanItems rays; total = min(sum, budget). One block.
-__global__ void __launch_bounds__(kScanThreads)
-compact_scan_kernel(const int64_t* __restrict__ counts, int64_t* __restrict__ starts,
-                    int32_t R, int32_t budget, int32_t* __restrict__ total) {
-  __shared__ int32_t warp_sums[kScanThreads / 32];
-  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  int32_t carry = 0;
-  for (int64_t base = 0; base < R; base += kScanThreads * kScanItems) {
-    int32_t v[kScanItems];
-    int32_t sum = 0;
+// Wait for tile i's flag of this epoch; its status and value.
+__device__ __forceinline__ uint32_t wait_flag(const unsigned long long* flags, int32_t i,
+                                              uint32_t epoch, int32_t* value) {
+  unsigned long long f;
+  do {
+    f = load_flag(flags + i);
+  } while (static_cast<uint32_t>(f >> 34) != epoch || ((f >> 32) & 3u) == 0u);
+  *value = static_cast<int32_t>(static_cast<uint32_t>(f));
+  return static_cast<uint32_t>(f >> 32) & 3u;
+}
+
+// Four mask bytes -> four bits, bit k set where byte k is not 0.
+__device__ __forceinline__ uint32_t nibble(uint32_t x) {
+  return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x10204080u) >> 28;
+}
+
+// `vec_bytes` lanes from p (aligned to vec_bytes) as bits.
+__device__ __forceinline__ uint32_t mask_bits(const uint8_t* p, int vec_bytes) {
+  if (vec_bytes == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    return nibble(v.x) | nibble(v.y) << 4 | nibble(v.z) << 8 | nibble(v.w) << 12;
+  }
+  if (vec_bytes == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    return nibble(v.x) | nibble(v.y) << 4;
+  }
+  if (vec_bytes == 4) return nibble(*reinterpret_cast<const uint32_t*>(p));
+  return *p != 0;
+}
+
+// The exclusive prefix of v over the block, and the block's total.
+__device__ __forceinline__ int32_t block_exclusive_scan(int32_t v, int32_t* warp_sums,
+                                                        int32_t* block_total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int32_t incl = v;
 #pragma unroll
-    for (int k = 0; k < kScanItems; ++k) {
-      const int64_t i = base + static_cast<int64_t>(t) * kScanItems + k;
-      v[k] = i < R ? static_cast<int32_t>(counts[i]) : 0;
-      sum += v[k];
-    }
-    int32_t incl = sum;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t y = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_sums[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    int32_t s = lane < kThreads / 32 ? warp_sums[lane] : 0;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int32_t y = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += y;
+      const int32_t y = __shfl_up_sync(kFull, s, off);
+      if (lane >= off) s += y;
     }
-    if (lane == 31) warp_sums[w] = incl;
-    __syncthreads();
-    if (w == 0) {
-      int32_t s = warp_sums[lane];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int32_t y = __shfl_up_sync(kFull, s, off);
-        if (lane >= off) s += y;
-      }
-      warp_sums[lane] = s;
-    }
-    __syncthreads();
-    int32_t excl = carry + (w > 0 ? warp_sums[w - 1] : 0) + incl - sum;
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k) {
-      const int64_t i = base + static_cast<int64_t>(t) * kScanItems + k;
-      if (i < R) starts[i] = excl;
-      excl += v[k];
-    }
-    carry += warp_sums[kScanThreads / 32 - 1];
-    __syncthreads();  // warp_sums is rewritten by the next tile
+    if (lane < kThreads / 32) warp_sums[lane] = s;
   }
-  if (t == 0) *total = carry < budget ? carry : budget;
+  __syncthreads();
+  *block_total = warp_sums[kThreads / 32 - 1];
+  return incl - v + (w > 0 ? warp_sums[w - 1] : 0);
 }
 
-// A warp a ray: slot, kept and src for the ray's lanes, then its counts and
-// starts after the drop. Every thread of the grid also fills row b = its
-// global index: live[b], and src[b] = 0 past total.
-__global__ void __launch_bounds__(kWarps * 32)
-compact_place_kernel(const uint8_t* __restrict__ mask, int64_t stride,
-                     const uint8_t* __restrict__ live_rays, int32_t R, int32_t L,
-                     int32_t budget, const int32_t* __restrict__ total,
-                     int64_t* __restrict__ counts, int64_t* __restrict__ starts,
-                     int32_t* __restrict__ slot, uint8_t* __restrict__ kept,
-                     int64_t* __restrict__ src, float* __restrict__ live) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * (kWarps * 32) + threadIdx.x;
-  if (g < budget) {
-    const int32_t tot = *total;
-    live[g] = g < tot ? 1.0f : 0.0f;
-    if (g >= tot) src[g] = 0;
-  }
-  const int64_t r = g >> 5;
+// Warp 0 of tile `tile` (> 0): the sum of every earlier tile's lanes, from
+// the nearest inclusive prefix and the aggregates after it.
+__device__ __forceinline__ int32_t look_back(const unsigned long long* flags, int32_t tile,
+                                             uint32_t epoch) {
   const int lane = threadIdx.x & 31;
-  if (r >= R) return;  // uniform over the warp
-  const int64_t off = starts[r], c = counts[r];
-  int64_t next = off;  // slot of the ray's next lane that is on
-  for (int32_t l0 = 0; l0 < L; l0 += 32) {
-    const int32_t l = l0 + lane;
-    const bool on = lane_on(mask, stride, live_rays, static_cast<int32_t>(r), l, L);
-    const unsigned ballot = __ballot_sync(kFull, on);
-    const int64_t s = next + __popc(ballot & ((1u << lane) - 1u));
-    if (l < L) {
-      const int64_t flat = r * L + l;
-      const bool keep = on && s < budget;
-      slot[flat] = static_cast<int32_t>(s);
-      kept[flat] = keep;
-      if (keep) src[s] = flat;
+  int32_t prefix = 0;
+  for (int32_t base = tile - 1;; base -= 32) {
+    const int32_t i = base - lane;
+    int32_t v = 0;
+    const uint32_t status = i >= 0 ? wait_flag(flags, i, epoch, &v) : kInclusive;
+    const unsigned inclusive = __ballot_sync(kFull, status == kInclusive);
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    int32_t part = lane <= stop ? v : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(kFull, part, off);
+    prefix += part;
+    if (inclusive) return prefix;
+  }
+}
+
+// Rows [f * kThreads * kFillRows, ...) of the buffer once the last tile's
+// prefix (the kept total) is out: live[b] = b < total, src[b] = 0 past it.
+__device__ __forceinline__ void fill_rows(const StageArgs& a, int32_t f, int32_t& s_total) {
+  if (threadIdx.x == 0) {
+    int32_t sum = 0;  // the last tile's inclusive prefix: every kept lane
+    if (a.n_tiles > 0)
+      while (wait_flag(a.flags, a.n_tiles - 1, a.epoch, &sum) != kInclusive) {
+      }
+    const int32_t total = sum < a.budget ? sum : a.budget;
+    if (a.n_tiles == 0 && f == 0) *a.total = 0;
+    s_total = total;
+  }
+  __syncthreads();
+  const int32_t total = s_total;
+  const int64_t b0 = static_cast<int64_t>(f) * kThreads * kFillRows + threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < kFillRows; ++q) {
+    const int64_t b = b0 + q * kThreads;
+    if (b < a.budget) {
+      a.live[b] = b < total ? 1.0f : 0.0f;
+      if (b >= total) a.src[b] = 0;
     }
-    next += __popc(ballot);
   }
-  __syncwarp();  // every lane has read counts[r] and starts[r]
-  if (lane == 0) {
-    const int64_t room = budget - off;
-    counts[r] = room <= 0 ? 0 : (c < room ? c : room);
-    starts[r] = off < budget ? off : budget;
+}
+
+__global__ void __launch_bounds__(kThreads) compact_stage_kernel(const StageArgs a) {
+  __shared__ uint32_t s_ticket;
+  __shared__ int32_t s_warp_sums[kThreads / 32];
+  __shared__ int32_t s_prefix;  // the tile's exclusive prefix, or a fill block's total
+  __shared__ int32_t s_ray_slot[kTileLanes];  // each ray's first slot (tile_rays <= 4,096)
+  if (threadIdx.x == 0) {
+    const uint32_t t = atomicAdd(a.ticket, 1u);
+    if (t == gridDim.x - 1) atomicExch(a.ticket, 0u);  // every ticket is taken
+    s_ticket = t;
   }
+  __syncthreads();
+  const int32_t tile = static_cast<int32_t>(s_ticket);
+  if (tile >= a.n_tiles) {
+    fill_rows(a, tile - a.n_tiles, s_prefix);
+    return;
+  }
+  const int64_t r0 = static_cast<int64_t>(tile) * a.tile_rays;
+  const int32_t nr = static_cast<int32_t>(min(static_cast<int64_t>(a.tile_rays), a.R - r0));
+  const int32_t n = nr * a.L;  // the tile's lanes
+  const int32_t p0 = threadIdx.x * kLanesPerThread;
+
+  // this thread's lanes [p0, p0 + 16) as bits: chunks of vec_bytes lanes
+  // never cross a ray (vec_bytes divides L)
+  uint32_t bits = 0;
+  for (int32_t q = 0; q < kLanesPerThread && p0 + q < n; q += a.vec_bytes) {
+    const int32_t i = (p0 + q) / a.L, l = p0 + q - i * a.L;
+    const int64_t r = r0 + i;
+    if (a.live_rays != nullptr && a.live_rays[r] == 0) continue;
+    bits |= mask_bits(a.mask + r * a.stride + l, a.vec_bytes) << q;
+  }
+  int32_t agg;
+  const int32_t excl = block_exclusive_scan(__popc(bits), s_warp_sums, &agg);
+  if (threadIdx.x < 32) {
+    int32_t prefix = 0;
+    if (tile == 0) {
+      if (threadIdx.x == 0) store_flag(a.flags, a.epoch, kInclusive, agg);
+    } else {
+      if (threadIdx.x == 0) store_flag(a.flags + tile, a.epoch, kAggregate, agg);
+      prefix = look_back(a.flags, tile, a.epoch);
+      if (threadIdx.x == 0) store_flag(a.flags + tile, a.epoch, kInclusive, prefix + agg);
+    }
+    if (threadIdx.x == 0) s_prefix = prefix;
+  }
+  __syncthreads();
+  const int32_t prefix = s_prefix;
+
+  // slot, kept and src of this thread's lanes, four at a time; each ray's
+  // first slot
+  const int64_t flat0 = r0 * a.L + p0;
+  const int32_t first = prefix + excl;
+  const bool whole = p0 + kLanesPerThread <= n;  // 64 bytes of slot, 16 of kept
+  int32_t i = p0 / a.L, l = p0 - i * a.L;  // the ray and lane of p0
+  uint32_t keep_bytes[kLanesPerThread / 4];
+#pragma unroll
+  for (int k = 0; k < kLanesPerThread / 4; ++k) {
+    int32_t s4[4];
+    keep_bytes[k] = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = 4 * k + q;
+      const int32_t s = first + __popc(bits & ((1u << j) - 1u));
+      const bool keep = ((bits >> j) & 1u) && s < a.budget;
+      s4[q] = s;
+      keep_bytes[k] |= static_cast<uint32_t>(keep) << (8 * q);
+      if (p0 + j < n) {
+        if (keep) a.src[s] = flat0 + j;
+        if (l == 0) s_ray_slot[i] = s;
+        if (!whole) {
+          a.slot[flat0 + j] = s;
+          a.kept[flat0 + j] = keep;
+        }
+      }
+      if (++l == a.L) {
+        l = 0;
+        ++i;
+      }
+    }
+    if (whole)
+      reinterpret_cast<int4*>(a.slot + flat0)[k] = make_int4(s4[0], s4[1], s4[2], s4[3]);
+  }
+  if (whole)
+    *reinterpret_cast<uint4*>(a.kept + flat0) =
+        make_uint4(keep_bytes[0], keep_bytes[1], keep_bytes[2], keep_bytes[3]);
+  __syncthreads();
+
+  // each ray's counts and starts after the drop
+  const int32_t end = prefix + agg;
+  for (int32_t k = threadIdx.x; k < nr; k += kThreads) {
+    const int32_t off = s_ray_slot[k];
+    const int32_t c = (k + 1 < nr ? s_ray_slot[k + 1] : end) - off;
+    const int32_t room = a.budget - off;
+    a.counts[r0 + k] = room <= 0 ? 0 : (c < room ? c : room);
+    a.starts[r0 + k] = off < a.budget ? off : a.budget;
+  }
+  if (tile == a.n_tiles - 1 && threadIdx.x == 0) *a.total = end < a.budget ? end : a.budget;
 }
 
 // out[i] = kept[i] ? rows[slot[i]] : 0 over the n = R * L lanes.
@@ -177,27 +313,38 @@ rows_from_lanes_kernel(const float* __restrict__ lanes, int64_t stride, int32_t 
 }  // namespace
 
 // K6a. mask: the stage's (R, L) lanes of a bool mask with row stride
-// `stride` (bytes); live_rays: (R,) bool or null; budget: Bs. Outputs:
-// slot (R * L) int32, kept (R * L) bool, src (Bs) int64, live (Bs) f32,
-// counts and starts (R) int64, total (1) int32. R * L and Bs below 2^31.
-// Returns a cudaError_t.
+// `stride` (bytes); live_rays: (R,) bool or null; budget: Bs. tile_rays:
+// rays a tile (tile_rays * L <= 4,096 and a multiple of 16); vec_bytes: 1,
+// 4, 8 or 16, dividing L, stride and the mask's address. workspace: the
+// ticket (the first 8 bytes, 0 between launches) then flag_capacity flags,
+// one a tile; epoch: 1 to 2^30 - 1, another than the workspace's last
+// launch's. Outputs: slot (R * L) int32, kept (R * L) bool, src (Bs) int64,
+// live (Bs) f32, counts and starts (R) int64, total (1) int32. 1 <= L <=
+// 256; R * L and Bs below 2^31. Returns a cudaError_t.
 extern "C" int umhs_compact_stage(const uint8_t* mask, int64_t stride, const uint8_t* live_rays,
-                                  int32_t R, int32_t L, int32_t budget, int32_t* slot,
-                                  uint8_t* kept, int64_t* src, float* live, int64_t* counts,
-                                  int64_t* starts, int32_t* total, void* stream) {
-  if (R < 0 || L < 1 || budget < 1 || stride < L) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t ray_blocks = (static_cast<int64_t>(R) + kWarps - 1) / kWarps;
-  const int64_t threads = static_cast<int64_t>(R) * 32 > budget ? static_cast<int64_t>(R) * 32
-                                                                 : budget;
-  if (R > 0) {
-    compact_count_kernel<<<static_cast<unsigned>(ray_blocks), kWarps * 32, 0, s>>>(
-        mask, stride, live_rays, R, L, counts);
-  }
-  compact_scan_kernel<<<1, kScanThreads, 0, s>>>(counts, starts, R, budget, total);
-  compact_place_kernel<<<static_cast<unsigned>((threads + kWarps * 32 - 1) / (kWarps * 32)),
-                         kWarps * 32, 0, s>>>(mask, stride, live_rays, R, L, budget, total,
-                                              counts, starts, slot, kept, src, live);
+                                  int32_t R, int32_t L, int32_t budget, int32_t tile_rays,
+                                  int32_t vec_bytes, void* workspace, int32_t flag_capacity,
+                                  uint32_t epoch, int32_t* slot, uint8_t* kept, int64_t* src,
+                                  float* live, int64_t* counts, int64_t* starts, int32_t* total,
+                                  void* stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(mask);
+  if (R < 0 || L < 1 || L > 256 || budget < 1 || stride < L || tile_rays < 1 ||
+      static_cast<int64_t>(tile_rays) * L > kTileLanes || (tile_rays * L) % kLanesPerThread != 0 ||
+      !(vec_bytes == 1 || vec_bytes == 4 || vec_bytes == 8 || vec_bytes == 16) ||
+      L % vec_bytes != 0 || stride % vec_bytes != 0 || addr % vec_bytes != 0 || epoch < 1 ||
+      epoch >= (1u << 30) || static_cast<int64_t>(R) * L >= (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
+  const int64_t n_tiles = (static_cast<int64_t>(R) + tile_rays - 1) / tile_rays;
+  if (n_tiles > flag_capacity) return cudaErrorInvalidValue;
+  const int64_t n_fill = (static_cast<int64_t>(budget) + kThreads * kFillRows - 1) /
+                         (kThreads * kFillRows);
+  StageArgs args{mask, stride, live_rays, R, L, budget, tile_rays, vec_bytes,
+                 static_cast<int32_t>(n_tiles), epoch,
+                 static_cast<unsigned long long*>(workspace) + 1,
+                 static_cast<unsigned int*>(workspace), slot, kept, src, live, counts, starts,
+                 total};
+  compact_stage_kernel<<<static_cast<unsigned>(n_tiles + n_fill), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(args);
   return cudaGetLastError();
 }
 

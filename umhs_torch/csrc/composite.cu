@@ -20,27 +20,62 @@
 //   dsigma = mask ? dx * delta : 0, ddelta = mask ? dx * sigma : 0, passed
 //   where t_end - t_start >= 0 (torch's clamp_min), to t_end and -t_start.
 //
-// K6d, for one stage: out[r, c] = sum over the ray's run of rows
-// b in [starts[r], starts[r] + counts[r]) of w[src[b]] * h[b, c], summed in
-// ascending b in f32 (the runs are read directly, not as a prefix sum's
-// difference); a thread per (r, c). Its backward, a warp a row: for
-// b < total, dh[b, c] = w[src[b]] * g[ray(b), c] and
+// K6d forward, one launch for one head over every stage of the compact
+// buffer: out[r, c] = sum over the stages k, in stage order, of s_k[r, c],
+// where s_k[r, c] is the sum over ray r's run of rows b in [starts_k[r],
+// starts_k[r] + counts_k[r]) of w[r, lo_k + src_k[b] - r * L_k] * h_k[b, c],
+// taken in ascending b with fmaf from +0; the stage sums are added with
+// __fadd_rn. That is what a launch per stage followed by PyTorch's adds of
+// the stage outputs computes, bit for bit, with one write of out and no
+// per-stage (R, C) arrays. Its backward, a launch per stage, a warp a row:
+// for b < total, dh[b, c] = w[src[b]] * g[ray(b), c] and
 // dw[src[b]] = sum_c h[b, c] * g[ray(b), c] (a store to a lane no other row
-// writes; the caller zeroes dw), with ray(b) = src[b] / L; rows past total
-// get dh = 0 and write nothing else. h is f32 or bf16; sums are f32.
+// writes, at the stage's columns of one (R, S) dw the caller zeroes), with
+// ray(b) = src[b] / L; rows past total get dh = 0 and write nothing else.
+// h is f32 or bf16; sums are f32.
 //
 // No atomics anywhere: each output is written by one thread and every sum
 // is taken in a fixed order, so every run gives the same bits.
 //
 // What bounds them on an H100: bytes. K6c reads four (R, S) inputs and
-// writes one (its backward reads five and writes up to three); K6d reads
-// the heads once (Bs x C) and writes (R, C). The designs are the simple ones:
-// coalesced chunk loads in K6c, neighbouring threads on neighbouring
-// channels of one row in K6d.
+// writes one (its backward reads five and writes up to three). K6d's
+// forward reads each stage's rows once (C values, src, the weight) with
+// its starts and counts, and writes (R, C) once. Its design: a group of G
+// lanes a ray (G = 32 for heads wider than 64 channels, fewer for narrow
+// heads, so a warp holds several rays of a 6-wide head), each lane four
+// consecutive channels, in float4 (f32) or 8-byte (4 x bf16) loads where a
+// stage's rows are aligned and a scalar route in the same kernel where they
+// are not. The lanes load a run's src and weights a lane a row and hand
+// them round by shuffle; the rows are unrolled by four, so four rows'
+// loads are in flight per lane.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "common.cuh"
+
+namespace umhs {
+
+constexpr int kMaxStages = 8;  // stages a K6d forward launch takes
+
+// One stage of a head for K6d's forward. Mirrors umhs_torch/ops/
+// compositing.py's SegmentStage field for field.
+struct SegmentStage {
+  const int64_t* src;     // (Bs,) the flat lane of each row
+  const int64_t* starts;  // (R,) each ray's first row
+  const int64_t* counts;  // (R,) each ray's rows
+  const void* h;          // (Bs, C) f32 or bf16, row stride h_stride
+  int64_t h_stride;       // elements
+  int32_t lo;             // the stage's first column in the (R, S) weights
+  int32_t L;              // its lanes a ray
+  int32_t vec;            // 1: every row's channels 4-aligned (16 bytes f32, 8 bf16)
+  int32_t pad;
+};
+
+struct SegmentStages {
+  SegmentStage stage[kMaxStages];
+};
+
+}  // namespace umhs
 
 namespace {
 
@@ -201,15 +236,15 @@ __device__ __forceinline__ __nv_bfloat16 store<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// K6d's backward: one stage.
 struct Segments {
   const float* w;  // the stage's (R, L) weights, row stride w_stride
   int64_t w_stride;
   int32_t L;
   const int64_t* src;     // (Bs,)
-  const int64_t* starts;  // (R,)
-  const int64_t* counts;  // (R,)
   const int32_t* total;   // (1,)
   int64_t h_stride;       // the heads' row stride (elements)
+  int64_t dw_stride;      // dw's row stride (elements)
   int32_t R, C, Bs;
 };
 
@@ -219,21 +254,143 @@ __device__ __forceinline__ float row_weight(const Segments& sg, int64_t f) {
   return sg.w[static_cast<int64_t>(r) * sg.w_stride + l];
 }
 
+// Four channels c..c+3 of a row as loaded (0 past C): one vector load
+// when the stage's rows are aligned, else scalar loads. bf16 stays packed
+// (two 32-bit words) until the FMA, so four rows in flight take 8
+// registers, not 16.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-segment_accumulate_fwd_kernel(Segments sg, const T* __restrict__ h, float* __restrict__ out) {
-  const int32_t i = blockIdx.x * kThreads + threadIdx.x;  // R * C < 2^31
-  if (i >= sg.R * sg.C) return;
-  const int32_t r = i / sg.C, c = i % sg.C;
-  const int64_t b0 = sg.starts[r], b1 = b0 + sg.counts[r];
-  float acc = 0.0f;
-  for (int64_t b = b0; b < b1; ++b)
-    acc = fmaf(row_weight(sg, sg.src[b]), load(h + b * sg.h_stride + c), acc);
-  out[i] = acc;
+struct Packed;
+template <>
+struct Packed<float> {
+  using type = float4;
+};
+template <>
+struct Packed<__nv_bfloat16> {
+  using type = uint2;
+};
+
+template <typename T>
+__device__ __forceinline__ typename Packed<T>::type load4(const T* row, int32_t c, int32_t C,
+                                                          int32_t vec);
+template <>
+__device__ __forceinline__ float4 load4<float>(const float* row, int32_t c, int32_t C,
+                                               int32_t vec) {
+  if (vec) {
+    if (c < C) return *reinterpret_cast<const float4*>(row + c);
+    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return make_float4(c < C ? row[c] : 0.0f, c + 1 < C ? row[c + 1] : 0.0f,
+                     c + 2 < C ? row[c + 2] : 0.0f, c + 3 < C ? row[c + 3] : 0.0f);
+}
+template <>
+__device__ __forceinline__ uint2 load4<__nv_bfloat16>(const __nv_bfloat16* row, int32_t c,
+                                                      int32_t C, int32_t vec) {
+  if (vec) {
+    if (c < C) return *reinterpret_cast<const uint2*>(row + c);
+    return make_uint2(0u, 0u);
+  }
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(row);
+  const uint32_t b0 = c < C ? h[c] : 0u, b1 = c + 1 < C ? h[c + 1] : 0u;
+  const uint32_t b2 = c + 2 < C ? h[c + 2] : 0u, b3 = c + 3 < C ? h[c + 3] : 0u;
+  return make_uint2(b0 | b1 << 16, b2 | b3 << 16);
 }
 
-// g: (R, C) contiguous; dh: (Bs, C) contiguous; dw: (R, L) contiguous, zeroed
-// by the caller, or null when the weights take no gradient.
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& x) {
+  acc.x = fmaf(w, x.x, acc.x);
+  acc.y = fmaf(w, x.y, acc.y);
+  acc.z = fmaf(w, x.z, acc.z);
+  acc.w = fmaf(w, x.w, acc.w);
+}
+
+// A bf16 is the high half of its f32: widen in registers.
+__device__ __forceinline__ void fma4(float4& acc, float w, const uint2& x) {
+  acc.x = fmaf(w, __uint_as_float(x.x << 16), acc.x);
+  acc.y = fmaf(w, __uint_as_float(x.x & 0xffff0000u), acc.y);
+  acc.z = fmaf(w, __uint_as_float(x.y << 16), acc.z);
+  acc.w = fmaf(w, __uint_as_float(x.y & 0xffff0000u), acc.w);
+}
+
+// A group of G lanes (a power of two <= 32) takes ray r; lane gl of the
+// group owns channels c0 + 4 gl .. + 3 of each chunk of 4 G channels. With
+// `chain`, out already holds the sums of earlier stages (a head with more
+// than kMaxStages stages takes several launches) and these stages add on.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+segment_accumulate_fwd_kernel(const float* __restrict__ w, int64_t w_stride,
+                              const __grid_constant__ umhs::SegmentStages stages,
+                              int32_t n_stages, int32_t R, int32_t C, int32_t G, int32_t chain,
+                              float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);
+  const unsigned gmask = G == 32 ? kFull : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const int64_t r = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / G;
+  if (r >= R) return;  // uniform over the group
+  const float* w_ray = w + r * w_stride;
+  float* out_ray = out + r * C;
+  const bool vec_out = (C & 3) == 0;
+  for (int32_t c0 = 0; c0 < C; c0 += 4 * G) {
+    const int32_t c = c0 + 4 * gl;
+    float4 tot = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (chain && c < C) {
+      tot = vec_out ? *reinterpret_cast<const float4*>(out_ray + c)
+                    : make_float4(out_ray[c], c + 1 < C ? out_ray[c + 1] : 0.0f,
+                                  c + 2 < C ? out_ray[c + 2] : 0.0f,
+                                  c + 3 < C ? out_ray[c + 3] : 0.0f);
+    }
+    for (int k = 0; k < n_stages; ++k) {
+      const umhs::SegmentStage& sg = stages.stage[k];  // in the constant bank, no copy
+      const T* h = static_cast<const T*>(sg.h);
+      const int64_t b0 = sg.starts[r];
+      const int32_t n = static_cast<int32_t>(sg.counts[r]);
+      const int64_t lane0 = r * sg.L - sg.lo;  // src[b] - lane0: the weight's column
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int32_t t0 = 0; t0 < n; t0 += G) {
+        // a lane a row: the row's weight, handed round by shuffle
+        const float wv = t0 + gl < n ? w_ray[sg.src[b0 + t0 + gl] - lane0] : 0.0f;
+        const int32_t m = min(G, n - t0);
+        const T* rows = h + (b0 + t0) * sg.h_stride;
+        int32_t u = 0;
+        for (; u + 4 <= m; u += 4) {
+          float wb[4];
+          typename Packed<T>::type x[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            wb[q] = __shfl_sync(gmask, wv, u + q, G);
+            x[q] = load4(rows + (u + q) * sg.h_stride, c, C, sg.vec);
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) fma4(acc, wb[q], x[q]);
+        }
+        for (; u < m; ++u) {
+          const float wb = __shfl_sync(gmask, wv, u, G);
+          fma4(acc, wb, load4(rows + u * sg.h_stride, c, C, sg.vec));
+        }
+      }
+      if (k == 0 && !chain) {
+        tot = acc;
+      } else {
+        tot.x = __fadd_rn(tot.x, acc.x);
+        tot.y = __fadd_rn(tot.y, acc.y);
+        tot.z = __fadd_rn(tot.z, acc.z);
+        tot.w = __fadd_rn(tot.w, acc.w);
+      }
+    }
+    if (c < C) {
+      if (vec_out) {
+        *reinterpret_cast<float4*>(out_ray + c) = tot;
+      } else {
+        out_ray[c] = tot.x;
+        if (c + 1 < C) out_ray[c + 1] = tot.y;
+        if (c + 2 < C) out_ray[c + 2] = tot.z;
+        if (c + 3 < C) out_ray[c + 3] = tot.w;
+      }
+    }
+  }
+}
+
+// g: (R, C) contiguous; dh: (Bs, C) contiguous; dw: the stage's (R, L)
+// columns of the weights' gradient (row stride dw_stride), zeroed by the
+// caller, or null when the weights take no gradient.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_accumulate_bwd_kernel(Segments sg, const T* __restrict__ h, const float* __restrict__ g,
@@ -259,7 +416,10 @@ segment_accumulate_bwd_kernel(Segments sg, const T* __restrict__ h, const float*
   if (dw == nullptr) return;  // uniform over the warp
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
-  if (lane == 0) dw[f] = acc;
+  if (lane == 0) {
+    const int32_t r = static_cast<int32_t>(f) / sg.L, l = static_cast<int32_t>(f) % sg.L;
+    dw[static_cast<int64_t>(r) * sg.dw_stride + l] = acc;
+  }
 }
 
 RayInputs ray_inputs(const float* ts, int64_t ts_stride, const float* te, int64_t te_stride,
@@ -311,40 +471,61 @@ extern "C" int umhs_render_weights_bwd(const float* ts, int64_t ts_stride, const
   return cudaGetLastError();
 }
 
-// K6d forward. w: the stage's (R, L) f32 weights, row stride w_stride; src
-// (Bs) int64, starts and counts (R) int64 (K6a's); h: (Bs, C) f32 or bf16
-// (bf16 = 1) of row stride h_stride; out: (R, C) f32 contiguous. Returns a
+// The size of umhs::SegmentStage, for the ctypes mirror's check.
+extern "C" int umhs_segment_stage_size() { return sizeof(umhs::SegmentStage); }
+
+// K6d forward for one head over n_stages stages (1 <= n_stages <=
+// kMaxStages). w: the (R, S) f32 weights, row stride w_stride, unit column
+// stride; stages: host array of the stages' descriptors (the stage's lanes
+// are w's columns [lo, lo + L)); bf16: the rows' type; G: lanes a ray, a
+// power of two <= 32; chain: add onto out (the sums of earlier stages)
+// rather than overwrite it; out: (R, C) f32 contiguous. Returns a
 // cudaError_t.
-extern "C" int umhs_segment_accumulate_fwd(const float* w, int64_t w_stride, int32_t L,
-                                           const int64_t* src, const int64_t* starts,
-                                           const int64_t* counts, const void* h,
-                                           int64_t h_stride, int32_t bf16, int32_t R, int32_t C,
-                                           int32_t Bs, float* out, void* stream) {
-  const int64_t n = static_cast<int64_t>(R) * C;
-  if (R < 0 || C < 1 || L < 1 || Bs < 1 || n >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const Segments sg{w, w_stride, L, src, starts, counts, nullptr, h_stride, R, C, Bs};
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+extern "C" int umhs_segment_accumulate_fwd(const float* w, int64_t w_stride,
+                                           const umhs::SegmentStage* stages, int32_t n_stages,
+                                           int32_t bf16, int32_t R, int32_t C, int32_t G,
+                                           int32_t chain, float* out, void* stream) {
+  if (R < 0 || C < 1 || n_stages < 1 || n_stages > umhs::kMaxStages || G < 1 || G > 32 ||
+      (G & (G - 1)) != 0 || static_cast<int64_t>(R) * C >= (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
+  umhs::SegmentStages st{};
+  for (int k = 0; k < n_stages; ++k) {
+    const umhs::SegmentStage& sg = stages[k];
+    const int align = bf16 ? 8 : 16;
+    if (sg.L < 1 || sg.lo < 0 || sg.h_stride < C ||
+        (sg.vec && ((C & 3) != 0 || (sg.h_stride & 3) != 0 ||
+                    reinterpret_cast<uintptr_t>(sg.h) % align != 0)))
+      return cudaErrorInvalidValue;
+    st.stage[k] = sg;
+  }
+  if (R == 0) return cudaSuccess;
+  const int64_t threads = static_cast<int64_t>(R) * G;
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    segment_accumulate_fwd_kernel<<<blocks, kThreads, 0, s>>>(
-        sg, static_cast<const __nv_bfloat16*>(h), out);
+    segment_accumulate_fwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        w, w_stride, st, n_stages, R, C, G, chain, out);
   else
-    segment_accumulate_fwd_kernel<<<blocks, kThreads, 0, s>>>(sg, static_cast<const float*>(h),
-                                                              out);
+    segment_accumulate_fwd_kernel<float><<<blocks, kThreads, 0, s>>>(w, w_stride, st, n_stages,
+                                                                     R, C, G, chain, out);
   return cudaGetLastError();
 }
 
-// K6d backward: w, src, h as the forward's; total (1) int32 (K6a's); g: (R,
-// C) f32 contiguous; dh: (Bs, C) contiguous in h's type; dw: (R, L) f32
-// contiguous and zeroed, or null. Returns a cudaError_t.
+// K6d backward for one stage: w: the stage's (R, L) f32 weights, row
+// stride w_stride; src (Bs) int64 and total (1) int32 (K6a's); h: (Bs, C)
+// f32 or bf16 (bf16 = 1) of row stride h_stride; g: (R, C) f32 contiguous;
+// dh: (Bs, C) contiguous in h's type; dw: the stage's (R, L) f32 columns of
+// the weights' gradient, row stride dw_stride, zeroed, or null. Returns a
+// cudaError_t.
 extern "C" int umhs_segment_accumulate_bwd(const float* w, int64_t w_stride, int32_t L,
                                            const int64_t* src, const int32_t* total,
                                            const void* h, int64_t h_stride, int32_t bf16,
                                            const float* g, int32_t R, int32_t C, int32_t Bs,
-                                           void* dh, float* dw, void* stream) {
-  if (R < 0 || C < 1 || L < 1 || Bs < 1) return cudaErrorInvalidValue;
-  const Segments sg{w, w_stride, L, src, nullptr, nullptr, total, h_stride, R, C, Bs};
+                                           void* dh, float* dw, int64_t dw_stride,
+                                           void* stream) {
+  if (R < 0 || C < 1 || L < 1 || Bs < 1 || (dw != nullptr && dw_stride < L))
+    return cudaErrorInvalidValue;
+  const Segments sg{w, w_stride, L, src, total, h_stride, dw_stride, R, C, Bs};
   const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(Bs) + kWarps - 1) / kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)

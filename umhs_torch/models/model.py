@@ -36,7 +36,7 @@ from .. import resolve_device
 from ..ops.compact import compact_stage, gather_lanes
 from ..ops.compositing import (
     accumulate,
-    compact_accumulate,
+    compact_accumulate_stages,
     render_accumulation,
     render_depth_expected,
     render_weights,
@@ -375,12 +375,11 @@ class UMHSModel:
                                      impl=cfg.impl)
 
             def accumulate_fn(key, w=weights):
-                # K6d: each stage's rows, their weights gathered through src
-                return sum(
-                    compact_accumulate(w[:, sd_["lo"]:sd_["hi"]], sd_["heads"][key],
-                                       sd_["comp"], impl=cfg.impl)
-                    for sd_ in stage_data
-                )
+                # K6d: every stage's rows of the head, their weights gathered
+                # through src, the stage sums added in stage order
+                return compact_accumulate_stages(
+                    w, [(sd_["lo"], sd_["hi"], sd_["heads"][key], sd_["comp"])
+                        for sd_ in stage_data], impl=cfg.impl)
 
             def accumulate_sg(key):
                 # detached weights, values with their gradient (the DINO head)

@@ -10,19 +10,24 @@ rays' counts and starts in the buffer, and the total. `gather_lanes` brings
 the buffer's densities back to the (R, L) lanes through the slot map; its
 gradient is the gather the other way, through `src`, since the two invert
 each other on kept lanes. The weights' gather through `src` is folded into
-K6d (`compositing.compact_accumulate`).
+K6d (`compositing.compact_accumulate_stages`).
 
 impl="auto" launches ``csrc/compact.cu`` on a CUDA tensor and the plain
 version on a CPU tensor; impl="plain" runs the plain version anywhere. The
 kernel keeps the total on the device: the plain version's `torch.nonzero`
-waits for the device once per stage, the kernel never does.
+waits for the device once per stage, the kernel never does. K6a is one
+launch a stage, a single-pass scan whose look-back flags live in a
+`ScanWorkspace` per device and stream; the host picks its tile
+(`compact_tile_rays`) and its mask loads (`mask_vector_bytes`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Union
+import math
+import threading
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -31,7 +36,8 @@ from ._native import Kernel
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 COMPACT_STAGE = Kernel(
     "compact.cu", "umhs_compact_stage",
-    [_P, _I64, _P, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P],
+    [_P, _I64, _P, _I32, _I32, _I32, _I32, _I32, _P, _I32, ctypes.c_uint32,
+     _P, _P, _P, _P, _P, _P, _P, _P],
 )
 COMPACT_GATHER = Kernel(
     "compact.cu", "umhs_compact_gather",
@@ -50,6 +56,59 @@ class Compaction:
     counts: torch.Tensor  # (R,) int64: kept lanes per ray
     starts: torch.Tensor  # (R,) int64: each ray's first row
     total: Union[int, torch.Tensor]  # kept lanes: an int, or (1,) int32 on the device
+
+
+MAX_LANES = 256  # K6a: lanes a ray in a stage (K6c's limit on the whole ray too)
+TILE_LANES = 4096  # K6a: lanes a tile at most (256 threads x 16 lanes)
+LANES_PER_THREAD = 16
+EPOCH_LIMIT = 1 << 30  # K6a's epochs run 1 .. EPOCH_LIMIT - 1 (30 bits of a flag word)
+MIN_FLAGS = 4096  # K6a: tiles a new workspace holds at least
+
+
+def compact_tile_rays(L: int) -> int:
+    """K6a's rays a tile: the most whole rays within TILE_LANES lanes whose
+    lanes are a multiple of LANES_PER_THREAD (so each thread's 16 lanes
+    start 64-byte aligned in `slot`)."""
+    if not 1 <= L <= MAX_LANES:
+        raise ValueError(f"compact_tile_rays: L {L} outside 1 to {MAX_LANES}")
+    step = LANES_PER_THREAD // math.gcd(L, LANES_PER_THREAD)
+    return TILE_LANES // L // step * step
+
+
+def mask_vector_bytes(L: int, stride: int, address: int) -> int:
+    """K6a's mask load width: the widest of 16, 8 and 4 bytes that divides
+    the lanes a ray, the row stride and the slice's address, else 1."""
+    return next((v for v in (16, 8, 4) if L % v == 0 and stride % v == 0 and address % v == 0),
+                1)
+
+
+class ScanWorkspace:
+    """K6a's look-back flags on one device and stream: a ticket (int64 0)
+    and one flag a tile. Allocated zeroed once and grown when a stage has
+    more tiles; never cleared per call: each call takes the next epoch, and
+    a flag counts only with its call's epoch. When the epochs run out
+    (EPOCH_LIMIT - 1 calls) the buffer is cleared once and they restart."""
+
+    def __init__(self):
+        self.buffer: Optional[torch.Tensor] = None
+        self.epoch = 0
+
+    def take(self, n_tiles: int, device) -> Tuple[torch.Tensor, int]:
+        """(the buffer, this call's epoch) for a launch of n_tiles tiles."""
+        if self.buffer is None or self.buffer.numel() - 1 < n_tiles:
+            self.buffer = torch.zeros(1 + max(n_tiles, MIN_FLAGS), dtype=torch.int64,
+                                      device=device)
+            self.epoch = 0
+        self.epoch += 1
+        if self.epoch >= EPOCH_LIMIT:
+            self.buffer.zero_()
+            self.epoch = 1
+        return self.buffer, self.epoch
+
+
+_WORKSPACES: Dict[Tuple[int, int], ScanWorkspace] = {}
+# two threads on one stream (a server's renders) must never take one epoch
+_WORKSPACES_LOCK = threading.Lock()
 
 
 def _check_impl(impl: str) -> None:
@@ -93,8 +152,9 @@ def compact_stage_cuda(mask: torch.Tensor, live_rays: Optional[torch.Tensor],
         raise ValueError("compact_stage_cuda: mask must be an (R, L) bool tensor with unit "
                          "column stride")
     R, L = mask.shape
-    if L < 1 or R * L >= 2**31 or not 0 < budget < 2**31:
-        raise ValueError(f"compact_stage_cuda: unsupported shape ({R}, {L}) or budget {budget}")
+    if not 1 <= L <= MAX_LANES or R * L >= 2**31 or not 0 < budget < 2**31:
+        raise ValueError(f"compact_stage_cuda: unsupported shape ({R}, {L}) or budget {budget} "
+                         f"(1 <= L <= {MAX_LANES})")
     if live_rays is not None and (live_rays.dtype != torch.bool or live_rays.shape != (R,)
                                   or live_rays.device != mask.device
                                   or not live_rays.is_contiguous()):
@@ -103,6 +163,11 @@ def compact_stage_cuda(mask: torch.Tensor, live_rays: Optional[torch.Tensor],
     if mask.device.type != "cuda":
         raise ValueError(f"compact_stage_cuda: needs a CUDA tensor, not {mask.device}")
     dev = mask.device
+    tile_rays = compact_tile_rays(L)
+    stream = _stream(mask)
+    with _WORKSPACES_LOCK:
+        ws = _WORKSPACES.setdefault((dev.index, stream), ScanWorkspace())
+        flags, epoch = ws.take(-(-R // tile_rays), dev)
     slot = torch.empty(R * L, dtype=torch.int32, device=dev)
     kept = torch.empty((R, L), dtype=torch.bool, device=dev)
     src = torch.empty(budget, dtype=torch.int64, device=dev)
@@ -113,9 +178,10 @@ def compact_stage_cuda(mask: torch.Tensor, live_rays: Optional[torch.Tensor],
     with torch.cuda.device(dev):
         COMPACT_STAGE.launch(
             mask.data_ptr(), mask.stride(0),
-            live_rays.data_ptr() if live_rays is not None else None,
-            R, L, budget, slot.data_ptr(), kept.data_ptr(), src.data_ptr(), live.data_ptr(),
-            counts.data_ptr(), starts.data_ptr(), total.data_ptr(), _stream(mask))
+            live_rays.data_ptr() if live_rays is not None else None, R, L, budget, tile_rays,
+            mask_vector_bytes(L, mask.stride(0), mask.data_ptr()), flags.data_ptr(),
+            flags.numel() - 1, epoch, slot.data_ptr(), kept.data_ptr(), src.data_ptr(),
+            live.data_ptr(), counts.data_ptr(), starts.data_ptr(), total.data_ptr(), stream)
     return Compaction(slot, kept, src, live, counts, starts, total)
 
 

@@ -8,18 +8,20 @@ transmittance below `early_stop_eps` are dropped (nerfacc's visibility
 filter). Per-ray sums over a ray-major compact buffer are prefix sums read
 at segment boundaries in the plain version.
 
-K6c (`render_weights`) and K6d (`compact_accumulate`, the per-ray sums of
-one stage of the compact buffer with the weights gathered through `src`)
-launch ``csrc/composite.cu`` on a CUDA tensor with impl="auto", forward and
-backward; a CPU tensor, or impl="plain", takes the plain versions. The
-kernels sum each ray's terms directly in ascending order, where the plain
-version of K6d takes a prefix sum's difference, so the two round apart.
+K6c (`render_weights`) and K6d (`compact_accumulate_stages`, a head's
+per-ray sums over every stage of the compact buffer with the weights
+gathered through each stage's `src`, in one launch; `compact_accumulate`
+is one stage) launch ``csrc/composite.cu`` on a CUDA tensor with
+impl="auto", forward and backward; a CPU tensor, or impl="plain", takes the
+plain versions. The kernels sum each ray's terms directly in ascending
+order, where the plain version of K6d takes a prefix sum's difference, so
+the two round apart; the stage sums are added in stage order in both.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Union
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -33,11 +35,25 @@ RENDER_WEIGHTS_BWD = Kernel("composite.cu", "umhs_render_weights_bwd",
                             _RAY_ARGS + [_P, _P, _P, _P, _P])
 SEGMENT_ACCUMULATE_FWD = Kernel(
     "composite.cu", "umhs_segment_accumulate_fwd",
-    [_P, _I64, _I32, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P, _P])
+    [_P, _I64, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P, _P])
 SEGMENT_ACCUMULATE_BWD = Kernel(
     "composite.cu", "umhs_segment_accumulate_bwd",
-    [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _I32, _I32, _I32, _P, _P, _P])
+    [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _I32, _I32, _I32, _P, _P, _I64, _P])
 MAX_SAMPLES = 256  # K6c: lanes per ray (a warp a ray, 8 chunks of 32)
+MAX_STAGES = 8  # K6d's forward: stages a launch takes (more chain launches)
+
+
+class SegmentStage(ctypes.Structure):
+    """One stage of a head for K6d's forward (csrc/composite.cu
+    `umhs::SegmentStage`)."""
+
+    _fields_ = [("src", _P), ("starts", _P), ("counts", _P), ("h", _P), ("h_stride", _I64),
+                ("lo", _I32), ("L", _I32), ("vec", _I32), ("pad", _I32)]
+
+
+# a stage of a head: (lo, hi, values (Bs, C), its Compaction), the stage's
+# lanes being columns [lo, hi) of the (R, S) weights
+Stage = Tuple[int, int, torch.Tensor, Compaction]
 
 
 def exclusive_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -225,92 +241,172 @@ def render_depth_expected(
 
 def compact_accumulate_plain(weights: torch.Tensor, values: torch.Tensor,
                              c: Compaction) -> torch.Tensor:
-    """Plain version of K6d: the stage's (R, L) weights gathered to the
-    buffer's rows through `src` (times `live`), times the rows' values
-    (Bs, C), summed per ray by segment_accumulate -> (R, C)."""
+    """Plain version of K6d for one stage: the stage's (R, L) weights
+    gathered to the buffer's rows through `src` (times `live`), times the
+    rows' values (Bs, C), summed per ray by segment_accumulate -> (R, C)."""
     w = weights.reshape(-1)[c.src] * c.live
     return segment_accumulate(w[:, None] * values, c.starts, c.counts)
 
 
-def _check_segments(weights, values, c):
-    if weights.dtype != torch.float32 or weights.shape != c.mask.shape or weights.stride(1) != 1:
-        raise ValueError(f"compact_accumulate_cuda: weights must be float32 "
-                         f"{tuple(c.mask.shape)} with unit column stride")
-    if (values.dtype not in (torch.float32, torch.bfloat16) or values.dim() != 2
-            or values.shape[0] != c.src.shape[0] or values.stride(1) != 1):
-        raise ValueError(f"compact_accumulate_cuda: values must be float32 or bfloat16 "
-                         f"({c.src.shape[0]}, C) with unit column stride")
-    if c.src.dtype != torch.int64 or c.starts.dtype != torch.int64 or c.counts.dtype != torch.int64:
-        raise ValueError("compact_accumulate_cuda: src, starts and counts must be int64")
-    if weights.device.type != "cuda" or values.device != weights.device:
-        raise ValueError("compact_accumulate_cuda: weights and values must lie on one card")
-    if c.src.device != weights.device:
-        raise ValueError("compact_accumulate_cuda: the compaction lies on another device")
+def compact_accumulate_stages_plain(weights: torch.Tensor,
+                                    stages: Sequence[Stage]) -> torch.Tensor:
+    """Plain version of K6d: each stage's sums (compact_accumulate_plain on
+    its columns of the (R, S) weights) added in stage order."""
+    return sum(compact_accumulate_plain(weights[:, lo:hi], v, c) for lo, hi, v, c in stages)
+
+
+def accumulate_group_lanes(C: int) -> int:
+    """K6d's forward: lanes a ray, four channels a lane, the fewest powers
+    of two that cover C up to 32 (a 128-wide head takes a warp, a 6-wide
+    one two lanes, 16 rays a warp)."""
+    return min(32, 1 << max(0, (-(-C // 4) - 1).bit_length()))
+
+
+def accumulate_vector_rows(values: torch.Tensor) -> bool:
+    """K6d's forward: whether a stage's rows take vector loads (four
+    channels a load: C and the row stride multiples of 4, the base 16-byte
+    aligned for f32, 8-byte for bf16); else the same kernel's scalar loads."""
+    C = values.shape[1]
+    align = 8 if values.dtype == torch.bfloat16 else 16
+    return C % 4 == 0 and values.stride(0) % 4 == 0 and values.data_ptr() % align == 0
+
+
+def _check_stages(weights: torch.Tensor, stages: Sequence[Stage]) -> None:
+    name = "compact_accumulate_stages_cuda"
+    if weights.dtype != torch.float32 or weights.dim() != 2 or weights.stride(1) != 1:
+        raise ValueError(f"{name}: weights must be float32 (R, S) with unit column stride")
+    if not stages:
+        raise ValueError(f"{name}: needs at least one stage")
+    R, S = weights.shape
+    dtype, C = stages[0][2].dtype, stages[0][2].shape[-1]
+    for lo, hi, values, c in stages:
+        if not 0 <= lo < hi <= S or c.mask.shape != (R, hi - lo):
+            raise ValueError(f"{name}: a stage's lanes [{lo}, {hi}) and its compaction "
+                             f"{tuple(c.mask.shape)} do not fit weights {(R, S)}")
+        if (values.dtype not in (torch.float32, torch.bfloat16) or values.dim() != 2
+                or values.shape[0] != c.src.shape[0] or values.stride(1) != 1):
+            raise ValueError(f"{name}: values must be float32 or bfloat16 "
+                             f"({c.src.shape[0]}, C) with unit column stride")
+        if values.dtype != dtype or values.shape[1] != C:
+            raise ValueError(f"{name}: every stage's values must be {dtype} with {C} channels")
+        if any(t.dtype != torch.int64 for t in (c.src, c.starts, c.counts)):
+            raise ValueError(f"{name}: src, starts and counts must be int64")
+    if weights.device.type != "cuda":
+        raise ValueError(f"{name}: weights and values must lie on one card")
+    for _, _, values, c in stages:
+        if values.device != weights.device or c.src.device != weights.device:
+            raise ValueError(f"{name}: weights and values must lie on one card, with the "
+                             "compactions")
+
+
+def compact_accumulate_stages_cuda(weights: torch.Tensor,
+                                   stages: Sequence[Stage]) -> torch.Tensor:
+    """K6d forward on the card: one head's (R, C) f32 per-ray sums over every
+    stage, one launch for up to MAX_STAGES stages. weights: the (R, S) f32
+    weights (any row stride); each stage's values (Bs, C) f32 or bf16."""
+    _check_stages(weights, stages)
+    R = weights.shape[0]
+    values0 = stages[0][2]
+    C = values0.shape[1]
+    out = torch.empty((R, C), dtype=torch.float32, device=weights.device)
+    descs = [SegmentStage(c.src.data_ptr(), c.starts.data_ptr(), c.counts.data_ptr(),
+                          v.data_ptr(), v.stride(0), lo, hi - lo, int(accumulate_vector_rows(v)),
+                          0) for lo, hi, v, c in stages]
+    SEGMENT_ACCUMULATE_FWD.check_struct("umhs_segment_stage_size", SegmentStage)
+    with torch.cuda.device(weights.device):
+        for k in range(0, len(descs), MAX_STAGES):
+            chunk = descs[k:k + MAX_STAGES]
+            SEGMENT_ACCUMULATE_FWD.launch(
+                weights.data_ptr(), weights.stride(0), (SegmentStage * len(chunk))(*chunk),
+                len(chunk), int(values0.dtype == torch.bfloat16), R, C,
+                accumulate_group_lanes(C), int(k > 0), out.data_ptr(), _stream(weights))
+    return out
 
 
 def compact_accumulate_cuda(weights: torch.Tensor, values: torch.Tensor,
                             c: Compaction) -> torch.Tensor:
-    """K6d forward on the card: (R, L) f32 weights (any row stride), (Bs, C)
-    f32 or bf16 values -> (R, C) f32."""
-    _check_segments(weights, values, c)
-    R, L = weights.shape
-    Bs, C = values.shape
-    out = torch.empty((R, C), dtype=torch.float32, device=values.device)
-    with torch.cuda.device(values.device):
-        SEGMENT_ACCUMULATE_FWD.launch(
-            weights.data_ptr(), weights.stride(0), L, c.src.data_ptr(), c.starts.data_ptr(),
-            c.counts.data_ptr(), values.data_ptr(), values.stride(0),
-            int(values.dtype == torch.bfloat16), R, C, Bs, out.data_ptr(), _stream(values))
-    return out
+    """K6d forward on the card for one stage: (R, L) f32 weights (any row
+    stride), (Bs, C) f32 or bf16 values -> (R, C) f32."""
+    return compact_accumulate_stages_cuda(weights, [(0, weights.shape[-1], values, c)])
+
+
+def compact_accumulate_stages_bwd_cuda(weights: torch.Tensor, stages: Sequence[Stage],
+                                       g: torch.Tensor, need_dw: bool = True):
+    """K6d backward on the card, a launch a stage: (d weights (R, S) f32,
+    zero off the stages' columns, or None; [d values (Bs, C) in values'
+    dtype] a stage) for g (R, C)."""
+    _check_stages(weights, stages)
+    R, S = weights.shape
+    C = stages[0][2].shape[1]
+    g = g.float().contiguous()
+    if g.shape != (R, C) or g.device != weights.device:
+        raise ValueError(f"compact_accumulate_stages_bwd_cuda: g must be ({R}, {C}) on the card")
+    dw = torch.zeros((R, S), dtype=torch.float32, device=weights.device) if need_dw else None
+    dhs: List[torch.Tensor] = []
+    with torch.cuda.device(weights.device):
+        for lo, hi, values, c in stages:
+            total = device_total(c)
+            Bs = values.shape[0]
+            dh = torch.empty((Bs, C), dtype=values.dtype, device=values.device)
+            w = weights[:, lo:hi]
+            SEGMENT_ACCUMULATE_BWD.launch(
+                w.data_ptr(), w.stride(0), hi - lo, c.src.data_ptr(), total.data_ptr(),
+                values.data_ptr(), values.stride(0), int(values.dtype == torch.bfloat16),
+                g.data_ptr(), R, C, Bs, dh.data_ptr(),
+                dw[:, lo:hi].data_ptr() if dw is not None else None, S, _stream(values))
+            dhs.append(dh)
+    return dw, dhs
 
 
 def compact_accumulate_bwd_cuda(weights: torch.Tensor, values: torch.Tensor, c: Compaction,
                                 g: torch.Tensor, need_dw: bool = True):
-    """K6d backward on the card: (d values (Bs, C) in values' dtype,
-    d weights (R, L) f32 or None) for g (R, C)."""
-    _check_segments(weights, values, c)
-    R, L = weights.shape
-    Bs, C = values.shape
-    g = g.float().contiguous()
-    if g.shape != (R, C) or g.device != values.device:
-        raise ValueError(f"compact_accumulate_bwd_cuda: g must be ({R}, {C}) on the card")
-    total = device_total(c)
-    dh = torch.empty((Bs, C), dtype=values.dtype, device=values.device)
-    dw = torch.zeros((R, L), dtype=torch.float32, device=values.device) if need_dw else None
-    with torch.cuda.device(values.device):
-        SEGMENT_ACCUMULATE_BWD.launch(
-            weights.data_ptr(), weights.stride(0), L, c.src.data_ptr(), total.data_ptr(),
-            values.data_ptr(), values.stride(0), int(values.dtype == torch.bfloat16),
-            g.data_ptr(), R, C, Bs, dh.data_ptr(), dw.data_ptr() if dw is not None else None,
-            _stream(values))
+    """K6d backward on the card for one stage: (d values (Bs, C) in values'
+    dtype, d weights (R, L) f32 or None) for g (R, C)."""
+    dw, (dh,) = compact_accumulate_stages_bwd_cuda(weights, [(0, weights.shape[-1], values, c)],
+                                                   g, need_dw)
     return dh, dw
 
 
-class _CompactAccumulate(torch.autograd.Function):
-    """K6d forward and backward; the weights' gradient only when they take
-    one (the DINO head's are detached)."""
+class _CompactAccumulateStages(torch.autograd.Function):
+    """K6d forward (one launch over the stages) and backward (a launch a
+    stage into one dw); the weights' gradient only when they take one (the
+    DINO head's are detached)."""
 
     @staticmethod
-    def forward(ctx, weights, values, c):
-        ctx.save_for_backward(weights, values)
-        ctx.c = c
-        return compact_accumulate_cuda(weights, values, c)
+    def forward(ctx, weights, meta, *values):
+        ctx.save_for_backward(weights, *values)
+        ctx.meta = meta
+        return compact_accumulate_stages_cuda(
+            weights, [(lo, hi, v, c) for (lo, hi, c), v in zip(meta, values)])
 
     @staticmethod
     def backward(ctx, g):
-        weights, values = ctx.saved_tensors
-        dh, dw = compact_accumulate_bwd_cuda(weights, values, ctx.c, g,
-                                             need_dw=ctx.needs_input_grad[0])
-        return dw, dh if ctx.needs_input_grad[1] else None, None
+        weights, *values = ctx.saved_tensors
+        stages = [(lo, hi, v, c) for (lo, hi, c), v in zip(ctx.meta, values)]
+        dw, dhs = compact_accumulate_stages_bwd_cuda(weights, stages, g,
+                                                     need_dw=ctx.needs_input_grad[0])
+        return (dw, None, *(dh if need else None
+                            for dh, need in zip(dhs, ctx.needs_input_grad[2:])))
+
+
+def compact_accumulate_stages(weights: torch.Tensor, stages: Sequence[Stage],
+                              impl: str = "auto") -> torch.Tensor:
+    """A head's per-ray sums over every stage of the compact buffer, added in
+    stage order: for each stage (lo, hi, values (Bs, C), compaction), the sum
+    over each ray's rows b of weights[r, lo + src[b] - r * L] * values[b] ->
+    (R, C). K6d on a CUDA tensor with impl="auto" (forward and backward),
+    else the plain version."""
+    _check_impl(impl)
+    if impl == "plain" or weights.device.type == "cpu":
+        return compact_accumulate_stages_plain(weights, stages)
+    meta = [(lo, hi, c) for lo, hi, _, c in stages]
+    return _CompactAccumulateStages.apply(weights, meta, *(v for _, _, v, _ in stages))
 
 
 def compact_accumulate(weights: torch.Tensor, values: torch.Tensor, c: Compaction,
                        impl: str = "auto") -> torch.Tensor:
     """Per-ray sums of one stage of the compact buffer: sum over each ray's
     rows b of weights[src[b]] * values[b] -> (R, C), for the stage's (R, L)
-    weights and the rows' (Bs, C) values. K6d on a CUDA tensor with
-    impl="auto" (forward and backward), else the plain version."""
-    _check_impl(impl)
-    if impl == "plain" or values.device.type == "cpu":
-        return compact_accumulate_plain(weights, values, c)
-    return _CompactAccumulate.apply(weights, values, c)
+    weights and the rows' (Bs, C) values (compact_accumulate_stages with
+    one stage)."""
+    return compact_accumulate_stages(weights, [(0, weights.shape[-1], values, c)], impl)
