@@ -102,7 +102,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the plain version to f64, the rays with a candidate within 1e-5 of
      od_max counted. Device ms, ms per call, the plain version's device ms
      (K5: the whole plain march; K7a: the plain positions and fold, and the
-     whole update beside the plain one), the bound by bytes, ptxas.
+     whole update beside the plain one), the bound by bytes (K5a: the larger
+     of it and the bound by operations on the candidates this data needs,
+     k5a_candidates_needed), ptxas; K5a also alone on the dense and empty
+     grids and the eval chunk.
    With --baseline TREE (another checkout, e.g. the parent commit unpacked
    by git archive into the git-ignored chip_archive/): every kernel at
    phase 2's and phase 10's shapes through each tree's own wrappers, a
@@ -112,10 +115,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    K1 and K2 on the DINO chain within 2e-2 of them; K6 at phase 7's steady
    shapes through the tree's own code (the plain PyTorch of its model in a
    tree without K6: k6_parent_code), K6a's, K6b's and (in a tree with K6's
-   kernels) K6d's forward bits the tree's; K7
-   (full and partial) and K5 through the tree's own update_occ_state and
-   march_rays (k5k7_tree_cases), K7's bits the tree's (K5's are printed: a
-   tree before the budget scale's one-division repair may round apart).
+   kernels) K6c's (its backward alone too, also at nerfacto's shapes) and
+   K6d's forward bits the tree's; K7 (full and partial) and K5 (K5a alone,
+   the march on the bench-scene, dense and empty grids and an eval chunk)
+   through the tree's own update_occ_state, march_count_cuda and
+   march_rays (k5k7_tree_cases), K7's bits the tree's, K5's too in a tree
+   with K5's kernels (a tree before the budget scale's one-division repair
+   may round apart), and the SASS of the tree's K5a beside this one's
+   (sass_loops: instructions and each loop's body).
 3. The serving path at full width: the bench scene (16 + 2 views, 128^2,
    128 bands, 6 spheres) as an in-memory train split (rendered once, also
    for phase 5) with VCA endmembers, Trainer.setup() from seed 0
@@ -179,7 +186,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    first step where the trees' losses part, both trees' adapts and their
    eval_all_images are printed, and this tree's eval_all_images PSNR must
    be at most 1.0 dB below the tree's (K6 sums in another order than the
-   plain code, so the trees' training bits part). After the traced step,
+   plain code, so the training bits of a tree before it part); a tree with
+   K5's kernels must give this run's losses and adapts bit for bit. After the traced step,
    K5 and K7 against their plain versions on the schedule's own steady
    state (a steady batch's march at its budget, a partial update with the
    field's density; k5k7_on_trained_state) and the host syncs of one step.
@@ -1851,7 +1859,10 @@ def phase_k6(dev, ptxas):
                                      "plain_ms": rf["plain_bwd_ms"]},
               errs["sigmas"][0], "as the forward; d sigmas only (the march's t take no "
               "gradient); plain = autograd of the plain forward", bound_ms=rf["bwd_bound_ms"],
-              plain_max_abs_err=errs["sigmas"][1]),
+              plain_max_abs_err=errs["sigmas"][1],
+              at_nerfacto_shapes={k: {x: v[x] for x in ("bwd_ms", "bwd_bound_ms",
+                                                        "plain_bwd_ms")}
+                                  for k, v in render.items() if k != "flagship"}),
         entry("segment_accumulate_fwd", d_fwd, max(e for e, _, _ in d_err["fwd"]),
               stage_shape + ", heads spectral, spectral2, specular (128) and abundances (6), "
               "f32, a launch a head over the three stages, summed over the heads; library = "
@@ -1876,6 +1887,13 @@ K5K7_ENTRIES = {  # name: (source, the XLA code on the TPU it replaces)
     "occ_pack": ("umhs_torch/csrc/occupancy.cu", "umhs_tpu/ops/occupancy.py:439"),
 }
 K5_BUDGET = sum(K6_BUDGETS)  # phase 7's steady stage budgets, 376,576 samples
+# K5a's bound by operations: f32 operations a candidate the ray needs (the
+# schedule: 2 mul, add, sub, exp, compare and 2 for dt; the midpoint: 8; the
+# cell: 3 sub, 3 div, 3 abs, 2 max, the clamp, log2, ceil, 2 clamps, the
+# compare; per axis mul, add, mul, mul, floor, 2 clamps; the bit: ~8 integer
+# ops) and a ray's own (the slab test's 3 div, 6 sub, 6 mul, 8 min and max;
+# t0, the schedule's set-up, the counts' scans)
+K5A_OPS_CANDIDATE, K5A_OPS_RAY = 60, 48
 K5_OD_MAX = 0.5  # the od culling's threshold in the K5 phase's od case
 K5_OD_NEAR = 1e-5  # a candidate whose od lies this close (relative) to od_max may go either way
 
@@ -1911,6 +1929,24 @@ def k5_od_reference(state, cfg, march, o, d, jit, od_max):
     od = torch.cumsum(contrib, -1) - contrib
     near = (occ & ((od - od_max).abs() <= K5_OD_NEAR * od_max)).any(-1)
     return (occ & (od < od_max)).sum(-1), near, occ.sum(-1)
+
+
+def k5a_candidates_needed(counted, cfg, march, o, d, jit):
+    """The candidates K5a's pass needs on this data: each ray's pre-pass
+    candidates that start before its t_max, and the cells of its kept
+    supercells (min(the pre-pass count, supers) x pool), summed over the
+    rays (the plain march's own schedule and slab test)."""
+    from umhs_torch.ops.ray_marching import _super_config, _unit, candidate_ts, ray_aabb_intersect
+
+    half = cfg.half_extent * cfg.max_scale
+    t_enter, t_exit = ray_aabb_intersect(o, _unit(d), cfg.center - half, cfg.center + half)
+    t_min = torch.clamp_min(t_enter, march.near_plane)
+    t_max = torch.clamp_max(t_exit, march.far_plane)
+    t0 = t_min if jit is None else t_min + jit * march.render_step_size
+    ts, _ = candidate_ts(t0, _super_config(march))
+    pre = int((ts < t_max[:, None]).sum())
+    fine = int(torch.clamp_max(counted.state[:, 2], march.supers).sum()) * march.pool
+    return pre, fine
 
 
 def k5_case(label, state, cfg, march, o, d, jit, budget):
@@ -2039,13 +2075,22 @@ def phase_k5k7(dev, ptxas, dm):
     print("K5 cases (the plain march's bits, twice): " + json.dumps(cases))
     counted = march_count_cuda(state, cfg, steady, o, d, jit, K5_BUDGET)
     width = counted.state.shape[1]
+    pre_needed, fine_needed = k5a_candidates_needed(counted, cfg, steady, o, d, jit)
+    ops = R * K5A_OPS_RAY + (pre_needed + fine_needed) * K5A_OPS_CANDIDATE
     c5 = {
         "ms": device_ms(lambda: march_count_cuda(state, cfg, steady, o, d, jit, K5_BUDGET)),
         "call_ms": median_ms(lambda: march_count_cuda(state, cfg, steady, o, d, jit, K5_BUDGET)),
         # origins, directions, jitter; the 2 MB word table; the state rows and num_occupied
         "bound_bytes": R * (12 + 12 + 4) + state["packed_words"].numel() * 8
         + R * (width + 1) * 4,
+        "ops": ops,
     }
+    k5a_grids = {label: device_ms(lambda g=g: march_count_cuda(g, cfg, steady, o, d, jit,
+                                                                 K5_BUDGET))
+                 for label, g in (("dense", mark_all_occupied(state)),
+                                  ("empty", init_occ_state(cfg, dev)))}
+    k5a_grids["eval chunk"] = device_ms(lambda: march_count_cuda(
+        state, cfg, steady, o[:4096], d[:4096], None, model._compact_budget(4096, K6_SAMPLES)))
     e5 = {
         "ms": device_ms(lambda: march_emit_cuda(counted)),
         "call_ms": median_ms(lambda: march_emit_cuda(counted)),
@@ -2085,15 +2130,23 @@ def phase_k5k7(dev, ptxas, dm):
 
     def entry(name, t, shape, **extra):
         source, replaces = K5K7_ENTRIES[name]
+        by_bytes = t["bound_bytes"] / H100_BYTES_PER_S * 1e3
+        by_ops = t.get("ops", 0) / H100_F32_FLOPS * 1e3
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "max_abs_err": 0.0, "ms": t["ms"], "call_ms": t["call_ms"],
                 "plain_ms": t["plain_ms"], "library_ms": None,
-                "bound_ms": t["bound_bytes"] / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "bound_ms": max(by_bytes, by_ops),
+                "bound_by": "operations" if by_ops > by_bytes else "bytes",
                 "shape": shape, "ptxas": usage[name], **extra}
 
     entries = [
         entry("march_count", dict(c5, plain_ms=plain_ms), march_shape,
               plain_note="plain_ms: the whole plain march (K5a's and K5b's work)",
+              bound_bytes_ms=c5["bound_bytes"] / H100_BYTES_PER_S * 1e3,
+              bound_ops_ms=ops / H100_F32_FLOPS * 1e3,
+              candidates_needed={"pre_pass": pre_needed, "fine": fine_needed},
+              ms_dense=k5a_grids["dense"], ms_empty=k5a_grids["empty"],
+              ms_eval_chunk=k5a_grids["eval chunk"],
               march_ms=march_ms, march_dense_ms=others["dense"],
               march_empty_ms=others["empty"], cases=cases, od_culling=od),
         entry("march_emit", dict(e5, plain_ms=plain_ms), march_shape,
@@ -2465,6 +2518,10 @@ def schedule_against_tree(tree: Path, losses, adapts, eval_all) -> dict:
     check(psnr >= psnr_tree - SCHEDULE_PSNR_MARGIN_DB,
           f"eval_all_images PSNR {psnr} is more than {SCHEDULE_PSNR_MARGIN_DB} dB below "
           f"{tree}'s {psnr_tree}")
+    if (tree / "umhs_torch" / "csrc" / "march.cu").exists():
+        # a tree with K5's and K7's kernels sums every step as this one does
+        check(first is None and result["adapts_equal"],
+              f"the schedule's losses part from {tree}'s at step {first}, or its adapts do")
     return result
 
 
@@ -2691,6 +2748,22 @@ def k6_tree_cases(dev, case):
     leaves = [weights] + [h for hs in heads for h in hs]
     case("K6 segment_accumulate_fwd_bwd",
          lambda: torch.autograd.grad(sums(), leaves, g_heads), held=True)
+    bwd = getattr(compositing, "render_weights_bwd_cuda", None)
+    if bwd is None:  # a tree without K6's kernels
+        return
+    # K6c's backward alone: phase 7's d sigmas, and nerfacto's shapes with the t gradients
+    case("K6 render_weights_bwd", lambda: bwd(x["ts"], x["te"], x["sigma"], x["mask"], thre,
+                                              K6_EPS, g_w, (True, False, False)))
+    for S_p in K6C_PROPOSAL_SAMPLES:
+        gp = torch.Generator().manual_seed(S_p)
+        dt = torch.rand((NERFACTO_RAYS, S_p), generator=gp) * 0.01 + 1e-4
+        te = (0.05 + torch.cumsum(dt, 1)).to(dev)
+        ts = te - dt.to(dev)
+        sg = (-5.0 * torch.log1p(-torch.rand((NERFACTO_RAYS, S_p), generator=gp))).to(dev)
+        ones = torch.ones((NERFACTO_RAYS, S_p), dtype=torch.bool, device=dev)
+        g_p = torch.randn((NERFACTO_RAYS, S_p), generator=gp).to(dev)
+        case(f"K6 render_weights_bwd nerfacto {S_p}",
+             lambda ts=ts, te=te, sg=sg, ones=ones, g_p=g_p: bwd(ts, te, sg, ones, 0.0, 0.0, g_p))
 
 
 def k5k7_tree_cases(dev, case):
@@ -2701,9 +2774,11 @@ def k5k7_tree_cases(dev, case):
     and phase 7's steady total budget on that grid."""
     from umhs_torch.models.model import UMHSModel
     from umhs_torch.ops.occupancy import (
-        draw_partial_cells, init_occ_state, partial_cells, update_occ_state)
+        draw_partial_cells, init_occ_state, mark_all_occupied, partial_cells, update_occ_state)
+    from umhs_torch.ops import ray_marching
     from umhs_torch.ops.ray_marching import march_rays
 
+    march_count_cuda = getattr(ray_marching, "march_count_cuda", None)
     model = UMHSModel(flagship_model_config(), [400.0 + 2.0 * i for i in range(128)], 6, 16,
                       device=dev)
     cfg, step = model.occ_config, model.render_step_size
@@ -2728,6 +2803,21 @@ def k5k7_tree_cases(dev, case):
     steady = dataclasses.replace(model.march_config, num_samples=K6_SAMPLES)
     case("K5 march", lambda: [v for _, v in sorted(march_rays(
         full, cfg, steady, o, d, t_jitter=jit, total_budget=K5_BUDGET).items())], held=True)
+    for label, grid, rays, jitter, budget in (
+            ("dense", mark_all_occupied(full), R, jit, K5_BUDGET),
+            ("empty", empty, R, jit, K5_BUDGET),
+            ("eval chunk", full, 4096, None, model._compact_budget(4096, K6_SAMPLES))):
+        case(f"K5 march {label}", lambda: [v for _, v in sorted(march_rays(
+            grid, cfg, steady, o[:rays], d[:rays], t_jitter=jitter,
+            total_budget=budget).items())], held=True)
+    if march_count_cuda is None:  # a tree without K5's kernels
+        return
+    for label, grid, rays, jitter, budget in (
+            ("", full, R, jit, K5_BUDGET), (" dense", mark_all_occupied(full), R, jit, K5_BUDGET),
+            (" empty", empty, R, jit, K5_BUDGET),
+            (" eval chunk", full, 4096, None, model._compact_budget(4096, K6_SAMPLES))):
+        case(f"K5a march_count{label}", lambda: [(p.state, p.total, p.num_occupied) for p in [
+            march_count_cuda(grid, cfg, steady, o[:rays], d[:rays], jitter, budget)]][0])
 
 
 def baseline_against_tree(tree: Path) -> dict:
@@ -2749,6 +2839,7 @@ def baseline_against_tree(tree: Path) -> dict:
         turns.append(in_tree(root, "tree_measurements", str(save / str(i))))
     result = {}
     k6_tree = (tree / "umhs_torch" / "ops" / "compact.py").exists()
+    k5_tree = (tree / "umhs_torch" / "csrc" / "march.cu").exists()
     for name in turns[0]:
         r = [t[name] for t in turns]
         check(r[1]["digest"] == r[2]["digest"], f"{name}: this checkout's bits do not repeat")
@@ -2759,14 +2850,26 @@ def baseline_against_tree(tree: Path) -> dict:
             entry[f"turns_{key}"] = [v[key] for v in r]
             entry[f"baseline_{key}"] = (r[0][key] + r[3][key]) / 2
             entry[f"this_{key}"] = (r[1][key] + r[2][key]) / 2
-        # K5: a tree before the budget scale's repair rounds it apart (rarely);
-        # K6d's forward gives the bits of a tree with K6's kernels, its
-        # backward's weights sum in autograd's order
-        held_k6d = name == "K6 segment_accumulate_fwd" and k6_tree
-        if held_k6d or not name.startswith(("K1", "K2", "K5", "K6 render", "K6 segment")):
+        # K5: a tree before the budget scale's one-division repair rounds it
+        # apart (rarely); K6c and K6d's forward give the bits of a tree with
+        # K6's kernels, K6d's backward's weights sum in autograd's order
+        held_k5 = name.startswith("K5") and k5_tree
+        held_k6 = k6_tree and (name.startswith("K6 render") or name == "K6 segment_accumulate_fwd")
+        if held_k5 or held_k6 or not name.startswith(("K1", "K2", "K5", "K6 render",
+                                                      "K6 segment")):
             check(entry["same_bits"], f"{name}: not the bits of {tree}'s kernel")
         result[name] = entry
         print(f"against {tree}: {name}: " + json.dumps(entry))
+    if k5_tree:  # K5a's SASS in the tree's build beside this checkout's
+        from umhs_torch.ops import _native
+
+        built = sorted((tree / "umhs_torch" / "_build").glob("march-*.so"),
+                       key=lambda f: f.stat().st_mtime)
+        check(bool(built), f"K5a SASS: {tree} has no built march-*.so")
+        result["K5a SASS"] = {
+            "tree": sass_loops(built[-1], "18march_count_kernel"),
+            "this": sass_loops(_native.library_path("march.cu"), "18march_count_kernel")}
+        print(f"against {tree}: K5a SASS: " + json.dumps(result["K5a SASS"]))
     theirs, ours = (torch.load(save / str(i) / "dino.pt") for i in (0, 1))
     check(torch.allclose(theirs["y"], ours["y"], rtol=2e-2, atol=2e-2),
           f"K1 dino: {tree}'s output differs by more than 2e-2")
@@ -4076,6 +4179,59 @@ def phase_mesh_two_ranks(endmembers):
     return {sym: [r["launches"][sym] for r in results] for sym in r0["launches"]}
 
 
+SASS_INSTRUCTION = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+SASS_COUNTED = ("LDG", "SHFL", "MUFU", "VOTE", "POPC", "BAR")  # opcode stems counted per loop
+
+
+def sass_loops(library: Path, kernel: str) -> dict:
+    """The static SASS of the one device function of a built library whose
+    mangled name holds `kernel` (cuobjdump -sass, beside nvcc): its
+    instructions, and the span of every backward branch (from its target
+    to the branch: a loop's body, or blocks the compiler laid out between,
+    so spans may overlap) with its instructions and, among them, the loads
+    (LDG), shuffles (SHFL), special-function ops (MUFU), votes, popcounts
+    and barriers, and whether it holds no other span ("inner"). A static
+    count: each path through a span's branches counts once."""
+    from umhs_torch.ops import _native
+
+    tool = Path(_native._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    found = [f for f in re.split(r"\n\s*Function : ", text)[1:] if kernel in f.split()[0]]
+    if len(found) != 1:
+        return {"error": f"{len(found)} functions named like {kernel} in {library.name}"}
+    insts, labels = [], {}
+    for line in found[0].splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = len(insts)
+            continue
+        m = SASS_INSTRUCTION.search(line)
+        if m:
+            insts.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    at = {addr: i for i, (addr, _, _) in enumerate(insts)}
+    loops = []
+    for i, (addr, op, rest) in enumerate(insts):
+        if op.split(".")[0] != "BRA":
+            continue
+        target = re.search(r"0x([0-9a-f]+)\s*$", rest.strip())
+        label = re.search(r"\((\.L_x_\d+)\)", rest)
+        first = (at.get(int(target.group(1), 16)) if target
+                 else labels.get(label.group(1)) if label else None)
+        if first is None or first >= i:  # forward, or the branch to itself after EXIT
+            continue
+        ops = [o.split(".")[0] for _, o, _ in insts[first:i + 1]]
+        loops.append({"first": hex(insts[first][0]), "last": hex(addr),
+                      "instructions": i + 1 - first,
+                      **{k.lower(): ops.count(k) for k in SASS_COUNTED}})
+    span = [(int(lp["first"], 16), int(lp["last"], 16)) for lp in loops]
+    for lp, (a, b) in zip(loops, span):  # innermost: holds no other span
+        lp["inner"] = not any(a <= c and d <= b and (c, d) != (a, b) for c, d in span)
+    return {"function": found[0].split()[0], "instructions": len(insts),
+            "loops": sorted(loops, key=lambda lp: int(lp["first"], 16))}
+
+
 def ptxas_usage(log: str) -> dict:
     """{kernel<template args>: registers and spill bytes} from nvcc -Xptxas=-v."""
     usage, kernel = {}, None
@@ -4169,15 +4325,17 @@ def main() -> None:
             against = baseline_against_tree(args.baseline)
             for entry, prefix in ((k1, "K1 "), (k2, "K2 "), (k3, "K3 "), (k4, "K4 "), (p1, "P1 ")):
                 entry["against_tree"] = {k: v for k, v in against.items() if k.startswith(prefix)}
-            for entry in k6:  # render_weights_bwd: the tree's forward and backward
-                stem = entry["name"].replace("_bwd", "_fwd_bwd")
+            for entry in k6:  # render_weights_bwd: the tree's forward and backward too
+                kernel = entry["name"]
+                stem = kernel.replace("_bwd", "_fwd_bwd")
                 entry["against_tree"] = {k: v for k, v in against.items()
-                                         if k == f"K6 {stem}"}
+                                         if k in (f"K6 {stem}", f"K6 {kernel}")
+                                         or k.startswith(f"K6 {kernel} ")}
         dm, endmembers, cam = bench_scene_in_memory(dev)
         k5k7 = phase_k5k7(dev, ptxas, dm)
         if args.baseline:
             for entry in k5k7:
-                prefix = "K5 " if entry["name"].startswith("march") else "K7 "
+                prefix = "K5" if entry["name"].startswith("march") else "K7 "
                 entry["against_tree"] = {k: v for k, v in against.items() if k.startswith(prefix)}
         trainer, render_launches = phase_render(dev, dm, endmembers, cam)
         phase_kernels_vs_plain(trainer, cam, dev)

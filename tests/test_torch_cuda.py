@@ -1107,6 +1107,56 @@ def test_k6c_matches_plain_and_f64(cuda, S, thre, eps):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("S", [1, 7, 32, 33, 48, 64, 96, 256])
+@pytest.mark.parametrize("thre,eps", [(0.01, 1e-4), (0.01, 0.0), ("tensor", 1e-4),
+                                      ("tensor", 0.0)],
+                         ids=["float-eps", "float", "tensor-eps", "tensor"])
+def test_k6c_backward_every_shape(cuda, S, thre, eps):
+    """K6c's backward at every lane count the forward takes, on rows of
+    stride S + 5 (column slices of wider tensors): each of dsigma, dts and
+    dte wanted or not gives the bits of the call that wants all three;
+    where the forward dropped a lane (masked, or alpha under the threshold)
+    every gradient is 0; the backward's t gradient is 0 exactly where the
+    forward kernel's weight is 0 (its recomputed keep, alive and T are the
+    forward's); the gradients within the plain version's error of f64 plus
+    1e-5 of the largest entry."""
+    R, W = 300, S + 5
+    gen = torch.Generator().manual_seed(100 + S)
+    dt = torch.rand((R, W), generator=gen) * 0.02 + 0.002
+    te = 0.5 + torch.cumsum(dt, 1)
+    ts = te - dt
+    ts[::17, 0] += 0.05  # negative intervals: clamp_min passes no t gradient
+    sg = torch.distributions.Exponential(0.05).sample((R, W))
+    sg[::5] *= 0.02  # many lanes under the alpha threshold
+    m = torch.rand((R, W), generator=gen) < 0.8
+    ts, te, sg, m = (t.to(cuda)[:, 2:2 + S] for t in (ts, te, sg, m))
+    assert ts.stride(0) == W
+    tthre = torch.tensor(0.01, device=cuda) if thre == "tensor" else thre
+    g = torch.randn((R, S), device=cuda, generator=torch.Generator(cuda).manual_seed(S))
+    full = k6_comp.render_weights_bwd_cuda(ts, te, sg, m, tthre, eps, g)
+    for need in [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]:
+        got = k6_comp.render_weights_bwd_cuda(ts, te, sg, m, tthre, eps, g, need)
+        for want, x, y in zip(need, got, full):
+            assert (x is None) == (not want)
+            if want:
+                assert torch.equal(x, y), need
+    w = k6_comp.render_weights_cuda(ts, te, sg, m, tthre, eps)
+    assert torch.equal(full[2] != 0, w != 0)
+    x = torch.where(m, sg * torch.clamp_min(te - ts, 0.0), torch.zeros_like(sg))
+    dropped = ~m | (1.0 - torch.exp(-x) < 0.01 * (1.0 - 1e-5))  # clear of rounding at 0.01
+    for y in full:
+        assert bool((y[dropped] == 0).all())
+    ref, refs = _rw_reference(ts, te, sg, m, tthre, eps)
+    pins = [t.clone().requires_grad_(True) for t in (ts, te, sg)]
+    wp = k6_comp.render_weights(*pins, m, tthre, eps, impl="plain")
+    pgrads = torch.autograd.grad(wp, pins, g)
+    rgrads = torch.autograd.grad(ref, refs, g.double())
+    for name, a, p, r in zip(("t_starts", "t_ends", "sigmas"), (full[1], full[2], full[0]),
+                             pgrads, rgrads):
+        e, pe = (float((v.double() - r).abs().max()) for v in (a, p))
+        assert e <= pe + 1e-5 * float(r.abs().max()), (name, e, pe)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("C", [1, 6, 33, 128])
 @pytest.mark.parametrize("R,S,lo,hi,budget,dead", [K6A_CASES[3], K6A_CASES[4], K6A_CASES[6]])
@@ -1274,6 +1324,60 @@ def test_k5_matches_plain_bit_for_bit(cuda, case):
         assert int(n.sum()) > 0
     if budget is not None:
         assert int(n.sum()) <= budget
+
+
+@pytest.mark.parametrize("grid", ["dense", "random"])
+@pytest.mark.parametrize("supers", [1, 7, 8, 9, 31, 32, 40])
+def test_k5_prepass_budgets_bit_for_bit(cuda, supers, grid):
+    """The pre-pass budget min(count, supers) at 1, 7, 8, 9, 31, 32 and 40
+    supercells (pool 4: budget x pool on and beside the 32-candidate words'
+    edges, and past one round of 32 slots), with rays that miss the box or
+    keep nothing (budget 0): K5 against the plain march bit for bit, with a
+    batch budget and without."""
+    cfg, state = _k5_grid(cuda, 32, 2, 4, grid)
+    march = _k5_march(32, 4, pool_supers=supers)
+    o, d, jit = _k5_rays(cuda, 1001, seed=supers)
+    for budget in (None, 8 * 1001):
+        ref = k5_march.march_rays_plain(state, cfg, march, o, d, jit, budget)
+        got = k5_march.march_rays_cuda(state, cfg, march, o, d, jit, budget)
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+    counted = k5_march.march_count_cuda(state, cfg, march, o, d, jit)
+    kept = torch.clamp_max(counted.state[:, 2], supers)
+    assert bool((kept == 0).any())
+    if grid == "dense":
+        assert bool((kept == supers).any())
+
+
+K5_STOP_CASES = {  # label: (pool, march kw, rays kind)
+    "no-pre-pass": (0, {}, "rays"),
+    "no-pre-pass-cone-0": (0, dict(cone_angle=0.0), "rays"),
+    "pre-pass-cone-0": (4, dict(cone_angle=0.0), "rays"),
+    "no-pre-pass-k-1": (0, dict(num_candidates=256, num_samples=48, occ_subsamples=1), "rays"),
+    "all-miss": (4, {}, "miss"),
+    "all-miss-no-pre-pass": (0, {}, "miss"),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_STOP_CASES))
+def test_k5_stops_past_t_max_bit_for_bit(cuda, case):
+    """K5a stops a ray's candidate words at the first word that ends past
+    t_max: without a pre-pass, at cone 0, and on rays that all miss the box
+    (no candidate in range, the first word the last): the plain march's
+    bits."""
+    pool, kw, kind = K5_STOP_CASES[case]
+    cfg, state = _k5_grid(cuda, 32, 2, pool, "random")
+    march = _k5_march(32, pool, **kw)
+    o, d, jit = _k5_rays(cuda, 1001)
+    if kind == "miss":
+        o, d = o + 50.0, d.abs() + 0.1
+    for budget in (None, 12 * 1001):
+        got = k5_march.march_rays_cuda(state, cfg, march, o, d, jit, budget)
+        ref = k5_march.march_rays_plain(state, cfg, march, o, d, jit, budget)
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+    if kind == "miss":
+        assert int(got["num_occupied"].sum()) == 0
 
 
 def test_k5_launches_through_the_wrapper(cuda):

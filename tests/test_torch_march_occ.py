@@ -173,6 +173,85 @@ def test_march_matches_jax_in_other_layouts(case):
     assert int(tr["num_samples"].sum()) > 0
 
 
+# ---------------------------------------- what K5a's walk of the words relies on
+@pytest.mark.parametrize("pool_supers", [0, 7, 9])
+@pytest.mark.parametrize("grid", ["random", "dense"])
+def test_candidates_past_the_prepass_budget_are_never_occupied(grid, pool_supers):
+    """K5a walks a ray's cell candidates only up to ceil(budget * pool / 32)
+    words, budget = min(the pre-pass's count, supers). In the plain march
+    the kept supercells are a prefix of the slots (a kept slot's dt > 0, a
+    dropped one's 0) and no candidate of a slot at or past the budget is
+    occupied; rays that miss the box keep none."""
+    jcfg, _, tcfg, tmarch = _configs(pool_supers=pool_supers)
+    _, _, tstate = _states(_bitfield(grid), jcfg, tcfg)
+    o, d = _rays()
+    c = t_march.march_candidates_plain(tstate, tcfg, tmarch, torch.from_numpy(o),
+                                       torch.from_numpy(d))
+    supers, p = tmarch.supers, tmarch.pool
+    slot_kept = c["dts"].reshape(RAYS, supers, p)[:, :, 0] > 0
+    budget = slot_kept.sum(-1)
+    assert torch.equal(slot_kept, torch.arange(supers)[None, :] < budget[:, None])
+    assert not bool(c["occupied"].reshape(RAYS, supers, p)[~slot_kept].any())
+    assert int(budget[40:80].max()) == 0
+    assert int(budget.max()) == supers if grid == "dense" else int(budget.max()) > 0
+
+
+@pytest.mark.parametrize("schedule", ["coarse", "pre-pass"])
+@pytest.mark.parametrize("cone", [0.0, 0.004])
+def test_candidate_schedule_never_decreases(cone, schedule):
+    """K5a stops a ray's words at the first word whose last candidate starts
+    at or past t_max; that relies on t never decreasing with the candidate
+    index. Checked on the plain schedule (and its recompute at an index,
+    which must agree) from starts at the near plane to far past the switch
+    to geometric steps, around that switch one ulp at a time, at cone 0 and
+    at the flagship's cone, for the schedule without a pre-pass and the
+    pre-pass's."""
+    _, _, _, tmarch = _configs(cone_angle=cone)
+    sched = (t_march._super_config(tmarch) if schedule == "pre-pass"
+             else t_march._coarse_config(tmarch))
+    starts = [np.linspace(0.05, 40.0, 2001, dtype=np.float32)]
+    if cone > 0.0:
+        t_crit = np.float32(sched.render_step_size / sched.cone_angle)
+        starts.append(t_crit + np.arange(-64, 65, dtype=np.float32) * np.spacing(t_crit))
+        steps = np.arange(1, 9, dtype=np.float32)
+        starts.append(t_crit - np.float32(sched.render_step_size) * steps)
+    t0 = torch.from_numpy(np.concatenate(starts))
+    ts, dts = t_march.candidate_ts(t0, sched)
+    assert bool((ts[:, 1:] >= ts[:, :-1]).all())
+    assert bool((dts > 0).all())
+    idx = torch.arange(sched.num_candidates).expand(t0.shape[0], -1)
+    again, _ = t_march._ts_at_index(t0, sched, idx)
+    assert torch.equal(again, ts)
+
+
+def _f32_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("k", range(8))
+def test_division_by_a_power_of_two_is_a_product(k):
+    """locate_cell takes rel / 2^lvl as rel * 2^-lvl: both round the same
+    real number once, so the f32 bits agree, over seeded values of every
+    magnitude and random bit patterns (subnormals, NaN among them) and the
+    edges: +-0, subnormals, the smallest normal, the largest finite, +-inf
+    and NaN."""
+    rng = np.random.default_rng(k)
+    scaled = rng.standard_normal(4096) * 10.0 ** rng.integers(-45, 39, 4096)
+    patterns = rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    tiny = np.finfo(np.float32).tiny
+    edges = np.array([0.0, -0.0, tiny, -tiny, tiny / 2, tiny / 3, 1e-45, -1e-45, 3e-45,
+                      np.finfo(np.float32).max, -np.finfo(np.float32).max, np.inf, -np.inf,
+                      np.nan, 1.0, -1.0, 1.5, 2.0 ** 127], dtype=np.float32)
+    with np.errstate(over="ignore"):
+        x = torch.from_numpy(np.concatenate([scaled.astype(np.float32), patterns, edges]))
+    quotient = x / torch.exp2(torch.tensor(float(k)))  # as the plain version divides
+    product = x * torch.tensor(2.0 ** -k, dtype=torch.float32)
+    nan = torch.isnan(quotient)
+    assert torch.equal(nan, torch.isnan(product))
+    assert torch.equal(_f32_bits(quotient[~nan]), _f32_bits(product[~nan]))
+    assert bool((quotient[~nan].abs() < tiny).any())  # subnormal quotients were met
+
+
 # -------------------------------------------------------------- the update
 def _density(pos):
     """A density both packages compute exactly: 30 in a box around the

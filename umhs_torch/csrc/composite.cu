@@ -14,8 +14,11 @@
 //   T = exp(-c); alive = T >= eps (every lane when eps <= 0);
 //   w = (keep && alive ? a : 0) * T.
 // The scan runs in the warp with shuffles, chunk after chunk with a carry.
-// Its backward recomputes the forward, then takes the exclusive suffix sum
-// of g * w the same way from the last chunk down:
+// Its backward loads a ray's inputs and g at once (its chunk count a
+// template parameter: 1, 2, 4 or 8 for S <= 32, 64, 128, 256), recomputes
+// the forward with the same shuffle trees and carries (each chunk's tree on
+// its own, side by side, then the carries in chunk order), then takes the
+// exclusive suffix sum of g * w the same way from the last chunk down:
 //   dx = keep ? (alive ? g * T * exp(-x) : 0) - sum_{j > i} g_j w_j : 0,
 //   dsigma = mask ? dx * delta : 0, ddelta = mask ? dx * sigma : 0, passed
 //   where t_end - t_start >= 0 (torch's clamp_min), to t_end and -t_start.
@@ -38,7 +41,7 @@
 // is taken in a fixed order, so every run gives the same bits.
 //
 // What bounds them on an H100: bytes. K6c reads four (R, S) inputs and
-// writes one (its backward reads five and writes up to three). K6d's
+// writes one (its backward reads five, once, and writes up to three). K6d's
 // forward reads each stage's rows once (C values, src, the weight) with
 // its starts and counts, and writes (R, C) once. Its design: a group of G
 // lanes a ray (G = 32 for heads wider than 64 channels, fewer for narrow
@@ -103,6 +106,42 @@ struct Lane {
   bool on, keep, alive;
 };
 
+// One lane's values in K6c's backward: the forward's, as forward_lanes
+// computes them, with e = exp(-x) kept and t_end - t_start >= 0 (where
+// clamp_min passes the gradient).
+struct BackLane : Lane {
+  float e;
+  bool ordered;
+};
+
+// A lane's values before the scan, from its loads (in_row: s < S), in
+// forward_lanes' operations.
+__device__ __forceinline__ void lane_start(BackLane& v, bool in_row, float ts, float te,
+                                           float sigma, uint8_t m, int32_t use_thre,
+                                           float thre) {
+  v.on = in_row && m != 0;
+  v.delta = 0.0f;
+  v.sigma = 0.0f;
+  v.x = 0.0f;
+  v.ordered = false;
+  if (in_row) {
+    const float diff = te - ts;
+    v.delta = fmaxf(diff, 0.0f);
+    v.ordered = diff >= 0.0f;
+    v.sigma = sigma;
+    if (v.on) v.x = __fmul_rn(v.sigma, v.delta);
+  }
+  v.e = expf(-v.x);
+  v.a = 1.0f - v.e;
+  v.keep = use_thre ? (v.on && v.a >= thre) : true;
+}
+
+// A lane's transmittance from its exclusive optical depth c.
+__device__ __forceinline__ void lane_finish(BackLane& v, float c, float eps) {
+  v.T = expf(-c);
+  v.alive = eps <= 0.0f || v.T >= eps;
+}
+
 __device__ __forceinline__ float warp_exclusive_scan(float v, int lane, float* chunk_total) {
   float incl = v;
 #pragma unroll
@@ -127,10 +166,16 @@ __device__ __forceinline__ float warp_exclusive_suffix(float v, int lane, float*
   return lane == 31 ? 0.0f : excl;
 }
 
+__device__ __forceinline__ float alpha_threshold(const RayInputs& in) {
+  return in.use_thre ? (in.thre_ptr ? *in.thre_ptr : in.thre_val) : 0.0f;
+}
+
 // The forward of every lane of ray r, chunk k at lane `lane`; L[k] filled.
+// K6c's backward recomputes it with lane_start, the same shuffle tree and
+// lane_finish, in the same operations: a change here is made there too.
 __device__ __forceinline__ void forward_lanes(const RayInputs& in, int64_t r, int lane,
                                               Lane* L) {
-  const float thre = in.use_thre ? (in.thre_ptr ? *in.thre_ptr : in.thre_val) : 0.0f;
+  const float thre = alpha_threshold(in);
   float carry = 0.0f;
 #pragma unroll
   for (int k = 0; k < kChunks; ++k) {
@@ -175,43 +220,96 @@ render_weights_fwd_kernel(RayInputs in, float* __restrict__ w) {
   }
 }
 
-// g: (R, S) contiguous; dsigma, dts, dte: (R, S) contiguous, each null when
-// not wanted.
+// K6c backward: one ray's inputs, NC chunks of 32 lanes, loaded at once.
+template <int NC>
+struct RayLoads {
+  float ts[NC], te[NC], sigma[NC], g[NC];
+  uint8_t m[NC];
+};
+
+// g: (R, S) contiguous. Every load of ray r in one go (0 past S).
+template <int NC>
+__device__ __forceinline__ void load_ray(const RayInputs& in, const float* __restrict__ g,
+                                         int64_t r, int lane, RayLoads<NC>& v) {
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int s = k * 32 + lane;
+    const bool in_row = s < in.S;
+    v.ts[k] = in_row ? in.ts[r * in.ts_stride + s] : 0.0f;
+    v.te[k] = in_row ? in.te[r * in.te_stride + s] : 0.0f;
+    v.sigma[k] = in_row ? in.sigma[r * in.sigma_stride + s] : 0.0f;
+    v.m[k] = in_row ? in.mask[r * in.mask_stride + s] : 0;
+    v.g[k] = in_row ? g[r * in.S + s] : 0.0f;
+  }
+}
+
+// The backward of ray r from its loads, S <= 32 * NC. The forward is
+// recomputed as forward_lanes computes it: each chunk's scan by the same
+// shuffle tree (the chunks' trees are independent, so they run side by
+// side), then the carries added in chunk order. The suffix sums of g * w
+// likewise: each chunk's tree, then the carries from the last chunk down;
+// a chunk at or past S takes no part, as the forward never reaches it.
+template <int NC>
+__device__ __forceinline__ void backward_ray(const RayInputs& in, float thre,
+                                             const RayLoads<NC>& v, int64_t r, int lane,
+                                             float* __restrict__ dsigma, float* __restrict__ dts,
+                                             float* __restrict__ dte) {
+  BackLane L[NC];
+  float excl[NC], total[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    lane_start(L[k], k * 32 + lane < in.S, v.ts[k], v.te[k], v.sigma[k], v.m[k], in.use_thre,
+               thre);
+    excl[k] = warp_exclusive_scan(L[k].keep ? L[k].x : 0.0f, lane, &total[k]);
+  }
+  float carry = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    lane_finish(L[k], carry + excl[k], in.eps);
+    carry += total[k];
+  }
+  float after_excl[NC], after_total[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+    after_excl[k] = warp_exclusive_suffix(__fmul_rn(v.g[k], lane_weight(L[k])), lane,
+                                          &after_total[k]);
+  float after = 0.0f;  // sum of g * w over the chunks past this one
+#pragma unroll
+  for (int k = NC - 1; k >= 0; --k) {
+    if (k * 32 >= in.S) continue;  // uniform over the warp
+    const float later = after + after_excl[k];
+    after += after_total[k];
+    const int s = k * 32 + lane;
+    if (s >= in.S) continue;
+    const BackLane& u = L[k];
+    float dx = 0.0f;
+    if (u.keep) {
+      const float direct = u.alive ? __fmul_rn(__fmul_rn(v.g[k], u.T), u.e) : 0.0f;
+      dx = direct - later;
+    }
+    const int64_t o = r * in.S + s;
+    const float dx_on = u.on ? dx : 0.0f;
+    if (dsigma) dsigma[o] = __fmul_rn(dx_on, u.delta);
+    if (dts || dte) {
+      const float dd = u.ordered ? __fmul_rn(dx_on, u.sigma) : 0.0f;
+      if (dte) dte[o] = dd;
+      if (dts) dts[o] = -dd;
+    }
+  }
+}
+
+// dsigma, dts, dte: (R, S) contiguous, each null when not wanted. A warp a
+// ray, kWarps rays a block.
+template <int NC>
 __global__ void __launch_bounds__(kWarps * 32)
 render_weights_bwd_kernel(RayInputs in, const float* __restrict__ g, float* __restrict__ dsigma,
                           float* __restrict__ dts, float* __restrict__ dte) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= in.R) return;  // uniform over the warp
-  Lane L[kChunks];
-  forward_lanes(in, r, lane, L);
-  float after = 0.0f;  // sum of g * w over the chunks past this one
-#pragma unroll
-  for (int k = kChunks - 1; k >= 0; --k) {
-    if (k * 32 >= in.S) continue;  // uniform over the warp
-    const int s = k * 32 + lane;
-    const Lane& v = L[k];
-    const float gk = s < in.S ? g[r * in.S + s] : 0.0f;
-    float chunk_total;
-    const float later = after + warp_exclusive_suffix(__fmul_rn(gk, lane_weight(v)), lane,
-                                                      &chunk_total);
-    after += chunk_total;
-    if (s >= in.S) continue;
-    float dx = 0.0f;
-    if (v.keep) {
-      const float direct = v.alive ? __fmul_rn(__fmul_rn(gk, v.T), expf(-v.x)) : 0.0f;
-      dx = direct - later;
-    }
-    const int64_t o = r * in.S + s;
-    const float dx_on = v.on ? dx : 0.0f;
-    if (dsigma) dsigma[o] = __fmul_rn(dx_on, v.delta);
-    if (dts || dte) {
-      const float diff = in.te[r * in.te_stride + s] - in.ts[r * in.ts_stride + s];
-      const float dd = diff >= 0.0f ? __fmul_rn(dx_on, v.sigma) : 0.0f;
-      if (dte) dte[o] = dd;
-      if (dts) dts[o] = -dd;
-    }
-  }
+  RayLoads<NC> v;
+  load_ray(in, g, r, lane, v);
+  backward_ray(in, alpha_threshold(in), v, r, lane, dsigma, dts, dte);
 }
 
 template <typename T>
@@ -430,6 +528,14 @@ RayInputs ray_inputs(const float* ts, int64_t ts_stride, const float* te, int64_
                    R, S, thre_ptr, thre_val, use_thre, eps};
 }
 
+template <int NC>
+cudaError_t launch_render_weights_bwd(const RayInputs& in, const float* g, float* dsigma,
+                                      float* dts, float* dte, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(in.R) + kWarps - 1) / kWarps);
+  render_weights_bwd_kernel<NC><<<blocks, kWarps * 32, 0, stream>>>(in, g, dsigma, dts, dte);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K6c forward. ts, te, sigma: (R, S) f32 and mask (R, S) bool, each with its
@@ -466,9 +572,11 @@ extern "C" int umhs_render_weights_bwd(const float* ts, int64_t ts_stride, const
   if (R == 0) return cudaSuccess;
   const RayInputs in = ray_inputs(ts, ts_stride, te, te_stride, sigma, sigma_stride, mask,
                                   mask_stride, R, S, thre_ptr, thre_val, use_thre, eps);
-  render_weights_bwd_kernel<<<static_cast<unsigned>((R + kWarps - 1) / kWarps), kWarps * 32, 0,
-                              static_cast<cudaStream_t>(stream)>>>(in, g, dsigma, dts, dte);
-  return cudaGetLastError();
+  const auto launch = S <= 32   ? launch_render_weights_bwd<1>
+                      : S <= 64  ? launch_render_weights_bwd<2>
+                      : S <= 128 ? launch_render_weights_bwd<4>
+                                 : launch_render_weights_bwd<8>;
+  return launch(in, g, dsigma, dts, dte, static_cast<cudaStream_t>(stream));
 }
 
 // The size of umhs::SegmentStage, for the ctypes mirror's check.

@@ -28,17 +28,24 @@
 // K5a (march_count_kernel): a warp a ray. Each lane takes every 32nd
 // candidate; a ballot gives a 32-bit word of occupancy bits per 32
 // candidates, and word w stays in lane w (so a stage holds at most 1,024
-// candidates). It writes the ray's state (t0, count, the pre-pass's count,
-// the fine and pre-pass words), num_occupied, and adds the block's sum of
-// min(count, Sc) to a device int32 total (one integer atomicAdd a block:
-// exact and order-free). K5b (march_emit_kernel): a warp a ray again. The
-// batch scale from the device total, then per output column the slot's
-// rank, its candidate found by a shuffle binary search over the words'
-// running counts and a popcount search in the word, the candidate's (t, dt)
-// recomputed (for a cell candidate, its supercell's too), and the k fine
-// intervals written straight into the (R, S) outputs. No float atomics, no
-// host sync; every output is written by one thread, so every run gives the
-// same bits.
+// candidates). It walks only the words that can hold an occupied candidate:
+// the pre-pass's words and, without a pre-pass, the cells' up to the first
+// word whose last candidate starts at or past t_max (the schedule's t never
+// decreases with the index); after a pre-pass, the cells' words up to
+// ceil(budget * pool / 32), budget = min(the pre-pass's count, supers),
+// none when it kept nothing. Each kept supercell's interval is computed
+// once, by one lane, and handed to its pool cell candidates by shuffle. It
+// writes the ray's state (t0, count, the pre-pass's count, the fine and
+// pre-pass words; the words it did not walk are 0), num_occupied, and adds
+// the block's sum of min(count, Sc) to a device int32 total (one integer
+// atomicAdd a block: exact and order-free). K5b (march_emit_kernel): a warp
+// a ray again. The batch scale from the device total, then per output
+// column the slot's rank, its candidate found by a shuffle binary search
+// over the words' running counts and a popcount search in the word, the
+// candidate's (t, dt) recomputed (for a cell candidate, its supercell's
+// too), and the k fine intervals written straight into the (R, S) outputs.
+// No float atomics, no host sync; every output is written by one thread, so
+// every run gives the same bits.
 //
 // The arithmetic follows PyTorch's CUDA kernels op by op (occupancy.cuh),
 // so the outputs equal the plain version's on the card bit for bit. The od
@@ -48,9 +55,9 @@
 // What bounds it on an H100: neither bytes nor operations at these sizes.
 // The outputs are (2 * 4 + 1) * S bytes a ray (~48.6 MB at phase 7's 79,360
 // rays and S 64, ~0.015 ms); the word table (2 MB) stays in the L2. Each
-// candidate costs an exp, a log2, four IEEE divisions and a dependent L2
-// load, so the work is latency: a simple design first, no tiling of the
-// table in shared memory.
+// candidate costs an exp, a log2, three IEEE divisions and a dependent L2
+// load, so the work is latency and issue: K5a's design cuts the candidates
+// and the instructions a candidate, not the bytes.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -93,7 +100,8 @@ namespace {
 using umhs::MarchParams;
 using umhs::Schedule;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;  // rays per block
+constexpr int kWarps = 8;  // rays per block (K5b)
+constexpr int kCountWarps = 4;  // rays per block (K5a; of 2, 4 and 8 by a timed sweep)
 enum Query { kNone = 0, kPacked = 1, kBytes = 2 };
 
 // Schedule state of one ray: the linear steps before the geometric phase.
@@ -281,16 +289,55 @@ __device__ __forceinline__ PrePass pre_pass_of(const MarchParams& P, unsigned wo
   return A;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// One word of cell candidates, candidate 32 * c + lane in this lane: its
+// occupancy bit, the od culling's when on, the ballot kept in lane c.
+__device__ __forceinline__ void fine_word(const MarchParams& P, const float o[3],
+                                          const float d[3], float ts, float dts, bool in_range,
+                                          const int64_t* __restrict__ packed,
+                                          const uint8_t* __restrict__ binaries,
+                                          const float* __restrict__ occs_low, int c, int lane,
+                                          float& od_run, unsigned& word) {
+  bool occ = false;
+  int64_t cell = 0;
+  if (in_range) {
+    float pos[3];
+    midpoint(o, d, ts, dts, pos);
+    occ = query_fine(P, pos, packed, binaries, cell);
+  }
+  if (P.od) {
+    // od before this candidate: the occupied candidates' occs_low * dt
+    // / dt0 summed one at a time in candidate order
+    const float contrib =
+        __fmul_rn(occ ? occs_low[cell] : 0.0f, __fmul_rn(dts, P.od_inv_step));
+    float od_here = 0.0f;
+    for (int l = 0; l < 32; ++l) {
+      const float cl = __shfl_sync(kFull, contrib, l);
+      if (lane == l) od_here = od_run;
+      od_run = __fadd_rn(od_run, cl);
+    }
+    occ = occ && od_here < P.od_max;
+  }
+  const unsigned b = __ballot_sync(kFull, occ);
+  if (lane == c) word = b;
+}
+
+// True when the word's last candidate (lane 31's) starts at or past t_max.
+// A schedule's t never decreases with the index, so every later word's
+// candidates are out of range too: a loop may stop there, uniformly.
+__device__ __forceinline__ bool past_t_max(float t, float t_max) {
+  return (__ballot_sync(kFull, t >= t_max) >> 31) != 0;
+}
+
+__global__ void __launch_bounds__(kCountWarps * 32)
 march_count_kernel(const MarchParams P, const float* __restrict__ origins,
                    const float* __restrict__ dirs, const float* __restrict__ jitter,
                    const int64_t* __restrict__ packed, const uint8_t* __restrict__ binaries,
                    const uint8_t* __restrict__ pooled, const float* __restrict__ occs_low,
                    int32_t* __restrict__ state, int32_t* __restrict__ total,
                    int32_t* __restrict__ num_occupied) {
-  __shared__ int32_t block_keep[kWarps];
+  __shared__ int32_t block_keep[kCountWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int32_t r = blockIdx.x * kWarps + warp;
+  const int32_t r = blockIdx.x * kCountWarps + warp;
   int32_t keep = 0;
   if (r < P.R) {  // uniform over the warp
     float o[3], d[3];
@@ -315,66 +362,62 @@ march_count_kernel(const MarchParams P, const float* __restrict__ origins,
     const float t0 =
         jitter != nullptr ? __fadd_rn(t_min, __fmul_rn(jitter[r], P.jitter_step)) : t_min;
 
-    // 2. the pre-pass's supercell words
-    unsigned word_pre = 0;
+    unsigned word = 0, word_pre = 0;
     int count_pre = 0;
-    PrePass A{};
+    float od_run = 0.0f;
     if (P.pre_mode != kNone) {
+      // 2. the pre-pass's supercell words, up to the first word past t_max
       const RaySchedule rs = ray_schedule(P.pre, t0);
       for (int c = 0; c < P.words_pre; ++c) {
         const int j = 32 * c + lane;
+        float t, dt;
+        schedule_at(P.pre, rs, static_cast<float>(j), t, dt);
         bool occ = false;
-        if (j < P.Ma) {
-          float t, dt, pos[3];
-          schedule_at(P.pre, rs, static_cast<float>(j), t, dt);
-          if (t < t_max) {
-            midpoint(o, d, t, dt, pos);
-            occ = query_pre(P, pos, packed, pooled);
-          }
+        if (j < P.Ma && t < t_max) {
+          float pos[3];
+          midpoint(o, d, t, dt, pos);
+          occ = query_pre(P, pos, packed, pooled);
         }
         const unsigned b = __ballot_sync(kFull, occ);
         if (lane == c) word_pre = b;
+        if (past_t_max(t, t_max)) break;
       }
       count_pre = warp_sum(__popc(word_pre));
-      A = pre_pass_of(P, word_pre, count_pre, t0, lane);
-    }
+      const PrePass A = pre_pass_of(P, word_pre, count_pre, t0, lane);
 
-    // 3. the cell candidates' words, with the optional od culling
-    const RaySchedule rc = ray_schedule(P.coarse, t0);
-    unsigned word = 0;
-    float od_run = 0.0f;
-    for (int c = 0; c < P.words_fine; ++c) {
-      const int j = 32 * c + lane;
-      float ts = 0.0f, dts = 0.0f;
-      bool in_range;
-      if (P.pre_mode != kNone) {
-        in_range = fine_interval(P, A, j < P.M ? j : P.M - 1, ts, dts) && j < P.M;
-      } else {
-        schedule_at(P.coarse, rc, static_cast<float>(j), ts, dts);
-        in_range = j < P.M && ts < t_max;
-      }
-      bool occ = false;
-      int64_t cell = 0;
-      if (in_range) {
-        float pos[3];
-        midpoint(o, d, ts, dts, pos);
-        occ = query_fine(P, pos, packed, binaries, cell);
-      }
-      if (P.od) {
-        // od before this candidate: the occupied candidates' occs_low * dt
-        // / dt0 summed one at a time in candidate order
-        const float contrib =
-            __fmul_rn(occ ? occs_low[cell] : 0.0f, __fmul_rn(dts, P.od_inv_step));
-        float od_here = 0.0f;
-        for (int l = 0; l < 32; ++l) {
-          const float cl = __shfl_sync(kFull, contrib, l);
-          if (lane == l) od_here = od_run;
-          od_run = __fadd_rn(od_run, cl);
+      // 3. the cells of the kept supercells. Slot s's interval is computed
+      // once, by lane s % 32 in round s / 32, and handed to its pool cell
+      // candidates by shuffle; a round's slots hold words [pool * h, pool *
+      // (h + 1)). Candidates of slots at or past the budget are never
+      // occupied, so the words past ceil(budget * pool / 32) stay 0.
+      const int words = (A.budget * P.pool + 31) >> 5;
+      for (int h = 0; 32 * h < A.budget; ++h) {  // uniform over the warp
+        float tA, dtA;
+        pre_slot(P, A, 32 * h + lane, tA, dtA);
+        const int c_end = min(P.pool * (h + 1), words);
+        for (int c = P.pool * h; c < c_end; ++c) {
+          const int j = 32 * c + lane;
+          const int s = j / P.pool, i = j - s * P.pool;
+          const float ts_slot = __shfl_sync(kFull, tA, s - 32 * h);
+          const float dts_slot = __shfl_sync(kFull, dtA, s - 32 * h);
+          const float dts = __fmul_rn(dts_slot, P.inv_p);
+          const float ts = __fadd_rn(ts_slot, __fmul_rn(static_cast<float>(i), dts));
+          fine_word(P, o, d, ts, dts, s < A.budget, packed, binaries, occs_low, c, lane, od_run,
+                    word);
         }
-        occ = occ && od_here < P.od_max;
       }
-      const unsigned b = __ballot_sync(kFull, occ);
-      if (lane == c) word = b;
+    } else {
+      // 3. the cell candidates on the coarse schedule, up to the first word
+      // past t_max
+      const RaySchedule rc = ray_schedule(P.coarse, t0);
+      for (int c = 0; c < P.words_fine; ++c) {
+        const int j = 32 * c + lane;
+        float ts, dts;
+        schedule_at(P.coarse, rc, static_cast<float>(j), ts, dts);
+        fine_word(P, o, d, ts, dts, j < P.M && ts < t_max, packed, binaries, occs_low, c, lane,
+                  od_run, word);
+        if (past_t_max(ts, t_max)) break;
+      }
     }
     const int count = warp_sum(__popc(word));
     int32_t* row = state + static_cast<int64_t>(r) * P.width;
@@ -393,7 +436,7 @@ march_count_kernel(const MarchParams P, const float* __restrict__ origins,
     __syncthreads();
     if (threadIdx.x == 0) {
       int32_t sum = 0;
-      for (int w = 0; w < kWarps; ++w) sum += block_keep[w];
+      for (int w = 0; w < kCountWarps; ++w) sum += block_keep[w];
       if (sum) atomicAdd(total, sum);
     }
   }
@@ -471,8 +514,8 @@ extern "C" int umhs_march_count(const MarchParams* params, const float* origins,
                                 const float* occs_low, int32_t* state, int32_t* total,
                                 int32_t* num_occupied, cudaStream_t stream) {
   const MarchParams P = *params;
-  const int blocks = (P.R + kWarps - 1) / kWarps;
-  march_count_kernel<<<blocks, kWarps * 32, 0, stream>>>(
+  const int blocks = (P.R + kCountWarps - 1) / kCountWarps;
+  march_count_kernel<<<blocks, kCountWarps * 32, 0, stream>>>(
       P, origins, dirs, jitter, packed, binaries, pooled, occs_low, state, total, num_occupied);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,11 +61,14 @@ __device__ __forceinline__ CellIndex locate_cell(const OccParams& g, const float
   CellIndex cell;
   cell.lvl = static_cast<int32_t>(l);
   cell.inside = maxc <= g.max_scale;
-  const float scale = exp2f(static_cast<float>(cell.lvl));
+  // rel / 2^lvl as a product with 2^-lvl (built from its exponent bits,
+  // lvl < 127): both round the same real number once, so the bits are the
+  // division's, subnormals, signed zeros, infinities and NaN included
+  const float inv_scale = __int_as_float((127 - cell.lvl) << 23);
   const float resf = static_cast<float>(res);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float unit = __fmul_rn(__fadd_rn(__fdiv_rn(rel[c], scale), 1.0f), 0.5f);
+    const float unit = __fmul_rn(__fadd_rn(__fmul_rn(rel[c], inv_scale), 1.0f), 0.5f);
     const long long v = static_cast<long long>(floorf(__fmul_rn(unit, resf)));
     cell.ijk[c] = static_cast<int32_t>(v < 0 ? 0 : (v > res - 1 ? res - 1 : v));
   }
