@@ -92,7 +92,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      grid's march and update at the flagship's shapes: K7 (K7a occ_update,
      K7b occ_pack) updates the 128^3 x 4 grid from a density like the bench
      scene's trained field (bench_sphere_density; full, again, then a
-     partial update of ~918,000 probes, cells drawn twice among them), its
+     partial update of ~918,000 probes, cells drawn twice among them, at
+     partial_cells' cells and from the draws: K7a's cells those of
+     partial_cells, the bitfield untouched, each run on a copy of the grid,
+     which a partial update on the card writes in place), its
      occupied share printed; K5 (K5a march_count, K5b march_emit) marches
      phase 7's steady batch on it (79,360 training rays with jitter, S 64,
      total budget 376,576), on a dense and an empty grid, a 4,096-ray eval
@@ -116,12 +119,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shapes through the tree's own code (the plain PyTorch of its model in a
    tree without K6: k6_parent_code), K6a's, K6b's and (in a tree with K6's
    kernels) K6c's (its backward alone too, also at nerfacto's shapes) and
-   K6d's forward bits the tree's; K7 (full and partial) and K5 (K5a alone,
-   the march on the bench-scene, dense and empty grids and an eval chunk)
-   through the tree's own update_occ_state, march_count_cuda and
-   march_rays (k5k7_tree_cases), K7's bits the tree's, K5's too in a tree
-   with K5's kernels (a tree before the budget scale's one-division repair
-   may round apart), and the SASS of the tree's K5a beside this one's
+   K6d's forward bits the tree's; K7 (full and partial) and K5 (K5a and K5b
+   alone, the march on the bench-scene, dense and empty grids and an eval
+   chunk)
+   through the tree's own update_occ_state (the partial one whole: the
+   tree's cell choice, partial_cells or K7a's), march_count_cuda,
+   march_emit_cuda and march_rays
+   (k5k7_tree_cases), K7's bits the tree's, K5's too in a tree with K5's
+   kernels (a tree before the budget scale's one-division repair may round
+   apart), and the SASS of the tree's K5a and K5b beside this one's
    (sass_loops: instructions and each loop's body).
 3. The serving path at full width: the bench scene (16 + 2 views, 128^2,
    128 bands, 6 spheres) as an in-memory train split (rendered once, also
@@ -189,8 +195,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain code, so the training bits of a tree before it part); a tree with
    K5's kernels must give this run's losses and adapts bit for bit. After the traced step,
    K5 and K7 against their plain versions on the schedule's own steady
-   state (a steady batch's march at its budget, a partial update with the
-   field's density; k5k7_on_trained_state) and the host syncs of one step.
+   state (a steady batch's march at its budget, a partial update from its
+   draws with the field's density; k5k7_on_trained_state), that partial
+   update whole (device ms, launches) and in pieces, the cell choice's
+   among them (partial_update_split; under --baseline in each tree's
+   schedule_measurements, in turns), and the host syncs of one step.
 
 8. The quality twin (umhs_torch.scripts.quality_reference_scale, the twin of
    scripts/quality_reference_scale.py) through its entry point: 2,000 steps,
@@ -998,7 +1007,7 @@ OCC_KERNELS = ("umhs_occ_pack", "umhs_occ_update")
 K5K7_DEVICE_KERNELS = {  # the device kernels each K5 / K7 launcher runs
     "march_count": ("march_count_kernel",),
     "march_emit": ("march_emit_kernel",),
-    "occ_update": ("occ_probe_kernel", "occ_ema_kernel"),
+    "occ_update": ("occ_cells_kernel", "occ_probe_kernel", "occ_ema_kernel", "occ_fold_kernel"),
     "occ_pack": ("occ_pack_kernel", "occ_threshold_kernel", "occ_pool_kernel"),
 }
 RENDER_KERNELS = ("umhs_mlp_fused_fwd", "umhs_hash_encode_fwd") + K6_FORWARD + MARCH_KERNELS
@@ -1964,13 +1973,27 @@ def k5_case(label, state, cfg, march, o, d, jit, budget):
             "strided_rays": int((got["num_occupied"] > n).sum())}
 
 
-def k7_case(label, state, cfg, density, step, jitter, cells):
-    """K7 against the plain update on the card, bit for bit, twice."""
+def grid_copy(state):
+    """A copy of an occupancy state's tensors: a partial update on the card
+    takes its grids over."""
+    return {k: v.clone() for k, v in state.items()}
+
+
+def k7_case(label, state, cfg, density, step, jitter, cells=None, draws=None):
+    """K7 against the plain update on the card, bit for bit, twice, each run
+    on a copy of `state` (which stays as it was); a partial one must write
+    the copy's grids in place. Returns the kernels' update."""
     from umhs_torch.ops.occupancy import update_occ_state_cuda, update_occ_state_plain
 
-    args = (state, cfg, density, step, jitter, cells)
-    got, again, ref = (update_occ_state_cuda(*args), update_occ_state_cuda(*args),
-                       update_occ_state_plain(*args))
+    runs = []
+    for _ in range(2):
+        mine = grid_copy(state)
+        runs.append(update_occ_state_cuda(mine, cfg, density, step, jitter, cells, draws=draws))
+        if cells is not None or draws is not None:
+            check(all(runs[-1][k].data_ptr() == mine[k].data_ptr() for k in ("occs", "occs_low")),
+                  f"K7 {label}: the partial update did not write the state's grids in place")
+    (got, again), ref = runs, update_occ_state_plain(state, cfg, density, step, jitter, cells,
+                                                     draws=draws)
     check(sorted(got) == sorted(ref), f"K7 {label}: outputs {sorted(got)}")
     for k in ref:
         check(torch.equal(got[k], ref[k]), f"K7 {label}: {k} differs from the plain update")
@@ -1996,6 +2019,7 @@ def phase_k5k7(dev, ptxas, dm):
         partial_cells, threshold_pack_cuda, update_occ_state_cuda, update_occ_state_plain)
     from umhs_torch.ops.ray_marching import (
         march_count_cuda, march_emit_cuda, march_rays_cuda, march_rays_plain)
+    from umhs_torch.utils.device_time import device_ms_by_kernel
 
     usage = {name: {k: v for k, v in ptxas.items() if k.split("<")[0] in kernels}
              for name, kernels in K5K7_DEVICE_KERNELS.items()}
@@ -2009,7 +2033,8 @@ def phase_k5k7(dev, ptxas, dm):
     gen = torch.Generator(dev).manual_seed(14)
     n = cfg.levels * cfg.cells_per_level
 
-    # K7: the full update from an empty grid, then a partial one
+    # K7: the full update from an empty grid, then a partial one from its
+    # draws (the main path's) and at the cells partial_cells gives
     state0 = init_occ_state(cfg, dev)
     jitter = torch.rand((n, 3), device=dev, generator=gen)
     full = k7_case("full", state0, cfg, density, step, jitter, None)
@@ -2019,40 +2044,64 @@ def phase_k5k7(dev, ptxas, dm):
     m = cells[0].shape[0]
     pj = torch.rand((m, 3), device=dev, generator=gen)
     flat = cells[0] * cfg.cells_per_level + cells[1]
-    repeated = int(flat.numel() - torch.unique(flat).numel())
-    state = k7_case("partial", state, cfg, density, step, pj, cells)
+    unique = int(torch.unique(flat).numel())
+    k7_case("partial, given cells", state, cfg, density, step, pj, cells)
+    binaries = state["binaries"].clone()
+    check(torch.equal(occ_probe_cuda(grid_copy(state), cfg, pj, draws=draws).flat.long(), flat),
+          "K7a's cells differ from partial_cells'")
+    check(torch.equal(state["binaries"], binaries), "K7a's cell choice changed the bitfield")
+    level_counts = state["binaries"].reshape(cfg.levels, -1).sum(-1).tolist()
+    partial = state
+    state = k7_case("partial", state, cfg, density, step, pj, draws=draws)
     share = float(state["binaries"].float().mean())
-    print(f"K7 at 4 x 128^3: full and partial ({m} probes, {repeated} on a cell probed before) "
-          f"the plain version's bits; occupied share {share:.4f}, pooled "
+    print(f"K7 at 4 x 128^3: full and partial ({m} probes, {m - unique} on a cell probed before; "
+          f"the cells chosen on the card those of partial_cells) the plain version's bits; "
+          f"occupied share {share:.4f}, pooled "
           f"{float(state['binaries_pooled'].float().mean()):.4f}")
 
     sigma_full = density(_level_world_positions(cfg, *_probe_cells_plain(cfg, dev, None), jitter))
-    sigma_part = density(_level_world_positions(cfg, *_probe_cells_plain(cfg, dev, cells), pj))
+    sigma_part = density(_level_world_positions(cfg, *cells, pj))
     mean = torch.mean(state["occs"])
     a, b = {}, {}
-    for label, cl, jit, sig in (("full", None, jitter, sigma_full),
-                                ("partial", cells, pj, sigma_part)):
-        probes = occ_probe_cuda(full, cfg, jit, cl)
-        lv, cf = _probe_cells_plain(cfg, dev, cl)
+    # the partial update runs again and again on a copy of its grid, in place (the same work)
+    for label, grid, jit, sig, kw in (("full", full, jitter, sigma_full, {}),
+                                      ("partial", grid_copy(partial), pj, sigma_part,
+                                       {"draws": draws})):
+        probes = occ_probe_cuda(grid, cfg, jit, **kw)
+        lv, cf = cells if kw else _probe_cells_plain(cfg, dev, None)
         occ = sig * step
         a[label] = {
-            "ms": device_ms(lambda: occ_probe_cuda(full, cfg, jit, cl))
+            "ms": device_ms(lambda: occ_probe_cuda(grid, cfg, jit, **kw))
             + device_ms(lambda: occ_fold_cuda(probes, sig, step)),
-            "call_ms": median_ms(lambda: occ_fold_cuda(occ_probe_cuda(full, cfg, jit, cl), sig,
+            "call_ms": median_ms(lambda: occ_fold_cuda(occ_probe_cuda(grid, cfg, jit, **kw), sig,
                                                        step)),
             # the plain positions copy the grid's centre from the host and wait for it
             "plain_ms": k6_plain_ms(lambda: _level_world_positions(cfg, lv, cf, jit))
-            + k6_plain_ms(lambda: _fold_plain(full, cfg, occ, lv, cf, cl is None)),
-            "update_ms": device_ms(lambda: update_occ_state_cuda(full, cfg, density, step, jit, cl)),
+            + k6_plain_ms(lambda: _fold_plain(partial if kw else full, cfg, occ, lv, cf, not kw)),
+            "update_ms": device_ms(lambda: update_occ_state_cuda(grid, cfg, density, step, jit,
+                                                                 **kw)),
             "plain_update_ms": k6_plain_ms(
-                lambda: update_occ_state_plain(full, cfg, density, step, jit, cl)),
+                lambda: update_occ_state_plain(partial if kw else full, cfg, density, step, jit,
+                                               **kw)),
+            "mode_0_by_kernel_ms": device_ms_by_kernel(lambda: occ_probe_cuda(grid, cfg, jit,
+                                                                              **kw)),
         }
-        probes_n = n if cl is None else m
-        # mode 0 reads the jitter (and the cells and, partial, the grids at them) and writes the
-        # positions (and the shared values); mode 1 reads the densities (and the grids) and
-        # writes the grids at the probes
-        a[label]["bound_bytes"] = (probes_n * (12 + 12 + 4 + 4 * 4) if cl is None
-                                   else probes_n * (16 + 12 + 8 + 12 + 8 + 4 + 16 + 8))
+        if kw:  # the plain version's cell choice too
+            a[label]["plain_ms"] += k6_plain_ms(lambda: partial_cells(partial, cfg, draws))
+    # full: mode 0 reads the jitter and writes the positions; mode 1 reads the densities and
+    # the grids and writes the grids. Partial, K7a's inputs and outputs: the bitfield, each
+    # probe's draw (a uniform cell 8 B, an offset 4 B and, in a level with no occupied cell,
+    # its fallback 8 B), jitter, density and position, and the grids read and written once
+    # at each probed cell; its scratch (the probes' cells written and read, the bitmap
+    # zeroed, the rows' and slices' counts written and read) apart
+    a["full"]["bound_bytes"] = n * (12 + 12 + 4 + 4 * 4)
+    uni = sum(d["uniform"].numel() for d in draws)
+    fallback = sum(d["u"].numel() for d, c in zip(draws, level_counts) if c == 0)
+    a["partial"]["bound_bytes"] = (n + uni * 8 + (m - uni) * 4 + fallback * 8
+                                   + m * (12 + 4 + 12) + unique * 16)
+    a["partial"]["scratch_bytes"] = (m * 4 * 2 + (n + 31) // 32 * 4
+                                     + (cfg.levels * cfg.resolution ** 2
+                                        + cfg.levels * cfg.resolution) * 4 * 2)
     b["ms"] = device_ms(lambda: threshold_pack_cuda(state["occs"], mean, cfg))
     b["call_ms"] = median_ms(lambda: threshold_pack_cuda(state["occs"], mean, cfg))
     b["plain_ms"] = k6_plain_ms(lambda: _threshold_pack_plain(state["occs"], mean, cfg))
@@ -2153,7 +2202,7 @@ def phase_k5k7(dev, ptxas, dm):
               plain_note="plain_ms: the whole plain march (K5a's and K5b's work)"),
         entry("occ_update", {**a["full"]}, f"full update, {n} probes; {grid_shape}",
               update_ms=a["full"]["update_ms"], plain_update_ms=a["full"]["plain_update_ms"],
-              partial={**a["partial"], "probes": m, "repeated_probes": repeated,
+              partial={**a["partial"], "probes": m, "repeated_probes": m - unique,
                        "bound_ms": a["partial"]["bound_bytes"] / H100_BYTES_PER_S * 1e3}),
         entry("occ_pack", b, f"threshold, pool 4 and pack of {n} cells; {grid_shape}"),
     ]
@@ -2330,10 +2379,11 @@ def phase_bench_schedule(dev):
 def k5k7_on_trained_state(trainer, dev):
     """K5 and K7 against their plain versions on the schedule's own steady
     state: the march of one steady batch (its draws, its total budget), and
-    a partial update with the field's density. Returns the grid's occupied
-    share and the march's counts."""
+    a partial update from its draws with the field's density on a copy of
+    the grid; then that update whole and in pieces (partial_update_split).
+    Returns the grid's occupied share, the march's counts and the split."""
     from umhs_torch.models.field import density_fn
-    from umhs_torch.ops.occupancy import draw_partial_cells, partial_cells
+    from umhs_torch.ops.occupancy import draw_partial_cells
 
     model, occ = trainer.model, trainer.state["occ"]
     cfg = model.occ_config
@@ -2344,15 +2394,94 @@ def k5k7_on_trained_state(trainer, dev):
     march = k5_case("phase 7's steady state", occ, cfg, trainer.dyn.march, rays["origins"],
                     rays["directions"], draws["t_jitter"], budget)
     gen = torch.Generator(dev).manual_seed(16)
-    cells = partial_cells(occ, cfg, draw_partial_cells(cfg, gen, dev))
-    jitter = torch.rand((cells[0].shape[0], 3), device=dev, generator=gen)
+    cell_draws = draw_partial_cells(cfg, gen, dev)
+    m = sum(d["uniform"].numel() + d["u"].numel() for d in cell_draws)
+    jitter = torch.rand((m, 3), device=dev, generator=gen)
     k7_case("phase 7's steady state, partial", occ, cfg,
             density_fn(trainer.state["params"], model.field_config), model.render_step_size,
-            jitter, cells)
+            jitter, draws=cell_draws)
     out = {"occupied_share": float(occ["binaries"].float().mean()),
            "pooled_share": float(occ["binaries_pooled"].float().mean()), "rays": trainer.dyn.rays,
            "total_budget": budget, "march": march}
     print("  K5 and K7 on the steady state (the plain versions' bits): " + json.dumps(out))
+    out["partial_update"] = partial_update_split(trainer, dev)
+    return out
+
+
+UPDATE_GROUPS = {  # partial_update_split's device kernels by piece
+    "K7a": ("occ_cells_kernel", "occ_probe_kernel", "occ_ema_kernel", "occ_fold_kernel"),
+    "K7b": ("occ_pack_kernel", "occ_threshold_kernel", "occ_pool_kernel"),
+    "density (K3, K1)": ("hash_encode_fwd_kernel", "mlp_fused_fwd"),
+}
+
+
+def partial_update_split(trainer, dev) -> dict:
+    """One partial update of the trained grid (the field's density, the
+    flagship's ~918,000 probes) through whichever umhs_torch is on sys.path:
+    its whole device time (device_ms) and launches (torch.profiler), its
+    device time by kernel (device_ms_by_kernel, which may find no whole
+    profile: then {}) summed into UPDATE_GROUPS, and its pieces each timed
+    alone: the cell choice where partial_cells makes it, the grids' two
+    clones where the update makes them, K7a's two launches (mode 0 by
+    kernel), the density evaluation, torch.mean, K7b. It updates a copy of
+    the grid again and again (on the card an update takes its grids over;
+    the cells' work is the same every time)."""
+    import inspect
+
+    from umhs_torch.models.field import density_fn
+    from umhs_torch.ops import occupancy as om
+    from umhs_torch.utils.device_time import device_ms_by_kernel
+
+    model = trainer.model
+    cfg, step = model.occ_config, model.render_step_size
+    density = density_fn(trainer.state["params"], model.field_config)
+    gen = torch.Generator(dev).manual_seed(19)
+    draws = om.draw_partial_cells(cfg, gen, dev)
+    cells = om.partial_cells(trainer.state["occ"], cfg, draws)
+    jitter = torch.rand((cells[0].shape[0], 3), device=dev, generator=gen)
+    grid = grid_copy(trainer.state["occ"])
+    chooses = "draws" in inspect.signature(om.update_occ_state).parameters
+    if chooses:  # the cells chosen on the card from the draws
+        def whole():
+            return om.update_occ_state(grid, cfg, density, step, jitter, draws=draws)
+    else:
+        def whole():
+            return om.update_occ_state(grid, cfg, density, step, jitter,
+                                       cells=om.partial_cells(grid, cfg, draws))
+    out = {"probes": int(cells[0].shape[0]), "cells_chosen_on_the_card": chooses,
+           "device_ms": device_ms(whole)}
+    prof = profile("partial update", whole)
+    out.update(launches=prof["device_launches"], traced_busy_ms=prof["device_busy_ms"],
+               traced_wall_ms=prof["wall_ms"])
+    by_kernel = device_ms_by_kernel(whole) or {}
+    out["by_kernel_ms"] = by_kernel
+    for group, names in UPDATE_GROUPS.items():
+        out[f"{group} ms"] = sum(ms for k, ms in by_kernel.items()
+                                 if any(k.startswith(n) for n in names))
+    out["other kernels ms"] = sum(by_kernel.values()) - sum(
+        out[f"{g} ms"] for g in UPDATE_GROUPS)
+    positions = om._level_world_positions(cfg, *cells, jitter)
+    mean = torch.mean(grid["occs"])
+    kw = {"draws": draws} if chooses else {"cells": cells}
+    probes = om.occ_probe_cuda(grid, cfg, jitter, **kw)
+    sigma = om._eval_occ(density, probes.positions)
+    pieces = {"density": device_ms(lambda: om._eval_occ(density, positions)),
+              "torch.mean": device_ms(lambda: torch.mean(grid["occs"])),
+              # K7a's mode 0 by kernel (the grids' clones among them where it makes them)
+              "K7a mode 0": device_ms_by_kernel(lambda: om.occ_probe_cuda(grid, cfg, jitter,
+                                                                          **kw)),
+              "K7a mode 1": device_ms(lambda: om.occ_fold_cuda(probes, sigma, step)),
+              "K7b": device_ms(lambda: om.threshold_pack_cuda(grid["occs"], mean, cfg))}
+    if not chooses:
+        pieces["partial_cells"] = device_ms(lambda: om.partial_cells(grid, cfg, draws))
+        pieces["two clones"] = device_ms(lambda: (grid["occs"].clone(),
+                                                  grid["occs_low"].clone()))
+    out["pieces_alone_ms"] = pieces
+    # the cell choice: partial_cells, or K7a's count pass (its searches run inside the probe
+    # kernel)
+    out["cell choice ms"] = ((pieces["K7a mode 0"] or {}).get("occ_cells_kernel") if chooses
+                             else pieces["partial_cells"])
+    print("  partial update of the trained grid: " + json.dumps(out))
     return out
 
 
@@ -2438,9 +2567,10 @@ def schedule_measurements() -> dict:
     schedule_against_tree in a process of its own from a tree), then: its
     losses (hex) and adapts, steady ms per step, eval_all_images, one traced
     steady step, and one more with its indexing backward's and forward
-    gathers' kernels by site (kernel_sites); then
-    phase 5's configuration (4096 rays, train(48)) with one traced step, and
-    a traced 128^2 render of an eval view from that state."""
+    gathers' kernels by site (kernel_sites), one partial update of its grid
+    whole and in pieces (partial_update_split); then phase 5's configuration
+    (4096 rays, train(48)) with one traced step, and a traced 128^2 render
+    of an eval view from that state."""
     from umhs_torch.data.cameras import generate_camera_rays
     from umhs_torch.engine.trainer import Trainer, TrainerConfig
 
@@ -2454,6 +2584,7 @@ def schedule_measurements() -> dict:
         out["steady_step"] = traced(profile("steady step", t.train_step))
         out["steady_step_sites"] = kernel_sites(t.train_step)
         out["host_syncs_step"] = host_syncs(t.train_step)
+        out["partial_update"] = partial_update_split(t, dev)
         del t
     dm, endmembers, cam = bench_scene_in_memory(dev)
     t = Trainer(TrainerConfig(seed=0, mixed_precision=True, save_final=False),
@@ -2509,7 +2640,7 @@ def schedule_against_tree(tree: Path, losses, adapts, eval_all) -> dict:
     }
     print(f"bench schedule against {tree}: " + json.dumps(result))
     for key in ("steady_ms_per_step", "steady_step", "step_4096", "render_128",
-                "host_syncs_step", "host_syncs_render"):
+                "host_syncs_step", "host_syncs_render", "partial_update"):
         print(f"  {key} in turns (tree, this, this, tree): "
               + json.dumps([r[key] for r in turns]))
     for label, r in (("tree", turns[0]), ("this", turns[1])):
@@ -2580,10 +2711,12 @@ def tree_measurements(save_dir: str) -> dict:
     def case(name, fn, calls=True, held=False):
         y = fn()
         torch.cuda.synchronize()
-        # held: device time behind a spin, None where a call waits for the
-        # device (a tree's plain compaction)
-        out[name] = {"ms": held_ms(fn, 10) if held else device_ms(fn),
-                     "call_ms": median_ms(fn) if calls else None, "digest": digest(y)}
+        # the digest before the timed calls (a partial update writes its grids in place);
+        # held: device time behind a spin, None where a call waits for the device (a tree's
+        # plain compaction)
+        out[name] = {"digest": digest(y)}
+        out[name].update(ms=held_ms(fn, 10) if held else device_ms(fn),
+                         call_ms=median_ms(fn) if calls else None)
         return y
 
     gen = torch.Generator().manual_seed(4)
@@ -2773,6 +2906,8 @@ def k5k7_tree_cases(dev, case):
     update of ~918,000 probes, the march of 79,360 rays with jitter at S 64
     and phase 7's steady total budget on that grid."""
     from umhs_torch.models.model import UMHSModel
+    import inspect
+
     from umhs_torch.ops.occupancy import (
         draw_partial_cells, init_occ_state, mark_all_occupied, partial_cells, update_occ_state)
     from umhs_torch.ops import ray_marching
@@ -2790,11 +2925,21 @@ def k5k7_tree_cases(dev, case):
     full = update_occ_state(empty, cfg, density, step, jitter)
     case("K7 full update", lambda: [v for _, v in sorted(
         update_occ_state(empty, cfg, density, step, jitter).items())], held=True)
-    cells = partial_cells(full, cfg, draw_partial_cells(cfg, torch.Generator(dev).manual_seed(18),
-                                                        dev))
+    draws = draw_partial_cells(cfg, torch.Generator(dev).manual_seed(18), dev)
+    cells = partial_cells(full, cfg, draws)
     pj = torch.rand((cells[0].shape[0], 3), generator=gen).to(dev)
-    case("K7 partial update", lambda: [v for _, v in sorted(
-        update_occ_state(full, cfg, density, step, pj, cells=cells).items())], held=True)
+    # the whole partial update, again and again on a copy of the grid: in a tree that chooses
+    # the cells on the card from the draws and writes the grids in place, else partial_cells
+    # and the update
+    work = grid_copy(full)
+    if "draws" in inspect.signature(update_occ_state).parameters:
+        def partial():
+            return update_occ_state(work, cfg, density, step, pj, draws=draws)
+    else:
+        def partial():
+            return update_occ_state(work, cfg, density, step, pj,
+                                    cells=partial_cells(work, cfg, draws))
+    case("K7 partial update", lambda: [v for _, v in sorted(partial().items())], held=True)
     R = K6_RAYS
     o = torch.randn((R, 3), generator=gen)
     o = (3.0 * o / o.norm(dim=-1, keepdim=True)).to(dev)
@@ -2818,6 +2963,9 @@ def k5k7_tree_cases(dev, case):
             (" eval chunk", full, 4096, None, model._compact_budget(4096, K6_SAMPLES))):
         case(f"K5a march_count{label}", lambda: [(p.state, p.total, p.num_occupied) for p in [
             march_count_cuda(grid, cfg, steady, o[:rays], d[:rays], jitter, budget)]][0])
+    counted = march_count_cuda(full, cfg, steady, o, d, jit, K5_BUDGET)
+    case("K5b march_emit", lambda: [v for _, v in sorted(
+        ray_marching.march_emit_cuda(counted).items())])
 
 
 def baseline_against_tree(tree: Path) -> dict:
@@ -2860,16 +3008,22 @@ def baseline_against_tree(tree: Path) -> dict:
             check(entry["same_bits"], f"{name}: not the bits of {tree}'s kernel")
         result[name] = entry
         print(f"against {tree}: {name}: " + json.dumps(entry))
-    if k5_tree:  # K5a's SASS in the tree's build beside this checkout's
+    if k5_tree:  # K5a's and K5b's SASS in the tree's build beside this checkout's
         from umhs_torch.ops import _native
 
         built = sorted((tree / "umhs_torch" / "_build").glob("march-*.so"),
                        key=lambda f: f.stat().st_mtime)
-        check(bool(built), f"K5a SASS: {tree} has no built march-*.so")
-        result["K5a SASS"] = {
-            "tree": sass_loops(built[-1], "18march_count_kernel"),
-            "this": sass_loops(_native.library_path("march.cu"), "18march_count_kernel")}
-        print(f"against {tree}: K5a SASS: " + json.dumps(result["K5a SASS"]))
+        check(bool(built), f"K5 SASS: {tree} has no built march-*.so")
+        # K5b: this checkout's instance for the flagship's k 4 and 16 slots a ray, or the
+        # tree's one kernel
+        for name, kernels in (("K5a", ("18march_count_kernel",)),
+                              ("K5b", ("17march_emit_kernelILi4ELi16E", "17march_emit_kernel"))):
+            result[f"{name} SASS"] = {
+                label: next((r for r in (sass_loops(lib, k) for k in kernels)
+                             if "error" not in r), {"error": f"no {kernels} in {lib.name}"})
+                for label, lib in (("tree", built[-1]),
+                                   ("this", _native.library_path("march.cu")))}
+            print(f"against {tree}: {name} SASS: " + json.dumps(result[f"{name} SASS"]))
     theirs, ours = (torch.load(save / str(i) / "dino.pt") for i in (0, 1))
     check(torch.allclose(theirs["y"], ours["y"], rtol=2e-2, atol=2e-2),
           f"K1 dino: {tree}'s output differs by more than 2e-2")

@@ -1390,6 +1390,37 @@ def test_k5_launches_through_the_wrapper(cuda):
         before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("binding", [False, True])
+@pytest.mark.parametrize("pool", [0, 4])
+@pytest.mark.parametrize("slots", [1, 16, 17, 32, 33, 64])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_k5b_slots_and_samples_a_cell_bit_for_bit(cuda, k, slots, pool, binding):
+    """K5b, a lane a slot: k fine samples a cell (at 4 a lane's 16-byte
+    stores, else the columns shuffled to their lanes) and Sc slots a ray on
+    and beside 16 (two rays a warp up to it) and one round of 32, with a
+    pre-pass and without, the batch budget binding or not: the plain
+    march's bits, twice."""
+    cfg, state = _k5_grid(cuda, 32, 2, pool, "random")
+    march = _k5_march(32, pool, num_candidates=1024 * k, num_samples=slots * k,
+                      occ_subsamples=k)
+    R = 1001
+    o, d, jit = _k5_rays(cuda, R, seed=k + slots)
+    free = int(k5_march.march_rays_plain(state, cfg, march, o, d, jit)["num_samples"].sum())
+    budget = free // 2 if binding else None
+    args = (state, cfg, march, o, d, jit, budget)
+    got = k5_march.march_rays_cuda(*args)
+    again = k5_march.march_rays_cuda(*args)
+    ref = k5_march.march_rays_plain(*args)
+    for key in ref:
+        assert torch.equal(got[key], ref[key]), key
+        assert torch.equal(got[key], again[key]), key
+    n = got["num_samples"]
+    assert int(n.sum()) > 0 and int(n.max()) <= slots * k
+    if binding:  # within the budget but for a ray's one kept slot, which the scale keeps
+        assert int(n.sum()) <= budget + k * int((got["num_occupied"] > 0).sum())
+        assert slots == 1 or int(n.sum()) < free
+
+
 def k5_od_reference(state, cfg, march, o, d, od_max):
     """The od culling in f64 over the plain march's own candidates: (the
     occupied mask, the od before each candidate, the mask before the
@@ -1481,12 +1512,109 @@ def test_k7_partial_update_with_repeated_cells_matches_plain(cuda, res, levels, 
         out[::97] = float("nan")
         return out
 
-    args = (state, cfg, density, 0.004, jitter, (level, cell))
-    got, again = k7_occ.update_occ_state_cuda(*args), k7_occ.update_occ_state_cuda(*args)
-    ref = k7_occ.update_occ_state_plain(*args)
+    args = (cfg, density, 0.004, jitter, (level, cell))
+    # the update takes its state's grids over on the card: each run gets a copy
+    mine = [{k: v.clone() for k, v in state.items()} for _ in range(2)]
+    got, again = (k7_occ.update_occ_state_cuda(s, *args) for s in mine)
+    ref = k7_occ.update_occ_state_plain(state, *args)
     for k in ref:
         assert torch.equal(got[k], ref[k]), k
         assert torch.equal(got[k], again[k]), k
+    for k in ("occs", "occs_low"):  # in place
+        assert got[k].data_ptr() == mine[0][k].data_ptr(), k
+
+
+K7_CHOICE_GRIDS = {  # label: (res, levels, pool, each level's occupied share)
+    "empty-and-full-levels": (32, 3, 4, (0.2, 0.0, 1.0)),
+    "sparse": (32, 2, 0, (0.0005, 0.3)),
+    "res-30": (30, 2, 2, (0.1, 0.05)),  # rows off the 4-byte words
+    "res-33": (33, 2, 0, (0.3, 0.02)),
+    "flagship": (128, 4, 4, (0.03, 0.01, 0.004, 0.0)),
+}
+
+
+def _k7_choice_state(cuda, res, levels, pool, shares, seed):
+    """A grid with each level's bitfield at its share (a level at 0 empty,
+    at 1 full), occs above the threshold where a bit is set."""
+    cfg = k7_occ.OccGridConfig(resolution=res, levels=levels, aabb_min=K5_BOX[0],
+                               aabb_max=K5_BOX[1], pool=pool)
+    gen = torch.Generator(cuda).manual_seed(seed)
+    bits = torch.cat([torch.rand(res**3, device=cuda, generator=gen) < share
+                      for share in shares])
+    occs = torch.where(bits, 0.05, 0.001) * torch.rand(bits.shape, device=cuda, generator=gen)
+    state = {"occs": occs + bits * 0.02, "occs_low": 0.01 * torch.rand(
+        bits.shape, device=cuda, generator=gen), "binaries": bits}
+    return cfg, state
+
+
+@pytest.mark.parametrize("case", list(K7_CHOICE_GRIDS))
+def test_k7_cell_choice_matches_partial_cells(cuda, case):
+    """K7a's cell choice from the draws against partial_cells on the card:
+    the same (level, cell) at every probe, with a level with no occupied
+    cell (its fallback cells), a full level, the stratified ranks 0, count
+    - 1 and count (clamped to the level's last cell), and a res that is not
+    a multiple of 4; the bitfield untouched; then the whole update from the
+    draws the plain one's bits, its grids written in place."""
+    res, levels, pool, shares = K7_CHOICE_GRIDS[case]
+    cfg, state = _k7_choice_state(cuda, res, levels, pool, shares, seed=res + levels)
+    draws = k7_occ.draw_partial_cells(cfg, torch.Generator(cuda).manual_seed(3), cuda)
+    for d in draws:  # the first draw at rank 0, the last two at count - 1 and at count
+        d["u"][0] = 0.0
+        d["u"][-2] = 0.5
+        d["u"][-1] = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+    level, cell = k7_occ.partial_cells(state, cfg, draws)
+    m = level.shape[0]
+    jitter = torch.rand((m, 3), device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    binaries = state["binaries"].clone()
+    probes = k7_occ.occ_probe_cuda({k: v.clone() for k, v in state.items()}, cfg, jitter,
+                                   draws=draws)
+    assert torch.equal(probes.flat.long(), level * cfg.cells_per_level + cell)
+    assert torch.equal(state["binaries"], binaries)
+    counts = state["binaries"].reshape(levels, -1).sum(-1)
+    ranks_seen = set()
+    for lvl, d in enumerate(draws):  # the ranks as partial_cells computes them
+        m_occ = d["u"].shape[0]
+        strat = (torch.arange(m_occ, dtype=torch.float32, device=cuda) + d["u"]) / m_occ
+        rank = torch.floor(strat * counts[lvl].float()).long()
+        c = int(counts[lvl])
+        if c:
+            ranks_seen |= {r for r in (0, c - 1, c) if bool((rank == r).any())}
+    assert 0 in ranks_seen
+    mine = {k: v.clone() for k, v in state.items()}
+    got = k7_occ.update_occ_state_cuda(mine, cfg, _k7_density, 0.004, jitter, draws=draws)
+    ref = k7_occ.update_occ_state_plain(state, cfg, _k7_density, 0.004, jitter, draws=draws)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    for k in ("occs", "occs_low"):
+        assert got[k].data_ptr() == mine[k].data_ptr(), k
+    assert torch.equal(state["binaries"], binaries)
+
+
+def test_k7_cell_choice_reaches_every_rank_edge(cuda):
+    """On the flagship grid the edge ranks all occur: 0, count - 1 and count
+    (which partial_cells clamps to the level's last cell)."""
+    res, levels, pool, shares = K7_CHOICE_GRIDS["flagship"]
+    cfg, state = _k7_choice_state(cuda, res, levels, pool, shares, seed=1)
+    draws = k7_occ.draw_partial_cells(cfg, torch.Generator(cuda).manual_seed(5), cuda)
+    d = draws[0]
+    d["u"][0], d["u"][-2] = 0.0, 0.5
+    d["u"][-1] = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+    count = int(state["binaries"][:res**3].sum())
+    m_occ = d["u"].shape[0]
+    strat = (torch.arange(m_occ, dtype=torch.float32, device=cuda) + d["u"]) / m_occ
+    rank = torch.floor(strat * float(count)).long()
+    assert int(rank[0]) == 0 and int(rank[-2]) == count - 1 and int(rank[-1]) == count
+    level, cell = k7_occ.partial_cells(state, cfg, draws)
+    jitter = torch.rand((level.shape[0], 3), device=cuda)
+    probes = k7_occ.occ_probe_cuda({k: v.clone() for k, v in state.items()}, cfg, jitter,
+                                   draws=draws)
+    assert torch.equal(probes.flat.long(), level * cfg.cells_per_level + cell)
+    last = int(torch.nonzero(state["binaries"][:res**3])[-1])
+    first = int(torch.nonzero(state["binaries"][:res**3])[0])
+    uni = d["uniform"].shape[0]
+    assert int(cell[uni]) == first and int(cell[uni + m_occ - 2]) == last
+    assert int(cell[uni + m_occ - 1]) == res**3 - 1
 
 
 def test_k7_launches_and_the_model_path(cuda):

@@ -324,6 +324,63 @@ def test_partial_update_keeps_the_largest_and_the_smallest_probe():
     np.testing.assert_array_equal(_np(tout["occs_low"]), want_low)
 
 
+def _partial_draws(key, cfg):
+    """The draws JAX's update_occ_state(full=False) makes from `key`
+    (umhs_tpu/ops/occupancy.py:361-407) and its jitter, for the port."""
+    k_jit, k_cells = jax.random.split(key)
+    draws = []
+    for m_uni, m_occ in t_occ.partial_sample_counts(cfg):
+        k_cells, k_uni, k_fall, k_rank = jax.random.split(k_cells, 4)
+        draws.append({k: torch.from_numpy(np.array(v)) for k, v in (
+            ("uniform", jax.random.randint(k_uni, (m_uni,), 0, cfg.cells_per_level, jnp.int32)),
+            ("u", jax.random.uniform(k_rank, (m_occ,))),
+            ("fallback", jax.random.randint(k_fall, (m_occ,), 0, cfg.cells_per_level,
+                                            jnp.int32)))})
+    m = sum(a + b for a, b in t_occ.partial_sample_counts(cfg))
+    return draws, torch.from_numpy(np.array(jax.random.uniform(k_jit, (m, 3))))
+
+
+@pytest.mark.parametrize("bits", ["random", "empty"])
+def test_partial_update_from_draws_matches_jax_on_cells_probed_once(bits):
+    """The plain route of a partial update from its draws (update_occ_state
+    with draws=, as the model calls it since the card chooses the cells):
+    against JAX's partial update on every cell probed once or not at all,
+    a grid with occupied cells and one without (the fallback cells); the
+    same bits as the update at partial_cells' cells; the caller's state
+    untouched (only the card's update takes the grids over)."""
+    jcfg, _, tcfg, _ = _configs()
+    rng = np.random.default_rng(12)
+    n = LEVELS * RES**3
+    occs0 = rng.exponential(0.01, n).astype(np.float32)
+    low0 = rng.exponential(0.005, n).astype(np.float32)
+    b = _bitfield(bits)
+    key = jax.random.PRNGKey(6)
+    jout = j_occ.update_occ_state({"occs": jnp.asarray(occs0), "occs_low": jnp.asarray(low0),
+                                   "binaries": jnp.asarray(b)}, jcfg, _density, 0.01, key,
+                                  full=False)
+    draws, jitter = _partial_draws(key, tcfg)
+    tstate = {"occs": torch.from_numpy(occs0), "occs_low": torch.from_numpy(low0),
+              "binaries": torch.from_numpy(b)}
+    before = {k: v.clone() for k, v in tstate.items()}
+    tout = t_occ.update_occ_state(tstate, tcfg, _density, 0.01, jitter, draws=draws)
+    for k, v in before.items():
+        assert torch.equal(tstate[k], v), k
+    level, cells = t_occ.partial_cells(tstate, tcfg, draws)
+    at_cells = t_occ.update_occ_state(tstate, tcfg, _density, 0.01, jitter,
+                                      cells=(level, cells))
+    for k in at_cells:
+        assert torch.equal(tout[k], at_cells[k]), k
+    count = torch.bincount(level * RES**3 + cells, minlength=n)
+    once = _np(count <= 1)
+    assert int((count == 1).sum()) > 500 and int((count > 1).sum()) > 10
+    for k in ("occs", "occs_low"):
+        np.testing.assert_allclose(_np(tout[k])[once], np.asarray(jout[k])[once], rtol=1e-6,
+                                   atol=0, err_msg=k)
+    with pytest.raises(ValueError, match="not both"):
+        t_occ.update_occ_state(tstate, tcfg, _density, 0.01, jitter, cells=(level, cells),
+                               draws=draws)
+
+
 @pytest.mark.parametrize("pool", [4, 2])
 def test_pack_and_pool_match_jax(pool):
     jcfg, _, tcfg, _ = _configs(pool=pool)

@@ -38,14 +38,24 @@
 // writes the ray's state (t0, count, the pre-pass's count, the fine and
 // pre-pass words; the words it did not walk are 0), num_occupied, and adds
 // the block's sum of min(count, Sc) to a device int32 total (one integer
-// atomicAdd a block: exact and order-free). K5b (march_emit_kernel): a warp
-// a ray again. The batch scale from the device total, then per output
-// column the slot's rank, its candidate found by a shuffle binary search
-// over the words' running counts and a popcount search in the word, the
-// candidate's (t, dt) recomputed (for a cell candidate, its supercell's
-// too), and the k fine intervals written straight into the (R, S) outputs.
-// No float atomics, no host sync; every output is written by one thread, so
-// every run gives the same bits.
+// atomicAdd a block: exact and order-free).
+//
+// K5b (march_emit_kernel): a ray a segment of 32 lanes, or of 16 (two rays
+// a warp) where its slots and words fit: the kernel is bound by its
+// instruction rate, and the flagship's 16 slots a ray fill half a warp. A
+// lane a slot, in rounds. The batch scale from the device total, then per
+// slot its rank, its candidate found by a shuffle binary search over the words'
+// running counts and a popcount search in the word, the candidate's (t, dt)
+// recomputed once (after a pre-pass, its supercell's from the pre-pass's
+// words by the same search), and the slot's k fine intervals written
+// straight into the (R, S) outputs: at k 4 by the slot's lane in one
+// 16-byte store each for t_starts and t_ends and a 4-byte one for the mask,
+// at another k shuffled to the columns' lanes. No float atomics, no host
+// sync; every output is written by one thread, so every run gives the same
+// bits. K5a could hand K5b each kept supercell's candidate index in the
+// state row instead of that search: timed in turns, the stores cost K5a 6
+// registers and 9% (0.0898 -> 0.0977 ms at phase 7's steady batch) and
+// saved K5b 0.0012 ms, so K5b searches.
 //
 // The arithmetic follows PyTorch's CUDA kernels op by op (occupancy.cuh),
 // so the outputs equal the plain version's on the card bit for bit. The od
@@ -100,7 +110,7 @@ namespace {
 using umhs::MarchParams;
 using umhs::Schedule;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;  // rays per block (K5b)
+constexpr int kWarps = 8;  // warps a block (K5b)
 constexpr int kCountWarps = 4;  // rays per block (K5a; of 2, 4 and 8 by a timed sweep)
 enum Query { kNone = 0, kPacked = 1, kBytes = 2 };
 
@@ -135,11 +145,13 @@ __device__ __forceinline__ void schedule_at(const Schedule& s, const RaySchedule
 
 __device__ __forceinline__ int warp_sum(int v) { return __reduce_add_sync(kFull, v); }
 
+// Exclusive scan over a segment of W lanes (`lane` within it).
+template <int W = 32>
 __device__ __forceinline__ int warp_exclusive_scan(int v, int lane) {
   int x = v;
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
+  for (int o = 1; o < W; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o, W);
     if (lane >= o) x += y;
   }
   return x - v;
@@ -160,21 +172,23 @@ __device__ __forceinline__ int nth_set_bit(unsigned w, int n) {
   return pos;
 }
 
-// A stage's occupancy words, word w in lane w, with their exclusive running
-// counts: the candidate index of the occupied candidate of rank `rank`
-// (0-based), or M - 1 past the count (searchsorted's M, clamped). Called by
-// every lane of the warp, each with its own rank.
+// A stage's occupancy words, word w in lane w of a segment of W lanes, with
+// their exclusive running counts: the candidate index of the occupied
+// candidate of rank `rank` (0-based), or M - 1 past the count
+// (searchsorted's M, clamped). Called by every lane of the warp, each with
+// its own rank.
+template <int W = 32>
 __device__ __forceinline__ int select_index(unsigned word, int excl, int nwords, int rank,
                                             int M) {
   int lo = 0;  // the last word whose running count is <= rank
 #pragma unroll
-  for (int step = 16; step >= 1; step >>= 1) {
+  for (int step = W / 2; step >= 1; step >>= 1) {
     const int cand = lo + step;
-    const int v = __shfl_sync(kFull, excl, cand & 31);
+    const int v = __shfl_sync(kFull, excl, cand & (W - 1), W);
     if (cand < nwords && v <= rank) lo = cand;
   }
-  const unsigned w = __shfl_sync(kFull, word, lo);
-  const int n = rank - __shfl_sync(kFull, excl, lo);
+  const unsigned w = __shfl_sync(kFull, word, lo, W);
+  const int n = rank - __shfl_sync(kFull, excl, lo, W);
   if (n < 0 || n >= __popc(w)) return M - 1;
   return 32 * lo + nth_set_bit(w, n);
 }
@@ -198,29 +212,23 @@ struct PrePass {
   RaySchedule rs;
 };
 
-// Kept supercell interval of pre-pass slot s, (0, 0) past the budget. Called
-// by every lane.
+// Kept supercell interval of pre-pass candidate `idx` in slot s: (0, 0) past
+// the budget, else its (t, dt) with dt scaled as the ray's over budget.
+__device__ __forceinline__ void supercell_interval(const Schedule& pre, const RaySchedule& rs,
+                                                   int idx, bool valid, float dt_scale,
+                                                   float& t, float& dt) {
+  float ts, dts;
+  schedule_at(pre, rs, static_cast<float>(idx), ts, dts);
+  t = valid ? ts : 0.0f;
+  dt = valid ? __fmul_rn(dts, dt_scale) : 0.0f;
+}
+
+// Pre-pass slot s's kept supercell interval. Called by every lane.
 __device__ __forceinline__ void pre_slot(const MarchParams& P, const PrePass& A, int s,
                                          float& t, float& dt) {
   const int idx = select_index(A.word, A.excl, P.words_pre,
                                slot_rank(s, A.count, A.budget), P.Ma);
-  float ts, dts;
-  schedule_at(P.pre, A.rs, static_cast<float>(idx), ts, dts);
-  const bool valid = s < A.budget;
-  t = valid ? ts : 0.0f;
-  dt = valid ? __fmul_rn(dts, A.dt_scale) : 0.0f;
-}
-
-// Fine candidate j's interval in the pool path: the p-th part of its
-// supercell's. Called by every lane.
-__device__ __forceinline__ bool fine_interval(const MarchParams& P, const PrePass& A, int j,
-                                              float& ts, float& dts) {
-  const int s = j / P.pool, i = j - s * P.pool;
-  float tA, dtA;
-  pre_slot(P, A, s, tA, dtA);
-  dts = __fmul_rn(dtA, P.inv_p);
-  ts = __fadd_rn(tA, __fmul_rn(static_cast<float>(i), dts));
-  return s < A.budget;
+  supercell_interval(P.pre, A.rs, idx, s < A.budget, A.dt_scale, t, dt);
 }
 
 __device__ __forceinline__ void midpoint(const float o[3], const float d[3], float t, float dt,
@@ -442,26 +450,41 @@ march_count_kernel(const MarchParams P, const float* __restrict__ origins,
   }
 }
 
+// The (t_start, t_end) of fine column q of a slot at (ts, dt_sel), as the
+// plain version rounds them: t + q * (dt / k), then + dt / k; or t, t + dt.
+__device__ __forceinline__ void fine_column(const MarchParams& P, float ts, float dt_sel, int q,
+                                            float& t_start, float& t_end) {
+  if (P.k > 1) {
+    const float dt_fine = __fmul_rn(dt_sel, P.inv_k);
+    t_start = __fadd_rn(ts, __fmul_rn(static_cast<float>(q), dt_fine));
+    t_end = __fadd_rn(t_start, dt_fine);
+  } else {
+    t_start = ts;
+    t_end = __fadd_rn(ts, dt_sel);
+  }
+}
+
+// A ray a segment of W lanes (16: two rays a warp, where Sc <= 16 and the
+// fine and pre-pass words <= 16 each; else 32), a lane a slot in rounds of
+// W. K: 4, a slot's
+// lane writes its four columns (16-byte stores); 0, any k, the slots'
+// intervals shuffled to the columns' lanes (W columns a store).
+template <int K, int W>
 __global__ void __launch_bounds__(kWarps * 32)
 march_emit_kernel(const MarchParams P, const int32_t* __restrict__ state,
                   const int32_t* __restrict__ total, float* __restrict__ t_starts,
                   float* __restrict__ t_ends, uint8_t* __restrict__ mask,
                   int32_t* __restrict__ num_samples) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int32_t r = blockIdx.x * kWarps + warp;
-  if (r >= P.R) return;  // uniform over the warp
-  const int32_t* row = state + static_cast<int64_t>(r) * P.width;
+  const int lane = threadIdx.x & (W - 1);
+  const int32_t r = (blockIdx.x * kWarps * 32 + threadIdx.x) / W;
+  // a segment past the last ray runs ray R - 1's arithmetic with its warp's
+  // shuffles and stores nothing
+  const bool live = r < P.R;
+  const int32_t* row = state + static_cast<int64_t>(live ? r : P.R - 1) * P.width;
   const float t0 = __int_as_float(row[0]);
   const int count = row[1];
   const unsigned word = lane < P.words_fine ? static_cast<unsigned>(row[3 + lane]) : 0u;
-  const int excl = warp_exclusive_scan(__popc(word), lane);
-  PrePass A{};
-  if (P.pre_mode != kNone) {
-    const unsigned wa =
-        lane < P.words_pre ? static_cast<unsigned>(row[3 + P.words_fine + lane]) : 0u;
-    A = pre_pass_of(P, wa, row[2], t0, lane);
-  }
-  const RaySchedule rc = ray_schedule(P.coarse, t0);
+  const int excl = warp_exclusive_scan<W>(__popc(word), lane);
 
   // the budget: min(count, Sc), scaled down with the batch's
   int budget = min(count, P.Sc);
@@ -472,36 +495,87 @@ march_emit_kernel(const MarchParams P, const int32_t* __restrict__ state,
     budget = max(static_cast<int>(__fmul_rn(static_cast<float>(budget), scale)), min(count, 1));
   }
   const float dt_scale = dt_scale_of(count, budget);
+  // the schedule of the slots' candidates: the pre-pass's supercells, or the
+  // coarse one without a pre-pass
+  const bool pre = P.pre_mode != kNone;
+  const RaySchedule rs = ray_schedule(pre ? P.pre : P.coarse, t0);
+  const int budget_pre = pre ? min(row[2], P.supers) : 0;
+  const float dt_scale_pre = pre ? dt_scale_of(row[2], budget_pre) : 0.0f;
+  const unsigned word_pre =
+      pre && lane < P.words_pre ? static_cast<unsigned>(row[3 + P.words_fine + lane]) : 0u;
+  const int excl_pre = warp_exclusive_scan<W>(__popc(word_pre), lane);
+
   const int S = P.Sc * P.k;
   const int64_t base = static_cast<int64_t>(r) * S;
-  for (int c0 = 0; c0 < S; c0 += 32) {  // uniform over the warp
-    const int col = c0 + lane;
-    const int slot = col / P.k, q = col - slot * P.k;
-    const bool valid = col < S && slot < budget;
-    const int idx = select_index(word, excl, P.words_fine, slot_rank(slot, count, budget), P.M);
+  for (int s0 = 0; s0 < P.Sc; s0 += W) {  // uniform over the warp
+    const int slot = s0 + lane;
+    const bool valid = slot < budget;
+    const int idx =
+        select_index<W>(word, excl, P.words_fine, slot_rank(slot, count, budget), P.M);
     float ts, dts;
-    if (P.pre_mode != kNone) {
-      fine_interval(P, A, idx, ts, dts);
+    if (pre) {  // the p-th part of its kept supercell's interval
+      const int s = idx / P.pool, i = idx - s * P.pool;
+      const int idxA = select_index<W>(word_pre, excl_pre, P.words_pre,
+                                       slot_rank(s, row[2], budget_pre), P.Ma);
+      float tA, dtA;
+      supercell_interval(P.pre, rs, idxA, s < budget_pre, dt_scale_pre, tA, dtA);
+      dts = __fmul_rn(dtA, P.inv_p);
+      ts = __fadd_rn(tA, __fmul_rn(static_cast<float>(i), dts));
     } else {
-      schedule_at(P.coarse, rc, static_cast<float>(idx), ts, dts);
+      schedule_at(P.coarse, rs, static_cast<float>(idx), ts, dts);
     }
     const float dt_sel = __fmul_rn(dts, dt_scale);
-    float t_start, t_end;
-    if (P.k > 1) {
-      const float dt_fine = __fmul_rn(dt_sel, P.inv_k);
-      t_start = __fadd_rn(ts, __fmul_rn(static_cast<float>(q), dt_fine));
-      t_end = __fadd_rn(t_start, dt_fine);
+    if (K == 4) {
+      if (live && slot < P.Sc) {
+        float a[4], b[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          fine_column(P, ts, dt_sel, q, a[q], b[q]);
+          a[q] = valid ? a[q] : 0.0f;
+          b[q] = valid ? b[q] : 0.0f;
+        }
+        const int64_t at = base + 4 * slot;
+        *reinterpret_cast<float4*>(t_starts + at) = make_float4(a[0], a[1], a[2], a[3]);
+        *reinterpret_cast<float4*>(t_ends + at) = make_float4(b[0], b[1], b[2], b[3]);
+        *reinterpret_cast<uint32_t*>(mask + at) = valid ? 0x01010101u : 0u;
+      }
     } else {
-      t_start = ts;
-      t_end = __fadd_rn(ts, dt_sel);
-    }
-    if (col < S) {
-      t_starts[base + col] = valid ? t_start : 0.0f;
-      t_ends[base + col] = valid ? t_end : 0.0f;
-      mask[base + col] = valid;
+      // round s0's columns W at a time: column c of the round is slot c / k's
+      for (int c0 = 0; c0 < W * P.k; c0 += W) {
+        const int c = c0 + lane, from = c / P.k, q = c - from * P.k;
+        const float ts_c = __shfl_sync(kFull, ts, from, W);
+        const float dt_c = __shfl_sync(kFull, dt_sel, from, W);
+        const bool valid_c = __shfl_sync(kFull, static_cast<int>(valid), from, W) != 0;
+        const int col = s0 * P.k + c;
+        if (live && col < S) {
+          float t_start, t_end;
+          fine_column(P, ts_c, dt_c, q, t_start, t_end);
+          t_starts[base + col] = valid_c ? t_start : 0.0f;
+          t_ends[base + col] = valid_c ? t_end : 0.0f;
+          mask[base + col] = valid_c;
+        }
+      }
     }
   }
-  if (lane == 0) num_samples[r] = budget * P.k;
+  if (live && lane == 0) num_samples[r] = budget * P.k;
+}
+
+// K5b's launch: W 16 where a ray's slots and words fit half a warp.
+template <int K>
+cudaError_t launch_emit(const MarchParams& P, const int32_t* state, const int32_t* total,
+                        float* t_starts, float* t_ends, uint8_t* mask, int32_t* num_samples,
+                        cudaStream_t stream) {
+  const bool half = P.Sc <= 16 && P.words_fine <= 16 && P.words_pre <= 16;
+  const int per_block = kWarps * (half ? 2 : 1);
+  const int blocks = (P.R + per_block - 1) / per_block;
+  if (half) {
+    march_emit_kernel<K, 16><<<blocks, kWarps * 32, 0, stream>>>(P, state, total, t_starts,
+                                                                 t_ends, mask, num_samples);
+  } else {
+    march_emit_kernel<K, 32><<<blocks, kWarps * 32, 0, stream>>>(P, state, total, t_starts,
+                                                                 t_ends, mask, num_samples);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -524,8 +598,7 @@ extern "C" int umhs_march_emit(const MarchParams* params, const int32_t* state,
                                const int32_t* total, float* t_starts, float* t_ends,
                                uint8_t* mask, int32_t* num_samples, cudaStream_t stream) {
   const MarchParams P = *params;
-  const int blocks = (P.R + kWarps - 1) / kWarps;
-  march_emit_kernel<<<blocks, kWarps * 32, 0, stream>>>(P, state, total, t_starts, t_ends, mask,
-                                                        num_samples);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      P.k == 4 ? launch_emit<4>(P, state, total, t_starts, t_ends, mask, num_samples, stream)
+               : launch_emit<0>(P, state, total, t_starts, t_ends, mask, num_samples, stream));
 }

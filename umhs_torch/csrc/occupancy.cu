@@ -2,28 +2,36 @@
 // evaluation (which stays K3 and K1).
 //
 // Replaces the XLA code of umhs_tpu/ops/occupancy.py:347 `update_occ_state`:
-// the probes' world positions (`_level_world_positions`), the EMA and the
-// lower envelope at the probed cells (:413-437), the threshold (:439), the
-// max-pool (`_pool_binaries` :88) and the 64-bit packing
-// (`_pack_supercell_words` :97). In the original system nerfacc's
-// OccGridEstimator did this work in CUDA.
+// the partial update's cell choice (:366-407), the probes' world positions
+// (`_level_world_positions`), the EMA and the lower envelope at the probed
+// cells (:413-437), the threshold (:439), the max-pool (`_pool_binaries`
+// :88) and the 64-bit packing (`_pack_supercell_words` :97). In the original
+// system nerfacc's OccGridEstimator did this work in CUDA.
 //
 // K7a (umhs_occ_update), one thread a probe:
-// - mode 0, before the density: the probe's world position. In a partial
-//   update it also writes, at the probe's cell, the values every probe of
-//   that cell shares: occs_out = occs * decay and occs_low_out =
-//   max(occs_low * 2, occ_thre) (a cell drawn twice gets the same value
-//   twice).
+// - mode 0, before the density: the probe's world position. A partial
+//   update probes given (level, cell) pairs, or chooses them from the
+//   draws: per level, half the cells uniform and half the occupied ones at
+//   the stratified ranks floor((i + u_i) / m * count), each found through
+//   one count pass over the bitfield (occ_cells_kernel: each slice's rows'
+//   exclusive counts and the slice's count) by a binary search over the
+//   slices' counts in shared memory, one over the slice's rows and a
+//   popcount walk along the row's bytes; a level with no occupied cell takes
+//   its fallback cells. Then, in place in the state's grids, at each probed
+//   cell the values its probes share: occs * decay and max(occs_low * 2,
+//   occ_thre). A bit a cell (atomicOr in a bitmap zeroed once an update)
+//   lets exactly one probe of a cell write them, from the grid as it was.
 // - mode 1, after the density: occ = nan_to_num(sigma * step). Full:
 //   occs_out = max(occs * decay, occ), occs_low_out = min(occ, rise),
-//   elementwise. Partial: integer atomicMax / atomicMin of occ's bits into
-//   the values mode 0 wrote, which gives the largest probe in occs and the
-//   smallest in occs_low, as the plain version's scatter_reduce does. This
-//   is exact because no value is negative: occs starts at 0 and only takes
-//   maxima with occ; occ is the field's density (trunc_exp, or 0 outside
-//   the scene) times a positive step with NaN mapped to 0; the rise is at
-//   least occ_thre > 0. For non-negative floats the order of the bit
-//   patterns as int32 is the order of the values. No float atomics.
+//   elementwise into new grids. Partial: integer atomicMax / atomicMin of
+//   occ's bits into the values mode 0 wrote, which gives the largest probe
+//   in occs and the smallest in occs_low, as the plain version's
+//   scatter_reduce does. This is exact because no value is negative: occs
+//   starts at 0 and only takes maxima with occ; occ is the field's density
+//   (trunc_exp, or 0 outside the scene) times a positive step with NaN
+//   mapped to 0; the rise is at least occ_thre > 0. For non-negative floats
+//   the order of the bit patterns as int32 is the order of the values. No
+//   float atomics.
 // K7b (umhs_occ_pack): binaries = occs > min(mean, occ_thre), with the mean
 // read on the device (torch.mean, no host sync). Where res % 4 == 0, one
 // warp a 4^3 supercell: each lane thresholds two cells (bits l and l + 32
@@ -39,7 +47,10 @@
 // What bounds it on an H100: bytes. A full update at 4 x 128^3 reads the
 // 33.5 MB occs and occs_low and the 100 MB jitter, writes the 100 MB
 // positions, then reads occs, occs_low and the densities and writes occs
-// and occs_low; K7b reads occs once and writes 10.5 MB of bits.
+// and occs_low; K7b reads occs once and writes 10.5 MB of bits. A partial
+// one reads the 8.4 MB bitfield once, each probe's draw and jitter and
+// writes its position and cell, and reads and writes the grids only at the
+// probed cells: it copies no grid.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -49,6 +60,7 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float nan_to_num(float v) {
   if (isnan(v)) return 0.0f;
@@ -56,14 +68,156 @@ __device__ __forceinline__ float nan_to_num(float v) {
   return v;
 }
 
-// The probed cell's level and flat cell index: given, or probe i of the
-// full update (level i / res^3, cell i % res^3).
-__device__ __forceinline__ void probe_cell(const umhs::OccParams& g, int64_t i,
+// Word w of `bytes` (4-byte aligned) as an aligned 32-bit word, its bytes
+// outside [start, start + len) masked off: its popcount counts the range's
+// set bytes (each 0 or 1). The last word may reach up to 3 bytes past the
+// tensor's end, inside its allocation (PyTorch's allocator rounds every
+// block to 512 bytes).
+__device__ __forceinline__ unsigned range_word(const uint8_t* __restrict__ bytes, int64_t start,
+                                               int64_t len, int64_t w) {
+  unsigned v = __ldg(reinterpret_cast<const unsigned*>(bytes) + w);
+  const int64_t lo = start - 4 * w, hi = start + len - 4 * w;
+  if (lo > 0) v &= 0xffffffffu << (8 * lo);
+  if (hi < 4) v &= (1u << (8 * hi)) - 1u;
+  return v;
+}
+
+// One warp's exclusive scan of v[0, n) into out[0, n), 32 at a time with
+// a carry; returns the sum.
+__device__ __forceinline__ int32_t warp_scan_into(const int32_t* v, int32_t* out, int n,
+                                                  int lane) {
+  int32_t carry = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int32_t c = i0 + lane < n ? v[i0 + lane] : 0;
+    int32_t x = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t t = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += t;
+    }
+    if (i0 + lane < n) out[i0 + lane] = carry + x - c;
+    carry += __shfl_sync(kFull, x, 31);
+  }
+  return carry;
+}
+
+// Slice `slice` (level * res + z) of the bitfield: its rows' counts of set
+// bytes, their exclusive running count in the slice and the slice's count.
+// One block a slice, a warp a row at a time (four rows' loads in flight).
+__global__ void __launch_bounds__(kThreads)
+occ_cells_kernel(const umhs::OccParams g, const uint8_t* __restrict__ binaries,
+                 int32_t* __restrict__ row_excl, int32_t* __restrict__ slice_count) {
+  extern __shared__ int32_t row_count[];  // res
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t res = g.res, slice = blockIdx.x;
+  for (int y0 = 4 * warp; y0 < res; y0 += 4 * kWarps) {
+    int v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = 0;
+      if (y0 + j < res) {
+        const int64_t start = (slice * res + y0 + j) * res;
+        for (int64_t w = (start >> 2) + lane; w < (start + res + 3) >> 2; w += 32)
+          v[j] += __popc(range_word(binaries, start, res, w));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = __reduce_add_sync(kFull, v[j]);
+      if (lane == 0 && y0 + j < res) row_count[y0 + j] = c;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int32_t total = warp_scan_into(row_count, row_excl + slice * res, g.res, lane);
+    if (lane == 0) slice_count[slice] = total;
+  }
+}
+
+// Position of the n-th (0-based) set bit of w (n < popc(w)).
+__device__ __forceinline__ int nth_set_bit(unsigned w, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int width = 16; width >= 1; width >>= 1) {
+    const int c = __popc(w & ((1u << width) - 1u));
+    if (n >= c) {
+      n -= c;
+      w >>= width;
+      pos += width;
+    }
+  }
+  return pos;
+}
+
+// The largest i in [0, len) with v[i] <= key (v non-decreasing, v[0] <= key).
+__device__ __forceinline__ int last_at_most(const int32_t* v, int len, int64_t key) {
+  int lo = 0, hi = len - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (v[mid] <= key) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// The cell (in its level) of the occupied cell of rank `rank` (< the level's
+// count) of level `lvl`: its slice, its row, its byte in the row.
+__device__ __forceinline__ int64_t occupied_cell(const umhs::OccParams& g, int64_t lvl,
+                                                 int64_t rank, const int32_t* slice_excl,
+                                                 const int32_t* __restrict__ row_excl,
+                                                 const uint8_t* __restrict__ binaries) {
+  const int64_t res = g.res;
+  const int z = last_at_most(slice_excl + lvl * res, g.res, rank);
+  rank -= slice_excl[lvl * res + z];
+  const int32_t* rows = row_excl + (lvl * res + z) * res;
+  const int y = last_at_most(rows, g.res, rank);
+  int n = static_cast<int>(rank - __ldg(rows + y));
+  const int64_t start = ((lvl * res + z) * res + y) * res;
+  int64_t x = res - 1;
+  for (int64_t w = start >> 2; w < (start + res + 3) >> 2; ++w) {
+    const unsigned v = range_word(binaries, start, res, w);
+    const int c = __popc(v);
+    if (n < c) {
+      x = 4 * w + (nth_set_bit(v, n) >> 3) - start;
+      break;
+    }
+    n -= c;
+  }
+  return x + y * res + z * res * res;
+}
+
+// The probed cell of probe i: every cell of every level (full), the given
+// (level, cell) pairs, or the one chosen from the draws (partial_cells'
+// rule: the level's uniform cells, then its occupied cells at stratified
+// ranks, or its fallback cells when it has none).
+__device__ __forceinline__ void probe_cell(const umhs::OccParams& g,
+                                           const umhs::PartialDraws& D, bool draws, int64_t i,
                                            const int64_t* __restrict__ level,
-                                           const int64_t* __restrict__ cell, int64_t& lvl,
+                                           const int64_t* __restrict__ cell,
+                                           const int32_t* slice_excl, const int32_t* level_count,
+                                           const int32_t* __restrict__ row_excl,
+                                           const uint8_t* __restrict__ binaries, int64_t& lvl,
                                            int64_t& c) {
   const int64_t res3 = static_cast<int64_t>(g.res) * g.res * g.res;
-  if (level != nullptr) {
+  if (draws) {
+    lvl = 0;
+    while (i >= D.start[lvl + 1]) ++lvl;
+    const int64_t j = i - D.start[lvl] - D.uniform_n[lvl];
+    if (j < 0) {
+      c = D.uniform[lvl][j + D.uniform_n[lvl]];
+      return;
+    }
+    const int32_t count = level_count[lvl];
+    if (count == 0) {
+      c = D.fallback[lvl][j];
+      return;
+    }
+    // (arange + u) / m, then * count: the plain version's f32 roundings
+    const float strat = __fmul_rn(__fadd_rn(static_cast<float>(j), D.u[lvl][j]),
+                                  D.inv_occ_n[lvl]);
+    const int64_t rank =
+        static_cast<int64_t>(floorf(__fmul_rn(strat, static_cast<float>(count))));
+    c = rank < count ? occupied_cell(g, lvl, rank, slice_excl, row_excl, binaries) : res3 - 1;
+  } else if (level != nullptr) {
     lvl = level[i];
     c = cell[i];
   } else {
@@ -73,16 +227,31 @@ __device__ __forceinline__ void probe_cell(const umhs::OccParams& g, int64_t i,
 }
 
 __global__ void __launch_bounds__(kThreads)
-occ_probe_kernel(const umhs::OccParams g, int64_t n, const int64_t* __restrict__ level,
-                 const int64_t* __restrict__ cell, const float* __restrict__ jitter,
-                 const float* __restrict__ occs, const float* __restrict__ occs_low,
-                 float* __restrict__ positions, float* __restrict__ occs_out,
-                 float* __restrict__ occs_low_out) {
+occ_probe_kernel(const umhs::OccParams g, const __grid_constant__ umhs::PartialDraws D,
+                 int draws, int64_t n,
+                 const int64_t* __restrict__ level, const int64_t* __restrict__ cell,
+                 const int32_t* __restrict__ row_excl, const int32_t* __restrict__ slice_count,
+                 const uint8_t* __restrict__ binaries, const float* __restrict__ jitter,
+                 float* __restrict__ positions, float* occs, float* occs_low,
+                 int32_t* __restrict__ flat_out, unsigned* __restrict__ seen) {
+  // with draws: each level's slices' exclusive running counts, then the
+  // levels' counts (a warp a level)
+  extern __shared__ int32_t slice_excl[];  // levels * res + levels
+  const int64_t res = g.res;
+  if (draws) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int l = warp; l < g.levels; l += kWarps) {
+      const int32_t total =
+          warp_scan_into(slice_count + l * res, slice_excl + l * res, g.res, lane);
+      if (lane == 0) slice_excl[g.levels * res + l] = total;
+    }
+    __syncthreads();
+  }
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   int64_t lvl, c;
-  probe_cell(g, i, level, cell, lvl, c);
-  const int64_t res = g.res;
+  probe_cell(g, D, draws != 0, i, level, cell, slice_excl, slice_excl + g.levels * res, row_excl,
+             binaries, lvl, c);
   const int64_t ijk[3] = {c % res, (c / res) % res, c / (res * res)};
   const float scale = exp2f(static_cast<float>(lvl));
 #pragma unroll
@@ -95,31 +264,39 @@ occ_probe_kernel(const umhs::OccParams g, int64_t n, const int64_t* __restrict__
         1.0f);
     positions[3 * i + a] = __fadd_rn(g.center[a], __fmul_rn(__fmul_rn(unit, g.half[a]), scale));
   }
-  if (level != nullptr) {
+  if (flat_out != nullptr) {  // partial: the cell's shared values, once a cell
     const int64_t flat = lvl * res * res * res + c;
-    occs_out[flat] = __fmul_rn(occs[flat], g.decay);
-    occs_low_out[flat] = umhs::clamp_min_f(__fmul_rn(occs_low[flat], 2.0f), g.occ_thre);
+    flat_out[i] = static_cast<int32_t>(flat);
+    const unsigned bit = 1u << (flat & 31);
+    if ((atomicOr(seen + (flat >> 5), bit) & bit) == 0u) {
+      occs[flat] = __fmul_rn(occs[flat], g.decay);
+      occs_low[flat] = umhs::clamp_min_f(__fmul_rn(occs_low[flat], 2.0f), g.occ_thre);
+    }
   }
 }
 
+// Full: the EMA and the envelope elementwise, into new grids.
 __global__ void __launch_bounds__(kThreads)
-occ_ema_kernel(const umhs::OccParams g, int64_t n, const int64_t* __restrict__ level,
-               const int64_t* __restrict__ cell, const float* __restrict__ occs,
+occ_ema_kernel(const umhs::OccParams g, int64_t n, const float* __restrict__ occs,
                const float* __restrict__ occs_low, const float* __restrict__ sigma,
                float* __restrict__ occs_out, float* __restrict__ occs_low_out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   const float occ = nan_to_num(__fmul_rn(sigma[i], g.step));
-  if (level == nullptr) {
-    occs_out[i] = umhs::maximum_f(__fmul_rn(occs[i], g.decay), occ);
-    const float rise = umhs::clamp_min_f(__fmul_rn(occs_low[i], 2.0f), g.occ_thre);
-    occs_low_out[i] = umhs::minimum_f(occ, rise);
-    return;
-  }
-  const int64_t res = g.res;
-  const int64_t flat = level[i] * res * res * res + cell[i];
-  atomicMax(reinterpret_cast<int*>(occs_out) + flat, __float_as_int(occ));
-  atomicMin(reinterpret_cast<int*>(occs_low_out) + flat, __float_as_int(occ));
+  occs_out[i] = umhs::maximum_f(__fmul_rn(occs[i], g.decay), occ);
+  const float rise = umhs::clamp_min_f(__fmul_rn(occs_low[i], 2.0f), g.occ_thre);
+  occs_low_out[i] = umhs::minimum_f(occ, rise);
+}
+
+// Partial: each probe's occ into its cell, in place.
+__global__ void __launch_bounds__(kThreads)
+occ_fold_kernel(const umhs::OccParams g, int64_t n, const int32_t* __restrict__ flat,
+                const float* __restrict__ sigma, float* occs, float* occs_low) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const float occ = nan_to_num(__fmul_rn(sigma[i], g.step));
+  atomicMax(reinterpret_cast<int*>(occs) + flat[i], __float_as_int(occ));
+  atomicMin(reinterpret_cast<int*>(occs_low) + flat[i], __float_as_int(occ));
 }
 
 __device__ __forceinline__ float threshold_of(const umhs::OccParams& g,
@@ -197,18 +374,51 @@ unsigned blocks_for(int64_t threads) {
 
 extern "C" int umhs_occ_params_size() { return static_cast<int>(sizeof(umhs::OccParams)); }
 
-extern "C" int umhs_occ_update(int mode, const umhs::OccParams* params, int64_t n,
-                               const int64_t* level, const int64_t* cell, const float* jitter,
-                               const float* occs, const float* occs_low, const float* sigma,
+extern "C" int umhs_occ_draws_size() { return static_cast<int>(sizeof(umhs::PartialDraws)); }
+
+// Mode 0 (the probes): full when `level` and `draws` are both null, else
+// partial, from the pairs (level, cell) or chosen from `draws` (the count
+// pass into `counts`: levels * res^2 rows' then levels * res slices'
+// int32); a partial update zeroes `seen` (a bit a cell) and writes `flat`
+// and the grids `occs`, `occs_low` in place. Mode 1 (the fold): partial
+// when `flat` is given (into `occs`, `occs_low` in place), else full (into
+// `occs_out`, `occs_low_out`).
+extern "C" int umhs_occ_update(int mode, const umhs::OccParams* params,
+                               const umhs::PartialDraws* draws, int64_t n, const int64_t* level,
+                               const int64_t* cell, const uint8_t* binaries, const float* jitter,
+                               float* occs, float* occs_low, const float* sigma,
                                float* positions, float* occs_out, float* occs_low_out,
+                               int32_t* flat, unsigned* seen, int32_t* counts,
                                cudaStream_t stream) {
   const umhs::OccParams g = *params;
+  const int64_t res = g.res, cells = static_cast<int64_t>(g.levels) * res * res * res;
   if (mode == 0) {
-    occ_probe_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-        g, n, level, cell, jitter, occs, occs_low, positions, occs_out, occs_low_out);
+    const bool partial = level != nullptr || draws != nullptr;
+    umhs::PartialDraws D{};
+    size_t smem = 0;
+    int32_t *row_excl = nullptr, *slice_count = nullptr;
+    if (partial) {
+      cudaError_t err = cudaMemsetAsync(seen, 0, ((cells + 31) / 32) * sizeof(unsigned), stream);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (draws != nullptr) {
+      D = *draws;
+      row_excl = counts;
+      slice_count = counts + g.levels * res * res;
+      occ_cells_kernel<<<static_cast<unsigned>(g.levels * res), kThreads, res * sizeof(int32_t),
+                         stream>>>(g, binaries, row_excl, slice_count);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      smem = (g.levels * res + g.levels) * sizeof(int32_t);
+    }
+    occ_probe_kernel<<<blocks_for(n), kThreads, smem, stream>>>(
+        g, D, draws != nullptr, n, level, cell, row_excl, slice_count, binaries, jitter,
+        positions, occs, occs_low, partial ? flat : nullptr, seen);
+  } else if (flat != nullptr) {
+    occ_fold_kernel<<<blocks_for(n), kThreads, 0, stream>>>(g, n, flat, sigma, occs, occs_low);
   } else {
-    occ_ema_kernel<<<blocks_for(n), kThreads, 0, stream>>>(g, n, level, cell, occs, occs_low,
-                                                           sigma, occs_out, occs_low_out);
+    occ_ema_kernel<<<blocks_for(n), kThreads, 0, stream>>>(g, n, occs, occs_low, sigma, occs_out,
+                                                           occs_low_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

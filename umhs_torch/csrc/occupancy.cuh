@@ -27,6 +27,21 @@ struct OccParams {
   float decay, occ_thre, step;
 };
 
+// A partial update's draws, level by level (umhs_torch/ops/occupancy.py's
+// draw_partial_cells), passed by value: level l's probes are [start[l],
+// start[l + 1]), its uniform_n uniform cells first, then its occupied ones,
+// each with its stratified offset u and its fallback cell. Mirrors
+// PartialDraws there field for field.
+constexpr int kMaxLevels = 16;
+struct PartialDraws {
+  int64_t start[kMaxLevels + 1];
+  int64_t uniform_n[kMaxLevels];
+  const int64_t* uniform[kMaxLevels];
+  const float* u[kMaxLevels];
+  const int64_t* fallback[kMaxLevels];
+  float inv_occ_n[kMaxLevels];  // float32(1) / float32(occupied draws), 0 for none
+};
+
 // torch.clamp_min / clamp_max / maximum / minimum on float32: NaN passes.
 __device__ __forceinline__ float clamp_min_f(float v, float lo) {
   return isnan(v) ? v : fmaxf(v, lo);

@@ -355,7 +355,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def update_occupancy(self, full: bool = True) -> None:
         """Occupancy update of the state's grid, full or partial; its cells
-        and in-cell jitter come from a generator seeded with seed + 2 + step."""
+        and in-cell jitter come from a generator seeded with seed + 2 + step.
+        The result replaces state["occ"]: on the card a partial update
+        writes the old state's grids in place."""
         occ_cfg = self.model.occ_config
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.config.seed + 2 + self.step)

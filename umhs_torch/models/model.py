@@ -53,7 +53,6 @@ from ..ops.occupancy import (
     OccGridConfig,
     init_occ_state,
     occ_update_due,
-    partial_cells,
     update_occ_state,
 )
 from ..ops.ray_marching import MarchConfig, march_rays, sample_positions
@@ -228,12 +227,15 @@ class UMHSModel:
     def update_occupancy(self, occ_state, params, jitter: torch.Tensor, full: bool = True,
                          cell_draws=None):
         """Occupancy EMA update with the given jitter: full (jitter
-        (levels * res^3, 3)), or partial at the cells `partial_cells` makes
-        from `cell_draws` (jitter (M, 3))."""
-        cells = None if full else partial_cells(occ_state, self.occ_config, cell_draws)
+        (levels * res^3, 3)), or partial at the cells `partial_cells`'
+        rule chooses from `cell_draws` (jitter (M, 3)). On the card a
+        partial update takes occ_state's grids over (`update_occ_state`):
+        the caller replaces its state with the result and uses the old one
+        no more, as the trainer does."""
         return update_occ_state(
             occ_state, self.occ_config, density_fn(params, self.field_config),
-            self.render_step_size, jitter, cells=cells, impl=self.config.impl,
+            self.render_step_size, jitter, impl=self.config.impl,
+            draws=None if full else cell_draws,
         )
 
     def occ_update_due(self, step: int) -> Tuple[bool, bool]:

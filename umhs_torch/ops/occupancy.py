@@ -16,12 +16,14 @@ test from the JAX key splits). `occ_update_due` is nerfacc's schedule.
 
 K7, the update on the card (``csrc/occupancy.cu``, port of the XLA code of
 umhs_tpu/ops/occupancy.py:347 `update_occ_state`): K7a `umhs_occ_update`
-places the probes before the density evaluation and folds the densities
-into the EMA after it; K7b `umhs_occ_pack` thresholds, pools and packs in
-one pass. impl="auto" launches them on a CUDA tensor, the plain version
-runs on a CPU tensor or with impl="plain"; both give the same bits. The
-density evaluation (K3 and K1), the mean of `occs` and `partial_cells`'
-cumsum and searchsorted stay PyTorch calls. Nothing is read back.
+chooses a partial update's cells from its draws and places the probes
+before the density evaluation, and folds the densities into the EMA after
+it; K7b `umhs_occ_pack` thresholds, pools and packs in one pass.
+impl="auto" launches them on a CUDA tensor, the plain version runs on a CPU
+tensor or with impl="plain"; both give the same bits. On the card a partial
+update writes the state's `occs` and `occs_low` in place. The density
+evaluation (K3 and K1) and the mean of `occs` stay PyTorch calls. Nothing
+is read back.
 """
 
 from __future__ import annotations
@@ -285,11 +287,14 @@ def update_occ_state(
     jitter: torch.Tensor,
     cells: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     impl: str = "auto",
+    *,
+    draws: Optional[List[Dict[str, torch.Tensor]]] = None,
 ):
-    """One EMA update. Full when `cells` is None: every cell of every level
-    is probed at the jittered point `jitter` (levels * res^3, 3) in [0, 1)^3
-    inside it. Partial otherwise: the (level, cell) pairs `cells` (M,), e.g.
-    from `partial_cells`, are probed at `jitter` (M, 3).
+    """One EMA update. Full when `cells` and `draws` are None: every cell of
+    every level is probed at the jittered point `jitter` (levels * res^3, 3)
+    in [0, 1)^3 inside it. Partial otherwise, at jitter (M, 3): the (level,
+    cell) pairs `cells` (M,), or the cells `partial_cells` chooses from the
+    draws `draws` (draw_partial_cells' levels).
 
     occs <- max(occs * decay, density * step); the lower envelope drops to a
     lower probe at once and rises at most x2 per update (seeded at occ_thre);
@@ -302,11 +307,19 @@ def update_occ_state(
     once).
 
     impl="auto": K7 on a CUDA tensor, the plain version on a CPU tensor;
-    impl="plain": the plain version anywhere."""
+    impl="plain": the plain version anywhere. On the card a partial update
+    takes the state's grids over: it writes `occs` and `occs_low` in place
+    and returns them, so the caller must not use the old state afterwards
+    (pass clones to update one state twice). The plain version returns new
+    tensors."""
     _check_impl(impl)
+    if cells is not None and draws is not None:
+        raise ValueError("update_occ_state: give cells or draws, not both")
     if impl == "plain" or jitter.device.type == "cpu":
-        return update_occ_state_plain(state, config, density_fn, render_step_size, jitter, cells)
-    return update_occ_state_cuda(state, config, density_fn, render_step_size, jitter, cells)
+        return update_occ_state_plain(state, config, density_fn, render_step_size, jitter, cells,
+                                      draws=draws)
+    return update_occ_state_cuda(state, config, density_fn, render_step_size, jitter, cells,
+                                 draws=draws)
 
 
 def update_occ_state_plain(
@@ -316,8 +329,13 @@ def update_occ_state_plain(
     render_step_size: float,
     jitter: torch.Tensor,
     cells: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    *,
+    draws: Optional[List[Dict[str, torch.Tensor]]] = None,
 ):
-    """Plain version of update_occ_state (K7a and K7b)."""
+    """Plain version of update_occ_state (K7a and K7b): the cells from
+    partial_cells, the grids new tensors."""
+    if draws is not None:
+        cells = partial_cells(state, config, draws)
     level, cell_flat = _probe_cells_plain(config, jitter.device, cells)
     positions = _level_world_positions(config, level, cell_flat, jitter)
     occ = _eval_occ(density_fn, positions) * render_step_size
@@ -382,9 +400,27 @@ def occ_params(config: OccGridConfig, render_step_size: float = 0.0) -> OccParam
     )
 
 
+MAX_LEVELS = 16  # a partial update's levels at most (csrc/occupancy.cuh kMaxLevels)
+
+
+class PartialDraws(ctypes.Structure):
+    """A partial update's draws for K7a, passed by value (csrc/occupancy.cuh
+    `PartialDraws`): level l's probes [start[l], start[l + 1]), its uniform
+    cells first, and the device pointers of its draws."""
+
+    _fields_ = [
+        ("start", ctypes.c_int64 * (MAX_LEVELS + 1)),
+        ("uniform_n", ctypes.c_int64 * MAX_LEVELS),
+        ("uniform", ctypes.c_void_p * MAX_LEVELS),
+        ("u", ctypes.c_void_p * MAX_LEVELS),
+        ("fallback", ctypes.c_void_p * MAX_LEVELS),
+        ("inv_occ_n", ctypes.c_float * MAX_LEVELS),
+    ]
+
+
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 OCC_UPDATE = Kernel("occupancy.cu", "umhs_occ_update",
-                    [ctypes.c_int, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P])
+                    [ctypes.c_int, _P, _P, _I64] + [_P] * 13 + [_P])
 OCC_PACK = Kernel("occupancy.cu", "umhs_occ_pack", [_P, _P, _P, _P, _P, _P, _P])
 
 
@@ -402,11 +438,14 @@ def update_occ_state_cuda(
     render_step_size: float,
     jitter: torch.Tensor,
     cells: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    *,
+    draws: Optional[List[Dict[str, torch.Tensor]]] = None,
 ):
-    """update_occ_state on the card: K7a places the probes (occ_probe_cuda),
-    the density is evaluated, K7a folds it in (occ_fold_cuda), then K7b
-    thresholds, pools and packs against the device's mean."""
-    probes = occ_probe_cuda(state, config, jitter, cells)
+    """update_occ_state on the card: K7a chooses the cells and places the
+    probes (occ_probe_cuda), the density is evaluated, K7a folds it in
+    (occ_fold_cuda), then K7b thresholds, pools and packs against the
+    device's mean. A partial update writes the state's grids in place."""
+    probes = occ_probe_cuda(state, config, jitter, cells, draws=draws)
     sigma = _eval_occ(density_fn, probes.positions)
     out = occ_fold_cuda(probes, sigma, render_step_size)
     out.update(threshold_pack_cuda(out["occs"], torch.mean(out["occs"]), config))
@@ -416,69 +455,118 @@ def update_occ_state_cuda(
 @dataclasses.dataclass
 class Probes:
     """K7a's probes between its two launches: the world positions (n, 3),
-    the cells (None for a full update) and the grids being written."""
+    the grids being written (new ones for a full update, the state's for a
+    partial one) and, partial, each probe's flat cell index (n,) int32."""
 
     state: dict
     config: OccGridConfig
-    cells: Optional[Tuple[torch.Tensor, torch.Tensor]]
     positions: torch.Tensor
     occs: torch.Tensor
     occs_low: torch.Tensor
+    flat: Optional[torch.Tensor]
+
+
+def _draws_struct(draws, config: OccGridConfig, dev) -> Tuple[PartialDraws, list, int]:
+    """The draws as K7a takes them (each level's tensors on `dev`, int64
+    cells, float32 offsets), the tensors it points into, and the probes."""
+    if len(draws) != config.levels or config.levels > MAX_LEVELS:
+        raise ValueError(f"update_occ_state_cuda: {len(draws)} levels of draws for a grid of "
+                         f"{config.levels} (at most {MAX_LEVELS})")
+    D, keep, n = PartialDraws(), [], 0
+    for lvl, d in enumerate(draws):
+        uni, u, fb = (d[k].to(device=dev, dtype=t).contiguous() for k, t in (
+            ("uniform", torch.int64), ("u", torch.float32), ("fallback", torch.int64)))
+        if uni.dim() != 1 or u.dim() != 1 or fb.shape != u.shape:
+            raise ValueError("update_occ_state_cuda: each level's draws are (m_uni,) uniform "
+                             "cells, (m_occ,) offsets u and (m_occ,) fallback cells")
+        keep += [uni, u, fb]
+        D.start[lvl] = n
+        D.uniform_n[lvl] = uni.shape[0]
+        D.uniform[lvl], D.u[lvl], D.fallback[lvl] = uni.data_ptr(), u.data_ptr(), fb.data_ptr()
+        m_occ = u.shape[0]
+        # (arange + u) / m_occ divides by a Python number: its f32 reciprocal
+        D.inv_occ_n[lvl] = float(np.float32(1.0) / np.float32(m_occ)) if m_occ else 0.0
+        n += uni.shape[0] + m_occ
+    D.start[config.levels] = n
+    return D, keep, n
 
 
 def occ_probe_cuda(state, config: OccGridConfig, jitter: torch.Tensor,
-                   cells: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Probes:
-    """K7a, mode 0: the probes' world positions; for a partial update also,
-    at each probed cell, the values every probe of it shares (occs * decay
-    and the envelope's rise) in copies of the grids."""
+                   cells: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, *,
+                   draws: Optional[List[Dict[str, torch.Tensor]]] = None) -> Probes:
+    """K7a, mode 0: the probes' world positions; for a partial update also
+    the cells (given, or chosen from `draws` against state["binaries"]) and,
+    once at each probed cell, the values its probes share (occs * decay and
+    the envelope's rise), written into the state's grids in place."""
     check_grid_limits(config, "update_occ_state_cuda")
     dev = jitter.device
     if dev.type != "cuda":
         raise ValueError(f"update_occ_state_cuda: needs a CUDA tensor, not {dev}")
-    n = config.levels * config.cells_per_level if cells is None else cells[0].shape[0]
+    ncells = config.levels * config.cells_per_level
+    D, keep, level, cell, binaries = None, [], None, None, None
+    if draws is not None:
+        D, keep, n = _draws_struct(draws, config, dev)
+        binaries = state["binaries"]
+        if (binaries.dtype != torch.bool or binaries.device != dev or binaries.numel() != ncells
+                or not binaries.is_contiguous() or binaries.data_ptr() % 4):
+            raise ValueError(f"update_occ_state_cuda: state['binaries'] must be a contiguous, "
+                             f"4-byte aligned ({ncells},) bool grid on {dev}")
+    elif cells is not None:
+        level, cell = (c.to(device=dev, dtype=torch.int64).contiguous() for c in cells)
+        n = level.shape[0]
+        if level.shape != (n,) or cell.shape != (n,):
+            raise ValueError("update_occ_state_cuda: cells must be two (M,) tensors")
+    else:
+        n = ncells
     if jitter.dtype != torch.float32 or tuple(jitter.shape) != (n, 3) or n == 0:
         raise ValueError(f"update_occ_state_cuda: jitter must be ({n}, 3) float32, not "
                          f"{tuple(jitter.shape)} {jitter.dtype}")
     for key in ("occs", "occs_low"):
         t = state[key]
         if (t.dtype != torch.float32 or t.device != dev or not t.is_contiguous()
-                or t.numel() != config.levels * config.cells_per_level):
+                or t.numel() != ncells):
             raise ValueError(f"update_occ_state_cuda: state[{key!r}] must be a contiguous "
                              f"float32 grid on {dev}")
-    if cells is None:
-        level = cell = None
-        occs, occs_low = torch.empty_like(state["occs"]), torch.empty_like(state["occs_low"])
+    partial = cells is not None or draws is not None
+    if partial:  # the state's grids, written in place
+        occs, occs_low = state["occs"], state["occs_low"]
+        flat = torch.empty(n, dtype=torch.int32, device=dev)
+        seen = torch.empty((ncells + 31) // 32, dtype=torch.int32, device=dev)
     else:
-        level, cell = (c.to(device=dev, dtype=torch.int64).contiguous() for c in cells)
-        if level.shape != (n,) or cell.shape != (n,):
-            raise ValueError("update_occ_state_cuda: cells must be two (M,) tensors")
-        occs, occs_low = state["occs"].clone(), state["occs_low"].clone()
-    probes = Probes(state, config, None if cells is None else (level, cell),
-                    torch.empty((n, 3), dtype=torch.float32, device=dev), occs, occs_low)
+        occs, occs_low = torch.empty_like(state["occs"]), torch.empty_like(state["occs_low"])
+        flat = seen = None
+    res, L = config.resolution, config.levels
+    counts = (torch.empty(L * res * res + L * res, dtype=torch.int32, device=dev)
+              if draws is not None else None)
+    probes = Probes(state, config, torch.empty((n, 3), dtype=torch.float32, device=dev), occs,
+                    occs_low, flat)
     OCC_UPDATE.check_struct("umhs_occ_params_size", OccParams)
+    OCC_UPDATE.check_struct("umhs_occ_draws_size", PartialDraws)
     with torch.cuda.device(dev):
-        OCC_UPDATE.launch(0, ctypes.byref(occ_params(config)), n, _ptr(level), _ptr(cell),
-                          jitter.contiguous().data_ptr(), state["occs"].data_ptr(),
-                          state["occs_low"].data_ptr(), None, probes.positions.data_ptr(),
-                          occs.data_ptr(), occs_low.data_ptr(), _stream(jitter))
+        OCC_UPDATE.launch(0, ctypes.byref(occ_params(config)),
+                          None if D is None else ctypes.byref(D), n, _ptr(level), _ptr(cell),
+                          _ptr(binaries), jitter.contiguous().data_ptr(), occs.data_ptr(),
+                          occs_low.data_ptr(), None, probes.positions.data_ptr(), None, None,
+                          _ptr(flat), _ptr(seen), _ptr(counts), _stream(jitter))
+    del keep  # the launch has read the pointers; the stream orders any reuse
     return probes
 
 
 def occ_fold_cuda(probes: Probes, sigma: torch.Tensor, render_step_size: float):
     """K7a, mode 1: the densities `sigma` (n,) at the probes folded into the
-    grids: {"occs", "occs_low"}. Each call writes the grids `probes` holds."""
+    grids: {"occs", "occs_low"}, those `probes` holds."""
     n = probes.positions.shape[0]
     if sigma.dtype != torch.float32 or sigma.shape != (n,) or sigma.device != \
             probes.positions.device:
         raise ValueError(f"update_occ_state_cuda: the density must be ({n},) float32 on the "
                          f"card, not {tuple(sigma.shape)} {sigma.dtype}")
-    level, cell = probes.cells if probes.cells is not None else (None, None)
     state = probes.state
     with torch.cuda.device(sigma.device):
-        OCC_UPDATE.launch(1, ctypes.byref(occ_params(probes.config, render_step_size)), n,
-                          _ptr(level), _ptr(cell), None, state["occs"].data_ptr(),
+        OCC_UPDATE.launch(1, ctypes.byref(occ_params(probes.config, render_step_size)), None, n,
+                          None, None, None, None, state["occs"].data_ptr(),
                           state["occs_low"].data_ptr(), sigma.contiguous().data_ptr(), None,
-                          probes.occs.data_ptr(), probes.occs_low.data_ptr(), _stream(sigma))
+                          probes.occs.data_ptr(), probes.occs_low.data_ptr(), _ptr(probes.flat),
+                          None, None, _stream(sigma))
     return {"occs": probes.occs, "occs_low": probes.occs_low}
 
 

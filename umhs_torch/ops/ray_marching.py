@@ -18,10 +18,10 @@ K5, the march on the card (``csrc/march.cu``, port of the XLA code of
 umhs_tpu/ops/ray_marching.py:250 `march_rays`): K5a `umhs_march_count` walks
 each ray's candidates to their occupancy bits and adds the ray's budget to
 a batch total on the device; K5b `umhs_march_emit` rank-selects under the
-batch's budget and writes the intervals. impl="auto" launches them on a
-CUDA tensor, the plain version runs on a CPU tensor or with impl="plain";
-both give the same bits, but for the od culling, which sums in another
-order (it is off in every shipped configuration).
+batch's budget, a lane a slot, and writes the intervals. impl="auto"
+launches them on a CUDA tensor, the plain version runs on a CPU tensor or
+with impl="plain"; both give the same bits, but for the od culling, which
+sums in another order (it is off in every shipped configuration).
 """
 
 from __future__ import annotations
