@@ -108,7 +108,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      whole update beside the plain one), the bound by bytes (K5a: the larger
      of it and the bound by operations on the candidates this data needs,
      k5a_candidates_needed), ptxas; K5a also alone on the dense and empty
-     grids and the eval chunk.
+     grids and the eval chunk. K7b also alone (k7b_cases): bit for bit
+     against the plain version at res 128, 64 and 32 with pool 4 and 2 (a
+     thread a supercell) and at res 30 and 33 (a thread a cell), the
+     threshold from occ_thre and from the mean; a misaligned occs refused
+     before any launch.
    With --baseline TREE (another checkout, e.g. the parent commit unpacked
    by git archive into the git-ignored chip_archive/): every kernel at
    phase 2's and phase 10's shapes through each tree's own wrappers, a
@@ -125,7 +129,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    through the tree's own update_occ_state (the partial one whole: the
    tree's cell choice, partial_cells or K7a's), march_count_cuda,
    march_emit_cuda and march_rays
-   (k5k7_tree_cases), K7's bits the tree's, K5's too in a tree with K5's
+   (k5k7_tree_cases; K7b alone too, on that grid and three of k7b_cases'
+   grids), K7's bits the tree's, K5's too in a tree with K5's
    kernels (a tree before the budget scale's one-division repair may round
    apart), and the SASS of the tree's K5a and K5b beside this one's
    (sass_loops: instructions and each loop's body).
@@ -301,6 +306,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    11c: 11b's wall ms per step and the seconds of an all_reduce of the
    step's flat buffer (its bytes printed): two ranks share one card and its
    host, so this measures correctness, not scaling.
+
+12. The experiment scripts' twins (umhs_torch/scripts/sh/, read by
+   umhs_torch.scripts.shell_argv.script_argv), each timed. Every training
+   twin but nerfacto.sh (phase 10a) runs through cli.train in this process
+   with its own argv (printed), only --data (the bench scene written to
+   disk: 128 bands, 141 for the three Bayspec scripts), --output-dir (the
+   temporary directory), --max-num-iterations and --steps-per-save (256)
+   changed: the scripts' own configurations (the defaults' trilinear
+   L16xF2 2^19 hash, S 96, bf16; methods rgb, spectral with last_sample
+   and rgb+spectral; 4-7 classes; random, black backgrounds; 2048-8192
+   rays; gradient accumulation 3). Gates per twin: the mean loss of the
+   last 16 steps below the first 16's; eval_all_images PSNR above the
+   step-0 eval batch's (a fresh Trainer from the run's config.yml); every
+   kernel of path_kernels (and K7) launched, the counts zeroed before and
+   read after; phase 6's kernel-vs-plain step at the run's final state and
+   config; with accumulation, Adam stepped on every third step only. Each
+   twin's ms a step over its last 64 steps is printed with the card. Then
+   render.sh's twin renders 2 orbit frames of the hotdog twin's run with
+   its rgb and abundances_0-5 (the render's kernels launch, the training
+   ones do not), visualize/hotdog.sh's twin (cli.eval) runs in a process
+   of its own (its results within 1e-6 of the run's eval_all_images), and
+   visualize/ajar.sh's twin starts the viewer of the ajar run (7 classes)
+   on port 0 for one /render of abundances_6. The phase's seconds are
+   printed.
 
 The last lines are the card (nvidia-smi), one JSON object of kernel numbers
 and, last, {"ok": true, "device": {...}}.
@@ -1392,7 +1421,9 @@ def step_grads(trainer, dev, draws, impl, moved_seed=None, dtype="float32"):
     ran = sorted(k for k, v in launch_counts().items() if v > before[k])
     want = sorted(path_kernels(cfg, train=True)) if impl == "auto" else []
     check(ran == want, f"{impl} training step launched {ran}, expected {want}")
-    grads = {n: p.grad.clone() for n, p in named_leaves(state["params"])}
+    # a parameter that the config leaves out of the graph (mlp_directional
+    # without the specular residual) has no gradient on either path
+    grads = {n: p.grad.clone() for n, p in named_leaves(state["params"]) if p.grad is not None}
     for _, p in named_leaves(state["params"]):
         p.grad = None
     terms = {k: float(v.detach()) for k, v in loss_dict.items()}
@@ -1448,6 +1479,9 @@ def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
             del ga2
         lp, gp, _, ep = step_grads(trainer, dev, d, "plain", dtype=dtype)
         lm, gm, _, em_ = step_grads(trainer, dev, d, "plain", moved_seed=i + 1, dtype=dtype)
+        check(sorted(ga) == sorted(gp) == sorted(gm),
+              f"{label}: the kernels' step reached other parameters than the plain one's: "
+              f"{sorted(set(ga) ^ set(gp))}")
         check(np.isfinite(la["total"]), f"{label}: non-finite loss with kernels")
         term_r.append({k: abs(la[k] - lp[k]) / (loss_rtol * abs(lp[k])
                                                  + SPREAD_FACTOR * abs(lm[k] - lp[k]) + 1e-30)
@@ -2001,6 +2035,72 @@ def k7_case(label, state, cfg, density, step, jitter, cells=None, draws=None):
     return got
 
 
+# K7b alone: (res, levels, pool); res % 4 == 0 on the supercell path, 30 and
+# 33 on the cell-a-thread path
+K7B_GRIDS = ((128, 4, 4), (128, 4, 2), (64, 4, 4), (64, 2, 2), (32, 2, 4), (32, 2, 2),
+             (30, 2, 2), (33, 1, 0))
+
+
+def k7b_grid(dev, res, levels, scale, seed):
+    """An occs grid of `levels` x res^3 in [0, scale): an eighth of the cells
+    0, a thirteenth at min(mean, occ_thre). With scale 0.04 the threshold is
+    occ_thre and those cells sit exactly on it (not above); with 0.01 it is
+    the mean, which they move by a little."""
+    from umhs_torch.ops.occupancy import OccGridConfig
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    occs = scale * torch.rand(levels * res ** 3, device=dev, generator=gen)
+    occs[::8] = 0.0
+    occs[::13] = torch.clamp_max(torch.mean(occs), OccGridConfig.occ_thre)
+    return occs
+
+
+def k7b_cases(dev):
+    """K7b (threshold_pack_cuda) alone against _threshold_pack_plain on the
+    card, bit for bit and repeated, at each of K7B_GRIDS, with the threshold
+    from occ_thre and from the mean (k7b_grid); a misaligned occs (a view 4
+    bytes past an aligned one) refused before any launch on the supercell
+    path, taken on the cell-a-thread path."""
+    from umhs_torch.ops.occupancy import (
+        OCC_PACK, OccGridConfig, _threshold_pack_plain, threshold_pack_cuda)
+
+    out = []
+    for res, levels, pool in K7B_GRIDS:
+        cfg = OccGridConfig(resolution=res, levels=levels, pool=pool)
+        for scale in (0.04, 0.01):
+            occs = k7b_grid(dev, res, levels, scale, seed=res + pool)
+            mean = torch.mean(occs)
+            got, again = (threshold_pack_cuda(occs, mean, cfg) for _ in range(2))
+            ref = _threshold_pack_plain(occs, mean, cfg)
+            check(sorted(got) == sorted(ref), f"K7b {res} {pool}: outputs {sorted(got)}")
+            for k in ref:
+                check(torch.equal(got[k], ref[k]), f"K7b res {res} x {levels} pool {pool} "
+                                                   f"scale {scale}: {k} not the plain bits")
+                check(torch.equal(got[k], again[k]), f"K7b res {res} pool {pool}: {k} not repeated")
+            out.append({"res": res, "levels": levels, "pool": pool, "scale": scale,
+                        "occupied": float(got["binaries"].float().mean()), "outputs": sorted(got)})
+        shifted = torch.zeros(levels * res ** 3 + 4, device=dev)[1:-3]
+        shifted.copy_(occs)
+        before = OCC_PACK.launches
+        if res % 4 == 0:
+            try:
+                threshold_pack_cuda(shifted, torch.mean(shifted), cfg)
+                fail(f"K7b res {res}: a misaligned occs was not refused")
+            except ValueError:
+                pass
+            check(OCC_PACK.launches == before, f"K7b res {res}: launched on a misaligned occs")
+        else:
+            mean = torch.mean(shifted)
+            got = threshold_pack_cuda(shifted, mean, cfg)
+            ref = _threshold_pack_plain(shifted, mean, cfg)
+            check(all(torch.equal(got[k], ref[k]) for k in ref),
+                  f"K7b res {res}: the misaligned grid not the plain bits")
+    print(f"K7b alone: the plain version's bits, repeated, at {len(out)} grids and thresholds "
+          f"{json.dumps([(c['res'], c['levels'], c['pool'], c['scale']) for c in out])}; "
+          "a misaligned occs refused before any launch where res % 4 == 0")
+    return out
+
+
 def phase_k5k7(dev, ptxas, dm):
     """K5 and K7 against their plain versions at the flagship's shapes, each
     repeated bit for bit, with device ms, ms per call, the plain version's
@@ -2106,6 +2206,7 @@ def phase_k5k7(dev, ptxas, dm):
     b["call_ms"] = median_ms(lambda: threshold_pack_cuda(state["occs"], mean, cfg))
     b["plain_ms"] = k6_plain_ms(lambda: _threshold_pack_plain(state["occs"], mean, cfg))
     b["bound_bytes"] = n * 4 + 4 + n + n // 64 * (16 + 1)
+    k7b = k7b_cases(dev)
 
     # K5 at phase 7's steady batch on that grid, a dense and an empty one
     R = K6_RAYS
@@ -2204,7 +2305,8 @@ def phase_k5k7(dev, ptxas, dm):
               update_ms=a["full"]["update_ms"], plain_update_ms=a["full"]["plain_update_ms"],
               partial={**a["partial"], "probes": m, "repeated_probes": m - unique,
                        "bound_ms": a["partial"]["bound_bytes"] / H100_BYTES_PER_S * 1e3}),
-        entry("occ_pack", b, f"threshold, pool 4 and pack of {n} cells; {grid_shape}"),
+        entry("occ_pack", b, f"threshold, pool 4 and pack of {n} cells; {grid_shape}",
+              cases=k7b),
     ]
     for e in entries:
         print(f"K5/K7 {e['name']}: " + json.dumps(e))
@@ -2940,6 +3042,20 @@ def k5k7_tree_cases(dev, case):
             return update_occ_state(work, cfg, density, step, pj,
                                     cells=partial_cells(work, cfg, draws))
     case("K7 partial update", lambda: [v for _, v in sorted(partial().items())], held=True)
+    # K7b alone, through the tree's threshold_pack_cuda: the trained-like grid, then k7b_grid's
+    from umhs_torch.ops import occupancy
+
+    pack = getattr(occupancy, "threshold_pack_cuda", None)
+    if pack is not None:
+        mean = torch.mean(full["occs"])
+        case("K7 occ_pack", lambda: [v for _, v in sorted(pack(full["occs"], mean,
+                                                                    cfg).items())])
+        for res, levels, pool in K7B_GRIDS[1:4]:
+            g = occupancy.OccGridConfig(resolution=res, levels=levels, pool=pool)
+            occs = k7b_grid(dev, res, levels, 0.04, seed=res + pool)
+            m = torch.mean(occs)
+            case(f"K7 occ_pack res {res} x {levels} pool {pool}",
+                 lambda occs=occs, m=m, g=g: [v for _, v in sorted(pack(occs, m, g).items())])
     R = K6_RAYS
     o = torch.randn((R, 3), generator=gen)
     o = (3.0 * o / o.norm(dim=-1, keepdim=True)).to(dev)
@@ -4333,6 +4449,221 @@ def phase_mesh_two_ranks(endmembers):
     return {sym: [r["launches"][sym] for r in results] for sym in r0["launches"]}
 
 
+# phase 12: the experiment scripts' twins (umhs_torch/scripts/sh/) on the card
+SCRIPT_TWINS = Path(__file__).resolve().parent / "umhs_torch" / "scripts" / "sh"
+# every training twin but nerfacto.sh, which phase 10a runs
+SCRIPT_TRAINING = ("hotdog.sh", "ajar.sh", "rgb+spectral.sh", "rgb.sh", "spectral.sh",
+                   "instantngp.sh", "cbox_dragon.sh", "cbox_sphere.sh", "anacampseros.sh",
+                   "caladium.sh", "pinecone.sh")
+SCRIPT_BAYSPEC = ("anacampseros.sh", "caladium.sh", "pinecone.sh")  # 141-band captures
+SCRIPT_STEPS = 256  # of the scripts' 30,000
+SCRIPT_LOSS_WINDOW = 16  # gate (a): the last 16 steps' mean loss below the first 16's
+SCRIPT_MS_WINDOW = 64  # ms a step over the last 64 steps
+SCRIPT_FRAMES = 2  # render.sh's frames
+
+
+def replace_flag(argv, flag, value):
+    """argv with `flag`'s value replaced (the flag appended where absent)."""
+    argv = list(argv)
+    if flag in argv:
+        argv[argv.index(flag) + 1] = value
+        return argv
+    return argv + [flag, value]
+
+
+def script_train_argv(name, root, work):
+    """The training twin's own argv (script_argv) with only the data, the
+    output directory (the temporary one) and the length changed."""
+    from umhs_torch.scripts.shell_argv import script_argv
+
+    module, argv = script_argv(SCRIPT_TWINS / name)
+    check(module == "umhs_torch.cli.train", f"{name}: runs {module}")
+    for flag, value in (("--data", str(root)), ("--output-dir", str(work / "outputs")),
+                        ("--max-num-iterations", str(SCRIPT_STEPS)),
+                        ("--steps-per-save", str(SCRIPT_STEPS))):
+        argv = replace_flag(argv, flag, value)
+    return argv
+
+
+def script_run(name, argv, dev, smi):
+    """One training twin through cli.train in this process, with gates (a)-(d):
+    the loss falls, eval_all_images PSNR above the step-0 eval batch's (a
+    fresh Trainer from the run's config.yml), every kernel of the path
+    launched (K7 by the occupancy updates too), and phase 6's kernel-vs-plain
+    step at the run's final state and config. With gradient accumulation,
+    Adam stepped on every k-th step only. Returns the run's record."""
+    from umhs_torch.cli import train as cli_train
+    from umhs_torch.configs import load_config
+    from umhs_torch.engine.trainer import Trainer
+
+    print(f"phase 12, {name}: python -m umhs_torch.cli.train " + " ".join(argv))
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    result = cli_train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    trainer = result.trainer
+    cfg = trainer.model.config
+    want = path_kernels(cfg, train=True) + (OCC_KERNELS if cfg.sampler == "occgrid" else ())
+    missing = [sym for sym in want if launches[sym] == 0]
+    losses = [r["metrics"]["loss/total"] for r in trainer.history]
+    first = float(np.mean(losses[:SCRIPT_LOSS_WINDOW]))
+    last = float(np.mean(losses[-SCRIPT_LOSS_WINDOW:]))
+    config_yml = trainer.run_dir / "config.yml"
+    config = load_config(config_yml)
+    with uncounted():
+        fresh = Trainer(dataclasses.replace(config.trainer, save_final=False),
+                        config.pipeline.model, config.pipeline.datamanager,
+                        num_classes=config.pipeline.num_classes, device=dev).setup()
+        psnr0 = fresh.eval_batch()["psnr"]
+        del fresh
+        vs = phase_train_vs_plain(trainer, dev, f"{name} at step {trainer.step}")
+    k = trainer.config.gradient_accumulation_steps
+    adam_steps = trainer.optimizer.updates
+    ms = 1e3 * float(np.mean([r["step_s"] for r in trainer.history[-SCRIPT_MS_WINDOW:]]))
+    record = {
+        "script": name, "steps": trainer.step, "train_s": train_s,
+        "method": cfg.method, "background": cfg.background_color,
+        "pred_specular": cfg.pred_specular, "classes": trainer.model.num_classes,
+        "bands": len(trainer.model.wavelengths), "rays": trainer.dyn.rays,
+        "samples_per_ray": trainer.dyn.march.num_samples, "compute_dtype": cfg.compute_dtype,
+        "hs_dtype": config.pipeline.datamanager.hs_dtype, "accumulation": k,
+        "adam_steps": adam_steps, "ms_per_step_last64": ms, "card": smi,
+        "loss_first16": first, "loss_last16": last, "psnr_step0": psnr0,
+        "eval_all_images": result.evals,
+        "vs_plain_worst_median": vs["worst_median_over_tolerance"],
+        "launches": {s: launches[s] for s in want},
+    }
+    print(f"phase 12, {name}: {json.dumps(record)}")
+    check(not missing, f"{name}: kernels {missing} were not launched")
+    check(len(losses) == SCRIPT_STEPS and all(np.isfinite(losses)),
+          f"{name}: {len(losses)} steps, finite: {all(np.isfinite(losses))}")
+    check(last < first, f"{name}: the loss did not fall: {first} -> {last}")
+    check(all(np.isfinite(v) for v in result.evals.values()), f"{name}: non-finite eval metric")
+    check(result.evals["psnr"] > psnr0, f"{name}: eval_all_images PSNR "
+                                        f"{result.evals['psnr']} not above step 0's {psnr0}")
+    check(adam_steps == SCRIPT_STEPS // k and trainer.optimizer.mini_step == SCRIPT_STEPS % k,
+          f"{name}: {adam_steps} Adam steps in {SCRIPT_STEPS} with accumulation {k}")
+    del trainer, result
+    torch.cuda.empty_cache()
+    return record, config_yml
+
+
+def phase_scripts(dev, smi):
+    """Phase 12: the experiment scripts' twins on the card (SCRIPT_TRAINING
+    through script_run on the bench scene written to disk, 128 bands, and
+    the Bayspec scripts on the same scene at 141 bands), then the serving
+    twins on their runs: render.sh (2 frames of an orbit), visualize/
+    hotdog.sh (cli.eval in a process of its own) and visualize/ajar.sh (the
+    viewer on port 0, one /render of the ajar run's seventh class)."""
+    import threading
+    import urllib.request
+
+    from umhs_torch.cli import render as cli_render
+    from umhs_torch.cli import viewer as cli_viewer
+    from umhs_torch.data.png import read_png
+    from umhs_torch.data.synthetic import BENCH_SCENE, write_dataset
+    from umhs_torch.scripts.shell_argv import script_argv
+
+    t_phase = time.perf_counter()
+    records, configs = [], {}
+    launches = {}
+    with bench_dataset() as (work, root, _):
+        root141 = write_dataset(work / "scene141", dataclasses.replace(
+            BENCH_SCENE, num_bands=141, wavelength_start=400.0, wavelength_step=600.0 / 140))
+        for name in SCRIPT_TRAINING:
+            argv = script_train_argv(name, root141 if name in SCRIPT_BAYSPEC else root, work)
+            record, configs[name] = script_run(name, argv, dev, smi)
+            records.append(record)
+            for sym, n in record["launches"].items():
+                launches[sym] = launches.get(sym, 0) + n
+        hotdog = records[SCRIPT_TRAINING.index("hotdog.sh")]
+
+        # render.sh: its argv, the camera path a 2-frame orbit of the bench scene's size
+        module, argv = script_argv(SCRIPT_TWINS / "render.sh")
+        check(module == "umhs_torch.cli.render", f"render.sh runs {module}")
+        check((work / argv[argv.index("--load-config") + 1]).resolve()
+              == configs["hotdog.sh"].resolve(), "render.sh loads another run than hotdog.sh's")
+        size = BENCH_SCENE.image_size
+        (work / "orbit.json").write_text(json.dumps(orbit_path_json(SCRIPT_FRAMES, size, 50.0)))
+        argv = replace_flag(argv, "--camera-path-filename", str(work / "orbit.json"))
+        at = argv.index("--rendered-output-names") + 1
+        names = argv[at:next((i for i in range(at, len(argv)) if argv[i].startswith("--")),
+                             len(argv))]
+        print("phase 12, render.sh: python -m umhs_torch.cli.render " + " ".join(argv))
+        zero_launch_counts()
+        rendered = cli_render.main(argv)
+        got = launch_counts()
+        for sym in RENDER_KERNELS:
+            check(got[sym] > 0, f"render.sh did not launch {sym}")
+        for sym in set(TRAIN_KERNELS) - set(RENDER_KERNELS):
+            check(got[sym] == 0, f"render.sh launched {sym}")
+        frames = sorted(rendered.written.glob("frame_*.png"))
+        check(len(frames) == SCRIPT_FRAMES and all(
+            read_png(f).shape == (size, size * len(names), 3) for f in frames),
+            f"render.sh wrote {len(frames)} frames")
+        serving = {"render_outputs": names, "render_ms_per_frame":
+                   [1e3 * s for s in rendered.frame_s]}
+
+        # visualize/hotdog.sh: cli.eval in a process of its own, its own argv
+        module, argv = script_argv(SCRIPT_TWINS / "visualize" / "hotdog.sh")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(Path(__file__).resolve().parent)] + [p for p in [env.get("PYTHONPATH")] if p])
+        print(f"phase 12, visualize/hotdog.sh: python -m {module} " + " ".join(argv))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=work, env=env,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"visualize/hotdog.sh exited {proc.returncode}:\n"
+                                    f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        got = json.loads((work / argv[argv.index("--output-path") + 1]).read_text())
+        rel = {k: abs(got["results"][k] - v) / max(abs(v), 1e-30)
+               for k, v in hotdog["eval_all_images"].items()}
+        check(got["checkpoint_step"] == SCRIPT_STEPS and max(rel.values()) <= 1e-6,
+              f"visualize/hotdog.sh: step {got['checkpoint_step']}, differences {rel}")
+        serving.update(eval_s=time.perf_counter() - t0, eval_max_rel_diff=max(rel.values()))
+
+        # visualize/ajar.sh: the viewer of the ajar run, on port 0, one /render
+        module, argv = script_argv(SCRIPT_TWINS / "visualize" / "ajar.sh")
+        check(module == "umhs_torch.cli.viewer", f"visualize/ajar.sh runs {module}")
+        argv = replace_flag(argv, "--load-config", str(configs["ajar.sh"]))  # its run's name
+        argv = replace_flag(replace_flag(argv, "--port", "0"), "--resolution", str(size))
+        print("phase 12, visualize/ajar.sh: python -m umhs_torch.cli.viewer " + " ".join(argv))
+        zero_launch_counts()
+        server = cli_viewer.make_server(argv)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        classes = records[SCRIPT_TRAINING.index("ajar.sh")]["classes"]
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            outputs = json.loads(urllib.request.urlopen(base + "/outputs", timeout=60).read())
+            check(f"abundances_{classes - 1}" in outputs, f"the ajar viewer outputs {outputs}")
+            t0 = time.perf_counter()
+            png = urllib.request.urlopen(f"{base}/render?theta=0.8&phi=0.5&radius=1.0&fov=50"
+                                         f"&output=abundances_{classes - 1}", timeout=120).read()
+            serving["viewer_ms"] = 1e3 * (time.perf_counter() - t0)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        (work / "ajar_view.png").write_bytes(png)
+        check(read_png(work / "ajar_view.png").shape == (size, size, 3),
+              "visualize/ajar.sh: /render is not a PNG of the view")
+        got = launch_counts()
+        for sym in RENDER_KERNELS:
+            check(got[sym] > 0, f"visualize/ajar.sh's viewer did not launch {sym}")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 12: {len(records)} training twins at {SCRIPT_STEPS} steps and the serving "
+          f"twins in {seconds:.1f} s; {smi}; serving " + json.dumps(serving))
+    for r in records:
+        print(f"  {r['script']}: {r['ms_per_step_last64']:.2f} ms a step (last 64), PSNR "
+              f"{r['psnr_step0']:.2f} -> {r['eval_all_images']['psnr']:.2f} dB, loss "
+              f"{r['loss_first16']:.5f} -> {r['loss_last16']:.5f}, vs plain "
+              f"{json.dumps(r['vs_plain_worst_median'])}")
+    return {"seconds": seconds, "runs": records, "serving": serving, "launches": launches}
+
+
 SASS_INSTRUCTION = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 SASS_COUNTED = ("LDG", "SHFL", "MUFU", "VOTE", "POPC", "BAR")  # opcode stems counted per loop
@@ -4508,6 +4839,7 @@ def main() -> None:
         slice_kernels, nerfacto, dino = phase_10(dev, ptxas)
         mesh1, mesh2 = phase_11(dev, dm, endmembers, train_summary["loss_per_step"], state48)
         del dm, state48
+        scripts = phase_scripts(dev, smi)
 
         for entry in (k1, k2, k3, k4, *k6, *k5k7):
             sym = "umhs_" + entry["name"]
@@ -4524,6 +4856,7 @@ def main() -> None:
                 entry[f"launches_cli_{path}"] = entry_points[f"launches_{path}"][sym]
             entry["launches_mesh_1_rank"] = mesh1[sym]  # phase 11a's train(48)
             entry["launches_mesh_2_ranks"] = mesh2[sym]  # phase 11b's train(32), per rank
+            entry["launches_scripts"] = scripts["launches"].get(sym, 0)  # phase 12's twins
         p1["launches_quality"] = quality_launches["tetrahedral"].get("umhs_row_gather", 0)
         p1["launches_mesh_1_rank"] = mesh1["umhs_row_gather"]
         p1["launches_mesh_2_ranks"] = mesh2["umhs_row_gather"]

@@ -1617,6 +1617,59 @@ def test_k7_cell_choice_reaches_every_rank_edge(cuda):
     assert int(cell[uni + m_occ - 1]) == res**3 - 1
 
 
+K7B_GRIDS = [(128, 4, 4), (128, 4, 2), (64, 2, 4), (64, 2, 2), (32, 2, 4), (32, 2, 2),
+             (32, 1, 0), (30, 2, 2), (33, 1, 0)]
+
+
+@pytest.mark.parametrize("scale", [0.04, 0.01], ids=["occ_thre", "mean"])
+@pytest.mark.parametrize("res,levels,pool", K7B_GRIDS)
+def test_k7b_threshold_pack_matches_plain(cuda, res, levels, pool, scale):
+    """K7b alone against _threshold_pack_plain, bit for bit and repeated: a
+    thread a supercell where res % 4 == 0 (pool 4 from the word, another
+    pool in a second pass), a thread a cell at res 30 and 33. An eighth of
+    the cells are 0 and a thirteenth sit on the threshold (exactly, where it
+    is occ_thre: scale 0.04; near it where it is the mean: 0.01)."""
+    cfg = k7_occ.OccGridConfig(resolution=res, levels=levels, pool=pool)
+    gen = torch.Generator(cuda).manual_seed(res + pool)
+    occs = scale * torch.rand(levels * res**3, device=cuda, generator=gen)
+    occs[::8] = 0.0
+    occs[::13] = torch.clamp_max(torch.mean(occs), cfg.occ_thre)
+    mean = torch.mean(occs)
+    before = k7_occ.OCC_PACK.launches
+    got = k7_occ.threshold_pack_cuda(occs, mean, cfg)
+    again = k7_occ.threshold_pack_cuda(occs, mean, cfg)
+    ref = k7_occ._threshold_pack_plain(occs, mean, cfg)
+    assert k7_occ.OCC_PACK.launches == before + 2
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        assert torch.equal(got[k], again[k]), k
+    assert 0.0 < float(got["binaries"].float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("res", [32, 30])
+def test_k7b_refuses_a_misaligned_grid(cuda, res):
+    """A view of occs 4 bytes past a 16-byte boundary: refused before any
+    launch where K7b reads rows as float4 (res % 4 == 0), taken with the
+    plain version's bits where it reads a cell a thread."""
+    cfg = k7_occ.OccGridConfig(resolution=res, levels=2, pool=2)
+    n = 2 * res**3
+    occs = torch.zeros(n + 4, device=cuda)[1:n + 1]
+    occs.copy_(0.02 * torch.rand(n, device=cuda))
+    assert occs.is_contiguous() and occs.data_ptr() % 16 == 4
+    mean = torch.mean(occs)
+    before = k7_occ.OCC_PACK.launches
+    if res % 4 == 0:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            k7_occ.threshold_pack_cuda(occs, mean, cfg)
+        assert k7_occ.OCC_PACK.launches == before
+    else:
+        got = k7_occ.threshold_pack_cuda(occs, mean, cfg)
+        ref = k7_occ._threshold_pack_plain(occs, mean, cfg)
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+
+
 def test_k7_launches_and_the_model_path(cuda):
     """The model's update goes through K7a twice (before and after the
     density) and K7b once; impl="plain" launches neither."""

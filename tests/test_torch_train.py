@@ -49,23 +49,31 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-@pytest.fixture(scope="module")
-def setup():
-    scene = SyntheticSceneConfig(num_views_train=4, image_size=20, num_bands=8,
-                                 wavelength_start=450.0, wavelength_step=20.0)
-    poses, cubes, rgba = render_views(scene, 4, 0.0)
-    cams = scene_cameras(scene, poses)
-    jm = JModel(JModelConfig(**KW), WAVELENGTHS, num_classes=4, num_images=4)
-    tm = TModel(TModelConfig(**KW), WAVELENGTHS, num_classes=4, num_images=4, device="cpu")
+def _models(kw, num_classes=4):
+    """The JAX and the port's models of config `kw`, the JAX model's
+    parameters (hash table scaled to +/-1, density layer by 6) and its full
+    occupancy update from them."""
+    jm = JModel(JModelConfig(**kw), WAVELENGTHS, num_classes=num_classes, num_images=4)
+    tm = TModel(TModelConfig(**kw), WAVELENGTHS, num_classes=num_classes, num_images=4,
+                device="cpu")
     params, occ0 = jm.init(jax.random.PRNGKey(0))
     lay = params["mlp_base"]["layers"]
     params = dict(params, hash_table=params["hash_table"] * 1e4,
                   mlp_base={"layers": lay[:-1] + [dict(lay[-1], w=lay[-1]["w"] * 6.0)]})
     occ = jax.jit(lambda o, p, k: jm.update_occupancy(o, p, k, full=True))(
         occ0, params, jax.random.PRNGKey(3))
+    return {"jm": jm, "tm": tm, "params": params, "occ": occ}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    scene = SyntheticSceneConfig(num_views_train=4, image_size=20, num_bands=8,
+                                 wavelength_start=450.0, wavelength_step=20.0)
+    poses, cubes, rgba = render_views(scene, 4, 0.0)
+    cams = scene_cameras(scene, poses)
     tcam = cams.to_device_dict()
     return {
-        "jm": jm, "tm": tm, "params": params, "occ": occ,
+        **_models(KW), "configs": {},
         "jdata": {"image": jnp.asarray(rgba), "hs_image": jnp.asarray(cubes)},
         "tdata": {"image": torch.from_numpy(rgba), "hs_image": torch.from_numpy(cubes)},
         "jcam": {k: jnp.asarray(_np(v)) for k, v in tcam.items()}, "tcam": tcam,
@@ -175,24 +183,57 @@ def test_sample_pixel_batch_matches_jax_draws(setup, mode):
 
 
 # ------------------------------------------------------ loss and gradient
-@pytest.mark.parametrize("budget,samples", [(None, None), ((1024, 1024, 2048), None),
-                                            ((256, 512, 768), 24)],
-                         ids=["single", "three-stage", "three-stage-adapted"])
-def test_loss_and_every_gradient_match_jax(setup, budget, samples):
+# the model configs the experiment scripts run besides the flagship's (KW):
+# (KW's fields changed, the classes, the parameters the config leaves out of
+# the loss: their JAX gradient is zero and the port's None or zero)
+CONFIGS = {
+    "flagship": ({}, 4, ()),
+    "rgb": ({"method": "rgb"}, 4, ("endmembers", "mlp_directional")),
+    "spectral-last-sample": ({"method": "spectral", "background_color": "last_sample"}, 4, ()),
+    "no-specular": ({"pred_specular": False}, 4, ("mlp_directional",)),
+    "black": ({"background_color": "black"}, 4, ()),
+    "white": ({"background_color": "white"}, 4, ()),
+    "seven-classes": ({"pred_specular": False}, 7, ("mlp_directional",)),
+}
+BUDGETS = {"single": (None, None), "three-stage": ((1024, 1024, 2048), None),
+           "three-stage-adapted": ((256, 512, 768), 24)}
+# seven classes (ajar.sh's) single-budget only: the file's time
+CASES = [pytest.param(config, *BUDGETS[b], id=b if config == "flagship" else f"{config}-{b}")
+         for config in CONFIGS for b in BUDGETS if config != "seven-classes" or b == "single"]
+
+
+def _config_models(setup, config):
+    if config == "flagship":
+        return setup
+    if config not in setup["configs"]:
+        changes, classes, _ = CONFIGS[config]
+        setup["configs"][config] = _models(dict(KW, **changes), classes)
+    return setup["configs"][config]
+
+
+@pytest.mark.parametrize("config,budget,samples", CASES)
+def test_loss_and_every_gradient_match_jax(setup, config, budget, samples):
     """The loss within rtol 1e-5, each loss term and metric within 1e-5
     (sample counts exactly), and every parameter's gradient within rtol
     1e-3 and atol 1e-4 * max|g| of that tensor: scans and segment sums add
     in another order. The adapted case marches S = 24 through the
     march_config override, as dynamic batching does, with stage budgets
     below the demand, so each stage drops its overflow (make_grad_fn holds
-    each budget at 256 or more).
+    each budget at 256 or more). Each config of CONFIGS: the flagship's
+    rgb+spectral with the specular residual, and the experiment scripts'
+    method rgb, spectral with the last sample's background, no specular
+    residual (with 4 and 7 classes), black and white backgrounds; a
+    parameter the config leaves out of the loss has a zero JAX gradient and
+    none, or a zero one, in the port.
 
     The draw's key is one whose samples sit clear of every discrete decision
     (ReLU signs, the alpha and transmittance filters, the stage cut-offs):
     with some keys one pre-activation or alpha lands within rounding of its
     threshold, flips between the two packages, and moves a few gradient
     entries by up to ~1e-3 * max|g| while the loss still agrees to 1e-6."""
-    jm, tm, params, occ = setup["jm"], setup["tm"], setup["params"], setup["occ"]
+    models = _config_models(setup, config)
+    unused = CONFIGS[config][2]
+    jm, tm, params, occ = models["jm"], models["tm"], models["params"], models["occ"]
     rng = jax.random.PRNGKey(12)
     _, k_sample, k_march, k_bg = jax.random.split(rng, 4)
     jrays, jbatch = j_dm.sample_pixel_batch(setup["jdata"], setup["jcam"], k_sample, R)
@@ -237,6 +278,10 @@ def test_loss_and_every_gradient_match_jax(setup, budget, samples):
     jflat = dict(named_leaves(jgrads))
     for name, t in named_leaves(tparams):
         ref = np.asarray(jflat[name])
+        if name.split(".")[0] in unused:
+            assert np.abs(ref).max() == 0.0, name
+            assert t.grad is None or float(t.grad.abs().max()) == 0.0, name
+            continue
         assert np.abs(ref).max() > 0.0, name
         np.testing.assert_allclose(_np(t.grad), ref, rtol=1e-3, atol=1e-4 * np.abs(ref).max(),
                                    err_msg=name)

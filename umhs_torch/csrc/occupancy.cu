@@ -34,12 +34,13 @@
 //   float atomics.
 // K7b (umhs_occ_pack): binaries = occs > min(mean, occ_thre), with the mean
 // read on the device (torch.mean, no host sync). Where res % 4 == 0, one
-// warp a 4^3 supercell: each lane thresholds two cells (bits l and l + 32
-// of the word, bit sx + 4 sy + 16 sz), two ballots give the [lo, hi] words,
-// stored as int64 halves (the port's layout, which checkpoints and
-// convert.py read), and with pool 4 the pooled byte is (lo | hi) != 0.
-// Otherwise a thread a cell; a pool other than 4 then takes one more pass,
-// a thread a pooled cell.
+// thread a 4^3 supercell, a warp's threads along x: 16 float4 loads, one a
+// (sy, sz) row of 4 cells, whose bits go into the 64-bit word in registers
+// (bit sx + 4 sy + 16 sz), each row's 4 bytes stored as one 32-bit word, the
+// word as its [lo, hi] int64 halves in one 16-byte store (the port's layout,
+// which checkpoints and convert.py read), and with pool 4 the pooled byte
+// (lo | hi) != 0. Otherwise a thread a cell; a pool other than 4 then takes
+// one more pass, a thread a pooled cell.
 //
 // The arithmetic follows PyTorch's CUDA kernels op by op (occupancy.cuh),
 // so every output equals the plain version's on the card bit for bit.
@@ -304,36 +305,39 @@ __device__ __forceinline__ float threshold_of(const umhs::OccParams& g,
   return umhs::clamp_max_f(*mean, g.occ_thre);
 }
 
-// res % 4 == 0: one warp a supercell (L x (res/4)^3 of them).
+// res % 4 == 0: one thread a supercell (L x (res/4)^3 of them), the threads
+// of a warp along X, so a warp's load of one (sy, sz) row of its supercells
+// is 512 contiguous bytes. A row is 16-byte aligned because res % 4 == 0 and
+// the wrapper checks occs; binaries and packed come from the wrapper's own
+// allocations, aligned for the 4- and 16-byte stores.
 __global__ void __launch_bounds__(kThreads)
 occ_pack_kernel(const umhs::OccParams g, const float* __restrict__ occs,
                 const float* __restrict__ mean, uint8_t* __restrict__ binaries,
                 int64_t* __restrict__ packed, uint8_t* __restrict__ pooled) {
-  const int r4 = g.res >> 2;
-  const int64_t n_super = static_cast<int64_t>(g.levels) * r4 * r4 * r4;
-  const int64_t w = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (w >= n_super) return;  // uniform over the warp
+  const int64_t r4 = g.res >> 2, res = g.res;
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (w >= g.levels * r4 * r4 * r4) return;
   const float thre = threshold_of(g, mean);
-  const int64_t per_level = static_cast<int64_t>(r4) * r4 * r4;
-  const int64_t lvl = w / per_level, rem = w - lvl * per_level;
-  const int64_t X = rem % r4, Y = (rem / r4) % r4, Z = rem / (static_cast<int64_t>(r4) * r4);
-  const int64_t res = g.res;
-  unsigned halves[2];
+  // w = ((lvl r4 + Z) r4 + Y) r4 + X, and lvl res^3 + z res^2 = (4 (lvl r4
+  // + Z) + sz) res^2: the supercell's first cell from two divisions
+  const int64_t lz = w / (r4 * r4), yx = w - lz * r4 * r4;
+  const int64_t Y = yx / r4, X = yx - Y * r4;
+  const int64_t first = 4 * (X + Y * res + lz * res * res);
+  unsigned half[2] = {0u, 0u};
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int bit = lane + 32 * h;
-    const int64_t x = 4 * X + (bit & 3), y = 4 * Y + ((bit >> 2) & 3), z = 4 * Z + (bit >> 4);
-    const int64_t flat = lvl * res * res * res + x + y * res + z * res * res;
-    const bool on = occs[flat] > thre;
-    binaries[flat] = on;
-    halves[h] = __ballot_sync(kFull, on);
+  for (int sz = 0; sz < 4; ++sz) {
+#pragma unroll
+    for (int sy = 0; sy < 4; ++sy) {
+      const int64_t row = first + sy * res + sz * res * res;
+      const float4 v = __ldg(reinterpret_cast<const float4*>(occs + row));
+      const unsigned b0 = v.x > thre, b1 = v.y > thre, b2 = v.z > thre, b3 = v.w > thre;
+      *reinterpret_cast<unsigned*>(binaries + row) = b0 | b1 << 8 | b2 << 16 | b3 << 24;
+      half[sz >> 1] |= (b0 | b1 << 1 | b2 << 2 | b3 << 3) << (4 * sy + 16 * (sz & 1));
+    }
   }
-  if (lane == 0) {
-    packed[2 * w] = static_cast<int64_t>(halves[0]);
-    packed[2 * w + 1] = static_cast<int64_t>(halves[1]);
-    if (pooled != nullptr && g.pool == 4) pooled[w] = (halves[0] | halves[1]) != 0u;
-  }
+  reinterpret_cast<longlong2*>(packed)[w] =
+      make_longlong2(static_cast<long long>(half[0]), static_cast<long long>(half[1]));
+  if (pooled != nullptr && g.pool == 4) pooled[w] = (half[0] | half[1]) != 0u;
 }
 
 // res % 4 != 0: a thread a cell.
@@ -429,8 +433,8 @@ extern "C" int umhs_occ_pack(const umhs::OccParams* params, const float* occs, c
   const umhs::OccParams g = *params;
   const int64_t cells = static_cast<int64_t>(g.levels) * g.res * g.res * g.res;
   if (g.res % 4 == 0) {
-    occ_pack_kernel<<<blocks_for(cells / 2), kThreads, 0, stream>>>(g, occs, mean, binaries,
-                                                                   packed, pooled);
+    occ_pack_kernel<<<blocks_for(cells / 64), kThreads, 0, stream>>>(g, occs, mean, binaries,
+                                                                    packed, pooled);
   } else {
     occ_threshold_kernel<<<blocks_for(cells), kThreads, 0, stream>>>(g, occs, mean, binaries);
   }

@@ -575,8 +575,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def threshold_pack_cuda(occs: torch.Tensor, mean: torch.Tensor, config: OccGridConfig):
-    """K7b: as _threshold_pack_plain, in one pass (one warp a 4^3 supercell
-    where res % 4 == 0, else a thread a cell, then a thread a pooled cell
+    """K7b: as _threshold_pack_plain, in one pass (one thread a 4^3
+    supercell where res % 4 == 0, its rows read as float4, so occs must be
+    16-byte aligned there; else a thread a cell, then a thread a pooled cell
     for a pool other than 4), with the mean read on the device."""
     check_grid_limits(config, "threshold_pack_cuda")
     n = config.levels * config.cells_per_level
@@ -584,10 +585,13 @@ def threshold_pack_cuda(occs: torch.Tensor, mean: torch.Tensor, config: OccGridC
             or occs.device.type != "cuda":
         raise ValueError(f"threshold_pack_cuda: occs must be a contiguous ({n},) float32 "
                          "tensor on the card")
+    r, L, p = config.resolution, config.levels, config.pool
+    if r % 4 == 0 and occs.data_ptr() % 16:
+        raise ValueError("threshold_pack_cuda: occs must be 16-byte aligned (its rows are "
+                         "read as float4)")
     if mean.dtype != torch.float32 or mean.numel() != 1 or mean.device != occs.device:
         raise ValueError("threshold_pack_cuda: mean must be one float32 on occs' device")
     dev = occs.device
-    r, L, p = config.resolution, config.levels, config.pool
     out = {"binaries": torch.empty(n, dtype=torch.bool, device=dev)}
     if p > 1:
         out["binaries_pooled"] = torch.empty(L * (r // p) ** 3, dtype=torch.bool, device=dev)

@@ -1,0 +1,13 @@
+#!/usr/bin/env bash
+# Instant-NGP (RGB) baseline, the rgb method on the occupancy grid: the
+# PyTorch/CUDA port's twin of scripts/instantngp.sh, the same command with
+# umhs_torch for umhs_tpu, flag for flag. It runs on one NVIDIA card (add
+# --device cpu for the CPU). Supply data/processed/hotdog, the processed
+# hotdog scene; it is not in the repository.
+python -m umhs_torch.cli.train umhsnerf \
+ --machine.seed 42 \
+ --pipeline.model.method rgb \
+ --pipeline.datamanager.train-num-rays-per-batch 8192 \
+ --data data/processed/hotdog \
+ --experiment-name instantngp-baseline \
+ --vis console
