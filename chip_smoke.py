@@ -6,6 +6,7 @@
     python3 chip_smoke.py --sweep-vs-plain 100
     python3 chip_smoke.py --seed-variance
     python3 chip_smoke.py --mesh-cards    (on more than one card)
+    python3 chip_smoke.py --shapes
 
 The second form runs only phase 7's schedule, twice in each of three
 settings (the kernels; the kernels with torch's deterministic algorithms;
@@ -20,7 +21,7 @@ quality_seed_variance) at 3 seeds, 2,000 steps, 256^2 and prints its spread
 beside the JAX package's docs/seed_variance.json. The fifth runs only phase
 9's cli.train command line, `python -m umhs_torch.cli.train`, in a process
 of its own over every visible card (one rank per card on NCCL), and then on
-one card (mesh_cards).
+one card (mesh_cards). The sixth runs only phase 13.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device and build: the card's name and power limit, then every kernel in
@@ -330,6 +331,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    visualize/ajar.sh's twin starts the viewer of the ajar run (7 classes)
    on port 0 for one /render of abundances_6. The phase's seconds are
    printed.
+
+13. The shapes past the kernels' old limits (phase_shapes): K5 past 1,024
+   candidates a stage (32 occupancy words: the WIDE kernels), K6a past 256
+   lanes a stage (flat tiles where no whole-ray tile fits), K6c past 256
+   samples a ray (its forward at any S, its long-ray backward). First each
+   kernel against its plain version at each old limit, one past it and
+   well past it, with its device ms, its bound and the plain version's ms
+   (K5a and K5b each with its own bound): K5 on the flagship's grid
+   updated by K7 from the bench scene's sphere density, 16,384 of its rays with jitter and a binding budget, at M
+   1,024 / 1,056 / 2,048 / 4,096 without a pre-pass, Ma 1,024 / 2,048 with
+   one and config A's march, bit for bit; K6a with K6b at L 256 / 257 / 496
+   / 4,096 / 4,097 (4M lanes a stage, the slice from lane 16 of a wider
+   mask), bit for bit; K6c forward and backward at S 256 / 257 / 512 /
+   1,024 on 8,192 rays with the t gradients, held with the plain version to
+   f64 at phase 2's tolerance (k6_render_case); K6d over a 496-lane stage.
+   Then config A, phase 9's cli.train flags (the flagship) with 512 samples
+   a ray, 8,192 candidates and 2 samples a cell (Sc 256, Ma 1,024, M 2,048,
+   a third stage of 496 lanes), and config B, nerfacto.sh's twin with
+   nerfstudio's nerfacto-big sample counts (512, 256 proposal samples, 128
+   NeRF samples), each 256 steps through script_run's four gates (phase
+   12's; gate (d) with each draw's allowance from four moved plain runs,
+   SHAPES_VS_PLAIN_MOVED, and for B the kernel step with K6c's plain
+   version beside it), each of the long routes launched during the run
+   (the routes the launchers report: K5 "wide", K6c's backward "long"),
+   one 128^2 view through cli.render, and A's run through cli.eval in a
+   process of its own.
 
 The last lines are the card (nvidia-smi), one JSON object of kernel numbers
 and, last, {"ok": true, "device": {...}}.
@@ -1018,10 +1045,10 @@ def phase_k4(dev):
 
 
 K6_DEVICE_KERNELS = {  # the device kernels each K6 launcher runs
-    "compact_stage": ("compact_stage_kernel",),
+    "compact_stage": ("compact_stage_kernel", "ray_counts_kernel"),
     "compact_gather": ("lanes_from_rows_kernel", "rows_from_lanes_kernel"),
     "render_weights_fwd": ("render_weights_fwd_kernel",),
-    "render_weights_bwd": ("render_weights_bwd_kernel",),
+    "render_weights_bwd": ("render_weights_bwd_kernel", "render_weights_bwd_long_kernel"),
     "segment_accumulate_fwd": ("segment_accumulate_fwd_kernel",),
     "segment_accumulate_bwd": ("segment_accumulate_bwd_kernel",),
 }
@@ -1250,11 +1277,19 @@ def launch_counts():
     return {k.symbol: k.launches for k in KERNELS.values()}
 
 
+def route_counts():
+    """Every kernel's launches by route, where its launcher reports one."""
+    from umhs_torch.ops._native import KERNELS
+
+    return {k.symbol: dict(k.routes) for k in KERNELS.values() if k.routes}
+
+
 def zero_launch_counts():
     from umhs_torch.ops._native import KERNELS
 
     for k in KERNELS.values():
         k.launches = 0
+        k.routes.clear()
 
 
 @contextlib.contextmanager
@@ -1264,11 +1299,13 @@ def uncounted():
     from umhs_torch.ops._native import KERNELS
 
     saved = launch_counts()
+    saved_routes = {k.symbol: dict(k.routes) for k in KERNELS.values()}
     try:
         yield
     finally:
         for k in KERNELS.values():
             k.launches = saved[k.symbol]
+            k.routes = saved_routes[k.symbol]
 
 
 def phase_train(dev, dm, endmembers):
@@ -1397,14 +1434,18 @@ SPREAD_FACTOR = 4.0
 VS_PLAIN_DRAW_CAP = 100.0
 
 
-def step_grads(trainer, dev, draws, impl, moved_seed=None, dtype="float32"):
+def step_grads(trainer, dev, draws, impl, moved_seed=None, dtype="float32", k6c_plain=False):
     """Loss terms, gradients, stage count and final bins of one training
     step from `trainer`'s state at its current shapes, in `dtype` (the MLPs'
     compute dtype) with the deterministic hash gradient, from the parameters
     moved one ulp if `moved_seed` is given. The loss terms are floats by
     name, their sum under "total"; the final bins are the proposal
     sampler's final_edges (None for the occupancy grid's march). The kernel
-    run must launch K1-K4 and the plain run none."""
+    run must launch its path's kernels and the plain run none; with
+    k6c_plain the kernel run takes K6c's plain version (the model's
+    render_weights calls with impl="plain") and launches every other."""
+    import umhs_torch.models.model as model_module
+
     from umhs_torch.engine.trainer import Trainer, TrainerConfig, named_leaves
 
     cfg = dataclasses.replace(trainer.model.config, compute_dtype=dtype,
@@ -1416,10 +1457,18 @@ def step_grads(trainer, dev, draws, impl, moved_seed=None, dtype="float32"):
         state = dict(state, params=moved_one_ulp(state["params"], moved_seed, dev))
     t.state, t.dyn = state, trainer.dyn
     before = launch_counts()
-    total, loss_dict, outputs, _ = t.loss_and_grads(draws)
+    render_weights = model_module.render_weights
+    if k6c_plain:
+        model_module.render_weights = lambda *a, **k: render_weights(*a, **{**k, "impl": "plain"})
+    try:
+        total, loss_dict, outputs, _ = t.loss_and_grads(draws)
+    finally:
+        model_module.render_weights = render_weights
     torch.cuda.synchronize()
     ran = sorted(k for k, v in launch_counts().items() if v > before[k])
-    want = sorted(path_kernels(cfg, train=True)) if impl == "auto" else []
+    want = sorted(set(path_kernels(cfg, train=True))
+                  - ({"umhs_render_weights_fwd", "umhs_render_weights_bwd"} if k6c_plain
+                     else set())) if impl == "auto" else []
     check(ran == want, f"{impl} training step launched {ran}, expected {want}")
     # a parameter that the config leaves out of the graph (mlp_directional
     # without the specular residual) has no gradient on either path
@@ -1433,7 +1482,8 @@ def step_grads(trainer, dev, draws, impl, moved_seed=None, dtype="float32"):
             None if edges is None else edges.detach())
 
 
-def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
+def phase_train_vs_plain(trainer, dev, label, dtype="float32", n_draws=VS_PLAIN_DRAWS,
+                         n_moved=1, k6c_witness=False):
     """One training step from `trainer`'s state at its current shapes
     (rays, samples per ray, stage budgets), with the kernels and with the
     plain versions, in `dtype` (f32, or bf16 MLPs: the tensor-core K1 and
@@ -1441,14 +1491,20 @@ def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
 
     Two checks. (1) The kernel run, repeated, gives the same loss and the
     same bits in every gradient, the hash table's too (K4 sums in a fixed
-    order): no kernel races. (2) On each of VS_PLAIN_DRAWS draws of the
+    order): no kernel races. (2) On each of n_draws draws of the
     step, the plain step also runs from the parameters moved one ulp, and
     each gradient with the kernels must lie within VS_PLAIN_RTOL[dtype][0]
     of the plain one in norm, plus SPREAD_FACTOR times the norm of the moved
     plain run's change (each loss term and their sum: within
     VS_PLAIN_RTOL[dtype][1] plus SPREAD_FACTOR times its change). Each
     passes on its median over the draws, and no draw may read more than
-    VS_PLAIN_DRAW_CAP times its tolerance.
+    VS_PLAIN_DRAW_CAP times its tolerance. With n_moved > 1 the plain step
+    runs from n_moved moves of one ulp (seeds i + 1 + j * n_draws on draw
+    i) and each change above is the largest of theirs: the spread of the
+    plain step's own rounding on that draw. With k6c_witness, each draw
+    also runs the kernel step with K6c's plain version (step_grads'
+    k6c_plain) and prints its readings beside the kernels' (not gated):
+    what K6c's kernel adds to the step's difference on that draw.
 
     Why in norm and over draws: near convergence the gradients are sums of
     ~10^5 terms that nearly cancel, and now and then f32 rounding puts a
@@ -1466,10 +1522,10 @@ def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
     sampler, the largest shift of a final bin edge in both. Returns the
     readings."""
     gen_state = trainer._step_gen.get_state()
-    draws = [trainer.draw_step() for _ in range(VS_PLAIN_DRAWS)]
+    draws = [trainer.draw_step() for _ in range(n_draws)]
     trainer._step_gen.set_state(gen_state)  # the trainer's own stream goes on unchanged
     rtol, loss_rtol = VS_PLAIN_RTOL[dtype]
-    term_r, term_d, grad_r, elem_k, elem_m, shifts = [], [], [], [], [], []
+    term_r, term_d, grad_r, elem_k, elem_m, shifts, witness = [], [], [], [], [], [], []
     for i, d in enumerate(draws):
         la, ga, stages, ea = step_grads(trainer, dev, d, "auto", dtype=dtype)
         if i == 0:
@@ -1478,29 +1534,59 @@ def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
             check(same, f"{label}: the kernel step, repeated, gave other bits")
             del ga2
         lp, gp, _, ep = step_grads(trainer, dev, d, "plain", dtype=dtype)
-        lm, gm, _, em_ = step_grads(trainer, dev, d, "plain", moved_seed=i + 1, dtype=dtype)
-        check(sorted(ga) == sorted(gp) == sorted(gm),
+        check(sorted(ga) == sorted(gp),
               f"{label}: the kernels' step reached other parameters than the plain one's: "
               f"{sorted(set(ga) ^ set(gp))}")
         check(np.isfinite(la["total"]), f"{label}: non-finite loss with kernels")
+        # the moved runs' largest changes: loss terms, gradients in norm and
+        # elementwise, final edges
+        moved_d = {k: [] for k in lp}
+        moved_n = {name: 0.0 for name in gp}
+        em, shift_m = {name: 0.0 for name in gp}, 0.0
+        fixed = {name: 1e-3 * ref.abs() + 1e-4 * float(ref.abs().max()) + 1e-30
+                 for name, ref in gp.items()}
+        for j in range(n_moved):
+            lm, gm, _, em_ = step_grads(trainer, dev, d, "plain", moved_seed=i + 1 + j * n_draws,
+                                        dtype=dtype)
+            check(sorted(gm) == sorted(gp), f"{label}: the moved plain step reached other "
+                                            f"parameters than the plain one's")
+            for k in lp:
+                moved_d[k].append(lm[k] - lp[k])
+            for name, ref in gp.items():
+                moved_n[name] = max(moved_n[name], float((gm[name] - ref).norm()))
+                em[name] = max(em[name], float(((gm[name] - ref).abs() / fixed[name]).max()))
+            if ea is not None:
+                shift_m = max(shift_m, float((em_ - ep).abs().max()))
+            del gm, em_
+        spread = {k: max(abs(v) for v in moved_d[k]) for k in lp}
         term_r.append({k: abs(la[k] - lp[k]) / (loss_rtol * abs(lp[k])
-                                                 + SPREAD_FACTOR * abs(lm[k] - lp[k]) + 1e-30)
+                                                 + SPREAD_FACTOR * spread[k] + 1e-30)
                        for k in lp})
-        term_d.append({k: [la[k] - lp[k], lm[k] - lp[k]] for k in lp})
+        term_d.append({k: [la[k] - lp[k], *moved_d[k]] for k in lp})
         if ea is not None:
-            shifts.append([float((ea - ep).abs().max()), float((em_ - ep).abs().max())])
-        ratio, ek, em = {}, {}, {}
+            shifts.append([float((ea - ep).abs().max()), shift_m])
+        ratio, ek = {}, {}
         for name, g in ga.items():
-            ref, moved = gp[name], gm[name]
+            ref = gp[name]
             ratio[name] = float((g - ref).norm()) / (
-                rtol * float(ref.norm()) + SPREAD_FACTOR * float((moved - ref).norm()) + 1e-30)
-            fixed = 1e-3 * ref.abs() + 1e-4 * float(ref.abs().max()) + 1e-30
-            ek[name] = float(((g - ref).abs() / fixed).max())
-            em[name] = float(((moved - ref).abs() / fixed).max())
+                rtol * float(ref.norm()) + SPREAD_FACTOR * moved_n[name] + 1e-30)
+            ek[name] = float(((g - ref).abs() / fixed[name]).max())
         grad_r.append(ratio)
         elem_k.append(ek)
         elem_m.append(em)
-        del ga, gp, gm, ea, ep, em_
+        if k6c_witness:
+            lw, gw, _, _ = step_grads(trainer, dev, d, "auto", dtype=dtype, k6c_plain=True)
+            wr = {name: float((g - gp[name]).norm()) / (
+                rtol * float(gp[name].norm()) + SPREAD_FACTOR * moved_n[name] + 1e-30)
+                for name, g in gw.items()}
+            witness.append({
+                "loss_terms_over_tolerance": {
+                    k: abs(lw[k] - lp[k]) / (loss_rtol * abs(lp[k]) + SPREAD_FACTOR * spread[k]
+                                             + 1e-30) for k in lp},
+                "loss_terms_minus_plain": {k: lw[k] - lp[k] for k in lp},
+                "worst_over_tolerance": [max(wr.values()), max(wr, key=wr.get)]})
+            del gw
+        del ga, gp, ea, ep
 
     def worst(d):
         name = max(d, key=d.get)
@@ -1514,6 +1600,7 @@ def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
                    "budgets": list(trainer.dyn.budgets), "stages_reported": stages},
         "loss_over_tolerance": [r["total"] for r in term_r],
         "loss_terms_over_tolerance_per_draw": term_r,
+        "moved_runs_per_draw": n_moved,
         "loss_terms_kernels_and_moved_minus_plain_per_draw": term_d,
         "worst_over_tolerance_per_draw": [worst(r) for r in grad_r],
         "worst_median_over_tolerance": worst(grad_med),
@@ -1522,8 +1609,10 @@ def phase_train_vs_plain(trainer, dev, label, dtype="float32"):
     }
     if shifts:
         out["final_edge_shift_kernels_and_moved_per_draw"] = shifts
+    if witness:
+        out["k6c_plain_in_the_kernel_step_per_draw"] = witness
     print(f"train step kernels vs plain, {label} ({dtype}, deterministic hash gradient, "
-          f"{len(draws)} draws): " + json.dumps(out))
+          f"{len(draws)} draws, {n_moved} moved runs a draw): " + json.dumps(out))
     for name, r in [*loss_med.items(), *grad_med.items()]:
         check(r <= 1.0, f"{label}: {name} with kernels disagrees with the plain path "
                         f"({r} of its tolerance, median of the draws)")
@@ -1978,14 +2067,19 @@ def k5a_candidates_needed(counted, cfg, march, o, d, jit):
     """The candidates K5a's pass needs on this data: each ray's pre-pass
     candidates that start before its t_max, and the cells of its kept
     supercells (min(the pre-pass count, supers) x pool), summed over the
-    rays (the plain march's own schedule and slab test)."""
-    from umhs_torch.ops.ray_marching import _super_config, _unit, candidate_ts, ray_aabb_intersect
+    rays (the plain march's own schedule and slab test); without a
+    pre-pass, (0, the coarse candidates that start before t_max)."""
+    from umhs_torch.ops.ray_marching import (
+        _coarse_config, _super_config, _unit, candidate_ts, ray_aabb_intersect)
 
     half = cfg.half_extent * cfg.max_scale
     t_enter, t_exit = ray_aabb_intersect(o, _unit(d), cfg.center - half, cfg.center + half)
     t_min = torch.clamp_min(t_enter, march.near_plane)
     t_max = torch.clamp_max(t_exit, march.far_plane)
     t0 = t_min if jit is None else t_min + jit * march.render_step_size
+    if not counted.params.pre_mode:  # no pre-pass: the coarse candidates before t_max
+        ts, _ = candidate_ts(t0, _coarse_config(march))
+        return 0, int((ts < t_max[:, None]).sum())
     ts, _ = candidate_ts(t0, _super_config(march))
     pre = int((ts < t_max[:, None]).sum())
     fine = int(torch.clamp_max(counted.state[:, 2], march.supers).sum()) * march.pool
@@ -2987,6 +3081,7 @@ def k6_tree_cases(dev, case):
     if bwd is None:  # a tree without K6's kernels
         return
     # K6c's backward alone: phase 7's d sigmas, and nerfacto's shapes with the t gradients
+    # (the forward there too)
     case("K6 render_weights_bwd", lambda: bwd(x["ts"], x["te"], x["sigma"], x["mask"], thre,
                                               K6_EPS, g_w, (True, False, False)))
     for S_p in K6C_PROPOSAL_SAMPLES:
@@ -2997,6 +3092,8 @@ def k6_tree_cases(dev, case):
         sg = (-5.0 * torch.log1p(-torch.rand((NERFACTO_RAYS, S_p), generator=gp))).to(dev)
         ones = torch.ones((NERFACTO_RAYS, S_p), dtype=torch.bool, device=dev)
         g_p = torch.randn((NERFACTO_RAYS, S_p), generator=gp).to(dev)
+        case(f"K6 render_weights_fwd nerfacto {S_p}",
+             lambda ts=ts, te=te, sg=sg, ones=ones: render_weights(ts, te, sg, ones, 0.0, 0.0))
         case(f"K6 render_weights_bwd nerfacto {S_p}",
              lambda ts=ts, te=te, sg=sg, ones=ones, g_p=g_p: bwd(ts, te, sg, ones, 0.0, 0.0, g_p))
 
@@ -4485,24 +4582,28 @@ def script_train_argv(name, root, work):
     return argv
 
 
-def script_run(name, argv, dev, smi):
+def script_run(name, argv, dev, smi, phase="phase 12", vs_plain_moved=1, k6c_witness=False):
     """One training twin through cli.train in this process, with gates (a)-(d):
     the loss falls, eval_all_images PSNR above the step-0 eval batch's (a
     fresh Trainer from the run's config.yml), every kernel of the path
     launched (K7 by the occupancy updates too), and phase 6's kernel-vs-plain
     step at the run's final state and config. With gradient accumulation,
-    Adam stepped on every k-th step only. Returns the run's record."""
+    Adam stepped on every k-th step only. Returns the run's record (with
+    the run's launches by route) and its config.yml. `vs_plain_moved` and
+    `k6c_witness`: gate (d)'s moved plain runs a draw and its K6c witness
+    (phase_train_vs_plain's n_moved and k6c_witness)."""
     from umhs_torch.cli import train as cli_train
     from umhs_torch.configs import load_config
     from umhs_torch.engine.trainer import Trainer
 
-    print(f"phase 12, {name}: python -m umhs_torch.cli.train " + " ".join(argv))
+    print(f"{phase}, {name}: python -m umhs_torch.cli.train " + " ".join(argv))
     zero_launch_counts()
     t0 = time.perf_counter()
     result = cli_train.main(argv)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = launch_counts()
+    routes = route_counts()
     trainer = result.trainer
     cfg = trainer.model.config
     want = path_kernels(cfg, train=True) + (OCC_KERNELS if cfg.sampler == "occgrid" else ())
@@ -4518,7 +4619,8 @@ def script_run(name, argv, dev, smi):
                         num_classes=config.pipeline.num_classes, device=dev).setup()
         psnr0 = fresh.eval_batch()["psnr"]
         del fresh
-        vs = phase_train_vs_plain(trainer, dev, f"{name} at step {trainer.step}")
+        vs = phase_train_vs_plain(trainer, dev, f"{name} at step {trainer.step}",
+                                  n_moved=vs_plain_moved, k6c_witness=k6c_witness)
     k = trainer.config.gradient_accumulation_steps
     adam_steps = trainer.optimizer.updates
     ms = 1e3 * float(np.mean([r["step_s"] for r in trainer.history[-SCRIPT_MS_WINDOW:]]))
@@ -4533,9 +4635,14 @@ def script_run(name, argv, dev, smi):
         "loss_first16": first, "loss_last16": last, "psnr_step0": psnr0,
         "eval_all_images": result.evals,
         "vs_plain_worst_median": vs["worst_median_over_tolerance"],
-        "launches": {s: launches[s] for s in want},
+        "vs_plain_loss_over_tolerance": vs["loss_over_tolerance"],
+        "vs_plain_k6c_witness": vs.get("k6c_plain_in_the_kernel_step_per_draw"),
+        "launches": {s: launches[s] for s in want}, "routes": routes,
+        "adapts": adapt_records(trainer),
     }
-    print(f"phase 12, {name}: {json.dumps(record)}")
+    if cfg.sampler == "proposal":
+        record["proposal_samples"] = [*cfg.num_proposal_samples, cfg.num_nerf_samples]
+    print(f"{phase}, {name}: {json.dumps(record)}")
     check(not missing, f"{name}: kernels {missing} were not launched")
     check(len(losses) == SCRIPT_STEPS and all(np.isfinite(losses)),
           f"{name}: {len(losses)} steps, finite: {all(np.isfinite(losses))}")
@@ -4664,6 +4771,330 @@ def phase_scripts(dev, smi):
     return {"seconds": seconds, "runs": records, "serving": serving, "launches": launches}
 
 
+SHAPES_STEPS = SCRIPT_STEPS  # configs A and B: 256 of the reference's 30,000 steps
+# config A: phase 9's flagship past every old limit (Sc 256, a pre-pass of
+# 1,024 supercells, 512 subdivided into M 2,048, S 512, a third stage of 496)
+SHAPES_A_FLAGS = {"--pipeline.model.max-samples-per-ray": "512",
+                  "--pipeline.model.num-candidates": "8192",
+                  "--pipeline.model.occ-subsamples": "2"}
+# config B: nerfstudio's nerfacto-big sample counts on nerfacto.sh's twin
+SHAPES_B_FLAGS = {"--pipeline.model.num-proposal-samples": "512,256",
+                  "--pipeline.model.num-nerf-samples": "128"}
+# the routes a config's long shapes must have launched (Kernel.routes)
+SHAPES_A_ROUTES = {"umhs_march_count": "wide", "umhs_march_emit": "wide",
+                   "umhs_render_weights_bwd": "long"}
+SHAPES_B_ROUTES = {"umhs_render_weights_bwd": "long"}
+# gate (d) of configs A and B: phase 6's step, draws and tolerances, each
+# draw's allowance from the largest change of SHAPES_VS_PLAIN_MOVED plain
+# steps moved one ulp, not phase 6's one. At config B's state (the proposal
+# sampler at 512 / 256 / 128 samples, 256 steps) the plain step's interlevel
+# loss jumps under one ulp of the parameters by an order of magnitude more on
+# some moves of a draw than on others (near-empty proposal CDFs whose
+# quantiles move; each move's change is printed), so one move understates
+# the draw's own rounding spread.
+SHAPES_VS_PLAIN_MOVED = 4
+SHAPES_K5_RAYS = 16_384  # the K5 rows' batch: phase 7's steady batch, cut for the plain march
+SHAPES_K5_CASES = {  # label: (pool, MarchConfig fields): at the old limit, one past, well past
+    "M 1024": (0, dict(num_candidates=4096)),
+    "M 1056": (0, dict(num_candidates=4 * 1056)),
+    "M 2048": (0, dict(num_candidates=8192)),
+    "M 4096": (0, dict(num_candidates=16384)),
+    "Ma 1024": (4, dict(num_candidates=4096, occ_subsamples=1)),
+    "Ma 2048": (4, dict(num_candidates=8192, occ_subsamples=1)),
+    "config A": (4, dict(num_candidates=8192, num_samples=512, occ_subsamples=2)),
+}
+SHAPES_K6_LANES = 4_000_000  # K6a/K6b rows: R = this // L rays (phase 7's stage 3: 3.8M lanes)
+SHAPES_K6A_L = (256, 257, 496, 4096, 4097)
+SHAPES_K6C_S = (256, 257, 512, 1024)  # at B's 8192 rays
+
+
+def shapes_k5_rows(dev, dm, state, cfg, base_march):
+    """Phase 13's K5 rows: each stage size against the plain march, bit for
+    bit (k5_case), with K5a's and K5b's device ms, the plain march's, and
+    each kernel's own bound: K5a's the larger of its bytes (rays and jitter
+    in, the words' table, the state rows and num_occupied out) and its
+    operations (k5a_candidates_needed, as phase 2's row); K5b's its bytes
+    (the state rows and total in, the (R, S) outputs and num_samples out)."""
+    from umhs_torch.ops.ray_marching import (
+        march_count_cuda, march_emit_cuda, march_layout, march_rays_plain)
+
+    R = SHAPES_K5_RAYS
+    rays, _ = dm.sample(R, dm.draw(torch.Generator(dev).manual_seed(16), R))
+    o, d = rays["origins"], rays["directions"]
+    jit = torch.rand(R, device=dev, generator=torch.Generator(dev).manual_seed(17))
+    rows = {}
+    for label, (pool, kw) in SHAPES_K5_CASES.items():
+        march = dataclasses.replace(base_march, pool=pool, **kw)
+        _, _, Ma, M = march_layout(state, cfg, march)
+        S = march.num_samples
+        budget = R * S // 2  # binding on the dense rays
+        case = k5_case(f"phase 13 {label}", state, cfg, march, o, d, jit, budget)
+        counted = march_count_cuda(state, cfg, march, o, d, jit, budget)
+        width = counted.state.shape[1]
+        pre_needed, fine_needed = k5a_candidates_needed(counted, cfg, march, o, d, jit)
+        ops = R * K5A_OPS_RAY + (pre_needed + fine_needed) * K5A_OPS_CANDIDATE
+        k5a_bytes = (R * (12 + 12 + 4) + state["packed_words"].numel() * 8
+                     + R * (width + 1) * 4)
+        k5b_bytes = R * width * 4 + 4 + R * S * (4 + 4 + 1) + R * 4
+        k5a_by_bytes = k5a_bytes / H100_BYTES_PER_S * 1e3
+        k5a_by_ops = ops / H100_F32_FLOPS * 1e3
+        rows[label] = {
+            "M": M, "Ma": Ma, "slots": march.coarse_samples, "S": S, "rays": R, **case,
+            "candidates_needed": {"pre_pass": pre_needed, "fine": fine_needed},
+            "k5a_ms": device_ms(lambda: march_count_cuda(state, cfg, march, o, d, jit, budget)),
+            "k5a_call_ms": median_ms(lambda: march_count_cuda(state, cfg, march, o, d, jit,
+                                                              budget)),
+            "k5b_ms": device_ms(lambda: march_emit_cuda(counted)),
+            "k5b_call_ms": median_ms(lambda: march_emit_cuda(counted)),
+            "plain_ms": k6_plain_ms(lambda: march_rays_plain(state, cfg, march, o, d, jit,
+                                                             budget)),
+            "k5a_bound_ms": max(k5a_by_bytes, k5a_by_ops),
+            "k5a_bound_by": "operations" if k5a_by_ops > k5a_by_bytes else "bytes",
+            "k5a_bound_bytes_ms": k5a_by_bytes, "k5a_bound_ops_ms": k5a_by_ops,
+            "k5b_bound_ms": k5b_bytes / H100_BYTES_PER_S * 1e3, "k5b_bound_by": "bytes",
+        }
+        print(f"phase 13 K5 {label}: " + json.dumps(rows[label]))
+    return rows
+
+
+def shapes_k5_kernel_rows(rows, kernel):
+    """Phase 13's K5 rows for one kernel ("k5a" or "k5b"): its own ms, call
+    ms and bound, with the case's shape and the plain march's ms."""
+    own = ("ms", "call_ms", "bound_ms", "bound_by")
+    other = "k5b" if kernel == "k5a" else "k5a"
+    return {label: {**{k: v for k, v in r.items() if not k.startswith((kernel, other))},
+                    **{k: r[f"{kernel}_{k}"] for k in own}}
+            for label, r in rows.items()}
+
+
+def shapes_k6ab_rows(dev):
+    """Phase 13's K6a and K6b rows: a stage of L lanes (R = SHAPES_K6_LANES //
+    L rays, 30% of them a valid prefix, 70% alive, the budget cutting) on
+    the column slice from lane 16 of a mask 16 lanes wider, both against the plain versions
+    bit for bit, with device ms, the plain ms and the bound by bytes."""
+    from umhs_torch.ops.compact import (
+        compact_stage, compact_stage_plain, compact_tile_rays, gather_lanes_plain,
+        lanes_from_rows_cuda, rows_from_lanes_cuda)
+
+    rows = {}
+    for L in SHAPES_K6A_L:
+        R = SHAPES_K6_LANES // L
+        gen = torch.Generator().manual_seed(L)
+        n = torch.randint(1, L + 1, (R,), generator=gen)
+        n = torch.where(torch.rand(R, generator=gen) < 0.3, n, torch.zeros_like(n))
+        wide = (torch.arange(L + 16)[None, :] < n[:, None] + 16).to(dev)
+        m = wide[:, 16:]  # lanes 16 on of a wider mask, as the model's later stages
+        alive = (torch.rand(R, generator=gen) < 0.7).to(dev)
+        Bs = max(256, int(m[alive].sum()) * 3 // 4)
+        c, ref = compact_stage(m, alive, Bs), compact_stage_plain(m, alive, Bs)
+        for k in ("slot", "mask", "src", "live", "counts", "starts"):
+            check(torch.equal(getattr(c, k), getattr(ref, k)),
+                  f"phase 13 K6a L {L}: {k} differs from the plain version")
+            check(torch.equal(getattr(c, k), getattr(compact_stage(m, alive, Bs), k)),
+                  f"phase 13 K6a L {L}: {k} not repeated")
+        total = int(c.total)
+        check(total == ref.total, f"phase 13 K6a L {L}: total {total} against {ref.total}")
+        g = torch.Generator(dev).manual_seed(L)
+        rows_in = torch.randn(Bs, device=dev, generator=g).requires_grad_(True)
+        gl = torch.randn((R, L), device=dev, generator=g)
+        plain = gather_lanes_plain(rows_in, c)
+        check(torch.equal(lanes_from_rows_cuda(rows_in.detach(), c), plain),
+              f"phase 13 K6b L {L}: lanes differ from the plain gather")
+        (pback,) = torch.autograd.grad(plain, rows_in, gl)
+        check(torch.equal(rows_from_lanes_cuda(gl, c), pback),
+              f"phase 13 K6b L {L}: rows differ from the plain gather's gradient")
+        rows[L] = {
+            "rays": R, "budget": Bs, "total": total, "tile_rays": compact_tile_rays(L),
+            "k6a_ms": device_ms(lambda: compact_stage(m, alive, Bs)),
+            "k6a_call_ms": median_ms(lambda: compact_stage(m, alive, Bs)),
+            "k6a_plain_ms": k6_plain_ms(lambda: compact_stage_plain(m, alive, Bs)),
+            "k6a_bound_ms": (R * L * (1 + 4 + 1) + R + Bs * (8 + 4) + R * 16 + 4)
+            / H100_BYTES_PER_S * 1e3,
+            "k6b_ms": device_ms(lambda: lanes_from_rows_cuda(rows_in.detach(), c))
+            + device_ms(lambda: rows_from_lanes_cuda(gl, c)),
+            "k6b_call_ms": median_ms(lambda: lanes_from_rows_cuda(rows_in.detach(), c))
+            + median_ms(lambda: rows_from_lanes_cuda(gl, c)),
+            "k6b_plain_ms": k6_plain_ms(lambda: gather_lanes_plain(rows_in.detach(), c)),
+            "k6b_bound_ms": (R * L * (4 + 1 + 4) + total * 4 + Bs * (8 + 4) + total * 4)
+            / H100_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+        }
+        rows[L]["k6a_ns_per_lane"] = rows[L]["k6a_ms"] * 1e6 / (R * L)
+        print(f"phase 13 K6a/K6b L {L}: " + json.dumps(rows[L]))
+    return rows
+
+
+def shapes_k6cd_rows(dev):
+    """Phase 13's K6c rows (S samples a ray at B's 8192 rays, the t
+    gradients wanted, held with the plain version to f64 at phase 2's
+    tolerance: k6_render_case) and K6d over config A's 496-lane stage
+    (stages 0-8, 8-16, 16-512 of S 512 on a 128-channel head, f32)."""
+    from umhs_torch.ops.compact import compact_stage
+    from umhs_torch.ops.compositing import (
+        compact_accumulate_cuda, compact_accumulate_stages_cuda, compact_accumulate_stages_plain)
+
+    rows = {}
+    for S in SHAPES_K6C_S:
+        R = NERFACTO_RAYS
+        gp = torch.Generator().manual_seed(S)
+        dt = torch.rand((R, S), generator=gp) * (2.56 / S) + 1e-4  # a ray ~1.3 long at any S
+        te = (0.05 + torch.cumsum(dt, 1)).to(dev)
+        ts = te - dt.to(dev)
+        sg = (-5.0 * torch.log1p(-torch.rand((R, S), generator=gp))).to(dev)
+        ones = torch.ones((R, S), dtype=torch.bool, device=dev)
+        rows[S] = k6_render_case(f"phase 13 S {S}", ts, te, sg, ones, 0.0, 0.0, need_t=True)
+        rows[S]["fwd_ns_per_lane"] = rows[S]["fwd_ms"] * 1e6 / (R * S)
+        rows[S]["bwd_ns_per_lane"] = rows[S]["bwd_ms"] * 1e6 / (R * S)
+
+    R, S, C = 20_000, 512, 128
+    gen = torch.Generator().manual_seed(18)
+    n = torch.randint(1, S + 1, (R,), generator=gen)
+    mask = (torch.arange(S)[None, :] < n[:, None]).to(dev)
+    g = torch.Generator(dev).manual_seed(18)
+    bounds = ((0, 8), (8, 16), (16, S))
+    comps = [compact_stage(mask[:, lo:hi], None, max(256, int(mask[:, lo:hi].sum())))
+             for lo, hi in bounds]
+    w = torch.rand((R, S), device=dev, generator=g)
+    hs = [torch.randn((c.src.shape[0], C), device=dev, generator=g) for c in comps]
+    heads = [(lo, hi, h, c) for (lo, hi), h, c in zip(bounds, hs, comps)]
+    out = compact_accumulate_stages_cuda(w, heads)
+    singles = [compact_accumulate_cuda(w[:, lo:hi], h, c) for lo, hi, h, c in heads]
+    check(torch.equal(out, singles[0] + singles[1] + singles[2]),
+          "phase 13 K6d: the stages' launch is not the single-stage calls added in stage order")
+    plain = compact_accumulate_stages_plain(w, heads)
+    ref = compact_accumulate_stages_plain(
+        w.double(), [(lo, hi, h.double(), dataclasses.replace(c, live=c.live.double()))
+                     for lo, hi, h, c in heads])
+    e, pe, scale = k6_err(out, ref), k6_err(plain, ref), float(ref.abs().max())
+    check(e <= pe + K6_TOL["accumulate"] * scale,
+          f"phase 13 K6d: err {e} against f64, the plain version's {pe}")
+    totals = [int(c.total) for c in comps]
+    rows["K6d 496-lane stage"] = {
+        "rays": R, "channels": C, "stages": bounds, "totals": totals, "max_abs_err": e,
+        "plain_max_abs_err": pe,
+        "ms": device_ms(lambda: compact_accumulate_stages_cuda(w, heads)),
+        "call_ms": median_ms(lambda: compact_accumulate_stages_cuda(w, heads)),
+        "plain_ms": k6_plain_ms(lambda: compact_accumulate_stages_plain(w, heads)),
+        "bound_ms": (R * C * 4 + sum(t * (C * 4 + 12) + R * 16 for t in totals))
+        / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    print("phase 13 K6d over a 496-lane stage: " + json.dumps(rows["K6d 496-lane stage"]))
+    return rows
+
+
+def shapes_run(label, argv, dev, smi, routes, work):
+    """Config A or B through script_run's four gates, the launches by route
+    during the run (each route of `routes` must have launched: the long
+    shapes' kernels), and a 128^2 view rendered through cli.render; returns
+    the run's record and its config.yml."""
+    from umhs_torch.cli import render as cli_render
+    from umhs_torch.data.png import read_png
+    from umhs_torch.data.synthetic import BENCH_SCENE
+
+    record, config_yml = script_run(label, argv, dev, smi, phase="phase 13",
+                                    vs_plain_moved=SHAPES_VS_PLAIN_MOVED,
+                                    k6c_witness=label == "config B")
+    got = record["routes"]
+    missing = {s: r for s, r in routes.items() if got.get(s, {}).get(r, 0) == 0}
+    check(not missing, f"phase 13, {label}: no launch on the routes {missing}; by route {got}")
+    size = BENCH_SCENE.image_size
+    tag = label.split()[-1]
+    (work / f"orbit_{tag}.json").write_text(json.dumps(orbit_path_json(1, size, 50.0)))
+    argv_r = ["camera-path", "--load-config", str(config_yml),
+              "--camera-path-filename", str(work / f"orbit_{tag}.json"),
+              "--output-path", str(work / f"render_{tag}" / "view.mp4"),
+              "--rendered-output-names", "rgb"]
+    print(f"phase 13, {label}: python -m umhs_torch.cli.render " + " ".join(argv_r))
+    rendered = cli_render.main(argv_r)
+    frames = sorted(rendered.written.glob("frame_*.png"))
+    check(len(frames) == 1 and read_png(frames[0]).shape == (size, size, 3),
+          f"phase 13, {label}: cli.render wrote {len(frames)} frames")
+    record["render_ms"] = 1e3 * rendered.frame_s[0]
+    return record, config_yml
+
+
+def phase_shapes(dev, smi):
+    """Phase 13: the shapes past the kernels' old limits (K5 1,024 candidates
+    a stage, K6a 256 lanes a stage, K6c 256 samples a ray). The kernels
+    against their plain versions at each old limit, one past it and well
+    past it (K5 and K6a/K6b bit for bit, K6c and K6d at phase 2's tolerance),
+    each with device ms, the bound by bytes and the plain version's ms; then
+    configs A (the flagship past every limit) and B (nerfacto-big's sample
+    counts) through cli.train with phase 12's gates, each 256 steps, the
+    long shapes' routes launched, a rendered view; A's run also through
+    cli.eval in a process of its own."""
+    from umhs_torch.engine.trainer import Trainer, TrainerConfig
+    from umhs_torch.ops.occupancy import init_occ_state, update_occ_state_cuda
+
+    t_phase = time.perf_counter()
+    dm, _, _ = bench_scene_in_memory(dev)
+    trainer = Trainer(TrainerConfig(seed=0), flagship_model_config(), num_classes=6, device=dev,
+                      datamanager=dm)
+    cfg, march, step = trainer.model.occ_config, trainer.model.march_config, \
+        trainer.model.render_step_size
+    density = bench_sphere_density(dev)
+    state = init_occ_state(cfg, dev)
+    jitter = torch.rand((cfg.levels * cfg.cells_per_level, 3), device=dev,
+                        generator=torch.Generator(dev).manual_seed(19))
+    for _ in range(2):
+        state = update_occ_state_cuda(state, cfg, density, step, jitter)
+    k5 = shapes_k5_rows(dev, dm, state, cfg, march)
+    del trainer, state, dm
+    k6ab = shapes_k6ab_rows(dev)
+    k6cd = shapes_k6cd_rows(dev)
+    torch.cuda.empty_cache()
+
+    runs, launches = {}, {}
+    with bench_dataset() as (work, root, _):
+        argv_a = entry_train_argv(root)
+        for flag, value in (("--max-num-iterations", str(SHAPES_STEPS)),
+                            ("--steps-per-save", str(SHAPES_STEPS)),
+                            ("--experiment-name", "shapes-a"),
+                            ("--output-dir", str(work / "outputs")), *SHAPES_A_FLAGS.items()):
+            argv_a = replace_flag(argv_a, flag, value)
+        argv_b = script_train_argv("nerfacto.sh", root, work)
+        for flag, value in SHAPES_B_FLAGS.items():
+            argv_b = replace_flag(argv_b, flag, value)
+        for label, argv, routes in (("config A", argv_a, SHAPES_A_ROUTES),
+                                    ("config B", argv_b, SHAPES_B_ROUTES)):
+            record, config_yml = shapes_run(label, argv, dev, smi, routes, work)
+            runs[label] = record
+            for sym, n in record["launches"].items():
+                launches[sym] = launches.get(sym, 0) + n
+            if label == "config A":  # cli.eval in a process of its own
+                env = dict(os.environ)
+                env["PYTHONPATH"] = os.pathsep.join(
+                    [str(Path(__file__).resolve().parent)]
+                    + [p for p in [env.get("PYTHONPATH")] if p])
+                out = work / "eval_a.json"
+                t0 = time.perf_counter()
+                proc = subprocess.run([sys.executable, "-m", "umhs_torch.cli.eval",
+                                       "--load-config", str(config_yml), "--output-path",
+                                       str(out)], cwd=work, env=env, capture_output=True,
+                                      text=True, timeout=600)
+                check(proc.returncode == 0, f"phase 13 cli.eval exited {proc.returncode}:\n"
+                                            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+                got = json.loads(out.read_text())
+                check(got["checkpoint_step"] == SHAPES_STEPS,
+                      f"phase 13 cli.eval loaded step {got['checkpoint_step']}")
+                check(all(np.isfinite(v) for v in got["results"].values()),
+                      f"phase 13 cli.eval: non-finite metrics {got['results']}")
+                record["cli_eval"] = {"s": time.perf_counter() - t0, **got["results"]}
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 13: kernel rows and configs A and B in {seconds:.1f} s; {smi}")
+    for label, r in runs.items():
+        samples = r.get("proposal_samples", r["samples_per_ray"])
+        print(f"  {label}: {r['ms_per_step_last64']:.2f} ms a step (last 64), samples "
+              f"{samples}, PSNR {r['psnr_step0']:.2f} -> "
+              f"{r['eval_all_images']['psnr']:.2f} dB, loss {r['loss_first16']:.5f} -> "
+              f"{r['loss_last16']:.5f}, vs plain {json.dumps(r['vs_plain_worst_median'])}, "
+              f"loss per draw {json.dumps(r['vs_plain_loss_over_tolerance'])}")
+        if r["vs_plain_k6c_witness"]:
+            print(f"  {label}, K6c plain in the kernel step: loss per draw " + json.dumps(
+                [w["loss_terms_over_tolerance"]["total"] for w in r["vs_plain_k6c_witness"]]))
+    return {"seconds": seconds, "k5": k5, "k6ab": k6ab, "k6cd": k6cd, "runs": runs,
+            "launches": launches}
+
+
 SASS_INSTRUCTION = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 SASS_COUNTED = ("LDG", "SHFL", "MUFU", "VOTE", "POPC", "BAR")  # opcode stems counted per loop
@@ -4752,6 +5183,9 @@ def main() -> None:
                     help="only the seed-variance twin: 3 seeds, 2,000 steps, 256^2")
     ap.add_argument("--mesh-cards", action="store_true",
                     help="only phase 9's cli.train over every visible card (NCCL) and on one")
+    ap.add_argument("--shapes", action="store_true",
+                    help="only phase 13: the kernels past their old shape limits, and "
+                         "configs A and B through cli.train")
     ap.add_argument("--quality", choices=["tetrahedral", "all"], default="tetrahedral",
                     help="phase 8's quality runs: the tetrahedral one, or also the trilinear "
                          "and the 141-band bf16 ones")
@@ -4790,9 +5224,11 @@ def main() -> None:
           f"({'g++' if built else 'cached'}, {native.library_path().name})")
 
     only = (args.repeat_schedule or args.sweep_vs_plain is not None or args.seed_variance
-            or args.mesh_cards)
+            or args.mesh_cards or args.shapes)
     if args.repeat_schedule:
         repeat_schedule(dev)
+    elif args.shapes:
+        phase_shapes(dev, smi)
     elif args.seed_variance:
         seed_variance(smi)
     elif args.mesh_cards:
@@ -4840,6 +5276,12 @@ def main() -> None:
         mesh1, mesh2 = phase_11(dev, dm, endmembers, train_summary["loss_per_step"], state48)
         del dm, state48
         scripts = phase_scripts(dev, smi)
+        shapes = phase_shapes(dev, smi)
+        long_rows = {"march_count": shapes_k5_kernel_rows(shapes["k5"], "k5a"),
+                     "march_emit": shapes_k5_kernel_rows(shapes["k5"], "k5b"),
+                     "compact_stage": shapes["k6ab"], "compact_gather": shapes["k6ab"],
+                     "render_weights_fwd": shapes["k6cd"], "render_weights_bwd": shapes["k6cd"],
+                     "segment_accumulate_fwd": shapes["k6cd"]["K6d 496-lane stage"]}
 
         for entry in (k1, k2, k3, k4, *k6, *k5k7):
             sym = "umhs_" + entry["name"]
@@ -4857,6 +5299,11 @@ def main() -> None:
             entry["launches_mesh_1_rank"] = mesh1[sym]  # phase 11a's train(48)
             entry["launches_mesh_2_ranks"] = mesh2[sym]  # phase 11b's train(32), per rank
             entry["launches_scripts"] = scripts["launches"].get(sym, 0)  # phase 12's twins
+            entry["launches_shapes"] = shapes["launches"].get(sym, 0)  # phase 13's A and B
+            entry["routes_shapes"] = {label: r["routes"].get(sym, {})
+                                      for label, r in shapes["runs"].items()}
+            if entry["name"] in long_rows:
+                entry["at_long_shapes"] = long_rows[entry["name"]]
         p1["launches_quality"] = quality_launches["tetrahedral"].get("umhs_row_gather", 0)
         p1["launches_mesh_1_rank"] = mesh1["umhs_row_gather"]
         p1["launches_mesh_2_ranks"] = mesh2["umhs_row_gather"]

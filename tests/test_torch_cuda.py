@@ -1208,13 +1208,14 @@ def test_k6_kernels_refuse_bad_inputs(cuda):
         k6_comp.compact_accumulate_cuda(w, torch.randn((256, 3), device=cuda).half(), c)
     with pytest.raises(ValueError):
         k6_comp.compact_accumulate_cuda(w.cpu(), torch.randn((256, 3), device=cuda), c)
-    with pytest.raises(ValueError):
-        k6_comp.render_weights_cuda(*(torch.rand((4, 300), device=cuda),) * 3,
-                                    torch.ones((4, 300), dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="int32"):  # 2^31 rays, as stride-0 views
+        k6_comp.render_weights_cuda(*(torch.rand((1, 300), device=cuda).expand(2**31, 300),) * 3,
+                                    torch.ones((1, 300), dtype=torch.bool,
+                                               device=cuda).expand(2**31, 300))
     with pytest.raises(ValueError):
         k6_compact.lanes_from_rows_cuda(torch.zeros(256), c)
-    with pytest.raises(ValueError):
-        k6_compact.compact_stage_cuda(torch.ones((8, 300), dtype=torch.bool, device=cuda), None,
+    with pytest.raises(ValueError, match="int32"):
+        k6_compact.compact_stage_cuda(torch.ones((8, 0), dtype=torch.bool, device=cuda), None,
                                       64)
     with pytest.raises(ValueError):
         k6_comp.compact_accumulate_stages_cuda(
@@ -1695,9 +1696,9 @@ def test_k5_k7_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         k5_march.march_rays_cuda(dict(state, packed_words=state["packed_words"].int()), cfg,
                                  march, o, d)
-    with pytest.raises(ValueError, match="candidates"):
-        k5_march.march_rays_cuda(state, cfg, _k5_march(32, 0, num_candidates=8192,
-                                                       occ_subsamples=1), o, d)
+    with pytest.raises(ValueError, match="multiples of occ_subsamples"):
+        k5_march.march_rays_cuda(state, cfg, _k5_march(32, 0, num_candidates=8190,
+                                                       occ_subsamples=4), o, d)
     n = 2 * 32**3
     occs = torch.zeros(n, device=cuda)
     with pytest.raises(ValueError):
@@ -1709,3 +1710,239 @@ def test_k5_k7_refuse_bad_inputs(cuda):
                                      torch.rand((n, 3), device=cuda))
     with pytest.raises(ValueError):
         k7_occ.threshold_pack_cuda(occs[:-1], occs.mean(), cfg)
+
+
+# ------------------------------------------- K5, K6a-d past the old limits
+# K5: 1,024 candidates a stage (32 words); K6a: 256 lanes a stage (whole-ray
+# tiles of 16-lane multiples); K6c: 256 samples a ray (8 chunks a warp).
+K5_LONG_CASES = {  # label: (pool, march kw): at the old limit, one past it and well past it
+    "M-1024": (0, dict(num_candidates=4096, num_samples=64)),
+    "M-1056": (0, dict(num_candidates=4 * 1056, num_samples=64)),
+    "M-2048": (0, dict(num_candidates=8192, num_samples=64)),
+    "M-4096": (0, dict(num_candidates=16384, num_samples=64)),
+    "M-4096-k1-far": (0, dict(num_candidates=4096, num_samples=256, occ_subsamples=1,
+                              render_step_size=0.001, cone_angle=0.0)),
+    "Ma-1024": (4, dict(num_candidates=4096, num_samples=64, occ_subsamples=1)),
+    "Ma-2048": (4, dict(num_candidates=8192, num_samples=64, occ_subsamples=1)),
+    "Ma-2048-far": (4, dict(num_candidates=8192, num_samples=256, occ_subsamples=1,
+                            render_step_size=0.0005, cone_angle=0.0)),
+    "config-A": (4, dict(num_candidates=8192, num_samples=512, occ_subsamples=2)),
+    "Sc-256": (0, dict(num_candidates=1024, num_samples=256, occ_subsamples=1)),
+    "pool-2-far": (2, dict(num_candidates=16384, num_samples=512, occ_subsamples=2,
+                           render_step_size=0.0005, cone_angle=0.0, pool_supers=1500)),
+}
+
+
+@pytest.mark.parametrize("grid", ["random", "dense"])
+@pytest.mark.parametrize("case", list(K5_LONG_CASES))
+def test_k5_long_stages_bit_for_bit(cuda, case, grid):
+    """K5 past 32 words a stage (the WIDE kernels: the words in the state
+    row, the two-level search), at 1,024 candidates and past them, with a
+    pre-pass of 1,024 and 2,048 supercells, config A's march (Sc 256, Ma
+    1,024, M 2,048) and schedules that reach the far words (cone 0, small
+    steps): the plain march's bits, with the batch budget binding and not,
+    and again on a second run."""
+    pool, kw = K5_LONG_CASES[case]
+    cfg, state = _k5_grid(cuda, 32, 2, pool, grid)
+    march = _k5_march(32, pool, **kw)
+    R = 1001
+    o, d, jit = _k5_rays(cuda, R, seed=len(case))
+    free = int(k5_march.march_rays_plain(state, cfg, march, o, d, jit)["num_samples"].sum())
+    _, _, Ma, M = k5_march.march_layout(state, cfg, march)
+    route = "wide" if max(M, Ma) > 1024 else "lanes"  # as the launchers report it
+    routed = [k.routes.get(route, 0) for k in (k5_march.MARCH_COUNT, k5_march.MARCH_EMIT)]
+    for budget in (None, free // 2):
+        args = (state, cfg, march, o, d, jit, budget)
+        got = k5_march.march_rays_cuda(*args)
+        again = k5_march.march_rays_cuda(*args)
+        ref = k5_march.march_rays_plain(*args)
+        for key in ref:
+            assert torch.equal(got[key], ref[key]), (key, budget)
+            assert torch.equal(got[key], again[key]), (key, budget)
+    assert int(got["num_samples"].sum()) > 0
+    assert [k.routes.get(route, 0) for k in (k5_march.MARCH_COUNT, k5_march.MARCH_EMIT)] == [
+        n + 4 for n in routed]
+
+
+@pytest.mark.parametrize("pool", [0, 4])
+def test_k5_long_stages_od_culling_against_f64(cuda, pool):
+    """The od culling past 32 words a stage (8,192 candidates without a
+    pre-pass, 2,048 supercells with one): held with the plain version to
+    f64 as test_k5_od_culling_against_f64 holds it."""
+    cfg, state = _k5_grid(cuda, 32, 2, pool, "random")
+    march = _k5_march(32, pool, num_candidates=8192, num_samples=64, occ_subsamples=1,
+                      early_stop_od=0.5)
+    o, d, _ = _k5_rays(cuda, 1001)
+    od_max = 0.5
+    got = k5_march.march_rays_cuda(state, cfg, march, o, d, None, None, od_max)
+    ref = k5_march.march_rays_plain(state, cfg, march, o, d, None, None, od_max)
+    mask64, od, unculled = k5_od_reference(state, cfg, march, o, d, od_max)
+    near = ((od - od_max).abs() <= 1e-5 * od_max).any(-1)
+    want = mask64.sum(-1).int() * march.occ_subsamples
+    for r in (got, ref):
+        assert torch.equal(r["num_occupied"][~near], want[~near])
+    for k in ref:
+        assert torch.equal(got[k][~near], ref[k][~near]), k
+    assert int(mask64.sum()) < int(unculled.sum())
+
+
+K6_LONG_LANES = [  # R, S, lo, hi, budget, later stage: L 256, 257, 496 (config A's third
+    # stage, whole-ray tiles of 8), 4,096 (one ray a tile), 4,097 (a ray longer than a tile)
+    (3001, 256, 0, 256, 200_000, False), (3001, 300, 0, 257, 200_000, True),
+    (3001, 257, 0, 257, 100_000, False), (2001, 512, 16, 512, 300_000, True),
+    (2001, 512, 16, 512, 50_000, True), (300, 4096, 0, 4096, 400_000, False),
+    (300, 4100, 3, 4100, 400_000, True), (300, 4097, 0, 4097, 100_000, False)]
+
+
+@pytest.mark.parametrize("R,S,lo,hi,budget,dead", K6_LONG_LANES)
+def test_k6a_k6b_long_stages_bit_for_bit(cuda, R, S, lo, hi, budget, dead):
+    """K6a past 256 lanes a stage (whole-ray tiles where a multiple of L
+    fits 4,096 lanes as a multiple of 16, else flat tiles with the counts in
+    a second launch) and K6b over it: the plain versions' bits, 20 runs in
+    a row (the look-back), budgets that cut inside a ray."""
+    mask = _k6_mask(R, S, R + S + lo, hit=0.5).to(cuda)
+    live = (torch.rand(R, device=cuda) < 0.6) if dead else None
+    m = mask[:, lo:hi]
+    ref = k6_compact.compact_stage_plain(m, live, budget)
+    before = k6_compact.COMPACT_STAGE.launches
+    route = "whole rays" if k6_compact.compact_tile_rays(hi - lo) else "flat"
+    routed = k6_compact.COMPACT_STAGE.routes.get(route, 0)
+    for _ in range(20):
+        got = k6_compact.compact_stage(m, live, budget)
+        for k in ("slot", "mask", "src", "live", "counts", "starts"):
+            assert torch.equal(getattr(got, k), getattr(ref, k)), k
+        assert int(got.total) == ref.total
+    assert k6_compact.COMPACT_STAGE.launches == before + 20
+    assert k6_compact.COMPACT_STAGE.routes.get(route, 0) == routed + 20
+    rows = torch.randn(budget, device=cuda, requires_grad=True)
+    g = torch.randn(got.mask.shape, device=cuda)
+    lanes = k6_compact.gather_lanes(rows, got)
+    plain = k6_compact.gather_lanes(rows, ref, impl="plain")
+    assert torch.equal(lanes, plain)
+    assert torch.equal(*(torch.autograd.grad(x, rows, g)[0] for x in (lanes, plain)))
+
+
+@pytest.mark.parametrize("S", [256, 257, 512, 1024, 1500])
+@pytest.mark.parametrize("thre,eps", [(0.0, 0.0), (0.01, 1e-4), ("tensor", 1e-4)],
+                         ids=["no-filters", "float", "tensor"])
+def test_k6c_long_rays_against_plain_and_f64(cuda, S, thre, eps):
+    """K6c forward and backward past 256 samples a ray (the forward's chunk
+    loop, the long-ray backward in groups of 256 lanes from the forward's
+    kept carries), on rays thin enough that transmittance lasts past the
+    groups, on rows of stride S + 3: each output within the plain version's error of f64 plus
+    1e-6 (weights) or 1e-5 of the largest entry (gradients), as
+    test_k6c_matches_plain_and_f64 holds the short rays; the backward's
+    outputs wanted or not the same bits; the same bits again."""
+    R, W = 700, S + 3
+    gen = torch.Generator().manual_seed(S)
+    dt = torch.rand((R, W), generator=gen) * 0.004 + 0.0005
+    te = 0.5 + torch.cumsum(dt, 1)
+    ts = te - dt
+    ts[::13, 5] += 0.01  # a negative interval: clamp_min passes no t gradient
+    # a twentieth of the lanes at sigma ~30 (alpha ~0.07), the rest at ~0.3
+    # (alpha ~7e-4, under both thresholds): optical depth ~0.004 a lane
+    dense = torch.rand((R, W), generator=gen) < 0.05
+    sg = torch.distributions.Exponential(1.0).sample((R, W)) * torch.where(dense, 30.0, 0.3)
+    sg[::7] *= 40.0  # rays that end early
+    m = torch.rand((R, W), generator=gen) < 0.85
+    ts, te, sg, m = (x.to(cuda)[:, 1:1 + S] for x in (ts, te, sg, m))
+    tthre = torch.tensor(0.002, device=cuda) if thre == "tensor" else thre
+    g = torch.randn((R, S), device=cuda, generator=torch.Generator(cuda).manual_seed(S))
+    ins = [x.clone().requires_grad_(True) for x in (ts, te, sg)]
+    pins = [x.clone().requires_grad_(True) for x in (ts, te, sg)]
+    before = (k6_comp.RENDER_WEIGHTS_FWD.launches, k6_comp.RENDER_WEIGHTS_BWD.launches)
+    route = "long" if S > 256 else "short"  # the backward's kernel, as its launcher reports
+    routed = k6_comp.RENDER_WEIGHTS_BWD.routes.get(route, 0)
+    w = k6_comp.render_weights(*ins, m, tthre, eps)
+    wp = k6_comp.render_weights(*pins, m, tthre, eps, impl="plain")
+    ref, refs = _rw_reference(ts, te, sg, m, tthre, eps)
+    grads = torch.autograd.grad(w, ins, g)
+    assert (k6_comp.RENDER_WEIGHTS_FWD.launches, k6_comp.RENDER_WEIGHTS_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert k6_comp.RENDER_WEIGHTS_BWD.routes.get(route, 0) == routed + 1
+    pgrads = torch.autograd.grad(wp, pins, g)
+    rgrads = torch.autograd.grad(ref, refs, g.double())
+    err, perr = (float((x.double() - ref).abs().max()) for x in (w.detach(), wp.detach()))
+    assert err <= perr + 1e-6, (err, perr)
+    for name, a, p, r in zip(("t_starts", "t_ends", "sigmas"), grads, pgrads, rgrads):
+        e, pe = (float((x.double() - r).abs().max()) for x in (a, p))
+        assert e <= pe + 1e-5 * float(r.abs().max()), (name, e, pe)
+    if S > 256:  # transmittance lasts into the last group
+        assert float(w[:, (S - 1) // 256 * 256:].detach().abs().max()) > 0.0
+    full = k6_comp.render_weights_bwd_cuda(ts, te, sg, m, tthre, eps, g)
+    for a, b in zip((grads[2], grads[0], grads[1]), full):
+        assert torch.equal(a, b)
+    for need in [(1, 0, 0), (0, 1, 1), (0, 0, 1)]:
+        got = k6_comp.render_weights_bwd_cuda(ts, te, sg, m, tthre, eps, g, need)
+        for want, x, y in zip(need, got, full):
+            assert (x is None) == (not want) and (not want or torch.equal(x, y)), need
+    assert torch.equal(k6_comp.render_weights_cuda(ts, te, sg, m, tthre, eps), w)
+
+
+def test_k6d_over_a_496_lane_stage(cuda):
+    """K6d over config A's stages (0-8, 8-16, 16-512 of S 512, the last 496
+    lanes) on 128- and 6-channel heads, f32 and bf16: one launch equals the
+    single-stage calls added in stage order, its error within the plain
+    version's of f64 (plus 1e-6 of the largest entry), and its backward
+    (a launch a stage) the single-stage backward's bits."""
+    bounds = ((0, 8), (8, 16), (16, 512))
+    for C, dtype in ((128, torch.float32), (6, torch.float32), (128, torch.bfloat16)):
+        wide, comps, values = _k6d_stage_inputs(cuda, C, dtype, True, bounds, R=2_000)
+        w = wide[:, 1:]
+        stages = [(lo, hi, v, c) for (lo, hi), v, c in zip(bounds, values, comps)]
+        out = k6_comp.compact_accumulate_stages(w, stages)
+        singles = [k6_comp.compact_accumulate_cuda(w.detach()[:, lo:hi], v.detach(), c)
+                   for lo, hi, v, c in stages]
+        assert torch.equal(out, singles[0] + singles[1] + singles[2])
+        wd = w.detach()
+        plain = k6_comp.compact_accumulate_stages(wd, stages, impl="plain")
+        ref = k6_comp.compact_accumulate_stages(
+            wd.double(), [(lo, hi, v.detach().double(),
+                           dataclasses.replace(c, live=c.live.double()))
+                          for lo, hi, v, c in stages], impl="plain")
+        e, pe = (float((x.double() - ref).abs().max()) for x in (out.detach(), plain))
+        assert e <= pe + 1e-6 * float(ref.abs().max()), (C, dtype, e, pe)
+        g = torch.randn(out.shape, device=cuda)
+        dwide, *dhs = torch.autograd.grad(out, [wide] + values, g)
+        for (lo, hi, v, c), dh in zip(stages, dhs):
+            dh1, dw1 = k6_comp.compact_accumulate_bwd_cuda(wd[:, lo:hi], v.detach(), c, g)
+            assert torch.equal(dh, dh1) and torch.equal(dwide[:, 1 + lo:1 + hi], dw1)
+
+
+def test_old_shapes_keep_the_plain_bits(cuda):
+    """At the shapes the kernels took before their limits were lifted (phase
+    7's steady batch cut to 4,096 rays: the flagship's march, 1,024
+    candidates, pool 4; stages 0-8, 8-16, 16-64), K5, K6a and K6b give the
+    plain versions' bits, as phase 2 holds them; K6c at S 64 and 256 gives
+    the same bits through the forward and the backward as a second run."""
+    cfg, state = _k5_grid(cuda, 128, 4, 4, "random")
+    march = _k5_march(128, 4)
+    o, d, jit = _k5_rays(cuda, 4096)
+    for budget in (None, 4096 * 376_576 // 79_360):
+        ref = k5_march.march_rays_plain(state, cfg, march, o, d, jit, budget)
+        got = k5_march.march_rays_cuda(state, cfg, march, o, d, jit, budget)
+        for key in ref:
+            assert torch.equal(got[key], ref[key]), key
+    mask = got["mask"]
+    live = None
+    for lo, hi in ((0, 8), (8, 16), (16, 64)):
+        budget = max(256, int(mask[:, lo:hi].sum()) * 3 // 4)
+        ref = k6_compact.compact_stage_plain(mask[:, lo:hi], live, budget)
+        c = k6_compact.compact_stage(mask[:, lo:hi], live, budget)
+        for k in ("slot", "mask", "src", "live", "counts", "starts"):
+            assert torch.equal(getattr(c, k), getattr(ref, k)), (lo, k)
+        rows = torch.randn(budget, device=cuda)
+        assert torch.equal(k6_compact.gather_lanes(rows, c),
+                           k6_compact.gather_lanes(rows, ref, impl="plain"))
+        live = torch.rand(mask.shape[0], device=cuda) < 0.7
+    for S in (64, 256):
+        sg = torch.rand((4096, S), device=cuda) * 30
+        ts = got["t_starts"][:, :1].repeat(1, S) + 0.003 * torch.arange(S, device=cuda)
+        te = ts + 0.003
+        m = torch.rand((4096, S), device=cuda) < 0.9
+        gw = torch.randn((4096, S), device=cuda)
+        runs = [(k6_comp.render_weights_cuda(ts, te, sg, m, 0.01, 1e-4),
+                 k6_comp.render_weights_bwd_cuda(ts, te, sg, m, 0.01, 1e-4, gw))
+                for _ in range(2)]
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -92,6 +92,24 @@ def test_compact_stage_plain_matches_jax(budget, dead):
         assert int(c.counts.sum()) == budget  # the overflow was dropped
 
 
+@pytest.mark.parametrize("L", [257, 496])
+def test_compact_stage_plain_matches_jax_past_256_lanes(L):
+    """Past K6a's old limit of 256 lanes a stage (257, a flat tile's ray
+    crossing; 496, config A's third stage of S 512 after (8, 16)): the
+    plain version against JAX's compact loop exactly, a later stage with
+    dead rays and a budget that cuts inside a ray."""
+    S, lo = 512, 16
+    mask, live_rays, _, _ = _stage_mask(7, R=60, S=S, dead=True)
+    m = mask[:, lo:lo + L]
+    budget = int(m[live_rays].sum()) * 2 // 3
+    ref = _jax_compact(m, live_rays, budget)
+    c = t_compact.compact_stage(_t(mask)[:, lo:lo + L], _t(live_rays), budget)
+    for k in ("slot", "mask", "src", "live", "counts", "starts"):
+        np.testing.assert_array_equal(_np(getattr(c, k)).reshape(-1),
+                                      np.asarray(ref[k]).reshape(-1), err_msg=k)
+    assert c.total == int(ref["total"]) == budget
+
+
 def test_gather_lanes_plain_matches_jax():
     """K6b's plain version against JAX's density gather back through the
     slot map (model.py:483, mode="clip", masked), forward and VJP, exactly:
@@ -150,6 +168,31 @@ def test_render_weights_vjp_matches_jax(alpha_thre, eps):
     for name, t, ref in zip(("t_starts", "t_ends", "sigmas"), tin, vjp(jnp.asarray(g))):
         ref = np.asarray(ref)
         np.testing.assert_allclose(_np(t.grad), ref, rtol=1e-4, atol=1e-5 * np.abs(ref).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("S", [257, 512])
+def test_render_weights_vjp_matches_jax_past_256_samples(S):
+    """render_weights' plain version against jax.vjp past K6c's old limit
+    of 256 samples a ray, on rays thin enough that transmittance lasts to
+    their end (the alpha threshold a 0-dim tensor, early stop on): the
+    weights within atol 1e-6, the gradients within rtol 1e-4 and atol 1e-5
+    of each tensor's largest entry."""
+    ts, te, sg, m = _march_like(8, R=32, S=S)
+    sg = sg * (30.0 / S)
+    thre = np.float32(0.002)
+    g = np.random.default_rng(9).normal(size=sg.shape).astype(np.float32)
+    jw, vjp = jax.vjp(lambda a, b, s: j_comp.render_weights(a, b, s, jnp.asarray(m),
+                                                            jnp.asarray(thre), 1e-4),
+                      *map(jnp.asarray, (ts, te, sg)))
+    tin = [_t(x).requires_grad_(True) for x in (ts, te, sg)]
+    tw = t_comp.render_weights(*tin, _t(m), alpha_thre=torch.tensor(thre), early_stop_eps=1e-4)
+    tw.backward(_t(g))
+    np.testing.assert_allclose(_np(tw), np.asarray(jw), rtol=0, atol=1e-6)
+    assert float(tw.detach()[:, 256:].sum()) > 0.0  # weights past the old limit
+    for name, x, ref in zip(("t_starts", "t_ends", "sigmas"), tin, vjp(jnp.asarray(g))):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(_np(x.grad), ref, rtol=1e-4, atol=1e-5 * np.abs(ref).max(),
                                    err_msg=name)
 
 
@@ -273,11 +316,12 @@ def test_compact_accumulate_is_one_stage():
 
 
 # ------------------------------------------------------ the host's rules
-@pytest.mark.parametrize("L", [1, 3, 7, 8, 16, 33, 48, 64, 96, 255, 256])
+@pytest.mark.parametrize("L", [1, 3, 7, 8, 16, 33, 48, 64, 96, 255, 256, 272, 496, 4096])
 def test_compact_tile_rays_rule(L):
     """K6a's tile: whole rays within 4,096 lanes, a multiple of 16 lanes (a
     thread's 16 lanes start 64-byte aligned in slot), and the most such
-    rays."""
+    rays; every L up to 256 has one, and so do longer L that are multiples
+    of 16 up to 4,096 (config A's third stage of 496 lanes: 8 rays)."""
     tr = t_compact.compact_tile_rays(L)
     assert tr >= 1 and tr * L <= t_compact.TILE_LANES
     assert tr * L % t_compact.LANES_PER_THREAD == 0
@@ -287,14 +331,18 @@ def test_compact_tile_rays_rule(L):
 
 
 def test_compact_host_rules_refuse_and_pick():
-    """K6a refuses more than 256 lanes a stage; its mask loads are the
-    widest of 16, 8, 4 bytes that divides L, the row stride and the
-    address, else 1 (phase 7's stages: 8 bytes at offsets 0 and 8 of a
-    64-byte row, 16 at offset 16)."""
-    for L in (0, 257):
-        with pytest.raises(ValueError, match="L"):
-            t_compact.compact_tile_rays(L)
-    with pytest.raises(ValueError, match="L <= 256"):
+    """K6a takes flat tiles of 4,096 lanes (compact_tile_rays 0) where no
+    whole-ray tile exists (257 lanes, 4,097, 300 at the CPU tensor's refusal)
+    and refuses an empty stage; its mask loads are the widest of 16, 8, 4
+    bytes that divides L, the row stride and the address, else 1 (phase 7's
+    stages: 8 bytes at offsets 0 and 8 of a 64-byte row, 16 at offset 16)."""
+    for L in (257, 4097, 4104):
+        assert t_compact.compact_tile_rays(L) == 0
+    with pytest.raises(ValueError, match="L"):
+        t_compact.compact_tile_rays(0)
+    with pytest.raises(ValueError, match="int32"):
+        t_compact.compact_stage_cuda(torch.zeros((4, 0), dtype=torch.bool), None, 8)
+    with pytest.raises(ValueError, match="CUDA"):  # the shape passes; the CPU tensor not
         t_compact.compact_stage_cuda(torch.zeros((4, 300), dtype=torch.bool), None, 8)
     base = 1 << 20
     assert t_compact.mask_vector_bytes(8, 64, base) == 8
@@ -500,8 +548,9 @@ def test_bad_shapes_and_dtypes_are_refused():
         "lanes must be": lambda: t_compact.rows_from_lanes_cuda(torch.zeros(c.mask.shape).t(), c),
         "sigmas must be": lambda: t_comp.render_weights_cuda(ts, te, sg.double(), m),
         "mask must be ": lambda: t_comp.render_weights_cuda(ts, te, sg, m.float()),
-        "S must be": lambda: t_comp.render_weights_cuda(*(torch.zeros((2, 257)),) * 3,
-                                                       torch.ones((2, 257), dtype=torch.bool)),
+        "int32 ray": lambda: t_comp.render_weights_cuda(  # 2^31 rays as stride-0 views
+            *(torch.zeros((1, 257)).expand(2**31, 257),) * 3,
+            torch.ones((1, 257), dtype=torch.bool).expand(2**31, 257)),
         "weights must be": lambda: t_comp.compact_accumulate_cuda(w.t(), h, c),
         "values must be": lambda: t_comp.compact_accumulate_cuda(w, h[:100], c),
         "values must be ": lambda: t_comp.compact_accumulate_cuda(w, h.half(), c),
@@ -515,6 +564,10 @@ def test_bad_shapes_and_dtypes_are_refused():
     for msg, call in bad.items():
         with pytest.raises(ValueError, match=msg.strip()):
             call()
+    # 257 samples a ray pass the wrapper's checks: only the CPU tensor is refused
+    with pytest.raises(ValueError, match="on the card"):
+        t_comp.render_weights_cuda(*(torch.zeros((2, 257)),) * 3,
+                                   torch.ones((2, 257), dtype=torch.bool))
     for call in (lambda: t_compact.compact_stage(mask, None, 256, impl="fast"),
                  lambda: t_comp.render_weights(ts, te, sg, m, impl="cuda"),
                  lambda: t_comp.compact_accumulate(w, h, c, impl=""),

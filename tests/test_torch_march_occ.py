@@ -173,6 +173,33 @@ def test_march_matches_jax_in_other_layouts(case):
     assert int(tr["num_samples"].sum()) > 0
 
 
+# the marches past K5's old limit of 1,024 candidates a stage (32 words)
+LONG_MARCHES = {  # label: (pool, MarchConfig fields)
+    "4096-candidates": (0, dict(num_candidates=4096, occ_subsamples=1)),
+    "prepass-2048": (4, dict(num_candidates=8192, occ_subsamples=1)),
+    "config-A": (4, dict(num_candidates=8192, num_samples=512, occ_subsamples=2)),
+}
+
+
+@pytest.mark.parametrize("budget", [None, 16 * RAYS], ids=["no-budget", "binding"])
+@pytest.mark.parametrize("grid", ["random", "dense"])
+@pytest.mark.parametrize("case", list(LONG_MARCHES))
+def test_march_matches_jax_past_1024_candidates(case, grid, budget):
+    """The plain march against JAX's past 1,024 candidates a stage: 4,096
+    candidates without a pre-pass, a pre-pass of 2,048 supercells (8,192
+    candidates, pool 4), and config A's march (8,192 candidates, 2 fine
+    samples a cell, 512 samples: 256 slots, a pre-pass of 1,024
+    supercells, 512 of them subdivided into M 2,048 cell candidates)."""
+    pool, kw = LONG_MARCHES[case]
+    jcfg, jmarch, tcfg, tmarch = _configs(pool=pool, **kw)
+    jr, tr = _march_both(jcfg, jmarch, tcfg, tmarch, _bitfield(grid), total_budget=budget,
+                         jitter=True)
+    _assert_march_equal(jr, tr)
+    _, _, Ma, M = t_march.march_layout(_states(_bitfield(grid), jcfg, tcfg)[2], tcfg, tmarch)
+    assert max(M, Ma) > 1024
+    assert int(tr["num_samples"].sum()) > 0
+
+
 # ---------------------------------------- what K5a's walk of the words relies on
 @pytest.mark.parametrize("pool_supers", [0, 7, 9])
 @pytest.mark.parametrize("grid", ["random", "dense"])
@@ -433,19 +460,32 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         t_occ.threshold_pack_cuda(state["occs"], state["occs"].mean(), tcfg)
 
 
-@pytest.mark.parametrize("march_kw,pool", [
-    (dict(num_candidates=4096, occ_subsamples=1), 0),  # 4096 candidates without a pre-pass
-    (dict(num_candidates=8192, occ_subsamples=1), 4),  # a pre-pass of 2048 supercells
-    (dict(num_samples=2), 4),  # no slot: 2 // 4 samples a cell
+@pytest.mark.parametrize("march_kw,pool,layout", [
+    # 4096 candidates without a pre-pass: 128 words a stage
+    (dict(num_candidates=4096, occ_subsamples=1), 0, (t_march.PRE_NONE, 4096, 0)),
+    # a pre-pass of 2048 supercells, 128 of them subdivided
+    (dict(num_candidates=8192, occ_subsamples=1), 4, (t_march.QUERY_PACKED, 512, 2048)),
+    (dict(num_samples=2), 4, None),  # 2 samples, 4 a cell: the JAX package asserts
 ])
-def test_shapes_beyond_the_kernel_are_refused_before_any_launch(march_kw, pool):
+def test_shapes_beyond_the_kernel_are_refused_before_any_launch(march_kw, pool, layout):
+    """K5 takes any stage the JAX march takes (march_layout gives its
+    layout: pre-pass query, fine candidates M, pre-pass candidates Ma), and
+    refuses, before looking at the device, what the JAX package's
+    MarchConfig asserts (samples not a multiple of occ_subsamples) and
+    grids past the int32 cell index."""
     _, _, tcfg, tmarch = _configs(pool=pool, **march_kw)
     _, _, tstate = _states(_bitfield("random"), *_configs(pool=pool)[::2])
     o, d = (torch.from_numpy(a) for a in _rays())
-    with pytest.raises(ValueError, match="candidates"):
-        t_march.march_layout(tstate, tcfg, tmarch)
-    with pytest.raises(ValueError, match="candidates"):  # before looking at the device
-        t_march.march_rays_cuda(tstate, tcfg, tmarch, o, d)
+    if layout is None:
+        with pytest.raises(ValueError, match="multiples of occ_subsamples"):
+            t_march.march_layout(tstate, tcfg, tmarch)
+        with pytest.raises(ValueError, match="multiples of occ_subsamples"):  # before the device
+            t_march.march_rays_cuda(tstate, tcfg, tmarch, o, d)
+    else:
+        pre, fine, Ma, M = t_march.march_layout(tstate, tcfg, tmarch)
+        assert (pre, M, Ma) == layout and fine == t_march.QUERY_PACKED
+        with pytest.raises(ValueError, match="CUDA"):  # the shape passes; the CPU tensor not
+            t_march.march_rays_cuda(tstate, tcfg, tmarch, o, d)
     big = dataclasses.replace(tcfg, resolution=1024)
     with pytest.raises(ValueError, match="int32"):
         t_occ.check_grid_limits(big, "update_occ_state_cuda")

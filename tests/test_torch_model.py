@@ -291,6 +291,34 @@ def test_forward_uncompacted_matches(slice_state):
                                    rtol=0, atol=1e-4, err_msg=k)
 
 
+@pytest.mark.parametrize("budget", [None, (4096, 4096, 24576), "uncompacted"],
+                         ids=["single", "staged", "uncompacted"])
+def test_forward_matches_past_256_samples(slice_state, budget):
+    """The forward at 512 samples a ray from 4,096 candidates (past the
+    kernels' old limits: K6c's 256 samples a ray, K5's 1,024 candidates a
+    stage, K6a's 256 lanes a stage, here the third stage's 496), compact
+    with a single budget and with three, and uncompacted: every key of
+    FORWARD_KEYS within atol 1e-4 of the JAX model's, with rays that keep
+    more than 256 samples."""
+    compact = budget != "uncompacted"
+    budget = budget if compact else None
+    kw = dict(MODEL_KW, max_samples_per_ray=512, num_candidates=4096, compact_samples=compact)
+    jm = JModel(JModelConfig(**kw), WAVELENGTHS, num_classes=6, num_images=4)
+    tm = TModel(TModelConfig(**kw), WAVELENGTHS, num_classes=6, num_images=4, device="cpu")
+    rays = _rays(slice_state, n=96)
+    jo = jax.jit(lambda p, o, r: jm.forward(p, o, r, rng=None, train=False,
+                                            compact_budget=budget, step=jnp.int32(STEP)))(
+        slice_state["params"], slice_state["occ"], _jrays(rays))
+    to = tm.forward(slice_state["tparams"], slice_state["tocc"], rays, compact_budget=budget,
+                    step=STEP)
+    keys = FORWARD_KEYS + (("num_eval_s3_per_ray",) if budget else ())
+    for k in keys:
+        np.testing.assert_allclose(_np(to[k]).astype(np.float64), np.asarray(jo[k]),
+                                   rtol=0, atol=1e-4, err_msg=k)
+    assert int(to["num_samples_per_ray"].max()) > 256
+    assert float(to["accumulation"].max()) > 0.5
+
+
 @pytest.mark.parametrize("background", ["black", "white"])
 def test_blend_background_matches(slice_state, background):
     kw = dict(MODEL_KW, background_color=background)

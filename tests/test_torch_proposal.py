@@ -81,23 +81,33 @@ def _jitters(key, n, r):
                                       for k in jax.random.split(key, n)]))
 
 
-@pytest.fixture(scope="module", params=["rgb", "rgb+spectral"])
+# nerfstudio's nerfacto-big sample counts (configs/method_configs.py): 512
+# and 256 proposal samples, 128 NeRF samples, on fewer rays
+BIG = dict(num_proposal_samples=(512, 256), num_nerf_samples=128)
+R_BIG = 16
+
+
+@pytest.fixture(scope="module", params=["rgb", "rgb+spectral", "rgb-nerfacto-big"])
 def both(request):
     """One training forward, loss and gradient of each package on the same
-    parameters, rays, batch and draws."""
-    method = request.param
-    jm, tm = _models(method)
+    parameters, rays, batch and draws; rgb-nerfacto-big past K6c's old
+    limit of 256 samples a ray (the first proposal level's render_weights
+    at 512, with the distortion loss's t gradients)."""
+    big = request.param.endswith("nerfacto-big")
+    method = "rgb" if big else request.param
+    n = R_BIG if big else R  # rays
+    jm, tm = _models(method, **(BIG if big else {}))
     params, occ = jm.init(jax.random.PRNGKey(0))
     params = dict(params, hash_table=params["hash_table"] * 1e3)
     for k in ("proposal_0", "proposal_1"):
         params[k] = dict(params[k], hash_table=params[k]["hash_table"] * 1e3)
     rng = np.random.default_rng(4)
-    d = np.concatenate([rng.uniform(-0.3, 0.3, (R, 2)), np.ones((R, 1))], -1)
-    rays = {"origins": np.tile([[0.0, 0.0, -1.5]], (R, 1)).astype(np.float32),
+    d = np.concatenate([rng.uniform(-0.3, 0.3, (n, 2)), np.ones((n, 1))], -1)
+    rays = {"origins": np.tile([[0.0, 0.0, -1.5]], (n, 1)).astype(np.float32),
             "directions": (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32),
-            "camera_indices": rng.integers(0, 4, R).astype(np.int32)}
-    batch = {"image": rng.uniform(0, 1, (R, 4)).astype(np.float32),
-             "hs_image": rng.uniform(0, 1, (R, len(WAVELENGTHS))).astype(np.float32)}
+            "camera_indices": rng.integers(0, 4, n).astype(np.int32)}
+    batch = {"image": rng.uniform(0, 1, (n, 4)).astype(np.float32),
+             "hs_image": rng.uniform(0, 1, (n, len(WAVELENGTHS))).astype(np.float32)}
     key, k_bg = jax.random.PRNGKey(1), jax.random.PRNGKey(3)
     jrays = {k: jnp.asarray(v) for k, v in rays.items()}
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -113,10 +123,10 @@ def both(request):
     for _, t in named_leaves(tparams):
         t.requires_grad_(True)
     trays = {k: torch.from_numpy(v) for k, v in rays.items()}
-    jitter = _jitters(key, 3, R)
+    jitter = _jitters(key, 3, n)
     tout = tm.forward(tparams, None, trays, train=True, step=STEP, prop_jitter=jitter)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    tloss = tm.loss(tout, tbatch, torch.from_numpy(np.array(jax.random.uniform(k_bg, (R, 3)))),
+    tloss = tm.loss(tout, tbatch, torch.from_numpy(np.array(jax.random.uniform(k_bg, (n, 3)))),
                     step=STEP)
     ttotal = sum(tloss.values())
     ttotal.backward()

@@ -194,12 +194,28 @@ CONFIGS = {
     "black": ({"background_color": "black"}, 4, ()),
     "white": ({"background_color": "white"}, 4, ()),
     "seven-classes": ({"pred_specular": False}, 7, ("mlp_directional",)),
+    # config A's march past the kernels' old limits: 512 samples a ray from
+    # 8,192 candidates, 2 a cell (Sc 256, a pre-pass of 1,024 supercells,
+    # M 2,048), the third stage 496 lanes
+    "config-a-march": ({"max_samples_per_ray": 512, "num_candidates": 8192,
+                        "occ_subsamples": 2}, 4, ()),
 }
 BUDGETS = {"single": (None, None), "three-stage": ((1024, 1024, 2048), None),
            "three-stage-adapted": ((256, 512, 768), 24)}
-# seven classes (ajar.sh's) single-budget only: the file's time
+# seven classes (ajar.sh's) single-budget only: the file's time. Config A's
+# march without the adapted case, which marches 24 samples, not 512.
 CASES = [pytest.param(config, *BUDGETS[b], id=b if config == "flagship" else f"{config}-{b}")
-         for config in CONFIGS for b in BUDGETS if config != "seven-classes" or b == "single"]
+         for config in CONFIGS for b in BUDGETS
+         if (config != "seven-classes" or b == "single")
+         and (config != "config-a-march" or b != "three-stage-adapted")]
+# the cases whose JAX step runs op by op, not under jax.jit (slower): at
+# config A's march with the single budget, XLA's compile of the whole step
+# moves 4 of the 8,192 hash-table gradient entries by up to 3e-4 x max|g|
+# from the same step run op by op (this test's own assertion, under
+# jax.jit), while the op-by-op step agrees with the port, and the port
+# with the f64 sum of its per-sample contributions
+# (test_hash_gradient_is_the_f64_sum_at_config_a_march)
+EAGER = {("config-a-march", BUDGETS["single"][0])}  # (config, budget)
 
 
 def _config_models(setup, config):
@@ -241,7 +257,9 @@ def test_loss_and_every_gradient_match_jax(setup, config, budget, samples):
     if samples is not None:
         jmarch = dataclasses.replace(jm.march_config, num_samples=samples)
         tmarch = dataclasses.replace(tm.march_config, num_samples=samples)
-    grad_fn = jax.jit(make_grad_fn(jm, None, march_cfg=jmarch, compact_budget=budget))
+    grad_fn = make_grad_fn(jm, None, march_cfg=jmarch, compact_budget=budget)
+    if (config, budget) not in EAGER:
+        grad_fn = jax.jit(grad_fn)
     jtotal, jloss, jmetrics, jgrads = grad_fn(params, occ, jrays, jbatch, k_march, k_bg,
                                               jnp.int32(STEP))
     jitter = torch.from_numpy(np.array(jax.random.uniform(k_march, (R,))))
@@ -285,6 +303,50 @@ def test_loss_and_every_gradient_match_jax(setup, config, budget, samples):
         assert np.abs(ref).max() > 0.0, name
         np.testing.assert_allclose(_np(t.grad), ref, rtol=1e-3, atol=1e-4 * np.abs(ref).max(),
                                    err_msg=name)
+
+
+def test_hash_gradient_is_the_f64_sum_at_config_a_march(setup, monkeypatch):
+    """The port's hash-table gradient at config A's march with the single
+    budget (the EAGER case above) is the f64 sum of its per-sample
+    contributions, each sample's vertex rows and weights
+    (hash_indices_weights) times d loss / d encoding, within 1e-6 x
+    max|g|: the entries where JAX's jitted step parts from its op-by-op
+    step are sums the port takes as exactly as f32 allows."""
+    import umhs_torch.models.field as t_field
+    from umhs_torch.ops.encodings import hash_indices_weights
+
+    models = _config_models(setup, "config-a-march")
+    jm, tm, params, occ = models["jm"], models["tm"], models["params"], models["occ"]
+    _, k_sample, k_march, k_bg = jax.random.split(jax.random.PRNGKey(12), 4)
+    _, jbatch = j_dm.sample_pixel_batch(setup["jdata"], setup["jcam"], k_sample, R)
+    idx = torch.from_numpy(np.array(jbatch["indices"]))
+    trays, tbatch = t_dm.sample_pixel_batch(setup["tdata"], setup["tcam"], R,
+                                            (idx[:, 0], idx[:, 1], idx[:, 2]))
+    seen = {}
+    encode = t_field.hash_encode
+
+    def recording(table, unit, cfg, *args, **kwargs):
+        enc = encode(table, unit, cfg, *args, **kwargs)
+        enc.retain_grad()
+        seen["unit"], seen["enc"] = unit.detach(), enc
+        return enc
+
+    monkeypatch.setattr(t_field, "hash_encode", recording)
+    tparams = convert.params_to_torch(params)
+    for _, t in named_leaves(tparams):
+        t.requires_grad_(True)
+    out = tm.forward(tparams, convert.occ_state_to_torch(occ), trays, step=STEP, train=True,
+                     t_jitter=torch.from_numpy(np.array(jax.random.uniform(k_march, (R,)))))
+    background = torch.from_numpy(np.array(jax.random.uniform(k_bg, (R, 3))))
+    sum(tm.loss(out, tbatch, background).values()).backward()
+    cfg = tm.field_config.hash
+    F = cfg.features_per_level
+    rows, weights = hash_indices_weights(seen["unit"], cfg)  # (N, L, V)
+    g = seen["enc"].grad.double().reshape(rows.shape[0], cfg.num_levels, 1, F)
+    flat = (rows[..., None] * F + torch.arange(F)).reshape(-1)
+    got = tparams["hash_table"].grad.double().reshape(-1)
+    want = torch.zeros_like(got).index_add_(0, flat, (weights.double()[..., None] * g).reshape(-1))
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 # ----------------------------------------------------------- training run

@@ -26,22 +26,32 @@
 // K6a is one launch a stage: a single-pass scan with decoupled look-back
 // (Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
 // Look-back", NVIDIA, 2016) over tiles of whole rays, at most 4,096 lanes a
-// tile. A block takes its tile from an atomic ticket, so the tiles start in
-// order and a block that waits on a predecessor knows it is running. Each
-// thread reads 16 consecutive lanes of the tile in vector loads (16, 8 or
-// 4 bytes where the column slice allows, so no lane of a warp idles at
-// L = 8), keeps them as 16 bits, and the block scans the threads' counts.
-// The block publishes its aggregate, a warp looks back over the
-// predecessors' flags, and the block publishes its inclusive prefix, each
-// flag one 64-bit word (epoch, status, value) in one store. From the same
-// registers it writes slot, kept and src, then each ray's counts and starts
-// after the drop. The blocks with the last tickets wait for the last
-// tile's prefix and write `live` and the rows past the total, so the stage
-// is one launch. The flags live in a workspace the wrapper allocates once
-// per device and stream and never clears per call: a flag counts only
-// with the launch's epoch, a number the wrapper hands in and steps by one
-// each call (it clears the workspace once when the epoch wraps). The last
-// block to take a ticket sets the ticket back to 0 for the next launch.
+// tile, where such a tile holds a multiple of 16 lanes (every L up to 256,
+// and longer L whose multiples reach one). A block takes its tile from an
+// atomic ticket, so the tiles start in order and a block that waits on a
+// predecessor knows it is running. Each thread reads 16 consecutive lanes
+// of the tile in vector loads (16, 8 or 4 bytes where the column slice
+// allows, so no lane of a warp idles at L = 8), keeps them as 16 bits, and
+// the block scans the threads' counts. The block publishes its aggregate,
+// a warp looks back over the predecessors' flags, and the block publishes
+// its inclusive prefix, each flag one 64-bit word (epoch, status, value) in
+// one store. From the same registers it writes slot, kept and src, then
+// each ray's counts and starts after the drop. The blocks with the last
+// tickets wait for the last tile's prefix and write `live` and the rows
+// past the total, so the stage is one launch.
+// Where no whole-ray tile fits (L 257, 4,097), the tiles are 4,096 lanes
+// of the flattened (R, L) that rays cross, and a second, small launch
+// follows. A ray's starts and counts follow from the scan at its first
+// lane and past its last: starts[r] = min(excl(first), Bs), counts[r] =
+// min(excl(first of r + 1), Bs) - starts[r] (the total for the last ray).
+// The tile holding the first lane writes starts; a ray's two ends may lie
+// in different tiles, so the second launch takes the counts as the
+// differences of consecutive starts.
+// The flags live in a workspace the wrapper allocates once per device and
+// stream and never clears per call: a flag counts only with the launch's
+// epoch, a number the wrapper hands in and steps by one each call (it
+// clears the workspace once when the epoch wraps). The last block to take a
+// ticket sets the ticket back to 0 for the next launch.
 // An epoch handed in by value would repeat under a replayed CUDA graph; a
 // graph would need it on the device.
 #include <stdint.h>
@@ -61,7 +71,7 @@ struct StageArgs {
   const uint8_t* mask;
   int64_t stride;
   const uint8_t* live_rays;
-  int32_t R, L, budget, tile_rays, vec_bytes, n_tiles;
+  int32_t R, L, budget, tile_rays, vec_bytes, n_tiles;  // tile_rays 0: flat tiles
   uint32_t epoch;
   unsigned long long* flags;  // one a tile
   unsigned int* ticket;
@@ -189,11 +199,14 @@ __device__ __forceinline__ void fill_rows(const StageArgs& a, int32_t f, int32_t
   }
 }
 
+// FLAT: tiles of kTileLanes lanes of the flattened (R, L), rays crossing
+// them (tile_rays 0); else tiles of tile_rays whole rays.
+template <bool FLAT>
 __global__ void __launch_bounds__(kThreads) compact_stage_kernel(const StageArgs a) {
   __shared__ uint32_t s_ticket;
   __shared__ int32_t s_warp_sums[kThreads / 32];
   __shared__ int32_t s_prefix;  // the tile's exclusive prefix, or a fill block's total
-  __shared__ int32_t s_ray_slot[kTileLanes];  // each ray's first slot (tile_rays <= 4,096)
+  __shared__ int32_t s_ray_slot[FLAT ? 1 : kTileLanes];  // each ray's first slot
   if (threadIdx.x == 0) {
     const uint32_t t = atomicAdd(a.ticket, 1u);
     if (t == gridDim.x - 1) atomicExch(a.ticket, 0u);  // every ticket is taken
@@ -205,17 +218,30 @@ __global__ void __launch_bounds__(kThreads) compact_stage_kernel(const StageArgs
     fill_rows(a, tile - a.n_tiles, s_prefix);
     return;
   }
-  const int64_t r0 = static_cast<int64_t>(tile) * a.tile_rays;
-  const int32_t nr = static_cast<int32_t>(min(static_cast<int64_t>(a.tile_rays), a.R - r0));
-  const int32_t n = nr * a.L;  // the tile's lanes
+  // the tile's first ray r0 and rays nr (whole-ray tiles), its first flat
+  // lane f0 and its lanes n (R * L < 2^31: 32-bit lane arithmetic)
+  int32_t f0, nr, n;
+  int64_t r0;
+  if (FLAT) {
+    f0 = tile * kTileLanes;
+    r0 = 0;
+    nr = 0;
+    n = min(kTileLanes, a.R * a.L - f0);
+  } else {
+    r0 = static_cast<int64_t>(tile) * a.tile_rays;
+    nr = static_cast<int32_t>(min(static_cast<int64_t>(a.tile_rays), a.R - r0));
+    f0 = static_cast<int32_t>(r0) * a.L;
+    n = nr * a.L;
+  }
   const int32_t p0 = threadIdx.x * kLanesPerThread;
 
   // this thread's lanes [p0, p0 + 16) as bits: chunks of vec_bytes lanes
-  // never cross a ray (vec_bytes divides L)
+  // never cross a ray (vec_bytes divides L, and f0 + p0 is a multiple of 16)
   uint32_t bits = 0;
   for (int32_t q = 0; q < kLanesPerThread && p0 + q < n; q += a.vec_bytes) {
-    const int32_t i = (p0 + q) / a.L, l = p0 + q - i * a.L;
-    const int64_t r = r0 + i;
+    const int32_t pq = (FLAT ? f0 : 0) + p0 + q;  // a lane of the tile, or the flat lane
+    const int32_t i = pq / a.L, l = pq - i * a.L;
+    const int64_t r = (FLAT ? 0 : r0) + i;
     if (a.live_rays != nullptr && a.live_rays[r] == 0) continue;
     bits |= mask_bits(a.mask + r * a.stride + l, a.vec_bytes) << q;
   }
@@ -236,11 +262,13 @@ __global__ void __launch_bounds__(kThreads) compact_stage_kernel(const StageArgs
   const int32_t prefix = s_prefix;
 
   // slot, kept and src of this thread's lanes, four at a time; each ray's
-  // first slot
-  const int64_t flat0 = r0 * a.L + p0;
+  // first slot (on flat tiles, its starts)
+  const int64_t flat0 = static_cast<int64_t>(f0) + p0;
   const int32_t first = prefix + excl;
   const bool whole = p0 + kLanesPerThread <= n;  // 64 bytes of slot, 16 of kept
-  int32_t i = p0 / a.L, l = p0 - i * a.L;  // the ray and lane of p0
+  // the ray (within the tile, or the absolute ray on flat tiles) and lane of p0
+  int32_t i = (FLAT ? f0 + p0 : p0) / a.L;
+  int32_t l = (FLAT ? f0 + p0 : p0) - i * a.L;
   uint32_t keep_bytes[kLanesPerThread / 4];
 #pragma unroll
   for (int k = 0; k < kLanesPerThread / 4; ++k) {
@@ -255,7 +283,12 @@ __global__ void __launch_bounds__(kThreads) compact_stage_kernel(const StageArgs
       keep_bytes[k] |= static_cast<uint32_t>(keep) << (8 * q);
       if (p0 + j < n) {
         if (keep) a.src[s] = flat0 + j;
-        if (l == 0) s_ray_slot[i] = s;
+        if (l == 0) {
+          if (FLAT)
+            a.starts[i] = s < a.budget ? s : a.budget;
+          else
+            s_ray_slot[i] = s;
+        }
         if (!whole) {
           a.slot[flat0 + j] = s;
           a.kept[flat0 + j] = keep;
@@ -272,10 +305,14 @@ __global__ void __launch_bounds__(kThreads) compact_stage_kernel(const StageArgs
   if (whole)
     *reinterpret_cast<uint4*>(a.kept + flat0) =
         make_uint4(keep_bytes[0], keep_bytes[1], keep_bytes[2], keep_bytes[3]);
+  const int32_t end = prefix + agg;
+  if (FLAT) {  // the counts follow in ray_counts_kernel
+    if (tile == a.n_tiles - 1 && threadIdx.x == 0) *a.total = end < a.budget ? end : a.budget;
+    return;
+  }
   __syncthreads();
 
   // each ray's counts and starts after the drop
-  const int32_t end = prefix + agg;
   for (int32_t k = threadIdx.x; k < nr; k += kThreads) {
     const int32_t off = s_ray_slot[k];
     const int32_t c = (k + 1 < nr ? s_ray_slot[k + 1] : end) - off;
@@ -284,6 +321,16 @@ __global__ void __launch_bounds__(kThreads) compact_stage_kernel(const StageArgs
     a.starts[r0 + k] = off < a.budget ? off : a.budget;
   }
   if (tile == a.n_tiles - 1 && threadIdx.x == 0) *a.total = end < a.budget ? end : a.budget;
+}
+
+// After K6a on flat tiles: counts[r] = starts[r + 1] - starts[r], the
+// total past the last ray (starts and total clamped to the budget, so these
+// are the kept lanes).
+__global__ void __launch_bounds__(kThreads)
+ray_counts_kernel(const int64_t* __restrict__ starts, const int32_t* __restrict__ total,
+                  int64_t* __restrict__ counts, int32_t R) {
+  const int32_t r = blockIdx.x * kThreads + threadIdx.x;
+  if (r < R) counts[r] = (r + 1 < R ? starts[r + 1] : *total) - starts[r];
 }
 
 // out[i] = kept[i] ? rows[slot[i]] : 0 over the n = R * L lanes.
@@ -314,27 +361,31 @@ rows_from_lanes_kernel(const float* __restrict__ lanes, int64_t stride, int32_t 
 
 // K6a. mask: the stage's (R, L) lanes of a bool mask with row stride
 // `stride` (bytes); live_rays: (R,) bool or null; budget: Bs. tile_rays:
-// rays a tile (tile_rays * L <= 4,096 and a multiple of 16); vec_bytes: 1,
+// rays a tile (tile_rays * L <= 4,096 and a multiple of 16), or 0 for flat
+// tiles of 4,096 lanes (then a second launch for the counts); vec_bytes: 1,
 // 4, 8 or 16, dividing L, stride and the mask's address. workspace: the
 // ticket (the first 8 bytes, 0 between launches) then flag_capacity flags,
 // one a tile; epoch: 1 to 2^30 - 1, another than the workspace's last
 // launch's. Outputs: slot (R * L) int32, kept (R * L) bool, src (Bs) int64,
-// live (Bs) f32, counts and starts (R) int64, total (1) int32. 1 <= L <=
-// 256; R * L and Bs below 2^31. Returns a cudaError_t.
+// live (Bs) f32, counts and starts (R) int64, total (1) int32. 1 <= L; R
+// * L and Bs below 2^31. Returns a cudaError_t.
 extern "C" int umhs_compact_stage(const uint8_t* mask, int64_t stride, const uint8_t* live_rays,
                                   int32_t R, int32_t L, int32_t budget, int32_t tile_rays,
                                   int32_t vec_bytes, void* workspace, int32_t flag_capacity,
                                   uint32_t epoch, int32_t* slot, uint8_t* kept, int64_t* src,
                                   float* live, int64_t* counts, int64_t* starts, int32_t* total,
-                                  void* stream) {
+                                  void* stream, int32_t* route) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(mask);
-  if (R < 0 || L < 1 || L > 256 || budget < 1 || stride < L || tile_rays < 1 ||
+  if (R < 0 || L < 1 || budget < 1 || stride < L || tile_rays < 0 ||
       static_cast<int64_t>(tile_rays) * L > kTileLanes || (tile_rays * L) % kLanesPerThread != 0 ||
       !(vec_bytes == 1 || vec_bytes == 4 || vec_bytes == 8 || vec_bytes == 16) ||
       L % vec_bytes != 0 || stride % vec_bytes != 0 || addr % vec_bytes != 0 || epoch < 1 ||
       epoch >= (1u << 30) || static_cast<int64_t>(R) * L >= (int64_t{1} << 31))
     return cudaErrorInvalidValue;
-  const int64_t n_tiles = (static_cast<int64_t>(R) + tile_rays - 1) / tile_rays;
+  const bool flat = tile_rays == 0;
+  *route = flat ? 1 : 0;  // umhs_torch/ops/compact.py's COMPACT_ROUTES
+  const int64_t n_tiles = flat ? (static_cast<int64_t>(R) * L + kTileLanes - 1) / kTileLanes
+                               : (static_cast<int64_t>(R) + tile_rays - 1) / tile_rays;
   if (n_tiles > flag_capacity) return cudaErrorInvalidValue;
   const int64_t n_fill = (static_cast<int64_t>(budget) + kThreads * kFillRows - 1) /
                          (kThreads * kFillRows);
@@ -343,8 +394,17 @@ extern "C" int umhs_compact_stage(const uint8_t* mask, int64_t stride, const uin
                  static_cast<unsigned long long*>(workspace) + 1,
                  static_cast<unsigned int*>(workspace), slot, kept, src, live, counts, starts,
                  total};
-  compact_stage_kernel<<<static_cast<unsigned>(n_tiles + n_fill), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(args);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>(n_tiles + n_fill);
+  if (!flat) {
+    compact_stage_kernel<false><<<blocks, kThreads, 0, s>>>(args);
+    return cudaGetLastError();
+  }
+  compact_stage_kernel<true><<<blocks, kThreads, 0, s>>>(args);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || R == 0) return err;
+  ray_counts_kernel<<<static_cast<unsigned>((R + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      starts, total, counts, R);
   return cudaGetLastError();
 }
 

@@ -7,7 +7,7 @@
 // are XLA on the TPU; in the original system nerfacc's
 // render_weight_from_density and accumulate_along_rays did this work.
 //
-// K6c, on (R, S) lanes, S <= 256, one warp a ray, the lanes in chunks of 32:
+// K6c, on (R, S) lanes, one warp a ray, the lanes in chunks of 32:
 //   delta = max(t_end - t_start, 0); x = mask ? sigma * delta : 0;
 //   a = 1 - exp(-x); keep = mask && a >= alpha_thre (every lane when the
 //   filter is off); x' = keep ? x : 0; c = the exclusive scan of x';
@@ -22,6 +22,15 @@
 //   dx = keep ? (alive ? g * T * exp(-x) : 0) - sum_{j > i} g_j w_j : 0,
 //   dsigma = mask ? dx * delta : 0, ddelta = mask ? dx * sigma : 0, passed
 //   where t_end - t_start >= 0 (torch's clamp_min), to t_end and -t_start.
+// The forward takes any S, writing each chunk as it goes. Past 256 lanes a
+// ray (S > kChunks * 32) the backward takes a kernel of its own, with the
+// same chunks, trees and carry order: it runs a ray in groups of kChunks
+// chunks, a first sweep keeping the forward's carry at each group's first
+// chunk (a float a group, in a scratch row the wrapper allocates), then the
+// groups from the last down, each loaded at once and run as a short ray
+// is, from its kept carry and the suffix sum of g * w over the later
+// groups. It reads the inputs twice, the price of an unbounded ray in a
+// warp's registers.
 //
 // K6d forward, one launch for one head over every stage of the compact
 // buffer: out[r, c] = sum over the stages k, in stage order, of s_k[r, c],
@@ -84,7 +93,8 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;      // rays (K6c) or rows (K6d's backward) per block
-constexpr int kChunks = 8;     // K6c: S <= kChunks * 32
+constexpr int kChunks = 8;     // K6c's backward: S <= kChunks * 32 in one go, longer rays in groups
+constexpr int kMaxLanes = 0x7fffffff - 32;  // K6c: a lane index s0 + lane stays an int32
 constexpr int kThreads = 256;  // K6d's forward
 
 struct RayInputs {
@@ -100,23 +110,15 @@ struct RayInputs {
   float eps;              // the early-stop filter when > 0
 };
 
-// One lane's forward values.
+// One lane's values: the forward's, with e = exp(-x) kept for the backward
+// and t_end - t_start >= 0 (where clamp_min passes the gradient).
 struct Lane {
-  float delta, sigma, x, a, T;
-  bool on, keep, alive;
+  float delta, sigma, x, a, T, e;
+  bool on, keep, alive, ordered;
 };
 
-// One lane's values in K6c's backward: the forward's, as forward_lanes
-// computes them, with e = exp(-x) kept and t_end - t_start >= 0 (where
-// clamp_min passes the gradient).
-struct BackLane : Lane {
-  float e;
-  bool ordered;
-};
-
-// A lane's values before the scan, from its loads (in_row: s < S), in
-// forward_lanes' operations.
-__device__ __forceinline__ void lane_start(BackLane& v, bool in_row, float ts, float te,
+// A lane's values before the scan, from its loads (in_row: s < S).
+__device__ __forceinline__ void lane_start(Lane& v, bool in_row, float ts, float te,
                                            float sigma, uint8_t m, int32_t use_thre,
                                            float thre) {
   v.on = in_row && m != 0;
@@ -137,7 +139,7 @@ __device__ __forceinline__ void lane_start(BackLane& v, bool in_row, float ts, f
 }
 
 // A lane's transmittance from its exclusive optical depth c.
-__device__ __forceinline__ void lane_finish(BackLane& v, float c, float eps) {
+__device__ __forceinline__ void lane_finish(Lane& v, float c, float eps) {
   v.T = expf(-c);
   v.alive = eps <= 0.0f || v.T >= eps;
 }
@@ -170,54 +172,8 @@ __device__ __forceinline__ float alpha_threshold(const RayInputs& in) {
   return in.use_thre ? (in.thre_ptr ? *in.thre_ptr : in.thre_val) : 0.0f;
 }
 
-// The forward of every lane of ray r, chunk k at lane `lane`; L[k] filled.
-// K6c's backward recomputes it with lane_start, the same shuffle tree and
-// lane_finish, in the same operations: a change here is made there too.
-__device__ __forceinline__ void forward_lanes(const RayInputs& in, int64_t r, int lane,
-                                              Lane* L) {
-  const float thre = alpha_threshold(in);
-  float carry = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kChunks; ++k) {
-    if (k * 32 >= in.S) break;  // uniform over the warp
-    const int s = k * 32 + lane;
-    Lane& v = L[k];
-    v.on = s < in.S && in.mask[r * in.mask_stride + s] != 0;
-    v.delta = 0.0f;
-    v.sigma = 0.0f;
-    v.x = 0.0f;
-    if (s < in.S) {
-      v.delta = fmaxf(in.te[r * in.te_stride + s] - in.ts[r * in.ts_stride + s], 0.0f);
-      v.sigma = in.sigma[r * in.sigma_stride + s];
-      if (v.on) v.x = __fmul_rn(v.sigma, v.delta);
-    }
-    v.a = 1.0f - expf(-v.x);
-    v.keep = in.use_thre ? (v.on && v.a >= thre) : true;
-    float chunk_total;
-    const float c = carry + warp_exclusive_scan(v.keep ? v.x : 0.0f, lane, &chunk_total);
-    carry += chunk_total;
-    v.T = expf(-c);
-    v.alive = in.eps <= 0.0f || v.T >= in.eps;
-  }
-}
-
 __device__ __forceinline__ float lane_weight(const Lane& v) {
   return __fmul_rn(v.keep && v.alive ? v.a : 0.0f, v.T);
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-render_weights_fwd_kernel(RayInputs in, float* __restrict__ w) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= in.R) return;  // uniform over the warp
-  Lane L[kChunks];
-  forward_lanes(in, r, lane, L);
-#pragma unroll
-  for (int k = 0; k < kChunks; ++k) {
-    const int s = k * 32 + lane;
-    if (k * 32 >= in.S) break;
-    if (s < in.S) w[r * in.S + s] = lane_weight(L[k]);
-  }
 }
 
 // K6c backward: one ray's inputs, NC chunks of 32 lanes, loaded at once.
@@ -227,13 +183,14 @@ struct RayLoads {
   uint8_t m[NC];
 };
 
-// g: (R, S) contiguous. Every load of ray r in one go (0 past S).
+// g: (R, S) contiguous. Every load of ray r's lanes [base, base + 32 NC)
+// in one go (0 past S).
 template <int NC>
 __device__ __forceinline__ void load_ray(const RayInputs& in, const float* __restrict__ g,
-                                         int64_t r, int lane, RayLoads<NC>& v) {
+                                         int64_t r, int lane, RayLoads<NC>& v, int base = 0) {
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
-    const int s = k * 32 + lane;
+    const int s = base + k * 32 + lane;
     const bool in_row = s < in.S;
     v.ts[k] = in_row ? in.ts[r * in.ts_stride + s] : 0.0f;
     v.te[k] = in_row ? in.te[r * in.te_stride + s] : 0.0f;
@@ -243,26 +200,30 @@ __device__ __forceinline__ void load_ray(const RayInputs& in, const float* __res
   }
 }
 
-// The backward of ray r from its loads, S <= 32 * NC. The forward is
-// recomputed as forward_lanes computes it: each chunk's scan by the same
-// shuffle tree (the chunks' trees are independent, so they run side by
-// side), then the carries added in chunk order. The suffix sums of g * w
-// likewise: each chunk's tree, then the carries from the last chunk down;
-// a chunk at or past S takes no part, as the forward never reaches it.
+// The backward of ray r's lanes [base, base + 32 NC) from their loads (S
+// <= 32 * NC for a whole ray, base 0). The forward is recomputed as
+// render_weights_fwd_kernel computes it: each chunk's scan by the same tree
+// (the chunks' trees are independent, so they run side by side), then the
+// carries added in chunk order from `carry0`, the forward's carry at lane
+// `base`. The suffix sums of g * w likewise: each chunk's tree, then the
+// carries from the last chunk down, from *after_io (the sum over the lanes
+// past these) when given, which gets the sum past `base`; a chunk at or
+// past S takes no part, as the forward never reaches it.
 template <int NC>
 __device__ __forceinline__ void backward_ray(const RayInputs& in, float thre,
                                              const RayLoads<NC>& v, int64_t r, int lane,
                                              float* __restrict__ dsigma, float* __restrict__ dts,
-                                             float* __restrict__ dte) {
-  BackLane L[NC];
+                                             float* __restrict__ dte, int base = 0,
+                                             float carry0 = 0.0f, float* after_io = nullptr) {
+  Lane L[NC];
   float excl[NC], total[NC];
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
-    lane_start(L[k], k * 32 + lane < in.S, v.ts[k], v.te[k], v.sigma[k], v.m[k], in.use_thre,
-               thre);
+    lane_start(L[k], base + k * 32 + lane < in.S, v.ts[k], v.te[k], v.sigma[k], v.m[k],
+               in.use_thre, thre);
     excl[k] = warp_exclusive_scan(L[k].keep ? L[k].x : 0.0f, lane, &total[k]);
   }
-  float carry = 0.0f;
+  float carry = carry0;
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
     lane_finish(L[k], carry + excl[k], in.eps);
@@ -273,15 +234,15 @@ __device__ __forceinline__ void backward_ray(const RayInputs& in, float thre,
   for (int k = 0; k < NC; ++k)
     after_excl[k] = warp_exclusive_suffix(__fmul_rn(v.g[k], lane_weight(L[k])), lane,
                                           &after_total[k]);
-  float after = 0.0f;  // sum of g * w over the chunks past this one
+  float after = after_io ? *after_io : 0.0f;  // sum of g * w over the chunks past this one
 #pragma unroll
   for (int k = NC - 1; k >= 0; --k) {
-    if (k * 32 >= in.S) continue;  // uniform over the warp
+    if (base + k * 32 >= in.S) continue;  // uniform over the warp
     const float later = after + after_excl[k];
     after += after_total[k];
-    const int s = k * 32 + lane;
+    const int s = base + k * 32 + lane;
     if (s >= in.S) continue;
-    const BackLane& u = L[k];
+    const Lane& u = L[k];
     float dx = 0.0f;
     if (u.keep) {
       const float direct = u.alive ? __fmul_rn(__fmul_rn(v.g[k], u.T), u.e) : 0.0f;
@@ -296,6 +257,7 @@ __device__ __forceinline__ void backward_ray(const RayInputs& in, float thre,
       if (dts) dts[o] = -dd;
     }
   }
+  if (after_io) *after_io = after;
 }
 
 // dsigma, dts, dte: (R, S) contiguous, each null when not wanted. A warp a
@@ -310,6 +272,74 @@ render_weights_bwd_kernel(RayInputs in, const float* __restrict__ g, float* __re
   RayLoads<NC> v;
   load_ray(in, g, r, lane, v);
   backward_ray(in, alpha_threshold(in), v, r, lane, dsigma, dts, dte);
+}
+
+// Lane s of ray r loaded (0 past S) and started.
+__device__ __forceinline__ void load_lane(const RayInputs& in, int64_t r, int s, float thre,
+                                          Lane& v) {
+  const bool in_row = s < in.S;
+  lane_start(v, in_row, in_row ? in.ts[r * in.ts_stride + s] : 0.0f,
+             in_row ? in.te[r * in.te_stride + s] : 0.0f,
+             in_row ? in.sigma[r * in.sigma_stride + s] : 0.0f,
+             in_row ? in.mask[r * in.mask_stride + s] : 0, in.use_thre, thre);
+}
+
+// K6c forward, a warp a ray at any S: chunk after chunk, each chunk's scan
+// by warp_exclusive_scan's tree and the carry added in chunk order, its
+// weights written as it is done. K6c's backward recomputes it with the same
+// lane_start, tree, carry order and lane_finish.
+__global__ void __launch_bounds__(kWarps * 32)
+render_weights_fwd_kernel(RayInputs in, float* __restrict__ w) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= in.R) return;  // uniform over the warp
+  const float thre = alpha_threshold(in);
+  float carry = 0.0f;
+  for (int s0 = 0; s0 < in.S; s0 += 32) {  // uniform over the warp
+    const int s = s0 + lane;
+    Lane v;
+    load_lane(in, r, s, thre, v);
+    float chunk_total;
+    const float c = carry + warp_exclusive_scan(v.keep ? v.x : 0.0f, lane, &chunk_total);
+    carry += chunk_total;
+    lane_finish(v, c, in.eps);
+    if (s < in.S) w[r * in.S + s] = lane_weight(v);
+  }
+}
+
+// K6c backward past kChunks * 32 lanes, a warp a ray: carries (R, groups)
+// f32 scratch, groups = ceil(S / (kChunks * 32)). The first sweep is the
+// forward's scan, chunk by chunk (lane_start and the same tree), keeping
+// the carry at each group's first chunk; then each group from the last
+// down runs as backward_ray<kChunks> from its kept carry, the suffix sum
+// carried across groups.
+__global__ void __launch_bounds__(kWarps * 32)
+render_weights_bwd_long_kernel(RayInputs in, const float* __restrict__ g,
+                               float* __restrict__ carries, float* __restrict__ dsigma,
+                               float* __restrict__ dts, float* __restrict__ dte) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= in.R) return;  // uniform over the warp
+  constexpr int kGroup = kChunks * 32;
+  const float thre = alpha_threshold(in);
+  const int groups = (in.S + kGroup - 1) / kGroup;
+  float* kept = carries + r * groups;
+  float carry = 0.0f;
+  for (int s0 = 0; s0 < in.S; s0 += 32) {  // uniform over the warp
+    if (s0 % kGroup == 0 && lane == 0) kept[s0 / kGroup] = carry;
+    Lane v;
+    load_lane(in, r, s0 + lane, thre, v);
+    float chunk_total;
+    warp_exclusive_scan(v.keep ? v.x : 0.0f, lane, &chunk_total);
+    carry += chunk_total;
+  }
+  __syncwarp();  // lane 0's kept carries, to every lane
+  float after = 0.0f;
+  for (int q = groups - 1; q >= 0; --q) {
+    RayLoads<kChunks> v;
+    load_ray(in, g, r, lane, v, q * kGroup);
+    backward_ray(in, thre, v, r, lane, dsigma, dts, dte, q * kGroup, kept[q], &after);
+  }
 }
 
 template <typename T>
@@ -542,41 +572,54 @@ cudaError_t launch_render_weights_bwd(const RayInputs& in, const float* g, float
 // row stride (elements) and unit column stride; the alpha threshold from
 // thre_ptr (a device f32) or thre_val, applied when use_thre; eps the
 // early-stop threshold (none when <= 0); w: (R, S) f32 contiguous.
-// 1 <= S <= 256. Returns a cudaError_t.
+// 0 <= S <= kMaxLanes. Returns a cudaError_t.
 extern "C" int umhs_render_weights_fwd(const float* ts, int64_t ts_stride, const float* te,
                                        int64_t te_stride, const float* sigma,
                                        int64_t sigma_stride, const uint8_t* mask,
                                        int64_t mask_stride, int32_t R, int32_t S,
                                        const float* thre_ptr, float thre_val, int32_t use_thre,
                                        float eps, float* w, void* stream) {
-  if (R < 0 || S < 1 || S > kChunks * 32) return cudaErrorInvalidValue;
-  if (R == 0) return cudaSuccess;
+  if (R < 0 || S < 0 || S > kMaxLanes) return cudaErrorInvalidValue;
+  if (R == 0 || S == 0) return cudaSuccess;
   const RayInputs in = ray_inputs(ts, ts_stride, te, te_stride, sigma, sigma_stride, mask,
                                   mask_stride, R, S, thre_ptr, thre_val, use_thre, eps);
-  render_weights_fwd_kernel<<<static_cast<unsigned>((R + kWarps - 1) / kWarps), kWarps * 32, 0,
-                              static_cast<cudaStream_t>(stream)>>>(in, w);
+  const unsigned blocks = static_cast<unsigned>((R + kWarps - 1) / kWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  render_weights_fwd_kernel<<<blocks, kWarps * 32, 0, s>>>(in, w);
   return cudaGetLastError();
 }
 
 // K6c backward: the inputs as the forward's, g (R, S) f32 contiguous;
-// dsigma, dts, dte (R, S) f32 contiguous, each null when not wanted.
-// Returns a cudaError_t.
+// dsigma, dts, dte (R, S) f32 contiguous, each null when not wanted;
+// carries: past kChunks * 32 lanes, (R, ceil(S / (kChunks * 32))) f32
+// scratch (umhs_torch/ops/compositing.py's SHORT_SAMPLES is kChunks * 32),
+// else null. Returns a cudaError_t.
 extern "C" int umhs_render_weights_bwd(const float* ts, int64_t ts_stride, const float* te,
                                        int64_t te_stride, const float* sigma,
                                        int64_t sigma_stride, const uint8_t* mask,
                                        int64_t mask_stride, int32_t R, int32_t S,
                                        const float* thre_ptr, float thre_val, int32_t use_thre,
                                        float eps, const float* g, float* dsigma, float* dts,
-                                       float* dte, void* stream) {
-  if (R < 0 || S < 1 || S > kChunks * 32) return cudaErrorInvalidValue;
-  if (R == 0) return cudaSuccess;
+                                       float* dte, float* carries, void* stream,
+                                       int32_t* route) {
+  if (R < 0 || S < 0 || S > kMaxLanes || (S > kChunks * 32 && carries == nullptr))
+    return cudaErrorInvalidValue;
+  *route = S > kChunks * 32 ? 1 : 0;  // umhs_torch/ops/compositing.py's RENDER_WEIGHTS_BWD_ROUTES
+  if (R == 0 || S == 0) return cudaSuccess;
   const RayInputs in = ray_inputs(ts, ts_stride, te, te_stride, sigma, sigma_stride, mask,
                                   mask_stride, R, S, thre_ptr, thre_val, use_thre, eps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (S > kChunks * 32) {
+    const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(R) + kWarps - 1) / kWarps);
+    render_weights_bwd_long_kernel<<<blocks, kWarps * 32, 0, s>>>(in, g, carries, dsigma, dts,
+                                                                   dte);
+    return cudaGetLastError();
+  }
   const auto launch = S <= 32   ? launch_render_weights_bwd<1>
                       : S <= 64  ? launch_render_weights_bwd<2>
                       : S <= 128 ? launch_render_weights_bwd<4>
                                  : launch_render_weights_bwd<8>;
-  return launch(in, g, dsigma, dts, dte, static_cast<cudaStream_t>(stream));
+  return launch(in, g, dsigma, dts, dte, s);
 }
 
 // The size of umhs::SegmentStage, for the ctypes mirror's check.

@@ -27,8 +27,13 @@
 //
 // K5a (march_count_kernel): a warp a ray. Each lane takes every 32nd
 // candidate; a ballot gives a 32-bit word of occupancy bits per 32
-// candidates, and word w stays in lane w (so a stage holds at most 1,024
-// candidates). It walks only the words that can hold an occupied candidate:
+// candidates, and word w stays in lane w where a stage has at most 32
+// words (1,024 candidates). Past that (the WIDE kernels) each word goes to
+// the state row as its ballot is taken, and the searches below run over the
+// row: lane l sums the popcounts of words [l n, (l + 1) n), n = ceil(words /
+// 32), a warp scan over the lanes' sums finds a rank's lane, the lane walks
+// its words, and a popcount search finds the bit. It walks only the words
+// that can hold an occupied candidate:
 // the pre-pass's words and, without a pre-pass, the cells' up to the first
 // word whose last candidate starts at or past t_max (the schedule's t never
 // decreases with the index); after a pre-pass, the cells' words up to
@@ -45,7 +50,8 @@
 // instruction rate, and the flagship's 16 slots a ray fill half a warp. A
 // lane a slot, in rounds. The batch scale from the device total, then per
 // slot its rank, its candidate found by a shuffle binary search over the words'
-// running counts and a popcount search in the word, the candidate's (t, dt)
+// running counts and a popcount search in the word (past 32 words a stage,
+// the two-level search over the row), the candidate's (t, dt)
 // recomputed once (after a pre-pass, its supercell's from the pre-pass's
 // words by the same search), and the slot's k fine intervals written
 // straight into the (R, S) outputs: at k 4 by the slot's lane in one
@@ -193,6 +199,43 @@ __device__ __forceinline__ int select_index(unsigned word, int excl, int nwords,
   return 32 * lo + nth_set_bit(w, n);
 }
 
+// The exclusive scan over the warp's lanes of each lane's popcount of a
+// stage's words in a state row, lane l holding words [l n, (l + 1) n) of
+// the `nwords` (n = per_lane): the first level of select_index_wide.
+__device__ __forceinline__ int lane_words_scan(const int32_t* __restrict__ words, int per_lane,
+                                               int nwords, int lane) {
+  int sum = 0;
+  const int end = min((lane + 1) * per_lane, nwords);
+  for (int c = lane * per_lane; c < end; ++c) sum += __popc(static_cast<unsigned>(words[c]));
+  return warp_exclusive_scan(sum, lane);
+}
+
+// select_index over more than 32 words, from the state row: the last lane
+// whose running count (lane_words_scan's `excl`) is <= rank by a shuffle
+// binary search, then that lane's words walked for the word that holds the
+// rank, then a popcount search in it; M - 1 past the count. Called by every
+// lane of the warp, each with its own rank.
+__device__ __forceinline__ int select_index_wide(const int32_t* __restrict__ words, int per_lane,
+                                                 int nwords, int excl, int rank, int M) {
+  const int lanes = (nwords + per_lane - 1) / per_lane;  // the lanes holding a word
+  int lo = 0;
+#pragma unroll
+  for (int step = 16; step >= 1; step >>= 1) {
+    const int cand = lo + step;
+    const int v = __shfl_sync(kFull, excl, cand & 31);
+    if (cand < lanes && v <= rank) lo = cand;
+  }
+  int n = rank - __shfl_sync(kFull, excl, lo);
+  const int end = min((lo + 1) * per_lane, nwords);
+  for (int c = lo * per_lane; c < end; ++c) {
+    const unsigned w = static_cast<unsigned>(words[c]);
+    const int p = __popc(w);
+    if (n < p) return 32 * c + nth_set_bit(w, n);
+    n -= p;
+  }
+  return M - 1;
+}
+
 // Slot `slot`'s occupied rank: an even stride when the ray is over budget.
 __device__ __forceinline__ int slot_rank(int slot, int count, int budget) {
   return count > budget ? (slot * count) / max(budget, 1) : slot;
@@ -204,12 +247,15 @@ __device__ __forceinline__ float dt_scale_of(int count, int budget) {
       __fdiv_rn(static_cast<float>(count), static_cast<float>(max(budget, 1))), 1.0f);
 }
 
-// The pre-pass's words and counts in a warp, and the ray's schedule.
+// The pre-pass's words and counts in a warp, and the ray's schedule; past
+// 32 words, the words in the state row (`words`, per_lane a lane).
 struct PrePass {
   unsigned word;
   int excl, count, budget;
   float dt_scale;
   RaySchedule rs;
+  const int32_t* words;
+  int per_lane;
 };
 
 // Kept supercell interval of pre-pass candidate `idx` in slot s: (0, 0) past
@@ -224,10 +270,12 @@ __device__ __forceinline__ void supercell_interval(const Schedule& pre, const Ra
 }
 
 // Pre-pass slot s's kept supercell interval. Called by every lane.
+template <bool WIDE>
 __device__ __forceinline__ void pre_slot(const MarchParams& P, const PrePass& A, int s,
                                          float& t, float& dt) {
-  const int idx = select_index(A.word, A.excl, P.words_pre,
-                               slot_rank(s, A.count, A.budget), P.Ma);
+  const int rank = slot_rank(s, A.count, A.budget);
+  const int idx = WIDE ? select_index_wide(A.words, A.per_lane, P.words_pre, A.excl, rank, P.Ma)
+                       : select_index(A.word, A.excl, P.words_pre, rank, P.Ma);
   supercell_interval(P.pre, A.rs, idx, s < A.budget, A.dt_scale, t, dt);
 }
 
@@ -284,12 +332,17 @@ __device__ __forceinline__ bool query_fine(const MarchParams& P, const float pos
   return c.inside && binaries[cell_flat] != 0;
 }
 
-// The pre-pass's words of a ray, from the state K5a wrote (or computes).
+// The pre-pass's words of a ray, from the state K5a wrote (or computes):
+// in lanes (word), or past 32 words in the state row (`words`).
+template <bool WIDE>
 __device__ __forceinline__ PrePass pre_pass_of(const MarchParams& P, unsigned word, int count,
-                                               float t0, int lane) {
+                                               float t0, int lane, const int32_t* words) {
   PrePass A;
   A.word = word;
-  A.excl = warp_exclusive_scan(__popc(word), lane);
+  A.words = words;
+  A.per_lane = (P.words_pre + 31) >> 5;
+  A.excl = WIDE ? lane_words_scan(words, A.per_lane, P.words_pre, lane)
+                : warp_exclusive_scan(__popc(word), lane);
   A.count = count;
   A.budget = min(count, P.supers);
   A.dt_scale = dt_scale_of(count, A.budget);
@@ -297,14 +350,38 @@ __device__ __forceinline__ PrePass pre_pass_of(const MarchParams& P, unsigned wo
   return A;
 }
 
+// A word's ballot b, word c of a stage: kept in lane c, or past 32 words
+// stored to the state row `words` by lane c % 32, which adds its bits to
+// its `count` (the warp's sum of the lanes' counts is the stage's).
+template <bool WIDE>
+__device__ __forceinline__ void keep_word(unsigned b, int c, int lane, unsigned& word,
+                                          int32_t* words, int& count) {
+  if (WIDE) {
+    if (lane == (c & 31)) {
+      words[c] = static_cast<int32_t>(b);
+      count += __popc(b);
+    }
+  } else if (lane == c) {
+    word = b;
+  }
+}
+
+// Past 32 words: words [from, nwords) of a state row that the walk did not
+// reach, set to 0, and the row made visible to the warp's lanes.
+__device__ __forceinline__ void clear_words_past(int32_t* words, int from, int nwords,
+                                                 int lane) {
+  for (int c = from + lane; c < nwords; c += 32) words[c] = 0;
+  __syncwarp();
+}
+
 // One word of cell candidates, candidate 32 * c + lane in this lane: its
-// occupancy bit, the od culling's when on, the ballot kept in lane c.
-__device__ __forceinline__ void fine_word(const MarchParams& P, const float o[3],
-                                          const float d[3], float ts, float dts, bool in_range,
-                                          const int64_t* __restrict__ packed,
-                                          const uint8_t* __restrict__ binaries,
-                                          const float* __restrict__ occs_low, int c, int lane,
-                                          float& od_run, unsigned& word) {
+// occupancy bit, the od culling's when on; returns the word's ballot.
+__device__ __forceinline__ unsigned fine_word(const MarchParams& P, const float o[3],
+                                              const float d[3], float ts, float dts,
+                                              bool in_range, const int64_t* __restrict__ packed,
+                                              const uint8_t* __restrict__ binaries,
+                                              const float* __restrict__ occs_low, int lane,
+                                              float& od_run) {
   bool occ = false;
   int64_t cell = 0;
   if (in_range) {
@@ -325,8 +402,7 @@ __device__ __forceinline__ void fine_word(const MarchParams& P, const float o[3]
     }
     occ = occ && od_here < P.od_max;
   }
-  const unsigned b = __ballot_sync(kFull, occ);
-  if (lane == c) word = b;
+  return __ballot_sync(kFull, occ);
 }
 
 // True when the word's last candidate (lane 31's) starts at or past t_max.
@@ -336,6 +412,9 @@ __device__ __forceinline__ bool past_t_max(float t, float t_max) {
   return (__ballot_sync(kFull, t >= t_max) >> 31) != 0;
 }
 
+// WIDE: more than 32 fine or pre-pass words (the words to the state row as
+// they are taken); else every word in a lane.
+template <bool WIDE>
 __global__ void __launch_bounds__(kCountWarps * 32)
 march_count_kernel(const MarchParams P, const float* __restrict__ origins,
                    const float* __restrict__ dirs, const float* __restrict__ jitter,
@@ -370,13 +449,18 @@ march_count_kernel(const MarchParams P, const float* __restrict__ origins,
     const float t0 =
         jitter != nullptr ? __fadd_rn(t_min, __fmul_rn(jitter[r], P.jitter_step)) : t_min;
 
+    // WIDE: the state row, which takes each word as it is taken
+    int32_t* const wide_row = WIDE ? state + static_cast<int64_t>(r) * P.width : nullptr;
+    int32_t* const row_fine = wide_row + 3;
+    int32_t* const row_pre = wide_row + 3 + P.words_fine;
     unsigned word = 0, word_pre = 0;
-    int count_pre = 0;
+    int count_pre = 0, count_wide = 0;  // WIDE: this lane's words' bits, counted as taken
     float od_run = 0.0f;
     if (P.pre_mode != kNone) {
       // 2. the pre-pass's supercell words, up to the first word past t_max
       const RaySchedule rs = ray_schedule(P.pre, t0);
-      for (int c = 0; c < P.words_pre; ++c) {
+      int c = 0;
+      for (; c < P.words_pre; ++c) {
         const int j = 32 * c + lane;
         float t, dt;
         schedule_at(P.pre, rs, static_cast<float>(j), t, dt);
@@ -386,12 +470,12 @@ march_count_kernel(const MarchParams P, const float* __restrict__ origins,
           midpoint(o, d, t, dt, pos);
           occ = query_pre(P, pos, packed, pooled);
         }
-        const unsigned b = __ballot_sync(kFull, occ);
-        if (lane == c) word_pre = b;
+        keep_word<WIDE>(__ballot_sync(kFull, occ), c, lane, word_pre, row_pre, count_pre);
         if (past_t_max(t, t_max)) break;
       }
-      count_pre = warp_sum(__popc(word_pre));
-      const PrePass A = pre_pass_of(P, word_pre, count_pre, t0, lane);
+      if (WIDE) clear_words_past(row_pre, c + 1, P.words_pre, lane);
+      count_pre = warp_sum(WIDE ? count_pre : __popc(word_pre));
+      const PrePass A = pre_pass_of<WIDE>(P, word_pre, count_pre, t0, lane, row_pre);
 
       // 3. the cells of the kept supercells. Slot s's interval is computed
       // once, by lane s % 32 in round s / 32, and handed to its pool cell
@@ -401,7 +485,7 @@ march_count_kernel(const MarchParams P, const float* __restrict__ origins,
       const int words = (A.budget * P.pool + 31) >> 5;
       for (int h = 0; 32 * h < A.budget; ++h) {  // uniform over the warp
         float tA, dtA;
-        pre_slot(P, A, 32 * h + lane, tA, dtA);
+        pre_slot<WIDE>(P, A, 32 * h + lane, tA, dtA);
         const int c_end = min(P.pool * (h + 1), words);
         for (int c = P.pool * h; c < c_end; ++c) {
           const int j = 32 * c + lane;
@@ -410,24 +494,29 @@ march_count_kernel(const MarchParams P, const float* __restrict__ origins,
           const float dts_slot = __shfl_sync(kFull, dtA, s - 32 * h);
           const float dts = __fmul_rn(dts_slot, P.inv_p);
           const float ts = __fadd_rn(ts_slot, __fmul_rn(static_cast<float>(i), dts));
-          fine_word(P, o, d, ts, dts, s < A.budget, packed, binaries, occs_low, c, lane, od_run,
-                    word);
+          keep_word<WIDE>(fine_word(P, o, d, ts, dts, s < A.budget, packed, binaries, occs_low,
+                                    lane, od_run),
+                          c, lane, word, row_fine, count_wide);
         }
       }
+      if (WIDE) clear_words_past(row_fine, words, P.words_fine, lane);
     } else {
       // 3. the cell candidates on the coarse schedule, up to the first word
       // past t_max
       const RaySchedule rc = ray_schedule(P.coarse, t0);
-      for (int c = 0; c < P.words_fine; ++c) {
+      int c = 0;
+      for (; c < P.words_fine; ++c) {
         const int j = 32 * c + lane;
         float ts, dts;
         schedule_at(P.coarse, rc, static_cast<float>(j), ts, dts);
-        fine_word(P, o, d, ts, dts, j < P.M && ts < t_max, packed, binaries, occs_low, c, lane,
-                  od_run, word);
+        keep_word<WIDE>(fine_word(P, o, d, ts, dts, j < P.M && ts < t_max, packed, binaries,
+                                  occs_low, lane, od_run),
+                        c, lane, word, row_fine, count_wide);
         if (past_t_max(ts, t_max)) break;
       }
+      if (WIDE) clear_words_past(row_fine, c + 1, P.words_fine, lane);
     }
-    const int count = warp_sum(__popc(word));
+    const int count = warp_sum(WIDE ? count_wide : __popc(word));
     int32_t* row = state + static_cast<int64_t>(r) * P.width;
     if (lane == 0) {
       row[0] = __float_as_int(t0);
@@ -435,8 +524,10 @@ march_count_kernel(const MarchParams P, const float* __restrict__ origins,
       row[2] = count_pre;
       num_occupied[r] = count * P.k;
     }
-    if (lane < P.words_fine) row[3 + lane] = static_cast<int32_t>(word);
-    if (lane < P.words_pre) row[3 + P.words_fine + lane] = static_cast<int32_t>(word_pre);
+    if (!WIDE) {
+      if (lane < P.words_fine) row[3 + lane] = static_cast<int32_t>(word);
+      if (lane < P.words_pre) row[3 + P.words_fine + lane] = static_cast<int32_t>(word_pre);
+    }
     keep = min(count, P.Sc);
   }
   if (P.has_budget) {
@@ -468,8 +559,9 @@ __device__ __forceinline__ void fine_column(const MarchParams& P, float ts, floa
 // fine and pre-pass words <= 16 each; else 32), a lane a slot in rounds of
 // W. K: 4, a slot's
 // lane writes its four columns (16-byte stores); 0, any k, the slots'
-// intervals shuffled to the columns' lanes (W columns a store).
-template <int K, int W>
+// intervals shuffled to the columns' lanes (W columns a store). WIDE (W
+// 32): more than 32 fine or pre-pass words, searched in the state row.
+template <int K, int W, bool WIDE>
 __global__ void __launch_bounds__(kWarps * 32)
 march_emit_kernel(const MarchParams P, const int32_t* __restrict__ state,
                   const int32_t* __restrict__ total, float* __restrict__ t_starts,
@@ -483,8 +575,14 @@ march_emit_kernel(const MarchParams P, const int32_t* __restrict__ state,
   const int32_t* row = state + static_cast<int64_t>(live ? r : P.R - 1) * P.width;
   const float t0 = __int_as_float(row[0]);
   const int count = row[1];
-  const unsigned word = lane < P.words_fine ? static_cast<unsigned>(row[3 + lane]) : 0u;
-  const int excl = warp_exclusive_scan<W>(__popc(word), lane);
+  // WIDE: the words stay in the row, lane l's sum over words [l n, (l + 1) n)
+  const int32_t* const row_fine = WIDE ? row + 3 : nullptr;
+  const int32_t* const row_pre = WIDE ? row + 3 + P.words_fine : nullptr;
+  const int per_fine = (P.words_fine + 31) >> 5, per_pre = (P.words_pre + 31) >> 5;
+  const unsigned word =
+      !WIDE && lane < P.words_fine ? static_cast<unsigned>(row[3 + lane]) : 0u;
+  const int excl = WIDE ? lane_words_scan(row_fine, per_fine, P.words_fine, lane)
+                        : warp_exclusive_scan<W>(__popc(word), lane);
 
   // the budget: min(count, Sc), scaled down with the batch's
   int budget = min(count, P.Sc);
@@ -502,8 +600,10 @@ march_emit_kernel(const MarchParams P, const int32_t* __restrict__ state,
   const int budget_pre = pre ? min(row[2], P.supers) : 0;
   const float dt_scale_pre = pre ? dt_scale_of(row[2], budget_pre) : 0.0f;
   const unsigned word_pre =
-      pre && lane < P.words_pre ? static_cast<unsigned>(row[3 + P.words_fine + lane]) : 0u;
-  const int excl_pre = warp_exclusive_scan<W>(__popc(word_pre), lane);
+      !WIDE && pre && lane < P.words_pre ? static_cast<unsigned>(row[3 + P.words_fine + lane])
+                                         : 0u;
+  const int excl_pre = WIDE ? (pre ? lane_words_scan(row_pre, per_pre, P.words_pre, lane) : 0)
+                            : warp_exclusive_scan<W>(__popc(word_pre), lane);
 
   const int S = P.Sc * P.k;
   const int64_t base = static_cast<int64_t>(r) * S;
@@ -511,12 +611,17 @@ march_emit_kernel(const MarchParams P, const int32_t* __restrict__ state,
     const int slot = s0 + lane;
     const bool valid = slot < budget;
     const int idx =
-        select_index<W>(word, excl, P.words_fine, slot_rank(slot, count, budget), P.M);
+        WIDE ? select_index_wide(row_fine, per_fine, P.words_fine, excl,
+                                 slot_rank(slot, count, budget), P.M)
+             : select_index<W>(word, excl, P.words_fine, slot_rank(slot, count, budget), P.M);
     float ts, dts;
     if (pre) {  // the p-th part of its kept supercell's interval
       const int s = idx / P.pool, i = idx - s * P.pool;
-      const int idxA = select_index<W>(word_pre, excl_pre, P.words_pre,
-                                       slot_rank(s, row[2], budget_pre), P.Ma);
+      const int idxA =
+          WIDE ? select_index_wide(row_pre, per_pre, P.words_pre, excl_pre,
+                                   slot_rank(s, row[2], budget_pre), P.Ma)
+               : select_index<W>(word_pre, excl_pre, P.words_pre,
+                                 slot_rank(s, row[2], budget_pre), P.Ma);
       float tA, dtA;
       supercell_interval(P.pre, rs, idxA, s < budget_pre, dt_scale_pre, tA, dtA);
       dts = __fmul_rn(dtA, P.inv_p);
@@ -560,20 +665,34 @@ march_emit_kernel(const MarchParams P, const int32_t* __restrict__ state,
   if (live && lane == 0) num_samples[r] = budget * P.k;
 }
 
-// K5b's launch: W 16 where a ray's slots and words fit half a warp.
+// More than 32 fine or pre-pass words a stage: K5's WIDE kernels.
+__host__ __device__ __forceinline__ bool wide_words(const MarchParams& P) {
+  return P.words_fine > 32 || P.words_pre > 32;
+}
+
+// The routes the launchers report (umhs_torch/ops/ray_marching.py's
+// MARCH_ROUTES): a word a lane, or the WIDE kernels.
+constexpr int32_t kRouteLanes = 0, kRouteWide = 1;
+
+// K5b's launch: W 16 where a ray's slots and words fit half a warp; *route
+// the route launched (kRouteLanes or kRouteWide).
 template <int K>
 cudaError_t launch_emit(const MarchParams& P, const int32_t* state, const int32_t* total,
                         float* t_starts, float* t_ends, uint8_t* mask, int32_t* num_samples,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int32_t* route) {
   const bool half = P.Sc <= 16 && P.words_fine <= 16 && P.words_pre <= 16;
+  *route = !half && wide_words(P) ? kRouteWide : kRouteLanes;
   const int per_block = kWarps * (half ? 2 : 1);
   const int blocks = (P.R + per_block - 1) / per_block;
   if (half) {
-    march_emit_kernel<K, 16><<<blocks, kWarps * 32, 0, stream>>>(P, state, total, t_starts,
-                                                                 t_ends, mask, num_samples);
+    march_emit_kernel<K, 16, false><<<blocks, kWarps * 32, 0, stream>>>(
+        P, state, total, t_starts, t_ends, mask, num_samples);
+  } else if (!wide_words(P)) {
+    march_emit_kernel<K, 32, false><<<blocks, kWarps * 32, 0, stream>>>(
+        P, state, total, t_starts, t_ends, mask, num_samples);
   } else {
-    march_emit_kernel<K, 32><<<blocks, kWarps * 32, 0, stream>>>(P, state, total, t_starts,
-                                                                 t_ends, mask, num_samples);
+    march_emit_kernel<K, 32, true><<<blocks, kWarps * 32, 0, stream>>>(
+        P, state, total, t_starts, t_ends, mask, num_samples);
   }
   return cudaGetLastError();
 }
@@ -586,19 +705,26 @@ extern "C" int umhs_march_count(const MarchParams* params, const float* origins,
                                 const float* dirs, const float* jitter, const int64_t* packed,
                                 const uint8_t* binaries, const uint8_t* pooled,
                                 const float* occs_low, int32_t* state, int32_t* total,
-                                int32_t* num_occupied, cudaStream_t stream) {
+                                int32_t* num_occupied, cudaStream_t stream, int32_t* route) {
   const MarchParams P = *params;
   const int blocks = (P.R + kCountWarps - 1) / kCountWarps;
-  march_count_kernel<<<blocks, kCountWarps * 32, 0, stream>>>(
-      P, origins, dirs, jitter, packed, binaries, pooled, occs_low, state, total, num_occupied);
+  *route = wide_words(P) ? kRouteWide : kRouteLanes;
+  if (wide_words(P))
+    march_count_kernel<true><<<blocks, kCountWarps * 32, 0, stream>>>(
+        P, origins, dirs, jitter, packed, binaries, pooled, occs_low, state, total, num_occupied);
+  else
+    march_count_kernel<false><<<blocks, kCountWarps * 32, 0, stream>>>(
+        P, origins, dirs, jitter, packed, binaries, pooled, occs_low, state, total, num_occupied);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int umhs_march_emit(const MarchParams* params, const int32_t* state,
                                const int32_t* total, float* t_starts, float* t_ends,
-                               uint8_t* mask, int32_t* num_samples, cudaStream_t stream) {
+                               uint8_t* mask, int32_t* num_samples, cudaStream_t stream,
+                               int32_t* route) {
   const MarchParams P = *params;
   return static_cast<int>(
-      P.k == 4 ? launch_emit<4>(P, state, total, t_starts, t_ends, mask, num_samples, stream)
-               : launch_emit<0>(P, state, total, t_starts, t_ends, mask, num_samples, stream));
+      P.k == 4
+          ? launch_emit<4>(P, state, total, t_starts, t_ends, mask, num_samples, stream, route)
+          : launch_emit<0>(P, state, total, t_starts, t_ends, mask, num_samples, stream, route));
 }

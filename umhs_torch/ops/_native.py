@@ -9,7 +9,11 @@ every source, one ``nvcc`` process per source, all started together. Nothing
 is compiled or loaded when a module is imported.
 
 Each `Kernel` counts its own launches in ``launches``: its wrapper adds one
-after every launch that returned no error, and nowhere else.
+after every launch that returned no error, and nowhere else. A launcher
+with more than one route (K5's WIDE kernels, K6a's flat tiles, K6c's
+long-ray backward) takes an ``int32_t*`` last and writes there the route it
+launched; `Kernel.launch(..., routes=names)` passes it and counts the
+launch under that route's name in ``routes`` too.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -90,6 +94,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.routes: Dict[str, int] = {}  # launches by the route the launcher reported
         self._lib = None
         self._fn = None
         self._checked = {}
@@ -126,15 +131,25 @@ class Kernel:
                                f"mirror {ctypes.sizeof(struct)}")
         self._checked[symbol] = size
 
-    def launch(self, *args) -> None:
-        """Call the launcher; raise on a non-zero cudaError_t, else count."""
+    def launch(self, *args, routes: Optional[Sequence[str]] = None) -> None:
+        """Call the launcher; raise on a non-zero cudaError_t, else count.
+        With `routes` (the launcher's route names, by the index it reports)
+        the launcher gets an int32 out-parameter last, and the launch is
+        counted under the route it wrote there too."""
         if self._fn is None:
             self._load()
-        err = self._fn(*args)
+        route = ctypes.c_int32(-1)
+        err = self._fn(*args, *(() if routes is None else (ctypes.byref(route),)))
         if err != 0:
             msg = self._lib.umhs_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed: cudaError {err} ({msg})")
         self.launches += 1
+        if routes is not None:
+            if not 0 <= route.value < len(routes):
+                raise RuntimeError(f"{self.symbol} reported route {route.value}, not one of "
+                                   f"{list(routes)}")
+            name = routes[route.value]
+            self.routes[name] = self.routes.get(name, 0) + 1
 
 
 KERNELS: Dict[str, Kernel] = {}

@@ -18,7 +18,9 @@ kernel keeps the total on the device: the plain version's `torch.nonzero`
 waits for the device once per stage, the kernel never does. K6a is one
 launch a stage, a single-pass scan whose look-back flags live in a
 `ScanWorkspace` per device and stream; the host picks its tile
-(`compact_tile_rays`) and its mask loads (`mask_vector_bytes`).
+(`compact_tile_rays`: whole rays, or flat tiles of 4,096 lanes that rays
+cross, then a second small launch for the counts) and its mask loads
+(`mask_vector_bytes`).
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 COMPACT_STAGE = Kernel(
     "compact.cu", "umhs_compact_stage",
     [_P, _I64, _P, _I32, _I32, _I32, _I32, _I32, _P, _I32, ctypes.c_uint32,
-     _P, _P, _P, _P, _P, _P, _P, _P],
+     _P, _P, _P, _P, _P, _P, _P, _P, _P],
 )
+COMPACT_ROUTES = ("whole rays", "flat")  # the route umhs_compact_stage reports
 COMPACT_GATHER = Kernel(
     "compact.cu", "umhs_compact_gather",
     [ctypes.c_int, _P, _I64, _I32, _P, _P, _P, _P, _P, _I64, _P],
@@ -58,7 +61,6 @@ class Compaction:
     total: Union[int, torch.Tensor]  # kept lanes: an int, or (1,) int32 on the device
 
 
-MAX_LANES = 256  # K6a: lanes a ray in a stage (K6c's limit on the whole ray too)
 TILE_LANES = 4096  # K6a: lanes a tile at most (256 threads x 16 lanes)
 LANES_PER_THREAD = 16
 EPOCH_LIMIT = 1 << 30  # K6a's epochs run 1 .. EPOCH_LIMIT - 1 (30 bits of a flag word)
@@ -68,9 +70,11 @@ MIN_FLAGS = 4096  # K6a: tiles a new workspace holds at least
 def compact_tile_rays(L: int) -> int:
     """K6a's rays a tile: the most whole rays within TILE_LANES lanes whose
     lanes are a multiple of LANES_PER_THREAD (so each thread's 16 lanes
-    start 64-byte aligned in `slot`)."""
-    if not 1 <= L <= MAX_LANES:
-        raise ValueError(f"compact_tile_rays: L {L} outside 1 to {MAX_LANES}")
+    start 64-byte aligned in `slot`); 0 where no such tile exists (L above
+    256 and no multiple of L within TILE_LANES a multiple of 16), and K6a
+    takes flat tiles of TILE_LANES lanes of the flattened (R, L) instead."""
+    if L < 1:
+        raise ValueError(f"compact_tile_rays: L {L} below 1")
     step = LANES_PER_THREAD // math.gcd(L, LANES_PER_THREAD)
     return TILE_LANES // L // step * step
 
@@ -152,9 +156,10 @@ def compact_stage_cuda(mask: torch.Tensor, live_rays: Optional[torch.Tensor],
         raise ValueError("compact_stage_cuda: mask must be an (R, L) bool tensor with unit "
                          "column stride")
     R, L = mask.shape
-    if not 1 <= L <= MAX_LANES or R * L >= 2**31 or not 0 < budget < 2**31:
-        raise ValueError(f"compact_stage_cuda: unsupported shape ({R}, {L}) or budget {budget} "
-                         f"(1 <= L <= {MAX_LANES})")
+    if L < 1 or R * L >= 2**31 or not 0 < budget < 2**31:
+        raise ValueError(f"compact_stage_cuda: shape ({R}, {L}) or budget {budget} is beyond the "
+                         "kernel's int32 lane and row indices, or empty (1 <= L, R * L < 2^31, "
+                         "1 <= budget < 2^31)")
     if live_rays is not None and (live_rays.dtype != torch.bool or live_rays.shape != (R,)
                                   or live_rays.device != mask.device
                                   or not live_rays.is_contiguous()):
@@ -164,10 +169,11 @@ def compact_stage_cuda(mask: torch.Tensor, live_rays: Optional[torch.Tensor],
         raise ValueError(f"compact_stage_cuda: needs a CUDA tensor, not {mask.device}")
     dev = mask.device
     tile_rays = compact_tile_rays(L)
+    n_tiles = -(-R // tile_rays) if tile_rays else -(-R * L // TILE_LANES)
     stream = _stream(mask)
     with _WORKSPACES_LOCK:
         ws = _WORKSPACES.setdefault((dev.index, stream), ScanWorkspace())
-        flags, epoch = ws.take(-(-R // tile_rays), dev)
+        flags, epoch = ws.take(n_tiles, dev)
     slot = torch.empty(R * L, dtype=torch.int32, device=dev)
     kept = torch.empty((R, L), dtype=torch.bool, device=dev)
     src = torch.empty(budget, dtype=torch.int64, device=dev)
@@ -181,7 +187,8 @@ def compact_stage_cuda(mask: torch.Tensor, live_rays: Optional[torch.Tensor],
             live_rays.data_ptr() if live_rays is not None else None, R, L, budget, tile_rays,
             mask_vector_bytes(L, mask.stride(0), mask.data_ptr()), flags.data_ptr(),
             flags.numel() - 1, epoch, slot.data_ptr(), kept.data_ptr(), src.data_ptr(),
-            live.data_ptr(), counts.data_ptr(), starts.data_ptr(), total.data_ptr(), stream)
+            live.data_ptr(), counts.data_ptr(), starts.data_ptr(), total.data_ptr(), stream,
+            routes=COMPACT_ROUTES)
     return Compaction(slot, kept, src, live, counts, starts, total)
 
 

@@ -32,14 +32,17 @@ _P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c
 _RAY_ARGS = [_P, _I64, _P, _I64, _P, _I64, _P, _I64, _I32, _I32, _P, _F32, _I32, _F32]
 RENDER_WEIGHTS_FWD = Kernel("composite.cu", "umhs_render_weights_fwd", _RAY_ARGS + [_P, _P])
 RENDER_WEIGHTS_BWD = Kernel("composite.cu", "umhs_render_weights_bwd",
-                            _RAY_ARGS + [_P, _P, _P, _P, _P])
+                            _RAY_ARGS + [_P, _P, _P, _P, _P, _P, _P])
+RENDER_WEIGHTS_BWD_ROUTES = ("short", "long")  # the route umhs_render_weights_bwd reports
 SEGMENT_ACCUMULATE_FWD = Kernel(
     "composite.cu", "umhs_segment_accumulate_fwd",
     [_P, _I64, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P, _P])
 SEGMENT_ACCUMULATE_BWD = Kernel(
     "composite.cu", "umhs_segment_accumulate_bwd",
     [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _I32, _I32, _I32, _P, _P, _I64, _P])
-MAX_SAMPLES = 256  # K6c: lanes per ray (a warp a ray, 8 chunks of 32)
+SHORT_SAMPLES = 256  # K6c's backward: lanes a ray in one go (a warp a ray, 8 chunks of
+# 32); past it, the long-ray kernel (groups of 256 lanes, a float of scratch a group)
+MAX_SAMPLES = 2**31 - 33  # K6c: a lane index stays an int32
 MAX_STAGES = 8  # K6d's forward: stages a launch takes (more chain launches)
 
 
@@ -94,8 +97,9 @@ def _ray_args(t_starts, t_ends, sigmas, mask, alpha_thre, early_stop_eps):
             raise ValueError(f"render_weights_cuda: {name} must be {dtype} of shape "
                              f"{tuple(sigmas.shape)} with unit column stride")
     R, S = sigmas.shape
-    if not 1 <= S <= MAX_SAMPLES or R >= 2**31:
-        raise ValueError(f"render_weights_cuda: ({R}, {S}) lanes; S must be 1 to {MAX_SAMPLES}")
+    if S > MAX_SAMPLES or R >= 2**31:
+        raise ValueError(f"render_weights_cuda: ({R}, {S}) lanes is beyond the kernel's int32 "
+                         f"ray and lane indices (R < 2^31, S <= {MAX_SAMPLES})")
     for name, x, _ in inputs:
         if x.device.type != "cuda" or x.device != sigmas.device:
             raise ValueError(f"render_weights_cuda: {name} must lie on the card with sigmas")
@@ -136,10 +140,15 @@ def render_weights_bwd_cuda(t_starts, t_ends, sigmas, mask, alpha_thre, early_st
         raise ValueError("render_weights_bwd_cuda: g must match sigmas")
     outs = [torch.empty(sigmas.shape, dtype=torch.float32, device=sigmas.device) if n else None
             for n in need]
+    R, S = sigmas.shape
+    # past SHORT_SAMPLES lanes: the forward's carry at each 256-lane group, a float a group
+    carries = (torch.empty((R, -(-S // SHORT_SAMPLES)), dtype=torch.float32,
+                           device=sigmas.device) if S > SHORT_SAMPLES else None)
     with torch.cuda.device(sigmas.device):
         RENDER_WEIGHTS_BWD.launch(*args, g.data_ptr(),
                                   *[o.data_ptr() if o is not None else None for o in outs],
-                                  _stream(sigmas))
+                                  None if carries is None else carries.data_ptr(),
+                                  _stream(sigmas), routes=RENDER_WEIGHTS_BWD_ROUTES)
     return tuple(outs)
 
 

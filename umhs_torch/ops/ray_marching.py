@@ -354,9 +354,9 @@ class MarchParams(ctypes.Structure):
 
 
 _P = ctypes.c_void_p
-MARCH_COUNT = Kernel("march.cu", "umhs_march_count", [_P] * 11 + [_P])
-MARCH_EMIT = Kernel("march.cu", "umhs_march_emit", [_P] * 8)
-MAX_CANDIDATES = 1024  # a ray's candidates in a stage: 32 words of 32 bits, a word a lane
+MARCH_COUNT = Kernel("march.cu", "umhs_march_count", [_P] * 13)
+MARCH_EMIT = Kernel("march.cu", "umhs_march_emit", [_P] * 9)
+MARCH_ROUTES = ("lanes", "wide")  # the launchers' kRouteLanes, kRouteWide (csrc/march.cu)
 PRE_NONE, QUERY_PACKED, QUERY_BYTES = 0, 1, 2
 
 
@@ -387,8 +387,16 @@ def march_layout(occ_state, occ_config: OccGridConfig, march: MarchConfig):
     M) of a march, as the plain version chooses: the pre-pass with pool > 1
     and a pooled bitfield (the packed words' supercells with pool 4, else
     the pooled bytes), the fine query from the packed words unless od
-    culling is on, else from the bytes. Raises where the kernel's per-warp
-    masks cannot hold a stage's candidates."""
+    culling is on, else from the bytes. Raises where the JAX package's
+    MarchConfig asserts (candidates or samples not a multiple of
+    occ_subsamples), where a stage has no candidate or a ray no slot, and
+    where the kernels' int32 candidate, rank or sample counts would
+    overflow."""
+    k = max(march.occ_subsamples, 1)
+    if march.num_candidates % k or march.num_samples % k:
+        raise ValueError(f"march_rays_cuda: {march.num_candidates} candidates and "
+                         f"{march.num_samples} samples must be multiples of occ_subsamples {k} "
+                         "(the JAX package's MarchConfig asserts it)")
     packed = "packed_words" in occ_state and march.early_stop_od <= 0.0
     if march.pool > 1 and "binaries_pooled" in occ_state:
         pre = QUERY_PACKED if packed and march.pool == 4 else QUERY_BYTES
@@ -396,10 +404,17 @@ def march_layout(occ_state, occ_config: OccGridConfig, march: MarchConfig):
     else:
         pre, Ma, M = PRE_NONE, 0, march.coarse_candidates
     fine = QUERY_PACKED if packed else QUERY_BYTES
-    if not (1 <= M <= MAX_CANDIDATES and Ma <= MAX_CANDIDATES and march.coarse_samples >= 1):
-        raise ValueError(f"march_rays_cuda: {M} fine and {Ma} pre-pass candidates a ray, "
-                         f"{march.coarse_samples} slots: the kernel takes 1 to "
-                         f"{MAX_CANDIDATES} candidates a stage and at least one slot")
+    Sc = march.coarse_samples
+    if M < 1 or Sc < 1:
+        raise ValueError(f"march_rays_cuda: {M} fine candidates and {Sc} slots a ray: a stage "
+                         "needs at least one candidate and a ray one slot")
+    supers = march.supers if pre != PRE_NONE else 0
+    if (max(M, Ma) + 32 > 2**31 or Sc * M >= 2**31 or (supers + 32) * Ma >= 2**31
+            or M * k >= 2**31):
+        raise ValueError(f"march_rays_cuda: {M} fine and {Ma} pre-pass candidates a ray, {Sc} "
+                         f"slots of {k} samples, are beyond the kernels' int32 candidate "
+                         "indices, slot ranks (slots x candidates, in both passes) and sample "
+                         "counts")
     check_grid_limits(occ_config, "march_rays_cuda")
     return pre, fine, Ma, M
 
@@ -425,8 +440,9 @@ def march_rays_cuda(
 @dataclasses.dataclass
 class MarchPass:
     """K5a's results for K5b: the constants, each ray's state row (t0, count,
-    the pre-pass's count, the fine and pre-pass words), the batch's total on
-    the device and num_occupied."""
+    the pre-pass's count, the fine and pre-pass words: 3 + ceil(M / 32) +
+    ceil(Ma / 32) int32), the batch's total on the device and
+    num_occupied."""
 
     params: MarchParams
     state: torch.Tensor
@@ -507,7 +523,7 @@ def march_count_cuda(
         MARCH_COUNT.launch(ctypes.byref(params), o.data_ptr(), d.data_ptr(),
                            None if jit is None else jit.data_ptr(), packed, binaries, pooled,
                            occs_low, out.state.data_ptr(), out.total.data_ptr(),
-                           out.num_occupied.data_ptr(), _stream(o))
+                           out.num_occupied.data_ptr(), _stream(o), routes=MARCH_ROUTES)
     return out
 
 
@@ -524,7 +540,8 @@ def march_emit_cuda(p: MarchPass):
     with torch.cuda.device(dev):
         MARCH_EMIT.launch(ctypes.byref(p.params), p.state.data_ptr(), p.total.data_ptr(),
                           out["t_starts"].data_ptr(), out["t_ends"].data_ptr(),
-                          out["mask"].data_ptr(), out["num_samples"].data_ptr(), _stream(p.state))
+                          out["mask"].data_ptr(), out["num_samples"].data_ptr(), _stream(p.state),
+                          routes=MARCH_ROUTES)
     return out
 
 
