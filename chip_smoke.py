@@ -7,6 +7,7 @@
     python3 chip_smoke.py --seed-variance
     python3 chip_smoke.py --mesh-cards    (on more than one card)
     python3 chip_smoke.py --shapes
+    python3 chip_smoke.py --limits
 
 The second form runs only phase 7's schedule, twice in each of three
 settings (the kernels; the kernels with torch's deterministic algorithms;
@@ -21,7 +22,8 @@ quality_seed_variance) at 3 seeds, 2,000 steps, 256^2 and prints its spread
 beside the JAX package's docs/seed_variance.json. The fifth runs only phase
 9's cli.train command line, `python -m umhs_torch.cli.train`, in a process
 of its own over every visible card (one rank per card on NCCL), and then on
-one card (mesh_cards). The sixth runs only phase 13.
+one card (mesh_cards). The sixth runs only phase 13, the seventh only
+phase 14.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device and build: the card's name and power limit, then every kernel in
@@ -358,6 +360,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one 128^2 view through cli.render, and A's run through cli.eval in a
    process of its own.
 
+14. The shapes past K1-K4's old limits (phase_limits): K1 and K2 past 256
+   wide, past 8 layers and with weights past a block's shared memory (the
+   general route), K3 and K4 past 32 levels and at F other than 1, 2, 4, 8
+   (the any kernels). First K1/K2 in f32 and bf16 on [28, 16, 256] (the old
+   wide kernels), [28, 16, 257], [28, 16, 281], [280, 64, 16], [64, 256,
+   256, 256], [64, 512, 512, 512, 8] and 9 and 16 layers of width 64, at
+   N 1, 17, 3,001 and 262,144, against their plain versions (K1 1e-5 f32,
+   2e-2 bf16; K2 as phase 2's k2_against_plain; past 8 layers in bf16 the
+   moved-plain allowance: twice the plain version's change under a one-ulp
+   move of x), K2 repeated bit for bit, the launchers' routes checked, the
+   262,144 rows timed (device ms, bound, plain ms, the addmm chain's and
+   autograd.grad's ms, 3 calls a reading); then K3/K4 at (L, F) (32, 8),
+   (16, 2), (33, 2), (40, 7), (16, 3), (16, 16), (64, 8), tetrahedral and
+   trilinear, 32,768 positions, 2^17 rows a level: K3 within 1e-6 of its plain version, K4 in
+   both modes bit for bit on the CPU (stochastic by the draw rule), timed
+   with index_select + sum and zeros + index_add_ beside. Then config C:
+   phase 9's cli.train flags on the bench scene written at 281 bands,
+   400-1000 nm, with --pipeline.model.hash-num-levels 40 and
+   --pipeline.model.hash-features-per-level 7 (mlp_directional 28 -> 16 ->
+   281, mlp_base 280 -> 64 -> 16), 256 steps through script_run's four
+   gates (gate (d) with SHAPES_VS_PLAIN_MOVED moved plain runs a draw), the
+   general route and the any kernels launched during the run (the routes
+   the launchers report), one 128^2 view through cli.render and the run
+   through cli.eval in a process of its own. The phase's seconds are
+   printed.
+
 The last lines are the card (nvidia-smi), one JSON object of kernel numbers
 and, last, {"ok": true, "device": {...}}.
 """
@@ -474,18 +502,18 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_times(params, x, dims):
-    """K1 on x (N, dims[0]) in bf16: its device ms, ms per call, the plain
-    version's and one PyTorch call's (a bf16 addmm chain) device ms, and the
-    bound (each input read once and the output written once, or the MACs on
-    the bf16 tensor cores)."""
+def k1_times(params, x, dims, dt=torch.bfloat16, iters=10):
+    """K1 on x (N, dims[0]) in bf16 (or f32): its device ms, ms per call, the
+    plain version's and one PyTorch call's (an addmm chain in the dtype)
+    device ms, and the bound (each input read once and the output written
+    once, or the MACs on the bf16 tensor cores, or at the f32 rate)."""
     from umhs_torch.ops.mlp_fused import mlp_fused_fwd, mlp_plain
 
     n = x.shape[0]
-    wb = [(lay["w"].bfloat16(), lay["b"].bfloat16()) for lay in params["layers"]]
+    wb = [(lay["w"].to(dt), lay["b"].to(dt)) for lay in params["layers"]]
 
     def library():
-        h = x.bfloat16()
+        h = x.to(dt)
         for i, (w, b) in enumerate(wb):
             h = torch.addmm(b, h, w)
             if i + 1 < len(wb):
@@ -495,12 +523,13 @@ def k1_times(params, x, dims):
     macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     nbytes = n * (dims[0] + dims[-1]) * 4 + sum(
         lay["w"].numel() * 4 + lay["b"].numel() * 4 for lay in params["layers"])
-    b_ms, b_by = bound(nbytes, 2.0 * n * macs, H100_BF16_FLOPS)
+    peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_F32_FLOPS
+    b_ms, b_by = bound(nbytes, 2.0 * n * macs, peak)
     return {
-        "ms": device_ms(lambda: mlp_fused_fwd(params, x, torch.bfloat16)),
-        "call_ms": median_ms(lambda: mlp_fused_fwd(params, x, torch.bfloat16)),
-        "plain_ms": device_ms(lambda: mlp_plain(params, x, torch.bfloat16), iters=5),
-        "library_ms": device_ms(library),
+        "ms": device_ms(lambda: mlp_fused_fwd(params, x, dt), iters=iters),
+        "call_ms": median_ms(lambda: mlp_fused_fwd(params, x, dt)),
+        "plain_ms": device_ms(lambda: mlp_plain(params, x, dt), iters=min(iters, 5)),
+        "library_ms": device_ms(library, iters=iters),
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
@@ -677,9 +706,13 @@ def k1_forward_reference(params, x, g):
 # bf16: at most this share of rows may take a hidden ReLU otherwise in K1's
 # forward than in mlp_plain's (see k2_against_plain)
 K2_FLIPPED_ROWS_SHARE = 1e-4
+# the same rate a hidden unit (phase 2 set the rows' share on feature_mlp,
+# 128 hidden units a row): phase 14's chains hold up to 1,536 a row, and a
+# unit within rounding of 0 is as likely in each
+K2_FLIPPED_UNITS_SHARE = K2_FLIPPED_ROWS_SHARE / 128
 
 
-def k2_against_plain(name, params, x, g, dt):
+def k2_against_plain(name, params, x, g, dt, per_unit=False):
     """K2 against autograd of mlp_plain on one input: every tensor within
     2e-2 (bf16) or 1e-4 (f32) of its largest entry, and a second run equal
     bit for bit. Returns (max abs error, max error / max |ref|).
@@ -692,7 +725,12 @@ def k2_against_plain(name, params, x, g, dt):
     plain version on the rows where the two forwards decide alike, and
     every tensor, those rows included, to the same backward in f64 on K1's
     own forward (k1_forward_reference), within the same tolerance; the
-    rows that differ must stay below K2_FLIPPED_ROWS_SHARE."""
+    rows that differ must stay below K2_FLIPPED_ROWS_SHARE (`per_unit`:
+    K2_FLIPPED_UNITS_SHARE of the rows' hidden units). With `per_unit`
+    (phase 14's wide chains, where one flipped row's share of a dW column
+    is not diluted below the tolerance) K2 and the plain version are run
+    again on the rows that decide alike and held to each other there, every
+    tensor."""
     from umhs_torch.ops.mlp_fused import mlp_fused_bwd, mlp_plain_bwd
 
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dt]
@@ -710,13 +748,25 @@ def k2_against_plain(name, params, x, g, dt):
         dx_k, grads_k, flipped = k1_forward_reference(params, x, g)
         refs["K1's forward, f64"] = [dx_k] + [t for pair in grads_k for t in pair]
         keep = ~flipped
-        check(int(flipped.sum()) <= K2_FLIPPED_ROWS_SHARE * n,
+        hidden = sum(lay["w"].shape[1] for lay in params["layers"][:-1])
+        limit = (K2_FLIPPED_UNITS_SHARE * n * hidden if per_unit
+                 else K2_FLIPPED_ROWS_SHARE * n)
+        check(int(flipped.sum()) <= limit,
               f"K2 {name} N={n}: {int(flipped.sum())} rows take a ReLU otherwise in K1's "
-              "forward than in mlp_plain's")
+              f"forward than in mlp_plain's (limit {limit:.1f})")
+    outs = {label: flat for label in refs}
+    if per_unit and not bool(keep.all()):
+        # dW and db sum over the rows, a flipped row's unit among them: the
+        # plain version is held to K2 on the kept rows only, every tensor
+        kept = mlp_fused_bwd(params, x[keep].contiguous(), g[keep].contiguous(), dt)
+        ref_kept = mlp_plain_bwd(params, x[keep].contiguous(), g[keep].contiguous(), dt)
+        outs["plain"] = [kept[0]] + [t for pair in kept[1] for t in pair]
+        refs["plain"] = [ref_kept[0]] + [t for pair in ref_kept[1] for t in pair]
+        keep = torch.ones(int(keep.sum()), dtype=torch.bool, device=x.device)
     worst, max_err, line = 0.0, 0.0, []
     for label, ref_list in refs.items():
         worst_ref = 0.0
-        for i, (got, ref) in enumerate(zip(flat, ref_list)):
+        for i, (got, ref) in enumerate(zip(outs[label], ref_list)):
             if i == 0 and label == "plain":
                 got, ref = got[keep], ref[keep]
             got, ref = got.double(), ref.double()
@@ -727,27 +777,27 @@ def k2_against_plain(name, params, x, g, dt):
             max_err = max(max_err, err)
         worst = max(worst, worst_ref)
         line.append(f"{label} {worst_ref:.3e}")
-    flips = f", rows deciding a ReLU otherwise than mlp_plain: {int((~keep).sum())}" \
-        if dt == torch.bfloat16 else ""
+    flips = (f", rows deciding a ReLU otherwise than mlp_plain: {int(flipped.sum())}"
+             if dt == torch.bfloat16 else "")
     print(f"K2 {name} N={n} {str(dt)[6:]}: max error / max|ref|: {'; '.join(line)} "
           f"(tol {tol:g}){flips}; repeats bit for bit, ok")
     return max_err, worst
 
 
-def k2_times(params, x, g, dims, need_dx):
-    """K2 on x (N, dims[0]) and g (N, dims[-1]) in bf16, with dx when
-    `need_dx`: its device ms, ms per call, the plain version's and one
-    PyTorch call's (a bf16 addmm chain and torch.autograd.grad) device ms,
-    and the bound (the MACs of the recompute below the last layer, dW and
-    dh on the bf16 tensor cores, or x, g and the weights read and dx and the
-    weight gradients written)."""
+def k2_times(params, x, g, dims, need_dx, dt=torch.bfloat16, iters=10):
+    """K2 on x (N, dims[0]) and g (N, dims[-1]) in bf16 (or f32), with dx
+    when `need_dx`: its device ms, ms per call, the plain version's and one
+    PyTorch call's (an addmm chain in the dtype and torch.autograd.grad)
+    device ms, and the bound (the MACs of the recompute below the last
+    layer, dW and dh on the bf16 tensor cores or at the f32 rate, or x, g
+    and the weights read and dx and the weight gradients written)."""
     from umhs_torch.ops.mlp_fused import mlp_fused_bwd, mlp_plain_bwd
 
     n = x.shape[0]
-    leaves = [t.bfloat16().requires_grad_(True) for lay in params["layers"]
+    leaves = [t.to(dt).requires_grad_(True) for lay in params["layers"]
               for t in (lay["w"], lay["b"])]
-    xb = x.bfloat16().requires_grad_(need_dx)
-    gb = g.bfloat16()
+    xb = x.to(dt).requires_grad_(need_dx)
+    gb = g.to(dt)
 
     def library():
         h = xb
@@ -763,13 +813,14 @@ def k2_times(params, x, g, dims, need_dx):
     flops = 2.0 * n * (3 * macs - dims[-2] * dims[-1] - (0 if need_dx else dims[0] * dims[1]))
     nparams = sum(lay["w"].numel() + lay["b"].numel() for lay in params["layers"])
     nbytes = n * (dims[0] + dims[-1] + (dims[0] if need_dx else 0)) * 4 + 2 * nparams * 4
-    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    b_ms, b_by = bound(nbytes, flops,
+                       H100_BF16_FLOPS if dt == torch.bfloat16 else H100_F32_FLOPS)
     return {
-        "ms": device_ms(lambda: mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx)),
-        "call_ms": median_ms(lambda: mlp_fused_bwd(params, x, g, torch.bfloat16, need_dx)),
-        "plain_ms": device_ms(lambda: mlp_plain_bwd(params, x, g, torch.bfloat16, need_dx),
-                              iters=5),
-        "library_ms": device_ms(library),
+        "ms": device_ms(lambda: mlp_fused_bwd(params, x, g, dt, need_dx), iters=iters),
+        "call_ms": median_ms(lambda: mlp_fused_bwd(params, x, g, dt, need_dx)),
+        "plain_ms": device_ms(lambda: mlp_plain_bwd(params, x, g, dt, need_dx),
+                              iters=min(iters, 5)),
+        "library_ms": device_ms(library, iters=iters),
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
@@ -905,7 +956,7 @@ def k4_times(pos, g, cfg, stochastic):
     route (every_level_ms), which the rule's choice is held against."""
     from umhs_torch.ops.encodings import (
         HASH_BWD_ROUTES, hash_encode_bwd, hash_encode_bwd_plain, hash_indices_weights,
-        stochastic_rows)
+        hash_kernel_fixed, stochastic_rows)
     from umhs_torch.utils.device_time import device_ms_by_kernel
 
     n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
@@ -926,8 +977,10 @@ def k4_times(pos, g, cfg, stochastic):
         return torch.zeros(size, device=pos.device).index_add_(0, flat, values)
 
     b_ms, b_by = bound(n * 3 * 4 + n * L * F * 4 + size * 4, flops, H100_F32_FLOPS)
-    # the rule's route against every level on each route (the same bits)
-    every = {name: (name,) * L for name in HASH_BWD_ROUTES}
+    # the rule's route against every level on each route (the same bits);
+    # the any kernels take "entries" only
+    every = {name: (name,) * L for name in HASH_BWD_ROUTES
+             if hash_kernel_fixed(cfg) or name == "entries"}
     with uncounted():
         route_ms = {name: device_ms(lambda: hash_encode_bwd(pos, g, cfg, stochastic, route))
                     for name, route in every.items()}
@@ -4981,7 +5034,7 @@ def shapes_k6cd_rows(dev):
     return rows
 
 
-def shapes_run(label, argv, dev, smi, routes, work):
+def shapes_run(label, argv, dev, smi, routes, work, phase="phase 13"):
     """Config A or B through script_run's four gates, the launches by route
     during the run (each route of `routes` must have launched: the long
     shapes' kernels), and a 128^2 view rendered through cli.render; returns
@@ -4990,12 +5043,12 @@ def shapes_run(label, argv, dev, smi, routes, work):
     from umhs_torch.data.png import read_png
     from umhs_torch.data.synthetic import BENCH_SCENE
 
-    record, config_yml = script_run(label, argv, dev, smi, phase="phase 13",
+    record, config_yml = script_run(label, argv, dev, smi, phase=phase,
                                     vs_plain_moved=SHAPES_VS_PLAIN_MOVED,
                                     k6c_witness=label == "config B")
     got = record["routes"]
     missing = {s: r for s, r in routes.items() if got.get(s, {}).get(r, 0) == 0}
-    check(not missing, f"phase 13, {label}: no launch on the routes {missing}; by route {got}")
+    check(not missing, f"{phase}, {label}: no launch on the routes {missing}; by route {got}")
     size = BENCH_SCENE.image_size
     tag = label.split()[-1]
     (work / f"orbit_{tag}.json").write_text(json.dumps(orbit_path_json(1, size, 50.0)))
@@ -5003,13 +5056,35 @@ def shapes_run(label, argv, dev, smi, routes, work):
               "--camera-path-filename", str(work / f"orbit_{tag}.json"),
               "--output-path", str(work / f"render_{tag}" / "view.mp4"),
               "--rendered-output-names", "rgb"]
-    print(f"phase 13, {label}: python -m umhs_torch.cli.render " + " ".join(argv_r))
+    print(f"{phase}, {label}: python -m umhs_torch.cli.render " + " ".join(argv_r))
     rendered = cli_render.main(argv_r)
     frames = sorted(rendered.written.glob("frame_*.png"))
     check(len(frames) == 1 and read_png(frames[0]).shape == (size, size, 3),
-          f"phase 13, {label}: cli.render wrote {len(frames)} frames")
+          f"{phase}, {label}: cli.render wrote {len(frames)} frames")
     record["render_ms"] = 1e3 * rendered.frame_s[0]
     return record, config_yml
+
+
+def eval_in_process(phase, config_yml, work, name):
+    """cli.eval of a run's config.yml in a process of its own (PYTHONPATH
+    the checkout), its checkpoint the run's last step, its metrics finite;
+    returns its seconds and results."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parent)] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = work / name
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "umhs_torch.cli.eval", "--load-config",
+                           str(config_yml), "--output-path", str(out)], cwd=work, env=env,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"{phase} cli.eval exited {proc.returncode}:\n"
+                                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    got = json.loads(out.read_text())
+    check(got["checkpoint_step"] == SHAPES_STEPS,
+          f"{phase} cli.eval loaded step {got['checkpoint_step']}")
+    check(all(np.isfinite(v) for v in got["results"].values()),
+          f"{phase} cli.eval: non-finite metrics {got['results']}")
+    return {"s": time.perf_counter() - t0, **got["results"]}
 
 
 def phase_shapes(dev, smi):
@@ -5061,24 +5136,7 @@ def phase_shapes(dev, smi):
             for sym, n in record["launches"].items():
                 launches[sym] = launches.get(sym, 0) + n
             if label == "config A":  # cli.eval in a process of its own
-                env = dict(os.environ)
-                env["PYTHONPATH"] = os.pathsep.join(
-                    [str(Path(__file__).resolve().parent)]
-                    + [p for p in [env.get("PYTHONPATH")] if p])
-                out = work / "eval_a.json"
-                t0 = time.perf_counter()
-                proc = subprocess.run([sys.executable, "-m", "umhs_torch.cli.eval",
-                                       "--load-config", str(config_yml), "--output-path",
-                                       str(out)], cwd=work, env=env, capture_output=True,
-                                      text=True, timeout=600)
-                check(proc.returncode == 0, f"phase 13 cli.eval exited {proc.returncode}:\n"
-                                            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-                got = json.loads(out.read_text())
-                check(got["checkpoint_step"] == SHAPES_STEPS,
-                      f"phase 13 cli.eval loaded step {got['checkpoint_step']}")
-                check(all(np.isfinite(v) for v in got["results"].values()),
-                      f"phase 13 cli.eval: non-finite metrics {got['results']}")
-                record["cli_eval"] = {"s": time.perf_counter() - t0, **got["results"]}
+                record["cli_eval"] = eval_in_process("phase 13", config_yml, work, "eval_a.json")
     seconds = time.perf_counter() - t_phase
     print(f"phase 13: kernel rows and configs A and B in {seconds:.1f} s; {smi}")
     for label, r in runs.items():
@@ -5093,6 +5151,242 @@ def phase_shapes(dev, smi):
                 [w["loss_terms_over_tolerance"]["total"] for w in r["vs_plain_k6c_witness"]]))
     return {"seconds": seconds, "k5": k5, "k6ab": k6ab, "k6cd": k6cd, "runs": runs,
             "launches": launches}
+
+
+# ---------------------------------------------------------------- phase 14
+# K1/K2 chains at the old limit (the wide tensor-core kernels in bf16), one
+# past it and well past it: a width past 256 (281 bands, 280 hash
+# features), weights that leave the FMA kernels no room, 512 wide, 9 and 16
+# layers
+LIMITS_CHAINS = [[28, 16, 256], [28, 16, 257], [28, 16, 281], [280, 64, 16],
+                 [64, 256, 256, 256], [64, 512, 512, 512, 8], [64] * 10, [64] * 17]
+LIMITS_ROWS = (1, 17, 3001, 262_144)  # the last one timed
+# calls a K1/K2 reading of phase 14 averages: the general route's deep
+# chains launch ~160 kernels a call, and 10 calls behind device_ms's spin
+# would pass the stream's queue of pending launches (the host then waits,
+# the spin cannot hold, and the profiler's fallback loses events)
+LIMITS_TIMED_CALLS = 3
+# K3/K4 (L, F): the old (32, 8) and (16, 2), then past: 33 levels, F 7
+# (odd, scalar loads), F 3, F 16, and L x F 512 (past a 48 KB tile)
+LIMITS_HASH = [(32, 8), (16, 2), (33, 2), (40, 7), (16, 3), (16, 16), (64, 8)]
+LIMITS_HASH_ROWS = 32_768
+LIMITS_HASH_LOG2 = 17
+# config C: phase 9's flagship (cli.train) on the bench scene at 281 bands,
+# 400-1000 nm, with a hash grid of 40 levels x 7 features: mlp_directional
+# 28 -> 16 -> 281 and mlp_base 280 -> 64 -> 16 on K1/K2's general route, K3
+# and K4 on their any kernels (K4's entries route at F 7)
+LIMITS_C_BANDS = 281
+LIMITS_C_FLAGS = {"--pipeline.model.hash-num-levels": "40",
+                  "--pipeline.model.hash-features-per-level": "7"}
+LIMITS_C_ROUTES = {"umhs_mlp_fused_fwd": "mlp_general<1>", "umhs_mlp_fused_bwd": "mlp_general<1>",
+                   "umhs_hash_encode_fwd": "any", "umhs_hash_encode_bwd": "any"}
+
+
+def limits_chain(dims, seed, dev):
+    """A chain of uniform +-1/sqrt(fan-in) weights and biases (init_mlp's
+    range), made on the CPU from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    return {"layers": [
+        {"w": ((torch.rand((a, b), generator=gen) * 2 - 1) / a**0.5).to(dev),
+         "b": ((torch.rand((b,), generator=gen) * 2 - 1) / a**0.5).to(dev)}
+        for a, b in zip(dims[:-1], dims[1:])]}
+
+
+def moved_allowance(fn, x):
+    """The moved-plain rule of a chain deeper than 8 layers in bf16: twice
+    the largest change of the plain version's outputs (a tensor or a list)
+    under a one-ulp move of its input (torch.nextafter towards +inf)."""
+    moved = torch.nextafter(x, torch.full_like(x, float("inf")))
+    a, b = fn(x), fn(moved)
+    a, b = (a, b) if isinstance(a, list) else ([a], [b])
+    return 2 * max(float((u - v).abs().max()) for u, v in zip(a, b))
+
+
+def limits_mlp_case(dims, dt, n, dev):
+    """K1 and K2 on one chain, dtype and row count against their plain
+    versions: K1 within 1e-5 (f32) or 2e-2 (bf16), K2 as k2_against_plain
+    (1e-4 of each tensor's largest entry in f32; 2e-2 in bf16, also against
+    the f64 backward on K1's forward); past 8 layers in bf16 each within the
+    larger of that and the moved-plain allowance, and repeated bit for bit.
+    The launchers' reported routes are returned."""
+    from umhs_torch.ops.mlp_fused import MLP_FUSED_BWD, MLP_FUSED_FWD, mlp_fused_bwd, \
+        mlp_fused_fwd, mlp_plain, mlp_plain_bwd
+
+    label = f"phase 14 {dims} N={n} {str(dt)[6:]}"
+    params = limits_chain(dims, n + sum(dims), dev)
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn((n, dims[0]), generator=gen).to(dev)
+    g = torch.randn((n, dims[-1]), generator=gen).to(dev)
+    def took(kernel, was):
+        new = [r for r, c in kernel.routes.items() if c > was.get(r, 0)]
+        check(len(new) == 1, f"{label}: {kernel.symbol} reported the routes {new}")
+        return new[0]
+
+    was = dict(MLP_FUSED_FWD.routes)
+    y = mlp_fused_fwd(params, x, dt)
+    routes = [took(MLP_FUSED_FWD, was)]
+    was = dict(MLP_FUSED_BWD.routes)
+    ref = mlp_plain(params, x, dt)
+    deep = dt == torch.bfloat16 and len(dims) > 9
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    atol = max(tol, moved_allowance(lambda t: mlp_plain(params, t, dt), x)) if deep else tol
+    err1 = float((y - ref).abs().max())
+    check(torch.allclose(y, ref, rtol=tol, atol=atol),
+          f"{label}: K1 disagrees with its plain version ({err1}, atol {atol})")
+    if not deep:
+        err2, rel2 = k2_against_plain(f"phase 14 {dims}", params, x, g, dt, per_unit=True)
+    else:
+        dx, grads = mlp_fused_bwd(params, x, g, dt)
+        again = mlp_fused_bwd(params, x, g, dt)
+        got = [dx] + [t for p in grads for t in p]
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got, [again[0]] + [t for p in again[1] for t in p])),
+              f"{label}: K2 repeated other bits")
+        dx_ref, grads_ref = mlp_plain_bwd(params, x, g, dt)
+        want = [dx_ref] + [t for p in grads_ref for t in p]
+        moved = moved_allowance(
+            lambda t: [u for p in mlp_plain_bwd(params, t, g, dt)[1] for u in p]
+            + [mlp_plain_bwd(params, t, g, dt)[0]], x)
+        err2 = rel2 = 0.0
+        for a, b in zip(got, want):
+            e = float((a - b).abs().max())
+            lim = max(2e-2 * float(b.abs().max()), moved)
+            check(torch.allclose(a, b, rtol=2e-2, atol=lim),
+                  f"{label}: K2 disagrees with its plain version ({e}, atol {lim})")
+            err2, rel2 = max(err2, e), max(rel2, e / max(float(b.abs().max()), 1e-30))
+        print(f"K2 {label}: max error / max|ref| {rel2:.3e}, moved-plain allowance "
+              f"{moved:.3e}; repeats bit for bit, ok")
+    torch.cuda.synchronize()
+    routes.append(took(MLP_FUSED_BWD, was))
+    bf16 = int(dt == torch.bfloat16)
+    want = ((["mlp_fused_fwd_wide_kernel", "mlp_fused_bwd_wide_kernel"] if bf16 else
+             ["mlp_fused_fwd_kernel<0>", "mlp_fused_bwd_kernel<0>"]) if dims == LIMITS_CHAINS[0]
+            else [f"mlp_general<{bf16}>"] * 2)
+    check(routes == want, f"{label}: routes {routes}, not {want}")
+    print(f"K1/K2 {label}: routes {routes}, K1 max_abs_err {err1:.3e}"
+          + (f" (moved-plain atol {atol:.3e})" if deep else ""))
+    return params, x, g, routes, err1, err2
+
+
+def limits_mlp_rows(dev, ptxas):
+    """Phase 14's K1/K2 rows: every chain of LIMITS_CHAINS in f32 and bf16
+    at each of LIMITS_ROWS against the plain versions (limits_mlp_case), the
+    last row count timed (device ms, ms per call, the plain version's, the
+    library call's, the bound)."""
+    rows = {"mlp_fused_fwd": {}, "mlp_fused_bwd": {}}
+    for dims in LIMITS_CHAINS:
+        for dt in (torch.float32, torch.bfloat16):
+            key = f"{dims} {str(dt)[6:]}"
+            for n in LIMITS_ROWS:
+                params, x, g, routes, e1, e2 = limits_mlp_case(dims, dt, n, dev)
+                if n != LIMITS_ROWS[-1]:
+                    del params, x, g
+                    continue
+                calls = LIMITS_TIMED_CALLS
+                for name, route, err, times in (
+                        ("mlp_fused_fwd", routes[0], e1,
+                         lambda: k1_times(params, x, dims, dt, calls)),
+                        ("mlp_fused_bwd", routes[1], e2,
+                         lambda: k2_times(params, x, g, dims, True, dt, calls))):
+                    with uncounted():
+                        t = times()
+                    rows[name][key] = {"dims": dims, "rows": n, "route": route,
+                                       "ptxas": ptxas.get(route), "max_abs_err": err, **t}
+                    print(f"phase 14 {name} {key} N={n}: " + json.dumps(rows[name][key]))
+                del params, x, g
+            torch.cuda.empty_cache()
+    return rows
+
+
+def limits_hash_rows(dev):
+    """Phase 14's K3/K4 rows: each (L, F) of LIMITS_HASH, tetrahedral and
+    trilinear, at LIMITS_HASH_ROWS random positions: K3 within atol 1e-6 of
+    its plain version, K4 in both modes against its plain version on the
+    CPU (k4_against_cpu: bit for bit, stochastic by the draw rule), each
+    launcher's route, then timed (K3's k3_times, K4's k4_times per mode)."""
+    from umhs_torch.ops.encodings import (
+        HASH_ENCODE_BWD, HASH_ENCODE_FWD, HashEncodingConfig, hash_encode_bwd_route,
+        hash_encode_fwd, hash_encode_plain, hash_kernel_fixed)
+
+    rows = {"hash_encode_fwd": {}, "hash_encode_bwd": {}}
+    n = LIMITS_HASH_ROWS
+    for levels, features in LIMITS_HASH:
+        for interp in ("tetrahedral", "trilinear"):
+            cfg = HashEncodingConfig(num_levels=levels, features_per_level=features,
+                                     log2_hashmap_size=LIMITS_HASH_LOG2, interpolation=interp)
+            key = f"L{levels}xF{features} {interp}"
+            gen = torch.Generator().manual_seed(levels * features)
+            pos = torch.rand((n, 3), generator=gen)
+            pos[:3] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 0.5, 1.0]])
+            pos = pos.to(dev)
+            table = ((torch.rand((cfg.table_size * features,), generator=gen) * 2 - 1)
+                     * 1e-4).to(dev)
+            g = torch.randn((n, cfg.output_dim), generator=gen).to(dev)
+            route = "fixed" if hash_kernel_fixed(cfg) else "any"
+            f0, b0 = HASH_ENCODE_FWD.routes.get(route, 0), HASH_ENCODE_BWD.routes.get(route, 0)
+            out = hash_encode_fwd(table, pos, cfg)
+            err3 = float((out - hash_encode_plain(table, pos, cfg)).abs().max())
+            check(err3 <= 1e-6, f"phase 14 K3 {key}: max abs err {err3} past 1e-6")
+            del out
+            err4, share = k4_against_cpu(f"phase 14 {key}", pos, g, cfg)
+            check(HASH_ENCODE_FWD.routes.get(route, 0) == f0 + 1
+                  and HASH_ENCODE_BWD.routes.get(route, 0) > b0,
+                  f"phase 14 {key}: the launchers did not report the route {route}")
+            per_level = sorted(set(hash_encode_bwd_route(cfg, n, False)))
+            with uncounted():
+                rows["hash_encode_fwd"][key] = {"rows": n, "route": route, "max_abs_err": err3,
+                                                **k3_times(table, pos, cfg)}
+                rows["hash_encode_bwd"][key] = {
+                    "rows": n, "route": route, "deterministic_levels": per_level,
+                    "max_abs_err": err4, "draws_differing": share,
+                    **{mode: k4_times(pos, g, cfg, mode == "stochastic")
+                       for mode in ("stochastic", "deterministic")}}
+            for name in rows:
+                print(f"phase 14 {name} {key} N={n}: " + json.dumps(rows[name][key]))
+            del pos, table, g
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_limits(dev, smi, ptxas):
+    """Phase 14: the shapes past K1-K4's old limits. K1/K2 on LIMITS_CHAINS
+    and K3/K4 on LIMITS_HASH against their plain versions, each with device
+    ms, bound, plain ms and library ms (limits_mlp_rows, limits_hash_rows);
+    then config C through cli.train with phase 12's four gates (gate (d)
+    with SHAPES_VS_PLAIN_MOVED moved plain runs a draw), the general and any
+    routes launched during the run, a 128^2 view through cli.render and its
+    run through cli.eval in a process of its own."""
+    from umhs_torch.data.synthetic import BENCH_SCENE, write_dataset
+
+    t_phase = time.perf_counter()
+    mlp = limits_mlp_rows(dev, ptxas)
+    t_mlp = time.perf_counter() - t_phase
+    hashes = limits_hash_rows(dev)
+    t_rows = time.perf_counter() - t_phase
+    with bench_dataset() as (work, _, _):
+        root = write_dataset(work / "scene281", dataclasses.replace(
+            BENCH_SCENE, num_bands=LIMITS_C_BANDS, wavelength_start=400.0,
+            wavelength_step=600.0 / (LIMITS_C_BANDS - 1)))
+        argv = entry_train_argv(root)
+        for flag, value in (("--max-num-iterations", str(SHAPES_STEPS)),
+                            ("--steps-per-save", str(SHAPES_STEPS)),
+                            ("--experiment-name", "limits-c"),
+                            ("--output-dir", str(work / "outputs")), *LIMITS_C_FLAGS.items()):
+            argv = replace_flag(argv, flag, value)
+        record, config_yml = shapes_run("config C", argv, dev, smi, LIMITS_C_ROUTES, work,
+                                        phase="phase 14")
+        check(record["bands"] == LIMITS_C_BANDS, f"phase 14 config C: {record['bands']} bands")
+        record["cli_eval"] = eval_in_process("phase 14", config_yml, work, "eval_c.json")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 14: K1/K2 rows in {t_mlp:.1f} s, K3/K4 rows in {t_rows - t_mlp:.1f} s, "
+          f"config C in {seconds - t_rows:.1f} s, {seconds:.1f} s in all; {smi}")
+    print(f"  config C: {record['ms_per_step_last64']:.2f} ms a step (last 64), PSNR "
+          f"{record['psnr_step0']:.2f} -> {record['eval_all_images']['psnr']:.2f} dB, loss "
+          f"{record['loss_first16']:.5f} -> {record['loss_last16']:.5f}, vs plain "
+          f"{json.dumps(record['vs_plain_worst_median'])}, loss per draw "
+          f"{json.dumps(record['vs_plain_loss_over_tolerance'])}, routes "
+          f"{json.dumps({k: record['routes'].get(k) for k in LIMITS_C_ROUTES})}")
+    return {"seconds": seconds, **mlp, **hashes, "config C": record}
 
 
 SASS_INSTRUCTION = re.compile(
@@ -5186,6 +5480,9 @@ def main() -> None:
     ap.add_argument("--shapes", action="store_true",
                     help="only phase 13: the kernels past their old shape limits, and "
                          "configs A and B through cli.train")
+    ap.add_argument("--limits", action="store_true",
+                    help="only phase 14: K1-K4 past their old shape limits, and config C "
+                         "through cli.train")
     ap.add_argument("--quality", choices=["tetrahedral", "all"], default="tetrahedral",
                     help="phase 8's quality runs: the tetrahedral one, or also the trilinear "
                          "and the 141-band bf16 ones")
@@ -5224,11 +5521,13 @@ def main() -> None:
           f"({'g++' if built else 'cached'}, {native.library_path().name})")
 
     only = (args.repeat_schedule or args.sweep_vs_plain is not None or args.seed_variance
-            or args.mesh_cards or args.shapes)
+            or args.mesh_cards or args.shapes or args.limits)
     if args.repeat_schedule:
         repeat_schedule(dev)
     elif args.shapes:
         phase_shapes(dev, smi)
+    elif args.limits:
+        phase_limits(dev, smi, ptxas)
     elif args.seed_variance:
         seed_variance(smi)
     elif args.mesh_cards:
@@ -5277,6 +5576,7 @@ def main() -> None:
         del dm, state48
         scripts = phase_scripts(dev, smi)
         shapes = phase_shapes(dev, smi)
+        limits = phase_limits(dev, smi, ptxas)
         long_rows = {"march_count": shapes_k5_kernel_rows(shapes["k5"], "k5a"),
                      "march_emit": shapes_k5_kernel_rows(shapes["k5"], "k5b"),
                      "compact_stage": shapes["k6ab"], "compact_gather": shapes["k6ab"],
@@ -5304,6 +5604,10 @@ def main() -> None:
                                       for label, r in shapes["runs"].items()}
             if entry["name"] in long_rows:
                 entry["at_long_shapes"] = long_rows[entry["name"]]
+            entry["launches_config_c"] = limits["config C"]["launches"].get(sym, 0)  # phase 14
+            entry["routes_config_c"] = limits["config C"]["routes"].get(sym, {})
+            if entry["name"] in limits:  # K1-K4 past their old limits
+                entry["at_limit_shapes"] = limits[entry["name"]]
         p1["launches_quality"] = quality_launches["tetrahedral"].get("umhs_row_gather", 0)
         p1["launches_mesh_1_rank"] = mesh1["umhs_row_gather"]
         p1["launches_mesh_2_ranks"] = mesh2["umhs_row_gather"]

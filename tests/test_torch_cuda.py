@@ -125,9 +125,11 @@ def test_k1_rejects_what_it_does_not_take(cuda):
         mlp_fused_fwd(params, x.double())
     with pytest.raises(ValueError):
         mlp_fused_fwd(params, x[:, :6].contiguous())  # widths do not chain
-    wide = init_mlp(torch.Generator().manual_seed(0), 8, 2, 300, 4, cuda)
     with pytest.raises(ValueError):
-        mlp_fused_fwd(wide, x)
+        mlp_fused_fwd(params, x, torch.float16)  # a compute dtype it does not take
+    # a width above 256 is no longer refused: the general route takes it
+    wide = init_mlp(torch.Generator().manual_seed(0), 8, 2, 300, 4, cuda)
+    torch.testing.assert_close(mlp_fused_fwd(wide, x), mlp_plain(wide, x), rtol=1e-5, atol=1e-5)
 
 
 def _routes(dims):
@@ -135,8 +137,11 @@ def _routes(dims):
     (route prefixes for the narrow tensor-core kernels, whose template
     arguments depend on the widths): every padded width within 128, the
     tensor cores; a chain of up to two layers (K2: of two) up to 256, the
-    wide tensor-core kernels; else the FMA kernels."""
+    wide tensor-core kernels; a width above 256 or more than 8 layers, the
+    general route; else the FMA kernels."""
     padded = [-(-d // 16) * 16 for d in dims]
+    if max(dims) > 256 or len(dims) > 9:
+        return "mlp_general<1>", "mlp_general<1>"
     if max(padded) <= 128:
         return "mlp_fused_fwd_tc_kernel<", "mlp_fused_bwd_tc_kernel<"
     return ("mlp_fused_fwd_wide_kernel" if len(dims) <= 3 else "mlp_fused_fwd_kernel<1>",
@@ -266,17 +271,25 @@ def test_wide_chains_match_plain(cuda, dims, n):
             assert all(torch.equal(a, b) for a, b in zip(flat, with_dx))
 
 
-def test_deeper_wide_chain_routes(cuda):
+@pytest.mark.parametrize("dims,route", [
+    ([32, 256, 64, 8], "fma"), ([64, 256, 256, 256], "general"), ([28, 16, 281], "general")],
+    ids=lambda v: "-".join(map(str, v)) if isinstance(v, list) else v)
+def test_deeper_wide_chain_routes(cuda, dims, route):
     """A three-layer bf16 chain wider than 128 is not one the wide kernels
     take: K1 and K2 both run their FMA kernels (so K2's recompute decides
-    each ReLU as K1's forward does), within 2e-2 of the plain version."""
-    dims = [32, 256, 64, 8]
-    assert mlp_fused_fwd_route(dims, torch.bfloat16) == "mlp_fused_fwd_kernel<1>"
-    assert mlp_fused_bwd_route(dims, torch.bfloat16) == "mlp_fused_bwd_kernel<1>"
+    each ReLU as K1's forward does), within 2e-2 of the plain version. A
+    chain whose weights leave the FMA kernels no room (64-256-256-256) or a
+    width past 256 takes the general route in both."""
+    if route == "fma":
+        assert mlp_fused_fwd_route(dims, torch.bfloat16) == "mlp_fused_fwd_kernel<1>"
+        assert mlp_fused_bwd_route(dims, torch.bfloat16) == "mlp_fused_bwd_kernel<1>"
+    else:
+        assert mlp_fused_fwd_route(dims, torch.bfloat16) == "mlp_general<1>"
+        assert mlp_fused_bwd_route(dims, torch.bfloat16) == "mlp_general<1>"
     gen = torch.Generator().manual_seed(4)
     params = _chain(dims, gen, cuda)
-    x = torch.randn((1300, 32), generator=gen).to(cuda)
-    g = torch.randn((1300, 8), generator=gen).to(cuda)
+    x = torch.randn((1300, dims[0]), generator=gen).to(cuda)
+    g = torch.randn((1300, dims[-1]), generator=gen).to(cuda)
     torch.testing.assert_close(mlp_fused_fwd(params, x, torch.bfloat16),
                                mlp_plain(params, x, torch.bfloat16), rtol=2e-2, atol=2e-2)
     dx, grads = mlp_fused_bwd(params, x, g, torch.bfloat16)
@@ -284,6 +297,82 @@ def test_deeper_wide_chain_routes(cuda):
     for got, ref in zip([dx] + [t for p in grads for t in p],
                         [dx_ref] + [t for p in grads_ref for t in p]):
         torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2 * float(ref.abs().max()))
+
+
+# the chains past K1's and K2's old limits (chip_smoke's phase 14): a width
+# past 256 (281 bands, 280 hash features), weights that leave the FMA kernels
+# no room, widths of 512, and 9 and 16 layers
+GENERAL_CHAINS = [[28, 16, 257], [28, 16, 281], [280, 64, 16], [64, 256, 256, 256],
+                  [64, 512, 512, 512, 8], [64] * 10, [64] * 17]
+
+
+def _moved_allowance(fn, x, tol):
+    """The allowance of a bf16 comparison: the stated tolerance, or, where a
+    chain is so deep that the plain version's own output moves by more
+    under a one-ulp move of its input, twice that move (the moved-plain
+    rule, stated before any run of these chains)."""
+    moved = torch.nextafter(x, torch.full_like(x, float("inf")))
+    outs = [fn(x), fn(moved)]
+    move = max(float((a - b).abs().max()) for a, b in zip(*[o if isinstance(o, list) else [o]
+                                                            for o in outs]))
+    return max(tol, 2 * move)
+
+
+@pytest.mark.parametrize("dims", GENERAL_CHAINS, ids=lambda d: "-".join(map(str, d)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 17, 3001])
+def test_general_route_matches_plain(cuda, dims, dtype, n):
+    """K1 and K2 on the general route (the launchers report it): K1 within
+    1e-5 (f32) or 2e-2 (bf16) of its plain version, K2 within 1e-4 or 2e-2
+    of each tensor's largest entry (the moved-plain rule past 8 layers in
+    bf16), K2 repeated bit for bit, dx skipped giving dW and db's bits."""
+    assert mlp_fused_fwd_route(dims, dtype).startswith("mlp_general<")
+    assert mlp_fused_bwd_route(dims, dtype).startswith("mlp_general<")
+    gen = torch.Generator().manual_seed(n + sum(dims))
+    params = _chain(dims, gen, cuda)
+    x = torch.randn((n, dims[0]), generator=gen).to(cuda)
+    g = torch.randn((n, dims[-1]), generator=gen).to(cuda)
+    name = f"mlp_general<{int(dtype == torch.bfloat16)}>"
+    fwd0, bwd0 = MLP_FUSED_FWD.routes.get(name, 0), MLP_FUSED_BWD.routes.get(name, 0)
+    y = mlp_fused_fwd(params, x, dtype)
+    dx, grads = mlp_fused_bwd(params, x, g, dtype)
+    torch.cuda.synchronize()
+    assert MLP_FUSED_FWD.routes[name] == fwd0 + 1 and MLP_FUSED_BWD.routes[name] == bwd0 + 1
+    deep = dtype == torch.bfloat16 and len(dims) > 9
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    ref = mlp_plain(params, x, dtype)
+    atol = _moved_allowance(lambda t: mlp_plain(params, t, dtype), x, tol) if deep else tol
+    torch.testing.assert_close(y, ref, rtol=tol, atol=atol)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    dx_ref, grads_ref = mlp_plain_bwd(params, x, g, dtype)
+    refs = [dx_ref] + [t for p in grads_ref for t in p]
+    moved = (_moved_allowance(lambda t: [u for p in mlp_plain_bwd(params, t, g, dtype)[1]
+                                         for u in p], x, 0.0) if deep else 0.0)
+    for got, want in zip([dx] + [t for p in grads for t in p], refs):
+        torch.testing.assert_close(got, want, rtol=tol,
+                                   atol=max(tol * float(want.abs().max()) + tol, moved))
+    again = mlp_fused_bwd(params, x, g, dtype)
+    skip = mlp_fused_bwd(params, x, g, dtype, need_dx=False)
+    assert torch.equal(again[0], dx) and skip[0] is None
+    for (w1, b1), (w2, b2), (w3, b3) in zip(grads, again[1], skip[1]):
+        assert torch.equal(w1, w2) and torch.equal(b1, b2)
+        assert torch.equal(w1, w3) and torch.equal(b1, b3)
+
+
+def test_general_route_in_f32_gives_the_fma_bits(cuda):
+    """An f32 chain within the FMA kernels' limits gives the same forward
+    bits on the general route (the FMA kernel's k order from +0, then + b):
+    a 280-wide input sends [280, 64, 16] to the general route, and the same
+    chain cut to 256 inputs (zero weights past it) runs the FMA kernel."""
+    gen = torch.Generator().manual_seed(5)
+    params = _chain([280, 64, 16], gen, cuda)
+    x = torch.randn((3001, 280), generator=gen).to(cuda)
+    x[:, 256:] = 0.0
+    cut = {"layers": [{"w": params["layers"][0]["w"][:256].contiguous(),
+                       "b": params["layers"][0]["b"]}, params["layers"][1]]}
+    assert mlp_fused_fwd_route([256, 64, 16], torch.float32) == "mlp_fused_fwd_kernel<0>"
+    torch.testing.assert_close(mlp_fused_fwd(params, x), mlp_fused_fwd(cut, x[:, :256].contiguous()),
+                               rtol=0, atol=0)
 
 
 def test_k2_skips_dx_and_trains_through_the_function(cuda):
@@ -526,7 +615,8 @@ def test_k4_padding_rows_add_nothing(cuda, stochastic):
 
 @pytest.mark.parametrize("features", [2, 4, 8])
 def test_k4_refuses_a_misaligned_gradient(cuda, features):
-    """g is read with vector loads of 4 * F bytes: a view 4 bytes off is refused."""
+    """g is read with vector loads of 4 * F bytes on the fixed route: a view
+    4 bytes off is refused."""
     cfg = HashEncodingConfig(features_per_level=features, **K4_SMALL)
     n = 64
     pos = torch.rand((n, 3), device=cuda)
@@ -595,6 +685,72 @@ def test_k3_rejects_what_it_does_not_take(cuda):
         hash_encode_fwd(table[:-2], pos, cfg)
     with pytest.raises(ValueError):
         hash_encode_fwd(table, pos.double(), cfg)
+
+
+# (L, F) past K3's and K4's old limits (chip_smoke's phase 14), beside two
+# old ones: more than 32 levels, F other than 1, 2, 4, 8 (odd, with scalar
+# loads), F 16 (float4 loads), and L * F 512 (past a 48 KB tile)
+ANY_SHAPES = [(32, 8), (16, 2), (33, 2), (40, 7), (16, 3), (16, 16), (64, 8), (33, 16)]
+
+
+def _any_config(levels, features, interp):
+    return HashEncodingConfig(num_levels=levels, features_per_level=features,
+                              log2_hashmap_size=12, max_resolution=512, interpolation=interp)
+
+
+@pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])
+@pytest.mark.parametrize("levels,features", ANY_SHAPES, ids=lambda v: str(v))
+@pytest.mark.parametrize("n", [1, 33, 3001])
+def test_k3_any_shape(cuda, levels, features, interp, n):
+    """K3 at every (L, F), on the route its launcher reports (the template
+    instances at the old shapes, the any kernel past them), within atol
+    1e-6 of its plain version, as test_k3_wide_outputs."""
+    cfg = _any_config(levels, features, interp)
+    gen = torch.Generator().manual_seed(levels * features + n)
+    table = ((torch.rand((cfg.table_size * features,), generator=gen) * 2 - 1) * 1e-4).to(cuda)
+    pos = _k4_positions("random", n, seed=levels + n).to(cuda)
+    route = "fixed" if features in (1, 2, 4, 8) and levels <= 32 else "any"
+    before = HASH_ENCODE_FWD.routes.get(route, 0)
+    out = hash_encode_fwd(table, pos, cfg)
+    torch.cuda.synchronize()
+    assert HASH_ENCODE_FWD.routes[route] == before + 1
+    torch.testing.assert_close(out, hash_encode_plain(table, pos, cfg), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])
+@pytest.mark.parametrize("levels,features", ANY_SHAPES, ids=lambda v: str(v))
+@pytest.mark.parametrize("n,kind", [(1, "random"), (33, "rays"), (3001, "random"),
+                                    (3001, "rays"), (257, "equal")])
+def test_k4_any_shape(cuda, levels, features, interp, n, kind):
+    """K4 at every (L, F) in both modes through _k4_holds (repeated and the
+    plain version's bits on the CPU; stochastic by the draw rule), the
+    launcher's route as hash_kernel_fixed says, every level on "entries"
+    past the old shapes; with unit gradients the stochastic table sums to
+    n * L * F."""
+    from umhs_torch.ops.encodings import hash_kernel_fixed
+
+    cfg = _any_config(levels, features, interp)
+    pos = _k4_positions(kind, n, seed=levels + features + n).to(cuda)
+    g = torch.randn((n, cfg.output_dim), generator=torch.Generator().manual_seed(n + levels))
+    g[::7] = 0.0
+    g = g.to(cuda)
+    route = "fixed" if hash_kernel_fixed(cfg) else "any"
+    if route == "any":
+        assert set(hash_encode_bwd_route(cfg, n, False)) == {"entries"}
+    before = HASH_ENCODE_BWD.routes.get(route, 0)
+    differ = _k4_holds(pos, g, cfg)
+    assert HASH_ENCODE_BWD.routes[route] == before + 4
+    assert n < 1000 or differ <= K4_DRAW_DIFFER_SHARE
+    ones = torch.ones_like(g)
+    assert float(hash_encode_bwd(pos, ones, cfg, stochastic=True).sum()) == n * cfg.output_dim
+
+
+def test_k4_any_route_refuses_runs(cuda):
+    """The any kernels sort every entry: a forced "runs" level is refused."""
+    cfg = _any_config(40, 7, "trilinear")
+    pos, g = torch.rand(10, 3, device=cuda), torch.zeros(10, cfg.output_dim, device=cuda)
+    with pytest.raises(RuntimeError):
+        hash_encode_bwd(pos, g, cfg, False, ("runs",) * 40)
 
 
 def test_render_kernels_match_plain_path(cuda):

@@ -92,6 +92,13 @@ def _chain(dims, seed):
         ([15, 256, 128], 33, "float32", 1e-4),
         ([32, 256, 64, 8], 1300, "bfloat16", 2e-2),  # three layers wider than 128
         ([32, 256, 64, 8], 1300, "float32", 1e-4),
+        # the chains past the kernels' old limits, the general route on the
+        # card: 281 bands, 280 hash features, weights past shared memory, and
+        # ten layers
+        *[(dims, n, dt, 1e-4 if dt == "float32" else 2e-2)
+          for dims, n in (([28, 16, 281], 200), ([280, 64, 16], 200),
+                          ([64, 256, 256, 256], 100), ([24] + [32] * 9 + [8], 200))
+          for dt in ("float32", "bfloat16")],
     ],
 )
 def test_k2_plain_matches_pallas_backward_interpret(dims, n, dtype, tol):
@@ -211,18 +218,29 @@ def _hash_positions(kind, n, seed):
 # ids without a suffix are the random position sets these tests always had
 HASH_CASES = [pytest.param(interp, kind, id=interp + ("" if kind == "random" else "-" + kind))
               for kind in ("random", "rays") for interp in ("tetrahedral", "trilinear")]
+# (L, F) past the kernels' old limits (more than 32 levels, F other than 1,
+# 2, 4, 8) on random positions, beside HASH_CASES (L4xF2)
+HASH_SHAPE_CASES = HASH_CASES + [
+    pytest.param(interp, "random", levels, features,
+                 id=f"{interp}-L{levels}xF{features}")
+    for levels, features in ((40, 7), (16, 3), (33, 16)) for interp in ("tetrahedral", "trilinear")]
 
 
-@pytest.mark.parametrize("interp,kind", HASH_CASES)
-def test_hash_backward_deterministic_matches_jax_vjp(interp, kind):
+@pytest.mark.parametrize("interp,kind,levels,features",
+                         [pytest.param(*c.values, 4, 2, id=c.id) for c in HASH_CASES]
+                         + HASH_SHAPE_CASES[len(HASH_CASES):])
+def test_hash_backward_deterministic_matches_jax_vjp(interp, kind, levels, features):
     """The table gradient within atol 1e-6 (entries up to ~1e1): sums over
     repeated rows are taken in another order. kind="rays": 40 rays x 64
-    ray-ordered samples, where many samples share rows."""
-    jcfg = j_enc.HashEncodingConfig(interpolation=interp, stochastic_grad=False, **HASH_KW)
-    tcfg = t_enc.HashEncodingConfig(interpolation=interp, stochastic_grad=False, **HASH_KW)
-    pos = _hash_positions(kind, 3000, seed=21)
+    ray-ordered samples, where many samples share rows. Past L4xF2, the
+    shapes the kernels' any route takes."""
+    kw = dict(HASH_KW, num_levels=levels, features_per_level=features)
+    jcfg = j_enc.HashEncodingConfig(interpolation=interp, stochastic_grad=False, **kw)
+    tcfg = t_enc.HashEncodingConfig(interpolation=interp, stochastic_grad=False, **kw)
+    # the wider shapes at 1,000 positions: the file's time
+    pos = _hash_positions(kind, 3000 if (levels, features) == (4, 2) else 1000, seed=21)
     rng = np.random.default_rng(22)
-    table = rng.uniform(-1, 1, tcfg.table_size * 2).astype(np.float32)
+    table = rng.uniform(-1, 1, tcfg.table_size * features).astype(np.float32)
     g = rng.normal(size=(pos.shape[0], tcfg.output_dim)).astype(np.float32)
     jout, jvjp = jax.vjp(lambda t: j_enc.hash_encode(t, jnp.asarray(pos), jcfg), jnp.asarray(table))
     jgrad = np.asarray(jvjp(jnp.asarray(g))[0])

@@ -91,6 +91,13 @@ def _mlp_params(dims, seed):
         ([15, 256, 128], 33, "float32", 1e-5),
         ([32, 256, 64, 8], 1300, "bfloat16", 2e-2),  # three layers wider than 128
         ([32, 256, 64, 8], 1300, "float32", 1e-5),
+        # the chains past the kernels' old limits, the general route on the
+        # card: 281 bands, 280 hash features, weights past shared memory, and
+        # ten layers
+        *[(dims, n, dt, 1e-5 if dt == "float32" else 2e-2)
+          for dims, n in (([28, 16, 281], 200), ([280, 64, 16], 200),
+                          ([64, 256, 256, 256], 100), ([24] + [32] * 9 + [8], 200))
+          for dt in ("float32", "bfloat16")],
     ],
 )
 def test_k1_plain_matches_pallas_interpret(dims, n, dtype, tol):
@@ -121,10 +128,19 @@ def test_apply_mlp_shapes_activation_and_impl():
 
 
 # ------------------------------------------------------ K3 plain version
-def _hash_pair(interp):
-    kw = dict(num_levels=6, features_per_level=2, log2_hashmap_size=12,
+def _hash_pair(interp, levels=6, features=2):
+    kw = dict(num_levels=levels, features_per_level=features, log2_hashmap_size=12,
               max_resolution=256, interpolation=interp)
     return j_enc.HashEncodingConfig(**kw), t_enc.HashEncodingConfig(**kw)
+
+
+# (L, F) past the kernels' old limits (more than 32 levels, F other than 1,
+# 2, 4, 8), beside L6xF2; the ids without a suffix are the cases these
+# tests always had
+HASH_SHAPE_CASES = [pytest.param(interp, shape, id=interp + ("" if shape == (6, 2) else
+                                                             "-L{}xF{}".format(*shape)))
+                    for shape in ((6, 2), (40, 7), (16, 3), (33, 16))
+                    for interp in ("tetrahedral", "trilinear")]
 
 
 def _hash_inputs(cfg, n=4000, seed=3):
@@ -146,9 +162,9 @@ def test_hash_config_matches():
     assert t_enc.HashEncodingConfig().table_size == flag.table_size == 6_098_108
 
 
-@pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])
-def test_k3_plain_matches_hash_encode(interp):
-    jc, tc = _hash_pair(interp)
+@pytest.mark.parametrize("interp,shape", HASH_SHAPE_CASES)
+def test_k3_plain_matches_hash_encode(interp, shape):
+    jc, tc = _hash_pair(interp, *shape)
     table, pos = _hash_inputs(jc)
     ref = np.asarray(j_enc.hash_encode(jnp.asarray(table), jnp.asarray(pos), jc))
     out = t_enc.hash_encode(_t(table), _t(pos), tc)

@@ -85,6 +85,18 @@
 //    runs that start in its entries, and a run that crosses lanes is carried
 //    from lane to lane in order, on past the warp's entries while it lasts.
 //
+// Any F, any number of levels (every shape but F 1, 2, 4 or 8 at most 32
+// levels, whose template instances above take it): the entries route at
+// every level, with the level arguments from a device table (hash_grid.cuh's
+// LevelArg). emit_any_kernel writes each entry's key, its slot index k (one
+// word) and its F values at slot k; the radix sort above (one word a key)
+// moves the slot indices, and the values stay where they were written;
+// row_sum_any_kernel then has one thread sum each row, its entries in sorted
+// order (ascending e), feature after feature from +0, one __fadd_rn at a
+// time, reading the values through the sorted indices. So the bits are the
+// plain version's, as on the other routes. The launcher reports the route:
+// 0 the instances ("fixed"), 1 this one ("any").
+//
 // What bounds it on an H100: bytes. The entries route reads and writes a key
 // and F values per entry once per pass. The runs route writes each entry's
 // values once and reads them once; what it sorts is a descriptor per run (7
@@ -954,6 +966,86 @@ row_sum_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ vals
   if (lane == 0) store_row<F>(grad + static_cast<size_t>(carry_row) * F, carry);
 }
 
+// ------------------------------------------------------------ any F, any L
+
+// 1. One thread per sample: every entry of every level, its key, its slot
+// index (as the bits of a float, the word the sort moves) and its F values
+// at slot k = (l * n + s) * VE + v.
+template <bool kTetra, bool kStochastic>
+__global__ void __launch_bounds__(kThreads)
+emit_any_kernel(const float* __restrict__ pos, const float* __restrict__ g,
+                uint32_t* __restrict__ keys, float* __restrict__ slots, float* __restrict__ vals,
+                uint32_t n, int L, int F, const umhs::LevelArg* __restrict__ levels,
+                uint32_t hash_mask) {
+  const uint32_t s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= n) return;
+  const float p[3] = {__ldg(pos + 3 * s), __ldg(pos + 3 * s + 1), __ldg(pos + 3 * s + 2)};
+  const float u = kStochastic ? position_uniform(p) : 0.f;
+  constexpr int V = kTetra ? 4 : 8;
+  constexpr int VE = kStochastic ? 1 : V;
+  for (int l = 0; l < L; ++l) {
+    uint32_t rows[V];
+    float w[V];
+    umhs::hash_vertices<kTetra>(p, umhs::level_arg(levels, l), hash_mask, rows, w);
+    const float* gs = g + (static_cast<size_t>(s) * L + l) * F;
+    const size_t k = (static_cast<size_t>(l) * n + s) * VE;
+    if (kStochastic) {
+      const uint32_t row = drawn_row<V>(rows, w, level_uniform(u, l));
+      bool zero = true;
+      for (int f = 0; f < F; ++f) {
+        const float v = __ldg(gs + f);
+        vals[k * F + f] = v;
+        zero = zero && v == 0.f;
+      }
+      keys[k] = zero ? kSkip : row;
+      slots[k] = __uint_as_float(static_cast<uint32_t>(k));
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        bool zero = true;
+        for (int f = 0; f < F; ++f) {
+          const float c = __fmul_rn(w[v], __ldg(gs + f));
+          vals[(k + v) * F + f] = c;
+          zero = zero && c == 0.f;
+        }
+        keys[k + v] = zero ? kSkip : rows[v];
+        slots[k + v] = __uint_as_float(static_cast<uint32_t>(k + v));
+      }
+    }
+  }
+}
+
+constexpr int kAnySumChunk = 8;  // features a row sums at a time
+
+// 3. A thread per sorted entry; the first of each row's run sums the row:
+// kAnySumChunk features at a time, each from +0 over the run in order.
+__global__ void __launch_bounds__(kThreads)
+row_sum_any_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ slots,
+                   const uint32_t* __restrict__ count, const float* __restrict__ vals, int F,
+                   float* __restrict__ grad) {
+  const uint32_t live = *count;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= live) return;
+  const uint32_t row = keys[i];
+  if (i > 0 && keys[i - 1] == row) return;
+  size_t end = i + 1;
+  while (end < live && keys[end] == row) ++end;
+  for (int f0 = 0; f0 < F; f0 += kAnySumChunk) {
+    float acc[kAnySumChunk];
+#pragma unroll
+    for (int q = 0; q < kAnySumChunk; ++q) acc[q] = 0.f;
+    for (size_t j = i; j < end; ++j) {
+      const float* v = vals + static_cast<size_t>(__float_as_uint(slots[j])) * F + f0;
+#pragma unroll
+      for (int q = 0; q < kAnySumChunk; ++q)
+        if (f0 + q < F) acc[q] = __fadd_rn(acc[q], v[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < kAnySumChunk; ++q)
+      if (f0 + q < F) grad[static_cast<size_t>(row) * F + f0 + q] = acc[q];
+  }
+}
+
 // ------------------------------------------------------------------ launches
 
 // LSD passes of digit_bits for keys below `rows`.
@@ -1183,13 +1275,39 @@ cudaError_t launch_f(bool tetra, bool stochastic, const float* pos, const float*
                                                by_runs, by_entries, rb, sb, s);
 }
 
+// The any route's buffers: the sort of (key, slot index) and the values.
+struct AnyBuffers {
+  SortBuffers sort;
+  float* vals;
+};
+
+AnyBuffers any_buffers(Carver& cv, uint64_t m, int F) {
+  AnyBuffers b{};
+  b.sort = sort_buffers(cv, m, 1, kDigitBits);
+  b.vals = cv.take<float>(m * static_cast<uint64_t>(F));
+  return b;
+}
+
+template <bool kTetra, bool kStochastic>
+cudaError_t launch_any(const float* pos, const float* g, float* grad, uint32_t n, int L, int F,
+                       const umhs::LevelArg* levels, uint32_t hash_mask, uint64_t table_rows,
+                       AnyBuffers b, cudaStream_t stream) {
+  constexpr int VE = kStochastic ? 1 : (kTetra ? 4 : 8);
+  const uint32_t m = n * static_cast<uint32_t>(L) * VE;
+  emit_any_kernel<kTetra, kStochastic><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      pos, g, b.sort.keys_a, b.sort.vals_a, b.vals, n, L, F, levels, hash_mask);
+  radix_sort<1, kDigitBits>(b.sort, m, nullptr, sort_passes(table_rows, kDigitBits),
+                            umhs::num_sms() * kBlocksPerSm, stream);
+  row_sum_any_kernel<<<static_cast<unsigned>(ceil_div(m, kThreads)), kThreads, 0, stream>>>(
+      b.sort.keys_a, b.sort.vals_a, b.sort.count, b.vals, F, grad);
+  return cudaGetLastError();
+}
+
 uint64_t entries(int64_t n, int L, bool tetra, bool stochastic) {
   return static_cast<uint64_t>(n) * L * (stochastic ? 1 : (tetra ? 4 : 8));
 }
 
 constexpr uint64_t kMaxEntries = 0x7fffffffull;  // slot indices fit int32
-
-bool valid_f(int F) { return F == 1 || F == 2 || F == 4 || F == 8; }
 
 }  // namespace
 
@@ -1200,7 +1318,12 @@ extern "C" int64_t umhs_hash_encode_bwd_scratch_bytes(int64_t n, int L, int F, i
                                                       int stochastic, const int* runs) {
   const bool stoch = stochastic != 0;
   const uint64_t m = entries(n, L, tetrahedral != 0, stoch);
-  if (n < 0 || L < 1 || L > umhs::kMaxLevels || !valid_f(F) || m > kMaxEntries) return 0;
+  if (n < 0 || L < 1 || F < 1 || m > kMaxEntries) return 0;
+  if (!umhs::fixed_shape(L, F)) {
+    Carver cv{nullptr};
+    any_buffers(cv, m, F);
+    return static_cast<int64_t>(cv.off);
+  }
   LevelList by_runs, by_entries;
   split_levels(L, runs, by_runs, by_entries);
   const int VE = stoch ? 1 : (tetrahedral ? 4 : 8);
@@ -1220,19 +1343,46 @@ extern "C" int umhs_hash_encode_bwd(const float* pos, const float* g, float* gra
                                     int64_t n, int L, int F, const float* scales,
                                     const int* res, const int* offsets, const int* dense,
                                     int log2_hashmap_size, int tetrahedral, int stochastic,
-                                    const int* runs, void* scratch, int64_t scratch_bytes,
-                                    void* stream) {
-  Levels lv;
-  if (n < 0 || !valid_f(F) ||
-      !umhs::fill_levels(lv, L, scales, res, offsets, dense, log2_hashmap_size))
+                                    const int* runs, const void* level_table, void* scratch,
+                                    int64_t scratch_bytes, void* stream, int32_t* route) {
+  if (n < 0 || L < 1 || F < 1 || log2_hashmap_size < 1 || log2_hashmap_size > 31)
     return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(g) % (4 * F) != 0 ||
-      reinterpret_cast<uintptr_t>(grad) % (4 * F) != 0 ||
+  const bool fixed = umhs::fixed_shape(L, F);
+  const uintptr_t align = fixed ? 4 * F : 4;
+  if (reinterpret_cast<uintptr_t>(g) % align != 0 ||
+      reinterpret_cast<uintptr_t>(grad) % align != 0 ||
       reinterpret_cast<uintptr_t>(scratch) % 256 != 0)
     return cudaErrorMisalignedAddress;
-  if (n == 0) return cudaSuccess;
   const bool tetra = tetrahedral != 0, stoch = stochastic != 0;
   if (entries(n, L, tetra, stoch) > kMaxEntries) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const uint32_t n32 = static_cast<uint32_t>(n);
+  if (!fixed) {
+    for (int l = 0; runs != nullptr && l < L; ++l)
+      if (runs[l]) return cudaErrorInvalidValue;  // the any route sorts every entry
+    if (level_table == nullptr || reinterpret_cast<uintptr_t>(level_table) % 16 != 0)
+      return cudaErrorInvalidValue;
+    *route = 1;
+    if (n == 0) return cudaSuccess;
+    Carver cv{static_cast<char*>(scratch)};
+    const AnyBuffers b = any_buffers(cv, entries(n, L, tetra, stoch), F);
+    if (scratch == nullptr || scratch_bytes < static_cast<int64_t>(cv.off))
+      return cudaErrorInvalidValue;
+    const uint32_t mask = (1u << log2_hashmap_size) - 1u;
+    const uint64_t r = static_cast<uint64_t>(res[L - 1]);
+    const uint64_t rows = static_cast<uint64_t>(offsets[L - 1]) + (dense[L - 1] ? r * r * r : mask + 1ull);
+    const auto* levels = static_cast<const umhs::LevelArg*>(level_table);
+    if (tetra)
+      return stoch ? launch_any<true, true>(pos, g, grad, n32, L, F, levels, mask, rows, b, s)
+                   : launch_any<true, false>(pos, g, grad, n32, L, F, levels, mask, rows, b, s);
+    return stoch ? launch_any<false, true>(pos, g, grad, n32, L, F, levels, mask, rows, b, s)
+                 : launch_any<false, false>(pos, g, grad, n32, L, F, levels, mask, rows, b, s);
+  }
+  Levels lv;
+  if (!umhs::fill_levels(lv, L, scales, res, offsets, dense, log2_hashmap_size))
+    return cudaErrorInvalidValue;
+  *route = 0;
+  if (n == 0) return cudaSuccess;
   LevelList by_runs, by_entries;
   split_levels(L, runs, by_runs, by_entries);
   const int VE = stoch ? 1 : (tetra ? 4 : 8);
@@ -1242,8 +1392,6 @@ extern "C" int umhs_hash_encode_bwd(const float* pos, const float* g, float* gra
                                     &rb, &sb);
   if (scratch == nullptr || scratch_bytes < static_cast<int64_t>(need))
     return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  const uint32_t n32 = static_cast<uint32_t>(n);
   switch (F) {
     case 1: return launch_f<1>(tetra, stoch, pos, g, grad, n32, L, lv, res, offsets, dense,
                                by_runs, by_entries, rb, sb, s);

@@ -9,6 +9,12 @@
 // trilinear corners. Corner coordinates are clipped to res_l - 1; the row is
 // the dense linear index when res_l^3 fits the hashmap, else the XOR-prime
 // hash in wrapping uint32 masked to the hashmap size; plus the level offset.
+//
+// The per-level arguments come two ways: by value in `Levels` (at most 32
+// levels: the kernels of F 1, 2, 4 and 8) or from a device table of
+// `LevelArg`, one per level, that the wrapper builds once per configuration
+// (the kernels of any F and any number of levels). Both reach the same
+// vertex code (hash_vertices_at).
 #pragma once
 
 #include <stdint.h>
@@ -24,6 +30,22 @@ struct Levels {
   int dense[kMaxLevels];
   uint32_t hash_mask;  // hashmap_size - 1 (a power of two)
 };
+
+// One level of the device table: its scale, resolution, row offset and
+// whether it is dense (the wrapper's `_level_table`, 16 bytes a level).
+struct LevelArg {
+  float scale;
+  int res;
+  int offset;
+  int dense;
+};
+
+// Whether the template instances of K3 and K4 take (L, F): F 1, 2, 4 or 8
+// at up to 32 levels (the levels by value); every other shape runs their
+// any kernels (the levels from a device table).
+inline bool fixed_shape(int L, int F) {
+  return L >= 1 && L <= kMaxLevels && (F == 1 || F == 2 || F == 4 || F == 8);
+}
 
 // Fills `lv` from per-level host arrays; false when the sizes are not taken.
 inline bool fill_levels(Levels& lv, int L, const float* scales, const int* res,
@@ -53,14 +75,13 @@ __device__ __forceinline__ uint32_t row_index(int cx, int cy, int cz, int res, b
 __device__ __forceinline__ int clip_coord(int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
 
 // Table rows and weights of the V = 4 (tetrahedral) or 8 (trilinear)
-// vertices of position p at level l.
+// vertices of position p at a level of this scale, resolution, density and
+// row offset.
 template <bool kTetra>
-__device__ __forceinline__ void hash_vertices(const float p[3], int l, const Levels& lv,
-                                              uint32_t* rows, float* w) {
-  const float scale = lv.scale[l];
-  const int res_m1 = lv.res[l] - 1;
-  const bool dense = lv.dense[l] != 0;
-  const uint32_t off = static_cast<uint32_t>(lv.offset[l]);
+__device__ __forceinline__ void hash_vertices_at(const float p[3], float scale, int res,
+                                                 bool dense, uint32_t off, uint32_t hash_mask,
+                                                 uint32_t* rows, float* w) {
+  const int res_m1 = res - 1;
   int b[3];
   float f[3];
 #pragma unroll
@@ -87,7 +108,7 @@ __device__ __forceinline__ void hash_vertices(const float p[3], int l, const Lev
       const int cx = clip_coord(b[0] + (rx < v), res_m1);
       const int cy = clip_coord(b[1] + (ry < v), res_m1);
       const int cz = clip_coord(b[2] + (rz < v), res_m1);
-      rows[v] = row_index(cx, cy, cz, lv.res[l], dense, lv.hash_mask) + off;
+      rows[v] = row_index(cx, cy, cz, res, dense, hash_mask) + off;
     }
   } else {
 #pragma unroll
@@ -98,9 +119,31 @@ __device__ __forceinline__ void hash_vertices(const float p[3], int l, const Lev
       const float wz = oz ? f[2] : __fsub_rn(1.f, f[2]);
       w[c] = __fmul_rn(__fmul_rn(wx, wy), wz);
       rows[c] = row_index(clip_coord(b[0] + ox, res_m1), clip_coord(b[1] + oy, res_m1),
-                          clip_coord(b[2] + oz, res_m1), lv.res[l], dense, lv.hash_mask) + off;
+                          clip_coord(b[2] + oz, res_m1), res, dense, hash_mask) + off;
     }
   }
+}
+
+// ... at level l of `lv`.
+template <bool kTetra>
+__device__ __forceinline__ void hash_vertices(const float p[3], int l, const Levels& lv,
+                                              uint32_t* rows, float* w) {
+  hash_vertices_at<kTetra>(p, lv.scale[l], lv.res[l], lv.dense[l] != 0,
+                           static_cast<uint32_t>(lv.offset[l]), lv.hash_mask, rows, w);
+}
+
+// ... at the level of a device table's entry.
+template <bool kTetra>
+__device__ __forceinline__ void hash_vertices(const float p[3], const LevelArg& a,
+                                              uint32_t hash_mask, uint32_t* rows, float* w) {
+  hash_vertices_at<kTetra>(p, a.scale, a.res, a.dense != 0, static_cast<uint32_t>(a.offset),
+                           hash_mask, rows, w);
+}
+
+// The level arguments of entry l of a device table.
+__device__ __forceinline__ LevelArg level_arg(const LevelArg* table, int l) {
+  const int4 v = __ldg(reinterpret_cast<const int4*>(table) + l);
+  return LevelArg{__int_as_float(v.x), v.y, v.z, v.w};
 }
 
 }  // namespace umhs

@@ -28,9 +28,10 @@
 // small, so an ideal kernel is bound by bytes: 0.112 ms for the four field
 // chains at 262,144 rows (x and g read once, dx written once, at 3.35 TB/s).
 //
-// Three kernels, chosen by mode and shape in the C launcher below (a
-// dispatch on shape: a failed launch still returns its error, and nothing
-// falls back from one kernel to another):
+// Three fused kernels and the general route, chosen by mode and shape in
+// the C launcher below (a dispatch on shape: a failed launch still returns
+// its error, nothing falls back from one kernel to another, and the
+// launcher reports the route it took):
 //
 // - bf16 mode, every padded width <= 128 and at most 16 dW tiles per warp
 //   (8 where a width exceeds 64; the four field chains, the proposal chain):
@@ -85,6 +86,13 @@
 //   float4s along rows, and the dW product has each thread own rows i,
 //   i + D/4, i + 2D/4, i + 3D/4 so a warp's float4 reads fall in distinct
 //   banks. It is bound by its shared-memory traffic.
+// - every other chain (as K1's rule: a width above 256, more than 8
+//   layers, or no room for either FMA kernel): the general route of
+//   mlp_general.cuh. It recomputes each layer's input with K1's general
+//   kernel into a device scratch, walks the layers back with a product per
+//   step, and sums dW and db from per-block partials in block order, then
+//   chunk order (umhs_mlp_fused_bwd_scratch_bytes sizes its buffers, by
+//   layer: the largest layer's partials, reused).
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -92,13 +100,13 @@
 
 #include "common.cuh"
 #include "mlp_chain_tc.cuh"
+#include "mlp_general.cuh"
 
 namespace {
 
-constexpr int kMaxLayers = 8;
-constexpr int kMaxWidth = 256;
+constexpr int kMaxLayers = umhs::kFusedMaxLayers;  // the FMA kernel's; deeper chains go general
 constexpr int kThreads = 256;
-constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
+constexpr int kSmemLimit = umhs::kFusedSmemLimit;
 
 struct Dims {
   int d[kMaxLayers + 1];
@@ -1123,27 +1131,72 @@ int bf16_route(const int* d, int L, TcBwdDims& td, size_t& smem, WideBwdDims& wd
   return 0;
 }
 
+// The route of the chain d[0..L] in this mode: the bf16 codes above, 0 for
+// the FMA kernel, 2 for the general route (mlp_general.cuh, the rule K1's
+// launcher applies too); -1 for a chain it refuses (a width below 1).
+int route_of(const int* d, int L, bool bf16, TcBwdDims& td, size_t& smem, WideBwdDims& wd) {
+  if (L < 1) return -1;
+  for (int l = 0; l <= L; ++l)
+    if (d[l] < 1) return -1;
+  if (!umhs::fused_shape(d, L)) return 2;
+  if (bf16) {
+    const int r = bf16_route(d, L, td, smem, wd);
+    if (r != 0) return r;
+  }
+  return umhs::fma_takes(d, L) ? 0 : 2;
+}
+
+// The index of a route code among the wrapper's names (MLP_BWD_ROUTES).
+int route_index(int code, bool bf16) {
+  switch (code) {
+    case 0: return bf16 ? 1 : 0;
+    case 808: return 2;
+    case 408: return 3;
+    case 416: return 4;
+    case 1: return 5;
+    default: return bf16 ? 7 : 6;
+  }
+}
+
 }  // namespace
 
 // x: (n, dims[0]) f32; g: (n, dims[num_layers]) f32, the gradient of the
 // chain's output; params: [W0, b0, W1, b1, ...] f32 as for K1. Writes dx
 // (n, dims[0]) unless dx is null, and dparams in the params layout.
-// partials: scratch of max_blocks x len(params) floats (max_blocks >= 1).
+// partials: umhs_mlp_fused_bwd_scratch_bytes(...) bytes of device scratch,
+// 256-byte aligned (the fused kernels' max_blocks x len(params) floats of
+// partial sums, or the general route's buffers); max_blocks >= 1. Writes
+// the route it took (its index among the wrapper's route names) to *route.
 // Returns a cudaError_t.
 extern "C" int umhs_mlp_fused_bwd(const float* x, const float* g, const float* params,
                                   float* dx, float* dx_partials, float* partials,
-                                  float* dparams, const int* dims_host, int num_layers, int n,
-                                  int bf16, int max_blocks, void* stream) {
-  if (num_layers < 1 || num_layers > kMaxLayers || n < 0 || max_blocks < 1)
-    return cudaErrorInvalidValue;
-  for (int l = 0; l <= num_layers; ++l)
-    if (dims_host[l] < 1 || dims_host[l] > kMaxWidth) return cudaErrorInvalidValue;
+                                  int64_t partials_bytes, float* dparams, const int* dims_host,
+                                  int num_layers, int n, int bf16, int max_blocks, void* stream,
+                                  int32_t* route_out) {
+  TcBwdDims td;
+  WideBwdDims wd;
+  size_t smem = 0;
+  const int route = route_of(dims_host, num_layers, bf16 != 0, td, smem, wd);
+  if (route < 0 || n < 0 || max_blocks < 1) return cudaErrorInvalidValue;
+  *route_out = route_index(route, bf16 != 0);
   auto s = static_cast<cudaStream_t>(stream);
+  if (route == 2) {
+    const size_t need = umhs::general::bwd_scratch_bytes(dims_host, num_layers, bf16 != 0, n);
+    if (partials == nullptr || reinterpret_cast<uintptr_t>(partials) % 256 != 0 ||
+        partials_bytes < static_cast<int64_t>(need))
+      return cudaErrorInvalidValue;
+    if (n == 0) {  // no rows: every gradient is zero
+      int64_t count = 0;
+      for (int l = 0; l < num_layers; ++l)
+        count += int64_t{dims_host[l]} * dims_host[l + 1] + dims_host[l + 1];
+      return cudaMemsetAsync(dparams, 0, sizeof(float) * count, s);
+    }
+    return bf16 ? umhs::general::backward<__nv_bfloat16>(x, g, params, dx, dparams, n, dims_host,
+                                                         num_layers, partials, s)
+                : umhs::general::backward<float>(x, g, params, dx, dparams, n, dims_host,
+                                                 num_layers, partials, s);
+  }
   if (bf16) {
-    TcBwdDims td;
-    WideBwdDims wd;
-    size_t smem = 0;
-    const int route = bf16_route(dims_host, num_layers, td, smem, wd);
     if (route != 0 && (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
                        reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
                        reinterpret_cast<uintptr_t>(dx) % 16 != 0))
@@ -1184,46 +1237,51 @@ extern "C" int umhs_mlp_fused_bwd(const float* x, const float* g, const float* p
   dims.w_floats = w_floats;
   dims.param_floats = param_floats;
   // Largest tile that leaves room for two blocks per SM (else for one).
-  auto smem_for = [&](int tr) {
-    return sizeof(float) * (static_cast<size_t>(w_floats) +
-                            static_cast<size_t>(act_rows + 2 * max_width4) * (tr + 4));
-  };
-  int tr = 0;
-  for (const size_t limit : {static_cast<size_t>(kSmemLimit / 2), static_cast<size_t>(kSmemLimit)}) {
-    for (int t = 128; t >= 4 && !tr; t /= 2)
-      if (smem_for(t) <= limit) tr = t;
-    if (tr) break;
-  }
-  if (!tr) return cudaErrorInvalidValue;
+  size_t fma_smem = 0;
+  const int tr = umhs::fma_bwd_tile(dims_host, num_layers, &fma_smem);
   dims.tile_rows = tr;
   dims.stride = tr + 4;
   for (int l = 0; l < num_layers; ++l) dims.aoff[l] *= dims.stride;
   dims.act_floats = act_rows * dims.stride;
-  const size_t smem = smem_for(tr);
-  return bf16 ? launch<true>(x, g, params, dx, partials, dparams, n, dims, smem, max_blocks, s)
-              : launch<false>(x, g, params, dx, partials, dparams, n, dims, smem, max_blocks, s);
+  return bf16 ? launch<true>(x, g, params, dx, partials, dparams, n, dims, fma_smem, max_blocks, s)
+              : launch<false>(x, g, params, dx, partials, dparams, n, dims, fma_smem, max_blocks,
+                              s);
 }
 
 // The kernel umhs_mlp_fused_bwd runs for the chain dims[0..num_layers] in
 // this mode: 100 kKT + kOwn for mlp_fused_bwd_tc_kernel<kKT, kOwn>, 1 for
-// mlp_fused_bwd_wide_kernel, 0 for the FMA kernel; -1 for a chain it refuses.
+// mlp_fused_bwd_wide_kernel, 0 for the FMA kernel, 2 for the general route;
+// -1 for a chain it refuses.
 extern "C" int umhs_mlp_fused_bwd_route(const int* dims_host, int num_layers, int bf16) {
-  if (num_layers < 1 || num_layers > kMaxLayers) return -1;
-  for (int l = 0; l <= num_layers; ++l)
-    if (dims_host[l] < 1 || dims_host[l] > kMaxWidth) return -1;
-  if (!bf16) return 0;
   TcBwdDims td;
   WideBwdDims wd;
   size_t smem = 0;
-  return bf16_route(dims_host, num_layers, td, smem, wd);
+  return route_of(dims_host, num_layers, bf16 != 0, td, smem, wd);
 }
 
 // The number of (n, dims[0]) f32 slices of dx_partials umhs_mlp_fused_bwd
 // needs for this chain and mode when dx is wanted: the wide kernel's slices
-// of the hidden width when there are two or more, else 0.
+// of the hidden width when there are two or more, else 0 (the general route
+// writes dx directly).
 extern "C" int umhs_mlp_fused_bwd_dx_slices(const int* dims_host, int num_layers, int bf16) {
   if (umhs_mlp_fused_bwd_route(dims_host, num_layers, bf16) != 1) return 0;
   WideBwdDims wd;
   wide_bwd_dims(dims_host, num_layers, wd);
   return wd.slices > 1 ? wd.slices : 0;
+}
+
+// Bytes of the scratch (`partials`) umhs_mlp_fused_bwd needs for n rows of
+// the chain in this mode with max_blocks: the general route's buffers, else
+// max_blocks rows of partial sums of every parameter.
+extern "C" int64_t umhs_mlp_fused_bwd_scratch_bytes(const int* dims_host, int num_layers,
+                                                    int bf16, int64_t n, int max_blocks) {
+  const int route = umhs_mlp_fused_bwd_route(dims_host, num_layers, bf16);
+  if (route < 0) return 0;
+  if (route == 2)
+    return static_cast<int64_t>(
+        umhs::general::bwd_scratch_bytes(dims_host, num_layers, bf16 != 0, std::max<int64_t>(n, 1)));
+  int64_t count = 0;
+  for (int l = 0; l < num_layers; ++l)
+    count += int64_t{dims_host[l]} * dims_host[l + 1] + dims_host[l + 1];
+  return static_cast<int64_t>(sizeof(float)) * max_blocks * count;
 }

@@ -14,8 +14,9 @@
 // takes 0.565 ms even at their peak, so the bf16 mode runs on the tensor
 // cores.
 //
-// Three kernels, chosen by mode and shape in the C launcher below (a
-// dispatch on shape: a failed launch still returns its error):
+// Three fused kernels and the general route, chosen by mode and shape in
+// the C launcher below (a dispatch on shape: a failed launch still returns
+// its error; the launcher reports the route it took):
 //
 // - bf16 mode, every padded width <= 128 (the four flagship chains):
 //   mlp_fused_fwd_tc_kernel, mma.sync m16n8k16 bf16 with f32 accumulation
@@ -79,15 +80,15 @@
 
 #include "common.cuh"
 #include "mlp_chain_tc.cuh"
+#include "mlp_general.cuh"
 
 namespace {
 
-constexpr int kMaxLayers = 8;
-constexpr int kMaxWidth = 256;
+constexpr int kMaxLayers = umhs::kFusedMaxLayers;  // the FMA kernel's; deeper chains go general
 constexpr int kThreads = 256;
 constexpr int kRB = 4;  // rows per thread
 constexpr int kCB = 4;  // columns per thread
-constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
+constexpr int kSmemLimit = umhs::kFusedSmemLimit;
 
 struct Dims {
   int d[kMaxLayers + 1];
@@ -501,74 +502,105 @@ int bf16_route(const int* d, int num_layers, TcDims& td, WideDims& wd, size_t& s
   return 0;
 }
 
+// The route of the chain d[0..num_layers] in this mode: 100 kKT + kM for
+// mlp_fused_fwd_tc_kernel<kKT, kM>, 1 for mlp_fused_fwd_wide_kernel, 0 for
+// the FMA kernel, 2 for the general route (mlp_general.cuh); -1 for a chain
+// it refuses (a width below 1). Fills the dims and shared-memory bytes of
+// the tensor-core kernel it names.
+int route_of(const int* d, int num_layers, bool bf16, TcDims& td, WideDims& wd, size_t& smem) {
+  if (num_layers < 1) return -1;
+  for (int l = 0; l <= num_layers; ++l)
+    if (d[l] < 1) return -1;
+  if (!umhs::fused_shape(d, num_layers)) return 2;
+  if (bf16) {
+    const int r = bf16_route(d, num_layers, td, wd, smem);
+    if (r != 0) return r;
+  }
+  return umhs::fma_takes(d, num_layers) ? 0 : 2;
+}
+
+// The index of a route code among the wrapper's names (MLP_FWD_ROUTES).
+int route_index(int code, bool bf16) {
+  switch (code) {
+    case 0: return bf16 ? 1 : 0;
+    case 402: return 2;
+    case 801: return 3;
+    case 1: return 4;
+    default: return bf16 ? 6 : 5;
+  }
+}
+
 }  // namespace
 
 // x: (n, dims[0]) f32; params: [W0, b0, W1, b1, ...] f32 with W_i row-major
 // (dims[i], dims[i+1]); y: (n, dims[num_layers]) f32; x and y 16-byte
-// aligned. Returns a cudaError_t.
+// aligned; scratch: umhs_mlp_fused_fwd_scratch_bytes(...) bytes of device
+// memory, 256-byte aligned (null where that is 0). Writes the route it took
+// (its index among the wrapper's route names) to *route. Returns a
+// cudaError_t.
 extern "C" int umhs_mlp_fused_fwd(const float* x, const float* params, float* y,
-                                  const int* dims_host, int num_layers, int n,
-                                  int bf16, void* stream) {
-  if (num_layers < 1 || num_layers > kMaxLayers || n < 0)
-    return cudaErrorInvalidValue;
+                                  const int* dims_host, int num_layers, int n, int bf16,
+                                  void* scratch, int64_t scratch_bytes, void* stream,
+                                  int32_t* route) {
+  TcDims td;
+  WideDims wd;
+  size_t tc_smem = 0;
+  const int code = route_of(dims_host, num_layers, bf16 != 0, td, wd, tc_smem);
+  if (code < 0 || n < 0) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0)
     return cudaErrorMisalignedAddress;
+  *route = route_index(code, bf16 != 0);
   if (n == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (code) {
+    case 402: return launch_tc<4, 2>(x, params, y, n, td, tc_smem, s);
+    case 801: return launch_tc<8, 1>(x, params, y, n, td, tc_smem, s);
+    case 1: return launch_wide(x, params, y, n, wd, tc_smem, s);
+    case 2: {
+      const size_t need = umhs::general::fwd_scratch_bytes(dims_host, num_layers, bf16 != 0, n);
+      if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 256 != 0 ||
+          scratch_bytes < static_cast<int64_t>(need))
+        return cudaErrorInvalidValue;
+      return bf16 ? umhs::general::forward<__nv_bfloat16>(x, params, y, n, dims_host, num_layers,
+                                                          scratch, s)
+                  : umhs::general::forward<float>(x, params, y, n, dims_host, num_layers,
+                                                  scratch, s);
+    }
+    default: break;
+  }
   Dims dims{};
   dims.num_layers = num_layers;
-  int max_width4 = 0, param_floats = 0;
   for (int l = 0; l <= num_layers; ++l) {
-    const int w = dims_host[l];
-    if (w < 1 || w > kMaxWidth) return cudaErrorInvalidValue;
-    dims.d[l] = w;
-    max_width4 = std::max(max_width4, round4(w));
-    if (l > 0) param_floats += dims_host[l - 1] * round4(w) + round4(w);
+    dims.d[l] = dims_host[l];
+    dims.max_width4 = std::max(dims.max_width4, round4(dims_host[l]));
+    if (l > 0) dims.param_floats += dims_host[l - 1] * round4(dims_host[l]) + round4(dims_host[l]);
   }
-  auto s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    TcDims td;
-    WideDims wd;
-    size_t smem = 0;
-    switch (bf16_route(dims_host, num_layers, td, wd, smem)) {
-      case 402: return launch_tc<4, 2>(x, params, y, n, td, smem, s);
-      case 801: return launch_tc<8, 1>(x, params, y, n, td, smem, s);
-      case 1: return launch_wide(x, params, y, n, wd, smem, s);
-      default: break;
-    }
-  }
-  dims.max_width4 = max_width4;
-  dims.param_floats = param_floats;
   // Largest tile that leaves room for two blocks per SM (else for one):
   // 128 rows make a warp's 32 row groups share one weight column block
   // (broadcast loads); wider chains take fewer rows.
-  auto smem_for = [&](int tr) {
-    return sizeof(float) * (static_cast<size_t>(param_floats) +
-                            2 * static_cast<size_t>(max_width4) * (tr + 4));
-  };
-  int tr = 0;
-  for (const size_t limit : {static_cast<size_t>(kSmemLimit / 2), static_cast<size_t>(kSmemLimit)}) {
-    for (int t = 128; t >= kRB && !tr; t /= 2)
-      if (smem_for(t) <= limit) tr = t;
-    if (tr) break;
-  }
-  if (!tr) return cudaErrorInvalidValue;
-  const size_t smem = smem_for(tr);
-  dims.tile_rows = tr;
-  dims.stride = tr + 4;
+  size_t smem = 0;
+  dims.tile_rows = umhs::fma_fwd_tile(dims_host, num_layers, &smem);
+  dims.stride = dims.tile_rows + 4;
   return bf16 ? launch<true>(x, params, y, n, dims, smem, s)
               : launch<false>(x, params, y, n, dims, smem, s);
 }
 
 // The kernel umhs_mlp_fused_fwd runs for the chain dims[0..num_layers] in
 // this mode: 100 kKT + kM for mlp_fused_fwd_tc_kernel<kKT, kM>, 1 for
-// mlp_fused_fwd_wide_kernel, 0 for the FMA kernel; -1 for a chain it refuses.
+// mlp_fused_fwd_wide_kernel, 0 for the FMA kernel, 2 for the general route;
+// -1 for a chain it refuses.
 extern "C" int umhs_mlp_fused_fwd_route(const int* dims_host, int num_layers, int bf16) {
-  if (num_layers < 1 || num_layers > kMaxLayers) return -1;
-  for (int l = 0; l <= num_layers; ++l)
-    if (dims_host[l] < 1 || dims_host[l] > kMaxWidth) return -1;
-  if (!bf16) return 0;
   TcDims td;
   WideDims wd;
   size_t smem = 0;
-  return bf16_route(dims_host, num_layers, td, wd, smem);
+  return route_of(dims_host, num_layers, bf16 != 0, td, wd, smem);
+}
+
+// Bytes of scratch umhs_mlp_fused_fwd needs for n rows of the chain in this
+// mode: the general route's packed weights and activations, else 0.
+extern "C" int64_t umhs_mlp_fused_fwd_scratch_bytes(const int* dims_host, int num_layers,
+                                                    int bf16, int64_t n) {
+  if (umhs_mlp_fused_fwd_route(dims_host, num_layers, bf16) != 2 || n <= 0) return 0;
+  return static_cast<int64_t>(
+      umhs::general::fwd_scratch_bytes(dims_host, num_layers, bf16 != 0, n));
 }

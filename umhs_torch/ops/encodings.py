@@ -11,9 +11,14 @@
   package. The forward saves only the positions (the JAX residual) and the
   positions get no gradient, as in the JAX custom VJP.
 
-On a CUDA tensor K3 and K4 take every configuration they accept (F in 1, 2,
-4, 8; L up to 32; tetrahedral or trilinear) and K4 both modes, stochastic
-(the main path's) and deterministic. In K3 a warp takes 32 neighbouring
+On a CUDA tensor K3 and K4 take every configuration the JAX package takes
+(any F, any number of levels, tetrahedral or trilinear) and K4 both modes,
+stochastic (the main path's) and deterministic. F 1, 2, 4 and 8 at up to 32
+levels run template instances with the levels passed by value (the route
+"fixed"); every other shape runs kernels that read the levels from a device
+table built once per configuration (`_level_table`) and loop over F (the
+route "any"; `hash_kernel_fixed` says which, each launcher reports it in
+`Kernel.routes`). In K3 a warp takes 32 neighbouring
 samples at one level, and a block's rows of the output leave through shared
 memory as coalesced streaming stores. K4 fixes the order of its sums: it adds
 each row's contributions in ascending entry order from +0, as the plain
@@ -22,6 +27,7 @@ training run repeats bit for bit. Each level takes one of two routes to that
 order (`hash_encode_bwd_route`): "runs" sorts each chunk of consecutive
 samples by row in shared memory and then sorts the chunks' runs of equal rows
 globally; "entries" sorts every (row, entry) pair with a stable radix sort.
+The "any" route takes "entries" at every level.
 
 Indices are computed in int64. The XOR-prime hash wraps in uint32 on the
 TPU and in the kernel, so the plain versions mask it with 0xFFFFFFFF before
@@ -385,13 +391,48 @@ def _level_args(config: HashEncodingConfig):
     )
 
 
+_LEVEL_TABLES = {}  # (config, device) -> the launchers' device table of levels
+
+
+def _level_table(config: HashEncodingConfig, device: torch.device) -> torch.Tensor:
+    """The per-level arguments as the "any" kernels read them: (L, 4) int32
+    on the device, a row (scale as its f32 bits, resolution, row offset,
+    dense) a level (csrc/hash_grid.cuh's LevelArg), built once per
+    configuration and device."""
+    key = (config, device)
+    if key not in _LEVEL_TABLES:
+        rows = np.zeros((config.num_levels, 4), np.int32)
+        rows[:, 0] = np.asarray(config.scales, np.float32).view(np.int32)
+        rows[:, 1] = config.resolutions
+        rows[:, 2] = config.level_offsets
+        rows[:, 3] = [int(d) for d in config.dense]
+        _LEVEL_TABLES[key] = torch.from_numpy(rows).to(device)
+    return _LEVEL_TABLES[key]
+
+
+def hash_kernel_fixed(config: HashEncodingConfig) -> bool:
+    """Whether K3 and K4 run their template instances ("fixed": F 1, 2, 4 or
+    8 at up to 32 levels, the levels by value) rather than the "any" kernels:
+    the launchers' rule (csrc/hash_grid.cuh's fixed_shape), whose outcome
+    each launcher reports."""
+    return config.features_per_level in (1, 2, 4, 8) and config.num_levels <= 32
+
+
+def _row_align(config: HashEncodingConfig) -> int:
+    """Byte alignment the kernels' vector loads need of the table, g and the
+    gradient: a row's F floats on the fixed route, a float4 of a row on the
+    any route where F % 4 == 0, else a float."""
+    F = config.features_per_level
+    if hash_kernel_fixed(config):
+        return 4 * F
+    return 16 if F % 4 == 0 else 4
+
+
 def _check_positions(name: str, pos: torch.Tensor, config: HashEncodingConfig) -> None:
     if pos.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {pos.device}")
     if pos.dtype != torch.float32 or pos.dim() != 2 or pos.shape[1] != 3 or not pos.is_contiguous():
         raise ValueError(f"{name}: positions must be a contiguous (N, 3) float32 tensor")
-    if config.features_per_level not in (1, 2, 4, 8) or config.num_levels > 32:
-        raise ValueError(f"{name}: F must be 1, 2, 4 or 8 and L <= 32")
 
 
 HASH_ENCODE_FWD = Kernel(
@@ -400,7 +441,7 @@ HASH_ENCODE_FWD = Kernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
      ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-     ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+     ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 )
 HASH_ENCODE_BWD = Kernel(
     "hash_encode_bwd.cu",
@@ -409,8 +450,12 @@ HASH_ENCODE_BWD = Kernel(
      ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
      ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
+     ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+     ctypes.c_void_p],
 )
+# the kernels K3's and K4's launchers report, by the index they write:
+# the template instances (F 1, 2, 4, 8 at up to 32 levels) or the any kernels
+HASH_KERNEL_ROUTES = ("fixed", "any")
 
 # K4's routes, per level: "runs" (chunks sorted in shared memory, then their
 # runs of equal rows sorted) and "entries" (every (row, entry) pair sorted)
@@ -433,10 +478,12 @@ def hash_encode_bwd_route(
     and cell) at levels of resolution at most RUNS_MAX_RESOLUTION whose rows
     get RUNS_MIN_ENTRIES_PER_ROW or more of the n * 8 entries on average;
     "entries" elsewhere: the stochastic mode's one entry per (sample, level)
-    and the tetrahedral 4 leave too few entries per run."""
+    and the tetrahedral 4 leave too few entries per run. The any kernels
+    (not `hash_kernel_fixed`) take "entries" at every level."""
     if n < 0:
         raise ValueError(f"hash_encode_bwd_route: n = {n}")
-    pays = not stochastic and config.interpolation == "trilinear"
+    pays = (not stochastic and config.interpolation == "trilinear"
+            and hash_kernel_fixed(config))
     return tuple(
         "runs" if pays and res <= RUNS_MAX_RESOLUTION
         and n * 8 >= RUNS_MIN_ENTRIES_PER_ROW * rows else "entries"
@@ -486,15 +533,18 @@ def hash_encode_fwd(
     _check_positions("hash_encode_fwd", pos, config)
     L, F = config.num_levels, config.features_per_level
     if (table.dtype != torch.float32 or table.device != pos.device or not table.is_contiguous()
-            or table.numel() != config.table_size * F or table.data_ptr() % (4 * F) != 0):
+            or table.numel() != config.table_size * F
+            or table.data_ptr() % _row_align(config) != 0):
         raise ValueError("hash_encode_fwd: table must be a contiguous, aligned float32 "
                          "(T * F,) tensor on the positions' device")
     n = pos.shape[0]
     out = torch.empty((n, L * F), dtype=torch.float32, device=pos.device)
+    levels = None if hash_kernel_fixed(config) else _level_table(config, pos.device)
     with torch.cuda.device(pos.device):
         HASH_ENCODE_FWD.launch(
             pos.data_ptr(), table.data_ptr(), out.data_ptr(), n, L, F, *_level_args(config),
-            torch.cuda.current_stream(pos.device).cuda_stream,
+            None if levels is None else levels.data_ptr(),
+            torch.cuda.current_stream(pos.device).cuda_stream, routes=HASH_KERNEL_ROUTES,
         )
     return out
 
@@ -510,15 +560,15 @@ def hash_encode_bwd(
     there (in the stochastic mode wherever both choose the same vertex) and
     the same bits on every run, on either route. `route` names each level's
     (default: hash_encode_bwd_route's rule). Its sort buffers come from
-    PyTorch's caching allocator. It reads g with vector loads, so g must be
-    aligned to 4 * F bytes (a fresh tensor always is)."""
+    PyTorch's caching allocator. On the fixed route it reads g with vector
+    loads, so g must be aligned to 4 * F bytes (a fresh tensor always is)."""
     if pos.device.type == "cpu":
         return hash_encode_bwd_plain(pos, g, config, stochastic)
     _check_positions("hash_encode_bwd", pos, config)
     L, F = config.num_levels, config.features_per_level
     n = pos.shape[0]
     if (g.dtype != torch.float32 or tuple(g.shape) != (n, L * F) or g.device != pos.device
-            or not g.is_contiguous() or g.data_ptr() % (4 * F) != 0):
+            or not g.is_contiguous() or g.data_ptr() % _row_align(config) != 0):
         raise ValueError("hash_encode_bwd: g must be a contiguous, aligned float32 (N, L * F) "
                          "tensor on the positions' device")
     grad = torch.zeros(config.table_size * F, dtype=torch.float32, device=pos.device)
@@ -529,11 +579,13 @@ def hash_encode_bwd(
     if nbytes == 0:
         raise ValueError(f"hash_encode_bwd: {n} samples x {L} levels exceed 2^31 - 1 entries")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=pos.device)
+    levels = None if hash_kernel_fixed(config) else _level_table(config, pos.device)
     with torch.cuda.device(pos.device):
         HASH_ENCODE_BWD.launch(
             pos.data_ptr(), g.data_ptr(), grad.data_ptr(), n, L, F, *_level_args(config),
-            int(stochastic), _route_flags(route), scratch.data_ptr(), nbytes,
-            torch.cuda.current_stream(pos.device).cuda_stream,
+            int(stochastic), _route_flags(route), None if levels is None else levels.data_ptr(),
+            scratch.data_ptr(), nbytes, torch.cuda.current_stream(pos.device).cuda_stream,
+            routes=HASH_KERNEL_ROUTES,
         )
     return grad
 

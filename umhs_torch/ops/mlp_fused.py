@@ -2,29 +2,37 @@
 autograd Function that joins them, and their plain versions.
 
 `mlp_fused_fwd` runs a whole layer chain (ReLU between layers, linear last
-layer) in one launch of ``csrc/mlp_fused_fwd.cu``, the port of the Pallas
-kernel ``umhs_tpu/ops/pallas/mlp_fused.py::_fwd_kernel``. Its launcher picks
-the kernel by mode and shape. Under a bf16 compute dtype a chain whose
-widths, padded (inputs to 16, hidden widths to 16, the output to 8), are all
-at most 128 runs on the tensor cores with its activations in registers (the
-four field chains, the proposal chain); a chain of one or two layers up to
-256 wide (the DINO head's 15 -> 256 -> 128) runs the wide tensor-core
-kernel, its activations in shared memory; f32, and deeper chains wider than
-128, run the f32 FMA kernel. Either way it is the one launch counted
-(`mlp_fused_fwd_route` names the kernel).
+layer) through ``csrc/mlp_fused_fwd.cu``, the port of the Pallas kernel
+``umhs_tpu/ops/pallas/mlp_fused.py::_fwd_kernel``. Its launcher picks the
+kernel by mode and shape. Under a bf16 compute dtype a chain whose widths,
+padded (inputs to 16, hidden widths to 16, the output to 8), are all at most
+128 runs on the tensor cores with its activations in registers (the four
+field chains, the proposal chain); a chain of one or two layers up to 256
+wide (the DINO head's 15 -> 256 -> 128) runs the wide tensor-core kernel,
+its activations in shared memory; f32, and deeper chains wider than 128,
+run the f32 FMA kernel in one launch. Every other chain (a width above 256,
+more than 8 layers, or weights that leave the FMA kernels no room in a
+block's shared memory) takes the general route (``csrc/mlp_general.cuh``):
+a product per layer over 64 x 64 tiles, the activations through a device
+scratch that the wrapper allocates (`mlp_fused_fwd_scratch_bytes`). The
+launcher reports the route it took (`MLP_FWD_ROUTES`, counted in
+`Kernel.routes`); `mlp_fused_fwd_route` names it before a launch.
 
 `mlp_fused_bwd` runs ``csrc/mlp_fused_bwd.cu``, the port of ``_bwd_kernel``:
-it recomputes the forward per tile and returns dx (unless not wanted) and
-every dW_i, db_i. Its launcher, too, picks the kernel by mode and shape: a
-bf16 chain within 128 padded wide whose dW tiles fit its warps' registers
-(the field chains) runs on the tensor cores, recomputing with K1's own
-chain; a bf16 two-layer chain up to 256 wide (the DINO head) runs the wide
+it recomputes the forward and returns dx (unless not wanted) and every
+dW_i, db_i. Its launcher, too, picks the kernel by mode and shape: a bf16
+chain within 128 padded wide whose dW tiles fit its warps' registers (the
+field chains) runs on the tensor cores, recomputing with K1's own chain; a
+bf16 two-layer chain up to 256 wide (the DINO head) runs the wide
 tensor-core kernel, which splits the hidden width into slices of 64
 columns, one per block row of the grid, and recomputes with K1's wide
-arithmetic; f32 and other chains run the f32 FMA kernel
-(`mlp_fused_bwd_route` names it). With more than one slice, dx comes from
-per-slice partials summed in slice order (`dx_partials`). `mlp_fused` is
-the `torch.autograd.Function` over both: its forward saves only x and the
+arithmetic; f32 and other chains within the FMA kernels' limits run the f32
+FMA kernel; the rest take the general route, which recomputes with K1's
+general kernel (`MLP_BWD_ROUTES`, `mlp_fused_bwd_route`). With more than
+one slice, dx comes from per-slice partials summed in slice order
+(`dx_partials`). The scratch of partial sums is sized by the library
+(`umhs_mlp_fused_bwd_scratch_bytes`). `mlp_fused` is the
+`torch.autograd.Function` over both: its forward saves only x and the
 weights, as the JAX custom VJP does.
 
 On a CPU tensor each wrapper runs its plain version instead; on a CUDA
@@ -48,22 +56,30 @@ import torch
 
 from ._native import Kernel
 
-MAX_LAYERS = 8
-MAX_WIDTH = 256
-
 MLP_FUSED_FWD = Kernel(
     "mlp_fused_fwd.cu",
     "umhs_mlp_fused_fwd",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+     ctypes.c_void_p],
 )
 MLP_FUSED_BWD = Kernel(
     "mlp_fused_bwd.cu",
     "umhs_mlp_fused_bwd",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 )
+# The routes the launchers report, by the index they write (the device
+# kernel each runs, named as ptxas names it; "mlp_general<bf16>" is the
+# general route's products, mlp_gemm_kernel, in csrc/mlp_general.cuh).
+MLP_FWD_ROUTES = ("mlp_fused_fwd_kernel<0>", "mlp_fused_fwd_kernel<1>",
+                  "mlp_fused_fwd_tc_kernel<4,2>", "mlp_fused_fwd_tc_kernel<8,1>",
+                  "mlp_fused_fwd_wide_kernel", "mlp_general<0>", "mlp_general<1>")
+MLP_BWD_ROUTES = ("mlp_fused_bwd_kernel<0>", "mlp_fused_bwd_kernel<1>",
+                  "mlp_fused_bwd_tc_kernel<8,8>", "mlp_fused_bwd_tc_kernel<4,8>",
+                  "mlp_fused_bwd_tc_kernel<4,16>", "mlp_fused_bwd_wide_kernel",
+                  "mlp_general<0>", "mlp_general<1>")
 
 LayerGrads = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -110,8 +126,8 @@ def _chain_dims(name: str, params, x: torch.Tensor, compute_dtype) -> List[int]:
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous 2-D float32 tensor")
     layers = params["layers"]
-    if not 1 <= len(layers) <= MAX_LAYERS:
-        raise ValueError(f"{name}: 1..{MAX_LAYERS} layers supported")
+    if not layers:
+        raise ValueError(f"{name}: a chain needs a layer")
     dims = [x.shape[1]]
     for layer in layers:
         w, b = layer["w"], layer["b"]
@@ -120,8 +136,6 @@ def _chain_dims(name: str, params, x: torch.Tensor, compute_dtype) -> List[int]:
                 or w.device != x.device or b.device != x.device):
             raise ValueError(f"{name}: layer shapes, dtypes or devices do not chain")
         dims.append(w.shape[1])
-    if max(dims) > MAX_WIDTH:
-        raise ValueError(f"{name}: widths above {MAX_WIDTH} are not supported")
     if x.shape[0] >= 2**31:
         raise ValueError(f"{name}: too many rows for one launch")
     return dims
@@ -146,12 +160,16 @@ def mlp_fused_fwd(params, x: torch.Tensor,
         x = x.clone()
     packed = _packed(params)
     y = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
+    bf16 = int(compute_dtype == torch.bfloat16)
     dims_c = (ctypes.c_int * len(dims))(*dims)
+    nbytes = _scratch_bytes(MLP_FUSED_FWD, "umhs_mlp_fused_fwd_scratch_bytes", dims_c,
+                            len(dims) - 1, bf16, x.shape[0])
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
     with torch.cuda.device(x.device):
         MLP_FUSED_FWD.launch(
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), dims_c, len(dims) - 1, x.shape[0],
-            int(compute_dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            bf16, scratch.data_ptr() if nbytes else None, nbytes,
+            torch.cuda.current_stream(x.device).cuda_stream, routes=MLP_FWD_ROUTES,
         )
     return y
 
@@ -162,8 +180,8 @@ def mlp_fused_bwd(params, x: torch.Tensor, g: torch.Tensor,
     """Backward of the chain at x (N, in) for the output gradient g (N, out):
     (dx (N, in) f32 or None, [(dW_i, db_i)]); K2 on CUDA.
 
-    The kernel sums dW/db per block into a scratch buffer of partials and
-    then over the blocks in a fixed order, so its result is the same on
+    The kernels sum dW/db per block into a scratch buffer of partials and
+    then over the blocks in a fixed order, so the result is the same on
     every run."""
     if x.device.type == "cpu":
         return mlp_plain_bwd(params, x, g, compute_dtype, need_dx)
@@ -177,11 +195,13 @@ def mlp_fused_bwd(params, x: torch.Tensor, g: torch.Tensor,
     g = g.clone() if g.data_ptr() % 16 else g
     packed = _packed(params)
     max_blocks = 2 * torch.cuda.get_device_properties(x.device).multi_processor_count
-    partials = torch.empty((max_blocks, packed.numel()), dtype=torch.float32, device=x.device)
-    dparams = torch.empty_like(packed)
-    dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device) if need_dx else None
     bf16 = int(compute_dtype == torch.bfloat16)
     dims_c = (ctypes.c_int * len(dims))(*dims)
+    nbytes = _scratch_bytes(MLP_FUSED_BWD, "umhs_mlp_fused_bwd_scratch_bytes", dims_c,
+                            len(dims) - 1, bf16, n, max_blocks)
+    partials = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    dparams = torch.empty_like(packed)
+    dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device) if need_dx else None
     slices = (_call_int(MLP_FUSED_BWD, "umhs_mlp_fused_bwd_dx_slices", tuple(dims), bf16)
               if need_dx else 0)
     dx_partials = (torch.empty((slices, n, dims[0]), dtype=torch.float32, device=x.device)
@@ -190,9 +210,9 @@ def mlp_fused_bwd(params, x: torch.Tensor, g: torch.Tensor,
         MLP_FUSED_BWD.launch(
             x.data_ptr(), g.data_ptr(), packed.data_ptr(),
             dx.data_ptr() if need_dx else None,
-            dx_partials.data_ptr() if slices else None, partials.data_ptr(), dparams.data_ptr(),
-            dims_c, len(dims) - 1, n, bf16, max_blocks,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            dx_partials.data_ptr() if slices else None, partials.data_ptr(), nbytes,
+            dparams.data_ptr(), dims_c, len(dims) - 1, n, bf16, max_blocks,
+            torch.cuda.current_stream(x.device).cuda_stream, routes=MLP_BWD_ROUTES,
         )
     grads, off = [], 0
     for layer in params["layers"]:
@@ -215,6 +235,16 @@ def _call_int(kernel: Kernel, symbol: str, dims: Tuple[int, ...], bf16: int) -> 
     return fn((ctypes.c_int * len(dims))(*dims), len(dims) - 1, bf16)
 
 
+def _scratch_bytes(kernel: Kernel, symbol: str, dims_c, num_layers: int, *args: int) -> int:
+    """Bytes of device scratch a launcher needs for the chain (an int64
+    query of its library; n-dependent, so not cached)."""
+    fn = getattr(kernel.library(), symbol)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                   *[ctypes.c_int] * (len(args) - 2)]
+    fn.restype = ctypes.c_int64
+    return int(fn(dims_c, num_layers, *args))
+
+
 def _route_name(stem: str, code: int, bf16: int) -> str:
     if code < 0:
         raise ValueError(f"{stem}: the launcher refuses this chain")
@@ -222,15 +252,17 @@ def _route_name(stem: str, code: int, bf16: int) -> str:
         return f"{stem}_kernel<{bf16}>"
     if code == 1:
         return f"{stem}_wide_kernel"
+    if code == 2:
+        return f"mlp_general<{bf16}>"
     return f"{stem}_tc_kernel<{code // 100},{code % 100}>"
 
 
 def mlp_fused_fwd_route(dims: List[int], compute_dtype: Optional[torch.dtype]) -> str:
     """The device kernel K1's launcher runs for the chain of widths `dims` in
     this mode, named as ptxas names it: "mlp_fused_fwd_tc_kernel<kKT,kM>" or
-    "mlp_fused_fwd_wide_kernel" (the tensor cores) or
-    "mlp_fused_fwd_kernel<bf16>" (the FMA kernel). Loads (and builds) the
-    kernels."""
+    "mlp_fused_fwd_wide_kernel" (the tensor cores),
+    "mlp_fused_fwd_kernel<bf16>" (the FMA kernel) or "mlp_general<bf16>"
+    (the general route). Loads (and builds) the kernels."""
     bf16 = int(compute_dtype == torch.bfloat16)
     code = _call_int(MLP_FUSED_FWD, "umhs_mlp_fused_fwd_route", tuple(dims), bf16)
     return _route_name("mlp_fused_fwd", code, bf16)
@@ -239,9 +271,9 @@ def mlp_fused_fwd_route(dims: List[int], compute_dtype: Optional[torch.dtype]) -
 def mlp_fused_bwd_route(dims: List[int], compute_dtype: Optional[torch.dtype]) -> str:
     """The device kernel K2's launcher runs for the chain of widths `dims` in
     this mode, named as ptxas names it: "mlp_fused_bwd_tc_kernel<kKT,kOwn>"
-    or "mlp_fused_bwd_wide_kernel" (the tensor cores) or
-    "mlp_fused_bwd_kernel<bf16>" (the FMA kernel). Loads (and builds) the
-    kernels."""
+    or "mlp_fused_bwd_wide_kernel" (the tensor cores),
+    "mlp_fused_bwd_kernel<bf16>" (the FMA kernel) or "mlp_general<bf16>"
+    (the general route). Loads (and builds) the kernels."""
     bf16 = int(compute_dtype == torch.bfloat16)
     code = _call_int(MLP_FUSED_BWD, "umhs_mlp_fused_bwd_route", tuple(dims), bf16)
     return _route_name("mlp_fused_bwd", code, bf16)
