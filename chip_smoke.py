@@ -362,8 +362,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 14. The shapes past K1-K4's old limits (phase_limits): K1 and K2 past 256
    wide, past 8 layers and with weights past a block's shared memory (the
-   general route), K3 and K4 past 32 levels and at F other than 1, 2, 4, 8
-   (the any kernels). First K1/K2 in f32 and bf16 on [28, 16, 256] (the old
+   fused route in bf16 where hidden widths are at most 256 and the tiles
+   fit, else the general route), K3 and K4 past 32 levels and at F other
+   than 1, 2, 4, 8 (the any kernels). First K1/K2 in f32 and bf16 on [28, 16, 256] (the old
    wide kernels), [28, 16, 257], [28, 16, 281], [280, 64, 16], [64, 256,
    256, 256], [64, 512, 512, 512, 8] and 9 and 16 layers of width 64, at
    N 1, 17, 3,001 and 262,144, against their plain versions (K1 1e-5 f32,
@@ -375,16 +376,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (16, 2), (33, 2), (40, 7), (16, 3), (16, 16), (64, 8), tetrahedral and
    trilinear, 32,768 positions, 2^17 rows a level: K3 within 1e-6 of its plain version, K4 in
    both modes bit for bit on the CPU (stochastic by the draw rule), timed
-   with index_select + sum and zeros + index_add_ beside. Then config C:
-   phase 9's cli.train flags on the bench scene written at 281 bands,
-   400-1000 nm, with --pipeline.model.hash-num-levels 40 and
-   --pipeline.model.hash-features-per-level 7 (mlp_directional 28 -> 16 ->
-   281, mlp_base 280 -> 64 -> 16), 256 steps through script_run's four
-   gates (gate (d) with SHAPES_VS_PLAIN_MOVED moved plain runs a draw), the
-   general route and the any kernels launched during the run (the routes
-   the launchers report), one 128^2 view through cli.render and the run
-   through cli.eval in a process of its own. The phase's seconds are
-   printed.
+   with index_select + sum and zeros + index_add_ beside. Then configs C
+   and D: phase 9's cli.train flags on the bench scene written at 281 (C)
+   and 447 (D) bands, 400-1000 nm, with --pipeline.model.hash-num-levels 40
+   and --pipeline.model.hash-features-per-level 7 (mlp_directional 28 -> 16
+   -> 281 or 447, mlp_base 280 -> 64 -> 16), 256 steps each through
+   script_run's four gates (gate (d) with SHAPES_VS_PLAIN_MOVED moved plain
+   runs a draw), the fused route (D: and the general route) and the any
+   kernels launched during the run (the routes the launchers report), one
+   more step traced (K1's and K2's device ms by kernel and launches,
+   mlp_step_profile), one 128^2 view through cli.render, and C's run through
+   cli.eval in a process of its own. The phase's seconds are printed. With
+   --baseline TREE, baseline_against_tree's "limits" group then times the
+   262,144-row chains and the configs' traced steps from TREE and this
+   checkout in turns.
 
 The last lines are the card (nvidia-smi), one JSON object of kernel numbers
 and, last, {"ok": true, "device": {...}}.
@@ -1226,9 +1231,10 @@ def phase_render(dev, dm, endmembers, cam):
 # device kernels of each wrapper, by name (K2 launches a second, reducing kernel)
 KERNEL_NAMES = {
     "umhs_mlp_fused_fwd": ("mlp_fused_fwd_kernel", "mlp_fused_fwd_tc_kernel",
-                           "mlp_fused_fwd_wide_kernel"),
+                           "mlp_fused_fwd_wide_kernel", "mlp_chain_fwd_kernel"),
     "umhs_mlp_fused_bwd": ("mlp_fused_bwd_kernel", "mlp_fused_bwd_tc_kernel",
-                           "mlp_fused_bwd_wide_kernel", "reduce_partials_kernel"),
+                           "mlp_fused_bwd_wide_kernel", "reduce_partials_kernel",
+                           "mlp_chain_bwd_kernel", "mlp_sum_rows_kernel"),
     "umhs_hash_encode_fwd": ("hash_encode_fwd_kernel",),
     "umhs_hash_encode_bwd": ("emit_kernel", "run_emit_kernel", "digit_count_kernel",
                              "digit_scan_kernel", "digit_scatter_kernel",
@@ -1951,6 +1957,10 @@ def phase_k6(dev, ptxas):
 
     # K6d: a launch a head over the three stages (the model's accumulate_fn)
     w = torch.rand((R, S), device=dev, generator=gen)
+    # each lane's ray: the backward's library call gathers g by them
+    lane_rays = [torch.repeat_interleave(torch.arange(R, device=dev), c.counts.long())
+                 for c in comps]
+    d_bwd["library_ms"] = 0.0
     for head, C in K6_HEADS.items():
         hs = [torch.randn((c.src.shape[0], C), device=dev, generator=gen) for c in comps]
         g = torch.randn((R, C), device=dev, generator=gen)
@@ -1998,6 +2008,9 @@ def phase_k6(dev, ptxas):
         d_bwd["call_ms"] += median_ms(lambda: compact_accumulate_stages_bwd_cuda(w, heads, g))
         d_bwd["plain_ms"] += k6_plain_ms(lambda: torch.autograd.grad(
             outp, [wp] + hp, g, retain_graph=True))
+        # one PyTorch call: the values' gradient before the weights, g gathered by segment
+        d_bwd["library_ms"] += sum(k6_plain_ms(lambda s=s: torch.index_select(g, 0, s))
+                                   for s in lane_rays)
         d_bwd["bound_bytes"] += sum(t * (C * 4 + 4 + 8) + c.src.shape[0] * C * 4 + R * C * 4
                                     + R * (hi - lo) * 4
                                     for (lo, hi), c, t in zip(K6_STAGES, comps, totals))
@@ -2927,13 +2940,15 @@ def in_tree(root: Path, function: str, *args: str) -> dict:
                        if ln.startswith("TREE ")][-1][len("TREE "):])
 
 
-def tree_measurements(save_dir: str) -> dict:
-    """The kernels at phase 2's and phase 10's shapes through whichever
-    umhs_torch is on sys.path (run by baseline_against_tree in a process of
-    its own from a tree, its kernels built there): per case the device ms
-    (device_ms), the ms per call (median_ms, the wrapper's host time in) and
-    the sha1 of the output's bits; the DINO chain's K1 and K2 outputs saved
-    under save_dir. Inputs come from fixed seeds, the same in every tree."""
+def tree_measurements(save_dir: str, *groups: str) -> dict:
+    """The kernels through whichever umhs_torch is on sys.path (run by
+    baseline_against_tree in a process of its own from a tree, its kernels
+    built there): per case the device ms (device_ms), the ms per call
+    (median_ms, the wrapper's host time in) and the sha1 of the output's
+    bits. Groups: "kernels" (phase 2's and phase 10's shapes, the DINO
+    chain's K1 and K2 outputs saved under save_dir) and "limits" (phase 14's
+    chains and configs' traced steps, limits_tree_cases). Inputs come from
+    fixed seeds, the same in every tree."""
     import hashlib
 
     from umhs_torch.data.synthetic import ray_samples
@@ -2957,16 +2972,21 @@ def tree_measurements(save_dir: str) -> dict:
                 h.update(bits(part.contiguous()).numpy().tobytes())
         return h.hexdigest()
 
-    def case(name, fn, calls=True, held=False):
+    def case(name, fn, calls=True, held=False, iters=10):
         y = fn()
         torch.cuda.synchronize()
         # the digest before the timed calls (a partial update writes its grids in place);
         # held: device time behind a spin, None where a call waits for the device (a tree's
         # plain compaction)
         out[name] = {"digest": digest(y)}
-        out[name].update(ms=held_ms(fn, 10) if held else device_ms(fn),
+        out[name].update(ms=held_ms(fn, iters) if held else device_ms(fn, iters),
                          call_ms=median_ms(fn) if calls else None)
         return y
+
+    if "limits" in groups:
+        limits_tree_cases(dev, case, out)
+    if "kernels" not in groups:
+        return out
 
     gen = torch.Generator().manual_seed(4)
     flag = HashEncodingConfig(num_levels=16, features_per_level=2, log2_hashmap_size=19,
@@ -3234,15 +3254,20 @@ def k5k7_tree_cases(dev, case):
         ray_marching.march_emit_cuda(counted).items())])
 
 
-def baseline_against_tree(tree: Path) -> dict:
-    """Every kernel against another checkout's (`tree`, e.g. the parent commit
+def baseline_against_tree(tree: Path, groups=("kernels",)) -> dict:
+    """The kernels against another checkout's (`tree`, e.g. the parent commit
     unpacked by git archive), each through its own tree's wrappers, in turns:
-    tree_measurements in a process of its own from the tree, from this
-    checkout, from this checkout, from the tree. K3, K4 and P1 must give the
-    tree's bits at every case; K1 and K2 on the DINO chain within 2e-2 (of
-    each tensor's largest entry for K2); every case's bits must repeat
-    across this checkout's two processes. Returns {case: the four readings
-    in turns, their means, and whether the bits are the tree's}."""
+    tree_measurements(groups) in a process of its own from the tree, from
+    this checkout, from this checkout, from the tree. "kernels": K3, K4 and
+    P1 must give the tree's bits at every case, K1 and K2 too against a tree
+    with the general route (their cases run the FMA, tensor-core and wide
+    kernels); K1 and K2 on the DINO chain within 2e-2 (of each tensor's
+    largest entry for K2) against any tree. "limits": phase 14's first chain
+    (the wide kernels in bf16, the FMA kernels in f32) must give the tree's
+    bits; each config's traced step, its K1 and K2 device ms by kernel, and
+    its eval PSNR at most 1.0 dB below the tree's. Every case's bits must
+    repeat across this checkout's two processes. Returns {case: the four
+    readings in turns, their means, and whether the bits are the tree's}."""
     here = Path(__file__).resolve()
     save = Path(tempfile.mkdtemp(prefix="umhs_baseline_"))
     turns = []
@@ -3250,12 +3275,24 @@ def baseline_against_tree(tree: Path) -> dict:
     t0 = time.perf_counter()
     for i, root in enumerate((tree, here.parent, here.parent, tree)):
         (save / str(i)).mkdir()
-        turns.append(in_tree(root, "tree_measurements", str(save / str(i))))
+        turns.append(in_tree(root, "tree_measurements", str(save / str(i)), *groups))
     result = {}
     k6_tree = (tree / "umhs_torch" / "ops" / "compact.py").exists()
     k5_tree = (tree / "umhs_torch" / "csrc" / "march.cu").exists()
+    mlp_tree = (tree / "umhs_torch" / "csrc" / "mlp_general.cuh").exists()
     for name in turns[0]:
         r = [t[name] for t in turns]
+        if name.endswith("traced step"):  # phase 14's configs
+            result[name] = {"turns_mlp_ms": [v["mlp_ms"] for v in r],
+                            "baseline_mlp_ms": (r[0]["mlp_ms"] + r[3]["mlp_ms"]) / 2,
+                            "this_mlp_ms": (r[1]["mlp_ms"] + r[2]["mlp_ms"]) / 2,
+                            "turns_eval_psnr": [v["eval_psnr"] for v in r], "turns": r}
+            check(min(r[1]["eval_psnr"], r[2]["eval_psnr"])
+                  >= max(r[0]["eval_psnr"], r[3]["eval_psnr"]) - 1.0,
+                  f"{name}: eval PSNR {result[name]['turns_eval_psnr']} (tree, this, this, "
+                  f"tree): this checkout more than 1.0 dB below {tree}'s")
+            print(f"against {tree}: {name}: " + json.dumps(result[name]))
+            continue
         check(r[1]["digest"] == r[2]["digest"], f"{name}: this checkout's bits do not repeat")
         entry = {"same_bits": r[0]["digest"] == r[1]["digest"] == r[3]["digest"]}
         for key in ("ms", "call_ms"):
@@ -3269,11 +3306,19 @@ def baseline_against_tree(tree: Path) -> dict:
         # K6's kernels, K6d's backward's weights sum in autograd's order
         held_k5 = name.startswith("K5") and k5_tree
         held_k6 = k6_tree and (name.startswith("K6 render") or name == "K6 segment_accumulate_fwd")
-        if held_k5 or held_k6 or not name.startswith(("K1", "K2", "K5", "K6 render",
-                                                      "K6 segment")):
+        # K1, K2: these cases run the FMA, tensor-core and wide kernels, the same code in every
+        # tree that has the general route; of phase 14's chains only the first does
+        held_mlp = mlp_tree and name.startswith(("K1", "K2")) and (
+            " limits " not in name or str(LIMITS_CHAINS[0]) in name)
+        if held_k5 or held_k6 or held_mlp or not name.startswith(("K1", "K2", "K5", "K6 render",
+                                                                  "K6 segment")):
             check(entry["same_bits"], f"{name}: not the bits of {tree}'s kernel")
         result[name] = entry
         print(f"against {tree}: {name}: " + json.dumps(entry))
+    if "kernels" not in groups:
+        shutil.rmtree(save, ignore_errors=True)
+        print(f"{groups} against {tree}: {time.perf_counter() - t0:.1f} s for four processes")
+        return result
     if k5_tree:  # K5a's and K5b's SASS in the tree's build beside this checkout's
         from umhs_torch.ops import _native
 
@@ -4635,7 +4680,43 @@ def script_train_argv(name, root, work):
     return argv
 
 
-def script_run(name, argv, dev, smi, phase="phase 12", vs_plain_moved=1, k6c_witness=False):
+MLP_PROFILE_TAKES = 3
+
+
+def mlp_step_profile(trainer) -> dict:
+    """One training step under torch.profiler, MLP_PROFILE_TAKES times (the profiler
+    was seen to drop device events in bursts: the take with the most MLP
+    device time is kept): the device ms and calls of every device kernel of
+    K1 and K2 by name (each starts with "mlp_"; the general route's products
+    and both routes' weight packing serve K1 and K2 alike, so only their sum
+    is K1 and K2 together), that sum, and K1's and K2's launches a step."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    best = None
+    for _ in range(MLP_PROFILE_TAKES):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train_step()
+            torch.cuda.synchronize()
+        per_step = {k: v - before[k] for k, v in launch_counts().items()}
+        kernels = {}
+        for e in prof.key_averages():
+            found = re.search(r"(mlp_\w+?_kernel)", e.key)
+            if "CUDA" in str(e.device_type) and found:
+                k = kernels.setdefault(found.group(1), {"ms": 0.0, "count": 0})
+                k["ms"] += e.self_device_time_total / 1e3
+                k["count"] += e.count
+        take = {"mlp_kernels": kernels, "mlp_ms": sum(k["ms"] for k in kernels.values()),
+                "launches": {s: per_step.get(s, 0)
+                             for s in ("umhs_mlp_fused_fwd", "umhs_mlp_fused_bwd")}}
+        if best is None or take["mlp_ms"] > best["mlp_ms"]:
+            best = take
+    return best
+
+
+def script_run(name, argv, dev, smi, phase="phase 12", vs_plain_moved=1, k6c_witness=False,
+               traced=False):
     """One training twin through cli.train in this process, with gates (a)-(d):
     the loss falls, eval_all_images PSNR above the step-0 eval batch's (a
     fresh Trainer from the run's config.yml), every kernel of the path
@@ -4644,7 +4725,8 @@ def script_run(name, argv, dev, smi, phase="phase 12", vs_plain_moved=1, k6c_wit
     Adam stepped on every k-th step only. Returns the run's record (with
     the run's launches by route) and its config.yml. `vs_plain_moved` and
     `k6c_witness`: gate (d)'s moved plain runs a draw and its K6c witness
-    (phase_train_vs_plain's n_moved and k6c_witness)."""
+    (phase_train_vs_plain's n_moved and k6c_witness). `traced`: after the
+    gates, one more step under the profiler (mlp_step_profile)."""
     from umhs_torch.cli import train as cli_train
     from umhs_torch.configs import load_config
     from umhs_torch.engine.trainer import Trainer
@@ -4705,6 +4787,10 @@ def script_run(name, argv, dev, smi, phase="phase 12", vs_plain_moved=1, k6c_wit
                                         f"{result.evals['psnr']} not above step 0's {psnr0}")
     check(adam_steps == SCRIPT_STEPS // k and trainer.optimizer.mini_step == SCRIPT_STEPS % k,
           f"{name}: {adam_steps} Adam steps in {SCRIPT_STEPS} with accumulation {k}")
+    if traced:
+        record["traced_step"] = mlp_step_profile(trainer)
+        print(f"{phase}, {name}: K1 and K2 in a traced step: "
+              + json.dumps(record["traced_step"]))
     del trainer, result
     torch.cuda.empty_cache()
     return record, config_yml
@@ -5034,20 +5120,22 @@ def shapes_k6cd_rows(dev):
     return rows
 
 
-def shapes_run(label, argv, dev, smi, routes, work, phase="phase 13"):
-    """Config A or B through script_run's four gates, the launches by route
-    during the run (each route of `routes` must have launched: the long
-    shapes' kernels), and a 128^2 view rendered through cli.render; returns
-    the run's record and its config.yml."""
+def shapes_run(label, argv, dev, smi, routes, work, phase="phase 13", traced=False):
+    """A config of phase 13 or 14 through script_run's four gates, the
+    launches by route during the run (each route of `routes`, a route or a
+    tuple of them by kernel, must have launched: the long shapes' kernels),
+    and a 128^2 view rendered through cli.render; returns
+    the run's record and its config.yml. `traced`: script_run's."""
     from umhs_torch.cli import render as cli_render
     from umhs_torch.data.png import read_png
     from umhs_torch.data.synthetic import BENCH_SCENE
 
     record, config_yml = script_run(label, argv, dev, smi, phase=phase,
                                     vs_plain_moved=SHAPES_VS_PLAIN_MOVED,
-                                    k6c_witness=label == "config B")
+                                    k6c_witness=label == "config B", traced=traced)
     got = record["routes"]
-    missing = {s: r for s, r in routes.items() if got.get(s, {}).get(r, 0) == 0}
+    missing = {s: r for s, r in routes.items()
+               if any(got.get(s, {}).get(x, 0) == 0 for x in ((r,) if isinstance(r, str) else r))}
     check(not missing, f"{phase}, {label}: no launch on the routes {missing}; by route {got}")
     size = BENCH_SCENE.image_size
     tag = label.split()[-1]
@@ -5155,10 +5243,10 @@ def phase_shapes(dev, smi):
 
 # ---------------------------------------------------------------- phase 14
 # K1/K2 chains at the old limit (the wide tensor-core kernels in bf16), one
-# past it and well past it: a width past 256 (281 bands, 280 hash
+# past it and well past it: a width past 256 (281 and 447 bands, 280 hash
 # features), weights that leave the FMA kernels no room, 512 wide, 9 and 16
 # layers
-LIMITS_CHAINS = [[28, 16, 256], [28, 16, 257], [28, 16, 281], [280, 64, 16],
+LIMITS_CHAINS = [[28, 16, 256], [28, 16, 257], [28, 16, 281], [28, 16, 447], [280, 64, 16],
                  [64, 256, 256, 256], [64, 512, 512, 512, 8], [64] * 10, [64] * 17]
 LIMITS_ROWS = (1, 17, 3001, 262_144)  # the last one timed
 # calls a K1/K2 reading of phase 14 averages: the general route's deep
@@ -5171,15 +5259,44 @@ LIMITS_TIMED_CALLS = 3
 LIMITS_HASH = [(32, 8), (16, 2), (33, 2), (40, 7), (16, 3), (16, 16), (64, 8)]
 LIMITS_HASH_ROWS = 32_768
 LIMITS_HASH_LOG2 = 17
-# config C: phase 9's flagship (cli.train) on the bench scene at 281 bands,
-# 400-1000 nm, with a hash grid of 40 levels x 7 features: mlp_directional
-# 28 -> 16 -> 281 and mlp_base 280 -> 64 -> 16 on K1/K2's general route, K3
-# and K4 on their any kernels (K4's entries route at F 7)
-LIMITS_C_BANDS = 281
-LIMITS_C_FLAGS = {"--pipeline.model.hash-num-levels": "40",
-                  "--pipeline.model.hash-features-per-level": "7"}
-LIMITS_C_ROUTES = {"umhs_mlp_fused_fwd": "mlp_general<1>", "umhs_mlp_fused_bwd": "mlp_general<1>",
-                   "umhs_hash_encode_fwd": "any", "umhs_hash_encode_bwd": "any"}
+# the bf16 chains of LIMITS_CHAINS that K1's and K2's fused route takes (the
+# others past the fused kernels: the general route, its products on wgmma)
+LIMITS_FUSED = [[28, 16, 257], [28, 16, 281], [280, 64, 16], [64] * 10, [64] * 17]
+# configs C and D: phase 9's flagship (cli.train) on the bench scene over
+# 400-1000 nm with a hash grid of 40 levels x 7 features: mlp_base 280 -> 64
+# -> 16 on K1/K2's fused route, K3 and K4 on their any kernels (K4's entries
+# route at F 7). C at 281 bands (a Resonon Pika L's channels):
+# mlp_directional 28 -> 16 -> 281 on the fused route too; D at 447 (a
+# Resonon Pika XC2's): 28 -> 16 -> 447, an output past the fused route's
+# 320, on the general route (its products on wgmma)
+LIMITS_FLAGS = {"--pipeline.model.hash-num-levels": "40",
+                "--pipeline.model.hash-features-per-level": "7"}
+LIMITS_CONFIGS = (("config C", 281), ("config D", 447))
+LIMITS_ROUTES = {
+    "config C": {"umhs_mlp_fused_fwd": "mlp_chain_fwd_kernel",
+                 "umhs_mlp_fused_bwd": "mlp_chain_bwd_kernel",
+                 "umhs_hash_encode_fwd": "any", "umhs_hash_encode_bwd": "any"},
+    "config D": {"umhs_mlp_fused_fwd": ("mlp_chain_fwd_kernel", "mlp_general<1>"),
+                 "umhs_mlp_fused_bwd": ("mlp_chain_bwd_kernel", "mlp_general<1>"),
+                 "umhs_hash_encode_fwd": "any", "umhs_hash_encode_bwd": "any"}}
+
+
+def limits_config_argv(work: Path, label: str, bands: int) -> list:
+    """Phase 14's cli.train argv of a config of LIMITS_CONFIGS: phase 9's
+    flagship on the bench scene at `bands` bands over 400-1000 nm (written
+    under work), SHAPES_STEPS steps, LIMITS_FLAGS."""
+    from umhs_torch.data.synthetic import BENCH_SCENE, write_dataset
+
+    root = write_dataset(work / f"scene{bands}", dataclasses.replace(
+        BENCH_SCENE, num_bands=bands, wavelength_start=400.0,
+        wavelength_step=600.0 / (bands - 1)))
+    argv = entry_train_argv(root)
+    for flag, value in (("--max-num-iterations", str(SHAPES_STEPS)),
+                        ("--steps-per-save", str(SHAPES_STEPS)),
+                        ("--experiment-name", "limits-" + label.split()[-1].lower()),
+                        ("--output-dir", str(work / "outputs")), *LIMITS_FLAGS.items()):
+        argv = replace_flag(argv, flag, value)
+    return argv
 
 
 def limits_chain(dims, seed, dev):
@@ -5261,11 +5378,25 @@ def limits_mlp_case(dims, dt, n, dev):
     bf16 = int(dt == torch.bfloat16)
     want = ((["mlp_fused_fwd_wide_kernel", "mlp_fused_bwd_wide_kernel"] if bf16 else
              ["mlp_fused_fwd_kernel<0>", "mlp_fused_bwd_kernel<0>"]) if dims == LIMITS_CHAINS[0]
+            else ["mlp_chain_fwd_kernel", "mlp_chain_bwd_kernel"] if bf16 and dims in LIMITS_FUSED
             else [f"mlp_general<{bf16}>"] * 2)
     check(routes == want, f"{label}: routes {routes}, not {want}")
     print(f"K1/K2 {label}: routes {routes}, K1 max_abs_err {err1:.3e}"
           + (f" (moved-plain atol {atol:.3e})" if deep else ""))
     return params, x, g, routes, err1, err2
+
+
+def route_ptxas(route: str, ptxas: dict):
+    """ptxas's registers and spills of a K1/K2 route's device kernels: the
+    kernel of the route's name, or for the general route every instance of
+    its product kernel (bf16 mlp_wgmma_kernel, f32 mlp_gemm_kernel), for the
+    fused route's backward both instances of mlp_chain_bwd_kernel."""
+    if route.startswith("mlp_general<"):
+        stem = "mlp_wgmma_kernel<" if route.endswith("<1>") else "mlp_gemm_kernel<"
+        return {k: v for k, v in ptxas.items() if k.startswith(stem)}
+    if route == "mlp_chain_bwd_kernel":  # an instance with the owned dW sums, one without
+        return {k: v for k, v in ptxas.items() if k.startswith(route + "<")}
+    return ptxas.get(route)
 
 
 def limits_mlp_rows(dev, ptxas):
@@ -5291,7 +5422,8 @@ def limits_mlp_rows(dev, ptxas):
                     with uncounted():
                         t = times()
                     rows[name][key] = {"dims": dims, "rows": n, "route": route,
-                                       "ptxas": ptxas.get(route), "max_abs_err": err, **t}
+                                       "ptxas": route_ptxas(route, ptxas), "max_abs_err": err,
+                                       **t}
                     print(f"phase 14 {name} {key} N={n}: " + json.dumps(rows[name][key]))
                 del params, x, g
             torch.cuda.empty_cache()
@@ -5356,37 +5488,66 @@ def phase_limits(dev, smi, ptxas):
     with SHAPES_VS_PLAIN_MOVED moved plain runs a draw), the general and any
     routes launched during the run, a 128^2 view through cli.render and its
     run through cli.eval in a process of its own."""
-    from umhs_torch.data.synthetic import BENCH_SCENE, write_dataset
-
     t_phase = time.perf_counter()
     mlp = limits_mlp_rows(dev, ptxas)
     t_mlp = time.perf_counter() - t_phase
     hashes = limits_hash_rows(dev)
     t_rows = time.perf_counter() - t_phase
+    records = {}
     with bench_dataset() as (work, _, _):
-        root = write_dataset(work / "scene281", dataclasses.replace(
-            BENCH_SCENE, num_bands=LIMITS_C_BANDS, wavelength_start=400.0,
-            wavelength_step=600.0 / (LIMITS_C_BANDS - 1)))
-        argv = entry_train_argv(root)
-        for flag, value in (("--max-num-iterations", str(SHAPES_STEPS)),
-                            ("--steps-per-save", str(SHAPES_STEPS)),
-                            ("--experiment-name", "limits-c"),
-                            ("--output-dir", str(work / "outputs")), *LIMITS_C_FLAGS.items()):
-            argv = replace_flag(argv, flag, value)
-        record, config_yml = shapes_run("config C", argv, dev, smi, LIMITS_C_ROUTES, work,
-                                        phase="phase 14")
-        check(record["bands"] == LIMITS_C_BANDS, f"phase 14 config C: {record['bands']} bands")
-        record["cli_eval"] = eval_in_process("phase 14", config_yml, work, "eval_c.json")
+        for label, bands in LIMITS_CONFIGS:
+            record, config_yml = shapes_run(label, limits_config_argv(work, label, bands), dev,
+                                            smi, LIMITS_ROUTES[label], work, phase="phase 14",
+                                            traced=True)
+            check(record["bands"] == bands, f"phase 14 {label}: {record['bands']} bands")
+            if label == "config C":
+                record["cli_eval"] = eval_in_process("phase 14", config_yml, work, "eval_c.json")
+            records[label] = record
     seconds = time.perf_counter() - t_phase
     print(f"phase 14: K1/K2 rows in {t_mlp:.1f} s, K3/K4 rows in {t_rows - t_mlp:.1f} s, "
-          f"config C in {seconds - t_rows:.1f} s, {seconds:.1f} s in all; {smi}")
-    print(f"  config C: {record['ms_per_step_last64']:.2f} ms a step (last 64), PSNR "
-          f"{record['psnr_step0']:.2f} -> {record['eval_all_images']['psnr']:.2f} dB, loss "
-          f"{record['loss_first16']:.5f} -> {record['loss_last16']:.5f}, vs plain "
-          f"{json.dumps(record['vs_plain_worst_median'])}, loss per draw "
-          f"{json.dumps(record['vs_plain_loss_over_tolerance'])}, routes "
-          f"{json.dumps({k: record['routes'].get(k) for k in LIMITS_C_ROUTES})}")
-    return {"seconds": seconds, **mlp, **hashes, "config C": record}
+          f"configs C and D in {seconds - t_rows:.1f} s, {seconds:.1f} s in all; {smi}")
+    for label, record in records.items():
+        print(f"  {label}: {record['ms_per_step_last64']:.2f} ms a step (last 64), PSNR "
+              f"{record['psnr_step0']:.2f} -> {record['eval_all_images']['psnr']:.2f} dB, loss "
+              f"{record['loss_first16']:.5f} -> {record['loss_last16']:.5f}, vs plain "
+              f"{json.dumps(record['vs_plain_worst_median'])}, loss per draw "
+              f"{json.dumps(record['vs_plain_loss_over_tolerance'])}, routes "
+              f"{json.dumps({k: record['routes'].get(k) for k in LIMITS_ROUTES[label]})}, "
+              f"traced step {json.dumps(record['traced_step'])}")
+    return {"seconds": seconds, **mlp, **hashes, **records}
+
+
+def limits_tree_cases(dev, case, out):
+    """tree_measurements' "limits" group: phase 14's K1/K2 chains at
+    LIMITS_ROWS[-1] rows in bf16 (the first, the wide kernels' chain, in f32
+    on the FMA kernels too) as cases (LIMITS_TIMED_CALLS calls a reading);
+    then each config of LIMITS_CONFIGS through cli.train (phase 14's argv)
+    and one more step under the profiler (mlp_step_profile), with its eval
+    PSNR."""
+    from umhs_torch.cli import train as cli_train
+    from umhs_torch.ops.mlp_fused import mlp_fused_bwd, mlp_fused_fwd
+
+    n = LIMITS_ROWS[-1]
+    for dims in LIMITS_CHAINS:
+        for dt in (torch.bfloat16, torch.float32) if dims == LIMITS_CHAINS[0] else (torch.bfloat16,):
+            params = limits_chain(dims, n + sum(dims), dev)
+            gen = torch.Generator().manual_seed(n)
+            x = torch.randn((n, dims[0]), generator=gen).to(dev)
+            g = torch.randn((n, dims[-1]), generator=gen).to(dev)
+            key = f"limits {dims} {str(dt)[6:]}"
+            case(f"K1 {key}", lambda: mlp_fused_fwd(params, x, dt), calls=False,
+                 iters=LIMITS_TIMED_CALLS)
+            case(f"K2 {key}", lambda: mlp_fused_bwd(params, x, g, dt), calls=False,
+                 iters=LIMITS_TIMED_CALLS)
+            del params, x, g
+            torch.cuda.empty_cache()
+    with bench_dataset() as (work, _, _):
+        for label, bands in LIMITS_CONFIGS:
+            result = cli_train.main(limits_config_argv(work, label, bands))
+            torch.cuda.synchronize()
+            out[f"{label} traced step"] = {**mlp_step_profile(result.trainer),
+                                           "eval_psnr": result.evals["psnr"]}
+            del result
 
 
 SASS_INSTRUCTION = re.compile(
@@ -5481,7 +5642,7 @@ def main() -> None:
                     help="only phase 13: the kernels past their old shape limits, and "
                          "configs A and B through cli.train")
     ap.add_argument("--limits", action="store_true",
-                    help="only phase 14: K1-K4 past their old shape limits, and config C "
+                    help="only phase 14: K1-K4 past their old shape limits, and configs C and D "
                          "through cli.train")
     ap.add_argument("--quality", choices=["tetrahedral", "all"], default="tetrahedral",
                     help="phase 8's quality runs: the tetrahedral one, or also the trilinear "
@@ -5528,6 +5689,8 @@ def main() -> None:
         phase_shapes(dev, smi)
     elif args.limits:
         phase_limits(dev, smi, ptxas)
+        if args.baseline:
+            baseline_against_tree(args.baseline, ("limits",))
     elif args.seed_variance:
         seed_variance(smi)
     elif args.mesh_cards:
@@ -5542,7 +5705,7 @@ def main() -> None:
         p1 = phase_p1(dev)
         k6 = phase_k6(dev, ptxas)
         if args.baseline:
-            against = baseline_against_tree(args.baseline)
+            against = baseline_against_tree(args.baseline, ("kernels", "limits"))
             for entry, prefix in ((k1, "K1 "), (k2, "K2 "), (k3, "K3 "), (k4, "K4 "), (p1, "P1 ")):
                 entry["against_tree"] = {k: v for k, v in against.items() if k.startswith(prefix)}
             for entry in k6:  # render_weights_bwd: the tree's forward and backward too
@@ -5577,6 +5740,9 @@ def main() -> None:
         scripts = phase_scripts(dev, smi)
         shapes = phase_shapes(dev, smi)
         limits = phase_limits(dev, smi, ptxas)
+        if args.baseline:
+            limits["against_tree"] = {k: v for k, v in against.items()
+                                      if " limits " in k or k.endswith("traced step")}
         long_rows = {"march_count": shapes_k5_kernel_rows(shapes["k5"], "k5a"),
                      "march_emit": shapes_k5_kernel_rows(shapes["k5"], "k5b"),
                      "compact_stage": shapes["k6ab"], "compact_gather": shapes["k6ab"],
@@ -5604,8 +5770,10 @@ def main() -> None:
                                       for label, r in shapes["runs"].items()}
             if entry["name"] in long_rows:
                 entry["at_long_shapes"] = long_rows[entry["name"]]
-            entry["launches_config_c"] = limits["config C"]["launches"].get(sym, 0)  # phase 14
-            entry["routes_config_c"] = limits["config C"]["routes"].get(sym, {})
+            for label, _ in LIMITS_CONFIGS:  # phase 14
+                tag = label.split()[-1].lower()
+                entry[f"launches_config_{tag}"] = limits[label]["launches"].get(sym, 0)
+                entry[f"routes_config_{tag}"] = limits[label]["routes"].get(sym, {})
             if entry["name"] in limits:  # K1-K4 past their old limits
                 entry["at_limit_shapes"] = limits[entry["name"]]
         p1["launches_quality"] = quality_launches["tetrahedral"].get("umhs_row_gather", 0)

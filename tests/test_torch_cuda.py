@@ -272,17 +272,21 @@ def test_wide_chains_match_plain(cuda, dims, n):
 
 
 @pytest.mark.parametrize("dims,route", [
-    ([32, 256, 64, 8], "fma"), ([64, 256, 256, 256], "general"), ([28, 16, 281], "general")],
+    ([32, 256, 64, 8], "fma"), ([64, 256, 256, 256], "general"), ([28, 16, 281], "chain")],
     ids=lambda v: "-".join(map(str, v)) if isinstance(v, list) else v)
 def test_deeper_wide_chain_routes(cuda, dims, route):
     """A three-layer bf16 chain wider than 128 is not one the wide kernels
     take: K1 and K2 both run their FMA kernels (so K2's recompute decides
     each ReLU as K1's forward does), within 2e-2 of the plain version. A
-    chain whose weights leave the FMA kernels no room (64-256-256-256) or a
-    width past 256 takes the general route in both."""
+    chain whose weights leave the FMA kernels no room and whose K2 tile
+    passes a block's shared memory (64-256-256-256) takes the general route
+    in both; a width past 256 at the chain's ends, the fused route in both."""
     if route == "fma":
         assert mlp_fused_fwd_route(dims, torch.bfloat16) == "mlp_fused_fwd_kernel<1>"
         assert mlp_fused_bwd_route(dims, torch.bfloat16) == "mlp_fused_bwd_kernel<1>"
+    elif route == "chain":
+        assert mlp_fused_fwd_route(dims, torch.bfloat16) == "mlp_chain_fwd_kernel"
+        assert mlp_fused_bwd_route(dims, torch.bfloat16) == "mlp_chain_bwd_kernel"
     else:
         assert mlp_fused_fwd_route(dims, torch.bfloat16) == "mlp_general<1>"
         assert mlp_fused_bwd_route(dims, torch.bfloat16) == "mlp_general<1>"
@@ -300,10 +304,25 @@ def test_deeper_wide_chain_routes(cuda, dims, route):
 
 
 # the chains past K1's and K2's old limits (chip_smoke's phase 14): a width
-# past 256 (281 bands, 280 hash features), weights that leave the FMA kernels
-# no room, widths of 512, and 9 and 16 layers
-GENERAL_CHAINS = [[28, 16, 257], [28, 16, 281], [280, 64, 16], [64, 256, 256, 256],
-                  [64, 512, 512, 512, 8], [64] * 10, [64] * 17]
+# past 256 (281 and 447 bands, 280 hash features), weights that leave the FMA kernels
+# no room, widths of 512, and 9 and 16 layers; then the fused route's edges:
+# one input, one output, a hidden width of exactly 256 with an output of
+# 8k + 1
+GENERAL_CHAINS = [[28, 16, 257], [28, 16, 281], [28, 16, 447], [280, 64, 16],
+                  [64, 256, 256, 256], [64, 512, 512, 512, 8], [64] * 10, [64] * 17,
+                  [1, 64, 281], [280, 64, 1], [28, 256, 257]]
+# those the fused route takes in bf16 (the rest: the general route, its
+# products on wgmma; every f32 chain: the general route's FMA kernel)
+FUSED_CHAINS = [[28, 16, 257], [28, 16, 281], [280, 64, 16], [64] * 10, [64] * 17,
+                [1, 64, 281], [280, 64, 1], [28, 256, 257]]
+
+
+def _past_the_fused_kernels(dims, dtype):
+    """The route names K1 and K2 report for a chain of GENERAL_CHAINS."""
+    if dtype == torch.bfloat16 and dims in FUSED_CHAINS:
+        return "mlp_chain_fwd_kernel", "mlp_chain_bwd_kernel"
+    name = f"mlp_general<{int(dtype == torch.bfloat16)}>"
+    return name, name
 
 
 def _moved_allowance(fn, x, tol):
@@ -320,36 +339,60 @@ def _moved_allowance(fn, x, tol):
 
 @pytest.mark.parametrize("dims", GENERAL_CHAINS, ids=lambda d: "-".join(map(str, d)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n", [1, 17, 3001])
+@pytest.mark.parametrize("n", [1, 17, 3001, 64 * 46 + 63])
 def test_general_route_matches_plain(cuda, dims, dtype, n):
-    """K1 and K2 on the general route (the launchers report it): K1 within
-    1e-5 (f32) or 2e-2 (bf16) of its plain version, K2 within 1e-4 or 2e-2
-    of each tensor's largest entry (the moved-plain rule past 8 layers in
-    bf16), K2 repeated bit for bit, dx skipped giving dW and db's bits."""
-    assert mlp_fused_fwd_route(dims, dtype).startswith("mlp_general<")
-    assert mlp_fused_bwd_route(dims, dtype).startswith("mlp_general<")
+    """K1 and K2 past the fused kernels, on the fused route (bf16,
+    FUSED_CHAINS) or the general route (the launchers report which): K1
+    within 1e-5 (f32) or 2e-2 (bf16) of its plain version, K2 within 1e-4 or
+    2e-2 of each tensor's largest entry (the moved-plain rule past 8 layers
+    in bf16; in bf16 against the f64 backward on K1's own forward, and
+    against the plain version on the rows whose ReLUs both forwards decide
+    alike), K2 repeated bit for bit, dx skipped giving dW and db's bits;
+    row counts that cut the last 64-row tile and the last 128-row one."""
+    fwd_name, bwd_name = _past_the_fused_kernels(dims, dtype)
+    assert mlp_fused_fwd_route(dims, dtype) == fwd_name
+    assert mlp_fused_bwd_route(dims, dtype) == bwd_name
     gen = torch.Generator().manual_seed(n + sum(dims))
     params = _chain(dims, gen, cuda)
     x = torch.randn((n, dims[0]), generator=gen).to(cuda)
     g = torch.randn((n, dims[-1]), generator=gen).to(cuda)
-    name = f"mlp_general<{int(dtype == torch.bfloat16)}>"
-    fwd0, bwd0 = MLP_FUSED_FWD.routes.get(name, 0), MLP_FUSED_BWD.routes.get(name, 0)
+    fwd0, bwd0 = MLP_FUSED_FWD.routes.get(fwd_name, 0), MLP_FUSED_BWD.routes.get(bwd_name, 0)
     y = mlp_fused_fwd(params, x, dtype)
     dx, grads = mlp_fused_bwd(params, x, g, dtype)
     torch.cuda.synchronize()
-    assert MLP_FUSED_FWD.routes[name] == fwd0 + 1 and MLP_FUSED_BWD.routes[name] == bwd0 + 1
+    assert MLP_FUSED_FWD.routes[fwd_name] == fwd0 + 1
+    assert MLP_FUSED_BWD.routes[bwd_name] == bwd0 + 1
     deep = dtype == torch.bfloat16 and len(dims) > 9
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     ref = mlp_plain(params, x, dtype)
     atol = _moved_allowance(lambda t: mlp_plain(params, t, dtype), x, tol) if deep else tol
     torch.testing.assert_close(y, ref, rtol=tol, atol=atol)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    dx_ref, grads_ref = mlp_plain_bwd(params, x, g, dtype)
-    refs = [dx_ref] + [t for p in grads_ref for t in p]
     moved = (_moved_allowance(lambda t: [u for p in mlp_plain_bwd(params, t, g, dtype)[1]
                                          for u in p], x, 0.0) if deep else 0.0)
-    for got, want in zip([dx] + [t for p in grads for t in p], refs):
-        torch.testing.assert_close(got, want, rtol=tol,
+    got = [dx] + [t for p in grads for t in p]
+    # bf16: K2 decides each ReLU as K1 does, mlp_plain as cuBLAS's sums do; so
+    # K2 is held to the backward in f64 on K1's own forward, every row, and to
+    # the plain version on the rows whose hidden ReLUs K1 and mlp_plain all
+    # decide alike (both run again on those rows), as chip_smoke's
+    # k2_against_plain holds it
+    keep = torch.ones(n, dtype=torch.bool, device=cuda)
+    if dtype == torch.bfloat16:
+        f64 = _k2_on_k1_forward_f64(params, x, g)
+        for a, want in zip(got, [f64[0]] + [t for p in f64[1] for t in p]):
+            torch.testing.assert_close(a.double(), want, rtol=tol,
+                                       atol=max(tol * float(want.abs().max()) + tol, moved))
+        keep = ~_flipped_rows(params, x)
+    if bool(keep.all()):
+        kept_got, kept_ref = got, mlp_plain_bwd(params, x, g, dtype)
+    else:
+        kx, kg = x[keep].contiguous(), g[keep].contiguous()
+        kept = mlp_fused_bwd(params, kx, kg, dtype)
+        kept_got = [kept[0]] + [t for p in kept[1] for t in p]
+        kept_ref = mlp_plain_bwd(params, kx, kg, dtype)
+    refs = [kept_ref[0]] + [t for p in kept_ref[1] for t in p]
+    for a, want in zip(kept_got, refs):
+        torch.testing.assert_close(a, want, rtol=tol,
                                    atol=max(tol * float(want.abs().max()) + tol, moved))
     again = mlp_fused_bwd(params, x, g, dtype)
     skip = mlp_fused_bwd(params, x, g, dtype, need_dx=False)
@@ -357,6 +400,64 @@ def test_general_route_matches_plain(cuda, dims, dtype, n):
     for (w1, b1), (w2, b2), (w3, b3) in zip(grads, again[1], skip[1]):
         assert torch.equal(w1, w2) and torch.equal(b1, b2)
         assert torch.equal(w1, w3) and torch.equal(b1, b3)
+
+
+def _flipped_rows(params, x):
+    """The rows where some hidden ReLU of K1's bf16 forward (the chain cut
+    after each hidden layer) decides otherwise than mlp_plain's."""
+    layers = params["layers"]
+    flipped = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for l in range(len(layers) - 1):
+        cut = {"layers": layers[:l + 1]}
+        pre = mlp_fused_fwd(cut, x, torch.bfloat16)
+        flipped |= ((pre > 0) != (mlp_plain(cut, x, torch.bfloat16) > 0)).any(1)
+    return flipped
+
+
+def _k2_on_k1_forward_f64(params, x, g):
+    """K2's backward in f64 on K1's own forward (chip_smoke's
+    k1_forward_reference): each hidden pre-activation is K1's output on the
+    chain cut after that layer, ReLU'd and rounded to bf16 as the kernels
+    do (a cut chain may take another of K1's routes: each sums the same mma
+    k-tiles from zero and adds the bias after, so its pre-activations are
+    the whole chain's); dh rounded to bf16 for both products, db summed
+    before."""
+    layers = params["layers"]
+    acts = [x.bfloat16().double()]
+    for l in range(len(layers) - 1):
+        pre = mlp_fused_fwd({"layers": layers[:l + 1]}, x, torch.bfloat16)
+        acts.append(torch.relu(pre).bfloat16().double())
+    dh, grads = g.double(), []
+    for l in reversed(range(len(layers))):
+        if l + 1 < len(layers):
+            dh = dh * (acts[l + 1] > 0)
+        db = dh.sum(0)
+        dh = dh.float().bfloat16().double()
+        grads.insert(0, (acts[l].T @ dh, db))
+        dh = dh @ layers[l]["w"].bfloat16().double().T
+    return dh, grads
+
+
+@pytest.mark.parametrize("dims", [[28, 16, 281], [280, 64, 16], [64] * 10, [1, 64, 281],
+                                  [28, 256, 257]],
+                         ids=lambda d: "-".join(map(str, d)))
+def test_fused_route_k2_decides_as_k1(cuda, dims):
+    """K2's recompute on the fused route makes K1's ReLU decisions: every
+    tensor within 2e-2 of its largest entry of the backward in f64 on K1's
+    own forward, with a bias that puts many pre-activations near zero."""
+    gen = torch.Generator().manual_seed(sum(dims))
+    params = _chain(dims, gen, cuda)
+    for lay in params["layers"][:-1]:
+        lay["b"] *= 0.01
+    x = torch.randn((3001, dims[0]), generator=gen).to(cuda)
+    g = torch.randn((3001, dims[-1]), generator=gen).to(cuda)
+    assert mlp_fused_bwd_route(dims, torch.bfloat16) == "mlp_chain_bwd_kernel"
+    dx, grads = mlp_fused_bwd(params, x, g, torch.bfloat16)
+    dx_ref, grads_ref = _k2_on_k1_forward_f64(params, x, g)
+    for got, ref in zip([dx] + [t for p in grads for t in p],
+                        [dx_ref] + [t for p in grads_ref for t in p]):
+        torch.testing.assert_close(got.double(), ref, rtol=2e-2,
+                                   atol=2e-2 * float(ref.abs().max()))
 
 
 def test_general_route_in_f32_gives_the_fma_bits(cuda):

@@ -7,6 +7,7 @@ import json
 import shutil
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from umhs_tpu.native import parallel_load_cubes
 from umhs_torch.data import dataparser as t_dp
 from umhs_torch.data import dataset as t_ds
 from umhs_torch.data import synthetic as t_syn
-from umhs_torch.data.png import png_size, read_png, write_png
+from umhs_torch.data.png import image_size, png_size, read_image, read_png, write_png
 
 KW = dict(num_views_train=4, num_views_eval=2, image_size=12, num_bands=8, num_spheres=3)
 
@@ -110,15 +111,119 @@ def test_pil_reads_the_written_png(tmp_path, mode):
     np.testing.assert_array_equal(read_png(tmp_path / "x.png"), arr)
 
 
+def _encode_any(samples, color, depth, interlace=0, plte=None, trns=None):
+    """A PNG of samples (h, w, c) at any colour type, bit depth and
+    interlace, each row's filter its row index mod 5 (a test-side encoder)."""
+    h, w, c = samples.shape
+    bits = c * depth
+    bpp = max(1, bits // 8)
+
+    def rows_of(sub):
+        sh, sw = sub.shape[:2]
+        if depth == 16:
+            raw = sub.astype(">u2").reshape(sh, -1).view(np.uint8)
+        elif depth < 8:
+            per = 8 // depth
+            flat = sub.reshape(sh, -1).astype(np.uint8)
+            flat = np.concatenate([flat, np.zeros((sh, (-flat.shape[1]) % per), np.uint8)], 1)
+            shifts = (8 - depth * (1 + np.arange(per))).astype(np.uint8)
+            raw = (flat.reshape(sh, -1, per) << shifts).sum(-1).astype(np.uint8)
+        else:
+            raw = sub.reshape(sh, -1).astype(np.uint8)
+        out = []
+        for y in range(sh):
+            cur = raw[y].astype(np.int64)
+            up = raw[y - 1].astype(np.int64) if y else np.zeros_like(cur)
+            left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+            ul = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
+            filt = y % 5
+            pred = [np.zeros_like(cur), left, up, (left + up) // 2, None][filt]
+            if filt == 4:
+                pe = left + up - ul
+                pa, pb, pc = abs(pe - left), abs(pe - up), abs(pe - ul)
+                pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+            out.append(bytes([filt]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
+        return b"".join(out)
+
+    passes = ([(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+               (1, 0, 2, 2), (0, 1, 1, 2)] if interlace else [(0, 0, 1, 1)])
+    data = b"".join(rows_of(samples[y0::dy, x0::dx]) for x0, y0, dx, dy in passes
+                    if samples[y0::dy, x0::dx].size)
+
+    def chunk(kind, body):
+        crc = struct.pack(">I", zlib.crc32(kind + body))
+        return struct.pack(">I", len(body)) + kind + body + crc
+
+    extra = (chunk(b"PLTE", plte) if plte is not None else b"") + (
+        chunk(b"tRNS", trns) if trns is not None else b"")
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + extra
+            + chunk(b"IDAT", zlib.compress(data)) + chunk(b"IEND", b""))
+
+
+# name -> (colour type, bit depth, channels, interlace, palette entries, tRNS)
+FORMATS = {
+    "gray1": (0, 1, 1, 0, 0, False), "gray2": (0, 2, 1, 0, 0, False),
+    "gray4": (0, 4, 1, 0, 0, False),
+    **{f"pal{d}{'_trns' if t else ''}": (3, d, 1, 0, min(1 << d, 200), t)
+       for d in (1, 2, 4, 8) for t in (False, True)},
+    "rgb16": (2, 16, 3, 0, 0, False), "rgba16": (6, 16, 4, 0, 0, False),
+    "gray_alpha16": (4, 16, 2, 0, 0, False),
+    "adam7_rgb": (2, 8, 3, 1, 0, False), "adam7_gray16": (0, 16, 1, 1, 0, False),
+    "adam7_pal4": (3, 4, 1, 1, 16, False), "adam7_gray1": (0, 1, 1, 1, 0, False),
+}
+
+
+@pytest.mark.parametrize("name", list(FORMATS))
+def test_png_formats_read_as_pil_reads_them(tmp_path, name):
+    """Every other colour type, bit depth and interlace: read_png,
+    read_image and the size functions against np.asarray(Image.open(p))
+    and .size, on odd sizes (sub-byte rows end in padding bits; some Adam7
+    passes are empty or one pixel wide)."""
+    color, depth, c, interlace, entries, trns = FORMATS[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    for h, w in ((11, 13), (1, 3), (7, 1)):
+        top = entries if color == 3 else (1 << depth)
+        samples = rng.integers(0, top, (h, w, c))
+        plte = rng.integers(0, 256, 3 * entries).astype(np.uint8).tobytes() if entries else None
+        alpha = rng.integers(0, 256, entries).astype(np.uint8).tobytes() if trns else None
+        path = tmp_path / f"{name}_{h}x{w}.png"
+        path.write_bytes(_encode_any(samples, color, depth, interlace, plte, alpha))
+        with Image.open(path) as img:
+            want, size = np.asarray(img), img.size
+        for got in (read_png(path), read_image(path)):
+            assert got.shape == want.shape and got.dtype == want.dtype, (got.dtype, want.dtype)
+            np.testing.assert_array_equal(got, want)
+        assert png_size(path) == image_size(path) == size == (w, h)
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L"])
+def test_jpeg_read_as_pil_reads_it(tmp_path, mode):
+    """A JPEG reads through Pillow (the same decoder as the JAX package's
+    bits); its size comes from the SOF marker without it."""
+    rng = np.random.default_rng(7)
+    arr = rng.integers(0, 256, (9, 14, 3) if mode == "RGB" else (9, 14)).astype(np.uint8)
+    path = tmp_path / "x.jpg"
+    Image.fromarray(arr).save(path, quality=90)
+    with Image.open(path) as img:
+        want, size = np.asarray(img), img.size
+    got = read_image(path)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert image_size(path) == size == (14, 9)
+
+
 def test_png_rejects_other_formats(tmp_path):
-    Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(tmp_path / "p.png")
-    Image.fromarray(np.zeros((4, 4), bool)).save(tmp_path / "b.png")
-    for name in ("p.png", "b.png"):
-        with pytest.raises(ValueError, match="unsupported PNG format"):
-            read_png(tmp_path / name)
+    """Bytes that are not an image, and arrays write_png does not write."""
     (tmp_path / "n.png").write_bytes(b"not a png")
     with pytest.raises(ValueError):
         read_png(tmp_path / "n.png")
+    with pytest.raises(ValueError):
+        png_size(tmp_path / "n.png")
+    bad = _encode_any(np.zeros((2, 2, 3), np.int64), 2, 8)
+    (tmp_path / "b.png").write_bytes(bad[:24] + bytes([4]) + bad[25:])  # RGB at 4 bits
+    with pytest.raises(ValueError, match="not a valid PNG"):
+        read_png(tmp_path / "b.png")
     for arr in (np.zeros((4, 4, 2), np.uint8), np.zeros((4, 4), np.uint16)):
         with pytest.raises(ValueError):
             write_png(tmp_path / "x.png", arr)
@@ -258,6 +363,58 @@ def test_dataset_arrays_and_vca_match_jax(scene_dir, tmp_path, monkeypatch):
     np.testing.assert_array_equal(t.valid_indices(), j.valid_indices())
     assert len(t) == len(j) == 4
     np.testing.assert_array_equal(out["torch_vca"], out["jax_vca"])
+
+
+def test_dataset_reads_jpeg_frames_bit_masks_and_palette_segs_as_jax(scene_dir, tmp_path,
+                                                                       monkeypatch):
+    """A scene whose frames are JPEGs past the auto-downscale resolution
+    (with an images_2/ folder of smaller JPEGs), whose masks are 1-bit PNGs
+    and whose segmentation maps are palette PNGs: the dataparser's
+    downscale choice and the dataset's images, masks and seg_images equal
+    the JAX package's on the same files."""
+    root = tmp_path / "scene"
+    shutil.copytree(scene_dir, root)
+    meta = json.loads((root / "transforms.json").read_text())
+    rng = np.random.default_rng(8)
+    (root / "jpg").mkdir()
+    (root / "images_2").mkdir()
+    wide = t_dp.MAX_AUTO_RESOLUTION + 100
+    for i, fr in enumerate(meta["frames"]):
+        Image.fromarray(rng.integers(0, 256, (6, wide, 3)).astype(np.uint8)).save(
+            root / "jpg" / f"{i}.jpg", quality=85)
+        Image.fromarray(rng.integers(0, 256, (3, wide // 2)).astype(np.uint8)).save(
+            root / "images_2" / f"{i}.jpg", quality=85)  # gray, read as (H, W) then RGB
+        fr["file_path"] = f"jpg/{i}.jpg"
+        Image.fromarray(rng.uniform(size=(12, 12)) > 0.4).save(root / f"m{i}.png")  # mode "1"
+        seg = Image.new("P", (12, 12))
+        seg.putdata(rng.integers(0, 3, 144).tolist())
+        seg.putpalette([0, 0, 0, 200, 10, 10, 10, 200, 10])
+        seg.save(root / f"s{i}.png")  # 3 colours: a 2-bit palette PNG
+        fr.update({"mask_path": f"m{i}.png", "seg_file_path": f"s{i}.png"})
+        # the sidecars of the downscaled frames (the dataparser's prefixes)
+        for key, prefix in (("mask_path", "masks_2"), ("seg_file_path", "segs_2"),
+                            ("hyperspectral_file_path", "hs_2")):
+            (root / prefix).mkdir(exist_ok=True)
+            shutil.copy(root / fr[key], root / prefix / Path(fr[key]).name)
+    (root / "transforms.json").write_text(json.dumps(meta))
+    with Image.open(root / "m0.png") as m, Image.open(root / "s0.png") as sg:
+        assert (m.mode, sg.mode) == ("1", "P")
+    out = {}
+    for name, dp, ds in (("jax", j_dp, j_ds), ("torch", t_dp, t_ds)):
+        work = tmp_path / name
+        work.mkdir()
+        monkeypatch.chdir(work)
+        parser = dp.UMHSDataParser(dp.DataParserConfig(data=root, num_classes=3,
+                                                         eval_mode="fraction"))
+        parsed = parser.parse("train")
+        out[name] = (parser.downscale_factor, ds.HyperspectralDataset(parsed, compute_vca=False))
+    (t_df, t), (j_df, j) = out["torch"], out["jax"]
+    assert t_df == j_df == 2
+    assert t.images.shape == j.images.shape == (len(t), 3, wide // 2, 3)
+    for k in ("images", "masks", "seg_images"):
+        assert getattr(t, k).dtype == getattr(j, k).dtype, k
+        np.testing.assert_array_equal(getattr(t, k), getattr(j, k), err_msg=k)
+    np.testing.assert_array_equal(t.valid_indices(), j.valid_indices())
 
 
 def test_integer_cubes_are_scaled_and_clamped(tmp_path):

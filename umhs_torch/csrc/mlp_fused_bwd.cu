@@ -28,10 +28,10 @@
 // small, so an ideal kernel is bound by bytes: 0.112 ms for the four field
 // chains at 262,144 rows (x and g read once, dx written once, at 3.35 TB/s).
 //
-// Three fused kernels and the general route, chosen by mode and shape in
-// the C launcher below (a dispatch on shape: a failed launch still returns
-// its error, nothing falls back from one kernel to another, and the
-// launcher reports the route it took):
+// Three fused kernels, the fused route and the general route, chosen by
+// mode and shape in the C launcher below (a dispatch on shape: a failed
+// launch still returns its error, nothing falls back from one kernel to
+// another, and the launcher reports the route it took):
 //
 // - bf16 mode, every padded width <= 128 and at most 16 dW tiles per warp
 //   (8 where a width exceeds 64; the four field chains, the proposal chain):
@@ -87,12 +87,16 @@
 //   i + D/4, i + 2D/4, i + 3D/4 so a warp's float4 reads fall in distinct
 //   banks. It is bound by its shared-memory traffic.
 // - every other chain (as K1's rule: a width above 256, more than 8
-//   layers, or no room for either FMA kernel): the general route of
-//   mlp_general.cuh. It recomputes each layer's input with K1's general
-//   kernel into a device scratch, walks the layers back with a product per
-//   step, and sums dW and db from per-block partials in block order, then
-//   chunk order (umhs_mlp_fused_bwd_scratch_bytes sizes its buffers, by
-//   layer: the largest layer's partials, reused).
+//   layers, or no room for either FMA kernel): in bf16 the fused route of
+//   mlp_chain_fused.cuh where K1 takes it (mlp_chain_bwd_kernel: one launch
+//   over fixed row ranges, recomputing with K1's fused code, dW and db
+//   summed a range a block, then over the blocks in order), else the general
+//   route of mlp_general.cuh. That one recomputes each layer's input with
+//   K1's general products into a device scratch, walks the layers back with
+//   a product per step, and sums dW and db from per-block partials in block
+//   order, then chunk order (umhs_mlp_fused_bwd_scratch_bytes sizes either
+//   route's buffers; the general route's by layer: the largest layer's
+//   partials, reused).
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -100,6 +104,7 @@
 
 #include "common.cuh"
 #include "mlp_chain_tc.cuh"
+#include "mlp_chain_fused.cuh"
 #include "mlp_general.cuh"
 
 namespace {
@@ -1131,19 +1136,26 @@ int bf16_route(const int* d, int L, TcBwdDims& td, size_t& smem, WideBwdDims& wd
   return 0;
 }
 
+// Where a chain goes that no kernel above takes (K1's rule): 3, the fused
+// route (mlp_chain_fused.cuh), for a bf16 chain it takes; else 2, the
+// general route (mlp_general.cuh).
+int past_the_fused_kernels(const int* d, int L, bool bf16) {
+  return bf16 && umhs::chain::chain_fits(d, L) ? 3 : 2;
+}
+
 // The route of the chain d[0..L] in this mode: the bf16 codes above, 0 for
-// the FMA kernel, 2 for the general route (mlp_general.cuh, the rule K1's
-// launcher applies too); -1 for a chain it refuses (a width below 1).
+// the FMA kernel, 2 for the general route, 3 for the fused route (the rule
+// K1's launcher applies too); -1 for a chain it refuses (a width below 1).
 int route_of(const int* d, int L, bool bf16, TcBwdDims& td, size_t& smem, WideBwdDims& wd) {
   if (L < 1) return -1;
   for (int l = 0; l <= L; ++l)
     if (d[l] < 1) return -1;
-  if (!umhs::fused_shape(d, L)) return 2;
+  if (!umhs::fused_shape(d, L)) return past_the_fused_kernels(d, L, bf16);
   if (bf16) {
     const int r = bf16_route(d, L, td, smem, wd);
     if (r != 0) return r;
   }
-  return umhs::fma_takes(d, L) ? 0 : 2;
+  return umhs::fma_takes(d, L) ? 0 : past_the_fused_kernels(d, L, bf16);
 }
 
 // The index of a route code among the wrapper's names (MLP_BWD_ROUTES).
@@ -1154,6 +1166,7 @@ int route_index(int code, bool bf16) {
     case 408: return 3;
     case 416: return 4;
     case 1: return 5;
+    case 3: return 8;
     default: return bf16 ? 7 : 6;
   }
 }
@@ -1180,6 +1193,17 @@ extern "C" int umhs_mlp_fused_bwd(const float* x, const float* g, const float* p
   if (route < 0 || n < 0 || max_blocks < 1) return cudaErrorInvalidValue;
   *route_out = route_index(route, bf16 != 0);
   auto s = static_cast<cudaStream_t>(stream);
+  if (route == 3) {
+    const size_t need = umhs::chain::bwd_scratch_bytes(dims_host, num_layers, n);
+    if (partials == nullptr || reinterpret_cast<uintptr_t>(partials) % 256 != 0 ||
+        partials_bytes < static_cast<int64_t>(need))
+      return cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(dx) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+    return umhs::chain::backward(x, g, params, dx, dparams, n, dims_host, num_layers, partials,
+                                 s);
+  }
   if (route == 2) {
     const size_t need = umhs::general::bwd_scratch_bytes(dims_host, num_layers, bf16 != 0, n);
     if (partials == nullptr || reinterpret_cast<uintptr_t>(partials) % 256 != 0 ||
@@ -1250,8 +1274,8 @@ extern "C" int umhs_mlp_fused_bwd(const float* x, const float* g, const float* p
 
 // The kernel umhs_mlp_fused_bwd runs for the chain dims[0..num_layers] in
 // this mode: 100 kKT + kOwn for mlp_fused_bwd_tc_kernel<kKT, kOwn>, 1 for
-// mlp_fused_bwd_wide_kernel, 0 for the FMA kernel, 2 for the general route;
-// -1 for a chain it refuses.
+// mlp_fused_bwd_wide_kernel, 0 for the FMA kernel, 2 for the general route,
+// 3 for the fused route; -1 for a chain it refuses.
 extern "C" int umhs_mlp_fused_bwd_route(const int* dims_host, int num_layers, int bf16) {
   TcBwdDims td;
   WideBwdDims wd;
@@ -1271,12 +1295,15 @@ extern "C" int umhs_mlp_fused_bwd_dx_slices(const int* dims_host, int num_layers
 }
 
 // Bytes of the scratch (`partials`) umhs_mlp_fused_bwd needs for n rows of
-// the chain in this mode with max_blocks: the general route's buffers, else
-// max_blocks rows of partial sums of every parameter.
+// the chain in this mode with max_blocks: the general and fused routes'
+// buffers, else max_blocks rows of partial sums of every parameter.
 extern "C" int64_t umhs_mlp_fused_bwd_scratch_bytes(const int* dims_host, int num_layers,
                                                     int bf16, int64_t n, int max_blocks) {
   const int route = umhs_mlp_fused_bwd_route(dims_host, num_layers, bf16);
   if (route < 0) return 0;
+  if (route == 3)
+    return static_cast<int64_t>(
+        umhs::chain::bwd_scratch_bytes(dims_host, num_layers, std::max<int64_t>(n, 1)));
   if (route == 2)
     return static_cast<int64_t>(
         umhs::general::bwd_scratch_bytes(dims_host, num_layers, bf16 != 0, std::max<int64_t>(n, 1)));

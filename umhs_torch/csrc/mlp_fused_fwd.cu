@@ -14,9 +14,9 @@
 // takes 0.565 ms even at their peak, so the bf16 mode runs on the tensor
 // cores.
 //
-// Three fused kernels and the general route, chosen by mode and shape in
-// the C launcher below (a dispatch on shape: a failed launch still returns
-// its error; the launcher reports the route it took):
+// Three fused kernels, the fused route and the general route, chosen by
+// mode and shape in the C launcher below (a dispatch on shape: a failed
+// launch still returns its error; the launcher reports the route it took):
 //
 // - bf16 mode, every padded width <= 128 (the four flagship chains):
 //   mlp_fused_fwd_tc_kernel, mma.sync m16n8k16 bf16 with f32 accumulation
@@ -67,6 +67,11 @@
 //   per k); the transposed rows are padded by 4 floats; x is read and y
 //   written with coalesced accesses. It is bound by its shared-memory
 //   traffic.
+// - every other chain (a width above 256, more than 8 layers, or no room for
+//   either FMA kernel): in bf16 the fused route of mlp_chain_fused.cuh
+//   (mlp_chain_fwd_kernel: the whole chain in one launch, where its hidden
+//   widths are at most 256 and its tiles fit), else the general route of
+//   mlp_general.cuh (a product per layer; bf16 on wgmma fed by TMA).
 //
 // Numerics. f32 mode: plain f32 fused multiply-adds. bf16 mode follows the
 // Pallas kernel's rounding points: x and W_i are rounded to bf16, products
@@ -80,6 +85,7 @@
 
 #include "common.cuh"
 #include "mlp_chain_tc.cuh"
+#include "mlp_chain_fused.cuh"
 #include "mlp_general.cuh"
 
 namespace {
@@ -502,21 +508,28 @@ int bf16_route(const int* d, int num_layers, TcDims& td, WideDims& wd, size_t& s
   return 0;
 }
 
+// Where a chain goes that no kernel above takes: 3, the fused route
+// (mlp_chain_fused.cuh), for a bf16 chain it takes; else 2, the general
+// route (mlp_general.cuh). K2's launcher applies the same rule.
+int past_the_fused_kernels(const int* d, int num_layers, bool bf16) {
+  return bf16 && umhs::chain::chain_fits(d, num_layers) ? 3 : 2;
+}
+
 // The route of the chain d[0..num_layers] in this mode: 100 kKT + kM for
 // mlp_fused_fwd_tc_kernel<kKT, kM>, 1 for mlp_fused_fwd_wide_kernel, 0 for
-// the FMA kernel, 2 for the general route (mlp_general.cuh); -1 for a chain
-// it refuses (a width below 1). Fills the dims and shared-memory bytes of
-// the tensor-core kernel it names.
+// the FMA kernel, 2 for the general route, 3 for the fused route; -1 for a
+// chain it refuses (a width below 1). Fills the dims and shared-memory
+// bytes of the tensor-core kernel it names.
 int route_of(const int* d, int num_layers, bool bf16, TcDims& td, WideDims& wd, size_t& smem) {
   if (num_layers < 1) return -1;
   for (int l = 0; l <= num_layers; ++l)
     if (d[l] < 1) return -1;
-  if (!umhs::fused_shape(d, num_layers)) return 2;
+  if (!umhs::fused_shape(d, num_layers)) return past_the_fused_kernels(d, num_layers, bf16);
   if (bf16) {
     const int r = bf16_route(d, num_layers, td, wd, smem);
     if (r != 0) return r;
   }
-  return umhs::fma_takes(d, num_layers) ? 0 : 2;
+  return umhs::fma_takes(d, num_layers) ? 0 : past_the_fused_kernels(d, num_layers, bf16);
 }
 
 // The index of a route code among the wrapper's names (MLP_FWD_ROUTES).
@@ -526,6 +539,7 @@ int route_index(int code, bool bf16) {
     case 402: return 2;
     case 801: return 3;
     case 1: return 4;
+    case 3: return 7;
     default: return bf16 ? 6 : 5;
   }
 }
@@ -566,6 +580,13 @@ extern "C" int umhs_mlp_fused_fwd(const float* x, const float* params, float* y,
                   : umhs::general::forward<float>(x, params, y, n, dims_host, num_layers,
                                                   scratch, s);
     }
+    case 3: {
+      const size_t need = umhs::chain::fwd_scratch_bytes(dims_host, num_layers);
+      if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 256 != 0 ||
+          scratch_bytes < static_cast<int64_t>(need))
+        return cudaErrorInvalidValue;
+      return umhs::chain::forward(x, params, y, n, dims_host, num_layers, scratch, s);
+    }
     default: break;
   }
   Dims dims{};
@@ -587,8 +608,8 @@ extern "C" int umhs_mlp_fused_fwd(const float* x, const float* params, float* y,
 
 // The kernel umhs_mlp_fused_fwd runs for the chain dims[0..num_layers] in
 // this mode: 100 kKT + kM for mlp_fused_fwd_tc_kernel<kKT, kM>, 1 for
-// mlp_fused_fwd_wide_kernel, 0 for the FMA kernel, 2 for the general route;
-// -1 for a chain it refuses.
+// mlp_fused_fwd_wide_kernel, 0 for the FMA kernel, 2 for the general route,
+// 3 for the fused route; -1 for a chain it refuses.
 extern "C" int umhs_mlp_fused_fwd_route(const int* dims_host, int num_layers, int bf16) {
   TcDims td;
   WideDims wd;
@@ -597,10 +618,13 @@ extern "C" int umhs_mlp_fused_fwd_route(const int* dims_host, int num_layers, in
 }
 
 // Bytes of scratch umhs_mlp_fused_fwd needs for n rows of the chain in this
-// mode: the general route's packed weights and activations, else 0.
+// mode: the general route's packed weights and activations, the fused
+// route's packed weights, else 0.
 extern "C" int64_t umhs_mlp_fused_fwd_scratch_bytes(const int* dims_host, int num_layers,
                                                     int bf16, int64_t n) {
-  if (umhs_mlp_fused_fwd_route(dims_host, num_layers, bf16) != 2 || n <= 0) return 0;
+  const int route = umhs_mlp_fused_fwd_route(dims_host, num_layers, bf16);
+  if (route == 3) return static_cast<int64_t>(umhs::chain::fwd_scratch_bytes(dims_host, num_layers));
+  if (route != 2 || n <= 0) return 0;
   return static_cast<int64_t>(
       umhs::general::fwd_scratch_bytes(dims_host, num_layers, bf16 != 0, n));
 }

@@ -1,45 +1,48 @@
 // The general route of K1 (mlp_fused_fwd.cu) and K2 (mlp_fused_bwd.cu): every
 // chain that their fused kernels cannot launch (a width above 256, more than
 // 8 layers, or weights and a tile that leave no room in a block's 232,448
-// bytes of shared memory), in f32 and in bf16.
+// bytes of shared memory) and, in bf16, the fused route of
+// mlp_chain_fused.cuh does not take either (a hidden width above 256, or
+// tiles past a block's shared memory), in f32 and in bf16.
 //
-// One launch per product of a layer, over tiles of 64 rows x 64 columns of
-// the product's output, 128 threads a block (mlp_gemm_kernel). The k loop
-// walks the product's depth in slices of 32 through shared memory, the next
-// slice's operands in flight by cp.async while this one's are multiplied.
-// Nothing about the chain's size lives in registers or in a struct passed by
-// value, so there is no cap on depth or width. Between layers the
-// activations go through global scratch in the compute dtype (bf16 holds
-// exactly the rounding point; f32 is f32), each row padded with zeros to a
-// multiple of 16 elements, so that every staged row is whole 16-byte pieces
-// at any width (281 bands, 28 inputs). The weights are packed once per call
-// the same way (W_l as [pad(d_l)][pad(d_l+1)], rounded to bf16 in bf16 mode;
-// the biases f32). Rows are cut into chunks where the scratch would pass
-// kScratchCap bytes.
+// One launch per product of a layer. Nothing about the chain's size lives in
+// registers or in a struct passed by value, so there is no cap on depth or
+// width. Between layers the activations go through global scratch in the
+// compute dtype (bf16 holds exactly the rounding point; f32 is f32), each
+// row padded with zeros to a multiple of 16 elements, so that every staged
+// row is whole 16-byte pieces at any width (281 bands, 28 inputs). The
+// weights are packed once per call the same way (W_l as [pad(d_l)][pad(d_l+1)],
+// rounded to bf16 in bf16 mode; the biases f32). Rows are cut into chunks
+// where the scratch would pass kScratchCap bytes.
 //
-// Products: bf16 mode, mma.sync m16n8k16 with f32 sums, a warp 16 rows x 64
-// columns (helpers in mma_bf16.cuh); f32 mode, fused multiply-adds, a thread
-// 4 rows x 8 columns, k ascending from +0 and then + b: the FMA kernel's sum
-// order, so an f32 chain gets the FMA kernel's bits on either route. An
-// operand is staged as it lies in device memory, k contiguous ([i][k]) or i
-// contiguous ([k][i]); ldmatrix, or ldmatrix.trans, gives the fragments.
+// Products: bf16 mode, mlp_wgmma_kernel: 128 x 256 output tiles, two
+// warpgroups of wgmma m64n256k16 from 128-byte-swizzled shared memory that
+// TMA fills, a four-slice ring (wgmma_bf16.cuh), the sums staged through
+// shared memory for whole-row stores; f32 mode, mlp_gemm_kernel: 64 x 64
+// tiles, fused multiply-adds, a thread 4 rows x 8 columns, k ascending from
+// +0 and then + b: the FMA kernel's sum order, so an f32 chain gets the FMA
+// kernel's bits on either route, its operands staged by cp.async as they lie
+// in device memory. An operand lies k contiguous ([i][k]) or i contiguous
+// ([k][i]); both kernels take either.
 //
 // The rounding points are K1's and K2's (mlp_fused_fwd.cu, mlp_fused_bwd.cu):
 // x and W_i rounded to bf16, f32 sums, b_i added in f32, ReLU, rounding to
 // bf16, an f32 output; backward, the mask post-activation > 0, db the f32
 // column sum of dh, dh rounded to bf16 for dW = a^T . dh and dh . W^T with
-// f32 sums, dx f32. K2 recomputes the forward with this same kernel, so each
-// ReLU decision is K1's. dW and db are sums over rows: each block of the dW
-// product takes a fixed range of rows (blockIdx.z) and writes its partial
-// sums, each block of a dh product the column sums of its 64 rows, and
-// mlp_sum_rows_kernel adds them in block order, then chunk after chunk. A run
-// repeats bit for bit, and no float atomics are used.
+// f32 sums, dx f32. K2 recomputes the forward with these same products, so
+// each ReLU decision is K1's. dW and db are sums over rows: each block of the
+// dW product takes a fixed range of rows (blockIdx.z; whole 64-row slices in
+// bf16) and writes its partial sums, each block of a dh product the column
+// sums of its rows, and mlp_sum_rows_kernel adds them in block order, then
+// chunk after chunk. A run repeats bit for bit, and no float atomics are
+// used.
 //
 // What bounds it on an H100: at the widths it exists for it is a chain of
 // matrix products, bound by operations (bf16 on the tensor cores at
 // 989 TFLOP/s, f32 at 67), plus each activation's bytes written and read once
-// between layers. A simple design that is right: the tiles are small and the
-// f32 products read shared memory with bank conflicts.
+// between layers. In bf16 each 128 x 256 tile reads its A and B slices from
+// L2 (48 KB a 64-deep slice for 2M multiply-adds); the f32 products read
+// shared memory with bank conflicts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,6 +53,7 @@
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace umhs {
 
@@ -173,32 +177,6 @@ __device__ __forceinline__ void stage(T* s, const T* g, int64_t ld, int i0, int 
   }
 }
 
-// The A fragment of k-tile kt for warp w's 16 rows of the tile.
-template <bool kKInner>
-__device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const __nv_bfloat16* s, int w, int kt,
-                                           int lane) {
-  constexpr int kStride = Tile<__nv_bfloat16, kKInner>::kStride;
-  if (kKInner) {
-    ldmatrix_x4(a, s + (16 * w + (lane & 15)) * kStride + 16 * kt + 8 * (lane >> 4));
-  } else {
-    const int q = lane >> 3, r = lane & 7;
-    ldmatrix_x4_trans(a, s + (16 * kt + r + 8 * (q >> 1)) * kStride + 16 * w + 8 * (q & 1));
-  }
-}
-
-// The B fragments of n-tiles 2p and 2p + 1 at k-tile kt: b[0], b[1] of 2p,
-// b[2], b[3] of 2p + 1.
-template <bool kKInner>
-__device__ __forceinline__ void b_fragments(uint32_t (&b)[4], const __nv_bfloat16* s, int p, int kt,
-                                            int lane) {
-  constexpr int kStride = Tile<__nv_bfloat16, kKInner>::kStride;
-  const int q = lane >> 3, r = lane & 7;
-  if (kKInner)
-    ldmatrix_x4(b, s + (16 * p + 8 * (q >> 1) + r) * kStride + 16 * kt + 8 * (q & 1));
-  else
-    ldmatrix_x4_trans(b, s + (16 * kt + 8 * (q & 1) + r) * kStride + 16 * p + 8 * (q >> 1));
-}
-
 // What a product's epilogue does with its sums v at (row, col).
 enum Epilogue : int {
   kHidden = 0,  // relu(v + b), in the compute dtype, to the next layer's input
@@ -230,9 +208,10 @@ struct Gemm {
   int64_t ldc;
 };
 
-template <typename T, int kEpi, bool kAK, bool kBK>
+// The f32 products (the bf16 ones are mlp_wgmma_kernel's).
+template <int kEpi, bool kAK, bool kBK>
 __global__ void __launch_bounds__(kThreads) mlp_gemm_kernel(Gemm p) {
-  constexpr bool kBf16 = sizeof(T) == 2;
+  using T = float;
   constexpr int kA = Tile<T, kAK>::kElems, kB = Tile<T, kBK>::kElems;
   __shared__ __align__(16) T smem[2 * (kA + kB)];
   __shared__ float sums[16][kTileN];
@@ -242,9 +221,8 @@ __global__ void __launch_bounds__(kThreads) mlp_gemm_kernel(Gemm p) {
   const int k0 = blockIdx.z * p.k_split;
   const int k1 = min(p.k_end, k0 + p.k_split);
   const int slices = k1 > k0 ? (k1 - k0 + kSlice - 1) / kSlice : 0;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  float acc[8][4];  // sum i at acc[i / 4][i % 4]; bf16: n-tile j's C fragment at acc[j]
+  float acc[8][4];  // sum i at acc[i / 4][i % 4]
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -267,21 +245,7 @@ __global__ void __launch_bounds__(kThreads) mlp_gemm_kernel(Gemm p) {
     __syncthreads();
     const T* As = smem + (s & 1) * (kA + kB);
     const T* Bs = As + kA;
-    if constexpr (kBf16) {
-#pragma unroll
-      for (int kt = 0; kt < kSlice / 16; ++kt) {
-        uint32_t a[4];
-        a_fragment<kAK>(a, As, warp, kt, lane);
-#pragma unroll
-        for (int q = 0; q < kTileN / 16; ++q) {
-          uint32_t b[4];
-          b_fragments<kBK>(b, Bs, q, kt, lane);
-          mma_bf16_16816(acc[2 * q], a, b[0], b[1]);
-          mma_bf16_16816(acc[2 * q + 1], a, b[2], b[3]);
-        }
-      }
-    } else {
-      // k ascending over the real depth only: the FMA kernel's order
+    {  // k ascending over the real depth only: the FMA kernel's order
       constexpr int SA = Tile<T, kAK>::kStride, SB = Tile<T, kBK>::kStride;
       const int cg = threadIdx.x & 7, rg = threadIdx.x >> 3;
       const int kc = min(kSlice, k1 - (k0 + s * kSlice));
@@ -304,17 +268,10 @@ __global__ void __launch_bounds__(kThreads) mlp_gemm_kernel(Gemm p) {
   }
   cp_async_wait<0>();
 
-  // (row, col) of the tile for sum i: bf16, n-tile i / 4's C fragment;
-  // f32, the thread's 4 x 8 block
+  // (row, col) of the tile for sum i: the thread's 4 x 8 block
   auto at = [&](int i, int& r, int& c) {
-    if constexpr (kBf16) {
-      const int j = i >> 2, e = i & 3;
-      r = 16 * warp + (lane >> 2) + 8 * (e >> 1);
-      c = 8 * j + 2 * (lane & 3) + (e & 1);
-    } else {
-      r = 4 * (threadIdx.x >> 3) + (i >> 3);
-      c = 8 * (threadIdx.x & 7) + (i & 7);
-    }
+    r = 4 * (threadIdx.x >> 3) + (i >> 3);
+    c = 8 * (threadIdx.x & 7) + (i & 7);
   };
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -343,34 +300,166 @@ __global__ void __launch_bounds__(kThreads) mlp_gemm_kernel(Gemm p) {
   }
   if constexpr (kEpi == kDh) {
     // the column sums of the block's rows, in a fixed order
-    if constexpr (kBf16) {
 #pragma unroll
-      for (int j = 0; j < kTileN / 8; ++j) {
-        float s0 = acc[j][0] + acc[j][2], s1 = acc[j][1] + acc[j][3];
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-        }
-        if (lane < 4) {
-          sums[warp][8 * j + 2 * lane] = s0;
-          sums[warp][8 * j + 2 * lane + 1] = s1;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        sums[threadIdx.x >> 3][8 * (threadIdx.x & 7) + c] =
-            acc[c / 4][c % 4] + acc[2 + c / 4][c % 4] + acc[4 + c / 4][c % 4] +
-            acc[6 + c / 4][c % 4];
-    }
+    for (int c = 0; c < 8; ++c)
+      sums[threadIdx.x >> 3][8 * (threadIdx.x & 7) + c] =
+          acc[c / 4][c % 4] + acc[2 + c / 4][c % 4] + acc[4 + c / 4][c % 4] +
+          acc[6 + c / 4][c % 4];
     __syncthreads();
     if (threadIdx.x < kTileN && n0 + threadIdx.x < p.n_out) {
-      constexpr int kParts = kBf16 ? kThreads / 32 : kThreads / 8;
+      constexpr int kParts = kThreads / 8;
       float t = 0.f;
 #pragma unroll
       for (int w = 0; w < kParts; ++w) t += sums[w][threadIdx.x];
       p.colsum[blockIdx.x * p.ldc + n0 + threadIdx.x] = t;
+    }
+  }
+}
+
+// The bf16 products on the H100's warpgroup instructions: an output tile of
+// 128 x 256 a block of two warpgroups (each m64n256k16 over its 64 rows),
+// the depth in slices of 64 through a ring of kWgStages slices that TMA
+// fills (one thread issues each slice's boxes; the slice's mbarrier counts
+// its bytes), 128-byte swizzled (wgmma_bf16.cuh). kWgStages - 1 slices are in
+// flight while one is multiplied; slice s - 1's products may still run
+// (one wgmma group in flight), so a buffer is refilled only after both
+// warpgroups waited for its group: one block barrier a slice. TMA fills the
+// edges with zeros: rows past the output's, k past the product's depth (the
+// dW product's row ranges are whole slices, so a range never reads the
+// next one's rows). The sums are then staged through shared memory for the
+// epilogue, which writes whole rows (16-byte pieces of bf16 where it writes
+// the compute dtype). The epilogues are mlp_gemm_kernel's; kDh's column sums
+// add the block's 128 rows in row order.
+constexpr int kWgM = 128, kWgN = 256, kWgK = 64, kWgStages = 4, kWgThreads = 256;
+constexpr int kWgTileBytes = (kWgM + kWgN) * kWgK * 2;  // one slice of both operands
+constexpr int kWgSmem = kWgStages * kWgTileBytes + 1024;  // + the 1,024-byte alignment
+constexpr int kWgLd = kWgN + 4;  // the staged sums' row stride, floats
+
+template <int kEpi, bool kAK, bool kBK>
+__global__ void __launch_bounds__(kWgThreads)
+mlp_wgmma_kernel(const Gemm p, const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb) {
+  extern __shared__ __align__(1024) unsigned char wg_raw[];
+  __shared__ __align__(8) uint64_t full[kWgStages];
+  unsigned char* wg_smem = wg_raw + ((1024 - (smem_addr(wg_raw) & 1023)) & 1023);
+  // the column tiles of one row tile run side by side (blockIdx.x), so A is
+  // read from device memory once
+  const int m0 = blockIdx.y * kWgM, n0 = blockIdx.x * kWgN;
+  const int k0 = blockIdx.z * p.k_split;
+  const int k1 = min(p.k_end, k0 + p.k_split);
+  const int slices = k1 > k0 ? (k1 - k0 + kWgK - 1) / kWgK : 0;
+  const int wgi = threadIdx.x >> 7;  // this warpgroup's 64 rows
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < kWgStages; ++b) wg::bar_init(&full[b], 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+  auto tile_a = [&](int s) { return wg_smem + (s % kWgStages) * kWgTileBytes; };
+  auto issue = [&](int s) {  // slice s's boxes (thread 0)
+    unsigned char* a = tile_a(s);
+    unsigned char* b = a + kWgM * kWgK * 2;
+    uint64_t* bar = &full[s % kWgStages];
+    const int ks = k0 + s * kWgK;
+    wg::bar_expect(bar, kWgTileBytes);
+    if (kAK) {
+      wg::tma_load(a, &ta, ks, m0, bar);
+    } else {
+      for (int q = 0; q < kWgM / 64; ++q) wg::tma_load(a + q * 8192, &ta, m0 + 64 * q, ks, bar);
+    }
+    if (kBK) {
+      wg::tma_load(b, &tb, ks, n0, bar);
+    } else {
+      for (int q = 0; q < kWgN / 64; ++q) wg::tma_load(b + q * 8192, &tb, n0 + 64 * q, ks, bar);
+    }
+  };
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  if (threadIdx.x == 0)
+    for (int s = 0; s + 1 < kWgStages && s < slices; ++s) issue(s);
+  for (int s = 0; s < slices; ++s) {
+    wg::bar_wait(&full[s % kWgStages], (s / kWgStages) & 1);
+    const unsigned char* a = tile_a(s);
+    const unsigned char* b = a + kWgM * kWgK * 2;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgK / 16; ++kk) {
+      // K-major: 32 bytes a k16 step (LBO unused); MN-major: 2,048 (16 k-rows)
+      const uint64_t da = kAK ? wg::desc(a + wgi * 8192 + 32 * kk, 16, 1024)
+                              : wg::desc(a + wgi * 8192 + 2048 * kk, 8192, 1024);
+      const uint64_t db = kBK ? wg::desc(b + 32 * kk, 16, 1024)
+                              : wg::desc(b + 2048 * kk, 8192, 1024);
+      wg::mma_m64n256k16<kAK ? 0 : 1, kBK ? 0 : 1>(acc, da, db);
+    }
+    wg::commit();
+    wg::wait<1>();  // slice s - 1's products are done
+    __syncthreads();  // in both warpgroups: its buffer takes slice s + kWgStages - 1
+    if (threadIdx.x == 0 && s + kWgStages - 1 < slices) issue(s + kWgStages - 1);
+  }
+  wg::wait<0>();
+  __syncthreads();  // the ring is free: stage the sums
+  float* sums = reinterpret_cast<float*>(wg_smem);
+  {
+    const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int r = 64 * wgi + 16 * w + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < kWgN / 8; ++j) {
+      *reinterpret_cast<float2*>(sums + r * kWgLd + 8 * j + c) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(sums + (r + 8) * kWgLd + 8 * j + c) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  __syncthreads();
+  const int rows = min(kWgM, p.m - m0);
+  if constexpr (kEpi == kHidden || kEpi == kDh) {
+    // 8 columns (16 bytes of bf16) a thread-step; n_out and ldo multiples of 16
+    const int cols = min(kWgN, p.n_out - n0);
+    auto* out = static_cast<__nv_bfloat16*>(p.out);
+    const int per = cols / 8;
+    for (int e = threadIdx.x; e < rows * per; e += kWgThreads) {
+      const int r = e / per, c = (e - r * per) * 8;
+      float* v = sums + r * kWgLd + c;
+      const int64_t row = m0 + r;
+      if constexpr (kEpi == kHidden) {
+        const float4 b0 = *reinterpret_cast<const float4*>(p.bias + n0 + c);
+        const float4 b1 = *reinterpret_cast<const float4*>(p.bias + n0 + c + 4);
+        const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v[q] = fmaxf(v[q] + bb[q], 0.f);
+      } else {
+        const uint4 mk = *reinterpret_cast<const uint4*>(
+            static_cast<const __nv_bfloat16*>(p.mask) + row * p.ldm + n0 + c);
+        const auto* m8 = reinterpret_cast<const __nv_bfloat16*>(&mk);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v[q] = __bfloat162float(m8[q]) > 0.f ? v[q] : 0.f;
+      }
+      uint4 pk;
+      pk.x = pack_bf16x2(v[0], v[1]);
+      pk.y = pack_bf16x2(v[2], v[3]);
+      pk.z = pack_bf16x2(v[4], v[5]);
+      pk.w = pack_bf16x2(v[6], v[7]);
+      *reinterpret_cast<uint4*>(out + row * p.ldo + n0 + c) = pk;
+    }
+    if constexpr (kEpi == kDh) {
+      __syncthreads();  // the masked sums, summed down each column in row order
+      for (int c = threadIdx.x; c < cols; c += kWgThreads) {
+        float t = 0.f;
+        for (int r = 0; r < rows; ++r) t += sums[r * kWgLd + c];
+        p.colsum[blockIdx.y * p.ldc + n0 + c] = t;
+      }
+    }
+  } else {
+    // f32 rows: y (+ b), dx, dW's partial sums; a warp along a row segment
+    const int cols = min(kWgN, p.n - n0);
+    float* out = static_cast<float*>(p.out) + (kEpi == kDw ? blockIdx.z * p.out_z : 0);
+    for (int e = threadIdx.x; e < rows * kWgN; e += kWgThreads) {
+      const int r = e / kWgN, c = e - r * kWgN;
+      if (c < cols) {
+        float v = sums[r * kWgLd + c];
+        if constexpr (kEpi == kLast) v += p.bias[n0 + c];
+        out[static_cast<int64_t>(m0 + r) * p.ldo + n0 + c] = v;
+      }
     }
   }
 }
@@ -468,12 +557,15 @@ inline size_t fwd_scratch_bytes(const int* d, int L, bool bf16, int64_t n) {
          2 * al256(rows * widest_hidden(d, L) * e);
 }
 
-// Row ranges (blockIdx.z) of the dW product of a din x dout layer over rows.
-inline int dw_splits(int din, int dout, int64_t rows, int& k_split) {
-  const int64_t tiles = ceil_div(din, kTileM) * ceil_div(dout, kTileN);
+// Row ranges (blockIdx.z) of the dW product of a din x dout layer over rows,
+// in the product kernel's tiles and slices (bf16: 128 x 256, 64 deep; f32:
+// 64 x 64, 32 deep).
+inline int dw_splits(int din, int dout, int64_t rows, int& k_split, bool bf16) {
+  const int tm = bf16 ? kWgM : kTileM, tn = bf16 ? kWgN : kTileN, ks = bf16 ? kWgK : kSlice;
+  const int64_t tiles = ceil_div(din, tm) * ceil_div(dout, tn);
   int64_t want = std::max<int64_t>(1, ceil_div(kSplitTarget, tiles));
   want = std::min<int64_t>(want, std::max<int64_t>(1, ceil_div(rows, kSplitMinRows)));
-  k_split = static_cast<int>(ceil_div(ceil_div(rows, want), kSlice) * kSlice);
+  k_split = static_cast<int>(ceil_div(ceil_div(rows, want), ks) * ks);
   return static_cast<int>(ceil_div(rows, k_split));
 }
 
@@ -484,11 +576,11 @@ inline int64_t bwd_chunk(const int* d, int L, bool bf16, int64_t n) {
   return chunk_rows(n, per_row);
 }
 
-inline size_t dw_partial_floats(const int* d, int L, int64_t rows) {
+inline size_t dw_partial_floats(const int* d, int L, int64_t rows, bool bf16) {
   size_t most = 0;
   for (int l = 0; l < L; ++l) {
     int k_split = 0;
-    const int z = dw_splits(d[l], d[l + 1], rows, k_split);
+    const int z = dw_splits(d[l], d[l + 1], rows, k_split, bf16);
     most = std::max(most, static_cast<size_t>(z) * d[l] * d[l + 1]);
   }
   return most;
@@ -502,7 +594,7 @@ inline size_t bwd_scratch_bytes(const int* d, int L, bool bf16, int64_t n) {
   for (int l = 0; l < L; ++l) b += al256(r * pad16(d[l]) * e);
   b += 2 * al256(r * widest_output(d, L) * e);
   b += al256(sizeof(float) * ceil_div(rows, 64) * widest_output(d, L));
-  b += al256(sizeof(float) * dw_partial_floats(d, L, rows));
+  b += al256(sizeof(float) * dw_partial_floats(d, L, rows, bf16));
   return b;
 }
 
@@ -540,18 +632,46 @@ cudaError_t pack_weights(const float* params, const int* d, int L, Carve& cv, Pa
   return cudaGetLastError();
 }
 
+// Output tile rows and columns of the product kernel of the compute dtype:
+// bf16 the warpgroup kernel's 128 x 256, f32 the FMA kernel's 64 x 64.
+template <typename T>
+constexpr int tile_m() { return sizeof(T) == 2 ? kWgM : kTileM; }
+template <typename T>
+constexpr int tile_n() { return sizeof(T) == 2 ? kWgN : kTileN; }
+
+// Launches one product over the output's columns (n, or n_out where the
+// epilogue writes the padded width) and grid_z ranges of k.
 template <typename T, int kEpi, bool kAK, bool kBK>
-void launch_gemm(const Gemm& g, int grid_y, int grid_z, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(ceil_div(g.m, kTileM)),
-                  static_cast<unsigned>(grid_y), static_cast<unsigned>(grid_z));
-  mlp_gemm_kernel<T, kEpi, kAK, kBK><<<grid, kThreads, 0, stream>>>(g);
+cudaError_t launch_gemm(const Gemm& g, int grid_z, cudaStream_t stream) {
+  const int cols = kEpi == kHidden || kEpi == kDh ? g.n_out : g.n;
+  const unsigned row_tiles = static_cast<unsigned>(ceil_div(g.m, tile_m<T>()));
+  const unsigned col_tiles = static_cast<unsigned>(ceil_div(cols, tile_n<T>()));
+  if constexpr (sizeof(T) == 2) {  // column tiles along x: see mlp_wgmma_kernel
+    // K-major operands: one box of 64 k x the tile's rows; MN-major: 64 x 64
+    CUtensorMap ta, tb;
+    cudaError_t err = kAK ? wg::tensor_map(&ta, g.a, g.lda, g.a_end, g.lda, kWgK, kWgM)
+                          : wg::tensor_map(&ta, g.a, g.lda, g.k_end, g.lda, 64, kWgK);
+    if (err != cudaSuccess) return err;
+    err = kBK ? wg::tensor_map(&tb, g.b, g.ldb, g.b_end, g.ldb, kWgK, kWgN)
+              : wg::tensor_map(&tb, g.b, g.ldb, g.k_end, g.ldb, 64, kWgK);
+    if (err != cudaSuccess) return err;
+    auto kernel = mlp_wgmma_kernel<kEpi, kAK, kBK>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(col_tiles, row_tiles, static_cast<unsigned>(grid_z)), kWgThreads, kWgSmem,
+             stream>>>(g, ta, tb);
+  } else {
+    mlp_gemm_kernel<kEpi, kAK, kBK><<<dim3(row_tiles, col_tiles, static_cast<unsigned>(grid_z)),
+                                      kThreads, 0, stream>>>(g);
+  }
+  return cudaGetLastError();
 }
 
 // The forward product of layer l over `rows` rows: in (rows x pad(d_l), the
 // compute dtype) -> out. Hidden layers write rows x pad(d_l+1) in the
 // compute dtype; the last layer f32 rows x d_L at row stride d_L.
 template <typename T>
-void forward_layer(const T* in, const Packed<T>& pk, const int* d, int L, int l, int rows,
+cudaError_t forward_layer(const T* in, const Packed<T>& pk, const int* d, int L, int l, int rows,
                    void* out, cudaStream_t stream) {
   Gemm g{};
   g.a = in;
@@ -568,13 +688,11 @@ void forward_layer(const T* in, const Packed<T>& pk, const int* d, int L, int l,
   g.out = out;
   if (l + 1 == L) {
     g.ldo = d[L];
-    launch_gemm<T, kLast, true, false>(g, static_cast<int>(ceil_div(d[L], kTileN)), 1, stream);
-  } else {
-    g.n_out = pad16(d[l + 1]);
-    g.ldo = g.n_out;
-    launch_gemm<T, kHidden, true, false>(g, static_cast<int>(ceil_div(g.n_out, kTileN)), 1,
-                                         stream);
+    return launch_gemm<T, kLast, true, false>(g, 1, stream);
   }
+  g.n_out = pad16(d[l + 1]);
+  g.ldo = g.n_out;
+  return launch_gemm<T, kHidden, true, false>(g, 1, stream);
 }
 
 // x rows [r0, r0 + rows) into the compute dtype, padded.
@@ -603,11 +721,10 @@ cudaError_t forward(const float* x, const float* params, float* y, int64_t n, co
     const T* in = xs;
     for (int l = 0; l < L; ++l) {
       void* out = l + 1 == L ? static_cast<void*>(y + r0 * d[L]) : static_cast<void*>(h[l & 1]);
-      forward_layer<T>(in, pk, d, L, l, rows, out, stream);
+      err = forward_layer<T>(in, pk, d, L, l, rows, out, stream);
+      if (err != cudaSuccess) return err;
       in = h[l & 1];
     }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -628,7 +745,7 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
   for (int l = 0; l < L; ++l) a[l] = cv.take<T>(static_cast<size_t>(chunk) * pad16(d[l]));
   T* dh[2] = {cv.take<T>(static_cast<size_t>(chunk) * wo), cv.take<T>(static_cast<size_t>(chunk) * wo)};
   float* colsum = cv.take<float>(static_cast<size_t>(ceil_div(chunk, 64)) * wo);
-  float* part = cv.take<float>(dw_partial_floats(d, L, chunk));
+  float* part = cv.take<float>(dw_partial_floats(d, L, chunk, sizeof(T) == 2));
   std::vector<int64_t> goff(L);
   for (int l = 0, o = 0; l < L; ++l) {
     goff[l] = o;
@@ -637,13 +754,18 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
   for (int64_t r0 = 0; r0 < n; r0 += chunk) {
     const int rows = static_cast<int>(std::min(chunk, n - r0));
     const int acc = r0 > 0;
-    const int row_blocks = static_cast<int>(ceil_div(rows, 64));
+    // the column sums' row blocks: mlp_pad_rows_kernel's 64, the dh product's tile
+    const int pad_blocks = static_cast<int>(ceil_div(rows, 64));
+    const int dh_blocks = static_cast<int>(ceil_div(rows, tile_m<T>()));
     stage_rows_padded<T>(x, d[0], r0, rows, a[0], nullptr, stream);
-    for (int l = 0; l + 1 < L; ++l) forward_layer<T>(a[l], pk, d, L, l, rows, a[l + 1], stream);
+    for (int l = 0; l + 1 < L; ++l) {
+      err = forward_layer<T>(a[l], pk, d, L, l, rows, a[l + 1], stream);
+      if (err != cudaSuccess) return err;
+    }
     // dh of the last layer: g, rounded; db_{L-1} its column sums
     stage_rows_padded<T>(g_out, d[L], r0, rows, dh[0], colsum, stream);
     mlp_sum_rows_kernel<<<static_cast<unsigned>(ceil_div(d[L], 256)), 256, 0, stream>>>(
-        colsum, pad16(d[L]), row_blocks, d[L], dparams + goff[L - 1] + int64_t{d[L - 1]} * d[L],
+        colsum, pad16(d[L]), pad_blocks, d[L], dparams + goff[L - 1] + int64_t{d[L - 1]} * d[L],
         acc);
     int cur = 0;
     for (int l = L - 1; l >= 0; --l) {
@@ -657,13 +779,14 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
         g.ldb = pad16(dout);
         g.b_end = pad16(dout);
         g.k_end = rows;
-        const int z = dw_splits(din, dout, rows, g.k_split);
+        const int z = dw_splits(din, dout, rows, g.k_split, sizeof(T) == 2);
         g.m = din;
         g.n = dout;
         g.out = part;
         g.ldo = dout;
         g.out_z = int64_t{din} * dout;
-        launch_gemm<T, kDw, false, false>(g, static_cast<int>(ceil_div(dout, kTileN)), z, stream);
+        err = launch_gemm<T, kDw, false, false>(g, z, stream);
+        if (err != cudaSuccess) return err;
         mlp_sum_rows_kernel<<<static_cast<unsigned>(ceil_div(g.out_z, 256)), 256, 0, stream>>>(
             part, g.out_z, z, static_cast<int>(g.out_z), dparams + goff[l], acc);
       }
@@ -682,7 +805,8 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
       if (l == 0) {
         g.out = dx + r0 * din;
         g.ldo = din;
-        launch_gemm<T, kDx, true, true>(g, static_cast<int>(ceil_div(din, kTileN)), 1, stream);
+        err = launch_gemm<T, kDx, true, true>(g, 1, stream);
+        if (err != cudaSuccess) return err;
         break;
       }
       g.n_out = pad16(din);
@@ -692,9 +816,10 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
       g.ldo = pad16(din);
       g.colsum = colsum;
       g.ldc = pad16(din);
-      launch_gemm<T, kDh, true, true>(g, static_cast<int>(ceil_div(g.n_out, kTileN)), 1, stream);
+      err = launch_gemm<T, kDh, true, true>(g, 1, stream);
+      if (err != cudaSuccess) return err;
       mlp_sum_rows_kernel<<<static_cast<unsigned>(ceil_div(din, 256)), 256, 0, stream>>>(
-          colsum, pad16(din), row_blocks, din, dparams + goff[l - 1] + int64_t{d[l - 1]} * din,
+          colsum, pad16(din), dh_blocks, din, dparams + goff[l - 1] + int64_t{d[l - 1]} * din,
           acc);
       cur ^= 1;
     }

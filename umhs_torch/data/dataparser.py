@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from .cameras import Cameras
-from .png import png_size
+from .png import image_size
 
 MAX_AUTO_RESOLUTION = 1600
 
@@ -182,7 +182,7 @@ class UMHSDataParser:
     def _get_fname(self, filepath: Path, data_dir: Path, prefix="images_") -> Path:
         if self.downscale_factor is None:
             if self.config.downscale_factor is None:
-                max_res = max(png_size(data_dir / filepath))
+                max_res = max(image_size(data_dir / filepath))
                 df = 0
                 while (max_res / 2**df) > MAX_AUTO_RESOLUTION and (
                         data_dir / f"{prefix}{2 ** (df + 1)}" / filepath.name).exists():

@@ -21,12 +21,12 @@ import torch
 
 from .. import native
 from .dataparser import DataparserOutputs
-from .png import read_png
+from .png import read_image
 from .vca import vca_endmembers_from_cube
 
 
 def _load_image(path: Path) -> np.ndarray:
-    img = read_png(path).astype(np.float32) / 255.0
+    img = read_image(path).astype(np.float32) / 255.0
     if img.ndim == 2:
         img = img[..., None].repeat(3, axis=-1)
     return img
@@ -85,14 +85,14 @@ class HyperspectralDataset:
         if outputs.mask_filenames:
             masks = []
             for p in outputs.mask_filenames:
-                m = read_png(p)
+                m = read_image(p)
                 masks.append((m[..., 0] if m.ndim == 3 else m) > 0)
             self.masks = np.stack(masks)
 
         seg_files = outputs.metadata.get("seg_filenames")
         self.seg_images: Optional[np.ndarray] = None
         if seg_files:
-            self.seg_images = np.stack([read_png(p) for p in seg_files]).astype(np.int32)
+            self.seg_images = np.stack([read_image(p) for p in seg_files]).astype(np.int32)
 
         dino_files = outputs.metadata.get("dino_filenames")
         self.dino_feats: Optional[np.ndarray] = None

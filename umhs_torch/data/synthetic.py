@@ -16,7 +16,7 @@ import numpy as np
 
 from ..ops.spec_to_rgb import build_spec_to_rgb_matrix, srgb_gamma_np
 from .cameras import Cameras
-from .png import read_png, write_png
+from .png import read_image, write_png
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,7 +204,7 @@ def write_dino_sidecars(root: Path, dim: int = 128, seed: int = 0) -> None:
     with open(root / "transforms.json") as f:
         meta = json.load(f)
     for frame in meta["frames"]:
-        rgba = read_png(root / frame["file_path"]).astype(np.float32) / 255.0
+        rgba = read_image(root / frame["file_path"]).astype(np.float32) / 255.0
         rgb = rgba[..., :3] * rgba[..., 3:4] if rgba.shape[-1] == 4 else rgba[..., :3]
         feat = np.tanh(rgb @ w)  # (H, W, dim)
         rel = str(Path(frame["file_path"]).with_suffix("")) + "_dino.pt"

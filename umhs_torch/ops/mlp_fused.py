@@ -12,11 +12,16 @@ wide (the DINO head's 15 -> 256 -> 128) runs the wide tensor-core kernel,
 its activations in shared memory; f32, and deeper chains wider than 128,
 run the f32 FMA kernel in one launch. Every other chain (a width above 256,
 more than 8 layers, or weights that leave the FMA kernels no room in a
-block's shared memory) takes the general route (``csrc/mlp_general.cuh``):
-a product per layer over 64 x 64 tiles, the activations through a device
-scratch that the wrapper allocates (`mlp_fused_fwd_scratch_bytes`). The
-launcher reports the route it took (`MLP_FWD_ROUTES`, counted in
-`Kernel.routes`); `mlp_fused_fwd_route` names it before a launch.
+block's shared memory) takes, in bf16, the fused route where its hidden
+widths are at most 256 and its tiles fit (``csrc/mlp_chain_fused.cuh``: the
+whole chain in one launch, 64 rows a tile, x read once, y written once),
+else the general route (``csrc/mlp_general.cuh``: a product per layer, in
+bf16 on wgmma over 128 x 256 tiles fed by TMA, in f32 on the FMA kernel over
+64 x 64 tiles, the activations through a device scratch). The wrapper
+allocates what the launcher asks for (`mlp_fused_fwd_scratch_bytes`: the
+packed weights, the general route's activations). The launcher reports the
+route it took (`MLP_FWD_ROUTES`, counted in `Kernel.routes`);
+`mlp_fused_fwd_route` names it before a launch.
 
 `mlp_fused_bwd` runs ``csrc/mlp_fused_bwd.cu``, the port of ``_bwd_kernel``:
 it recomputes the forward and returns dx (unless not wanted) and every
@@ -27,8 +32,11 @@ bf16 two-layer chain up to 256 wide (the DINO head) runs the wide
 tensor-core kernel, which splits the hidden width into slices of 64
 columns, one per block row of the grid, and recomputes with K1's wide
 arithmetic; f32 and other chains within the FMA kernels' limits run the f32
-FMA kernel; the rest take the general route, which recomputes with K1's
-general kernel (`MLP_BWD_ROUTES`, `mlp_fused_bwd_route`). With more than
+FMA kernel; the rest take K1's rule: the fused route (one launch over
+fixed row ranges, recomputing with K1's fused code, dW and db summed per
+range, then over the ranges in order) or the general route, which
+recomputes with K1's general products (`MLP_BWD_ROUTES`,
+`mlp_fused_bwd_route`). With more than
 one slice, dx comes from per-slice partials summed in slice order
 (`dx_partials`). The scratch of partial sums is sized by the library
 (`umhs_mlp_fused_bwd_scratch_bytes`). `mlp_fused` is the
@@ -72,14 +80,17 @@ MLP_FUSED_BWD = Kernel(
 )
 # The routes the launchers report, by the index they write (the device
 # kernel each runs, named as ptxas names it; "mlp_general<bf16>" is the
-# general route's products, mlp_gemm_kernel, in csrc/mlp_general.cuh).
+# general route's products in csrc/mlp_general.cuh, mlp_wgmma_kernel in bf16
+# and mlp_gemm_kernel in f32; "mlp_chain_*_kernel" the fused route's
+# kernels in csrc/mlp_chain_fused.cuh).
 MLP_FWD_ROUTES = ("mlp_fused_fwd_kernel<0>", "mlp_fused_fwd_kernel<1>",
                   "mlp_fused_fwd_tc_kernel<4,2>", "mlp_fused_fwd_tc_kernel<8,1>",
-                  "mlp_fused_fwd_wide_kernel", "mlp_general<0>", "mlp_general<1>")
+                  "mlp_fused_fwd_wide_kernel", "mlp_general<0>", "mlp_general<1>",
+                  "mlp_chain_fwd_kernel")
 MLP_BWD_ROUTES = ("mlp_fused_bwd_kernel<0>", "mlp_fused_bwd_kernel<1>",
                   "mlp_fused_bwd_tc_kernel<8,8>", "mlp_fused_bwd_tc_kernel<4,8>",
                   "mlp_fused_bwd_tc_kernel<4,16>", "mlp_fused_bwd_wide_kernel",
-                  "mlp_general<0>", "mlp_general<1>")
+                  "mlp_general<0>", "mlp_general<1>", "mlp_chain_bwd_kernel")
 
 LayerGrads = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -254,6 +265,8 @@ def _route_name(stem: str, code: int, bf16: int) -> str:
         return f"{stem}_wide_kernel"
     if code == 2:
         return f"mlp_general<{bf16}>"
+    if code == 3:
+        return stem.replace("fused", "chain") + "_kernel"
     return f"{stem}_tc_kernel<{code // 100},{code % 100}>"
 
 
@@ -261,8 +274,9 @@ def mlp_fused_fwd_route(dims: List[int], compute_dtype: Optional[torch.dtype]) -
     """The device kernel K1's launcher runs for the chain of widths `dims` in
     this mode, named as ptxas names it: "mlp_fused_fwd_tc_kernel<kKT,kM>" or
     "mlp_fused_fwd_wide_kernel" (the tensor cores),
-    "mlp_fused_fwd_kernel<bf16>" (the FMA kernel) or "mlp_general<bf16>"
-    (the general route). Loads (and builds) the kernels."""
+    "mlp_fused_fwd_kernel<bf16>" (the FMA kernel), "mlp_chain_fwd_kernel"
+    (the fused route) or "mlp_general<bf16>" (the general route). Loads (and
+    builds) the kernels."""
     bf16 = int(compute_dtype == torch.bfloat16)
     code = _call_int(MLP_FUSED_FWD, "umhs_mlp_fused_fwd_route", tuple(dims), bf16)
     return _route_name("mlp_fused_fwd", code, bf16)
@@ -272,8 +286,9 @@ def mlp_fused_bwd_route(dims: List[int], compute_dtype: Optional[torch.dtype]) -
     """The device kernel K2's launcher runs for the chain of widths `dims` in
     this mode, named as ptxas names it: "mlp_fused_bwd_tc_kernel<kKT,kOwn>"
     or "mlp_fused_bwd_wide_kernel" (the tensor cores),
-    "mlp_fused_bwd_kernel<bf16>" (the FMA kernel) or "mlp_general<bf16>"
-    (the general route). Loads (and builds) the kernels."""
+    "mlp_fused_bwd_kernel<bf16>" (the FMA kernel), "mlp_chain_bwd_kernel"
+    (the fused route) or "mlp_general<bf16>" (the general route). Loads (and
+    builds) the kernels."""
     bf16 = int(compute_dtype == torch.bfloat16)
     code = _call_int(MLP_FUSED_BWD, "umhs_mlp_fused_bwd_route", tuple(dims), bf16)
     return _route_name("mlp_fused_bwd", code, bf16)
