@@ -961,7 +961,7 @@ def k4_times(pos, g, cfg, stochastic):
     route (every_level_ms), which the rule's choice is held against."""
     from umhs_torch.ops.encodings import (
         HASH_BWD_ROUTES, hash_encode_bwd, hash_encode_bwd_plain, hash_indices_weights,
-        hash_kernel_fixed, stochastic_rows)
+        stochastic_rows)
     from umhs_torch.utils.device_time import device_ms_by_kernel
 
     n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
@@ -982,10 +982,8 @@ def k4_times(pos, g, cfg, stochastic):
         return torch.zeros(size, device=pos.device).index_add_(0, flat, values)
 
     b_ms, b_by = bound(n * 3 * 4 + n * L * F * 4 + size * 4, flops, H100_F32_FLOPS)
-    # the rule's route against every level on each route (the same bits);
-    # the any kernels take "entries" only
-    every = {name: (name,) * L for name in HASH_BWD_ROUTES
-             if hash_kernel_fixed(cfg) or name == "entries"}
+    # the rule's route against every level on each route (the same bits)
+    every = {name: (name,) * L for name in HASH_BWD_ROUTES}
     with uncounted():
         route_ms = {name: device_ms(lambda: hash_encode_bwd(pos, g, cfg, stochastic, route))
                     for name, route in every.items()}
@@ -1236,9 +1234,9 @@ KERNEL_NAMES = {
                            "mlp_fused_bwd_wide_kernel", "reduce_partials_kernel",
                            "mlp_chain_bwd_kernel", "mlp_sum_rows_kernel"),
     "umhs_hash_encode_fwd": ("hash_encode_fwd_kernel",),
-    "umhs_hash_encode_bwd": ("emit_kernel", "run_emit_kernel", "digit_count_kernel",
-                             "digit_scan_kernel", "digit_scatter_kernel",
-                             "digit_scatter_walk_kernel", "row_sum_kernel",
+    "umhs_hash_encode_bwd": ("emit_kernel", "emit_any_kernel", "run_emit_kernel",
+                             "digit_count_kernel", "digit_scan_kernel", "digit_scatter_kernel",
+                             "digit_scatter_walk_kernel", "row_sum_kernel", "row_sum_any_kernel",
                              "compact_runs_kernel", "run_fold_kernel"),
     **{"umhs_" + name: kernels for name, kernels in K6_DEVICE_KERNELS.items()},
     **{"umhs_" + name: kernels for name, kernels in K5K7_DEVICE_KERNELS.items()},
@@ -3263,9 +3261,10 @@ def baseline_against_tree(tree: Path, groups=("kernels",)) -> dict:
     with the general route (their cases run the FMA, tensor-core and wide
     kernels); K1 and K2 on the DINO chain within 2e-2 (of each tensor's
     largest entry for K2) against any tree. "limits": phase 14's first chain
-    (the wide kernels in bf16, the FMA kernels in f32) must give the tree's
-    bits; each config's traced step, its K1 and K2 device ms by kernel, and
-    its eval PSNR at most 1.0 dB below the tree's. Every case's bits must
+    (the wide kernels in bf16, the FMA kernels in f32), the general route's
+    f32 chains and K4's any route must give the tree's bits; each config's
+    traced step, its K1 and K2 device ms by kernel, and its eval PSNR at
+    most 1.0 dB below the tree's. Every case's bits must
     repeat across this checkout's two processes. Returns {case: the four
     readings in turns, their means, and whether the bits are the tree's}."""
     here = Path(__file__).resolve()
@@ -3307,9 +3306,11 @@ def baseline_against_tree(tree: Path, groups=("kernels",)) -> dict:
         held_k5 = name.startswith("K5") and k5_tree
         held_k6 = k6_tree and (name.startswith("K6 render") or name == "K6 segment_accumulate_fwd")
         # K1, K2: these cases run the FMA, tensor-core and wide kernels, the same code in every
-        # tree that has the general route; of phase 14's chains only the first does
+        # tree that has the general route; of phase 14's chains the first does, and the general
+        # route's f32 products keep their bits
         held_mlp = mlp_tree and name.startswith(("K1", "K2")) and (
-            " limits " not in name or str(LIMITS_CHAINS[0]) in name)
+            " limits " not in name or str(LIMITS_CHAINS[0]) in name
+            or name.endswith("float32"))
         if held_k5 or held_k6 or held_mlp or not name.startswith(("K1", "K2", "K5", "K6 render",
                                                                   "K6 segment")):
             check(entry["same_bits"], f"{name}: not the bits of {tree}'s kernel")
@@ -4683,33 +4684,53 @@ def script_train_argv(name, root, work):
 MLP_PROFILE_TAKES = 3
 
 
-def mlp_step_profile(trainer) -> dict:
+def mlp_step_profile(trainer, k4_calls=None) -> dict:
     """One training step under torch.profiler, MLP_PROFILE_TAKES times (the profiler
     was seen to drop device events in bursts: the take with the most MLP
     device time is kept): the device ms and calls of every device kernel of
     K1 and K2 by name (each starts with "mlp_"; the general route's products
     and both routes' weight packing serve K1 and K2 alike, so only their sum
-    is K1 and K2 together), that sum, and K1's and K2's launches a step."""
+    is K1 and K2 together), that sum, and K1's and K2's launches a step; K4's
+    device kernels by name and their sum likewise. With a list `k4_calls`,
+    each K4 call of the first take appends its (pos, g, config, stochastic)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from umhs_torch.ops import encodings
+
     best = None
-    for _ in range(MLP_PROFILE_TAKES):
+    k4_names = KERNEL_NAMES["umhs_hash_encode_bwd"]
+    for take_no in range(MLP_PROFILE_TAKES):
         before = launch_counts()
         torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            trainer.train_step()
-            torch.cuda.synchronize()
+        bwd = encodings.hash_encode_bwd
+        if k4_calls is not None and take_no == 0:
+            def recording(pos, g, config, stochastic, route=None):
+                k4_calls.append((pos, g, config, stochastic))
+                return bwd(pos, g, config, stochastic, route)
+            encodings.hash_encode_bwd = recording
+        try:
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                trainer.train_step()
+                torch.cuda.synchronize()
+        finally:
+            encodings.hash_encode_bwd = bwd
         per_step = {k: v - before[k] for k, v in launch_counts().items()}
-        kernels = {}
+        kernels, k4 = {}, {}
         for e in prof.key_averages():
+            if "CUDA" not in str(e.device_type):
+                continue
             found = re.search(r"(mlp_\w+?_kernel)", e.key)
-            if "CUDA" in str(e.device_type) and found:
-                k = kernels.setdefault(found.group(1), {"ms": 0.0, "count": 0})
-                k["ms"] += e.self_device_time_total / 1e3
-                k["count"] += e.count
+            name = next((n for n in k4_names if re.search(rf"\b{n}\b", e.key)), None)
+            for table, key in ((kernels, found and found.group(1)), (k4, name)):
+                if key:
+                    k = table.setdefault(key, {"ms": 0.0, "count": 0})
+                    k["ms"] += e.self_device_time_total / 1e3
+                    k["count"] += e.count
         take = {"mlp_kernels": kernels, "mlp_ms": sum(k["ms"] for k in kernels.values()),
+                "k4_kernels": k4, "k4_ms": sum(k["ms"] for k in k4.values()),
                 "launches": {s: per_step.get(s, 0)
-                             for s in ("umhs_mlp_fused_fwd", "umhs_mlp_fused_bwd")}}
+                             for s in ("umhs_mlp_fused_fwd", "umhs_mlp_fused_bwd",
+                                       "umhs_hash_encode_bwd")}}
         if best is None or take["mlp_ms"] > best["mlp_ms"]:
             best = take
     return best
@@ -4788,9 +4809,21 @@ def script_run(name, argv, dev, smi, phase="phase 12", vs_plain_moved=1, k6c_wit
     check(adam_steps == SCRIPT_STEPS // k and trainer.optimizer.mini_step == SCRIPT_STEPS % k,
           f"{name}: {adam_steps} Adam steps in {SCRIPT_STEPS} with accumulation {k}")
     if traced:
-        record["traced_step"] = mlp_step_profile(trainer)
-        print(f"{phase}, {name}: K1 and K2 in a traced step: "
+        k4_calls = []
+        record["traced_step"] = mlp_step_profile(trainer, k4_calls)
+        print(f"{phase}, {name}: K1, K2 and K4 in a traced step: "
               + json.dumps(record["traced_step"]))
+        if k4_calls:  # K4 timed in both modes at the step's own call
+            pos, g, hcfg, _ = k4_calls[0]
+            with uncounted():
+                record["k4_at_step_shape"] = {
+                    "rows": pos.shape[0], "levels": hcfg.num_levels,
+                    "features": hcfg.features_per_level, "interpolation": hcfg.interpolation,
+                    **{mode: k4_times(pos, g, hcfg, mode == "stochastic")
+                       for mode in ("stochastic", "deterministic")}}
+            print(f"{phase}, {name}: K4 at the traced step's shape: "
+                  + json.dumps(record["k4_at_step_shape"]))
+            del k4_calls, pos, g
     del trainer, result
     torch.cuda.empty_cache()
     return record, config_yml
@@ -5120,6 +5153,45 @@ def shapes_k6cd_rows(dev):
     return rows
 
 
+# K7a past its old 16 levels: (res, levels, pool) of a grid of 17 levels
+SHAPES_K7_GRID = (64, 17, 4)
+
+
+def shapes_k7_rows(dev):
+    """Phase 13's K7a row past its old 16 levels: a full update of a grid of
+    SHAPES_K7_GRID, then a partial one from its draws (the model's, the
+    draws read from a device table), each held to the plain update bit for
+    bit and repeated (k7_case), the partial one timed (device ms of the
+    probe and fold launches, the plain update's)."""
+    from umhs_torch.ops.occupancy import (
+        OccGridConfig, draw_partial_cells, init_occ_state, occ_fold_cuda, occ_probe_cuda,
+        update_occ_state_plain)
+
+    res, levels, pool = SHAPES_K7_GRID
+    cfg = OccGridConfig(resolution=res, levels=levels, aabb_min=(-1.0, -1.0, -1.0),
+                        aabb_max=(1.0, 1.0, 1.0), pool=pool)
+    density = bench_sphere_density(dev)
+    gen = torch.Generator(dev).manual_seed(17)
+    n = cfg.levels * cfg.cells_per_level
+    jitter = torch.rand((n, 3), device=dev, generator=gen)
+    state = k7_case(f"{levels} levels, full", init_occ_state(cfg, dev), cfg, density, 0.01,
+                    jitter)
+    draws = draw_partial_cells(cfg, gen, dev)
+    m = sum(d["uniform"].shape[0] + d["u"].shape[0] for d in draws)
+    pj = torch.rand((m, 3), device=dev, generator=gen)
+    k7_case(f"{levels} levels, partial", state, cfg, density, 0.01, pj, draws=draws)
+    sigma = torch.rand(m, device=dev, generator=gen)
+    work = grid_copy(state)
+    row = {"grid": SHAPES_K7_GRID, "probes": m, "bits": "the plain update's, repeated",
+           "probe_ms": device_ms(lambda: occ_probe_cuda(work, cfg, pj, draws=draws)),
+           "probe_and_fold_ms": device_ms(lambda: occ_fold_cuda(
+               occ_probe_cuda(work, cfg, pj, draws=draws), sigma, 0.01)),
+           "plain_ms": device_ms(lambda: update_occ_state_plain(
+               state, cfg, density, 0.01, pj, draws=draws), iters=3)}
+    print(f"phase 13 K7a at {levels} levels: " + json.dumps(row))
+    return row
+
+
 def shapes_run(label, argv, dev, smi, routes, work, phase="phase 13", traced=False):
     """A config of phase 13 or 14 through script_run's four gates, the
     launches by route during the run (each route of `routes`, a route or a
@@ -5177,10 +5249,11 @@ def eval_in_process(phase, config_yml, work, name):
 
 def phase_shapes(dev, smi):
     """Phase 13: the shapes past the kernels' old limits (K5 1,024 candidates
-    a stage, K6a 256 lanes a stage, K6c 256 samples a ray). The kernels
-    against their plain versions at each old limit, one past it and well
-    past it (K5 and K6a/K6b bit for bit, K6c and K6d at phase 2's tolerance),
-    each with device ms, the bound by bytes and the plain version's ms; then
+    a stage, K6a 256 lanes a stage, K6c 256 samples a ray, K7a 16 grid
+    levels). The kernels against their plain versions at each old limit,
+    one past it and well past it (K5, K6a/K6b and K7a bit for bit, K6c and
+    K6d at phase 2's tolerance), each with device ms, the bound by bytes
+    and the plain version's ms; then
     configs A (the flagship past every limit) and B (nerfacto-big's sample
     counts) through cli.train with phase 12's gates, each 256 steps, the
     long shapes' routes launched, a rendered view; A's run also through
@@ -5204,6 +5277,7 @@ def phase_shapes(dev, smi):
     del trainer, state, dm
     k6ab = shapes_k6ab_rows(dev)
     k6cd = shapes_k6cd_rows(dev)
+    k7 = shapes_k7_rows(dev)
     torch.cuda.empty_cache()
 
     runs, launches = {}, {}
@@ -5237,7 +5311,7 @@ def phase_shapes(dev, smi):
         if r["vs_plain_k6c_witness"]:
             print(f"  {label}, K6c plain in the kernel step: loss per draw " + json.dumps(
                 [w["loss_terms_over_tolerance"]["total"] for w in r["vs_plain_k6c_witness"]]))
-    return {"seconds": seconds, "k5": k5, "k6ab": k6ab, "k6cd": k6cd, "runs": runs,
+    return {"seconds": seconds, "k5": k5, "k6ab": k6ab, "k6cd": k6cd, "k7": k7, "runs": runs,
             "launches": launches}
 
 
@@ -5259,6 +5333,18 @@ LIMITS_TIMED_CALLS = 3
 LIMITS_HASH = [(32, 8), (16, 2), (33, 2), (40, 7), (16, 3), (16, 16), (64, 8)]
 LIMITS_HASH_ROWS = 32_768
 LIMITS_HASH_LOG2 = 17
+# configs C and E's grid, L40 x F7, is checked and timed at twice the rows
+LIMITS_HASH_ROWS_AT = {(40, 7): 65_536}
+# K4's sample ranges: forced at LIMITS_HASH_ROWS_AT's rows (a third of them
+# a range, then 1,000), and one call past 2^31 - 1 entries on each route:
+# the flagship's L16 x F2 tetrahedral, deterministic (34,000,000 x 16 x 4 =
+# 2,176,000,000 entries), and L40 x F7 tetrahedral (13,500,000 x 40 x 4 =
+# 2,160,000,000)
+LIMITS_K4_RANGES = (1_000,)
+LIMITS_K4_PAST_INT32 = ((16, 2, 19, 34_000_000), (40, 7, 17, 13_500_000))
+# the chains of LIMITS_CHAINS timed in f32 too under --baseline: the general
+# route's f32 products, which keep their bits
+LIMITS_F32_CHAINS = [[28, 16, 281], [280, 64, 16], [64, 512, 512, 512, 8]]
 # the bf16 chains of LIMITS_CHAINS that K1's and K2's fused route takes (the
 # others past the fused kernels: the general route, its products on wgmma)
 LIMITS_FUSED = [[28, 16, 257], [28, 16, 281], [280, 64, 16], [64] * 10, [64] * 17]
@@ -5271,30 +5357,40 @@ LIMITS_FUSED = [[28, 16, 257], [28, 16, 281], [280, 64, 16], [64] * 10, [64] * 1
 # 320, on the general route (its products on wgmma)
 LIMITS_FLAGS = {"--pipeline.model.hash-num-levels": "40",
                 "--pipeline.model.hash-features-per-level": "7"}
-LIMITS_CONFIGS = (("config C", 281), ("config D", 447))
+LIMITS_CONFIGS = (("config C", 281), ("config D", 447), ("config E", 281))
+# config E: config C in f32 with the deterministic hash gradient (phase 6's
+# numerics at 281 bands and L40 x F7): every chain on the general route's
+# f32 products, K4 on its any route in the deterministic mode
+LIMITS_CONFIG_FLAGS = {"config E": {"--mixed-precision": "False",
+                                    "--pipeline.model.stochastic-hash-grad": "False"}}
 LIMITS_ROUTES = {
     "config C": {"umhs_mlp_fused_fwd": "mlp_chain_fwd_kernel",
                  "umhs_mlp_fused_bwd": "mlp_chain_bwd_kernel",
                  "umhs_hash_encode_fwd": "any", "umhs_hash_encode_bwd": "any"},
     "config D": {"umhs_mlp_fused_fwd": ("mlp_chain_fwd_kernel", "mlp_general<1>"),
                  "umhs_mlp_fused_bwd": ("mlp_chain_bwd_kernel", "mlp_general<1>"),
+                 "umhs_hash_encode_fwd": "any", "umhs_hash_encode_bwd": "any"},
+    "config E": {"umhs_mlp_fused_fwd": "mlp_general<0>", "umhs_mlp_fused_bwd": "mlp_general<0>",
                  "umhs_hash_encode_fwd": "any", "umhs_hash_encode_bwd": "any"}}
 
 
 def limits_config_argv(work: Path, label: str, bands: int) -> list:
     """Phase 14's cli.train argv of a config of LIMITS_CONFIGS: phase 9's
     flagship on the bench scene at `bands` bands over 400-1000 nm (written
-    under work), SHAPES_STEPS steps, LIMITS_FLAGS."""
+    under work), SHAPES_STEPS steps, LIMITS_FLAGS and the config's own
+    LIMITS_CONFIG_FLAGS."""
     from umhs_torch.data.synthetic import BENCH_SCENE, write_dataset
 
-    root = write_dataset(work / f"scene{bands}", dataclasses.replace(
+    scene = work / f"scene{bands}"
+    root = scene if scene.exists() else write_dataset(scene, dataclasses.replace(
         BENCH_SCENE, num_bands=bands, wavelength_start=400.0,
         wavelength_step=600.0 / (bands - 1)))
     argv = entry_train_argv(root)
     for flag, value in (("--max-num-iterations", str(SHAPES_STEPS)),
                         ("--steps-per-save", str(SHAPES_STEPS)),
                         ("--experiment-name", "limits-" + label.split()[-1].lower()),
-                        ("--output-dir", str(work / "outputs")), *LIMITS_FLAGS.items()):
+                        ("--output-dir", str(work / "outputs")), *LIMITS_FLAGS.items(),
+                        *LIMITS_CONFIG_FLAGS.get(label, {}).items()):
         argv = replace_flag(argv, flag, value)
     return argv
 
@@ -5441,8 +5537,8 @@ def limits_hash_rows(dev):
         hash_encode_fwd, hash_encode_plain, hash_kernel_fixed)
 
     rows = {"hash_encode_fwd": {}, "hash_encode_bwd": {}}
-    n = LIMITS_HASH_ROWS
     for levels, features in LIMITS_HASH:
+        n = LIMITS_HASH_ROWS_AT.get((levels, features), LIMITS_HASH_ROWS)
         for interp in ("tetrahedral", "trilinear"):
             cfg = HashEncodingConfig(num_levels=levels, features_per_level=features,
                                      log2_hashmap_size=LIMITS_HASH_LOG2, interpolation=interp)
@@ -5464,7 +5560,8 @@ def limits_hash_rows(dev):
             check(HASH_ENCODE_FWD.routes.get(route, 0) == f0 + 1
                   and HASH_ENCODE_BWD.routes.get(route, 0) > b0,
                   f"phase 14 {key}: the launchers did not report the route {route}")
-            per_level = sorted(set(hash_encode_bwd_route(cfg, n, False)))
+            per_level = hash_encode_bwd_route(cfg, n, False)
+            per_level = {r: per_level.count(r) for r in sorted(set(per_level))}
             with uncounted():
                 rows["hash_encode_fwd"][key] = {"rows": n, "route": route, "max_abs_err": err3,
                                                 **k3_times(table, pos, cfg)}
@@ -5484,14 +5581,18 @@ def phase_limits(dev, smi, ptxas):
     """Phase 14: the shapes past K1-K4's old limits. K1/K2 on LIMITS_CHAINS
     and K3/K4 on LIMITS_HASH against their plain versions, each with device
     ms, bound, plain ms and library ms (limits_mlp_rows, limits_hash_rows);
-    then config C through cli.train with phase 12's four gates (gate (d)
-    with SHAPES_VS_PLAIN_MOVED moved plain runs a draw), the general and any
-    routes launched during the run, a 128^2 view through cli.render and its
-    run through cli.eval in a process of its own."""
+    K4's sample ranges and its calls past 2^31 - 1 entries
+    (limits_k4_ranges); then configs C, D and E through cli.train with
+    phase 12's four gates (gate (d) with SHAPES_VS_PLAIN_MOVED moved plain
+    runs a draw), the general and any routes launched during the run, a
+    traced step (K1, K2 and K4 by device kernel, K4 timed at the step's own
+    call), a 128^2 view through cli.render, and C's run through cli.eval in
+    a process of its own."""
     t_phase = time.perf_counter()
     mlp = limits_mlp_rows(dev, ptxas)
     t_mlp = time.perf_counter() - t_phase
     hashes = limits_hash_rows(dev)
+    hashes["hash_encode_bwd"]["sample ranges"] = limits_k4_ranges(dev)
     t_rows = time.perf_counter() - t_phase
     records = {}
     with bench_dataset() as (work, _, _):
@@ -5505,7 +5606,7 @@ def phase_limits(dev, smi, ptxas):
             records[label] = record
     seconds = time.perf_counter() - t_phase
     print(f"phase 14: K1/K2 rows in {t_mlp:.1f} s, K3/K4 rows in {t_rows - t_mlp:.1f} s, "
-          f"configs C and D in {seconds - t_rows:.1f} s, {seconds:.1f} s in all; {smi}")
+          f"configs C, D and E in {seconds - t_rows:.1f} s, {seconds:.1f} s in all; {smi}")
     for label, record in records.items():
         print(f"  {label}: {record['ms_per_step_last64']:.2f} ms a step (last 64), PSNR "
               f"{record['psnr_step0']:.2f} -> {record['eval_all_images']['psnr']:.2f} dB, loss "
@@ -5513,23 +5614,120 @@ def phase_limits(dev, smi, ptxas):
               f"{json.dumps(record['vs_plain_worst_median'])}, loss per draw "
               f"{json.dumps(record['vs_plain_loss_over_tolerance'])}, routes "
               f"{json.dumps({k: record['routes'].get(k) for k in LIMITS_ROUTES[label]})}, "
-              f"traced step {json.dumps(record['traced_step'])}")
+              f"traced step {json.dumps(record['traced_step'])}, K4 at the step's shape "
+              f"{json.dumps(record.get('k4_at_step_shape'))}")
     return {"seconds": seconds, **mlp, **hashes, **records}
+
+
+def k4_launch(pos, g, cfg, stochastic, max_range):
+    """K4 through its launcher's C interface with `max_range`, its cap on
+    the samples of a range (0: the launcher's own plan), the route
+    hash_encode_bwd_route's; the gradient table."""
+    from umhs_torch.ops import encodings as enc
+
+    n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
+    route = enc.hash_encode_bwd_route(cfg, n, stochastic)
+    nbytes = enc.hash_encode_bwd_scratch_bytes(n, cfg, stochastic, route)
+    grad = torch.zeros(cfg.table_size * F, dtype=torch.float32, device=pos.device)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=pos.device)
+    levels = None if enc.hash_kernel_fixed(cfg) else enc._level_table(cfg, pos.device)
+    enc.HASH_ENCODE_BWD.launch(
+        pos.data_ptr(), g.data_ptr(), grad.data_ptr(), n, L, F, *enc._level_args(cfg),
+        int(stochastic), enc._route_flags(route), None if levels is None else levels.data_ptr(),
+        scratch.data_ptr(), nbytes, max_range, torch.cuda.current_stream(pos.device).cuda_stream,
+        routes=enc.HASH_KERNEL_ROUTES)
+    return grad
+
+
+def limits_k4_ranges(dev):
+    """Phase 14's K4 sample ranges: at LIMITS_HASH_ROWS_AT's shape on the
+    fixed route (the flagship's grid) and the any route (L40 x F7, both
+    interpolations), both modes, the launcher forced to ranges of a third
+    of the samples and of LIMITS_K4_RANGES gives hash_encode_bwd's bits;
+    then each call of LIMITS_K4_PAST_INT32 (past 2^31 - 1 entries, ranges of
+    the launcher's own plan) runs, repeats bit for bit, equals itself cut
+    in halves, with its device ms (CUDA events around one call after one
+    unmeasured) and the peak device memory of the call."""
+    from umhs_torch.ops.encodings import HashEncodingConfig, hash_encode_bwd, \
+        hash_encode_bwd_scratch_bytes, hash_kernel_fixed
+
+    out = {}
+    (levels, features), n = next(iter(LIMITS_HASH_ROWS_AT.items()))
+    for L, F, interp in ((16, 2, "tetrahedral"), (levels, features, "tetrahedral"),
+                         (levels, features, "trilinear")):
+        cfg = HashEncodingConfig(num_levels=L, features_per_level=F,
+                                 log2_hashmap_size=LIMITS_HASH_LOG2, interpolation=interp)
+        gen = torch.Generator(dev).manual_seed(L * F)
+        pos = torch.rand((n, 3), device=dev, generator=gen)
+        g = torch.randn((n, cfg.output_dim), device=dev, generator=gen)
+        for stochastic in (False, True):
+            want = bits(hash_encode_bwd(pos, g, cfg, stochastic))
+            for cap in (n // 3 + 1, *LIMITS_K4_RANGES):
+                check(torch.equal(bits(k4_launch(pos, g, cfg, stochastic, cap)), want),
+                      f"phase 14 K4 L{L}xF{F} {interp} stochastic={stochastic}: ranges of "
+                      f"{cap} samples gave other bits than one range")
+        route = "fixed" if hash_kernel_fixed(cfg) else "any"
+        out[f"L{L}xF{F} {interp} ranges"] = {
+            "rows": n, "route": route, "ranges_of": [n // 3 + 1, *LIMITS_K4_RANGES],
+            "bits": "one range's, both modes"}
+        print(f"phase 14 K4 ranges, L{L}xF{F} {interp} ({route}) N={n}: ranges of "
+              f"{[n // 3 + 1, *LIMITS_K4_RANGES]} samples give one range's bits in both modes")
+        del pos, g
+    for L, F, log2, n in LIMITS_K4_PAST_INT32:
+        cfg = HashEncodingConfig(num_levels=L, features_per_level=F, log2_hashmap_size=log2,
+                                 interpolation="tetrahedral")
+        gen = torch.Generator(dev).manual_seed(n)
+        pos = torch.rand((n, 3), device=dev, generator=gen)
+        g = torch.randn((n, cfg.output_dim), device=dev, generator=gen)
+        entries = n * L * cfg.verts_per_cell
+        check(entries > 2**31 - 1, f"phase 14 K4 past int32: only {entries} entries")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        first = hash_encode_bwd(pos, g, cfg, False)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = hash_encode_bwd(pos, g, cfg, False)
+        end.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(torch.equal(bits(first), bits(again)),
+              f"phase 14 K4 past int32 L{L}xF{F}: a second call gave other bits")
+        check(bool(torch.isfinite(first).all()) and float(first.abs().sum()) > 0,
+              f"phase 14 K4 past int32 L{L}xF{F}: a table not finite, or all zero")
+        halves = k4_launch(pos, g, cfg, False, n // 2 + 1)
+        check(torch.equal(bits(first), bits(halves)),
+              f"phase 14 K4 past int32 L{L}xF{F}: two ranges of halves gave other bits")
+        key = f"L{L}xF{F} tetrahedral deterministic, {n} samples"
+        out[key] = {"rows": n, "entries": entries,
+                    "route": "fixed" if hash_kernel_fixed(cfg) else "any",
+                    "ms": start.elapsed_time(end),
+                    "peak_bytes_over_inputs": peak,
+                    "inputs_bytes": pos.numel() * 4 + g.numel() * 4,
+                    "scratch_bytes": hash_encode_bwd_scratch_bytes(n, cfg, False),
+                    "bits": "repeated, and the same cut in halves"}
+        print(f"phase 14 K4 past 2^31 - 1 entries, {key}: " + json.dumps(out[key]))
+        del pos, g, first, again, halves
+        torch.cuda.empty_cache()
+    return out
 
 
 def limits_tree_cases(dev, case, out):
     """tree_measurements' "limits" group: phase 14's K1/K2 chains at
-    LIMITS_ROWS[-1] rows in bf16 (the first, the wide kernels' chain, in f32
-    on the FMA kernels too) as cases (LIMITS_TIMED_CALLS calls a reading);
-    then each config of LIMITS_CONFIGS through cli.train (phase 14's argv)
-    and one more step under the profiler (mlp_step_profile), with its eval
-    PSNR."""
+    LIMITS_ROWS[-1] rows in bf16 (the first, the wide kernels' chain, and
+    LIMITS_F32_CHAINS, the general route's, in f32 too) as cases
+    (LIMITS_TIMED_CALLS calls a reading); K4 on its any route at L40 x F7
+    (LIMITS_HASH_ROWS_AT's rows, both interpolations and modes); then each
+    config of LIMITS_CONFIGS through cli.train (phase 14's argv) and one
+    more step under the profiler (mlp_step_profile), with its eval PSNR."""
     from umhs_torch.cli import train as cli_train
+    from umhs_torch.ops.encodings import HashEncodingConfig, hash_encode_bwd
     from umhs_torch.ops.mlp_fused import mlp_fused_bwd, mlp_fused_fwd
 
     n = LIMITS_ROWS[-1]
     for dims in LIMITS_CHAINS:
-        for dt in (torch.bfloat16, torch.float32) if dims == LIMITS_CHAINS[0] else (torch.bfloat16,):
+        f32 = dims == LIMITS_CHAINS[0] or dims in LIMITS_F32_CHAINS
+        for dt in (torch.bfloat16, torch.float32) if f32 else (torch.bfloat16,):
             params = limits_chain(dims, n + sum(dims), dev)
             gen = torch.Generator().manual_seed(n)
             x = torch.randn((n, dims[0]), generator=gen).to(dev)
@@ -5541,6 +5739,17 @@ def limits_tree_cases(dev, case, out):
                  iters=LIMITS_TIMED_CALLS)
             del params, x, g
             torch.cuda.empty_cache()
+    (levels, features), rows = next(iter(LIMITS_HASH_ROWS_AT.items()))
+    for interp in ("tetrahedral", "trilinear"):
+        cfg = HashEncodingConfig(num_levels=levels, features_per_level=features,
+                                 log2_hashmap_size=LIMITS_HASH_LOG2, interpolation=interp)
+        gen = torch.Generator().manual_seed(levels * features)
+        pos = torch.rand((rows, 3), generator=gen).to(dev)
+        g = torch.randn((rows, cfg.output_dim), generator=gen).to(dev)
+        for mode in ("stochastic", "deterministic"):
+            case(f"K4 limits L{levels}xF{features} {interp} {mode}",
+                 lambda: hash_encode_bwd(pos, g, cfg, mode == "stochastic"))
+        del pos, g
     with bench_dataset() as (work, _, _):
         for label, bands in LIMITS_CONFIGS:
             result = cli_train.main(limits_config_argv(work, label, bands))

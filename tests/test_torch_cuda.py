@@ -639,6 +639,16 @@ K4_ROUTE_CONFIGS = {
        for interp in ("tetrahedral", "trilinear") for f in (1, 2, 4, 8)},
     "proposal_0": dict(num_levels=5, max_resolution=128, log2_hashmap_size=17),
     "flagship": dict(num_levels=16, log2_hashmap_size=19, interpolation="tetrahedral"),
+    # the any kernels: odd F, F past a group of 8, past 32 levels (two lists of runs levels)
+    "any-L40-F7": dict(num_levels=40, features_per_level=7, log2_hashmap_size=12,
+                       max_resolution=512, interpolation="trilinear"),
+    "any-L16-F3": dict(num_levels=16, features_per_level=3, log2_hashmap_size=12,
+                       max_resolution=512, interpolation="tetrahedral"),
+    "any-L33-F16": dict(num_levels=33, features_per_level=16, log2_hashmap_size=12,
+                        max_resolution=512, interpolation="trilinear"),
+    # F 64: values past the emit kernel's staged tile, eight feature groups
+    "any-L4-F64": dict(num_levels=4, features_per_level=64, log2_hashmap_size=10,
+                       max_resolution=64, interpolation="trilinear"),
 }
 
 
@@ -825,9 +835,9 @@ def test_k3_any_shape(cuda, levels, features, interp, n):
 def test_k4_any_shape(cuda, levels, features, interp, n, kind):
     """K4 at every (L, F) in both modes through _k4_holds (repeated and the
     plain version's bits on the CPU; stochastic by the draw rule), the
-    launcher's route as hash_kernel_fixed says, every level on "entries"
-    past the old shapes; with unit gradients the stochastic table sums to
-    n * L * F."""
+    launcher's route as hash_kernel_fixed says, the levels' routes by the
+    rule ("runs" only on trilinear levels in the deterministic mode); with
+    unit gradients the stochastic table sums to n * L * F."""
     from umhs_torch.ops.encodings import hash_kernel_fixed
 
     cfg = _any_config(levels, features, interp)
@@ -836,7 +846,7 @@ def test_k4_any_shape(cuda, levels, features, interp, n, kind):
     g[::7] = 0.0
     g = g.to(cuda)
     route = "fixed" if hash_kernel_fixed(cfg) else "any"
-    if route == "any":
+    if interp == "tetrahedral":
         assert set(hash_encode_bwd_route(cfg, n, False)) == {"entries"}
     before = HASH_ENCODE_BWD.routes.get(route, 0)
     differ = _k4_holds(pos, g, cfg)
@@ -846,12 +856,64 @@ def test_k4_any_shape(cuda, levels, features, interp, n, kind):
     assert float(hash_encode_bwd(pos, ones, cfg, stochastic=True).sum()) == n * cfg.output_dim
 
 
-def test_k4_any_route_refuses_runs(cuda):
-    """The any kernels sort every entry: a forced "runs" level is refused."""
+def _k4_launch(pos, g, cfg, stochastic, max_range):
+    """K4 through its launcher's C interface with `max_range`, its cap on a
+    range's samples (0: the launcher's own plan); the gradient table."""
+    from umhs_torch.ops import encodings as enc
+
+    n, L, F = pos.shape[0], cfg.num_levels, cfg.features_per_level
+    route = hash_encode_bwd_route(cfg, n, stochastic)
+    nbytes = enc.hash_encode_bwd_scratch_bytes(n, cfg, stochastic, route)
+    grad = torch.zeros(cfg.table_size * F, dtype=torch.float32, device=pos.device)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=pos.device)
+    levels = None if enc.hash_kernel_fixed(cfg) else enc._level_table(cfg, pos.device)
+    HASH_ENCODE_BWD.launch(
+        pos.data_ptr(), g.data_ptr(), grad.data_ptr(), n, L, F, *enc._level_args(cfg),
+        int(stochastic), enc._route_flags(route), None if levels is None else levels.data_ptr(),
+        scratch.data_ptr(), nbytes, max_range, torch.cuda.current_stream(pos.device).cuda_stream,
+        routes=enc.HASH_KERNEL_ROUTES)
+    return grad
+
+
+@pytest.mark.parametrize("shape", [(16, 2, "tetrahedral"), (6, 4, "trilinear"),
+                                   (40, 7, "tetrahedral"), (33, 16, "trilinear")],
+                         ids=lambda v: "-".join(map(str, v)))
+@pytest.mark.parametrize("cap", [1, 97, 1000])
+def test_k4_sample_ranges_give_one_launchs_bits(cuda, shape, cap):
+    """The launcher cut into ranges of `cap` samples (each range's sums
+    going on from the ones before) gives one launch's bits, in both modes,
+    on the fixed route and the any route (with its runs levels where
+    trilinear)."""
+    levels, features, interp = shape
+    cfg = _any_config(levels, features, interp)
+    n = 3001
+    pos = _k4_positions("rays", n, seed=levels + cap).to(cuda)
+    g = torch.randn((n, cfg.output_dim), generator=torch.Generator().manual_seed(cap))
+    g[::11] = 0.0
+    g = g.to(cuda)
+    for stochastic in (False, True):
+        want = hash_encode_bwd(pos, g, cfg, stochastic)
+        got = _k4_launch(pos, g, cfg, stochastic, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want))
+
+
+def test_k4_any_route_takes_both_routes(cuda):
+    """The any kernels take a forced "runs" level as the fixed ones do: every
+    level on runs, every level on entries and the two alternating give the
+    same bits, the deterministic mode the plain version's on the CPU."""
     cfg = _any_config(40, 7, "trilinear")
-    pos, g = torch.rand(10, 3, device=cuda), torch.zeros(10, cfg.output_dim, device=cuda)
-    with pytest.raises(RuntimeError):
-        hash_encode_bwd(pos, g, cfg, False, ("runs",) * 40)
+    n = 2000
+    pos = _k4_positions("rays", n, seed=5).to(cuda)
+    g = torch.randn((n, cfg.output_dim), generator=torch.Generator().manual_seed(6)).to(cuda)
+    routes = [("runs",) * 40, ("entries",) * 40,
+              tuple("runs" if lvl % 3 else "entries" for lvl in range(40))]
+    for stochastic in (False, True):
+        got = [hash_encode_bwd(pos, g, cfg, stochastic, route) for route in routes]
+        for other in got[1:]:
+            assert torch.equal(_bits(got[0]), _bits(other))
+    det = hash_encode_bwd(pos, g, cfg, False, routes[0])
+    assert torch.equal(_bits(det), _bits(hash_encode_bwd_plain(pos.cpu(), g.cpu(), cfg, False)))
 
 
 def test_render_kernels_match_plain_path(cuda):
@@ -1788,6 +1850,9 @@ K7_CHOICE_GRIDS = {  # label: (res, levels, pool, each level's occupied share)
     "res-30": (30, 2, 2, (0.1, 0.05)),  # rows off the 4-byte words
     "res-33": (33, 2, 0, (0.3, 0.02)),
     "flagship": (128, 4, 4, (0.03, 0.01, 0.004, 0.0)),
+    # past the old 16 levels: the draws come from a device table
+    "17-levels": (16, 17, 4, (0.2, 0.0) + (0.05,) * 14 + (1.0,)),
+    "20-levels": (16, 20, 0, (0.3,) * 20),
 }
 
 

@@ -63,6 +63,18 @@ def test_cuda_is_refused_without_a_card(monkeypatch):
     assert umhs_torch.resolve_device("cpu").type == "cpu"
 
 
+@pytest.mark.parametrize("probe", ["f32_products", "k4_any_parts"])
+def test_card_probes_refuse_without_a_card(monkeypatch, probe):
+    """The probes that time kernel variants on the card raise before building
+    anything when there is no card."""
+    import importlib
+
+    module = importlib.import_module(f"umhs_torch.probes.{probe}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs the card"):
+        module.main()
+
+
 def test_kernel_sources_are_in_the_package():
     from umhs_torch.ops import _native
     from umhs_torch.ops.compact import COMPACT_GATHER, COMPACT_STAGE

@@ -226,3 +226,151 @@ def test_chunk_is_the_kernels(features, entries, interp, verts):
     cfg = t_enc.HashEncodingConfig(features_per_level=features, interpolation=interp)
     assert t_enc.hash_encode_bwd_chunk(cfg, False) == entries // verts
     assert t_enc.hash_encode_bwd_chunk(cfg, True) == entries
+
+
+# --------------------------------------------------- the any kernels' order
+# grids past the template instances (odd F, F past a feature group of 8,
+# more than 32 levels), as K4's any route takes them
+ANY_CONFIGS = {
+    "L40xF7-tetrahedral": dict(num_levels=40, features_per_level=7, log2_hashmap_size=12,
+                               max_resolution=512, interpolation="tetrahedral"),
+    "L40xF7-trilinear": dict(num_levels=40, features_per_level=7, log2_hashmap_size=12,
+                             max_resolution=512, interpolation="trilinear"),
+    "L33xF16-trilinear": dict(num_levels=33, features_per_level=16, log2_hashmap_size=10,
+                              max_resolution=256, interpolation="trilinear"),
+}
+ANY_DIGIT_BITS = 9  # csrc/hash_encode_bwd.cu kAnyDigitBits
+
+
+def _level_major_entries(pos, g, cfg, stochastic):
+    """The entries of the any route's emit, level-major (slot
+    ((l * n) + s) * VE + v), those whose values are all zero dropped:
+    their rows and values."""
+    F = cfg.features_per_level
+    rows, vals = _entries(pos, g, cfg, stochastic)
+    r = np.ascontiguousarray(rows.transpose(1, 0, 2)).reshape(-1)
+    v = np.ascontiguousarray(np.broadcast_to(vals, rows.shape + (F,)).transpose(1, 0, 2, 3))
+    v = v.reshape(-1, F)
+    keep = (v != 0).any(axis=1)
+    return r[keep], v[keep]
+
+
+def _sum_runs(row_of, flat, table):
+    """Each run of equal rows added onto its table row in order, one entry
+    a step (the rows' sums go on from what `table` holds)."""
+    starts = np.r_[0, np.flatnonzero(row_of[1:] != row_of[:-1]) + 1]
+    step = np.arange(len(row_of)) - np.repeat(starts, np.diff(np.r_[starts, len(row_of)]))
+    for k in range(int(step.max()) + 1 if len(step) else 0):
+        at = step == k
+        table[row_of[at]] = table[row_of[at]] + flat[at]
+    return len(starts)
+
+
+def _any_entries_model(pos, g, cfg, stochastic, ranges=1):
+    """The any route's entries order: the level-major entries sorted stably
+    by the low 9-bit digits that tell one level's rows apart (as many as
+    the largest level needs), summed run by run from the table, the samples
+    in `ranges` consecutive ranges (each range's sums going on from the
+    ones before). Returns the table and whether every row's entries formed
+    one run."""
+    F = cfg.features_per_level
+    largest = max(cfg.level_sizes)
+    passes = max(1, -(-int(np.ceil(np.log2(largest))) // ANY_DIGIT_BITS))
+    mask = (1 << (ANY_DIGIT_BITS * passes)) - 1
+    table = np.zeros((cfg.table_size, F), np.float32)
+    one_run = True
+    for part in np.array_split(np.arange(pos.shape[0]), ranges):
+        r, v = _level_major_entries(pos[part], g[part], cfg, stochastic)
+        order = np.argsort(r & mask, kind="stable")
+        r, v = r[order], v[order]
+        runs = _sum_runs(r, v.astype(np.float32), table)
+        one_run = one_run and runs == len(np.unique(r))
+    return table.reshape(-1), one_run
+
+
+@pytest.mark.parametrize("name", list(ANY_CONFIGS))
+@pytest.mark.parametrize("stochastic", [False, True], ids=["deterministic", "stochastic"])
+@pytest.mark.parametrize("kind,n,ranges", [("rays", 1500, 1), ("random", 1500, 1),
+                                           ("rays", 1500, 3), ("equal", 300, 2)])
+def test_any_route_order_gives_the_bits_of_ascending_entry_order(name, stochastic, kind, n,
+                                                                 ranges):
+    """The any route's level-local sort keeps each row's entries in one run
+    in ascending entry order (two levels' rows with the same low bits stay
+    apart, in level order), so its sums are np.add.at's bits, and the plain
+    version's; cut into sample ranges whose sums go on from the table, the
+    same bits."""
+    cfg = t_enc.HashEncodingConfig(**ANY_CONFIGS[name])
+    assert not t_enc.hash_kernel_fixed(cfg)
+    pos = _positions(kind, n, seed=n + ranges)
+    g = np.random.default_rng(n).normal(size=(n, cfg.output_dim)).astype(np.float32)
+    g[::5] = 0.0
+    got, one_run = _any_entries_model(pos, g, cfg, stochastic, ranges)
+    assert one_run
+    want = _add_at(pos, g, cfg, stochastic)
+    assert np.abs(want).max() > 1.0
+    _bits_equal(got, want)
+    plain = t_enc.hash_encode_bwd_plain(torch.from_numpy(pos), torch.from_numpy(g), cfg,
+                                        stochastic).numpy()
+    _bits_equal(got, plain)
+
+
+def test_any_route_sorts_two_levels_rows_apart_by_level():
+    """The reason one level-local sort serves every level: rows of two levels
+    can share their low bits (levels 0 and 1 of 4,096 rows each: rows r and
+    r + 4,096), and a stable sort by those bits alone keeps level 0's run
+    before level 1's, each whole."""
+    cfg = t_enc.HashEncodingConfig(num_levels=40, features_per_level=7, log2_hashmap_size=12,
+                                   max_resolution=512, interpolation="trilinear")
+    sizes = cfg.level_sizes
+    assert sizes[0] == sizes[1] == 4096 and max(sizes) <= 4096
+    pos = _positions("random", 500, seed=0)
+    r, _ = _level_major_entries(pos, np.ones((500, cfg.output_dim), np.float32), cfg, False)
+    low = r & 0xFFF
+    shared = np.intersect1d(low[r < 4096], low[(r >= 4096) & (r < 8192)])
+    assert shared.size > 100  # the same low bits at both levels
+    order = np.argsort(low, kind="stable")
+    sr, sl = r[order], low[order]
+    for b in shared:
+        got = sr[sl == b]
+        assert (np.diff(got) >= 0).all()  # each level's rows together, level by level
+        assert len(np.unique(got)) == 1 + int((np.diff(got) != 0).sum())
+
+
+@pytest.mark.parametrize("stochastic", [False, True], ids=["deterministic", "stochastic"])
+def test_any_route_runs_order_gives_the_bits_of_ascending_entry_order(stochastic):
+    """The runs route on the any kernels, a feature group at a time (its
+    chunk the group's, hash_encode_bwd_chunk): np.add.at's bits."""
+    cfg = t_enc.HashEncodingConfig(**ANY_CONFIGS["L40xF7-trilinear"])
+    n = 3 * t_enc.hash_encode_bwd_chunk(cfg, stochastic) + 11
+    pos = _positions("rays", n, seed=7)
+    g = np.random.default_rng(8).normal(size=(n, cfg.output_dim)).astype(np.float32)
+    got, runs = _runs_model(pos, g, cfg, stochastic)
+    assert runs > 0
+    _bits_equal(got, _add_at(pos, g, cfg, stochastic))
+
+
+@pytest.mark.parametrize("features,entries", [(3, 1280), (5, 768), (6, 512), (7, 512),
+                                              (16, 512), (33, 512)])
+def test_chunk_of_the_any_kernels(features, entries):
+    """hash_encode_bwd_chunk past the template instances: the first feature
+    group's (at most 8 features) chunk_entries, whole 256-thread blocks."""
+    cfg = t_enc.HashEncodingConfig(num_levels=40, features_per_level=features,
+                                   interpolation="trilinear")
+    assert t_enc.hash_encode_bwd_chunk(cfg, True) == entries
+    assert t_enc.hash_encode_bwd_chunk(cfg, False) == entries // 8
+
+
+@pytest.mark.parametrize("interp", ["tetrahedral", "trilinear"])
+def test_route_rule_on_the_any_kernels(interp):
+    """The any kernels take the fixed ones' rule: "runs" on trilinear
+    levels in the deterministic mode where rows repeat, "entries" elsewhere
+    (configs C and E's tetrahedral grid: every level)."""
+    cfg = t_enc.HashEncodingConfig(num_levels=40, features_per_level=7, log2_hashmap_size=17,
+                                   interpolation=interp)
+    assert not t_enc.hash_kernel_fixed(cfg)
+    det = t_enc.hash_encode_bwd_route(cfg, 262144, False)
+    assert t_enc.hash_encode_bwd_route(cfg, 262144, True) == ("entries",) * 40
+    if interp == "tetrahedral":
+        assert det == ("entries",) * 40
+    else:
+        assert det[0] == "runs" and det[-1] == "entries"

@@ -33,26 +33,27 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def _configs(pool=4, **march_kw):
+def _configs(pool=4, levels=LEVELS, res=RES, **march_kw):
     kw = dict(FLAGSHIP_MARCH, pool=pool, **march_kw)
-    occ = dict(resolution=RES, levels=LEVELS, aabb_min=AABB_MIN, aabb_max=AABB_MAX, pool=pool)
+    occ = dict(resolution=res, levels=levels, aabb_min=AABB_MIN, aabb_max=AABB_MAX, pool=pool)
     return (j_occ.OccGridConfig(**occ), j_march.MarchConfig(**kw),
             t_occ.OccGridConfig(**occ), t_march.MarchConfig(**kw))
 
 
-def _bitfield(kind, seed=5):
-    """A (levels * RES^3,) bool bitfield: random with 30% of the level-1
-    shell and a dense ball at the centre of level 0, every cell, or none."""
-    n = LEVELS * RES**3
+def _bitfield(kind, seed=5, levels=LEVELS, res=RES):
+    """A (levels * res^3,) bool bitfield: random with 30% of the outer
+    levels' cells and a dense ball at the centre of level 0, every cell, or
+    none."""
+    n = levels * res**3
     if kind == "dense":
         return np.ones(n, bool)
     if kind == "empty":
         return np.zeros(n, bool)
     rng = np.random.default_rng(seed)
     b = rng.random(n) < 0.3
-    ijk = np.stack(np.meshgrid(*[np.arange(RES)] * 3, indexing="ij"), -1)[..., ::-1]
-    ball = (np.linalg.norm(ijk - RES / 2 + 0.5, axis=-1) < RES / 4).reshape(-1)
-    b[:RES**3] = ball | (rng.random(RES**3) < 0.05)
+    ijk = np.stack(np.meshgrid(*[np.arange(res)] * 3, indexing="ij"), -1)[..., ::-1]
+    ball = (np.linalg.norm(ijk - res / 2 + 0.5, axis=-1) < res / 4).reshape(-1)
+    b[:res**3] = ball | (rng.random(res**3) < 0.05)
     return b
 
 
@@ -367,20 +368,25 @@ def _partial_draws(key, cfg):
     return draws, torch.from_numpy(np.array(jax.random.uniform(k_jit, (m, 3))))
 
 
-@pytest.mark.parametrize("bits", ["random", "empty"])
-def test_partial_update_from_draws_matches_jax_on_cells_probed_once(bits):
+@pytest.mark.parametrize("bits,levels,res", [
+    ("random", LEVELS, RES), ("empty", LEVELS, RES),
+    # past the kernel's old 16 levels (K7a reads the draws from a device table)
+    ("random", 17, 16), ("random", 20, 16),
+], ids=["random", "empty", "random-17-levels", "random-20-levels"])
+def test_partial_update_from_draws_matches_jax_on_cells_probed_once(bits, levels, res):
     """The plain route of a partial update from its draws (update_occ_state
     with draws=, as the model calls it since the card chooses the cells):
     against JAX's partial update on every cell probed once or not at all,
-    a grid with occupied cells and one without (the fallback cells); the
-    same bits as the update at partial_cells' cells; the caller's state
-    untouched (only the card's update takes the grids over)."""
-    jcfg, _, tcfg, _ = _configs()
+    a grid with occupied cells and one without (the fallback cells), and
+    grids of 17 and 20 levels; the same bits as the update at
+    partial_cells' cells; the caller's state untouched (only the card's
+    update takes the grids over)."""
+    jcfg, _, tcfg, _ = _configs(levels=levels, res=res)
     rng = np.random.default_rng(12)
-    n = LEVELS * RES**3
+    n = levels * res**3
     occs0 = rng.exponential(0.01, n).astype(np.float32)
     low0 = rng.exponential(0.005, n).astype(np.float32)
-    b = _bitfield(bits)
+    b = _bitfield(bits, levels=levels, res=res)
     key = jax.random.PRNGKey(6)
     jout = j_occ.update_occ_state({"occs": jnp.asarray(occs0), "occs_low": jnp.asarray(low0),
                                    "binaries": jnp.asarray(b)}, jcfg, _density, 0.01, key,
@@ -397,7 +403,7 @@ def test_partial_update_from_draws_matches_jax_on_cells_probed_once(bits):
                                       cells=(level, cells))
     for k in at_cells:
         assert torch.equal(tout[k], at_cells[k]), k
-    count = torch.bincount(level * RES**3 + cells, minlength=n)
+    count = torch.bincount(level * res**3 + cells, minlength=n)
     once = _np(count <= 1)
     assert int((count == 1).sum()) > 500 and int((count > 1).sum()) > 10
     for k in ("occs", "occs_low"):

@@ -86,16 +86,36 @@
 //    from lane to lane in order, on past the warp's entries while it lasts.
 //
 // Any F, any number of levels (every shape but F 1, 2, 4 or 8 at most 32
-// levels, whose template instances above take it): the entries route at
-// every level, with the level arguments from a device table (hash_grid.cuh's
-// LevelArg). emit_any_kernel writes each entry's key, its slot index k (one
-// word) and its F values at slot k; the radix sort above (one word a key)
-// moves the slot indices, and the values stay where they were written;
-// row_sum_any_kernel then has one thread sum each row, its entries in sorted
-// order (ascending e), feature after feature from +0, one __fadd_rn at a
-// time, reading the values through the sorted indices. So the bits are the
-// plain version's, as on the other routes. The launcher reports the route:
-// 0 the instances ("fixed"), 1 this one ("any").
+// levels, whose template instances above take it): the same two routes,
+// the level arguments from a device table (hash_grid.cuh's LevelArg), the
+// features in groups of at most kGroup = 8 (each group a template instance
+// of F 1..8; the groups' sums are apart, so each group runs on its own).
+// - The runs route as above, its levels in lists of at most 32, a feature
+//   group at a time.
+// - The entries route: emit_any_kernel (a thread a (sample, level)) writes
+//   each entry's key and its F values at slot k, level-major, the values
+//   padded to a multiple of 4 floats (one 32-byte sector at F 7) and
+//   staged through shared memory for whole-line stores; the radix sort
+//   above moves the key and the slot word only (8 bytes an entry a pass,
+//   not 4 + 4 F; the first pass takes each entry's index as its slot), on
+//   9-bit digits of the row's low bits that tell one level's rows apart
+//   (two passes at 2^17 rows a level): a stable sort keeps two levels' rows
+//   with the same low bits apart, in level order, so each row's entries
+//   lie together in ascending e, and the sum tells rows apart by the whole
+//   key. row_sum_any_kernel then sums a feature group: a warp reads a
+//   batch of sorted keys and slots whole-line and the entries' values (a
+//   sector each) through the slots into shared memory, all in flight
+//   together; each lane adds the runs that start at its positions from
+//   shared memory, a long run's lane following it batch after batch (not
+//   a chain of dependent loads from device memory), and a finished row goes
+//   out as one store of F lanes. The launcher reports the route: 0 the instances ("fixed"), 1 the
+//   any kernels ("any").
+//
+// Past 2^31 - 1 entries, or where the scratch would pass kScratchCap, the
+// launcher cuts the samples into ranges (range_samples), each run as a call
+// of its own whose row sums start from what the ranges before left in grad
+// (Feat::acc; +0 where none): the entries of a later range follow those of
+// an earlier one in e, so the bits are one launch's.
 //
 // What bounds it on an H100: bytes. The entries route reads and writes a key
 // and F values per entry once per pass. The runs route writes each entry's
@@ -104,6 +124,9 @@
 // sort stays in shared memory. A dense level's row can hold thousands of
 // entries, whose sum is one chain of dependent adds.
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hash_grid.cuh"
@@ -133,9 +156,12 @@ struct LevelList {
   int level[umhs::kMaxLevels];
 };
 
-// Entries per chunk of the runs route: the staged values take 16 KB of
-// shared memory, and the run starts fit the warp counters' 2,048 words.
-__host__ __device__ constexpr int chunk_entries(int F) { return F <= 2 ? 2048 : 4096 / F; }
+// Entries per chunk of the runs route: the staged values take at most 16 KB
+// of shared memory, the run starts fit the warp counters' 2,048 words, and
+// a chunk is whole items of the block's 256 threads.
+__host__ __device__ constexpr int chunk_entries(int F) {
+  return F <= 2 ? 2048 : 4096 / F / kThreads * kThreads;
+}
 
 // torch.remainder(v, 1.f): fmod, shifted into [0, 1) for negative v.
 __device__ __forceinline__ float frac1(float v) {
@@ -154,15 +180,21 @@ __device__ __forceinline__ float level_uniform(float u, int l) {
   return frac1(__fadd_rn(u, __fmul_rn(static_cast<float>(l), 0.6180339887f)));
 }
 
-// The F gradients of one (sample, level), in one or two vector loads.
-template <int F>
+// The F gradients of one (sample, level), in one or two vector loads
+// (float2 loads for another even F, a float at a time for an odd one, or
+// everywhere without kVec: a row of the any route's g may start anywhere).
+template <int F, bool kVec = true>
 __device__ __forceinline__ void load_row(const float* p, float (&v)[F]) {
-  if constexpr (F == 1) {
-    v[0] = __ldg(p);
-  } else if constexpr (F == 2) {
-    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = a.x;
-    v[1] = a.y;
+  if constexpr (F == 1 || !kVec || F % 2 != 0) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = __ldg(p + f);
+  } else if constexpr (F % 4 != 0) {
+#pragma unroll
+    for (int i = 0; i < F / 2; ++i) {
+      const float2 a = __ldg(reinterpret_cast<const float2*>(p) + i);
+      v[2 * i] = a.x;
+      v[2 * i + 1] = a.y;
+    }
   } else {
 #pragma unroll
     for (int i = 0; i < F / 4; ++i) {
@@ -175,13 +207,16 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[F]) {
   }
 }
 
-// One table row's F sums, in one or two vector stores.
+// One table row's F sums, in one or two vector stores (as load_row).
 template <int F>
 __device__ __forceinline__ void store_row(float* p, const float (&v)[F]) {
-  if constexpr (F == 1) {
-    p[0] = v[0];
-  } else if constexpr (F == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  if constexpr (F == 1 || F % 2 != 0) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) p[f] = v[f];
+  } else if constexpr (F % 4 != 0) {
+#pragma unroll
+    for (int i = 0; i < F / 2; ++i)
+      reinterpret_cast<float2*>(p)[i] = make_float2(v[2 * i], v[2 * i + 1]);
   } else {
 #pragma unroll
     for (int i = 0; i < F / 4; ++i)
@@ -217,11 +252,59 @@ __device__ __forceinline__ uint32_t drawn_row(const uint32_t (&rows)[V], const f
   return row;
 }
 
-// Rows of a level of the table.
+// The levels as a kernel reads them: by value (`Levels`, the template
+// instances of F 1, 2, 4, 8 at up to 32 levels) or from the wrapper's device
+// table (`LevelTable`, the any route). A kernel on the table reads its g and
+// writes its gradient a float at a time (kVec false).
+struct LevelTable {
+  const umhs::LevelArg* table;
+  uint32_t hash_mask;
+};
+
+template <bool kTetra>
+__device__ __forceinline__ void vertices(const float p[3], int l, const Levels& lv,
+                                         uint32_t (&rows)[kTetra ? 4 : 8],
+                                         float (&w)[kTetra ? 4 : 8]) {
+  umhs::hash_vertices<kTetra>(p, l, lv, rows, w);
+}
+template <bool kTetra>
+__device__ __forceinline__ void vertices(const float p[3], int l, const LevelTable& lt,
+                                         uint32_t (&rows)[kTetra ? 4 : 8],
+                                         float (&w)[kTetra ? 4 : 8]) {
+  umhs::hash_vertices<kTetra>(p, umhs::level_arg(lt.table, l), lt.hash_mask, rows, w);
+}
+
+// Row offset and rows of a level of the table.
+__device__ __forceinline__ uint32_t level_offset(const Levels& lv, int l) {
+  return static_cast<uint32_t>(lv.offset[l]);
+}
+__device__ __forceinline__ uint32_t level_offset(const LevelTable& lt, int l) {
+  return static_cast<uint32_t>(umhs::level_arg(lt.table, l).offset);
+}
 __device__ __forceinline__ uint32_t level_rows(const Levels& lv, int l) {
   const uint32_t r = static_cast<uint32_t>(lv.res[l]);
   return lv.dense[l] ? r * r * r : lv.hash_mask + 1u;
 }
+__device__ __forceinline__ uint32_t level_rows(const LevelTable& lt, int l) {
+  const umhs::LevelArg a = umhs::level_arg(lt.table, l);
+  const uint32_t r = static_cast<uint32_t>(a.res);
+  return a.dense ? r * r * r : lt.hash_mask + 1u;
+}
+
+template <class LS>
+constexpr bool kByValue = std::is_same<LS, Levels>::value;
+
+// Where a kernel's features lie: the table row and a (sample, level)'s g
+// row are `stride` floats (the grid's F), the kernel takes features [f0, f0
+// + its F) (a group of at most 8 on the any route), and with acc each row's
+// sum goes on from what earlier sample ranges left in grad (+0 where none).
+struct Feat {
+  int stride, f0, acc;
+};
+
+// The any route's values: each entry's F floats padded to P = round4(F), so
+// that its sum reads them as float4 loads (one 32-byte sector at F 7).
+__host__ __device__ constexpr int padded_width(int F) { return (F + 3) / 4 * 4; }
 
 // Exclusive prefix of v over the block's threads in thread order; *total
 // gets the block's sum. Every thread of the block calls it.
@@ -326,10 +409,10 @@ __device__ __forceinline__ uint32_t chunk_sort_pass(uint32_t* keys, uint16_t* or
 // per run into the chunk's slots of run_rows and run_spans (the run's slots
 // [start, end) of vals); run_count[chunk] = its runs. Chunks are numbered
 // level-major: chunk = i * chunks + c for the route's i-th level.
-template <int F, bool kTetra, bool kStochastic>
+template <int F, bool kTetra, bool kStochastic, class LS>
 __global__ void __launch_bounds__(kThreads)
 run_emit_kernel(const float* __restrict__ pos, const float* __restrict__ g, uint32_t n, int L,
-                Levels lv, LevelList list, uint32_t chunks, float* __restrict__ vals,
+                LS lv, LevelList list, uint32_t chunks, Feat ft, float* __restrict__ vals,
                 uint32_t* __restrict__ run_rows, uint2* __restrict__ run_spans,
                 uint32_t* __restrict__ run_count) {
   constexpr int V = kTetra ? 4 : 8;
@@ -361,9 +444,9 @@ run_emit_kernel(const float* __restrict__ pos, const float* __restrict__ g, uint
     const float p[3] = {__ldg(pos + 3 * s), __ldg(pos + 3 * s + 1), __ldg(pos + 3 * s + 2)};
     uint32_t rows[V];
     float w[V];
-    umhs::hash_vertices<kTetra>(p, l, lv, rows, w);
+    vertices<kTetra>(p, l, lv, rows, w);
     float gv[F];
-    load_row<F>(g + static_cast<size_t>(s) * L * F + l * F, gv);
+    load_row<F, kByValue<LS>>(g + (static_cast<size_t>(s) * L + l) * ft.stride + ft.f0, gv);
     if (kStochastic) {
       const uint32_t r = drawn_row<V>(rows, w, level_uniform(position_uniform(p), l));
       key[0] = all_zero<F>(gv) ? kSkip : r;
@@ -384,7 +467,7 @@ run_emit_kernel(const float* __restrict__ pos, const float* __restrict__ g, uint
 
   // stable sort by the low 16 bits of the level-local row (8 when the level
   // has at most 256 rows); the first pass drops the kSkip entries, leaving m
-  const uint32_t off = static_cast<uint32_t>(lv.offset[l]);
+  const uint32_t off = level_offset(lv, l);
   const int bits = level_rows(lv, l) > static_cast<uint32_t>(kDigits) ? 2 * kDigitBits : kDigitBits;
   uint32_t m = E;
   for (int shift = 0; shift < bits; shift += kDigitBits)
@@ -456,7 +539,7 @@ template <int F>
 __global__ void __launch_bounds__(kThreads, 2)
 run_fold_kernel(const uint32_t* __restrict__ rows, const uint2* __restrict__ spans,
                 const uint32_t* __restrict__ count, const float* __restrict__ vals,
-                float* __restrict__ grad) {
+                float* __restrict__ grad, Feat ft) {
   constexpr int kPer = kFoldFloats / F / 32;  // entries per lane in a window
   constexpr uint32_t kCap = 32 * kPer;  // entries per window
   __shared__ __align__(16) float staged[kWarps][kFoldFloats];
@@ -477,7 +560,9 @@ run_fold_kernel(const uint32_t* __restrict__ rows, const uint2* __restrict__ spa
       const int h = __ffs(heads) - 1;
       heads &= heads - 1;
       const uint32_t row = __shfl_sync(kFull, mine, h);
-      float mine_acc = 0.f;  // lane f < F: the row's sum of feature f
+      // lane f < F: the row's sum of feature f
+      float mine_acc = ft.acc && lane < F
+                           ? grad[static_cast<size_t>(row) * ft.stride + ft.f0 + lane] : 0.f;
       uint32_t group = w * 32, g_row = mine;
       uint2 span = my_span;
       int first = h;
@@ -544,7 +629,7 @@ run_fold_kernel(const uint32_t* __restrict__ rows, const uint2* __restrict__ spa
         span = n_span;
         first = 0;
       }
-      if (lane < F) grad[static_cast<size_t>(row) * F + lane] = mine_acc;
+      if (lane < F) grad[static_cast<size_t>(row) * ft.stride + ft.f0 + lane] = mine_acc;
     }
   }
 }
@@ -591,7 +676,9 @@ emit_kernel(const float* __restrict__ pos, const float* __restrict__ g, uint32_t
 
 // Entries per lane in a sort tile: the staged tile's keys and values fit
 // 48 KB of shared memory beside the counters.
-__host__ __device__ constexpr int sort_items(int F) { return F == 1 ? 16 : (F == 2 ? 8 : 4); }
+__host__ __device__ constexpr int sort_items(int F) {
+  return F == 1 ? 16 : (F == 2 ? 8 : 4);
+}
 
 __device__ __forceinline__ uint32_t tiles_of(uint32_t live, uint32_t tile) {
   return static_cast<uint32_t>((static_cast<uint64_t>(live) + tile - 1) / tile);
@@ -703,7 +790,7 @@ __device__ __forceinline__ void scatter_tile(const uint32_t* __restrict__ keys_i
   constexpr int kD = 1 << kBits, kPer = kD / kThreads;
   __shared__ uint32_t start[kD];  // where this tile's entries of digit d go in the output
   __shared__ uint32_t local[kD];  // where they go in the staged tile
-  __shared__ uint32_t warp_count[kWarps][kD];
+  __shared__ uint16_t warp_count[kWarps][kD];  // at most kTile
   __shared__ uint32_t staged_keys[kTile];
   __shared__ __align__(16) float staged_vals[kTile * F];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -762,7 +849,11 @@ __device__ __forceinline__ void scatter_tile(const uint32_t* __restrict__ keys_i
     const uint32_t at = local[d] + warp_count[warp][d] + rank[j];
     staged_keys[at] = key[j];
     float v[F];
-    load_row<F>(vals_in + (base + 32 * j) * F, v);
+    if (vals_in != nullptr) {
+      load_row<F>(vals_in + (base + 32 * j) * F, v);
+    } else {  // the any route's first pass: each entry's word is its index (its slot)
+      v[0] = __uint_as_float(static_cast<uint32_t>(base + 32 * j));
+    }
     store_row<F>(staged_vals + static_cast<size_t>(at) * F, v);
   }
   __syncthreads();
@@ -796,11 +887,11 @@ __device__ __forceinline__ void digit_starts(const uint32_t* __restrict__ totals
   }
 }
 
-// The placement of a pass on 8-bit digits, one tile a block (the grid sized
-// to the tiles; the entries route). Each block scans the digit totals for
-// the digits' starts; the first pass's block 0 writes the live count (its
-// kSkip keys dropped).
-template <int F, bool kFirst>
+// The placement of a pass on digits of kBits bits, one tile a block (the
+// grid sized to the tiles; the entries route, 8-bit digits; the any route,
+// 9-bit). Each block scans the digit totals for the digits' starts; the
+// first pass's block 0 writes the live count (its kSkip keys dropped).
+template <int F, bool kFirst, int kBits>
 __global__ void __launch_bounds__(kThreads, 1)
 digit_scatter_kernel(const uint32_t* __restrict__ keys_in, const float* __restrict__ vals_in,
                      uint32_t* __restrict__ keys_out, float* __restrict__ vals_out,
@@ -808,14 +899,14 @@ digit_scatter_kernel(const uint32_t* __restrict__ keys_in, const float* __restri
                      uint32_t* __restrict__ count, int shift,
                      const uint32_t* __restrict__ counts, uint32_t stride,
                      const uint32_t* __restrict__ totals) {
-  uint32_t total, starts[1];
-  digit_starts<kDigitBits>(totals, starts, &total);
+  uint32_t total, starts[(1 << kBits) / kThreads];
+  digit_starts<kBits>(totals, starts, &total);
   if (kFirst && blockIdx.x == 0 && threadIdx.x == 0) *count = total;
   constexpr uint32_t kTile = kThreads * sort_items(F);
   const uint32_t live = live_in ? *live_in : m;
   const size_t first = static_cast<size_t>(blockIdx.x) * kTile;
   if (first < live)
-    scatter_tile<F, kFirst, kDigitBits>(
+    scatter_tile<F, kFirst, kBits>(
         keys_in, vals_in, keys_out, vals_out, first,
         live - first < kTile ? static_cast<uint32_t>(live - first) : kTile, shift, counts, stride,
         blockIdx.x, starts);
@@ -857,7 +948,8 @@ digit_scatter_walk_kernel(const uint32_t* __restrict__ keys_in, const float* __r
 template <int F>
 __global__ void __launch_bounds__(kThreads)
 row_sum_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ vals,
-               const uint32_t* __restrict__ count, float* __restrict__ grad) {
+               const uint32_t* __restrict__ count, float* __restrict__ grad, Feat ft) {
+  auto row_at = [&](uint32_t row) { return grad + static_cast<size_t>(row) * F; };
   const uint32_t live = *count;
   const size_t first = (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x) / 32 * kSumBatch;
   if (first >= live) return;  // uniform across the warp
@@ -905,10 +997,11 @@ row_sum_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ vals
       for (int c = 0; c < kRun; ++c) {
         if (c < head) continue;
         if (kk[c] != (c > 0 ? kk[c - 1] : prev)) {
-          if (tail_row != kSkip) store_row<F>(grad + static_cast<size_t>(tail_row) * F, tail);
-#pragma unroll
-          for (int f = 0; f < F; ++f) tail[f] = 0.f;
+          if (tail_row != kSkip) store_row<F>(row_at(tail_row), tail);
           tail_row = kk[c];
+#pragma unroll
+          for (int f = 0; f < F; ++f)
+            tail[f] = ft.acc && tail_row != kSkip ? row_at(tail_row)[f] : 0.f;
         }
 #pragma unroll
         for (int f = 0; f < F; ++f) tail[f] = __fadd_rn(tail[f], x[c][f]);
@@ -942,7 +1035,7 @@ row_sum_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ vals
           }
         }
         if (head < kRun) {  // the incoming run ends in this lane
-          if (in_owned && in_row != kSkip) store_row<F>(grad + static_cast<size_t>(in_row) * F, in);
+          if (in_owned && in_row != kSkip) store_row<F>(row_at(in_row), in);
 #pragma unroll
           for (int f = 0; f < F; ++f) out[f] = tail[f];
           out_row = tail_row;
@@ -963,86 +1056,244 @@ row_sum_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ vals
     if (!carry_owned || carry_row == kSkip) return;
   }
   // the live entries ended inside the carried run
-  if (lane == 0) store_row<F>(grad + static_cast<size_t>(carry_row) * F, carry);
+  if (lane == 0) store_row<F>(row_at(carry_row), carry);
 }
 
-// ------------------------------------------------------------ any F, any L
+// 3. The any route's sum: a warp takes kAnyBatch sorted entries, reads
+// their keys and slot words whole-line, then their values through the
+// slots into shared memory (features [f0, f0 + F) of a row padded to
+// padded_width(stride) floats: one sector an entry at F <= 8), and each
+// lane sums the runs that start at its positions (e = 32 q + lane), from
+// shared memory, feature by feature in ascending entry order from +0 (or
+// from grad with acc). A finished run's sums go to shared memory at its
+// head's position, and the warp stores them a row to F lanes, so that a
+// row is one store. The run that reaches the batch's end and goes on past
+// it is followed by the warp: batch after batch, its lane adds on until
+// its row ends. A run that starts before the batch is its starter's.
+constexpr int kAnyBatch = 128;  // sorted entries a warp takes at a time
+constexpr int kAnyWarps = 4;    // warps a block
 
-// 1. One thread per sample: every entry of every level, its key, its slot
-// index (as the bits of a float, the word the sort moves) and its F values
-// at slot k = (l * n + s) * VE + v.
-template <bool kTetra, bool kStochastic>
-__global__ void __launch_bounds__(kThreads)
-emit_any_kernel(const float* __restrict__ pos, const float* __restrict__ g,
-                uint32_t* __restrict__ keys, float* __restrict__ slots, float* __restrict__ vals,
-                uint32_t n, int L, int F, const umhs::LevelArg* __restrict__ levels,
-                uint32_t hash_mask) {
-  const uint32_t s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= n) return;
-  const float p[3] = {__ldg(pos + 3 * s), __ldg(pos + 3 * s + 1), __ldg(pos + 3 * s + 2)};
-  const float u = kStochastic ? position_uniform(p) : 0.f;
-  constexpr int V = kTetra ? 4 : 8;
-  constexpr int VE = kStochastic ? 1 : V;
-  for (int l = 0; l < L; ++l) {
-    uint32_t rows[V];
-    float w[V];
-    umhs::hash_vertices<kTetra>(p, umhs::level_arg(levels, l), hash_mask, rows, w);
-    const float* gs = g + (static_cast<size_t>(s) * L + l) * F;
-    const size_t k = (static_cast<size_t>(l) * n + s) * VE;
-    if (kStochastic) {
-      const uint32_t row = drawn_row<V>(rows, w, level_uniform(u, l));
-      bool zero = true;
-      for (int f = 0; f < F; ++f) {
-        const float v = __ldg(gs + f);
-        vals[k * F + f] = v;
-        zero = zero && v == 0.f;
-      }
-      keys[k] = zero ? kSkip : row;
-      slots[k] = __uint_as_float(static_cast<uint32_t>(k));
-    } else {
+// Adds the staged entries [e, end), all of one row, onto sums, feature by
+// feature in order.
+template <int F, int kP4>
+__device__ __forceinline__ void add_staged(float (&sums)[F], const float4 (*vals)[kP4], int e,
+                                           int end) {
+  for (; e < end; ++e) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        bool zero = true;
-        for (int f = 0; f < F; ++f) {
-          const float c = __fmul_rn(w[v], __ldg(gs + f));
-          vals[(k + v) * F + f] = c;
-          zero = zero && c == 0.f;
-        }
-        keys[k + v] = zero ? kSkip : rows[v];
-        slots[k + v] = __uint_as_float(static_cast<uint32_t>(k + v));
-      }
+    for (int h = 0; h < kP4; ++h) {
+      const float4 v = vals[e][h];
+      if (4 * h < F) sums[4 * h] = __fadd_rn(sums[4 * h], v.x);
+      if (4 * h + 1 < F) sums[4 * h + 1] = __fadd_rn(sums[4 * h + 1], v.y);
+      if (4 * h + 2 < F) sums[4 * h + 2] = __fadd_rn(sums[4 * h + 2], v.z);
+      if (4 * h + 3 < F) sums[4 * h + 3] = __fadd_rn(sums[4 * h + 3], v.w);
     }
   }
 }
 
-constexpr int kAnySumChunk = 8;  // features a row sums at a time
-
-// 3. A thread per sorted entry; the first of each row's run sums the row:
-// kAnySumChunk features at a time, each from +0 over the run in order.
-__global__ void __launch_bounds__(kThreads)
+template <int F>
+__global__ void __launch_bounds__(32 * kAnyWarps)
 row_sum_any_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ slots,
-                   const uint32_t* __restrict__ count, const float* __restrict__ vals, int F,
-                   float* __restrict__ grad) {
-  const uint32_t live = *count;
-  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= live) return;
-  const uint32_t row = keys[i];
-  if (i > 0 && keys[i - 1] == row) return;
-  size_t end = i + 1;
-  while (end < live && keys[end] == row) ++end;
-  for (int f0 = 0; f0 < F; f0 += kAnySumChunk) {
-    float acc[kAnySumChunk];
+                   const uint32_t* __restrict__ count, uint32_t m,
+                   const float* __restrict__ vals, float* __restrict__ grad, Feat ft) {
+  constexpr int kP4 = (F + 3) / 4;  // float4 pieces of an entry's features
+  constexpr int kQ = kAnyBatch / 32;
+  __shared__ uint32_t s_key[kAnyWarps][kAnyBatch];
+  __shared__ uint32_t s_slot[kAnyWarps][kAnyBatch];
+  __shared__ float4 s_val[kAnyWarps][kAnyBatch][kP4];
+  __shared__ float s_res[kAnyWarps][kAnyBatch + 1][F];  // a run's sums at its head
+  __shared__ uint32_t s_row[kAnyWarps][kAnyBatch + 1];  // its row, or kSkip
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const size_t first = (static_cast<size_t>(blockIdx.x) * kAnyWarps + wi) * kAnyBatch;
+  if (first >= m) return;  // uniform across the warp
+  const int P = padded_width(ft.stride);
+  uint32_t* key = s_key[wi];
+  auto row_at = [&](uint32_t row) { return grad + static_cast<size_t>(row) * ft.stride + ft.f0; };
+  // the batch at `at`: keys and slots into shared memory (the buffers hold m
+  // words, the first `live` sorted; keys past live become kSkip), and the
+  // keys just before and just after the batch, all in one round of loads
+  // with the live count's
+  uint32_t live = 0, before = kSkip, after = kSkip;
+  auto load_keys = [&](size_t at, bool first_round) {
+    uint32_t k[kQ], sl[kQ];
 #pragma unroll
-    for (int q = 0; q < kAnySumChunk; ++q) acc[q] = 0.f;
-    for (size_t j = i; j < end; ++j) {
-      const float* v = vals + static_cast<size_t>(__float_as_uint(slots[j])) * F + f0;
-#pragma unroll
-      for (int q = 0; q < kAnySumChunk; ++q)
-        if (f0 + q < F) acc[q] = __fadd_rn(acc[q], v[q]);
+    for (int q = 0; q < kQ; ++q) {
+      const size_t i = at + q * 32 + lane;
+      k[q] = i < m ? keys[i] : kSkip;
+      sl[q] = i < m ? __float_as_uint(slots[i]) : 0u;
     }
+    uint32_t b = kSkip, a = kSkip, c = 0;
+    if (lane == 0) {
+      if (first_round) c = *count;
+      if (first_round && at > 0) b = keys[at - 1];
+      if (at + kAnyBatch < m) a = keys[at + kAnyBatch];
+    }
+    if (first_round) live = __shfl_sync(kFull, c, 0);
+    before = __shfl_sync(kFull, b, 0);
+    after = at + kAnyBatch < live ? __shfl_sync(kFull, a, 0) : kSkip;
 #pragma unroll
-    for (int q = 0; q < kAnySumChunk; ++q)
-      if (f0 + q < F) grad[static_cast<size_t>(row) * F + f0 + q] = acc[q];
+    for (int q = 0; q < kQ; ++q) {
+      key[q * 32 + lane] = at + q * 32 + lane < live ? k[q] : kSkip;
+      s_slot[wi][q * 32 + lane] = sl[q];
+    }
+    __syncwarp();
+  };
+  // the values of the batch's entries [lo, hi) (those below live)
+  auto load_vals = [&](size_t at, int lo, int hi) {
+#pragma unroll
+    for (int q = 0; q < kQ * kP4; ++q) {
+      const int idx = q * 32 + lane, e = idx / kP4, h = idx - e * kP4;
+      if (e >= lo && e < hi && at + e < live)
+        s_val[wi][e][h] = __ldg(reinterpret_cast<const float4*>(
+                                    vals + static_cast<size_t>(s_slot[wi][e]) * P + ft.f0) + h);
+    }
+    __syncwarp();
+  };
+  // the rows the batch finished, a row to F lanes of one store
+  auto store = [&]() {
+    __syncwarp();
+    for (int t = lane; t < (kAnyBatch + 1) * 8; t += 32) {
+      const int e = t >> 3, f = t & 7;
+      const uint32_t row = s_row[wi][e];
+      if (f < F && row != kSkip) row_at(row)[f] = s_res[wi][e][f];
+    }
+    __syncwarp();
+  };
+
+  load_keys(first, true);
+  if (first >= live) return;  // uniform across the warp
+  const uint32_t prev = before;
+  int lo = 0;  // the entries of the run begun before the batch are its starter's
+  while (lo < kAnyBatch && key[lo] == prev) ++lo;
+  load_vals(first, lo, kAnyBatch);
+  const size_t next_at = first + kAnyBatch;
+  // the run that goes on past the batch parks its sums at slot kAnyBatch
+  // of s_res, its row in s_carry (s_row's slot kAnyBatch stays kSkip)
+  __shared__ uint32_t s_carry[kAnyWarps];
+  if (lane == 0) {
+    s_row[wi][kAnyBatch] = kSkip;
+    s_carry[wi] = kSkip;
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int q = 0; q < kQ; ++q) {
+    const int e = q * 32 + lane;
+    const uint32_t row = key[e];
+    const bool head = row != kSkip && row != (e > 0 ? key[e - 1] : prev);
+    s_row[wi][e] = kSkip;
+    if (!head) continue;
+    int end = e + 1;
+    while (end < kAnyBatch && key[end] == row) ++end;
+    float sums[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) sums[f] = ft.acc ? row_at(row)[f] : 0.f;
+    add_staged<F, kP4>(sums, s_val[wi], e, end);
+    const bool goes_on = end == kAnyBatch && after == row;
+    if (goes_on) s_carry[wi] = row;
+    else s_row[wi][e] = row;
+#pragma unroll
+    for (int f = 0; f < F; ++f) s_res[wi][goes_on ? kAnyBatch : e][f] = sums[f];
+  }
+  store();
+  // follow the run that goes on past the batch, batch after batch (lane 0
+  // adds; the other lanes load)
+  const uint32_t row = s_carry[wi];
+  if (row == kSkip) return;
+  for (size_t at = next_at; at < live; at += kAnyBatch) {
+    load_keys(at, false);
+    int end = 0;
+    while (end < kAnyBatch && key[end] == row) ++end;
+    load_vals(at, 0, end);
+    const bool more = end == kAnyBatch && after == row;
+    if (lane == 0) {
+      float sums[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) sums[f] = s_res[wi][kAnyBatch][f];
+      add_staged<F, kP4>(sums, s_val[wi], 0, end);
+#pragma unroll
+      for (int f = 0; f < F; ++f) s_res[wi][kAnyBatch][f] = sums[f];
+      if (!more) {
+        s_row[wi][kAnyBatch] = row;  // only the followed row: the batch's others are its own warp's
+        for (int e = 0; e < kAnyBatch; ++e) s_row[wi][e] = kSkip;
+      }
+    }
+    if (!more) {
+      store();
+      return;
+    }
+    __syncwarp();
+  }
+}
+
+// ------------------------------------------------------------ any F, any L
+
+// 1. A block per kEmitSamples consecutive samples at one level l0 +
+// blockIdx.y, a thread a sample: its VE entries' keys and values, each
+// entry's F values padded with zeros to P = padded_width(F) floats, at slot
+// k = base + (blockIdx.y * n + s) * VE + v: the entries of a span of levels
+// follow the spans before it, level-major. The block's values are one
+// contiguous stretch: with `staged` each thread's VE * P floats go to
+// shared memory at a stride of VE * P + 1 (distinct banks across a warp),
+// and the block stores them as whole lines. No slot
+// words: the sort's first pass takes each entry's index as its word.
+constexpr int kEmitSamples = 128;
+
+template <bool kTetra, bool kStochastic>
+__global__ void __launch_bounds__(kEmitSamples)
+emit_any_kernel(const float* __restrict__ pos, const float* __restrict__ g,
+                uint32_t* __restrict__ keys, float* __restrict__ vals, uint32_t n, int L, int F,
+                LevelTable lt, int l0, uint32_t base, int staged) {
+  extern __shared__ float emit_tile[];  // kEmitSamples * (VE * P + 1) floats
+  constexpr int V = kTetra ? 4 : 8;
+  constexpr int VE = kStochastic ? 1 : V;
+  const int P = padded_width(F), l = l0 + static_cast<int>(blockIdx.y);
+  const int row_floats = VE * P, stride = staged ? row_floats + 1 : row_floats;
+  const uint32_t s0 = blockIdx.x * kEmitSamples, s = s0 + threadIdx.x;
+  const uint32_t count = min(static_cast<uint32_t>(kEmitSamples), n - s0);
+  const size_t k0 = base + (static_cast<size_t>(blockIdx.y) * n + s0) * VE;  // the block's slots
+  float* out = staged ? emit_tile + threadIdx.x * stride : vals + (k0 + threadIdx.x * VE) * P;
+  if (s < n) {
+    const float p[3] = {__ldg(pos + 3 * s), __ldg(pos + 3 * s + 1), __ldg(pos + 3 * s + 2)};
+    uint32_t rows[V];
+    float w[V];
+    vertices<kTetra>(p, l, lt, rows, w);
+    const float* gs = g + (static_cast<size_t>(s) * L + l) * F;
+    uint32_t* kp = keys + k0 + threadIdx.x * VE;
+    if (kStochastic) {
+      bool zero = true;
+      for (int f = 0; f < P; ++f) {
+        const float v = f < F ? __ldg(gs + f) : 0.f;
+        out[f] = v;
+        zero = zero && v == 0.f;
+      }
+      kp[0] = zero ? kSkip : drawn_row<V>(rows, w, level_uniform(position_uniform(p), l));
+    } else {
+      unsigned nonzero = 0u;  // bit v: vertex v adds something
+      for (int f = 0; f < P; ++f) {
+        const float gv = f < F ? __ldg(gs + f) : 0.f;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float c = __fmul_rn(w[v], gv);
+          out[v * P + f] = c;
+          nonzero |= c != 0.f ? 1u << v : 0u;
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) kp[v] = nonzero >> v & 1u ? rows[v] : kSkip;
+    }
+  }
+  if (staged) {  // whole lines: a warp a thread's stretch at a time, or a float a thread
+    __syncthreads();
+    float* dst = vals + k0 * P;
+    if (row_floats >= 32) {
+      const int lane = threadIdx.x & 31;
+      for (uint32_t t = threadIdx.x >> 5; t < count; t += kEmitSamples / 32)
+        for (int j = lane; j < row_floats; j += 32) dst[t * row_floats + j] = emit_tile[t * stride + j];
+    } else {
+      for (uint32_t i = threadIdx.x; i < count * row_floats; i += kEmitSamples) {
+        const uint32_t t = i / row_floats;
+        dst[i] = emit_tile[t * stride + (i - t * row_floats)];
+      }
+    }
   }
 }
 
@@ -1123,21 +1374,30 @@ RunBuffers run_buffers(Carver& cv, uint64_t n, int levels, int F, int VE) {
   return b;
 }
 
-// Sorts (keys, W words) from the a-buffers, stably, by the low 8 * passes
-// bits; the live entries are the first *live_in (m where null), and the
-// first pass drops kSkip keys. On return the a-pointers hold the result.
-// A null live_in sizes the grid to the tiles, one a block (the entries
-// route: m entries, kSkip keys dropped by the first pass); a count on the
-// card (the runs route's packed descriptors) caps it at grid_cap blocks,
-// which walk the live tiles.
-template <int W, int kBits>
+// The placement kernel of a pass (only the one that runs is instantiated).
+template <int W, int kBits, bool kWalk, bool kFirst>
+constexpr auto scatter_of() {
+  if constexpr (kWalk) {
+    return digit_scatter_walk_kernel<W, kFirst, kBits>;
+  } else {
+    return digit_scatter_kernel<W, kFirst, kBits>;
+  }
+}
+
+// Sorts (keys, W words) from the a-buffers, stably, by the low kBits *
+// passes bits; the live entries are the first *live_in (m where null), and
+// the first pass drops kSkip keys. On return the a-pointers hold the
+// result. With iota (W 1) the first pass takes each entry's index as its
+// word, and vals_a is not read. Without kWalk the grid is sized to the tiles, one a block (the
+// entries routes: m entries, kSkip keys dropped by the first pass); with it
+// (the runs route's packed descriptors, whose count lives on the card) it
+// is capped at grid_cap blocks, which walk the live tiles.
+template <int W, int kBits, bool kWalk>
 void radix_sort(SortBuffers& s, uint32_t m, const uint32_t* live_in, uint32_t passes,
-                int grid_cap, cudaStream_t stream) {
+                int grid_cap, cudaStream_t stream, bool iota = false) {
   constexpr int kItems = sort_items(W);
   const uint32_t tiles = s.stride > 0 ? s.stride : 1;
-  const bool walk = live_in != nullptr;
-  static_assert(kBits == kDigitBits || W == 2, "the walk sorts the runs' two-word spans");
-  const unsigned grid = !walk || tiles < static_cast<uint32_t>(grid_cap)
+  const unsigned grid = !kWalk || tiles < static_cast<uint32_t>(grid_cap)
                             ? tiles : static_cast<unsigned>(grid_cap);
   for (uint32_t p = 0; p < passes; ++p) {
     const int shift = static_cast<int>(p) * kBits;
@@ -1146,11 +1406,11 @@ void radix_sort(SortBuffers& s, uint32_t m, const uint32_t* live_in, uint32_t pa
                                                                      s.counts, s.stride);
     digit_scan_kernel<<<1 << kBits, kThreads, 0, stream>>>(s.counts, s.stride, live, m,
                                                            kThreads * kItems, s.totals);
-    auto scatter = !walk ? (p == 0 ? digit_scatter_kernel<W, true> : digit_scatter_kernel<W, false>)
-                         : (p == 0 ? digit_scatter_walk_kernel<W, true, kBits>
-                                   : digit_scatter_walk_kernel<W, false, kBits>);
-    scatter<<<grid, kThreads, 0, stream>>>(s.keys_a, s.vals_a, s.keys_b, s.vals_b, live, m,
-                                           s.count, shift, s.counts, s.stride, s.totals);
+    auto scatter = p == 0 ? scatter_of<W, kBits, kWalk, true>()
+                          : scatter_of<W, kBits, kWalk, false>();
+    scatter<<<grid, kThreads, 0, stream>>>(s.keys_a, iota && p == 0 ? nullptr : s.vals_a,
+                                           s.keys_b, s.vals_b, live, m, s.count, shift,
+                                           s.counts, s.stride, s.totals);
     uint32_t* k = s.keys_a;
     s.keys_a = s.keys_b;
     s.keys_b = k;
@@ -1160,12 +1420,17 @@ void radix_sort(SortBuffers& s, uint32_t m, const uint32_t* live_in, uint32_t pa
   }
 }
 
+// Rows of level l of the table.
+uint64_t rows_of(int l, const int* res, const int* dense, uint32_t hash_mask) {
+  const uint64_t r = static_cast<uint64_t>(res[l]);
+  return dense[l] ? r * r * r : hash_mask + 1ull;
+}
+
 // Rows of the table up to the end of the list's last level.
 uint32_t rows_through(const LevelList& list, const int* res, const int* offsets,
                       const int* dense, uint32_t hash_mask) {
   const int l = list.level[list.count - 1];
-  const uint64_t r = static_cast<uint64_t>(res[l]);
-  return static_cast<uint32_t>(offsets[l] + (dense[l] ? r * r * r : hash_mask + 1ull));
+  return static_cast<uint32_t>(offsets[l] + rows_of(l, res, dense, hash_mask));
 }
 
 // Rows of the list's largest level: the runs' sort orders them by the low
@@ -1175,49 +1440,48 @@ uint32_t rows_through(const LevelList& list, const int* res, const int* offsets,
 uint64_t largest_level(const LevelList& list, const int* res, const int* dense,
                        uint32_t hash_mask) {
   uint64_t most = 1;
-  for (int i = 0; i < list.count; ++i) {
-    const uint64_t r = static_cast<uint64_t>(res[list.level[i]]);
-    const uint64_t rows = dense[list.level[i]] ? r * r * r : hash_mask + 1ull;
-    most = rows > most ? rows : most;
-  }
+  for (int i = 0; i < list.count; ++i)
+    most = std::max<uint64_t>(most, rows_of(list.level[i], res, dense, hash_mask));
   return most;
 }
 
-template <int F, bool kTetra, bool kStochastic>
-void launch_runs(const float* pos, const float* g, float* grad, uint32_t n, int L,
-                 const Levels& lv, const LevelList& list, uint64_t level_rows, RunBuffers b,
-                 int grid_cap, cudaStream_t stream) {
+template <int F, bool kTetra, bool kStochastic, class LS>
+void launch_runs(const float* pos, const float* g, float* grad, uint32_t n, int L, const LS& lv,
+                 const LevelList& list, uint64_t level_rows, RunBuffers b, int grid_cap, Feat ft,
+                 cudaStream_t stream) {
   constexpr int VE = kStochastic ? 1 : (kTetra ? 4 : 8);
   const RouteShape rs = run_shape(n, list.count, F, VE);
   const uint32_t chunks = rs.chunks * list.count;
-  run_emit_kernel<F, kTetra, kStochastic><<<dim3(rs.chunks, list.count), kThreads, 0, stream>>>(
-      pos, g, n, L, lv, list, rs.chunks, b.vals, b.sort.keys_b,
-      reinterpret_cast<uint2*>(b.sort.vals_b), b.run_count);
+  run_emit_kernel<F, kTetra, kStochastic, LS>
+      <<<dim3(rs.chunks, list.count), kThreads, 0, stream>>>(
+          pos, g, n, L, lv, list, rs.chunks, ft, b.vals, b.sort.keys_b,
+          reinterpret_cast<uint2*>(b.sort.vals_b), b.run_count);
   digit_scan_kernel<<<1, kThreads, 0, stream>>>(b.run_count, 0, nullptr, chunks, 1, b.run_total);
   compact_runs_kernel<<<(chunks + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
       b.sort.keys_b, reinterpret_cast<const uint2*>(b.sort.vals_b), b.run_count, b.run_total,
       chunks, chunk_entries(F), b.sort.keys_a, reinterpret_cast<uint2*>(b.sort.vals_a));
-  radix_sort<2, kRunDigitBits>(b.sort, static_cast<uint32_t>(rs.slots), b.run_total,
-                               sort_passes(level_rows, kRunDigitBits), grid_cap, stream);
+  radix_sort<2, kRunDigitBits, true>(b.sort, static_cast<uint32_t>(rs.slots), b.run_total,
+                                     sort_passes(level_rows, kRunDigitBits), grid_cap, stream);
   const uint64_t warps = ceil_div(rs.slots, 32);
   const uint64_t blocks = ceil_div(warps, kWarps);
   run_fold_kernel<F><<<blocks < static_cast<uint64_t>(grid_cap) ? blocks : grid_cap, kThreads, 0,
                        stream>>>(b.sort.keys_a, reinterpret_cast<const uint2*>(b.sort.vals_a),
-                                 b.sort.count, b.vals, grad);
+                                 b.sort.count, b.vals, grad, ft);
 }
 
 template <int F, bool kTetra, bool kStochastic>
 void launch_entries(const float* pos, const float* g, float* grad, uint32_t n, int L,
                     const Levels& lv, const LevelList& list, uint32_t rows, SortBuffers s,
-                    int grid_cap, cudaStream_t stream) {
+                    int grid_cap, Feat ft, cudaStream_t stream) {
   constexpr int VE = kStochastic ? 1 : (kTetra ? 4 : 8);
   const uint32_t m = n * list.count * VE;
   emit_kernel<F, kTetra, kStochastic><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       pos, g, s.keys_a, s.vals_a, n, L, lv, list);
-  radix_sort<F, kDigitBits>(s, m, nullptr, sort_passes(rows, kDigitBits), grid_cap, stream);
+  radix_sort<F, kDigitBits, false>(s, m, nullptr, sort_passes(rows, kDigitBits), grid_cap,
+                                   stream);
   const uint64_t warps = ceil_div(m, kSumBatch);
   const unsigned blocks = static_cast<unsigned>(ceil_div(warps, kWarps));
-  row_sum_kernel<F><<<blocks, kThreads, 0, stream>>>(s.keys_a, s.vals_a, s.count, grad);
+  row_sum_kernel<F><<<blocks, kThreads, 0, stream>>>(s.keys_a, s.vals_a, s.count, grad, ft);
 }
 
 // The two routes' level lists from the per-level flags (nonzero: runs).
@@ -1246,16 +1510,16 @@ template <int F, bool kTetra, bool kStochastic>
 cudaError_t launch(const float* pos, const float* g, float* grad, uint32_t n, int L,
                    const Levels& lv, const int* res, const int* offsets, const int* dense,
                    const LevelList& by_runs, const LevelList& by_entries, const RunBuffers& rb,
-                   const SortBuffers& sb, cudaStream_t stream) {
+                   const SortBuffers& sb, Feat ft, cudaStream_t stream) {
   const int grid_cap = umhs::num_sms() * kBlocksPerSm;
   if (by_runs.count)
-    launch_runs<F, kTetra, kStochastic>(pos, g, grad, n, L, lv, by_runs,
-                                        largest_level(by_runs, res, dense, lv.hash_mask), rb,
-                                        grid_cap, stream);
+    launch_runs<F, kTetra, kStochastic, Levels>(
+        pos, g, grad, n, L, lv, by_runs, largest_level(by_runs, res, dense, lv.hash_mask), rb,
+        grid_cap, ft, stream);
   if (by_entries.count)
     launch_entries<F, kTetra, kStochastic>(
         pos, g, grad, n, L, lv, by_entries,
-        rows_through(by_entries, res, offsets, dense, lv.hash_mask), sb, grid_cap, stream);
+        rows_through(by_entries, res, offsets, dense, lv.hash_mask), sb, grid_cap, ft, stream);
   return cudaGetLastError();
 }
 
@@ -1263,144 +1527,331 @@ template <int F>
 cudaError_t launch_f(bool tetra, bool stochastic, const float* pos, const float* g, float* grad,
                      uint32_t n, int L, const Levels& lv, const int* res, const int* offsets,
                      const int* dense, const LevelList& by_runs, const LevelList& by_entries,
-                     const RunBuffers& rb, const SortBuffers& sb, cudaStream_t s) {
+                     const RunBuffers& rb, const SortBuffers& sb, Feat ft, cudaStream_t s) {
   if (tetra)
     return stochastic ? launch<F, true, true>(pos, g, grad, n, L, lv, res, offsets, dense,
-                                               by_runs, by_entries, rb, sb, s)
+                                               by_runs, by_entries, rb, sb, ft, s)
                       : launch<F, true, false>(pos, g, grad, n, L, lv, res, offsets, dense,
-                                                by_runs, by_entries, rb, sb, s);
+                                                by_runs, by_entries, rb, sb, ft, s);
   return stochastic ? launch<F, false, true>(pos, g, grad, n, L, lv, res, offsets, dense,
-                                              by_runs, by_entries, rb, sb, s)
+                                              by_runs, by_entries, rb, sb, ft, s)
                     : launch<F, false, false>(pos, g, grad, n, L, lv, res, offsets, dense,
-                                               by_runs, by_entries, rb, sb, s);
+                                               by_runs, by_entries, rb, sb, ft, s);
 }
 
-// The any route's buffers: the sort of (key, slot index) and the values.
+// ------------------------------------------------- the any route's launches
+
+// Features a kernel of the any route takes at a time (its template F): a
+// row of F features is cut into groups of kGroup and the rest.
+constexpr int kGroup = 8;
+constexpr int kAnyDigitBits = 9;  // its entries' sort: level-local digits
+constexpr int kEmitStagedBytes = 200 * 1024;  // emit_any_kernel's staged values at most
+
+// The any route's work at one (L, F, mode, route flags): the levels on the
+// runs route in lists of at most kMaxLevels, and the entries' levels.
+struct AnyShape {
+  int L, F, VE;
+  bool tetra, stoch;
+  const int* runs;  // per level, nonzero for the runs route (or null)
+  int run_lists;
+  LevelList run_list[(1024 + umhs::kMaxLevels - 1) / umhs::kMaxLevels];
+  int entry_levels;
+};
+
+bool any_shape(AnyShape& a, int L, int F, bool tetra, bool stoch, const int* runs) {
+  if (L > 1024) return false;
+  a.L = L;
+  a.F = F;
+  a.tetra = tetra;
+  a.stoch = stoch;
+  a.VE = stoch ? 1 : (tetra ? 4 : 8);
+  a.runs = runs;
+  a.run_lists = 0;
+  a.entry_levels = 0;
+  for (int l = 0; l < L; ++l) {
+    if (runs == nullptr || !runs[l]) {
+      ++a.entry_levels;
+      continue;
+    }
+    if (a.run_lists == 0 || a.run_list[a.run_lists - 1].count == umhs::kMaxLevels)
+      a.run_list[a.run_lists++].count = 0;
+    LevelList& list = a.run_list[a.run_lists - 1];
+    list.level[list.count++] = l;
+  }
+  return true;
+}
+
+// The any route's buffers: the entries' sort of (key, slot index) and their
+// values; the runs route's buffers (one feature group at a time) share the
+// scratch with them, since the two run one after the other.
 struct AnyBuffers {
   SortBuffers sort;
   float* vals;
+  RunBuffers runs;
 };
 
-AnyBuffers any_buffers(Carver& cv, uint64_t m, int F) {
-  AnyBuffers b{};
-  b.sort = sort_buffers(cv, m, 1, kDigitBits);
-  b.vals = cv.take<float>(m * static_cast<uint64_t>(F));
-  return b;
+size_t any_buffers(void* base, uint64_t n, const AnyShape& a, AnyBuffers* b) {
+  Carver entries{static_cast<char*>(base)};
+  AnyBuffers r{};
+  const uint64_t m = n * a.entry_levels * a.VE;
+  if (a.entry_levels) {
+    r.sort = sort_buffers(entries, m, 1, kAnyDigitBits);
+    r.vals = entries.take<float>(m * static_cast<uint64_t>(padded_width(a.F)));
+  }
+  size_t most = entries.off;
+  if (a.run_lists) {
+    // the largest list and the widest groups (kGroup, and the rest)
+    const int fgs[2] = {std::min(a.F, kGroup), a.F % kGroup};
+    for (const int fg : fgs) {
+      if (fg == 0) continue;
+      Carver runs{static_cast<char*>(base)};
+      run_buffers(runs, n, a.run_list[0].count, fg, a.VE);
+      if (runs.off > most) most = runs.off;
+    }
+  }
+  if (b) *b = r;
+  return most;
 }
 
+template <int F>
+void row_sum_group(const SortBuffers& s, const float* vals, uint64_t m, float* grad, Feat ft,
+                   cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(ceil_div(ceil_div(m, kAnyBatch), kAnyWarps));
+  row_sum_any_kernel<F><<<blocks, 32 * kAnyWarps, 0, stream>>>(
+      s.keys_a, s.vals_a, s.count, static_cast<uint32_t>(m), vals, grad, ft);
+}
+
+template <int F, bool kTetra, bool kStochastic>
+void runs_group(const float* pos, const float* g, float* grad, uint32_t n, const AnyShape& a,
+                const LevelTable& lt, const LevelList& list, uint64_t rows, void* scratch,
+                int grid_cap, Feat ft, cudaStream_t stream) {
+  Carver cv{static_cast<char*>(scratch)};
+  const RunBuffers rb = run_buffers(cv, n, list.count, F, a.VE);
+  launch_runs<F, kTetra, kStochastic, LevelTable>(pos, g, grad, n, a.L, lt, list, rows, rb,
+                                                  grid_cap, ft, stream);
+}
+
+// A feature group of fg features (1..kGroup) to its template instance.
+template <template <int> class Fn, typename... Args>
+void by_group(int fg, Args&&... args) {
+  switch (fg) {
+    case 1: Fn<1>::run(args...); break;
+    case 2: Fn<2>::run(args...); break;
+    case 3: Fn<3>::run(args...); break;
+    case 4: Fn<4>::run(args...); break;
+    case 5: Fn<5>::run(args...); break;
+    case 6: Fn<6>::run(args...); break;
+    case 7: Fn<7>::run(args...); break;
+    default: Fn<8>::run(args...); break;
+  }
+}
+
+template <int F>
+struct RowSumGroup {
+  template <typename... Args>
+  static void run(Args&&... args) { row_sum_group<F>(args...); }
+};
+
 template <bool kTetra, bool kStochastic>
-cudaError_t launch_any(const float* pos, const float* g, float* grad, uint32_t n, int L, int F,
-                       const umhs::LevelArg* levels, uint32_t hash_mask, uint64_t table_rows,
-                       AnyBuffers b, cudaStream_t stream) {
+struct RunsGroupOf {
+  template <int F>
+  struct Fn {
+    template <typename... Args>
+    static void run(Args&&... args) { runs_group<F, kTetra, kStochastic>(args...); }
+  };
+};
+
+// The any route on samples [0, n) of pos and g (a range of the call's):
+// the runs levels list by list and feature group by feature group, then
+// the entries' levels: every entry emitted, sorted once by (key, slot
+// index) on level-local 9-bit digits, and summed a feature group at a time.
+template <bool kTetra, bool kStochastic>
+cudaError_t launch_any(const float* pos, const float* g, float* grad, uint32_t n,
+                       const AnyShape& a, const LevelTable& lt, const int* res, const int* dense,
+                       void* scratch, int acc, cudaStream_t stream) {
   constexpr int VE = kStochastic ? 1 : (kTetra ? 4 : 8);
-  const uint32_t m = n * static_cast<uint32_t>(L) * VE;
-  emit_any_kernel<kTetra, kStochastic><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      pos, g, b.sort.keys_a, b.sort.vals_a, b.vals, n, L, F, levels, hash_mask);
-  radix_sort<1, kDigitBits>(b.sort, m, nullptr, sort_passes(table_rows, kDigitBits),
-                            umhs::num_sms() * kBlocksPerSm, stream);
-  row_sum_any_kernel<<<static_cast<unsigned>(ceil_div(m, kThreads)), kThreads, 0, stream>>>(
-      b.sort.keys_a, b.sort.vals_a, b.sort.count, b.vals, F, grad);
+  const int grid_cap = umhs::num_sms() * kBlocksPerSm;
+  for (int i = 0; i < a.run_lists; ++i) {
+    const LevelList& list = a.run_list[i];
+    const uint64_t rows = largest_level(list, res, dense, lt.hash_mask);
+    for (int f0 = 0; f0 < a.F; f0 += kGroup)
+      by_group<RunsGroupOf<kTetra, kStochastic>::template Fn>(
+          std::min(kGroup, a.F - f0), pos, g, grad, n, a, lt, list, rows, scratch, grid_cap,
+          Feat{a.F, f0, acc}, stream);
+  }
+  if (a.entry_levels == 0) return cudaGetLastError();
+  AnyBuffers b;
+  any_buffers(scratch, n, a, &b);
+  uint64_t base = 0, largest = 1;
+  for (int l0 = 0; l0 < a.L;) {
+    if (a.runs != nullptr && a.runs[l0]) {
+      ++l0;
+      continue;
+    }
+    int l1 = l0;
+    while (l1 < a.L && (a.runs == nullptr || !a.runs[l1])) {
+      largest = std::max<uint64_t>(largest, rows_of(l1, res, dense, lt.hash_mask));
+      ++l1;
+    }
+    auto emit = emit_any_kernel<kTetra, kStochastic>;
+    const int smem =
+        kEmitSamples * (VE * padded_width(a.F) + 1) * static_cast<int>(sizeof(float));
+    const bool staged = smem <= kEmitStagedBytes;
+    if (staged && smem > 48 * 1024) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(emit, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+    }
+    emit<<<dim3(static_cast<unsigned>(ceil_div(n, kEmitSamples)), static_cast<unsigned>(l1 - l0)),
+           kEmitSamples, staged ? smem : 0, stream>>>(pos, g, b.sort.keys_a, b.vals, n, a.L, a.F,
+                                                      lt, l0, static_cast<uint32_t>(base),
+                                                      staged);
+    base += static_cast<uint64_t>(l1 - l0) * n * VE;
+    l0 = l1;
+  }
+  radix_sort<1, kAnyDigitBits, false>(b.sort, static_cast<uint32_t>(base), nullptr,
+                                      sort_passes(largest, kAnyDigitBits), grid_cap, stream,
+                                      true);
+  for (int f0 = 0; f0 < a.F; f0 += kGroup)
+    by_group<RowSumGroup>(std::min(kGroup, a.F - f0), b.sort, b.vals, base, grad,
+                          Feat{a.F, f0, acc}, stream);
   return cudaGetLastError();
 }
 
-uint64_t entries(int64_t n, int L, bool tetra, bool stochastic) {
-  return static_cast<uint64_t>(n) * L * (stochastic ? 1 : (tetra ? 4 : 8));
+constexpr uint64_t kMaxEntries = 0x7fffffffull;  // slot indices fit int32
+// A call's samples are cut into ranges whose entries fit int32 and whose
+// scratch fits this; each range's sums go on from the ranges before.
+constexpr uint64_t kScratchCap = uint64_t{8} << 30;
+
+// One call's shape: what the scratch of a range of samples depends on.
+struct CallShape {
+  int L, F, VE;
+  bool fixed;
+  LevelList by_runs, by_entries;  // fixed
+  AnyShape any;
+};
+
+bool call_shape(CallShape& c, int L, int F, bool tetra, bool stoch, const int* runs) {
+  c.L = L;
+  c.F = F;
+  c.VE = stoch ? 1 : (tetra ? 4 : 8);
+  c.fixed = umhs::fixed_shape(L, F);
+  if (c.fixed) {
+    split_levels(L, runs, c.by_runs, c.by_entries);
+    return true;
+  }
+  return any_shape(c.any, L, F, tetra, stoch, runs);
 }
 
-constexpr uint64_t kMaxEntries = 0x7fffffffull;  // slot indices fit int32
+size_t range_scratch(const CallShape& c, uint64_t ns) {
+  if (c.fixed)
+    return route_scratch(nullptr, ns, c.F, c.VE, c.by_runs, c.by_entries, nullptr, nullptr);
+  return any_buffers(nullptr, ns, c.any, nullptr);
+}
+
+// Samples a range: the most whose entries fit int32 and whose scratch fits
+// kScratchCap (at least one), at most max_range where that is positive.
+uint64_t range_samples(const CallShape& c, uint64_t n, int64_t max_range) {
+  uint64_t hi = std::min<uint64_t>(n, kMaxEntries / (static_cast<uint64_t>(c.L) * c.VE));
+  if (max_range > 0) hi = std::min<uint64_t>(hi, static_cast<uint64_t>(max_range));
+  hi = std::max<uint64_t>(hi, 1);
+  if (range_scratch(c, hi) <= kScratchCap) return hi;
+  uint64_t lo = 1;  // the scratch grows with the samples: the largest that fits
+  while (lo < hi) {
+    const uint64_t mid = lo + (hi - lo + 1) / 2;
+    if (range_scratch(c, mid) <= kScratchCap) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
 
 }  // namespace
 
 // Bytes of scratch device memory umhs_hash_encode_bwd needs for n samples
 // at L levels of F features, with runs[l] != 0 for the levels that take the
-// runs route; 0 when n * L * (vertices per entry) exceeds 2^31 - 1 entries.
+// runs route: those of its largest range of samples (0 for no sample).
 extern "C" int64_t umhs_hash_encode_bwd_scratch_bytes(int64_t n, int L, int F, int tetrahedral,
                                                       int stochastic, const int* runs) {
-  const bool stoch = stochastic != 0;
-  const uint64_t m = entries(n, L, tetrahedral != 0, stoch);
-  if (n < 0 || L < 1 || F < 1 || m > kMaxEntries) return 0;
-  if (!umhs::fixed_shape(L, F)) {
-    Carver cv{nullptr};
-    any_buffers(cv, m, F);
-    return static_cast<int64_t>(cv.off);
-  }
-  LevelList by_runs, by_entries;
-  split_levels(L, runs, by_runs, by_entries);
-  const int VE = stoch ? 1 : (tetrahedral ? 4 : 8);
-  return static_cast<int64_t>(
-      route_scratch(nullptr, static_cast<uint64_t>(n), F, VE, by_runs, by_entries, nullptr,
-                    nullptr));
+  CallShape c;
+  if (n <= 0 || L < 1 || F < 1 || !call_shape(c, L, F, tetrahedral != 0, stochastic != 0, runs))
+    return 0;
+  return static_cast<int64_t>(range_scratch(c, range_samples(c, static_cast<uint64_t>(n), 0)));
 }
 
 // pos: (n, 3) f32 in [0, 1]; g: (n, L * F) f32, the gradient of K3's
-// output, aligned to 4 * F bytes; grad: (rows * F,) f32, aligned to 4 * F
-// bytes, zeroed by the caller; every row with a contribution is written.
-// scales/res/offsets/dense: per-level host arrays of length L; runs: per
-// level, nonzero for the runs route (the wrapper's hash_encode_bwd_route).
-// scratch: umhs_hash_encode_bwd_scratch_bytes(...) bytes of device memory,
-// aligned to 256, given as scratch_bytes. Returns a cudaError_t.
+// output, aligned to 4 * F bytes on the fixed route; grad: (rows * F,) f32,
+// likewise aligned, zeroed by the caller; every row with a contribution is
+// written. scales/res/offsets/dense: per-level host arrays of length L;
+// runs: per level, nonzero for the runs route (the wrapper's
+// hash_encode_bwd_route); level_table: the any route's device table
+// (`_level_table`). scratch: umhs_hash_encode_bwd_scratch_bytes(...) bytes
+// of device memory, aligned to 256, given as scratch_bytes. The samples go
+// in ranges (range_samples; max_range > 0 caps a range's samples, so that
+// a check can force several), each range's sums going on from the ones
+// before, so the bits are one range's. Returns a cudaError_t.
 extern "C" int umhs_hash_encode_bwd(const float* pos, const float* g, float* grad,
                                     int64_t n, int L, int F, const float* scales,
                                     const int* res, const int* offsets, const int* dense,
                                     int log2_hashmap_size, int tetrahedral, int stochastic,
                                     const int* runs, const void* level_table, void* scratch,
-                                    int64_t scratch_bytes, void* stream, int32_t* route) {
+                                    int64_t scratch_bytes, int64_t max_range, void* stream,
+                                    int32_t* route) {
   if (n < 0 || L < 1 || F < 1 || log2_hashmap_size < 1 || log2_hashmap_size > 31)
     return cudaErrorInvalidValue;
-  const bool fixed = umhs::fixed_shape(L, F);
-  const uintptr_t align = fixed ? 4 * F : 4;
+  const bool tetra = tetrahedral != 0, stoch = stochastic != 0;
+  CallShape c;
+  if (!call_shape(c, L, F, tetra, stoch, runs)) return cudaErrorInvalidValue;
+  const uintptr_t align = c.fixed ? 4 * F : 4;
   if (reinterpret_cast<uintptr_t>(g) % align != 0 ||
       reinterpret_cast<uintptr_t>(grad) % align != 0 ||
       reinterpret_cast<uintptr_t>(scratch) % 256 != 0)
     return cudaErrorMisalignedAddress;
-  const bool tetra = tetrahedral != 0, stoch = stochastic != 0;
-  if (entries(n, L, tetra, stoch) > kMaxEntries) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const uint32_t n32 = static_cast<uint32_t>(n);
-  if (!fixed) {
-    for (int l = 0; runs != nullptr && l < L; ++l)
-      if (runs[l]) return cudaErrorInvalidValue;  // the any route sorts every entry
-    if (level_table == nullptr || reinterpret_cast<uintptr_t>(level_table) % 16 != 0)
-      return cudaErrorInvalidValue;
-    *route = 1;
-    if (n == 0) return cudaSuccess;
-    Carver cv{static_cast<char*>(scratch)};
-    const AnyBuffers b = any_buffers(cv, entries(n, L, tetra, stoch), F);
-    if (scratch == nullptr || scratch_bytes < static_cast<int64_t>(cv.off))
-      return cudaErrorInvalidValue;
-    const uint32_t mask = (1u << log2_hashmap_size) - 1u;
-    const uint64_t r = static_cast<uint64_t>(res[L - 1]);
-    const uint64_t rows = static_cast<uint64_t>(offsets[L - 1]) + (dense[L - 1] ? r * r * r : mask + 1ull);
-    const auto* levels = static_cast<const umhs::LevelArg*>(level_table);
-    if (tetra)
-      return stoch ? launch_any<true, true>(pos, g, grad, n32, L, F, levels, mask, rows, b, s)
-                   : launch_any<true, false>(pos, g, grad, n32, L, F, levels, mask, rows, b, s);
-    return stoch ? launch_any<false, true>(pos, g, grad, n32, L, F, levels, mask, rows, b, s)
-                 : launch_any<false, false>(pos, g, grad, n32, L, F, levels, mask, rows, b, s);
-  }
   Levels lv;
-  if (!umhs::fill_levels(lv, L, scales, res, offsets, dense, log2_hashmap_size))
+  if (c.fixed) {
+    if (!umhs::fill_levels(lv, L, scales, res, offsets, dense, log2_hashmap_size))
+      return cudaErrorInvalidValue;
+  } else if (level_table == nullptr || reinterpret_cast<uintptr_t>(level_table) % 16 != 0) {
     return cudaErrorInvalidValue;
-  *route = 0;
-  if (n == 0) return cudaSuccess;
-  LevelList by_runs, by_entries;
-  split_levels(L, runs, by_runs, by_entries);
-  const int VE = stoch ? 1 : (tetra ? 4 : 8);
-  RunBuffers rb;
-  SortBuffers sb;
-  const size_t need = route_scratch(scratch, static_cast<uint64_t>(n), F, VE, by_runs, by_entries,
-                                    &rb, &sb);
-  if (scratch == nullptr || scratch_bytes < static_cast<int64_t>(need))
-    return cudaErrorInvalidValue;
-  switch (F) {
-    case 1: return launch_f<1>(tetra, stoch, pos, g, grad, n32, L, lv, res, offsets, dense,
-                               by_runs, by_entries, rb, sb, s);
-    case 2: return launch_f<2>(tetra, stoch, pos, g, grad, n32, L, lv, res, offsets, dense,
-                               by_runs, by_entries, rb, sb, s);
-    case 4: return launch_f<4>(tetra, stoch, pos, g, grad, n32, L, lv, res, offsets, dense,
-                               by_runs, by_entries, rb, sb, s);
-    case 8: return launch_f<8>(tetra, stoch, pos, g, grad, n32, L, lv, res, offsets, dense,
-                               by_runs, by_entries, rb, sb, s);
-    default: return cudaErrorInvalidValue;
   }
+  *route = c.fixed ? 0 : 1;
+  if (n == 0) return cudaSuccess;
+  const uint64_t per = range_samples(c, static_cast<uint64_t>(n), max_range);
+  if (scratch == nullptr || scratch_bytes < static_cast<int64_t>(range_scratch(c, per)))
+    return cudaErrorInvalidValue;
+  const uint32_t mask = (1u << log2_hashmap_size) - 1u;
+  const LevelTable lt{static_cast<const umhs::LevelArg*>(level_table), mask};
+  for (uint64_t s0 = 0; s0 < static_cast<uint64_t>(n); s0 += per) {
+    const uint32_t ns = static_cast<uint32_t>(std::min<uint64_t>(per, n - s0));
+    const float* p = pos + 3 * s0;
+    const float* gs = g + s0 * static_cast<uint64_t>(L) * F;
+    const int acc = s0 > 0;
+    cudaError_t err;
+    if (!c.fixed) {
+      err = tetra ? (stoch ? launch_any<true, true>(p, gs, grad, ns, c.any, lt, res, dense,
+                                                     scratch, acc, s)
+                           : launch_any<true, false>(p, gs, grad, ns, c.any, lt, res, dense,
+                                                      scratch, acc, s))
+                  : (stoch ? launch_any<false, true>(p, gs, grad, ns, c.any, lt, res, dense,
+                                                      scratch, acc, s)
+                           : launch_any<false, false>(p, gs, grad, ns, c.any, lt, res, dense,
+                                                       scratch, acc, s));
+    } else {
+      RunBuffers rb;
+      SortBuffers sb;
+      route_scratch(scratch, ns, F, c.VE, c.by_runs, c.by_entries, &rb, &sb);
+      const Feat ft{F, 0, acc};
+      switch (F) {
+        case 1: err = launch_f<1>(tetra, stoch, p, gs, grad, ns, L, lv, res, offsets, dense,
+                                  c.by_runs, c.by_entries, rb, sb, ft, s); break;
+        case 2: err = launch_f<2>(tetra, stoch, p, gs, grad, ns, L, lv, res, offsets, dense,
+                                  c.by_runs, c.by_entries, rb, sb, ft, s); break;
+        case 4: err = launch_f<4>(tetra, stoch, p, gs, grad, ns, L, lv, res, offsets, dense,
+                                  c.by_runs, c.by_entries, rb, sb, ft, s); break;
+        default: err = launch_f<8>(tetra, stoch, p, gs, grad, ns, L, lv, res, offsets, dense,
+                                   c.by_runs, c.by_entries, rb, sb, ft, s); break;
+      }
+    }
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }

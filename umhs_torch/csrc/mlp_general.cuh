@@ -18,12 +18,12 @@
 // Products: bf16 mode, mlp_wgmma_kernel: 128 x 256 output tiles, two
 // warpgroups of wgmma m64n256k16 from 128-byte-swizzled shared memory that
 // TMA fills, a four-slice ring (wgmma_bf16.cuh), the sums staged through
-// shared memory for whole-row stores; f32 mode, mlp_gemm_kernel: 64 x 64
-// tiles, fused multiply-adds, a thread 4 rows x 8 columns, k ascending from
-// +0 and then + b: the FMA kernel's sum order, so an f32 chain gets the FMA
-// kernel's bits on either route, its operands staged by cp.async as they lie
-// in device memory. An operand lies k contiguous ([i][k]) or i contiguous
-// ([k][i]); both kernels take either.
+// shared memory for whole-row stores; f32 mode, mlp_gemm_kernel: up to
+// 128 x 128 tiles, fused multiply-adds, a thread 8 x 8 sums from float4
+// loads of k-outer staged slices, k ascending from +0 and then + b: the FMA
+// kernel's sum order, so an f32 chain gets the FMA kernel's bits on either
+// route (the first product reads x as it lies). An operand lies k
+// contiguous ([i][k]) or i contiguous ([k][i]); both kernels take either.
 //
 // The rounding points are K1's and K2's (mlp_fused_fwd.cu, mlp_fused_bwd.cu):
 // x and W_i rounded to bf16, f32 sums, b_i added in f32, ReLU, rounding to
@@ -41,8 +41,10 @@
 // matrix products, bound by operations (bf16 on the tensor cores at
 // 989 TFLOP/s, f32 at 67), plus each activation's bytes written and read once
 // between layers. In bf16 each 128 x 256 tile reads its A and B slices from
-// L2 (48 KB a 64-deep slice for 2M multiply-adds); the f32 products read
-// shared memory with bank conflicts.
+// L2 (48 KB a 64-deep slice for 2M multiply-adds). In f32 a thread issues
+// four shared loads for 64 FMAs; the dW products of wide layers have few
+// blocks (their row ranges are fixed, so that the sums keep their order),
+// which leaves the card's SMs unevenly loaded.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -120,7 +122,10 @@ inline bool fma_takes(const int* d, int L) {
 
 namespace general {
 
-constexpr int kTileM = 64, kTileN = 64, kSlice = 32, kThreads = 128;
+// The f32 dW product's row ranges are cut for these tiles (the first f32
+// kernel's 64 x 64 output tiles, 32 deep), whatever tile runs them, so that
+// its sums keep their order.
+constexpr int kSplitTileM = 64, kSplitTileN = 64, kSplitSlice = 32;
 constexpr int kPad = 16;  // every staged row padded to a multiple of 16 elements
 constexpr int64_t kScratchCap = int64_t{1} << 30;  // 1 GiB of rows a chunk, at most
 // The dW product's blocks aim at this many (two per SM of an H100) by cutting
@@ -144,39 +149,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// One staged slice of an operand: element (i, k) of the tile at
-// [i * kStride + k] when k is contiguous (kKInner), else at [k * kStride + i];
-// rows kVec elements (16 bytes) longer than their data, so that the eight
-// rows one ldmatrix reads fall on distinct banks.
-template <typename T, bool kKInner>
-struct Tile {
-  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  static constexpr int kOuter = kKInner ? kTileM : kSlice;
-  static constexpr int kInner = kKInner ? kSlice : kTileM;
-  static constexpr int kStride = kInner + kVec;
-  static constexpr int kElems = kOuter * kStride;
-};
-
-// Stages the slice of an operand with i in [i0, i0 + 64) and k in [k0, k0 +
-// 32): element (i, k) at g[i * ld + k] (kKInner) or g[k * ld + i]. A 16-byte
-// piece whose i or k lies past i_end or k_end is zero-filled: the contiguous
-// index's bound is a padded width or lies inside the zero padding, so a piece
-// is read whole or not at all.
-template <typename T, bool kKInner>
-__device__ __forceinline__ void stage(T* s, const T* g, int64_t ld, int i0, int i_end, int k0,
-                                      int k_end) {
-  using TL = Tile<T, kKInner>;
-  constexpr int kPerRow = TL::kInner / TL::kVec;
-  constexpr int kChunks = TL::kOuter * kPerRow;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int o = c / kPerRow, e = (c - o * kPerRow) * TL::kVec;
-    const int go = (kKInner ? i0 : k0) + o, gi = (kKInner ? k0 : i0) + e;
-    const bool in = go < (kKInner ? i_end : k_end) && gi < (kKInner ? k_end : i_end);
-    const T* src = in ? g + static_cast<int64_t>(go) * ld + gi : g;
-    cp_async16(s + o * TL::kStride + e, src, in ? 16 : 0);
-  }
-}
-
 // What a product's epilogue does with its sums v at (row, col).
 enum Epilogue : int {
   kHidden = 0,  // relu(v + b), in the compute dtype, to the next layer's input
@@ -195,7 +167,7 @@ struct Gemm {
   int64_t ldb;
   int b_end;  // B's i (column) bound
   int k_end;  // k of the product: its rows past it read zero
-  int k_split;  // k of one blockIdx.z, a multiple of kSlice
+  int k_split;  // k of one blockIdx.z, a multiple of the product's slice
   int m, n;   // rows and real columns of the output
   int n_out;  // columns written by kHidden and kDh (the padded width)
   const float* bias;  // kHidden, kLast: padded with zeros
@@ -208,110 +180,217 @@ struct Gemm {
   int64_t ldc;
 };
 
-// The f32 products (the bf16 ones are mlp_wgmma_kernel's).
-template <int kEpi, bool kAK, bool kBK>
-__global__ void __launch_bounds__(kThreads) mlp_gemm_kernel(Gemm p) {
-  using T = float;
-  constexpr int kA = Tile<T, kAK>::kElems, kB = Tile<T, kBK>::kElems;
-  __shared__ __align__(16) T smem[2 * (kA + kB)];
-  __shared__ float sums[16][kTileN];
-  const T* A = static_cast<const T*>(p.a);
-  const T* B = static_cast<const T*>(p.b);
-  const int m0 = blockIdx.x * kTileM, n0 = blockIdx.y * kTileN;
+// The f32 products (the bf16 ones are mlp_wgmma_kernel's), on the FMA units.
+// A warp is 4 x 8 threads and a thread holds a kTM x kTN block of sums in
+// registers (8 x 8, or 4 x 8 where a product has few output tiles: the dW
+// products of wide layers, whose row ranges are fixed, so that more warps
+// share the card); rows {4 ty + 16 q + i} of its warp's 4 kTM, columns
+// {4 tx + 32 q + j} of its 8 kTN. A block of kWM x kWN warps computes the
+// output tile (128 x 128, 128 x 64 or 128 x 32 for a narrow output, 64 x
+// 64; launch_gemm picks). Each slice of kFk = 32 k is staged k-outer in
+// shared memory (s[k * ld + i], rows kFPad floats longer than the tile), so
+// that a thread reads its A and B values of one k as float4 loads (four
+// for 64 FMAs at 8 x 8), and a warp's loads fall on distinct banks or
+// broadcast. An operand that lies i-contiguous ([k][i]) is staged by
+// 16-byte cp.async; a k-contiguous one ([i][k]) by 4-byte cp.async that
+// transpose it on the way (a warp copies 8 k of 4 rows: one 32-byte sector
+// a row, 32 distinct banks), with every element bounded on its own, so such
+// an operand may be a raw input at any row stride. kFStages slices are in
+// flight (cp.async groups), one block barrier a slice. The sums then go
+// through shared memory, and the epilogue writes whole rows: 16-byte pieces
+// where it writes the padded width, a warp along a row segment elsewhere.
+//
+// Each sum is one fmaf chain over k ascending from +0, over the product's
+// real depth only (a slice past k_end stops at it), then + b: the order of
+// the FMA kernels (mlp_fused_fwd.cu) and of the first f32 kernel (64 x 64
+// tiles), so any tile gives the same bits. kDh's column sums keep that
+// kernel's grouping: per 64-row group, four consecutive rows added in
+// order, then the 16 such sums added from +0 in row order (a row past m
+// adds +0), one row of sums per 64-row group.
+constexpr int kFk = 32, kFStages = 3, kFPad = 4;
+
+template <int kTM, int kTN, int kWM, int kWN>
+struct FTile {
+  static constexpr int kM = kWM * 4 * kTM, kN = kWN * 8 * kTN, kThreads = 32 * kWM * kWN;
+  static constexpr int kLdA = kM + kFPad, kLdB = kN + kFPad, kLdS = kN + kFPad;
+  static constexpr int kStage = kFk * (kLdA + kLdB);  // floats of one slice, both operands
+  static constexpr int kRing = kFStages * kStage;
+  static constexpr int kSmem = 4 * (kRing > kM * kLdS ? kRing : kM * kLdS);
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// Stages i in [i0, i0 + kDim) and k in [k0, k0 + kFk) of an operand whose
+// element (i, k) lies at g[i * ldg + k] (kKInner) or g[k * ldg + i], into
+// s[k * ld + i]; past i_end or k_end, zeros. Each thread's pieces sit at
+// offsets fixed at compile time from its own first one. The 16-byte path
+// reads a piece whole or not at all: its i_end is a multiple of 4 (a
+// padded width).
+template <int kDim, int kThreads, bool kKInner>
+__device__ __forceinline__ void fstage(float* s, int ld, const float* g, int64_t ldg, int i0,
+                                       int i_end, int k0, int k_end) {
+  const int t = threadIdx.x;
+  if constexpr (kKInner) {
+    static_assert((8 * kDim) % kThreads == 0 && (kFk * kDim) % kThreads == 0, "tile");
+    const int ti = t >> 3, tk = t & 7;
+#pragma unroll
+    for (int q = 0; q < kFk * kDim / kThreads; ++q) {
+      const int i = (q * kThreads) % (8 * kDim) / 8 + ti;
+      const int k = (q * kThreads) / (8 * kDim) * 8 + tk;
+      const bool in = i0 + i < i_end && k0 + k < k_end;
+      const float* src = in ? g + static_cast<int64_t>(i0 + i) * ldg + (k0 + k) : g;
+      cp_async4(s + k * ld + i, src, in ? 4 : 0);
+    }
+  } else {
+    constexpr int kPer = kDim / 4;
+    static_assert(kThreads % kPer == 0 && (kFk * kPer) % kThreads == 0, "tile");
+    const int i = (t % kPer) * 4;
+#pragma unroll
+    for (int q = 0; q < kFk * kPer / kThreads; ++q) {
+      const int k = q * (kThreads / kPer) + t / kPer;
+      const bool in = i0 + i < i_end && k0 + k < k_end;
+      const float* src = in ? g + static_cast<int64_t>(k0 + k) * ldg + (i0 + i) : g;
+      cp_async16(s + k * ld + i, src, in ? 16 : 0);
+    }
+  }
+}
+
+template <int kEpi, bool kAK, bool kBK, int kTM, int kTN, int kWM, int kWN>
+__global__ void __launch_bounds__(FTile<kTM, kTN, kWM, kWN>::kThreads,
+                                  512 / FTile<kTM, kTN, kWM, kWN>::kThreads)
+mlp_gemm_kernel(const Gemm p) {
+  using TL = FTile<kTM, kTN, kWM, kWN>;
+  constexpr int kM = TL::kM, kN = TL::kN, kThr = TL::kThreads;
+  constexpr int kLdA = TL::kLdA, kLdB = TL::kLdB, kLdS = TL::kLdS;
+  extern __shared__ __align__(16) float fsm[];
+  const float* A = static_cast<const float*>(p.a);
+  const float* B = static_cast<const float*>(p.b);
+  // the column tiles of one row tile run side by side (blockIdx.x), so A is
+  // read from device memory once
+  const int m0 = blockIdx.y * kM, n0 = blockIdx.x * kN;
   const int k0 = blockIdx.z * p.k_split;
   const int k1 = min(p.k_end, k0 + p.k_split);
-  const int slices = k1 > k0 ? (k1 - k0 + kSlice - 1) / kSlice : 0;
+  const int slices = k1 > k0 ? (k1 - k0 + kFk - 1) / kFk : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ra = (warp % kWM) * 4 * kTM + 4 * (lane >> 3);  // rows ra + 16 q + i
+  const int cb = (warp / kWM) * 8 * kTN + 4 * (lane & 7);  // columns cb + 32 q + j
 
-  float acc[8][4];  // sum i at acc[i / 4][i % 4]
+  auto issue = [&](int s) {
+    float* a = fsm + (s % kFStages) * TL::kStage;
+    const int ks = k0 + s * kFk;
+    fstage<kM, kThr, kAK>(a, kLdA, A, p.lda, m0, p.a_end, ks, k1);
+    fstage<kN, kThr, kBK>(a + kFk * kLdA, kLdB, B, p.ldb, n0, p.b_end, ks, k1);
+  };
+  float acc[kTM][kTN];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int i = 0; i < kTM; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  if (slices > 0) {
-    stage<T, kAK>(smem, A, p.lda, m0, p.a_end, k0, k1);
-    stage<T, kBK>(smem + kA, B, p.ldb, n0, p.b_end, k0, k1);
-  }
-  cp_async_commit();
-  for (int s = 0; s < slices; ++s) {
-    if (s + 1 < slices) {
-      T* next = smem + ((s + 1) & 1) * (kA + kB);
-      const int ks = k0 + (s + 1) * kSlice;
-      stage<T, kAK>(next, A, p.lda, m0, p.a_end, ks, k1);
-      stage<T, kBK>(next + kA, B, p.ldb, n0, p.b_end, ks, k1);
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  // one k of the slice at As, Bs: the thread's A and B values, then its FMAs
+  auto step = [&](const float* As, const float* Bs, int kk) {
+    float av[kTM], bv[kTN];
+#pragma unroll
+    for (int q = 0; q < kTM / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(As + kk * kLdA + ra + 16 * q);
+      av[4 * q] = v.x, av[4 * q + 1] = v.y, av[4 * q + 2] = v.z, av[4 * q + 3] = v.w;
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this slice has landed
-    __syncthreads();
-    const T* As = smem + (s & 1) * (kA + kB);
-    const T* Bs = As + kA;
-    {  // k ascending over the real depth only: the FMA kernel's order
-      constexpr int SA = Tile<T, kAK>::kStride, SB = Tile<T, kBK>::kStride;
-      const int cg = threadIdx.x & 7, rg = threadIdx.x >> 3;
-      const int kc = min(kSlice, k1 - (k0 + s * kSlice));
-      for (int kk = 0; kk < kc; ++kk) {
-        float av[4], bv[8];
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          av[q] = to_f32(kAK ? As[(4 * rg + q) * SA + kk] : As[kk * SA + 4 * rg + q]);
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          bv[c] = to_f32(kBK ? Bs[(8 * cg + c) * SB + kk] : Bs[kk * SB + 8 * cg + c]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int c = 0; c < 8; ++c)
-            acc[2 * q + c / 4][c % 4] = fmaf(av[q], bv[c], acc[2 * q + c / 4][c % 4]);
-      }
+    for (int q = 0; q < kTN / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(Bs + kk * kLdB + cb + 32 * q);
+      bv[4 * q] = v.x, bv[4 * q + 1] = v.y, bv[4 * q + 2] = v.z, bv[4 * q + 3] = v.w;
     }
-    __syncthreads();  // the buffer is free for the slice after next
-  }
-  cp_async_wait<0>();
-
-  // (row, col) of the tile for sum i: the thread's 4 x 8 block
-  auto at = [&](int i, int& r, int& c) {
-    r = 4 * (threadIdx.x >> 3) + (i >> 3);
-    c = 8 * (threadIdx.x & 7) + (i & 7);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   };
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    int r, c;
-    at(i, r, c);
-    const int row = m0 + r, col = n0 + c;
-    const float v = acc[i >> 2][i & 3];
-    if constexpr (kEpi == kHidden) {
-      if (row < p.m && col < p.n_out)
-        static_cast<T*>(p.out)[row * p.ldo + col] = from_f32<T>(fmaxf(v + p.bias[col], 0.f));
-    } else if constexpr (kEpi == kLast) {
-      if (row < p.m && col < p.n) static_cast<float*>(p.out)[row * p.ldo + col] = v + p.bias[col];
-    } else if constexpr (kEpi == kDx) {
-      if (row < p.m && col < p.n) static_cast<float*>(p.out)[row * p.ldo + col] = v;
-    } else if constexpr (kEpi == kDw) {
-      if (row < p.m && col < p.n)
-        static_cast<float*>(p.out)[blockIdx.z * p.out_z + row * p.ldo + col] = v;
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < slices) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slices; ++s) {
+    cp_async_wait<kFStages - 2>();  // slice s has landed (this thread's copies)
+    __syncthreads();  // everyone's, and slice s - 1's buffer is free
+    if (s + kFStages - 1 < slices) issue(s + kFStages - 1);
+    cp_async_commit();
+    const float* As = fsm + (s % kFStages) * TL::kStage;
+    const float* Bs = As + kFk * kLdA;
+    const int kc = min(kFk, k1 - (k0 + s * kFk));  // the real depth only
+    if (kc == kFk) {
+#pragma unroll
+      for (int kk = 0; kk < kFk; ++kk) step(As, Bs, kk);
     } else {
-      float h = 0.f;
-      if (row < p.m && col < p.n_out) {
-        h = to_f32(static_cast<const T*>(p.mask)[row * p.ldm + col]) > 0.f ? v : 0.f;
-        static_cast<T*>(p.out)[row * p.ldo + col] = from_f32<T>(h);
-      }
-      acc[i >> 2][i & 3] = h;  // for the column sums
+      for (int kk = 0; kk < kc; ++kk) step(As, Bs, kk);
     }
   }
-  if constexpr (kEpi == kDh) {
-    // the column sums of the block's rows, in a fixed order
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: stage the sums
+
+  float* sums = fsm;  // kM x kN at row stride kLdS
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      sums[threadIdx.x >> 3][8 * (threadIdx.x & 7) + c] =
-          acc[c / 4][c % 4] + acc[2 + c / 4][c % 4] + acc[4 + c / 4][c % 4] +
-          acc[6 + c / 4][c % 4];
-    __syncthreads();
-    if (threadIdx.x < kTileN && n0 + threadIdx.x < p.n_out) {
-      constexpr int kParts = kThreads / 8;
-      float t = 0.f;
+  for (int i = 0; i < kTM; ++i)
 #pragma unroll
-      for (int w = 0; w < kParts; ++w) t += sums[w][threadIdx.x];
-      p.colsum[blockIdx.x * p.ldc + n0 + threadIdx.x] = t;
+    for (int q = 0; q < kTN / 4; ++q)
+      *reinterpret_cast<float4*>(sums + (ra + (i & 3) + (i >> 2) * 16) * kLdS + cb + 32 * q) =
+          make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+  __syncthreads();
+  const int rows = min(kM, p.m - m0);
+  if constexpr (kEpi == kHidden || kEpi == kDh) {
+    // the padded width in 16-byte pieces (n_out and ldo are multiples of 16)
+    const int per = max(0, min(kN, p.n_out - n0)) / 4;
+    float* out = static_cast<float*>(p.out);
+    for (int e = threadIdx.x; e < rows * per; e += kThr) {
+      const int r = e / per, c = (e - r * per) * 4;
+      float4 v = *reinterpret_cast<const float4*>(sums + r * kLdS + c);
+      const int64_t row = m0 + r;
+      if constexpr (kEpi == kHidden) {
+        const float4 b = *reinterpret_cast<const float4*>(p.bias + n0 + c);
+        v = make_float4(fmaxf(v.x + b.x, 0.f), fmaxf(v.y + b.y, 0.f), fmaxf(v.z + b.z, 0.f),
+                        fmaxf(v.w + b.w, 0.f));
+      } else {
+        const float4 mk = *reinterpret_cast<const float4*>(
+            static_cast<const float*>(p.mask) + row * p.ldm + n0 + c);
+        v = make_float4(mk.x > 0.f ? v.x : 0.f, mk.y > 0.f ? v.y : 0.f, mk.z > 0.f ? v.z : 0.f,
+                        mk.w > 0.f ? v.w : 0.f);
+        *reinterpret_cast<float4*>(sums + r * kLdS + c) = v;  // for the column sums
+      }
+      *reinterpret_cast<float4*>(out + row * p.ldo + n0 + c) = v;
+    }
+    if constexpr (kEpi == kDh) {
+      static_assert(kM % 64 == 0, "kDh's column sums take whole 64-row groups");
+      __syncthreads();
+      // one row of column sums per 64-row group that holds a row < m; rows
+      // past m (and columns past n_out) add +0
+      for (int e = threadIdx.x; e < (kM / 64) * kN; e += kThr) {
+        const int grp = e / kN, c = e - grp * kN;
+        if (m0 + 64 * grp >= p.m || n0 + c >= p.n_out) continue;
+        float t = 0.f;
+        for (int q = 0; q < 16; ++q) {
+          float h[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int r = 64 * grp + 4 * q + u;
+            h[u] = r < rows && c < 4 * per ? sums[r * kLdS + c] : 0.f;
+          }
+          t += ((h[0] + h[1]) + h[2]) + h[3];
+        }
+        p.colsum[static_cast<int64_t>(m0 / 64 + grp) * p.ldc + n0 + c] = t;
+      }
+    }
+  } else {
+    // f32 rows at any stride: y (+ b), dx, dW's partial sums; a warp along a
+    // row segment
+    const int cols = min(kN, p.n - n0);
+    float* out = static_cast<float*>(p.out) + (kEpi == kDw ? blockIdx.z * p.out_z : 0);
+    for (int e = threadIdx.x; e < rows * cols; e += kThr) {
+      const int r = e / cols, c = e - r * cols;
+      float v = sums[r * kLdS + c];
+      if constexpr (kEpi == kLast) v += p.bias[n0 + c];
+      out[static_cast<int64_t>(m0 + r) * p.ldo + n0 + c] = v;
     }
   }
 }
@@ -465,19 +544,23 @@ mlp_wgmma_kernel(const Gemm p, const __grid_constant__ CUtensorMap ta,
 }
 
 // W_l (din x dout f32) and b_l into the packed layout: W as [pad(din)]
-// [pad(dout)] in the compute dtype, b as pad(dout) floats, zeros around. A
-// block per packed row (the last block the bias), a thread per column.
+// [pad(dout)] in the compute dtype, b as pad(dout) floats, zeros around;
+// with wtp, W^T as [pad(dout)][pad(din)] too (the f32 backward's dh . W^T
+// reads it k-outer). A block per packed row (the last block the bias), a
+// thread per column.
 template <typename T>
 __global__ void __launch_bounds__(256)
 mlp_pack_kernel(const float* __restrict__ w, const float* __restrict__ b, int din, int dout,
-                T* __restrict__ wp, float* __restrict__ bp) {
+                T* __restrict__ wp, float* __restrict__ bp, T* __restrict__ wtp) {
   const int r = blockIdx.x, np = pad16(dout);
   for (int c = threadIdx.x; c < np; c += blockDim.x) {
-    if (r == pad16(din))
+    if (r == pad16(din)) {
       bp[c] = c < dout ? b[c] : 0.f;
-    else
-      wp[static_cast<int64_t>(r) * np + c] =
-          from_f32<T>(r < din && c < dout ? w[static_cast<int64_t>(r) * dout + c] : 0.f);
+    } else {
+      const T v = from_f32<T>(r < din && c < dout ? w[static_cast<int64_t>(r) * dout + c] : 0.f);
+      wp[static_cast<int64_t>(r) * np + c] = v;
+      if (wtp != nullptr) wtp[static_cast<int64_t>(c) * pad16(din) + r] = v;
+    }
   }
 }
 
@@ -515,11 +598,13 @@ mlp_sum_rows_kernel(const float* __restrict__ part, int64_t ld, int rows, int co
 
 inline size_t elem_bytes(bool bf16) { return bf16 ? 2 : 4; }
 
-// Bytes of the packed weights and biases of the chain.
-inline size_t packed_bytes(const int* d, int L, bool bf16) {
+// Bytes of the packed weights (twice with their transposes) and biases of
+// the chain.
+inline size_t packed_bytes(const int* d, int L, bool bf16, bool transposed = false) {
   size_t b = 0;
   for (int l = 0; l < L; ++l)
-    b += al256(static_cast<size_t>(pad16(d[l])) * pad16(d[l + 1]) * elem_bytes(bf16)) +
+    b += (transposed ? 2 : 1) *
+             al256(static_cast<size_t>(pad16(d[l])) * pad16(d[l + 1]) * elem_bytes(bf16)) +
          al256(sizeof(float) * pad16(d[l + 1]));
   return b;
 }
@@ -558,10 +643,11 @@ inline size_t fwd_scratch_bytes(const int* d, int L, bool bf16, int64_t n) {
 }
 
 // Row ranges (blockIdx.z) of the dW product of a din x dout layer over rows,
-// in the product kernel's tiles and slices (bf16: 128 x 256, 64 deep; f32:
-// 64 x 64, 32 deep).
+// cut for the tiles and slices of bf16's product kernel (128 x 256, 64 deep)
+// and, in f32, for kSplitTileM x kSplitTileN, kSplitSlice deep.
 inline int dw_splits(int din, int dout, int64_t rows, int& k_split, bool bf16) {
-  const int tm = bf16 ? kWgM : kTileM, tn = bf16 ? kWgN : kTileN, ks = bf16 ? kWgK : kSlice;
+  const int tm = bf16 ? kWgM : kSplitTileM, tn = bf16 ? kWgN : kSplitTileN;
+  const int ks = bf16 ? kWgK : kSplitSlice;
   const int64_t tiles = ceil_div(din, tm) * ceil_div(dout, tn);
   int64_t want = std::max<int64_t>(1, ceil_div(kSplitTarget, tiles));
   want = std::min<int64_t>(want, std::max<int64_t>(1, ceil_div(rows, kSplitMinRows)));
@@ -590,7 +676,7 @@ inline size_t bwd_scratch_bytes(const int* d, int L, bool bf16, int64_t n) {
   const size_t e = elem_bytes(bf16);
   const int64_t rows = bwd_chunk(d, L, bf16, n);
   const size_t r = static_cast<size_t>(rows);
-  size_t b = packed_bytes(d, L, bf16);
+  size_t b = packed_bytes(d, L, bf16, !bf16);
   for (int l = 0; l < L; ++l) b += al256(r * pad16(d[l]) * e);
   b += 2 * al256(r * widest_output(d, L) * e);
   b += al256(sizeof(float) * ceil_div(rows, 64) * widest_output(d, L));
@@ -611,42 +697,61 @@ struct Carve {
 
 template <typename T>
 struct Packed {
-  std::vector<const T*> w;
+  std::vector<const T*> w, wt;  // wt: the transposes, where packed
   std::vector<const float*> b;
 };
 
 template <typename T>
 cudaError_t pack_weights(const float* params, const int* d, int L, Carve& cv, Packed<T>& pk,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, bool transposed = false) {
   int64_t goff = 0;
   for (int l = 0; l < L; ++l) {
-    T* w = cv.take<T>(static_cast<size_t>(pad16(d[l])) * pad16(d[l + 1]));
+    const size_t count = static_cast<size_t>(pad16(d[l])) * pad16(d[l + 1]);
+    T* w = cv.take<T>(count);
+    T* wt = transposed ? cv.take<T>(count) : nullptr;
     float* b = cv.take<float>(pad16(d[l + 1]));
     mlp_pack_kernel<T><<<pad16(d[l]) + 1, 256, 0, stream>>>(params + goff,
                                                   params + goff + int64_t{d[l]} * d[l + 1],
-                                                  d[l], d[l + 1], w, b);
+                                                  d[l], d[l + 1], w, b, wt);
     pk.w.push_back(w);
+    pk.wt.push_back(wt);
     pk.b.push_back(b);
     goff += int64_t{d[l]} * d[l + 1] + d[l + 1];
   }
   return cudaGetLastError();
 }
 
-// Output tile rows and columns of the product kernel of the compute dtype:
-// bf16 the warpgroup kernel's 128 x 256, f32 the FMA kernel's 64 x 64.
-template <typename T>
-constexpr int tile_m() { return sizeof(T) == 2 ? kWgM : kTileM; }
-template <typename T>
-constexpr int tile_n() { return sizeof(T) == 2 ? kWgN : kTileN; }
+// The f32 product kernel of one tile shape, its dynamic shared memory set.
+template <int kEpi, bool kAK, bool kBK, int kTM, int kTN, int kWM, int kWN>
+cudaError_t launch_ftile(const Gemm& g, int cols, int grid_z, cudaStream_t stream) {
+  using TL = FTile<kTM, kTN, kWM, kWN>;
+  auto kernel = mlp_gemm_kernel<kEpi, kAK, kBK, kTM, kTN, kWM, kWN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(static_cast<unsigned>(ceil_div(cols, TL::kN)),
+                static_cast<unsigned>(ceil_div(g.m, TL::kM)), static_cast<unsigned>(grid_z)),
+           TL::kThreads, TL::kSmem, stream>>>(g);
+  return cudaGetLastError();
+}
 
 // Launches one product over the output's columns (n, or n_out where the
-// epilogue writes the padded width) and grid_z ranges of k.
+// epilogue writes the padded width) and grid_z ranges of k. In f32: 128 x 32
+// tiles (8 x 4 sums a thread) for at most 32 columns; else 128 x 64 (8 x 8,
+// 4 warps) for at most 64 columns, else 128 x 128 (8 warps), where that
+// gives kSplitTarget blocks (two an SM); else 64 x 64 with 4 x 8 sums a
+// thread, 4 warps (the dW products of wide layers: few tiles, fixed row
+// ranges). The bits do not depend on the tile. (On an H100 SXM at 700 W,
+// umhs_torch/probes/f32_products.py: a [262,144 x 512] . [512 x 512] hidden
+// layer 39.7 TFLOP/s with slices of 32 k in 3 stages, 38.9-39.1 with 16 k;
+// the 512 x 512 dW over 5 row ranges 33.5 at 4 x 8 sums a thread on 4
+// warps, 29.0 at 4 x 4 on 8, 31.4 at 8 x 4 on 2, 24.0 at 8 x 8 on 2.)
 template <typename T, int kEpi, bool kAK, bool kBK>
 cudaError_t launch_gemm(const Gemm& g, int grid_z, cudaStream_t stream) {
   const int cols = kEpi == kHidden || kEpi == kDh ? g.n_out : g.n;
-  const unsigned row_tiles = static_cast<unsigned>(ceil_div(g.m, tile_m<T>()));
-  const unsigned col_tiles = static_cast<unsigned>(ceil_div(cols, tile_n<T>()));
   if constexpr (sizeof(T) == 2) {  // column tiles along x: see mlp_wgmma_kernel
+    const unsigned row_tiles = static_cast<unsigned>(ceil_div(g.m, kWgM));
+    const unsigned col_tiles = static_cast<unsigned>(ceil_div(cols, kWgN));
     // K-major operands: one box of 64 k x the tile's rows; MN-major: 64 x 64
     CUtensorMap ta, tb;
     cudaError_t err = kAK ? wg::tensor_map(&ta, g.a, g.lda, g.a_end, g.lda, kWgK, kWgM)
@@ -660,22 +765,27 @@ cudaError_t launch_gemm(const Gemm& g, int grid_z, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     kernel<<<dim3(col_tiles, row_tiles, static_cast<unsigned>(grid_z)), kWgThreads, kWgSmem,
              stream>>>(g, ta, tb);
+    return cudaGetLastError();
   } else {
-    mlp_gemm_kernel<kEpi, kAK, kBK><<<dim3(row_tiles, col_tiles, static_cast<unsigned>(grid_z)),
-                                      kThreads, 0, stream>>>(g);
+    if (cols <= 32) return launch_ftile<kEpi, kAK, kBK, 8, 4, 4, 1>(g, cols, grid_z, stream);
+    const bool narrow = cols <= 64;  // one 64-column tile: 128 x 64, 4 warps
+    if (ceil_div(g.m, 128) * ceil_div(cols, narrow ? 64 : 128) * grid_z >= kSplitTarget)
+      return narrow ? launch_ftile<kEpi, kAK, kBK, 8, 8, 4, 1>(g, cols, grid_z, stream)
+                    : launch_ftile<kEpi, kAK, kBK, 8, 8, 4, 2>(g, cols, grid_z, stream);
+    return launch_ftile<kEpi, kAK, kBK, 4, 8, 4, 1>(g, cols, grid_z, stream);
   }
-  return cudaGetLastError();
 }
 
-// The forward product of layer l over `rows` rows: in (rows x pad(d_l), the
-// compute dtype) -> out. Hidden layers write rows x pad(d_l+1) in the
-// compute dtype; the last layer f32 rows x d_L at row stride d_L.
+// The forward product of layer l over `rows` rows: in (rows x d_l at row
+// stride lda, the compute dtype; by default the padded stride) -> out.
+// Hidden layers write rows x pad(d_l+1) in the compute dtype; the last layer
+// f32 rows x d_L at row stride d_L.
 template <typename T>
 cudaError_t forward_layer(const T* in, const Packed<T>& pk, const int* d, int L, int l, int rows,
-                   void* out, cudaStream_t stream) {
+                   void* out, cudaStream_t stream, int64_t lda = 0) {
   Gemm g{};
   g.a = in;
-  g.lda = pad16(d[l]);
+  g.lda = lda > 0 ? lda : pad16(d[l]);
   g.a_end = rows;
   g.b = pk.w[l];
   g.ldb = pad16(d[l + 1]);
@@ -711,17 +821,28 @@ cudaError_t forward(const float* x, const float* params, float* y, int64_t n, co
   Packed<T> pk;
   cudaError_t err = pack_weights<T>(params, d, L, cv, pk, stream);
   if (err != cudaSuccess) return err;
-  const int64_t chunk = fwd_chunk(d, L, sizeof(T) == 2, n);
+  // chunks of equal rows (whole 64-row groups), so that no chunk is a
+  // sliver with too few tiles for the card; a forward row's bits do not
+  // depend on its chunk
+  const int64_t most = fwd_chunk(d, L, sizeof(T) == 2, n);
+  const int64_t chunk = ceil_div(ceil_div(n, ceil_div(n, most)), 64) * 64;
   const int wh = widest_hidden(d, L);
-  T* xs = cv.take<T>(static_cast<size_t>(chunk) * pad16(d[0]));
-  T* h[2] = {cv.take<T>(static_cast<size_t>(chunk) * wh), cv.take<T>(static_cast<size_t>(chunk) * wh)};
+  T* xs = cv.take<T>(static_cast<size_t>(most) * pad16(d[0]));
+  T* h[2] = {cv.take<T>(static_cast<size_t>(most) * wh), cv.take<T>(static_cast<size_t>(most) * wh)};
   for (int64_t r0 = 0; r0 < n; r0 += chunk) {
     const int rows = static_cast<int>(std::min(chunk, n - r0));
-    stage_rows_padded<T>(x, d[0], r0, rows, xs, nullptr, stream);
+    // f32: the first product reads x as it lies (its k-contiguous operand is
+    // staged a float at a time, each bounded); bf16 rounds it into xs first
     const T* in = xs;
+    if constexpr (sizeof(T) == 4) {
+      in = reinterpret_cast<const T*>(x + r0 * d[0]);
+    } else {
+      stage_rows_padded<T>(x, d[0], r0, rows, xs, nullptr, stream);
+    }
     for (int l = 0; l < L; ++l) {
       void* out = l + 1 == L ? static_cast<void*>(y + r0 * d[L]) : static_cast<void*>(h[l & 1]);
-      err = forward_layer<T>(in, pk, d, L, l, rows, out, stream);
+      err = forward_layer<T>(in, pk, d, L, l, rows, out, stream,
+                             sizeof(T) == 4 && l == 0 ? d[0] : 0);
       if (err != cudaSuccess) return err;
       in = h[l & 1];
     }
@@ -737,7 +858,7 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
                      cudaStream_t stream) {
   Carve cv{static_cast<char*>(scratch)};
   Packed<T> pk;
-  cudaError_t err = pack_weights<T>(params, d, L, cv, pk, stream);
+  cudaError_t err = pack_weights<T>(params, d, L, cv, pk, stream, sizeof(T) == 4);
   if (err != cudaSuccess) return err;
   const int64_t chunk = bwd_chunk(d, L, sizeof(T) == 2, n);
   const int wo = widest_output(d, L);
@@ -754,12 +875,17 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
   for (int64_t r0 = 0; r0 < n; r0 += chunk) {
     const int rows = static_cast<int>(std::min(chunk, n - r0));
     const int acc = r0 > 0;
-    // the column sums' row blocks: mlp_pad_rows_kernel's 64, the dh product's tile
+    // the column sums' row blocks: mlp_pad_rows_kernel's 64; the dh product's
+    // tile in bf16, its 64-row groups in f32
     const int pad_blocks = static_cast<int>(ceil_div(rows, 64));
-    const int dh_blocks = static_cast<int>(ceil_div(rows, tile_m<T>()));
-    stage_rows_padded<T>(x, d[0], r0, rows, a[0], nullptr, stream);
+    const int dh_blocks = static_cast<int>(ceil_div(rows, sizeof(T) == 2 ? kWgM : 64));
+    // f32 with whole 16-byte pieces a row: layer 0's input is x as it lies
+    const bool raw_x = sizeof(T) == 4 && d[0] % 4 == 0;
+    const T* a0 = raw_x ? reinterpret_cast<const T*>(x + r0 * d[0]) : a[0];
+    if (!raw_x) stage_rows_padded<T>(x, d[0], r0, rows, a[0], nullptr, stream);
     for (int l = 0; l + 1 < L; ++l) {
-      err = forward_layer<T>(a[l], pk, d, L, l, rows, a[l + 1], stream);
+      err = forward_layer<T>(l == 0 ? a0 : a[l], pk, d, L, l, rows, a[l + 1], stream,
+                             l == 0 && raw_x ? d[0] : 0);
       if (err != cudaSuccess) return err;
     }
     // dh of the last layer: g, rounded; db_{L-1} its column sums
@@ -772,9 +898,9 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
       const int din = d[l], dout = d[l + 1];
       {  // dW_l = a_l^T . dh over the chunk's rows, in row ranges, then summed in order
         Gemm g{};
-        g.a = a[l];
-        g.lda = pad16(din);
-        g.a_end = pad16(din);
+        g.a = l == 0 ? a0 : a[l];
+        g.lda = l == 0 && raw_x ? din : pad16(din);
+        g.a_end = l == 0 && raw_x ? din : pad16(din);
         g.b = dh[cur];
         g.ldb = pad16(dout);
         g.b_end = pad16(dout);
@@ -791,12 +917,13 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
             part, g.out_z, z, static_cast<int>(g.out_z), dparams + goff[l], acc);
       }
       if (l == 0 && dx == nullptr) break;
-      Gemm g{};  // dh . W_l^T
+      Gemm g{};  // dh . W_l^T: in f32 from the packed transpose, k-outer
+      constexpr bool kBK = sizeof(T) == 2;
       g.a = dh[cur];
       g.lda = pad16(dout);
       g.a_end = rows;
-      g.b = pk.w[l];
-      g.ldb = pad16(dout);
+      g.b = kBK ? pk.w[l] : pk.wt[l];
+      g.ldb = kBK ? pad16(dout) : pad16(din);
       g.b_end = pad16(din);
       g.k_end = dout;
       g.k_split = dout;
@@ -805,7 +932,7 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
       if (l == 0) {
         g.out = dx + r0 * din;
         g.ldo = din;
-        err = launch_gemm<T, kDx, true, true>(g, 1, stream);
+        err = launch_gemm<T, kDx, true, kBK>(g, 1, stream);
         if (err != cudaSuccess) return err;
         break;
       }
@@ -816,7 +943,7 @@ cudaError_t backward(const float* x, const float* g_out, const float* params, fl
       g.ldo = pad16(din);
       g.colsum = colsum;
       g.ldc = pad16(din);
-      err = launch_gemm<T, kDh, true, true>(g, 1, stream);
+      err = launch_gemm<T, kDh, true, kBK>(g, 1, stream);
       if (err != cudaSuccess) return err;
       mlp_sum_rows_kernel<<<static_cast<unsigned>(ceil_div(din, 256)), 256, 0, stream>>>(
           colsum, pad16(din), dh_blocks, din, dparams + goff[l - 1] + int64_t{d[l - 1]} * din,

@@ -191,7 +191,10 @@ __device__ __forceinline__ int64_t occupied_cell(const umhs::OccParams& g, int64
 // rule: the level's uniform cells, then its occupied cells at stratified
 // ranks, or its fallback cells when it has none).
 __device__ __forceinline__ void probe_cell(const umhs::OccParams& g,
-                                           const umhs::PartialDraws& D, bool draws, int64_t i,
+                                           const umhs::DrawLevel* __restrict__ D,
+                                           const int64_t* __restrict__ uniform,
+                                           const float* __restrict__ u,
+                                           const int64_t* __restrict__ fallback, int64_t i,
                                            const int64_t* __restrict__ level,
                                            const int64_t* __restrict__ cell,
                                            const int32_t* slice_excl, const int32_t* level_count,
@@ -199,22 +202,23 @@ __device__ __forceinline__ void probe_cell(const umhs::OccParams& g,
                                            const uint8_t* __restrict__ binaries, int64_t& lvl,
                                            int64_t& c) {
   const int64_t res3 = static_cast<int64_t>(g.res) * g.res * g.res;
-  if (draws) {
+  if (D != nullptr) {
     lvl = 0;
-    while (i >= D.start[lvl + 1]) ++lvl;
-    const int64_t j = i - D.start[lvl] - D.uniform_n[lvl];
+    while (i >= D[lvl + 1].start) ++lvl;
+    const umhs::DrawLevel& d = D[lvl];
+    const int64_t j = i - d.start - d.uniform_n;
     if (j < 0) {
-      c = D.uniform[lvl][j + D.uniform_n[lvl]];
+      c = uniform[d.uniform_at + j + d.uniform_n];
       return;
     }
     const int32_t count = level_count[lvl];
     if (count == 0) {
-      c = D.fallback[lvl][j];
+      c = fallback[d.occupied_at + j];
       return;
     }
     // (arange + u) / m, then * count: the plain version's f32 roundings
-    const float strat = __fmul_rn(__fadd_rn(static_cast<float>(j), D.u[lvl][j]),
-                                  D.inv_occ_n[lvl]);
+    const float strat =
+        __fmul_rn(__fadd_rn(static_cast<float>(j), u[d.occupied_at + j]), d.inv_occ_n);
     const int64_t rank =
         static_cast<int64_t>(floorf(__fmul_rn(strat, static_cast<float>(count))));
     c = rank < count ? occupied_cell(g, lvl, rank, slice_excl, row_excl, binaries) : res3 - 1;
@@ -228,8 +232,9 @@ __device__ __forceinline__ void probe_cell(const umhs::OccParams& g,
 }
 
 __global__ void __launch_bounds__(kThreads)
-occ_probe_kernel(const umhs::OccParams g, const __grid_constant__ umhs::PartialDraws D,
-                 int draws, int64_t n,
+occ_probe_kernel(const umhs::OccParams g, const umhs::DrawLevel* __restrict__ D,
+                 const int64_t* __restrict__ uniform, const float* __restrict__ u,
+                 const int64_t* __restrict__ fallback, int64_t n,
                  const int64_t* __restrict__ level, const int64_t* __restrict__ cell,
                  const int32_t* __restrict__ row_excl, const int32_t* __restrict__ slice_count,
                  const uint8_t* __restrict__ binaries, const float* __restrict__ jitter,
@@ -239,7 +244,7 @@ occ_probe_kernel(const umhs::OccParams g, const __grid_constant__ umhs::PartialD
   // levels' counts (a warp a level)
   extern __shared__ int32_t slice_excl[];  // levels * res + levels
   const int64_t res = g.res;
-  if (draws) {
+  if (D != nullptr) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     for (int l = warp; l < g.levels; l += kWarps) {
       const int32_t total =
@@ -251,7 +256,7 @@ occ_probe_kernel(const umhs::OccParams g, const __grid_constant__ umhs::PartialD
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   int64_t lvl, c;
-  probe_cell(g, D, draws != 0, i, level, cell, slice_excl, slice_excl + g.levels * res, row_excl,
+  probe_cell(g, D, uniform, u, fallback, i, level, cell, slice_excl, slice_excl + g.levels * res, row_excl,
              binaries, lvl, c);
   const int64_t ijk[3] = {c % res, (c / res) % res, c / (res * res)};
   const float scale = exp2f(static_cast<float>(lvl));
@@ -378,17 +383,21 @@ unsigned blocks_for(int64_t threads) {
 
 extern "C" int umhs_occ_params_size() { return static_cast<int>(sizeof(umhs::OccParams)); }
 
-extern "C" int umhs_occ_draws_size() { return static_cast<int>(sizeof(umhs::PartialDraws)); }
+extern "C" int umhs_occ_draws_size() { return static_cast<int>(sizeof(umhs::DrawLevel)); }
 
 // Mode 0 (the probes): full when `level` and `draws` are both null, else
-// partial, from the pairs (level, cell) or chosen from `draws` (the count
+// partial, from the pairs (level, cell) or chosen from `draws` (a device
+// table of levels + 1 DrawLevel rows over the concatenated uniform cells,
+// offsets u and fallback cells, occupancy.cuh; the count
 // pass into `counts`: levels * res^2 rows' then levels * res slices'
 // int32); a partial update zeroes `seen` (a bit a cell) and writes `flat`
 // and the grids `occs`, `occs_low` in place. Mode 1 (the fold): partial
 // when `flat` is given (into `occs`, `occs_low` in place), else full (into
 // `occs_out`, `occs_low_out`).
 extern "C" int umhs_occ_update(int mode, const umhs::OccParams* params,
-                               const umhs::PartialDraws* draws, int64_t n, const int64_t* level,
+                               const umhs::DrawLevel* draws, const int64_t* uniform,
+                               const float* u, const int64_t* fallback, int64_t n,
+                               const int64_t* level,
                                const int64_t* cell, const uint8_t* binaries, const float* jitter,
                                float* occs, float* occs_low, const float* sigma,
                                float* positions, float* occs_out, float* occs_low_out,
@@ -398,7 +407,6 @@ extern "C" int umhs_occ_update(int mode, const umhs::OccParams* params,
   const int64_t res = g.res, cells = static_cast<int64_t>(g.levels) * res * res * res;
   if (mode == 0) {
     const bool partial = level != nullptr || draws != nullptr;
-    umhs::PartialDraws D{};
     size_t smem = 0;
     int32_t *row_excl = nullptr, *slice_count = nullptr;
     if (partial) {
@@ -406,7 +414,6 @@ extern "C" int umhs_occ_update(int mode, const umhs::OccParams* params,
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     if (draws != nullptr) {
-      D = *draws;
       row_excl = counts;
       slice_count = counts + g.levels * res * res;
       occ_cells_kernel<<<static_cast<unsigned>(g.levels * res), kThreads, res * sizeof(int32_t),
@@ -414,9 +421,14 @@ extern "C" int umhs_occ_update(int mode, const umhs::OccParams* params,
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       smem = (g.levels * res + g.levels) * sizeof(int32_t);
+      if (smem > 48 * 1024) {  // many levels at a fine resolution
+        err = cudaFuncSetAttribute(occ_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
     }
     occ_probe_kernel<<<blocks_for(n), kThreads, smem, stream>>>(
-        g, D, draws != nullptr, n, level, cell, row_excl, slice_count, binaries, jitter,
+        g, draws, uniform, u, fallback, n, level, cell, row_excl, slice_count, binaries, jitter,
         positions, occs, occs_low, partial ? flat : nullptr, seen);
   } else if (flat != nullptr) {
     occ_fold_kernel<<<blocks_for(n), kThreads, 0, stream>>>(g, n, flat, sigma, occs, occs_low);

@@ -28,18 +28,20 @@ struct OccParams {
 };
 
 // A partial update's draws, level by level (umhs_torch/ops/occupancy.py's
-// draw_partial_cells), passed by value: level l's probes are [start[l],
-// start[l + 1]), its uniform_n uniform cells first, then its occupied ones,
-// each with its stratified offset u and its fallback cell. Mirrors
-// PartialDraws there field for field.
-constexpr int kMaxLevels = 16;
-struct PartialDraws {
-  int64_t start[kMaxLevels + 1];
-  int64_t uniform_n[kMaxLevels];
-  const int64_t* uniform[kMaxLevels];
-  const float* u[kMaxLevels];
-  const int64_t* fallback[kMaxLevels];
-  float inv_occ_n[kMaxLevels];  // float32(1) / float32(occupied draws), 0 for none
+// draw_partial_cells): every level's uniform cells, offsets u and fallback
+// cells concatenated level after level, and a device table of levels + 1
+// rows (`DrawLevel`, mirrored field for field there, built once per shape
+// of the draws): level l's probes are [start of row l, start of row l + 1),
+// its uniform_n uniform cells first (at uniform_at of the uniform cells),
+// then its occupied ones (at occupied_at of u and of the fallback cells);
+// the last row holds only the probes' total in start. Any number of levels.
+struct DrawLevel {
+  int64_t start;
+  int64_t uniform_n;
+  int64_t uniform_at;
+  int64_t occupied_at;
+  float inv_occ_n;  // float32(1) / float32(occupied draws), 0 for none
+  int32_t pad;
 };
 
 // torch.clamp_min / clamp_max / maximum / minimum on float32: NaN passes.

@@ -451,7 +451,7 @@ HASH_ENCODE_BWD = Kernel(
      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
      ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-     ctypes.c_void_p],
+     ctypes.c_int64, ctypes.c_void_p],
 )
 # the kernels K3's and K4's launchers report, by the index they write:
 # the template instances (F 1, 2, 4, 8 at up to 32 levels) or the any kernels
@@ -478,24 +478,29 @@ def hash_encode_bwd_route(
     and cell) at levels of resolution at most RUNS_MAX_RESOLUTION whose rows
     get RUNS_MIN_ENTRIES_PER_ROW or more of the n * 8 entries on average;
     "entries" elsewhere: the stochastic mode's one entry per (sample, level)
-    and the tetrahedral 4 leave too few entries per run. The any kernels
-    (not `hash_kernel_fixed`) take "entries" at every level."""
+    and the tetrahedral 4 leave too few entries per run. The same rule on
+    the any kernels (not `hash_kernel_fixed`), which take both routes."""
     if n < 0:
         raise ValueError(f"hash_encode_bwd_route: n = {n}")
-    pays = (not stochastic and config.interpolation == "trilinear"
-            and hash_kernel_fixed(config))
+    pays = not stochastic and config.interpolation == "trilinear"
     return tuple(
         "runs" if pays and res <= RUNS_MAX_RESOLUTION
         and n * 8 >= RUNS_MIN_ENTRIES_PER_ROW * rows else "entries"
         for res, rows in zip(config.resolutions, config.level_sizes))
 
 
+# features a kernel of K4's any route takes at a time (csrc/hash_encode_bwd.cu
+# kGroup): a row of F is cut into groups of 8 and the rest
+HASH_BWD_GROUP = 8
+
+
 def hash_encode_bwd_chunk(config: HashEncodingConfig, stochastic: bool) -> int:
-    """Consecutive samples per chunk of the runs route at one level: its
-    2,048 entries at F <= 2 (4096 / F above), as csrc/hash_encode_bwd.cu's
-    chunk_entries."""
-    F = config.features_per_level
-    entries = 2048 if F <= 2 else 4096 // F
+    """Consecutive samples per chunk of the runs route at one level (of the
+    first feature group of at most HASH_BWD_GROUP): its 2,048 entries at
+    F <= 2, else 4096 // F rounded down to whole 256-thread blocks, as
+    csrc/hash_encode_bwd.cu's chunk_entries."""
+    F = min(config.features_per_level, HASH_BWD_GROUP)
+    entries = 2048 if F <= 2 else 4096 // F // 256 * 256
     return entries // (1 if stochastic else config.verts_per_cell)
 
 
@@ -510,8 +515,9 @@ def hash_encode_bwd_scratch_bytes(
     n: int, config: HashEncodingConfig, stochastic: bool, route: Optional[Sequence[str]] = None
 ) -> int:
     """Bytes of device scratch K4 needs for n samples on `route` (default
-    hash_encode_bwd_route's); 0 when its n * L * (vertices per entry)
-    entries exceed 2^31 - 1."""
+    hash_encode_bwd_route's): those of the launcher's largest range of
+    samples (it cuts a call into ranges whose entries fit int32 and whose
+    scratch fits 8 GiB); 0 for no sample."""
     route = tuple(route or hash_encode_bwd_route(config, n, stochastic))
     if len(route) != config.num_levels:
         raise ValueError(f"K4 route {route}: one name per level of {config.num_levels}")
@@ -576,15 +582,13 @@ def hash_encode_bwd(
         return grad
     route = tuple(route or hash_encode_bwd_route(config, n, stochastic))
     nbytes = hash_encode_bwd_scratch_bytes(n, config, stochastic, route)
-    if nbytes == 0:
-        raise ValueError(f"hash_encode_bwd: {n} samples x {L} levels exceed 2^31 - 1 entries")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=pos.device)
     levels = None if hash_kernel_fixed(config) else _level_table(config, pos.device)
     with torch.cuda.device(pos.device):
         HASH_ENCODE_BWD.launch(
             pos.data_ptr(), g.data_ptr(), grad.data_ptr(), n, L, F, *_level_args(config),
             int(stochastic), _route_flags(route), None if levels is None else levels.data_ptr(),
-            scratch.data_ptr(), nbytes, torch.cuda.current_stream(pos.device).cuda_stream,
+            scratch.data_ptr(), nbytes, 0, torch.cuda.current_stream(pos.device).cuda_stream,
             routes=HASH_KERNEL_ROUTES,
         )
     return grad

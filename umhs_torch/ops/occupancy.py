@@ -400,27 +400,26 @@ def occ_params(config: OccGridConfig, render_step_size: float = 0.0) -> OccParam
     )
 
 
-MAX_LEVELS = 16  # a partial update's levels at most (csrc/occupancy.cuh kMaxLevels)
-
-
-class PartialDraws(ctypes.Structure):
-    """A partial update's draws for K7a, passed by value (csrc/occupancy.cuh
-    `PartialDraws`): level l's probes [start[l], start[l + 1]), its uniform
-    cells first, and the device pointers of its draws."""
+class DrawLevel(ctypes.Structure):
+    """One level's row of a partial update's draws as K7a reads them from a
+    device table (csrc/occupancy.cuh `DrawLevel`): its first probe, its
+    uniform cells' count, where its uniform and its occupied draws start in
+    the levels' concatenated draws; levels + 1 rows, the last holding the
+    probes' total in `start`."""
 
     _fields_ = [
-        ("start", ctypes.c_int64 * (MAX_LEVELS + 1)),
-        ("uniform_n", ctypes.c_int64 * MAX_LEVELS),
-        ("uniform", ctypes.c_void_p * MAX_LEVELS),
-        ("u", ctypes.c_void_p * MAX_LEVELS),
-        ("fallback", ctypes.c_void_p * MAX_LEVELS),
-        ("inv_occ_n", ctypes.c_float * MAX_LEVELS),
+        ("start", ctypes.c_int64), ("uniform_n", ctypes.c_int64),
+        ("uniform_at", ctypes.c_int64), ("occupied_at", ctypes.c_int64),
+        ("inv_occ_n", ctypes.c_float), ("pad", ctypes.c_int32),
     ]
+
+
+_DRAW_TABLES = {}  # ((uniform, occupied) draws a level, device) -> K7a's table of levels
 
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 OCC_UPDATE = Kernel("occupancy.cu", "umhs_occ_update",
-                    [ctypes.c_int, _P, _P, _I64] + [_P] * 13 + [_P])
+                    [ctypes.c_int, _P, _P, _P, _P, _P, _I64] + [_P] * 13 + [_P])
 OCC_PACK = Kernel("occupancy.cu", "umhs_occ_pack", [_P, _P, _P, _P, _P, _P, _P])
 
 
@@ -466,29 +465,34 @@ class Probes:
     flat: Optional[torch.Tensor]
 
 
-def _draws_struct(draws, config: OccGridConfig, dev) -> Tuple[PartialDraws, list, int]:
-    """The draws as K7a takes them (each level's tensors on `dev`, int64
-    cells, float32 offsets), the tensors it points into, and the probes."""
-    if len(draws) != config.levels or config.levels > MAX_LEVELS:
+def _draws_table(draws, config: OccGridConfig, dev):
+    """The draws as K7a takes them: every level's uniform cells (int64),
+    offsets u (float32) and fallback cells (int64) concatenated on `dev`,
+    level after level, and the device table of levels + 1 `DrawLevel` rows
+    over them, built once per shape of the draws (no copy from the host on
+    later calls); returns (table, (uniform, u, fallback), probes)."""
+    if len(draws) != config.levels:
         raise ValueError(f"update_occ_state_cuda: {len(draws)} levels of draws for a grid of "
-                         f"{config.levels} (at most {MAX_LEVELS})")
-    D, keep, n = PartialDraws(), [], 0
-    for lvl, d in enumerate(draws):
-        uni, u, fb = (d[k].to(device=dev, dtype=t).contiguous() for k, t in (
-            ("uniform", torch.int64), ("u", torch.float32), ("fallback", torch.int64)))
-        if uni.dim() != 1 or u.dim() != 1 or fb.shape != u.shape:
+                         f"{config.levels}")
+    for d in draws:
+        if d["uniform"].dim() != 1 or d["u"].dim() != 1 or d["fallback"].shape != d["u"].shape:
             raise ValueError("update_occ_state_cuda: each level's draws are (m_uni,) uniform "
                              "cells, (m_occ,) offsets u and (m_occ,) fallback cells")
-        keep += [uni, u, fb]
-        D.start[lvl] = n
-        D.uniform_n[lvl] = uni.shape[0]
-        D.uniform[lvl], D.u[lvl], D.fallback[lvl] = uni.data_ptr(), u.data_ptr(), fb.data_ptr()
-        m_occ = u.shape[0]
-        # (arange + u) / m_occ divides by a Python number: its f32 reciprocal
-        D.inv_occ_n[lvl] = float(np.float32(1.0) / np.float32(m_occ)) if m_occ else 0.0
-        n += uni.shape[0] + m_occ
-    D.start[config.levels] = n
-    return D, keep, n
+    shapes = tuple((d["uniform"].shape[0], d["u"].shape[0]) for d in draws)
+    key = (shapes, dev)
+    if key not in _DRAW_TABLES:
+        D, n, uni_at, occ_at = (DrawLevel * (config.levels + 1))(), 0, 0, 0
+        for row, (m_uni, m_occ) in zip(D, shapes):
+            row.start, row.uniform_n, row.uniform_at, row.occupied_at = n, m_uni, uni_at, occ_at
+            # (arange + u) / m_occ divides by a Python number: its f32 reciprocal
+            row.inv_occ_n = float(np.float32(1.0) / np.float32(m_occ)) if m_occ else 0.0
+            n, uni_at, occ_at = n + m_uni + m_occ, uni_at + m_uni, occ_at + m_occ
+        D[config.levels].start = n
+        _DRAW_TABLES[key] = (torch.frombuffer(bytearray(D), dtype=torch.uint8).to(dev), n)
+    table, n = _DRAW_TABLES[key]
+    cat = [torch.cat([d[k].to(device=dev, dtype=t) for d in draws]).contiguous()
+           for k, t in (("uniform", torch.int64), ("u", torch.float32), ("fallback", torch.int64))]
+    return table, tuple(cat), n
 
 
 def occ_probe_cuda(state, config: OccGridConfig, jitter: torch.Tensor,
@@ -503,9 +507,9 @@ def occ_probe_cuda(state, config: OccGridConfig, jitter: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"update_occ_state_cuda: needs a CUDA tensor, not {dev}")
     ncells = config.levels * config.cells_per_level
-    D, keep, level, cell, binaries = None, [], None, None, None
+    D, keep, level, cell, binaries = None, (None, None, None), None, None, None
     if draws is not None:
-        D, keep, n = _draws_struct(draws, config, dev)
+        D, keep, n = _draws_table(draws, config, dev)
         binaries = state["binaries"]
         if (binaries.dtype != torch.bool or binaries.device != dev or binaries.numel() != ncells
                 or not binaries.is_contiguous() or binaries.data_ptr() % 4):
@@ -541,14 +545,14 @@ def occ_probe_cuda(state, config: OccGridConfig, jitter: torch.Tensor,
     probes = Probes(state, config, torch.empty((n, 3), dtype=torch.float32, device=dev), occs,
                     occs_low, flat)
     OCC_UPDATE.check_struct("umhs_occ_params_size", OccParams)
-    OCC_UPDATE.check_struct("umhs_occ_draws_size", PartialDraws)
+    OCC_UPDATE.check_struct("umhs_occ_draws_size", DrawLevel)
     with torch.cuda.device(dev):
-        OCC_UPDATE.launch(0, ctypes.byref(occ_params(config)),
-                          None if D is None else ctypes.byref(D), n, _ptr(level), _ptr(cell),
+        OCC_UPDATE.launch(0, ctypes.byref(occ_params(config)), _ptr(D), *map(_ptr, keep), n,
+                          _ptr(level), _ptr(cell),
                           _ptr(binaries), jitter.contiguous().data_ptr(), occs.data_ptr(),
                           occs_low.data_ptr(), None, probes.positions.data_ptr(), None, None,
                           _ptr(flat), _ptr(seen), _ptr(counts), _stream(jitter))
-    del keep  # the launch has read the pointers; the stream orders any reuse
+    del keep  # the stream orders any reuse of their memory after the launch
     return probes
 
 
@@ -562,7 +566,8 @@ def occ_fold_cuda(probes: Probes, sigma: torch.Tensor, render_step_size: float):
                          f"card, not {tuple(sigma.shape)} {sigma.dtype}")
     state = probes.state
     with torch.cuda.device(sigma.device):
-        OCC_UPDATE.launch(1, ctypes.byref(occ_params(probes.config, render_step_size)), None, n,
+        OCC_UPDATE.launch(1, ctypes.byref(occ_params(probes.config, render_step_size)), None,
+                          None, None, None, n,
                           None, None, None, None, state["occs"].data_ptr(),
                           state["occs_low"].data_ptr(), sigma.contiguous().data_ptr(), None,
                           probes.occs.data_ptr(), probes.occs_low.data_ptr(), _ptr(probes.flat),
